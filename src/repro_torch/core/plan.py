@@ -1,0 +1,248 @@
+"""FFTW-style plan registry: resolve once, apply many times.
+
+Counterpart of :mod:`repro.core.plan` for this slice: c2c 1-D and 2-D keys.
+A :class:`FFTPlan` captures (shape, dtype, direction, backend) plus the
+resolved execution config (algo, radix, block_batch, variant).  Plans are
+interned: two requests with the same key return the same object.
+
+``backend="torch"`` runs the plain algorithms of
+:mod:`repro_torch.core.fft1d`; ``backend="cuda"`` runs the kernels through
+:mod:`repro_torch.kernels.ops`.  Shapes with no kernel path demote to
+``"torch"`` with the reference's ``demote_reason`` wording.
+
+Not ported yet (each raises ``NotImplementedError``): 3-D keys (ROADMAP
+'Modules to port' item 8), ``kind="rfft"`` (item 6) and the conv kinds
+(item 7), ``tune=True`` and wisdom (item 10).  ``FFTPlan.__call__`` runs
+``_execute`` directly; the guarded executor is item 9.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .complexmath import SplitComplex
+from . import fft1d
+from .fft1d import resolve_algo
+
+
+def _is_pow2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+PlanKey = Tuple[Tuple[int, ...], str, bool, str, str]
+
+_PLAN_CACHE: Dict[PlanKey, "FFTPlan"] = {}      # algo="auto" plans
+_OVERRIDE_CACHE: Dict[tuple, "FFTPlan"] = {}    # (key, algo, radix) overrides
+
+CONV_KINDS = ("conv_causal", "conv_circular")
+PLAN_KINDS = ("c2c", "rfft") + CONV_KINDS
+BACKENDS = ("torch", "cuda")
+# the reference's backend names and the port's
+REFERENCE_BACKENDS = {"jnp": "torch", "pallas": "cuda"}
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return getattr(torch, _dtype_name(dtype)).itemsize
+
+
+def _plan_key(shape, dtype, inverse, backend, kind="c2c") -> PlanKey:
+    return (tuple(int(d) for d in shape), _dtype_name(dtype),
+            bool(inverse), backend, kind)
+
+
+@dataclasses.dataclass(frozen=True)
+class FFTPlan:
+    shape: Tuple[int, ...]            # transform shape: (n,) or (h, w)
+    dtype: str = "float32"
+    inverse: bool = False
+    algo: str = "auto"                # resolved at construction, never "auto"
+    backend: str = "torch"            # "torch" | "cuda"
+    radix: int = 4                    # Stockham radix (4 = mixed 4/2, 2 = oracle)
+    block_batch: int = 8              # batch tile (resolution parity only)
+    kind: str = "c2c"
+    variant: str = "plain"            # GEMM kernels: "plain" | "compensated"
+    tuned: bool = False
+    tune_report: Optional[dict] = None
+    demote_reason: Optional[str] = None  # why a cuda request fell to torch
+
+    @property
+    def n(self) -> int:
+        return self.shape[-1]
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @staticmethod
+    def create(n: int, *, inverse: bool = False, algo: str = "auto",
+               backend: str = "torch", dtype=torch.float32,
+               tune: bool = False) -> "FFTPlan":
+        """1-D plan through the registry."""
+        return get_plan((n,), dtype=dtype, inverse=inverse, algo=algo,
+                        backend=backend, tune=tune)
+
+    def __call__(self, x: SplitComplex) -> SplitComplex:
+        return self._execute(x)
+
+    def _execute(self, x: SplitComplex) -> SplitComplex:
+        """The raw execution path (no guards, no fallback)."""
+        if tuple(x.shape[-self.ndim:]) != self.shape:
+            raise ValueError(f"plan for {self.shape} got input {x.shape}")
+        if self.ndim == 2:
+            from . import fft2d
+            return fft2d._fft2_direct(x, inverse=self.inverse, algo=self.algo,
+                                      backend=self.backend,
+                                      block_batch=self.block_batch,
+                                      variant=self.variant)
+        if self.backend == "cuda":
+            from repro_torch.kernels import ops as kops
+            if self.algo == "four_step":
+                return kops.fft_fourstep(x, inverse=self.inverse,
+                                         block_batch=self.block_batch)
+            return kops.fft_stockham(x, inverse=self.inverse,
+                                     radix=self.radix,
+                                     block_batch=self.block_batch)
+        algo = "stockham2" if (self.algo == "stockham" and self.radix == 2) \
+            else self.algo
+        return fft1d.fft(x, inverse=self.inverse, algo=algo)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
+             algo: str = "auto", backend: str = "torch", kind: str = "c2c",
+             variant: str = "auto", tune: bool = False) -> FFTPlan:
+    """Return the interned plan for this key, resolving it on first
+    request (same resolution rules as the reference's ``get_plan`` for c2c
+    1-D and 2-D keys).  Requests with an explicit ``algo`` or ``variant``
+    are interned separately and never replace the auto-resolved plan."""
+    shape = tuple(int(d) for d in shape)
+    if kind not in PLAN_KINDS:
+        raise ValueError(f"kind must be one of {PLAN_KINDS}, got {kind}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if variant not in ("auto", "plain", "compensated"):
+        raise ValueError(f"unknown variant {variant!r}")
+    if kind == "rfft":
+        raise NotImplementedError("rfft plans are not ported yet: ROADMAP "
+                                  "'Modules to port' item 6")
+    if kind in CONV_KINDS:
+        raise NotImplementedError("conv plans are not ported yet: ROADMAP "
+                                  "'Modules to port' item 7")
+    if len(shape) == 3:
+        raise NotImplementedError("3-D plans are not ported yet: ROADMAP "
+                                  "'Modules to port' item 8")
+    if len(shape) not in (1, 2):
+        raise ValueError(f"1-D/2-D plans only, got {shape}")
+    if tune:
+        raise NotImplementedError("plan autotuning and wisdom are not ported "
+                                  "yet: ROADMAP 'Modules to port' item 10")
+    # the kernels need power-of-two tile dims of at least 2
+    kernel_ok = all(_is_pow2(d) and d >= 2 for d in shape)
+    radix = 4
+    demote = None
+
+    if len(shape) == 1:
+        resolved = resolve_algo(shape[0]) if algo == "auto" else algo
+        if resolved == "stockham2":   # radix-2 oracle: a stockham radix config
+            resolved, radix = "stockham", 2
+        if backend == "cuda" and (resolved in ("naive", "bluestein")
+                                  or not kernel_ok):
+            demote = f"algo {resolved!r} at {shape} has no kernel path"
+            backend = "torch"
+        block_batch = 8
+    else:
+        fused_algos = ("fused", "fused_stockham")
+        if backend == "cuda" and not kernel_ok:
+            demote = ("kernels need power-of-two tile dims >= 2, "
+                      f"got {shape}")
+            if algo in fused_algos:
+                algo = "auto"         # fused demotes with its backend
+            backend = "torch"
+        if algo == "auto":
+            resolved = "fused" if backend == "cuda" else "row_col"
+        else:
+            resolved = algo
+        if backend == "torch" and resolved in fused_algos:
+            raise ValueError(f'algo={resolved!r} requires backend="cuda" '
+                             '(the fused kernels have no torch equivalent)')
+        if resolved not in fused_algos + ("row_col",):
+            raise ValueError(
+                f'algo={resolved!r} is not a 2-D plan algo; '
+                f'use one of {fused_algos + ("row_col",)} or "auto"')
+        block_batch = 1 if resolved in fused_algos else 8
+
+    # the GEMM kernel is the only variant-aware path; "auto" picks the
+    # compensated tables for sub-fp32 dtypes, as the reference does
+    gemm_path = len(shape) == 2 and backend == "cuda" and resolved == "fused"
+    if variant == "auto":
+        res_variant = "compensated" if gemm_path and \
+            _itemsize(dtype) < 4 else "plain"
+    elif variant == "compensated" and not gemm_path:
+        if demote is None:
+            raise ValueError('variant="compensated" requires a GEMM fused '
+                             'plan (2-D c2c, backend="cuda", algo="fused")')
+        res_variant = "plain"         # the kernel path demoted away
+    else:
+        res_variant = variant
+
+    key = _plan_key(shape, dtype, inverse, backend)
+    explicit = algo != "auto" or variant != "auto"
+    cache_key = key if not explicit else key + (resolved, radix, res_variant)
+    cache = _PLAN_CACHE if not explicit else _OVERRIDE_CACHE
+    plan = cache.get(cache_key)
+    if plan is None:
+        plan = FFTPlan(shape=shape, dtype=key[1], inverse=inverse,
+                       algo=resolved, radix=radix, backend=backend,
+                       block_batch=block_batch, variant=res_variant,
+                       demote_reason=demote)
+        cache[cache_key] = plan
+    return plan
+
+
+def clear_plan_cache() -> None:
+    _PLAN_CACHE.clear()
+    _OVERRIDE_CACHE.clear()
+
+
+def plan_cache_size() -> int:
+    return len(_PLAN_CACHE)
+
+
+def plan_from_reference(fields: dict) -> FFTPlan:
+    """Build a port plan from a reference plan's ``dataclasses.asdict()``
+    (plain values), mapping the backend names ``pallas -> cuda`` and
+    ``jnp -> torch``."""
+    f = dict(fields)
+    f["shape"] = tuple(int(d) for d in f["shape"])
+    f["backend"] = REFERENCE_BACKENDS[f["backend"]]
+    return FFTPlan(**f)
+
+
+def plan_fft(n: int, **kw) -> FFTPlan:
+    return FFTPlan.create(n, **kw)
+
+
+def plan_ifft(n: int, **kw) -> FFTPlan:
+    return FFTPlan.create(n, inverse=True, **kw)
+
+
+def plan_fft2(h: int, w: int, **kw) -> FFTPlan:
+    return get_plan((h, w), **kw)
+
+
+def plan_ifft2(h: int, w: int, **kw) -> FFTPlan:
+    return get_plan((h, w), inverse=True, **kw)

@@ -1,0 +1,162 @@
+"""Build ``csrc/*.cu`` with nvcc into shared libraries and load them with
+ctypes.
+
+Each source becomes its own library (``<name>-<hash>.so``) under
+``build/repro_torch_kernels/`` at the repository root.  The hash covers
+the source, every header in ``csrc/`` and the compiler flags, so an edited
+source is rebuilt and a stale library is never loaded.  A library is built
+at first use, once per process; :func:`build_all` builds every source in
+parallel (one nvcc process each).  A finished build is moved into place
+with an atomic rename, so concurrent processes never see a partial file
+and no lock file can be left behind.
+
+Every C entry point returns ``cudaGetLastError()`` of its launches;
+:func:`launch` calls it on the operands' device and stream and raises on a
+non-zero code, and :func:`check_operands` is
+what every wrapper requires of its data before passing pointers.  Nothing here falls back: a
+missing nvcc, a failed build or a failed launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.complexmath import SplitComplex
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm")
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class KernelLaunchError(RuntimeError):
+    pass
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(path).exists():
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc "
+                               "on PATH); the CUDA kernels cannot be built")
+    return path
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is current; returns
+    (final path, temp path, process) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
+    cmd = [nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def _finish(name: str, job) -> None:
+    out, tmp, proc = job
+    log, _ = proc.communicate()
+    out.with_suffix(".log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"nvcc failed for {name}.cu "
+                               f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build every listed source in parallel and load the libraries;
+    returns {name: compiler log or '' when the library was current}."""
+    with _LOCK:
+        jobs = {n: _start(n) for n in names if n not in _LIBS}
+        logs = {}
+        try:
+            for n, job in jobs.items():
+                if job is not None:
+                    _finish(n, job)
+        finally:
+            for job in jobs.values():      # stop any nvcc still running
+                if job is not None and job[2].poll() is None:
+                    job[2].kill()
+                    job[2].wait()
+        for n in jobs:
+            path = library_path(n)
+            log = path.with_suffix(".log")
+            logs[n] = log.read_text() if jobs[n] is not None else ""
+            _LIBS[n] = ctypes.CDLL(str(path))
+    return logs
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of library ``name`` (built on first
+    use), with explicit argtypes and an int return code."""
+    if name not in _LIBS:
+        build_all((name,))
+    fn = getattr(_LIBS[name], symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_operands(x: SplitComplex, ndim: int) -> None:
+    """What every CUDA wrapper requires of its data operand."""
+    for t in x:
+        if not t.is_cuda:
+            raise ValueError("the CUDA kernel needs CUDA tensors")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"expected {ndim}-D planes, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels need contiguous planes")
+    if x.re.shape != x.im.shape or x.re.device != x.im.device:
+        raise ValueError("re and im planes differ in shape or device")
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise KernelLaunchError(f"{what} failed with CUDA error {code}")
+
+
+def launch(fn, args: list, what: str, device: torch.device) -> None:
+    """Call the C entry point ``fn`` with ``device`` made the current
+    device and its current stream as the last argument; raise on error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(fn(*args, stream), what)
+
+
+P = ctypes.c_void_p          # pointers and the stream
+I = ctypes.c_int
+L = ctypes.c_longlong

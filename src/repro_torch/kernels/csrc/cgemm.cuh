@@ -1,0 +1,164 @@
+// Tiled split-complex fp32 GEMM shared by fft_fourstep.cu and fft2d_gemm.cu.
+//
+//   C_z[m, n] = scale * T[m, n] * sum_k A_z[m, k] * B_z[k, n]
+//
+// with re/im planes kept apart, optional pointwise twiddle T in the
+// epilogue, and every operand addressed through two-level index maps
+// (Idx), so one kernel serves the four-step's left contraction with the
+// batch folded into the columns, its right contraction with the reordered
+// X[k2*n1 + k1] store, and the 2-D column pass's left contractions along
+// axis -2.  All index splits are by powers of two (shift + mask).
+//
+// Full fp32 FMA on the CUDA cores: no TF32, no tensor cores.  A 64x64
+// output tile per 256-thread block, 16-deep k tiles staged through shared
+// memory, a 4x4 register micro-tile per thread.
+#pragma once
+#include <cuda_runtime.h>
+
+namespace cg {
+
+// i -> (i >> shift) * hi + (i & (2^shift - 1)) * lo
+struct Idx {
+  int shift;
+  long long hi, lo;
+};
+
+inline Idx lin(long long stride) { return Idx{62, 0, stride}; }
+inline Idx two(int shift, long long hi, long long lo) { return Idx{shift, hi, lo}; }
+
+__device__ __forceinline__ long long at(const Idx& d, long long i) {
+  return (i >> d.shift) * d.hi + (i & ((1LL << d.shift) - 1)) * d.lo;
+}
+
+struct Params {
+  const float *ar, *ai, *br, *bi;
+  float *cr, *ci;
+  const float *tr, *ti;  // epilogue twiddle; nullptr for none
+  long long M, N, batch;
+  int K;
+  Idx a_m, a_k, b_k, b_n, c_m, c_n, t_m, t_n;
+  Idx a_z, b_z, c_z;  // per-batch base offsets
+  float scale;
+};
+
+constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, NT = 256;
+
+__global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
+  __shared__ float asr[BK][BM + 1], asi[BK][BM + 1];
+  __shared__ float bsr[BK][BN], bsi[BK][BN];
+  const long long tiles_n = (p.N + BN - 1) / BN;
+  const long long m0 = (blockIdx.x / tiles_n) * BM;
+  const long long n0 = (blockIdx.x % tiles_n) * BN;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  for (long long z = blockIdx.y; z < p.batch; z += gridDim.y) {
+    const long long oa = at(p.a_z, z), ob = at(p.b_z, z), oc = at(p.c_z, z);
+    float accr[TM][TN], acci[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) accr[i][j] = acci[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < p.K; k0 += BK) {
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int mm = e / BK, kk = e % BK;
+        const long long m = m0 + mm;
+        const int k = k0 + kk;
+        float vr = 0.f, vi = 0.f;
+        if (m < p.M && k < p.K) {
+          const long long off = oa + at(p.a_m, m) + at(p.a_k, k);
+          vr = p.ar[off];
+          vi = p.ai[off];
+        }
+        asr[kk][mm] = vr;
+        asi[kk][mm] = vi;
+      }
+      for (int e = tid; e < BK * BN; e += NT) {
+        const int kk = e / BN, nn = e % BN;
+        const long long n = n0 + nn;
+        const int k = k0 + kk;
+        float vr = 0.f, vi = 0.f;
+        if (n < p.N && k < p.K) {
+          const long long off = ob + at(p.b_k, k) + at(p.b_n, n);
+          vr = p.br[off];
+          vi = p.bi[off];
+        }
+        bsr[kk][nn] = vr;
+        bsi[kk][nn] = vi;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a_r[TM], a_i[TM], b_r[TN], b_i[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          a_r[i] = asr[kk][ty + 16 * i];
+          a_i[i] = asi[kk][ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          b_r[j] = bsr[kk][tx + 16 * j];
+          b_i[j] = bsi[kk][tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            accr[i][j] = fmaf(a_r[i], b_r[j], accr[i][j]);
+            accr[i][j] = fmaf(-a_i[i], b_i[j], accr[i][j]);
+            acci[i][j] = fmaf(a_r[i], b_i[j], acci[i][j]);
+            acci[i][j] = fmaf(a_i[i], b_r[j], acci[i][j]);
+          }
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const long long m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+        if (m >= p.M || n >= p.N) continue;
+        float r = accr[i][j], im = acci[i][j];
+        if (p.tr != nullptr) {
+          const long long to = at(p.t_m, m) + at(p.t_n, n);
+          const float wr = p.tr[to], wi = p.ti[to];
+          const float nr = r * wr - im * wi;
+          im = r * wi + im * wr;
+          r = nr;
+        }
+        const long long off = oc + at(p.c_m, m) + at(p.c_n, n);
+        p.cr[off] = r * p.scale;
+        p.ci[off] = im * p.scale;
+      }
+  }
+}
+
+// Launch on `stream`; returns cudaGetLastError() of the launch.
+inline cudaError_t launch(const Params& p, cudaStream_t stream) {
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.batch <= 0) return cudaErrorInvalidValue;
+  const long long tiles = ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  const unsigned gy = (unsigned)(p.batch < 65535 ? p.batch : 65535);
+  cgemm_kernel<<<dim3((unsigned)tiles, gy), NT, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+inline int log2i(long long v) {
+  int s = 0;
+  while ((1LL << s) < v) ++s;
+  return s;
+}
+
+// A params record with no epilogue twiddle, unit scale, no batch.
+inline Params base() {
+  Params p{};
+  p.tr = p.ti = nullptr;
+  p.batch = 1;
+  p.a_z = p.b_z = p.c_z = lin(0);
+  p.t_m = p.t_n = lin(0);
+  p.scale = 1.f;
+  return p;
+}
+
+}  // namespace cg
