@@ -5,11 +5,18 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes, drives
-the main path (``repro_torch.core.fft2(x, backend="cuda")`` at 1024x1024
-fp32 through the plan registry, its ``algo="row_col"`` Stockham baseline,
-and the 1-D plans at n = 2^20 and 2^22),
-checks it against float64 numpy, and times every kernel beside its plain
-version, ``torch.fft`` and its bound.  Each phase prints one JSON line; the
+the two main paths through the plan registry and checks them against
+float64 numpy:
+
+- complex: ``repro_torch.core.fft2(x, backend="cuda")`` at 1024x1024 fp32,
+  its ``algo="row_col"`` Stockham baseline, and the 1-D plans at n = 2^20
+  and 2^22;
+- real input: ``rfft2``/``irfft2`` on 1024x1024 fp32 images (and an
+  ``s=`` truncation), ``rfft``/``irfft`` at n = 2^21 and 2^23, the
+  radix-2 Stockham kernel through ``algo="stockham2"``;
+
+and times every kernel beside its plain version, ``torch.fft`` and its
+bound.  Each phase prints one JSON line; the
 last line is the device record.  Exits non-zero, with no device record,
 when CUDA is missing, a kernel fails to build or launch, or any check fails.
 """
@@ -45,8 +52,37 @@ CHECKS = [("fft2d_gemm", MAIN_2D), ("fft2d_gemm", (2, 8, 4)),
           ("fft_stockham", MAIN_STOCKHAM), ("fft_stockham", (64, 1024)),
           ("fft_stockham", (3, 2)), ("fft_stockham", (5, 8))]
 DEMOTED_2D = (1, 1000, 1000)
+C2C_KERNELS = ("fft2d_gemm", "fft_fourstep", "fft_stockham")
+
+# the real-input path's shapes: the paper's 1024x1024 images as real fp32
+# (batch 16 and 1), the 1-D rfft whose inner transform is four-step
+# (n/2 = 2^20) or Stockham (n/2 = 2^22), and the radix-2 Stockham kernel
+# at 2^20 (its float64 host table is 738 MB a direction at 2^22)
+MAIN_RFFT2 = (16, 1024, 1024)
+MAIN_RFFT2_SINGLE = (1, 1024, 1024)
+IRFFT2_S = (1024, 512)
+MAIN_RFFT_FOURSTEP = (4, 1 << 21)
+MAIN_RFFT_STOCKHAM = (2, 1 << 23)
+MAIN_R2 = (2, 1 << 20)
+CHECKS += [("rfft2d_fused", MAIN_RFFT2), ("rfft2d_fused", (2, 2, 2)),
+           ("rfft2d_fused", (3, 8, 4)), ("rfft2d_fused", (2, 4, 8)),
+           ("rfft2d_fused", (3, 256, 512)), ("rfft2d_fused", (1, 4096, 2048)),
+           ("fft_stockham_r2", MAIN_R2), ("fft_stockham_r2", (3, 2)),
+           ("fft_stockham_r2", (5, 8))]
+# the inner transforms the real-input window runs at shapes of their own:
+# irfft's full-length inverse at 2^21 and 2^23 on the radix-4 kernel, and
+# rfft2/irfft2(algo="stockham2") at 1024^2 on the radix-2 kernel (rows of
+# 512 packed points, 513 columns of 1024, inverse rows of 1024)
+CHECKS += [("fft_stockham", MAIN_RFFT_FOURSTEP),
+           ("fft_stockham", MAIN_RFFT_STOCKHAM),
+           ("fft_stockham_r2", (MAIN_RFFT2[1], MAIN_RFFT2[2] // 2)),
+           ("fft_stockham_r2", (MAIN_RFFT2[2] // 2 + 1, MAIN_RFFT2[1])),
+           ("fft_stockham_r2", (MAIN_RFFT2[1], MAIN_RFFT2[2]))]
+REAL_KERNELS = ("rfft2d_fused", "irfft2d_fused", "fft_stockham_r2",
+                "fft_fourstep", "fft_stockham")
 MAIN_SHAPE = {"fft2d_gemm": MAIN_2D, "fft_fourstep": MAIN_FOURSTEP,
-              "fft_stockham": MAIN_STOCKHAM}
+              "fft_stockham": MAIN_STOCKHAM, "rfft2d_fused": MAIN_RFFT2,
+              "irfft2d_fused": MAIN_RFFT2, "fft_stockham_r2": MAIN_R2}
 
 
 def emit(obj) -> None:
@@ -64,6 +100,15 @@ def emit(obj) -> None:
 def fft_counts(batch: int, n: int):
     """(flops, bytes) that ``batch`` complex fp32 FFTs of n points need."""
     return 5 * batch * n * (n.bit_length() - 1), 16 * batch * n
+
+
+def rfft_counts(batch: int, h: int, w: int):
+    """(flops, bytes) that ``batch`` real fp32 2-D FFTs of h x w points
+    need, either direction: 2.5*N*log2(N) flops a transform (half a
+    complex FFT), 4 bytes a real point and 8 a half-spectrum bin."""
+    n = h * w
+    flops = 5 * batch * n * (n.bit_length() - 1) // 2
+    return flops, 4 * batch * n + 8 * batch * h * (w // 2 + 1)
 
 
 def _fourstep_flops(n: int, n1: int) -> int:
@@ -86,6 +131,26 @@ def method_fft2d(b, h, w, fac):
 
 def method_fourstep(b, n, n1):
     return b * _fourstep_flops(n, n1), 8 * (n1 * n1 + (n // n1) ** 2 + n)
+
+
+def method_rfft2d(b, h, w, fac):
+    """(method flops, table bytes) of the real-input 2-D kernels: the
+    four-step row pass on h/2 packed rows, the untangle (8 flops a packed
+    bin) and the column pass on w/2+1 columns."""
+    n1w, n1h = fac(w)[0], fac(h)[0]
+    c = w // 2 + 1
+    flops = b * ((h // 2) * _fourstep_flops(w, n1w) + 8 * (h // 2) * c
+                 + c * _fourstep_flops(h, n1h))
+    tables = sum(8 * (n1 * n1 + (n // n1) ** 2 + n)
+                 for n, n1 in ((w, n1w), (h, n1h)))
+    return flops, tables
+
+
+def method_stockham_r2(b, n):
+    """(method flops, table bytes) of the radix-2 Stockham kernel: 10
+    flops a butterfly, n/2 butterflies a stage, log2(n) stages."""
+    ln = n.bit_length() - 1
+    return b * ln * (n // 2) * 10, 8 * ln * (n // 2)
 
 
 def method_stockham(b, n):
@@ -121,18 +186,29 @@ def time_ms(fn, torch, runs=25, warmup=3):
     return times[len(times) // 2]
 
 
+def _planes(t):
+    """The planes of a split-complex pair, or a real tensor alone."""
+    return tuple(t) if isinstance(t, tuple) else (t,)
+
+
 def errors(got, ref):
-    """(max abs error, max abs error / max |ref|) over both planes."""
-    d = max((got.re - ref.re).abs().max().item(),
-            (got.im - ref.im).abs().max().item())
-    m = max(ref.re.abs().max().item(), ref.im.abs().max().item())
+    """(max abs error, max abs error / max |ref|) over every plane."""
+    d = max((g - r).abs().max().item()
+            for g, r in zip(_planes(got), _planes(ref)))
+    m = max(r.abs().max().item() for r in _planes(ref))
     return d, d / m
+
+
+def to_numpy(t):
+    """A split-complex pair or a real tensor as a float64/complex128
+    array on the host."""
+    p = [q.double().cpu().numpy() for q in _planes(t)]
+    return p[0] + 1j * p[1] if len(p) == 2 else p[0]
 
 
 def np_errors(got, ref):
     import numpy as np
-    z = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy()
-    return float(np.abs(z - ref).max() / np.abs(ref).max())
+    return float(np.abs(to_numpy(got) - ref).max() / np.abs(ref).max())
 
 
 def main() -> int:
@@ -144,12 +220,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import (from_numpy, fft2, get_plan, plan_fft,
-                                  clear_plan_cache)
+                                  clear_plan_cache, rfft, irfft, rfft2,
+                                  irfft2)
     from repro_torch.core.fft1d import assert_full_fp32
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fft2d_gemm as G
     from repro_torch.kernels import fft_fourstep as F
     from repro_torch.kernels import fft_stockham as S
+    from repro_torch.kernels import rfft2d_fused as R
     from repro_torch.kernels.rfft2d_fused import fourstep_factors
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,6 +240,12 @@ def main() -> int:
 
     def rand(shape):
         return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    def real(shape):
+        return rng.standard_normal(shape)
+
+    def real_on_card(z):
+        return torch.from_numpy(z).to(dev, torch.float32)
 
     # 1. device
     smi = subprocess.run(
@@ -183,31 +267,56 @@ def main() -> int:
           "libraries": [_build.library_path(n).name for n in _build.SOURCES],
           "ptxas": ptxas})
 
-    # 3. kernel vs plain version, forward and inverse
-    impls = {"fft2d_gemm": (G.fft2d_gemm_cuda, G.fft2d_gemm_plain, TOL_2D),
-             "fft_fourstep": (F.fft_fourstep_cuda, F.fft_fourstep_plain,
-                              TOL_1D),
-             "fft_stockham": (S.fft_stockham_cuda, S.fft_stockham_plain,
-                              TOL_1D)}
+    # 3. kernel vs plain version, forward and inverse (for the real-input
+    # pair the inverse is irfft2d_fused, fed a random half spectrum whose
+    # DC and Nyquist bins have imaginary parts)
+    def c2c(kern, plain, tol):
+        def make(shape, inverse):
+            return from_numpy(rand(shape), device=dev)
+        return (lambda x, inverse: kern(x, inverse=inverse),
+                lambda x, inverse: plain(x, inverse=inverse), make, tol)
+
+    def real_pair(shape, inverse):
+        b, h, w = shape
+        if inverse:
+            return from_numpy(rand((b, h, w // 2 + 1)), device=dev)
+        return real_on_card(real(shape))
+
+    impls = {"fft2d_gemm": c2c(G.fft2d_gemm_cuda, G.fft2d_gemm_plain,
+                               TOL_2D),
+             "fft_fourstep": c2c(F.fft_fourstep_cuda, F.fft_fourstep_plain,
+                                 TOL_1D),
+             "fft_stockham": c2c(S.fft_stockham_cuda, S.fft_stockham_plain,
+                                 TOL_1D),
+             "fft_stockham_r2": c2c(S.fft_stockham_r2_cuda,
+                                    S.fft_stockham_r2_plain, TOL_1D),
+             "rfft2d_fused": (
+                 lambda x, inverse: R.irfft2d_fused_cuda(x) if inverse
+                 else R.rfft2d_fused_cuda(x),
+                 lambda x, inverse: R.irfft2d_fused_plain(x) if inverse
+                 else R.rfft2d_fused_plain(x), real_pair, TOL_2D)}
     main_err = {}
     for name, shape in CHECKS:
-        kern, plain, tol = impls[name]
-        x = from_numpy(rand(shape), device=dev)
+        kern, plain, make, tol = impls[name]
         for inverse in (False, True):
-            got = kern(x, inverse=inverse)
+            kname = "irfft2d_fused" if name == "rfft2d_fused" and inverse \
+                else name
+            x = make(shape, inverse)
+            got = kern(x, inverse)
             torch.cuda.synchronize()
-            ref = plain(x, inverse=inverse)
+            ref = plain(x, inverse)
             abs_err, rel = errors(got, ref)
             ok = rel <= tol
             if not ok:
-                failures.append(f"{name}{shape} inverse={inverse}: {rel}")
-            if not inverse and shape == MAIN_SHAPE[name]:
-                main_err[name] = abs_err
-            emit({"phase": "kernel_vs_plain", "kernel": name,
+                failures.append(f"{kname}{shape} inverse={inverse}: {rel}")
+            if shape == MAIN_SHAPE[kname] and \
+                    (not inverse or kname == "irfft2d_fused"):
+                main_err[kname] = abs_err
+            emit({"phase": "kernel_vs_plain", "kernel": kname,
                   "shape": shape, "inverse": inverse,
                   "max_abs_err": abs_err, "err_over_max": rel, "tol": tol,
                   "ok": ok})
-        del x, got, ref
+            del x, got, ref
     torch.cuda.empty_cache()
 
     # 4. main path through the registry
@@ -255,8 +364,8 @@ def main() -> int:
     if (pa.algo, pb.algo) != ("four_step", "stockham") or \
             pa.backend != "cuda" or pb.backend != "cuda":
         failures.append(f"1-D plans resolved to {pa}, {pb}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in C2C_KERNELS:
+        if launches[k] <= 0:
             failures.append(f"kernel {k} was not launched on the main path")
     del x16, y16, back16, xa, ya, xb, yb, yr, backr
     torch.cuda.empty_cache()
@@ -280,28 +389,148 @@ def main() -> int:
                                 "demote_reason": pd.demote_reason,
                                 "err_vs_numpy": demote_err}})
 
-    # 5. timing at the main path's shapes
+    # 4b. the real-input main path through the registry
+    clear_plan_cache()
+    zr16, zr1 = real(MAIN_RFFT2), real(MAIN_RFFT2_SINGLE)
+    zra, zrb = real(MAIN_RFFT_FOURSTEP), real(MAIN_RFFT_STOCKHAM)
+    zc = rand(MAIN_R2)
+    xr16, xr1 = real_on_card(zr16), real_on_card(zr1)
+    xra, xrb = real_on_card(zra), real_on_card(zrb)
+    xc = from_numpy(zc, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    f16 = rfft2(xr16, backend="cuda")
+    b16 = irfft2(f16, backend="cuda")
+    f1 = rfft2(xr1, backend="cuda")
+    b1 = irfft2(f1, backend="cuda")
+    s1 = irfft2(f1, s=IRFFT2_S, backend="cuda")   # complex Nyquist after fit
+    fa = rfft(xra, backend="cuda")                # inner four-step, 2^20
+    ba = irfft(fa, backend="cuda")                # inner Stockham, 2^21
+    fb = rfft(xrb, backend="cuda")                # inner Stockham, 2^22
+    bb = irfft(fb, backend="cuda")                # inner Stockham, 2^23
+    f2 = rfft2(xr1, algo="stockham2", backend="cuda")   # radix-2 row-column
+    b2 = irfft2(f2, algo="stockham2", backend="cuda")
+    p_r2 = plan_fft(MAIN_R2[1], algo="stockham2", backend="cuda")
+    yc = p_r2(xc)
+    torch.cuda.synchronize()
+    launches_real = dict(ops.LAUNCHES)
+    f1_np = to_numpy(f1)
+    rchecks = {
+        "rfft2_b16_vs_numpy": np_errors(f16, np.fft.rfft2(zr16)),
+        "irfft2_b16_roundtrip": np_errors(b16, zr16),
+        "rfft2_b1_vs_numpy": np_errors(f1, np.fft.rfft2(zr1)),
+        "irfft2_b1_roundtrip": np_errors(b1, zr1),
+        "irfft2_s_vs_numpy": np_errors(s1, np.fft.irfft2(f1_np, s=IRFFT2_S)),
+        "rfft_2^21_vs_numpy": np_errors(fa, np.fft.rfft(zra)),
+        "irfft_2^21_roundtrip": np_errors(ba, zra),
+        "rfft_2^23_vs_numpy": np_errors(fb, np.fft.rfft(zrb)),
+        "irfft_2^23_roundtrip": np_errors(bb, zrb),
+        "rfft2_stockham2_b1_vs_numpy": np_errors(f2, np.fft.rfft2(zr1)),
+        "irfft2_stockham2_b1_roundtrip": np_errors(b2, zr1),
+        "fft_stockham2_2^20_vs_numpy": np_errors(yc, np.fft.fft(zc)),
+    }
+    rlimits = {k: TOL_ROUNDTRIP if "roundtrip" in k else
+               TOL_NUMPY if k.startswith(("rfft2", "irfft2")) else TOL_1D
+               for k in rchecks}
+    for k, v in rchecks.items():
+        if not (v <= rlimits[k]):
+            failures.append(f"real-input path {k}: {v} > {rlimits[k]}")
+    rplans = {
+        "rfft2_1024": get_plan(MAIN_RFFT2[1:], kind="rfft", backend="cuda"),
+        "irfft2_1024": get_plan(MAIN_RFFT2[1:], kind="rfft", inverse=True,
+                                backend="cuda"),
+        "rfft_2^21": get_plan(MAIN_RFFT_FOURSTEP[1:], kind="rfft",
+                              backend="cuda"),
+        "irfft_2^21": get_plan(MAIN_RFFT_FOURSTEP[1:], kind="rfft",
+                               inverse=True, backend="cuda"),
+        "rfft_2^23": get_plan(MAIN_RFFT_STOCKHAM[1:], kind="rfft",
+                              backend="cuda"),
+        "fft_stockham2_2^20": p_r2}
+    want = {"rfft2_1024": "fused", "irfft2_1024": "fused",
+            "rfft_2^21": "four_step", "irfft_2^21": "stockham",
+            "rfft_2^23": "stockham", "fft_stockham2_2^20": "stockham"}
+    for k, p in rplans.items():
+        if (p.algo, p.backend, p.demote_reason) != (want[k], "cuda", None):
+            failures.append(f"{k} plan resolved to {p}")
+    if p_r2.radix != 2:
+        failures.append(f"stockham2 plan has radix {p_r2.radix}")
+    for k in REAL_KERNELS:
+        if launches_real[k] <= 0:
+            failures.append(f"kernel {k} was not launched on the "
+                            "real-input path")
+    del xr16, f16, b16, xra, fa, ba, xrb, fb, bb, xc, yc
+    torch.cuda.empty_cache()
+    zd = real(DEMOTED_2D)
+    yd = rfft2(real_on_card(zd), backend="cuda")
+    pdr = get_plan(DEMOTED_2D[1:], kind="rfft", backend="cuda")
+    reason = ("fused rfft kernel needs power-of-two dims >= 2, "
+              f"got {DEMOTED_2D[1:]}")
+    rdemote_err = np_errors(yd, np.fft.rfft2(zd))
+    if pdr.backend != "torch" or pdr.demote_reason != reason:
+        failures.append(f"1000x1000 rfft plan: {pdr}")
+    if not rdemote_err <= TOL_NUMPY:
+        failures.append(f"1000x1000 rfft torch path error {rdemote_err}")
+    emit({"phase": "real_input_path", "launches": launches_real,
+          "errors": rchecks, "limits": rlimits,
+          "plans": {k: [p.algo, p.backend, p.radix, p.demote_reason]
+                    for k, p in rplans.items()},
+          "demoted_1000x1000": {"backend": pdr.backend,
+                                "demote_reason": pdr.demote_reason,
+                                "err_vs_numpy": rdemote_err}})
+
+    # 5. timing at the main paths' shapes; each spec makes its kernel's
+    # input and the library call's input from one seeded array
+    def complex_inputs(shape):
+        x = from_numpy(rand(shape), device=dev)
+        return x, torch.complex(x.re, x.im)
+
+    def real_inputs(shape):
+        x = real_on_card(real(shape))
+        return x, x
+
+    def half_inputs(shape):
+        b, h, w = shape
+        x = from_numpy(rand((b, h, w // 2 + 1)), device=dev)
+        return x, torch.complex(x.re, x.im)
+
     kernels = []
+    hw = MAIN_RFFT2[1:]
     specs = [
         ("fft2d_gemm", MAIN_2D, G.fft2d_gemm_cuda,
-         G.fft2d_gemm_plain, lambda c: torch.fft.fft2(c),
+         G.fft2d_gemm_plain, lambda c: torch.fft.fft2(c), complex_inputs,
          fft_counts(MAIN_2D[0], MAIN_2D[1] * MAIN_2D[2]),
          method_fft2d(*MAIN_2D, fourstep_factors),
-         "src/repro/kernels/fft2d_gemm.py:79"),
+         "src/repro/kernels/fft2d_gemm.py:79", "fft2d_gemm", launches),
         ("fft_fourstep", MAIN_FOURSTEP, F.fft_fourstep_cuda,
-         F.fft_fourstep_plain, lambda c: torch.fft.fft(c),
+         F.fft_fourstep_plain, lambda c: torch.fft.fft(c), complex_inputs,
          fft_counts(*MAIN_FOURSTEP),
          method_fourstep(*MAIN_FOURSTEP, F._split_n(MAIN_FOURSTEP[1])[0]),
-         "src/repro/kernels/fft_fourstep.py:45"),
+         "src/repro/kernels/fft_fourstep.py:45", "fft_fourstep", launches),
         ("fft_stockham", MAIN_STOCKHAM, S.fft_stockham_cuda,
-         S.fft_stockham_plain, lambda c: torch.fft.fft(c),
+         S.fft_stockham_plain, lambda c: torch.fft.fft(c), complex_inputs,
          fft_counts(*MAIN_STOCKHAM), method_stockham(*MAIN_STOCKHAM),
-         "src/repro/kernels/fft_stockham.py:45"),
+         "src/repro/kernels/fft_stockham.py:45", "fft_stockham", launches),
+        ("fft_stockham_r2", MAIN_R2, S.fft_stockham_r2_cuda,
+         S.fft_stockham_r2_plain, lambda c: torch.fft.fft(c),
+         complex_inputs, fft_counts(*MAIN_R2), method_stockham_r2(*MAIN_R2),
+         "src/repro/kernels/fft_stockham.py:59", "fft_stockham",
+         launches_real),
+        ("rfft2d_fused", MAIN_RFFT2, R.rfft2d_fused_cuda,
+         R.rfft2d_fused_plain, lambda c: torch.fft.rfft2(c), real_inputs,
+         rfft_counts(*MAIN_RFFT2), method_rfft2d(*MAIN_RFFT2,
+                                                 fourstep_factors),
+         "src/repro/kernels/rfft2d_fused.py:135", "rfft2d_fused",
+         launches_real),
+        ("irfft2d_fused", MAIN_RFFT2, R.irfft2d_fused_cuda,
+         R.irfft2d_fused_plain, lambda c: torch.fft.irfft2(c, s=hw),
+         half_inputs, rfft_counts(*MAIN_RFFT2),
+         method_rfft2d(*MAIN_RFFT2, fourstep_factors),
+         "src/repro/kernels/rfft2d_fused.py:163", "rfft2d_fused",
+         launches_real),
     ]
-    for name, shape, kern, plain, lib, (flops, nbytes), \
-            (method_flops, table_bytes), replaces in specs:
-        x = from_numpy(rand(shape), device=dev)
-        c = torch.complex(x.re, x.im)
+    for name, shape, kern, plain, lib, inputs, (flops, nbytes), \
+            (method_flops, table_bytes), replaces, source, counts in specs:
+        x, c = inputs(shape)
         k_ms = time_ms(lambda: kern(x), torch)
         p_ms = time_ms(lambda: plain(x), torch)
         l_ms = time_ms(lambda: lib(c), torch)
@@ -313,8 +542,8 @@ def main() -> int:
               "table_bytes": table_bytes,
               "method_tflops": method_flops / k_ms / 1e9})
         kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                        "replaces": replaces, "launches": launches[name],
+                        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+                        "replaces": replaces, "launches": counts[name],
                         "max_abs_err": main_err[name], "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": l_ms})

@@ -1,14 +1,18 @@
 """1-D FFT algorithms on split-complex tensors, batched over leading axes.
 
-Counterpart of :mod:`repro.core.fft1d` (the plain PyTorch algorithms of
-this slice; Cooley-Tukey and the real-input transforms come later):
+Counterpart of :mod:`repro.core.fft1d`:
 
 - :func:`dft_naive`        O(N^2) dense DFT matmul (oracle + leaf).
+- :func:`fft_cooley_tukey` the paper's iterative radix-2 with explicit
+  read/write reorders (both reorder variants).
 - :func:`fft_stockham`     mixed radix-4/radix-2 autosort FFT.
 - :func:`fft_stockham_radix2`  pure radix-2 Stockham oracle.
 - :func:`fft_four_step`    Bailey four-step as DFT-matrix matmuls.
 - :func:`fft_bluestein`    chirp-z for arbitrary N.
 - :func:`fft` / :func:`ifft` / :func:`fft_axis`  dispatching API.
+- :func:`rfft` / :func:`irfft`  real-input transforms via the packed
+  half-length complex transform, whose inner transform runs on the kernels
+  for ``backend="cuda"``.
 
 Every function runs on the device of its input; tables come from
 :mod:`repro_torch.core.twiddle` on that device.
@@ -62,6 +66,111 @@ def dft_naive(x: SplitComplex, *, inverse: bool = False) -> SplitComplex:
     im = _matmul(x.re, w.im) + _matmul(x.im, w.re)
     out = SplitComplex(re, im)
     return cm.scale(out, 1.0 / n) if inverse else out
+
+
+# ---------------------------------------------------------------------------
+# Paper-faithful iterative radix-2 Cooley-Tukey
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _ct_stage_indices(n: int):
+    """Host-side index plan for every radix-2 stage of a DIT FFT.
+
+    Returns (rev, stages) where each stage is (idx0, idx1, tw_idx, inv_perm):
+      idx0/idx1   natural-order indices of the butterfly pair elements
+                  ("read reorder" gather),
+      tw_idx      index into the size-n twiddle table for each pair,
+      inv_perm    permutation scattering concat(out0, out1) back to natural
+                  order ("write reorder").
+    """
+    rev = tw.bit_reverse_indices(n)
+    half_n = n // 2
+    stages = []
+    for s in range(_log2(n)):
+        half = 1 << s
+        block = half << 1
+        pair = np.arange(half_n, dtype=np.int64)
+        idx0 = (pair // half) * block + (pair % half)
+        idx1 = idx0 + half
+        tw_idx = (pair % half) * (n // block)
+        perm = np.concatenate([idx0, idx1])         # z -> natural position
+        inv_perm = np.argsort(perm)                 # natural -> z position
+        stages.append((idx0, idx1, tw_idx, inv_perm))
+    return rev, tuple(stages)
+
+
+@functools.lru_cache(maxsize=64)
+def _ct_fused_indices(n: int):
+    """Index plan for the one-reorder-per-step variant (paper Fig. 5): the
+    data stays in the stage's paired layout and one composed permutation
+    carries it to the next stage's layout."""
+    rev, stages = _ct_stage_indices(n)
+    g0 = np.concatenate([stages[0][0], stages[0][1]])
+    initial = rev[g0]                                # x -> z_0 (incl. bitrev)
+    hops = []
+    for s in range(len(stages) - 1):
+        _, _, _, inv_perm_s = stages[s]
+        idx0n, idx1n, _, _ = stages[s + 1]
+        g_next = np.concatenate([idx0n, idx1n])
+        hops.append(inv_perm_s[g_next])              # z_s out -> z_{s+1}
+    final = stages[-1][3]                            # z_last out -> natural
+    tw_idx = tuple(st[2] for st in stages)
+    return initial, tuple(hops), final, tw_idx
+
+
+def _take(x: SplitComplex, idx) -> SplitComplex:
+    idx = torch.as_tensor(idx, device=x.device)
+    return SplitComplex(torch.index_select(x.re, -1, idx),
+                        torch.index_select(x.im, -1, idx))
+
+
+def _cat(a: SplitComplex, b: SplitComplex) -> SplitComplex:
+    return SplitComplex(torch.cat([a.re, b.re], dim=-1),
+                        torch.cat([a.im, b.im], dim=-1))
+
+
+def fft_cooley_tukey(x: SplitComplex, *, inverse: bool = False,
+                     variant: str = "two_reorder") -> SplitComplex:
+    """Iterative radix-2 Cooley-Tukey, faithful to the paper's structure.
+
+    variant="two_reorder": gather pairs into contiguous LHS/RHS tiles, run
+    the butterfly, scatter back to natural order (the paper's *Initial*
+    design, Table 1 row 2, Fig. 4).
+
+    variant="one_reorder": stay in the paired layout and apply one composed
+    permutation per stage (the paper's *Single data copy*, Table 1 row 6,
+    Fig. 5).  Identical arithmetic, half the data movement.
+    """
+    n = x.shape[-1]
+    assert _is_pow2(n), f"radix-2 CT needs power-of-two length, got {n}"
+    if n == 1:
+        return x
+    w_table = tw.twiddles(n, inverse=inverse, dtype=x.dtype, device=x.device)
+    half_n = n // 2
+
+    if variant == "two_reorder":
+        rev, stages = _ct_stage_indices(n)
+        z = _take(x, rev)                         # initial bit-reversal read
+        for (idx0, idx1, tw_idx, inv_perm) in stages:
+            lhs = _take(z, idx0)                  # read reorder (gather)
+            rhs = _take(z, idx1)
+            f = cm.mul(rhs, _take(w_table, tw_idx))
+            z = _take(_cat(cm.add(lhs, f), cm.sub(lhs, f)),
+                      inv_perm)                   # write reorder (scatter)
+    elif variant == "one_reorder":
+        initial, hops, final, tw_idx = _ct_fused_indices(n)
+        z = _take(x, initial)                     # single fused read reorder
+        n_stages = len(tw_idx)
+        for s in range(n_stages):
+            lhs = SplitComplex(z.re[..., :half_n], z.im[..., :half_n])
+            rhs = SplitComplex(z.re[..., half_n:], z.im[..., half_n:])
+            f = cm.mul(rhs, _take(w_table, tw_idx[s]))
+            z = _take(_cat(cm.add(lhs, f), cm.sub(lhs, f)),
+                      hops[s] if s < n_stages - 1 else final)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+
+    return cm.scale(z, 1.0 / n) if inverse else z
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +396,9 @@ def fft_bluestein(x: SplitComplex, *, inverse: bool = False) -> SplitComplex:
 
 _ALGOS = {
     "naive": dft_naive,
+    "cooley_tukey": functools.partial(fft_cooley_tukey, variant="two_reorder"),
+    "cooley_tukey_fused": functools.partial(fft_cooley_tukey,
+                                            variant="one_reorder"),
     "stockham": fft_stockham,
     "stockham2": fft_stockham_radix2,
     "four_step": fft_four_step,
@@ -317,9 +429,8 @@ def fft(x: SplitComplex, *, inverse: bool = False,
         return _plan.get_plan((x.shape[-1],), dtype=x.dtype,
                               inverse=inverse, backend="torch")(x)
     if algo not in _ALGOS:
-        raise NotImplementedError(
-            f"algo={algo!r} is not ported yet (ROADMAP 'Modules to port' "
-            "item 2: Cooley-Tukey and the real-input transforms)")
+        raise ValueError(f"unknown algo {algo!r}; use one of "
+                         f"{sorted(_ALGOS)} or 'auto'")
     return _ALGOS[algo](x, inverse=inverse)
 
 
@@ -333,3 +444,115 @@ def fft_axis(x: SplitComplex, axis: int, *, inverse: bool = False,
     y = fft(SplitComplex(x.re.movedim(axis, -1), x.im.movedim(axis, -1)),
             inverse=inverse, algo=algo)
     return SplitComplex(y.re.movedim(-1, axis), y.im.movedim(-1, axis))
+
+
+# ---------------------------------------------------------------------------
+# Real-input transforms
+# ---------------------------------------------------------------------------
+
+# the 1-D algos with a kernel path: _fft_inner dispatches these to
+# repro_torch.kernels.ops, and the plan registry demotes cuda rfft requests
+# whose inner algo is not in this set
+KERNEL_INNER_ALGOS = ("stockham", "stockham2", "four_step")
+
+
+def _fft_inner(z: SplitComplex, *, inverse: bool = False, algo: str,
+               backend: str = "torch", radix: int = 4) -> SplitComplex:
+    """The inner complex transform of the real-input paths.  On
+    ``backend="cuda"`` the kernel-backed algos (:data:`KERNEL_INNER_ALGOS`)
+    dispatch to :mod:`repro_torch.kernels.ops`; everything else runs the
+    plain algorithms."""
+    if backend == "cuda" and algo in KERNEL_INNER_ALGOS:
+        from repro_torch.kernels import ops as kops
+        if algo == "four_step":
+            return kops.fft_fourstep(z, inverse=inverse)
+        return kops.fft_stockham(z, inverse=inverse,
+                                 radix=2 if algo == "stockham2" else radix)
+    return fft(z, inverse=inverse, algo=algo)
+
+
+def rfft(x: torch.Tensor, *, algo: str = "auto",
+         backend: str = "torch") -> SplitComplex:
+    """Real-input FFT via the packed half-size complex transform: even/odd
+    samples become one complex sequence of length N/2, whose spectrum
+    untangles into the (..., N/2+1) half spectrum.
+
+    ``algo="auto"`` routes through the plan registry under an rfft-kind
+    key; ``backend="cuda"`` runs the inner transform on the kernels
+    (demoting with a registry-visible reason when none exists)."""
+    if algo == "auto":
+        from . import plan as _plan
+        return _plan.get_plan((x.shape[-1],), dtype=x.dtype,
+                              kind="rfft", backend=backend)(x)
+    return _rfft_direct(x, algo=algo, backend=backend)
+
+
+def _rfft_direct(x: torch.Tensor, *, algo: str, backend: str = "torch",
+                 radix: int = 4) -> SplitComplex:
+    """rfft body with an explicitly resolved inner algo (no registry)."""
+    n = x.shape[-1]
+    if n % 2:
+        raise ValueError(f"rfft requires an even length, got {n}")
+    h = n // 2
+    z = SplitComplex(x[..., 0::2], x[..., 1::2])
+    zf = _fft_inner(z, algo=algo, backend=backend, radix=radix)  # (..., h)
+    # untangle: Xe[k] = (Z[k] + conj(Z[h-k]))/2,
+    #           Xo[k] = -i(Z[k] - conj(Z[h-k]))/2
+    idx = (-torch.arange(h, device=x.device)) % h     # Z[h-k] with wrap
+    zr_f = torch.index_select(zf.re, -1, idx)
+    zi_f = torch.index_select(zf.im, -1, idx)
+    xe = SplitComplex((zf.re + zr_f) * 0.5, (zf.im - zi_f) * 0.5)
+    xo = SplitComplex((zf.im + zi_f) * 0.5, (zr_f - zf.re) * 0.5)
+    w = tw.twiddles(n, dtype=x.dtype, device=x.device)   # e^{-2pi i k/N}
+    xo_t = cm.mul(xo, SplitComplex(w.re[:h], w.im[:h]))
+    full = cm.add(xe, xo_t)                           # k = 0..h-1
+    # k = h term: X[h] = Xe[0] - Xo[0]  (twiddle at k=h is -1)
+    last = SplitComplex(xe.re[..., :1] - xo.re[..., :1],
+                        xe.im[..., :1] - xo.im[..., :1])
+    return _cat(full, last)
+
+
+def irfft(xf: SplitComplex, n: Optional[int] = None, *,
+          algo: str = "auto", backend: str = "torch") -> torch.Tensor:
+    """Inverse real FFT from the (..., N/2+1) half spectrum.
+
+    An explicit ``n`` truncates or zero-pads the spectrum to n//2+1 bins
+    first (numpy semantics; odd ``n`` is served by the direct Hermitian
+    extension, since the registry's rfft keys cover even lengths only).
+    ``algo="auto"`` routes through the registry's rfft-kind inverse key
+    (the resolved algo is the full-length inner complex ifft)."""
+    if n is None:
+        n = 2 * (xf.shape[-1] - 1)
+    xf = _fit_half_spectrum(xf, n)
+    if n % 2 or algo != "auto":
+        return _irfft_direct(xf, n, algo=algo, backend=backend)
+    from . import plan as _plan
+    return _plan.get_plan((n,), dtype=xf.dtype, inverse=True,
+                          kind="rfft", backend=backend)(xf)
+
+
+def _fit_half_spectrum(xf: SplitComplex, n: int) -> SplitComplex:
+    """Truncate/zero-pad a half spectrum to the n/2+1 bins of length n."""
+    h = n // 2 + 1
+    bins = xf.shape[-1]
+    if bins == h:
+        return xf
+    if bins > h:
+        return SplitComplex(xf.re[..., :h], xf.im[..., :h])
+    pad = (0, h - bins)
+    return SplitComplex(torch.nn.functional.pad(xf.re, pad),
+                        torch.nn.functional.pad(xf.im, pad))
+
+
+def _irfft_direct(xf: SplitComplex, n: int, *, algo: str,
+                  backend: str = "torch", radix: int = 4) -> torch.Tensor:
+    # Hermitian-extend then complex ifft; take the real plane.  For even n
+    # the Nyquist bin (last) is excluded from the mirrored body; odd n has
+    # no Nyquist bin, so the body is every bin past DC (numpy semantics).
+    body_r = xf.re[..., 1:(n + 1) // 2]
+    body_i = xf.im[..., 1:(n + 1) // 2]
+    full = SplitComplex(torch.cat([xf.re, body_r.flip(-1)], dim=-1),
+                        torch.cat([xf.im, -body_i.flip(-1)], dim=-1))
+    out = _fft_inner(full, inverse=True, algo=algo, backend=backend,
+                     radix=radix)
+    return out.re

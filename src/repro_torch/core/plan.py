@@ -1,19 +1,25 @@
 """FFTW-style plan registry: resolve once, apply many times.
 
-Counterpart of :mod:`repro.core.plan` for this slice: c2c 1-D and 2-D keys.
-A :class:`FFTPlan` captures (shape, dtype, direction, backend) plus the
-resolved execution config (algo, radix, block_batch, variant).  Plans are
-interned: two requests with the same key return the same object.
+Counterpart of :mod:`repro.core.plan` for this slice: c2c and rfft 1-D
+and 2-D keys.  A :class:`FFTPlan` captures (shape, dtype, direction,
+backend, kind) plus the resolved execution config (algo, radix,
+block_batch, variant).  Plans are interned: two requests with the same key
+return the same object.
 
 ``backend="torch"`` runs the plain algorithms of
 :mod:`repro_torch.core.fft1d`; ``backend="cuda"`` runs the kernels through
 :mod:`repro_torch.kernels.ops`.  Shapes with no kernel path demote to
 ``"torch"`` with the reference's ``demote_reason`` wording.
 
+``kind="rfft"`` interns a real-input plan keyed on the *real* shape: 1-D
+keys resolve the inner complex transform (length n/2 forward, n inverse),
+2-D keys on ``"cuda"`` resolve to the fused real-input kernels
+(:mod:`repro_torch.kernels.rfft2d_fused`, ``algo="fused"``).
+
 Not ported yet (each raises ``NotImplementedError``): 3-D keys (ROADMAP
-'Modules to port' item 8), ``kind="rfft"`` (item 6) and the conv kinds
-(item 7), ``tune=True`` and wisdom (item 10).  ``FFTPlan.__call__`` runs
-``_execute`` directly; the guarded executor is item 9.
+'Modules to port' item 8), the conv kinds (item 7), ``tune=True`` and
+wisdom (item 10).  ``FFTPlan.__call__`` runs ``_execute`` directly; the
+guarded executor is item 9.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 
 from .complexmath import SplitComplex
 from . import fft1d
-from .fft1d import resolve_algo
+from .fft1d import KERNEL_INNER_ALGOS, resolve_algo
 
 
 def _is_pow2(n: int) -> bool:
@@ -95,8 +101,10 @@ class FFTPlan:
     def __call__(self, x: SplitComplex) -> SplitComplex:
         return self._execute(x)
 
-    def _execute(self, x: SplitComplex) -> SplitComplex:
+    def _execute(self, x):
         """The raw execution path (no guards, no fallback)."""
+        if self.kind == "rfft":
+            return self._call_rfft(x)
         if tuple(x.shape[-self.ndim:]) != self.shape:
             raise ValueError(f"plan for {self.shape} got input {x.shape}")
         if self.ndim == 2:
@@ -117,6 +125,43 @@ class FFTPlan:
             else self.algo
         return fft1d.fft(x, inverse=self.inverse, algo=algo)
 
+    def _check_input(self, x, shape) -> None:
+        if tuple(x.shape[-len(shape):]) != tuple(shape):
+            raise ValueError(f"rfft plan for {self.shape} "
+                             f"(inverse={self.inverse}) got input {x.shape}")
+
+    def _call_rfft(self, x):
+        """Execute a real-input plan.  On ``backend="torch"`` the resolved
+        ``algo`` is the inner complex transform of the rfft/irfft axis, and
+        the 2-D column pass is a c2c transform routed through its own
+        registry key.  On ``backend="cuda"`` 2-D plans run the fused
+        real-input kernels (``algo="fused"``) and 1-D plans run their inner
+        complex transform on the 1-D kernels."""
+        if self.ndim == 1:
+            kw = dict(algo=self.algo, backend=self.backend, radix=self.radix)
+            if self.inverse:            # input: (..., n/2+1) half spectrum
+                self._check_input(x, (self.n // 2 + 1,))
+                return fft1d._irfft_direct(x, self.n, **kw)
+            self._check_input(x, self.shape)
+            return fft1d._rfft_direct(x, **kw)
+        h, w = self.shape
+        from . import fft2d
+        self._check_input(x, (h, w // 2 + 1) if self.inverse else self.shape)
+        if self.backend == "cuda" and self.algo == "fused":
+            from repro_torch.kernels import ops as kops
+            if self.inverse:
+                return kops.irfft2d_fused(x)
+            return kops.rfft2d_fused(x)
+        # torch plans run the row-column schedule with plain passes; a cuda
+        # plan with an explicit non-fused algo runs the same schedule with
+        # kernel 1-D passes, as the direct rfft2()/irfft2() path does
+        col = self.algo if self.backend == "cuda" else "auto"
+        if self.inverse:
+            return fft2d._irfft2_direct(x, row_algo=self.algo, col_algo=col,
+                                        backend=self.backend)
+        return fft2d._rfft2_direct(x, row_algo=self.algo, col_algo=col,
+                                   backend=self.backend)
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -136,9 +181,9 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if variant not in ("auto", "plain", "compensated"):
         raise ValueError(f"unknown variant {variant!r}")
-    if kind == "rfft":
-        raise NotImplementedError("rfft plans are not ported yet: ROADMAP "
-                                  "'Modules to port' item 6")
+    if kind == "rfft" and len(shape) == 3:
+        raise ValueError("rfft plans are 1-D or 2-D; 3-D real transforms "
+                         "compose rfft2 with a c2c depth pass")
     if kind in CONV_KINDS:
         raise NotImplementedError("conv plans are not ported yet: ROADMAP "
                                   "'Modules to port' item 7")
@@ -155,7 +200,50 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
     radix = 4
     demote = None
 
-    if len(shape) == 1:
+    if kind == "rfft":
+        n = shape[-1]
+        if n % 2:
+            raise ValueError(f"rfft plans need an even last dim, "
+                             f"got {shape}")
+        inner = n if inverse else n // 2
+        inner_ok = _is_pow2(inner) and inner >= 2
+        if len(shape) == 1:
+            # 1-D: the pack/untangle stays plain torch; the inner complex
+            # transform runs on the 1-D kernels when one exists
+            resolved = resolve_algo(inner) if algo == "auto" else algo
+            if backend == "cuda" and (resolved not in KERNEL_INNER_ALGOS
+                                      or not inner_ok):
+                demote = (f"inner algo {resolved!r} at inner length "
+                          f"{inner} has no kernel path")
+                backend = "torch"
+            block_batch = 8
+        else:
+            # 2-D: the fused real-input kernels (rfft2d_fused)
+            if backend == "cuda" and not kernel_ok:
+                demote = ("fused rfft kernel needs power-of-two dims "
+                          f">= 2, got {shape}")
+                if algo == "fused":
+                    algo = "auto"
+                backend = "torch"
+            if algo == "auto":
+                resolved = "fused" if backend == "cuda" \
+                    else resolve_algo(inner)
+            else:
+                resolved = algo
+            if backend == "cuda" and resolved != "fused" and (
+                    resolved not in KERNEL_INNER_ALGOS or not inner_ok):
+                # an explicit non-fused algo runs the row-column schedule
+                # with kernel 1-D passes; algos outside _fft_inner's kernel
+                # set demote visibly
+                demote = (f"explicit inner algo {resolved!r} at inner "
+                          f"length {inner} has no kernel path")
+                backend = "torch"
+            if backend == "torch" and resolved == "fused":
+                raise ValueError('algo="fused" requires backend="cuda" '
+                                 '(the fused rfft kernel has no torch '
+                                 'equivalent)')
+            block_batch = 1 if resolved == "fused" else 8
+    elif len(shape) == 1:
         resolved = resolve_algo(shape[0]) if algo == "auto" else algo
         if resolved == "stockham2":   # radix-2 oracle: a stockham radix config
             resolved, radix = "stockham", 2
@@ -187,7 +275,8 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
 
     # the GEMM kernel is the only variant-aware path; "auto" picks the
     # compensated tables for sub-fp32 dtypes, as the reference does
-    gemm_path = len(shape) == 2 and backend == "cuda" and resolved == "fused"
+    gemm_path = (kind == "c2c" and len(shape) == 2 and backend == "cuda"
+                 and resolved == "fused")
     if variant == "auto":
         res_variant = "compensated" if gemm_path and \
             _itemsize(dtype) < 4 else "plain"
@@ -199,7 +288,7 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
     else:
         res_variant = variant
 
-    key = _plan_key(shape, dtype, inverse, backend)
+    key = _plan_key(shape, dtype, inverse, backend, kind)
     explicit = algo != "auto" or variant != "auto"
     cache_key = key if not explicit else key + (resolved, radix, res_variant)
     cache = _PLAN_CACHE if not explicit else _OVERRIDE_CACHE
@@ -207,8 +296,8 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
     if plan is None:
         plan = FFTPlan(shape=shape, dtype=key[1], inverse=inverse,
                        algo=resolved, radix=radix, backend=backend,
-                       block_batch=block_batch, variant=res_variant,
-                       demote_reason=demote)
+                       block_batch=block_batch, kind=kind,
+                       variant=res_variant, demote_reason=demote)
         cache[cache_key] = plan
     return plan
 

@@ -43,6 +43,16 @@ def _fourstep_twiddle_np(n1: int, n2: int, sign: float) -> tuple:
     return np.cos(ang), np.sin(ang)
 
 
+def bit_reverse_indices(n: int) -> np.ndarray:
+    """Bit-reversal permutation for power-of-two n (host-side constant)."""
+    bits = int(n).bit_length() - 1
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
 def stockham_radices(n: int) -> tuple:
     """Stage plan for a mixed-radix Stockham FFT of power-of-two length n:
     radix-4 stages while 4 | n_cur, then one radix-2 tail (whose twiddle is
@@ -146,6 +156,12 @@ def clear_table_cache() -> None:
 def _split(builder, args, dtype, device) -> SplitComplex:
     re, im = _cast(builder, args, dtype, torch.device(device))
     return SplitComplex(re, im)
+
+
+def twiddles(n: int, *, inverse: bool = False, dtype=torch.float32,
+             device="cuda") -> SplitComplex:
+    """``exp(sign * 2*pi*i * k / n)`` for k in [0, n): the stage-n table."""
+    return _split(_twiddle_np, (n, _sign(inverse)), dtype, device)
 
 
 def dft_matrix(n: int, *, inverse: bool = False, dtype=torch.float32,

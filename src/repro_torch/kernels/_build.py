@@ -34,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm")
+SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm", "rfft2d_fused")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -129,9 +129,11 @@ def function(name: str, symbol: str, argtypes):
     return fn
 
 
-def check_operands(x: SplitComplex, ndim: int) -> None:
-    """What every CUDA wrapper requires of its data operand."""
-    for t in x:
+def check_operands(x, ndim: int) -> None:
+    """What every CUDA wrapper requires of its data operand, a
+    :class:`SplitComplex` or one real tensor."""
+    planes = tuple(x) if isinstance(x, SplitComplex) else (x,)
+    for t in planes:
         if not t.is_cuda:
             raise ValueError("the CUDA kernel needs CUDA tensors")
         if t.dtype != torch.float32:
@@ -140,7 +142,8 @@ def check_operands(x: SplitComplex, ndim: int) -> None:
             raise ValueError(f"expected {ndim}-D planes, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels need contiguous planes")
-    if x.re.shape != x.im.shape or x.re.device != x.im.device:
+    if len(planes) == 2 and (x.re.shape != x.im.shape
+                             or x.re.device != x.im.device):
         raise ValueError("re and im planes differ in shape or device")
 
 

@@ -1,4 +1,5 @@
-// Tiled split-complex fp32 GEMM shared by fft_fourstep.cu and fft2d_gemm.cu.
+// Tiled split-complex fp32 GEMM shared by fft_fourstep.cu, fft2d_gemm.cu
+// and rfft2d_fused.cu.
 //
 //   C_z[m, n] = scale * T[m, n] * sum_k A_z[m, k] * B_z[k, n]
 //

@@ -24,25 +24,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.complexmath import SplitComplex
-from repro_torch.core.twiddle import _cast
 from . import _build
-from .rfft2d_fused import (fourstep_factors, fourstep_tables_np,
-                           fft_last_fourstep, fft_col_fourstep, _check_dims)
+from .rfft2d_fused import (fourstep_factors, fft_last_fourstep,
+                           fft_col_fourstep, _check_dims, MAX_DIM)
+from .rfft2d_fused import tables as gemm_tables  # the 12 table operands
 
 VARIANTS = ("plain", "compensated")
-MAX_DIM = 4096          # the largest H or W the CUDA kernel takes
-
-
-def _gemm_tables_np(h: int, w: int, inverse: bool) -> tuple:
-    return fourstep_tables_np(w, inverse) + fourstep_tables_np(h, inverse)
-
-
-def gemm_tables(h: int, w: int, inverse: bool, dtype=torch.float32,
-                device="cuda") -> tuple:
-    """The 12 table operands (6 per axis, W then H) on ``device``, cast
-    once per (h, w, inverse, dtype, device)."""
-    return _cast(_gemm_tables_np, (h, w, bool(inverse)), dtype,
-                 torch.device(device))
 
 
 def check_variant(variant: str) -> None:

@@ -1,15 +1,38 @@
-"""Shared one-level four-step helpers of the 2-D GEMM kernel.
+"""Real-input 2-D FFT (rfft2 / irfft2): the CUDA kernels and their plain
+PyTorch versions, and the one-level four-step helpers they share with the
+complex 2-D GEMM kernel.
 
-Counterpart of the helpers in ``repro/kernels/rfft2d_fused.py``
-(``fourstep_factors``, ``fourstep_tables_np``, ``fft_last_fourstep``,
-``fft_col_fourstep``, ``_check_dims``).  The real-input kernels
-``_rfft2d_kernel`` / ``_irfft2d_kernel`` are not ported yet (ROADMAP
-'Modules to port' item 6).
+Replaces ``repro/kernels/rfft2d_fused.py::_rfft2d_kernel`` and
+``::_irfft2d_kernel``: rows 2j and 2j+1 of a real (H, W) image are the re
+and im planes of one complex row, so the row pass runs H/2 complex FFTs of
+length W; the Hermitian untangle splits each packed spectrum into the two
+rows' half spectra (W/2+1 bins); the column pass runs along axis -2 of the
+half-width tile as left-side DFT contractions.  The inverse twin runs the
+inverse column pass, repacks each row pair by Hermitian extension and runs
+the inverse row pass, writing the real plane scaled by 1/(H*W).
+
+The TPU kernel holds one image in VMEM; a 1024^2 real plane is 4 MB
+against 227 KB of shared memory per block, so ``csrc/rfft2d_fused.cu``
+chains launches over the whole batch: the four-step GEMMs of the complex
+kernel (``csrc/cgemm.cuh``), addressing the row pairs in place (base x and
+x + W, row stride 2W), one small untangle (forward) or repack (inverse)
+kernel between the passes, and a column pass that folds the j2 axis into
+the batch because W/2+1 is no power of two.  What bounds it: the function
+is bound by bytes (a real point in, a half-spectrum bin out), but the
+four-step method does 8*n*(n1+n2) flops per row and column, so this design
+is bound by those fp32 operations plus the HBM round trips between its
+five launches.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from repro_torch.core.complexmath import SplitComplex
 from repro_torch.core.fft1d import _best_split, _matmul
-from repro_torch.core.twiddle import _dft_matrix_np, _fourstep_twiddle_np
+from repro_torch.core.twiddle import (_cast, _dft_matrix_np,
+                                      _fourstep_twiddle_np)
+from . import _build
 
 # below this length a single dense DFT matmul replaces the four-step
 # (mirrors resolve_algo's naive-leaf region)
@@ -35,6 +58,33 @@ def fourstep_tables_np(n: int, inverse: bool, factors=None):
     w2r, w2i = _dft_matrix_np(n2, sign)
     twr, twi = _fourstep_twiddle_np(n1, n2, sign)
     return (w1r, w1i, w2r, w2i, twr, twi)
+
+
+def _tables_np(h: int, w: int, inverse: bool) -> tuple:
+    return fourstep_tables_np(w, inverse) + fourstep_tables_np(h, inverse)
+
+
+def tables(h: int, w: int, inverse: bool, dtype=torch.float32,
+           device="cuda") -> tuple:
+    """The 12 table operands of one (h, w) 2-D four-step transform (6 per
+    axis, W then H) on ``device``, cast once per (h, w, inverse, dtype,
+    device)."""
+    return _cast(_tables_np, (h, w, bool(inverse)), dtype,
+                 torch.device(device))
+
+
+def _twisted_np(n: int, inverse: bool) -> tuple:
+    """The column pass's first left operand for each j2, with the twiddle
+    folded in: V[j2, k1, a] = T[k1, j2] * W1[k1, a], float64 (n2, n1, n1)
+    planes.  The CUDA column pass runs the j2 axis as a batch index, where
+    the GEMM's epilogue twiddle cannot reach it."""
+    w1r, w1i, _, _, twr, twi = fourstep_tables_np(n, inverse)
+    v = (twr + 1j * twi).T[:, :, None] * (w1r + 1j * w1i)[None, :, :]
+    return np.ascontiguousarray(v.real), np.ascontiguousarray(v.imag)
+
+
+def _card_tables_np(h: int, w: int, inverse: bool) -> tuple:
+    return _tables_np(h, w, inverse) + _twisted_np(h, inverse)
 
 
 def _left(w, x):
@@ -89,3 +139,114 @@ def _check_dims(h: int, w: int):
         if d & (d - 1) or d < 2:
             raise ValueError("the fused 2-D kernels need power-of-two "
                              f"tile dims >= 2, got {(h, w)}")
+
+
+def _conj_rev(x):
+    """x[(W-k) % W] for k = 0..W/2 on a length-W last axis (the conj(Z[-k])
+    gather of the Hermitian untangle, built from a flip)."""
+    h = x.shape[-1] // 2
+    return torch.cat([x[..., :1], x[..., h:].flip(-1)], -1)
+
+
+def rfft2d_fused_plain(x: torch.Tensor) -> SplitComplex:
+    """The forward kernel's arithmetic in plain PyTorch: real (batch, h, w)
+    -> (batch, h, w/2+1) half spectra."""
+    bb, h, w = x.shape
+    _check_dims(h, w)
+    tabs = tables(h, w, False, x.dtype, x.device)
+    re = x[:, 0::2, :]                           # row pairs -> one complex
+    im = x[:, 1::2, :]                           # row: (bb, h/2, w)
+    re, im = fft_last_fourstep(re, im, tabs[:6], *fourstep_factors(w))
+    # untangle Z -> A (even rows), B (odd rows), bins k = 0..w/2
+    hw = w // 2
+    cr, ci = _conj_rev(re), _conj_rev(im)
+    rk, ik = re[..., :hw + 1], im[..., :hw + 1]
+    ar, ai = (rk + cr) * 0.5, (ik - ci) * 0.5
+    br, bi = (ik + ci) * 0.5, (cr - rk) * 0.5
+    re2 = torch.stack([ar, br], 2).reshape(bb, h, hw + 1)
+    im2 = torch.stack([ai, bi], 2).reshape(bb, h, hw + 1)
+    re2, im2 = fft_col_fourstep(re2, im2, tabs[6:], *fourstep_factors(h))
+    return SplitComplex(re2, im2)
+
+
+def irfft2d_fused_plain(xf: SplitComplex) -> torch.Tensor:
+    """The inverse kernel's arithmetic in plain PyTorch: (batch, h, w/2+1)
+    half spectra -> real (batch, h, w), scaled by 1/(h*w)."""
+    bb, h, bins = xf.shape
+    w = 2 * (bins - 1)
+    _check_dims(h, w)
+    tabs = tables(h, w, True, xf.dtype, xf.device)
+    re, im = fft_col_fourstep(xf.re, xf.im, tabs[6:], *fourstep_factors(h))
+    # repack: rows 2j/2j+1's half spectra A/B -> Z = A_ext + i * B_ext,
+    # with the imaginary parts of the DC and Nyquist bins dropped (the C2R
+    # convention); kept, a complex Nyquist (after an s= width truncation)
+    # would leak row 2j+1's residue into row 2j
+    hw = w // 2
+    ar, ai = re[:, 0::2, :], im[:, 0::2, :]      # (bb, h/2, w/2+1)
+    br, bi = re[:, 1::2, :], im[:, 1::2, :]
+    z0 = torch.zeros_like(ai[..., :1])
+
+    def drop_ends(q):
+        return torch.cat([z0, q[..., 1:hw], z0], -1)
+
+    def ext(q, sign):                            # Hermitian-extend to w
+        return torch.cat([q, sign * q[..., 1:hw].flip(-1)], -1)
+
+    ai, bi = drop_ends(ai), drop_ends(bi)
+    zr = ext(ar, 1.0) - ext(bi, -1.0)
+    zi = ext(ai, -1.0) + ext(br, 1.0)
+    zr, zi = fft_last_fourstep(zr, zi, tabs[:6], *fourstep_factors(w))
+    out = torch.stack([zr, zi], 2).reshape(bb, h, w)   # re -> 2j, im -> 2j+1
+    return out * (1.0 / (h * w))
+
+
+MAX_DIM = 4096          # the largest H or W the CUDA kernels take
+_ARGS = [_build.P] * 21 + [_build.L] + [_build.I] * 4 + [_build.P]
+
+
+def _check_card_dims(h: int, w: int) -> None:
+    _check_dims(h, w)
+    if h > MAX_DIM or w > MAX_DIM:
+        raise ValueError(f"the CUDA rfft2 kernels take H, W <= {MAX_DIM}, "
+                         f"got {(h, w)}")
+
+
+def _scratch(batch: int, h: int, w: int, like: torch.Tensor) -> list:
+    n = batch * h * (w // 2 + 1)
+    return [torch.empty(n, dtype=torch.float32, device=like.device)
+            for _ in range(4)]
+
+
+def rfft2d_fused_cuda(x: torch.Tensor) -> SplitComplex:
+    """Launch the real-input 2-D FFT kernels on a (batch, h, w) fp32 CUDA
+    tensor; returns the (batch, h, w/2+1) half spectra."""
+    _build.check_operands(x, 3)
+    batch, h, w = x.shape
+    _check_card_dims(h, w)
+    tabs = _cast(_card_tables_np, (h, w, False), torch.float32, x.device)
+    shape = (batch, h, w // 2 + 1)
+    out = SplitComplex(torch.empty(shape, dtype=x.dtype, device=x.device),
+                       torch.empty(shape, dtype=x.dtype, device=x.device))
+    fn = _build.function("rfft2d_fused", "rfft2d_fused_f32", _ARGS)
+    ptrs = [x, out.re, out.im, *_scratch(batch, h, w, x), *tabs]
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
+        batch, h, w, fourstep_factors(w)[0], fourstep_factors(h)[0]],
+        "rfft2d_fused_f32", x.device)
+    return out
+
+
+def irfft2d_fused_cuda(xf: SplitComplex) -> torch.Tensor:
+    """Launch the inverse real-input 2-D FFT kernels on (batch, h, w/2+1)
+    fp32 CUDA half spectra; returns the real (batch, h, w) images."""
+    _build.check_operands(xf, 3)
+    batch, h, bins = xf.shape
+    w = 2 * (bins - 1)
+    _check_card_dims(h, w)
+    tabs = _cast(_card_tables_np, (h, w, True), torch.float32, xf.device)
+    out = torch.empty((batch, h, w), dtype=xf.dtype, device=xf.device)
+    fn = _build.function("rfft2d_fused", "irfft2d_fused_f32", _ARGS)
+    ptrs = [xf.re, xf.im, out, *_scratch(batch, h, w, out), *tabs]
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
+        batch, h, w, fourstep_factors(w)[0], fourstep_factors(h)[0]],
+        "irfft2d_fused_f32", xf.device)
+    return out

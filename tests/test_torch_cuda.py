@@ -5,9 +5,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import fft2, from_numpy
+from repro_torch.core import fft2, from_numpy, irfft2, rfft, irfft, rfft2
 from repro_torch.kernels import ops
-from repro_torch.kernels import fft2d_gemm, fft_fourstep, fft_stockham
+from repro_torch.kernels import (fft2d_gemm, fft_fourstep, fft_stockham,
+                                 rfft2d_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,7 +42,13 @@ def _rel(got, ref):
     (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
      (3, 2048), 5e-5),
     (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
-     (3, 2), 5e-5)])
+     (3, 2), 5e-5),
+    (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
+     (3, 2), 5e-5),
+    (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
+     (5, 8), 5e-5),
+    (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
+     (3, 4096), 5e-5)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_matches_plain_on_card(card, launch, plain, shape, tol,
                                       inverse):
@@ -51,13 +58,69 @@ def test_kernel_matches_plain_on_card(card, launch, plain, shape, tol,
     assert _rel(got, plain(x, inverse=inverse)) <= tol
 
 
+def _real(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+def _rel_real(got, ref):
+    return (got - ref).abs().max().item() / ref.abs().max().item()
+
+
+# w = 2, 4, 8, 16, 1024 give half widths c = 2, 3, 5, 9, 513: the column
+# pass at widths that are no power of two
+@pytest.mark.parametrize("shape", [(2, 2, 2), (3, 8, 4), (2, 4, 8),
+                                   (2, 2, 16), (3, 256, 512),
+                                   (2, 512, 1024)])
+def test_rfft2d_kernels_match_plain_on_card(card, shape):
+    x = torch.from_numpy(_real(shape)).float().to(card)
+    got = rfft2d_fused.rfft2d_fused_cuda(x)
+    torch.cuda.synchronize()
+    assert _rel(got, rfft2d_fused.rfft2d_fused_plain(x)) <= 1e-5
+    b, h, w = shape
+    xf = from_numpy(_rand((b, h, w // 2 + 1), seed=1), device=card)
+    back = rfft2d_fused.irfft2d_fused_cuda(xf)
+    torch.cuda.synchronize()
+    assert _rel_real(back, rfft2d_fused.irfft2d_fused_plain(xf)) <= 1e-5
+
+
+def test_real_input_entry_points_on_card(card):
+    """rfft2/irfft2 (fused kernels, an s= truncation that leaves a complex
+    Nyquist bin) and rfft/irfft (inner four-step and radix-2 Stockham)
+    through the registry against float64 numpy."""
+    z = _real((2, 64, 128), seed=5)
+    x = torch.from_numpy(z).float().to(card)
+    xf = rfft2(x, backend="cuda")
+    ref = np.fft.rfft2(z)
+    zz = xf.re.double().cpu().numpy() + 1j * xf.im.double().cpu().numpy()
+    assert np.abs(zz - ref).max() <= 1e-5 * np.abs(ref).max()
+    back = irfft2(xf, backend="cuda").double().cpu().numpy()
+    assert np.abs(back - z).max() <= 1e-4 * np.abs(z).max()
+    cut = irfft2(xf, s=(64, 64), backend="cuda").double().cpu().numpy()
+    want = np.fft.irfft2(ref, s=(64, 64))
+    assert np.abs(cut - want).max() <= 1e-5 * np.abs(want).max()
+    for n, algo in [(2048, "auto"), (256, "stockham2")]:
+        z1 = _real((3, n), seed=n)
+        x1 = torch.from_numpy(z1).float().to(card)
+        y = rfft(x1, algo=algo, backend="cuda")
+        ref1 = np.fft.rfft(z1)
+        zz1 = y.re.double().cpu().numpy() + 1j * y.im.double().cpu().numpy()
+        assert np.abs(zz1 - ref1).max() <= 5e-5 * np.abs(ref1).max()
+        b1 = irfft(y, algo=algo, backend="cuda").double().cpu().numpy()
+        assert np.abs(b1 - z1).max() <= 1e-4 * np.abs(z1).max()
+
+
 def test_wrappers_count_launches_on_card(card):
     ops.reset_launches()
     ops.fft2d_gemm(from_numpy(_rand((1, 64, 64)), device=card))
     ops.fft_fourstep(from_numpy(_rand((1, 1024)), device=card))
     ops.fft_stockham(from_numpy(_rand((1, 1024)), device=card))
-    assert ops.LAUNCHES == {"fft_stockham": 1, "fft_fourstep": 1,
-                            "fft2d_gemm": 1}
+    ops.fft_stockham(from_numpy(_rand((1, 1024)), device=card), radix=2)
+    xf = ops.rfft2d_fused(torch.from_numpy(_real((1, 8, 8))).float()
+                          .to(card))
+    ops.irfft2d_fused(xf)
+    assert ops.LAUNCHES == {"fft_stockham": 1, "fft_stockham_r2": 1,
+                            "fft_fourstep": 1, "fft2d_gemm": 1,
+                            "rfft2d_fused": 1, "irfft2d_fused": 1}
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -110,8 +110,6 @@ def test_fft_axis_and_unported_algo():
     z = _rand((16, 3, 8), seed=2)
     got = to_complex(core.fft_axis(from_numpy(z, device="cpu"), 0)).numpy()
     assert _rel(got, np.fft.fft(z, axis=0)) <= 1e-5
-    with pytest.raises(NotImplementedError, match="item 2"):
-        core.fft(from_numpy(z, device="cpu"), algo="cooley_tukey")
     with pytest.raises(NotImplementedError, match="item 7"):
         core.fft2(from_numpy(z, device="cpu"), algo="fused_stockham",
                   backend="cuda")

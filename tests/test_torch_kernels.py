@@ -107,8 +107,6 @@ def test_unported_options_raise():
     x = from_numpy(_rand((1, 8, 8), 0), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         ops.fft2d_gemm(x, variant="compensated")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ops.fft_stockham(from_numpy(_rand((1, 8), 0), device="cpu"), radix=2)
 
 
 @pytest.mark.parametrize("fn,shape", [(ops.fft2d_gemm, (1, 12, 8)),

@@ -1,0 +1,147 @@
+"""Run the CUDA kernels' host code on the CPU, without nvcc or a GPU.
+
+    PYTHONPATH=src python tools/cuda_emu/emulate.py
+
+Compiles each ``src/repro_torch/kernels/csrc/*.cu`` with g++ against the
+stand-in ``cuda_runtime.h`` and the naive ``cgemm.cuh`` twin in this
+directory (``<<<grid, block, 0, s>>>`` launches become loops over blocks
+and threads), loads the libraries with ctypes in place of
+``repro_torch.kernels._build``'s, and calls the real CUDA wrappers
+(``*_cuda``) on CPU tensors against their plain versions at small shapes.
+
+What it checks: the index maps, buffer chaining, scales and launch
+parameters of every entry point, and the untangle, repack and Stockham
+stage kernels.  What it cannot check: the tiled GEMM itself (the twin
+replaces it), anything that depends on shared memory, warps or timing.
+Libraries go to ``build/cuda_emu/``.  Exits non-zero if a shape disagrees
+beyond 1e-5 of max|plain|.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core import SplitComplex, from_numpy  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+
+OUT = ROOT / "build" / "cuda_emu"
+TOL = 1e-5
+_LIBS: dict = {}
+_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*[^,]+,\s*\w+>>>\(")
+
+
+def build(names=_build.SOURCES) -> None:
+    """g++ each listed source into ``build/cuda_emu/lib<name>.so``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    for h in _build.CSRC.glob("*.cuh"):
+        if h.name != "cgemm.cuh":
+            shutil.copy(h, OUT / h.name)
+    for h in ("cuda_runtime.h", "cgemm.cuh"):
+        shutil.copy(HERE / h, OUT / h)
+    for name in names:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        cpp = OUT / f"{name}.cpp"
+        cpp.write_text(_LAUNCH.sub(r"EMU_LAUNCH(\1, \2, \3)(", src))
+        subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                        "-I", str(OUT), "-o", str(OUT / f"lib{name}.so"),
+                        str(cpp)], check=True)
+
+
+def _function(name, symbol, argtypes):
+    lib = _LIBS.setdefault(name, ctypes.CDLL(str(OUT / f"lib{name}.so")))
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_operands(x, ndim):
+    planes = tuple(x) if isinstance(x, SplitComplex) else (x,)
+    for t in planes:
+        if t.dtype != torch.float32 or t.dim() != ndim \
+                or not t.is_contiguous():
+            raise ValueError(f"bad operand {t.dtype} {tuple(t.shape)}")
+
+
+def _launch(fn, args, what, device):
+    _build.check(fn(*args, None), what)
+
+
+def install() -> None:
+    """Route the CUDA wrappers to the emulated libraries."""
+    _build.function = _function
+    _build.check_operands = _check_operands
+    _build.launch = _launch
+
+
+def rel(a, b) -> float:
+    pa = tuple(a) if isinstance(a, SplitComplex) else (a,)
+    pb = tuple(b) if isinstance(b, SplitComplex) else (b,)
+    d = max((x - y).abs().max().item() for x, y in zip(pa, pb))
+    return d / max(y.abs().max().item() for y in pb)
+
+
+def main() -> int:
+    from repro_torch.kernels import fft2d_gemm as G
+    from repro_torch.kernels import fft_fourstep as F
+    from repro_torch.kernels import fft_stockham as S
+    from repro_torch.kernels import rfft2d_fused as R
+    build()
+    install()
+    rng = np.random.default_rng(0)
+
+    def cplx(shape):
+        return from_numpy(rng.standard_normal(shape)
+                          + 1j * rng.standard_normal(shape), device="cpu")
+
+    results = []
+    for shape in [(2, 2, 2), (3, 8, 4), (2, 4, 8), (1, 2, 16), (2, 16, 2),
+                  (1, 4, 512), (1, 512, 8), (1, 512, 1024)]:
+        x = torch.from_numpy(rng.standard_normal(shape)).float()
+        results.append(("rfft2d_fused", shape, False,
+                        rel(R.rfft2d_fused_cuda(x), R.rfft2d_fused_plain(x))))
+        b, h, w = shape
+        xf = cplx((b, h, w // 2 + 1))
+        results.append(("irfft2d_fused", shape, True,
+                        rel(R.irfft2d_fused_cuda(xf),
+                            R.irfft2d_fused_plain(xf))))
+    for shape in [(2, 2, 2), (2, 8, 8), (1, 8, 512), (1, 512, 8),
+                  (1, 512, 512)]:
+        x = cplx(shape)
+        for inv in (False, True):
+            results.append(("fft2d_gemm", shape, inv,
+                            rel(G.fft2d_gemm_cuda(x, inverse=inv),
+                                G.fft2d_gemm_plain(x, inverse=inv))))
+    for name, kern, plain, shapes in [
+            ("fft_stockham", S.fft_stockham_cuda, S.fft_stockham_plain,
+             [(3, 2), (5, 8), (2, 2048), (1, 1 << 14)]),
+            ("fft_stockham_r2", S.fft_stockham_r2_cuda,
+             S.fft_stockham_r2_plain, [(3, 2), (5, 8), (2, 2048)]),
+            ("fft_fourstep", F.fft_fourstep_cuda, F.fft_fourstep_plain,
+             [(2, 512), (2, 1024)])]:
+        for shape in shapes:
+            x = cplx(shape)
+            for inv in (False, True):
+                results.append((name, shape, inv,
+                                rel(kern(x, inverse=inv),
+                                    plain(x, inverse=inv))))
+    for r in results:
+        print(*r)
+    worst = max(r[3] for r in results)
+    print("worst", worst, "tol", TOL)
+    return 0 if worst <= TOL else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
