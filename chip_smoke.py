@@ -14,6 +14,11 @@ float64 numpy:
 - real input: ``rfft2``/``irfft2`` on 1024x1024 fp32 images (and an
   ``s=`` truncation), ``rfft``/``irfft`` at n = 2^21 and 2^23, the
   radix-2 Stockham kernel through ``algo="stockham2"``;
+- spectral convolution: ``fft_conv`` on the ``ssm_demo`` conv branch
+  (x (8, 576, 4096), a (1, 576, 4) filter bank: padded FFT length 8192),
+  its gradient, the filter-spectrum cache, ``circular_conv`` on table 11's
+  64-row bank at m = 1024, 4096 and 16384 (and a demoted m = 768), and
+  ``fourier_mix`` at (8, 4096, 512);
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Each phase prints one JSON line; the
@@ -83,6 +88,39 @@ REAL_KERNELS = ("rfft2d_fused", "irfft2d_fused", "fft_stockham_r2",
 MAIN_SHAPE = {"fft2d_gemm": MAIN_2D, "fft_fourstep": MAIN_FOURSTEP,
               "fft_stockham": MAIN_STOCKHAM, "rfft2d_fused": MAIN_RFFT2,
               "irfft2d_fused": MAIN_RFFT2, "fft_stockham_r2": MAIN_R2}
+
+# the spectral-convolution path's shapes: the ssm_demo conv branch
+# (channels d_inner + 2*ssm_state = 576, filter length ssm_conv = 4,
+# sequence 4096 padded to m = 8192, batch 8) and table 11's 64-row bank of
+# 129-tap filters at m = 1024, 4096, 16384 (batch 1)
+SSM_X = (8, 576, 4096)
+SSM_K = (1, 576, 4)
+SSM_GRAD_X = (2, 576, 4096)
+TABLE11_ROWS, TABLE11_TAPS = 64, 129
+TABLE11_M = (1024, 4096, 16384)
+DEMOTED_CONV_M = 768
+FNET_X = (8, 4096, 512)          # fnet_demo: d_model 512, a 4096 sequence
+MAIN_CONV = (8, 576, 8192)       # what fft_conv hands the kernel
+TOL_CONV = 1e-5                  # conv kernel vs plain, error / max|plain|
+TOL_CONV_NUMPY = 2e-6            # relative norm vs float64 numpy
+TOL_GRAD = 1e-4
+# (x shape, filter bank lead) held against the plain version: the one-pass
+# kernel at every length class it takes (shared banks, odd row counts,
+# several rows a block), per-batch banks, and the multi-launch schedule
+CONV_CHECKS = [((2, 3, 4), (3,)), ((2, 3, 8), (3,)), ((2, 3, 64), (3,)),
+               ((2, 64, 1024), (64,)), (MAIN_CONV, MAIN_CONV[1:2]),
+               ((2, 5, 16384), (5,)), ((3, 5, 512), (3, 5)),
+               ((2, 3, 4096), (2, 3)), ((1, 3, 32768), (3,)),
+               ((2, 2, 1 << 20), (2, 2)), ((1, 2, 1 << 22), (2,))]
+# the shapes the conv window hands the kernel: table 11's bank at batch 1
+# and the gradient run's padded (2, 576, 8192)
+CONV_CHECKS += [((1, TABLE11_ROWS, m), (TABLE11_ROWS,)) for m in TABLE11_M]
+CONV_CHECKS += [((SSM_GRAD_X[0],) + MAIN_CONV[1:], MAIN_CONV[1:2])]
+# fourier_mix's axis transforms on the four-step kernel: 8*4096 rows of
+# 512 (d_model) and 8*512 rows of 4096 (seq)
+CHECKS += [("fft_fourstep", (FNET_X[0] * FNET_X[1], FNET_X[2])),
+           ("fft_fourstep", (FNET_X[0] * FNET_X[2], FNET_X[1]))]
+CONV_KERNELS = ("fftconv_fused", "fft_fourstep")
 
 
 def emit(obj) -> None:
@@ -160,6 +198,25 @@ def method_stockham(b, n):
     return flops, 8 * max(s4, 1) * 3 * max(n // 4, 1)
 
 
+def conv_counts(batch: int, rows: int, m: int, bank_rows: int):
+    """(flops, bytes) of the fused conv on (batch, rows, m) real fp32 with
+    a packed filter pair of ``bank_rows`` rows: two FFTs of m/2 points a
+    row, 5*(m/2)*log2(m/2) flops each; 4 bytes a real sample in and out,
+    16 an E/F bin (four fp32 planes)."""
+    hm = m // 2
+    flops = 2 * 5 * hm * (hm.bit_length() - 1) * batch * rows
+    return flops, 8 * batch * rows * m + 16 * bank_rows * hm
+
+
+def method_conv(batch, rows, m):
+    """(method flops, table bytes) of the one-pass kernel: 2 * log2(m/2)
+    radix-2 stages of m/4 butterflies (10 flops each) and the section
+    (16 flops a bin) a row; two twiddle tables of m/4 complex entries."""
+    hm = m // 2
+    ln = hm.bit_length() - 1
+    return batch * rows * (2 * ln * (hm // 2) * 10 + 16 * hm), 16 * (hm // 2)
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, \
@@ -221,13 +278,16 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import (from_numpy, fft2, get_plan, plan_fft,
                                   clear_plan_cache, rfft, irfft, rfft2,
-                                  irfft2)
+                                  irfft2, fft_conv, circular_conv,
+                                  fourier_mix)
+    from repro_torch.core import fftconv as FC
     from repro_torch.core.fft1d import assert_full_fp32
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fft2d_gemm as G
     from repro_torch.kernels import fft_fourstep as F
     from repro_torch.kernels import fft_stockham as S
     from repro_torch.kernels import rfft2d_fused as R
+    from repro_torch.kernels import fftconv_fused as C
     from repro_torch.kernels.rfft2d_fused import fourstep_factors
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -478,6 +538,118 @@ def main() -> int:
                                 "demote_reason": pdr.demote_reason,
                                 "err_vs_numpy": rdemote_err}})
 
+    # 4c. the spectral-convolution path: the fused conv kernel against its
+    # plain version, then the conv entry points through the registry
+    def conv_operands(shape, klead):
+        m = shape[-1]
+        x = real_on_card(real(shape))
+        kf = from_numpy(rand(klead + (m // 2 + 1,)), device=dev)
+        return x, C.pack_filter(kf, m, torch.float32)
+
+    for shape, klead in CONV_CHECKS:
+        x, ef = conv_operands(shape, klead)
+        got = C.fftconv_fused_cuda(x, ef)
+        torch.cuda.synchronize()
+        ref = C.fftconv_fused_plain(x, ef)
+        abs_err, rel = errors(got, ref)
+        ok = rel <= TOL_CONV
+        if not ok:
+            failures.append(f"fftconv_fused{shape} bank {klead}: {rel}")
+        if shape == MAIN_CONV:
+            main_err["fftconv_fused"] = abs_err
+        emit({"phase": "kernel_vs_plain", "kernel": "fftconv_fused",
+              "shape": shape, "bank": klead,
+              "schedule": "one_pass" if shape[-1] <= C.MAX_ONE_PASS
+              else "multi_launch", "max_abs_err": abs_err,
+              "err_over_max": rel, "tol": TOL_CONV, "ok": ok})
+        del x, ef, got, ref
+    torch.cuda.empty_cache()
+
+    clear_plan_cache()
+    L, K = SSM_X[-1], SSM_K[-1]
+    m_ssm = 1 << (L + K - 2).bit_length()
+    zx, zk = real(SSM_X), real(SSM_K)
+    xs, ks = real_on_card(zx), real_on_card(zk)
+    t11 = []
+    for m in TABLE11_M + (DEMOTED_CONV_M,):
+        zk11 = np.zeros((TABLE11_ROWS, m))
+        zk11[:, :TABLE11_TAPS] = real((TABLE11_ROWS, TABLE11_TAPS))
+        t11.append((m, real((TABLE11_ROWS, m)), zk11))
+    zg, zgk = real(SSM_GRAD_X), real(SSM_K)
+    zf = real(FNET_X)
+    xf_mix = real_on_card(zf)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ys = [fft_conv(xs, ks, backend="cuda") for _ in range(4)]
+    ssm_plan = get_plan((m_ssm,), kind="conv_causal", backend="cuda")
+    stats = dict(FC.SPECTRUM_STATS.get(FC._spectrum_key(ssm_plan), {}))
+    ys_full = fft_conv(xs, ks, causal=False, backend="cuda")
+    yc = [circular_conv(real_on_card(zx11), real_on_card(zk11),
+                        backend="cuda") for _, zx11, zk11 in t11]
+
+    def conv_grads(backend):
+        xg = real_on_card(zg).requires_grad_(True)
+        kg = real_on_card(zgk).requires_grad_(True)
+        loss = (fft_conv(xg, kg, backend=backend) ** 2).sum()
+        return torch.autograd.grad(loss, (xg, kg))
+
+    g_cuda = conv_grads("cuda")
+    ym = fourier_mix(xf_mix, backend="cuda")
+    torch.cuda.synchronize()
+    launches_conv = dict(ops.LAUNCHES)
+    g_torch = conv_grads("torch")
+
+    def conv_ref(zx_, zk_, n, out_len):
+        spec = np.fft.rfft(zx_, n) * np.fft.rfft(zk_, n)
+        return np.fft.irfft(spec, n)[..., :out_len]
+
+    def rel_norm(got, ref):
+        d = to_numpy(got) - ref
+        return float(np.linalg.norm(d) / np.linalg.norm(ref))
+
+    cchecks = {"fft_conv_ssm_vs_numpy": rel_norm(
+        ys[0], conv_ref(zx, zk, m_ssm, L))}
+    cchecks["fft_conv_ssm_full_vs_numpy"] = rel_norm(
+        ys_full, conv_ref(zx, zk, m_ssm, L + K - 1))
+    cchecks["fft_conv_ssm_repeat_equal"] = max(
+        float((y - ys[0]).abs().max().item()) for y in ys[1:])
+    for (m, zx11, zk11), y in zip(t11, yc):
+        cchecks[f"circular_conv_64x{m}_vs_numpy"] = rel_norm(
+            y, conv_ref(zx11, zk11, m, m))
+    for name, a, b in zip(("x", "k"), g_cuda, g_torch):
+        cchecks[f"grad_{name}_cuda_vs_torch"] = errors(a, b)[1]
+    cchecks["fourier_mix_vs_numpy"] = np_errors(
+        ym, np.real(np.fft.fft2(zf)))
+    climits = {k: TOL_GRAD if k.startswith("grad") else
+               0.0 if k.endswith("repeat_equal") else
+               TOL_1D if k.startswith("fourier") else TOL_CONV_NUMPY
+               for k in cchecks}
+    for k, v in cchecks.items():
+        if not (v <= climits[k]):
+            failures.append(f"conv path {k}: {v} > {climits[k]}")
+    cplans = {"conv_causal_ssm": ssm_plan}
+    for m, _, _ in t11:
+        cplans[f"conv_circular_{m}"] = get_plan((m,), kind="conv_circular",
+                                                backend="cuda")
+    reason = ("fused conv kernel needs a power-of-two FFT length "
+              f">= 4, got {DEMOTED_CONV_M}")
+    for k, p in cplans.items():
+        want = (("unfused", "torch", reason) if k.endswith(
+            f"_{DEMOTED_CONV_M}") else ("fused", "cuda", None))
+        if (p.algo, p.backend, p.demote_reason) != want:
+            failures.append(f"{k} plan resolved to {p}")
+    if stats != {"computes": 1, "hits": 3}:
+        failures.append(f"spectrum cache at the SSM key: {stats}")
+    for k in CONV_KERNELS:
+        if launches_conv[k] <= 0:
+            failures.append(f"kernel {k} was not launched on the conv path")
+    emit({"phase": "conv_path", "launches": launches_conv, "errors": cchecks,
+          "limits": climits, "spectrum_stats_ssm": stats,
+          "plans": {k: [p.algo, p.backend, p.block_batch, p.demote_reason]
+                    for k, p in cplans.items()}})
+    del xs, ys, ys_full, yc, g_cuda, g_torch, ym, xf_mix
+    torch.cuda.empty_cache()
+
     # 5. timing at the main paths' shapes; each spec makes its kernel's
     # input and the library call's input from one seeded array
     def complex_inputs(shape):
@@ -549,6 +721,54 @@ def main() -> int:
                         "bound_by": b_by, "library_ms": l_ms})
         del x, c
         torch.cuda.empty_cache()
+
+    # the fused conv at the SSM conv branch's shape; no single PyTorch call
+    # computes it, so the library time is three calls: torch.fft.rfft,
+    # the complex multiply and torch.fft.irfft
+    xc, efc = conv_operands(MAIN_CONV, MAIN_CONV[1:2])
+    m = MAIN_CONV[-1]
+    kfc = torch.complex(*(t.contiguous() for t in
+                          from_numpy(rand((MAIN_CONV[1], m // 2 + 1)),
+                                     device=dev)))
+    k_ms = time_ms(lambda: C.fftconv_fused_cuda(xc, efc), torch)
+    p_ms = time_ms(lambda: C.fftconv_fused_plain(xc, efc), torch)
+    l_ms = time_ms(lambda: torch.fft.irfft(torch.fft.rfft(xc) * kfc, n=m),
+                   torch)
+    flops, nbytes = conv_counts(*MAIN_CONV, MAIN_CONV[1])
+    method_flops, table_bytes = method_conv(*MAIN_CONV)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    emit({"phase": "timing", "kernel": "fftconv_fused", "shape": MAIN_CONV,
+          "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+          "library": "torch.fft.irfft(torch.fft.rfft(x) * kf, n=m): "
+                     "three calls", "bound_us": b_ms * 1e3,
+          "bound_by": b_by, "fft_flops": flops, "io_bytes": nbytes,
+          "method_flops": method_flops, "table_bytes": table_bytes,
+          "method_tflops": method_flops / k_ms / 1e9,
+          "hbm_tb_per_s": nbytes / k_ms / 1e9})
+    kernels.append({"name": "fftconv_fused", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/fftconv_fused.cu",
+                    "replaces": "src/repro/kernels/fftconv_fused.py:178",
+                    "launches": launches_conv["fftconv_fused"],
+                    "max_abs_err": main_err["fftconv_fused"], "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": l_ms})
+    del xc, efc, kfc
+    torch.cuda.empty_cache()
+    # table 11's 64-row bank at batch 1: 64 rows fill 64 (m = 1024: 32) of
+    # the card's 132 SMs; recorded, not a kernels-line entry
+    for m in TABLE11_M:
+        shape = (1, TABLE11_ROWS, m)
+        xc, efc = conv_operands(shape, (TABLE11_ROWS,))
+        kfc = torch.complex(*(t.contiguous() for t in from_numpy(
+            rand((TABLE11_ROWS, m // 2 + 1)), device=dev)))
+        k_ms = time_ms(lambda: C.fftconv_fused_cuda(xc, efc), torch)
+        l_ms = time_ms(lambda: torch.fft.irfft(torch.fft.rfft(xc) * kfc,
+                                               n=m), torch)
+        b_ms, b_by = bound_ms(*conv_counts(*shape, TABLE11_ROWS))
+        emit({"phase": "timing", "kernel": "fftconv_fused", "shape": shape,
+              "cell": "table11", "kernel_ms": k_ms, "library_ms": l_ms,
+              "bound_us": b_ms * 1e3, "bound_by": b_by})
+        del xc, efc, kfc
 
     if failures:
         for f in failures:

@@ -49,6 +49,11 @@ def from_complex(z: torch.Tensor) -> SplitComplex:
     return SplitComplex(z.real.contiguous(), z.imag.contiguous())
 
 
+def from_real(x: torch.Tensor) -> SplitComplex:
+    """A real tensor as split complex with a zero imaginary plane."""
+    return SplitComplex(x, torch.zeros_like(x))
+
+
 def to_complex(z: SplitComplex) -> torch.Tensor:
     return torch.complex(z.re, z.im)
 

@@ -16,10 +16,17 @@ keys resolve the inner complex transform (length n/2 forward, n inverse),
 2-D keys on ``"cuda"`` resolve to the fused real-input kernels
 (:mod:`repro_torch.kernels.rfft2d_fused`, ``algo="fused"``).
 
+The conv kinds (``"conv_causal"``, ``"conv_circular"``) are 1-D forward
+keys on the padded FFT length m: ``"cuda"`` resolves power-of-two m >= 4
+to the fused conv kernel (:mod:`repro_torch.kernels.fftconv_fused`,
+``algo="fused"``), everything else to the unfused rfft -> multiply ->
+irfft schedule (``algo="unfused"``).  A conv plan takes the filter half
+spectrum as a second operand: ``plan(x, kf)``.
+
 Not ported yet (each raises ``NotImplementedError``): 3-D keys (ROADMAP
-'Modules to port' item 8), the conv kinds (item 7), ``tune=True`` and
-wisdom (item 10).  ``FFTPlan.__call__`` runs ``_execute`` directly; the
-guarded executor is item 9.
+'Modules to port' item 8), ``tune=True`` and wisdom (item 10).
+``FFTPlan.__call__`` runs ``_execute`` directly; the guarded executor is
+item 9.
 """
 from __future__ import annotations
 
@@ -98,11 +105,16 @@ class FFTPlan:
         return get_plan((n,), dtype=dtype, inverse=inverse, algo=algo,
                         backend=backend, tune=tune)
 
-    def __call__(self, x: SplitComplex) -> SplitComplex:
-        return self._execute(x)
+    def __call__(self, x, *args):
+        return self._execute(x, *args)
 
-    def _execute(self, x):
-        """The raw execution path (no guards, no fallback)."""
+    def _execute(self, x, *args):
+        """The raw execution path (no guards, no fallback); conv-kind
+        plans take the filter half spectrum as a second operand."""
+        if self.kind in CONV_KINDS:
+            return self._call_conv(x, *args)
+        if args:
+            raise TypeError("only conv-kind plans take extra operands")
         if self.kind == "rfft":
             return self._call_rfft(x)
         if tuple(x.shape[-self.ndim:]) != self.shape:
@@ -127,7 +139,7 @@ class FFTPlan:
 
     def _check_input(self, x, shape) -> None:
         if tuple(x.shape[-len(shape):]) != tuple(shape):
-            raise ValueError(f"rfft plan for {self.shape} "
+            raise ValueError(f"{self.kind} plan for {self.shape} "
                              f"(inverse={self.inverse}) got input {x.shape}")
 
     def _call_rfft(self, x):
@@ -162,6 +174,23 @@ class FFTPlan:
         return fft2d._rfft2_direct(x, row_algo=self.algo, col_algo=col,
                                    backend=self.backend)
 
+    def _call_conv(self, x, kf):
+        """Execute a conv plan: circularly convolve real signals x (..., m)
+        with the filter half spectra kf (..., m//2+1) over the plan's
+        padded FFT length m.  ``algo="fused"`` runs the fused conv kernel
+        (:mod:`repro_torch.kernels.fftconv_fused`); ``algo="unfused"`` is
+        the registry-composed rfft -> mul -> irfft baseline (the demotion
+        target).  Causal padding and truncation happen upstream in
+        :func:`repro_torch.core.fftconv.fft_conv`."""
+        m = self.n
+        self._check_input(x, self.shape)
+        if self.algo == "fused":
+            from repro_torch.kernels import ops as kops
+            return kops.fftconv_fused(x, kf)
+        from . import complexmath as cm
+        xf = fft1d.rfft(x, backend=self.backend)
+        return fft1d.irfft(cm.mul(xf, kf), m, backend=self.backend)
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -171,8 +200,8 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
              algo: str = "auto", backend: str = "torch", kind: str = "c2c",
              variant: str = "auto", tune: bool = False) -> FFTPlan:
     """Return the interned plan for this key, resolving it on first
-    request (same resolution rules as the reference's ``get_plan`` for c2c
-    1-D and 2-D keys).  Requests with an explicit ``algo`` or ``variant``
+    request (same resolution rules as the reference's ``get_plan`` for c2c,
+    rfft and conv keys).  Requests with an explicit ``algo`` or ``variant``
     are interned separately and never replace the auto-resolved plan."""
     shape = tuple(int(d) for d in shape)
     if kind not in PLAN_KINDS:
@@ -185,8 +214,12 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
         raise ValueError("rfft plans are 1-D or 2-D; 3-D real transforms "
                          "compose rfft2 with a c2c depth pass")
     if kind in CONV_KINDS:
-        raise NotImplementedError("conv plans are not ported yet: ROADMAP "
-                                  "'Modules to port' item 7")
+        if len(shape) != 1:
+            raise ValueError("conv plans are 1-D (keyed on the padded FFT "
+                             f"length), got {shape}")
+        if inverse:
+            raise ValueError("conv plans have no inverse direction (the "
+                             "irfft is fused inside the plan)")
     if len(shape) == 3:
         raise NotImplementedError("3-D plans are not ported yet: ROADMAP "
                                   "'Modules to port' item 8")
@@ -200,7 +233,26 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
     radix = 4
     demote = None
 
-    if kind == "rfft":
+    if kind in CONV_KINDS:
+        m = shape[0]
+        if backend == "cuda" and not (_is_pow2(m) and m >= 4):
+            demote = ("fused conv kernel needs a power-of-two FFT length "
+                      f">= 4, got {m}")
+            if algo == "fused":
+                algo = "auto"         # fused demotes with its backend
+            backend = "torch"
+        if algo == "auto":
+            resolved = "fused" if backend == "cuda" else "unfused"
+        else:
+            resolved = algo
+        if backend == "torch" and resolved == "fused":
+            raise ValueError('algo="fused" requires backend="cuda" (the '
+                             'fused conv kernel has no torch equivalent)')
+        if resolved not in ("fused", "unfused"):
+            raise ValueError(f'algo={resolved!r} is not a conv plan algo; '
+                             'use "fused", "unfused" or "auto"')
+        block_batch = 1 if resolved == "fused" else 8
+    elif kind == "rfft":
         n = shape[-1]
         if n % 2:
             raise ValueError(f"rfft plans need an even last dim, "
@@ -305,6 +357,8 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
 def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
     _OVERRIDE_CACHE.clear()
+    from . import fftconv as _fftconv   # deferred: fftconv imports plan
+    _fftconv.clear_spectrum_cache()     # per-plan filter spectra key on plans
 
 
 def plan_cache_size() -> int:

@@ -34,7 +34,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm", "rfft2d_fused")
+SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm", "rfft2d_fused",
+           "fftconv_fused")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

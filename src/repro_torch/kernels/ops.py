@@ -11,11 +11,14 @@ accept ``block_batch`` for plan parity and do not use it.
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card (one count per call; a call issues several grid launches, see
 PERF.md).  The radix-2 Stockham kernel counts apart from the radix-4 one.
+The fused conv counts once per call; at m > 16384 its 1-D transforms run
+on the 1-D kernels and count in their own counters too.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.complexmath import SplitComplex
@@ -23,9 +26,11 @@ from . import fft_stockham as _stockham
 from . import fft_fourstep as _fourstep
 from . import fft2d_gemm as _gemm2d
 from . import rfft2d_fused as _rfused2d
+from . import fftconv_fused as _fconv
 
 LAUNCHES = {"fft_stockham": 0, "fft_stockham_r2": 0, "fft_fourstep": 0,
-            "fft2d_gemm": 0, "rfft2d_fused": 0, "irfft2d_fused": 0}
+            "fft2d_gemm": 0, "rfft2d_fused": 0, "irfft2d_fused": 0,
+            "fftconv_fused": 0}
 
 
 def reset_launches() -> None:
@@ -154,3 +159,85 @@ def irfft2d_fused(xf: SplitComplex) -> torch.Tensor:
     else:
         out = _rfused2d.irfft2d_fused_plain(flat)
     return out.reshape(*lead, h, w)
+
+
+def _fftconv_ref(x3: torch.Tensor, kf: SplitComplex) -> torch.Tensor:
+    """Differentiable plain twin of the fused conv core: the same
+    rfft -> pointwise multiply -> irfft at the padded length, through the
+    port's plain rfft/irfft (the unfused plan's gradient)."""
+    from repro_torch.core import complexmath as cm
+    from repro_torch.core import fft1d
+    m = x3.shape[-1]
+    return fft1d.irfft(cm.mul(fft1d.rfft(x3), kf), m)
+
+
+def _fftconv_launch(x3: torch.Tensor, ef) -> torch.Tensor:
+    if _on_card(x3):
+        LAUNCHES["fftconv_fused"] += 1
+        return _fconv.fftconv_fused_cuda(x3, ef)
+    return _fconv.fftconv_fused_plain(x3, ef)
+
+
+class _FFTConvCore(torch.autograd.Function):
+    """The kernel has no autograd of its own, but the conv core is
+    bilinear in (x, kf), so the plain twin's gradient is exact: forward
+    runs the fused kernel on the packed pair (E, F), backward the twin's
+    vector-Jacobian product.  E/F derive linearly from kf
+    (:func:`repro_torch.kernels.fftconv_fused.pack_filter`), so backward
+    returns the whole kf gradient through the kf planes and None for
+    E/F: anything there would count the filter's gradient twice."""
+
+    @staticmethod
+    def forward(ctx, x3, kre, kim, ere, eim, fre, fim):
+        ctx.save_for_backward(x3, kre, kim)
+        return _fftconv_launch(x3, (SplitComplex(ere, eim),
+                                    SplitComplex(fre, fim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        x3, kre, kim = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (x3, kre, kim)]
+            y = _fftconv_ref(ins[0], SplitComplex(ins[1], ins[2]))
+            dx, dkr, dki = torch.autograd.grad(y, ins, g)
+        return dx, dkr, dki, None, None, None, None
+
+
+def fftconv_fused(x: torch.Tensor, kf: SplitComplex) -> torch.Tensor:
+    """Fused FFT convolution over the last axis: real x (..., m)
+    circularly convolved per row with the filter half spectra
+    kf (..., m//2+1) -> real of the broadcast shape.
+
+    The leading dims of x and kf broadcast; the last lead dim becomes the
+    kernel's row axis.  A kf whose lead dims broadcast to just the row
+    axis (the SSM channel bank (C, K) against (B, C, L) activations) stays
+    a (rows, m//2) shared operand instead of per-batch copies.  The filter
+    packs in its own lead shape, so the pack cache sees the caller's
+    filter, and E/F then broadcast as kf does."""
+    m = x.shape[-1]
+    hm = m // 2
+    lead = tuple(torch.broadcast_shapes(x.shape[:-1], kf.re.shape[:-1]))
+    out_shape = lead + (m,)
+    lead = lead if lead else (1,)
+    r = lead[-1]
+    batch = math.prod(lead[:-1])
+    if batch == 0 or r == 0:
+        return x.new_zeros(out_shape)
+    xb = x.broadcast_to(lead + (m,)).reshape(batch, r, m).contiguous()
+    klead = tuple(kf.re.shape[:-1])
+    e, f = _fconv.pack_filter(kf, m, x.dtype)
+    # shared bank iff the filter's lead dims broadcast to one row axis
+    to2 = tuple(np.broadcast_shapes(klead, (r,)))
+    shared = math.prod(to2) == r
+
+    def bcast(t, bins):
+        if shared:
+            return t.broadcast_to(to2 + (bins,)).reshape(r, bins) \
+                .contiguous()
+        return t.broadcast_to(lead + (bins,)).reshape(batch, r, bins) \
+            .contiguous()
+
+    out = _FFTConvCore.apply(
+        xb, bcast(kf.re, hm + 1), bcast(kf.im, hm + 1), bcast(e.re, hm),
+        bcast(e.im, hm), bcast(f.re, hm), bcast(f.im, hm))
+    return out.reshape(out_shape)

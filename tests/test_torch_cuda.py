@@ -5,10 +5,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import fft2, from_numpy, irfft2, rfft, irfft, rfft2
+from repro_torch.core import (fft2, from_numpy, irfft2, rfft, irfft, rfft2,
+                              fft_conv)
 from repro_torch.kernels import ops
 from repro_torch.kernels import (fft2d_gemm, fft_fourstep, fft_stockham,
-                                 rfft2d_fused)
+                                 rfft2d_fused, fftconv_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -118,9 +119,12 @@ def test_wrappers_count_launches_on_card(card):
     xf = ops.rfft2d_fused(torch.from_numpy(_real((1, 8, 8))).float()
                           .to(card))
     ops.irfft2d_fused(xf)
+    ops.fftconv_fused(torch.from_numpy(_real((2, 3, 64))).float().to(card),
+                      from_numpy(_rand((3, 33)), device=card))
     assert ops.LAUNCHES == {"fft_stockham": 1, "fft_stockham_r2": 1,
                             "fft_fourstep": 1, "fft2d_gemm": 1,
-                            "rfft2d_fused": 1, "irfft2d_fused": 1}
+                            "rfft2d_fused": 1, "irfft2d_fused": 1,
+                            "fftconv_fused": 1}
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -134,3 +138,33 @@ def test_fft2_row_col_on_card(card, inverse):
     zz = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy()
     assert np.abs(zz - ref).max() <= 1e-5 * np.abs(ref).max()
     assert _rel(got, fft2d_gemm.fft2d_gemm_cuda(x, inverse=inverse)) <= 1e-5
+
+
+# m = 8 and 1024 run the one-pass shared-memory kernel (odd row counts,
+# several rows a block, a ragged last block); m = 32768 the multi-launch
+# schedule; shared and per-batch banks
+@pytest.mark.parametrize("m", [8, 1024, 32768])
+@pytest.mark.parametrize("klead", [(3,), (2, 3)])
+def test_fftconv_kernel_matches_plain_on_card(card, m, klead):
+    x = torch.from_numpy(_real((2, 3, m), seed=m)).float().to(card)
+    kf = from_numpy(_rand(klead + (m // 2 + 1,), seed=1), device=card)
+    ef = fftconv_fused.pack_filter(kf, m, torch.float32)
+    got = fftconv_fused.fftconv_fused_cuda(x, ef)
+    torch.cuda.synchronize()
+    assert _rel_real(got, fftconv_fused.fftconv_fused_plain(x, ef)) <= 1e-5
+
+
+def test_fftconv_gradient_on_card(card):
+    """The autograd.Function: the fused forward and the plain twin's
+    backward against the unfused torch backend."""
+    z = _real((2, 4, 300), seed=6)
+    kz = _real((4, 33), seed=7)
+
+    def grads(backend):
+        x = torch.from_numpy(z).float().to(card).requires_grad_(True)
+        k = torch.from_numpy(kz).float().to(card).requires_grad_(True)
+        loss = (fft_conv(x, k, backend=backend) ** 2).sum()
+        return torch.autograd.grad(loss, (x, k))
+
+    for got, want in zip(grads("cuda"), grads("torch")):
+        assert _rel_real(got, want) <= 1e-4

@@ -1,31 +1,63 @@
 // CPU stand-in for the parts of the CUDA runtime that csrc/*.cu use, so a
-// kernel source compiles with g++ (see emulate.py).  Launches run every
-// block and thread one after another; __syncthreads is not emulated, so
-// only kernels whose threads never share memory run here (cgemm.cuh is
-// replaced by a naive twin for that reason).
+// kernel source compiles with g++ -std=c++20 (see emulate.py).  A launch
+// starts one std::thread per CUDA thread of a block; the threads run the
+// blocks one after another and meet at a std::barrier after each block,
+// and __syncthreads() is that barrier, so kernels whose threads share
+// memory run here.  Static __shared__ arrays become function statics;
+// `extern __shared__` dynamic shared memory (rewritten by emulate.py)
+// points at a buffer of the launch's third <<<>>> argument, reused by
+// every block.  Only blockIdx.x/y and threadIdx.x are emulated, and
+// cgemm.cuh is still replaced by a naive twin.
 #pragma once
+#include <barrier>
 #include <cmath>
+#include <cstddef>
+#include <thread>
+#include <vector>
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
-static dim3 blockIdx, threadIdx, gridDim, blockDim;
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
+static thread_local dim3 blockIdx, threadIdx;
+static dim3 gridDim, blockDim;
+static std::barrier<>* emu_barrier = nullptr;
+static unsigned char* emu_shared = nullptr;  // the launch's dynamic shared memory
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 #define __global__
 #define __device__
 #define __host__
+#define __shared__ static
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__ __restrict
 template <class F> struct Launcher {
-  F f; dim3 g, b;
+  F f; dim3 g, b; std::size_t shmem;
   template <class... A> void operator()(A... a) {
     gridDim = g; blockDim = b;
-    for (unsigned by = 0; by < g.y; ++by)
-      for (unsigned bx = 0; bx < g.x; ++bx)
-        for (unsigned tx = 0; tx < b.x; ++tx) {
-          blockIdx = dim3(bx, by); threadIdx = dim3(tx); f(a...);
-        }
+    std::vector<unsigned char> dyn(shmem > 0 ? shmem : 1);
+    emu_shared = dyn.data();
+    std::barrier<> bar(b.x);
+    emu_barrier = &bar;
+    std::vector<std::thread> threads;
+    for (unsigned tx = 0; tx < b.x; ++tx)
+      threads.emplace_back([&, tx] {
+        threadIdx = dim3(tx);
+        for (unsigned by = 0; by < g.y; ++by)
+          for (unsigned bx = 0; bx < g.x; ++bx) {
+            blockIdx = dim3(bx, by);
+            f(a...);
+            bar.arrive_and_wait();
+          }
+      });
+    for (auto& t : threads) t.join();
+    emu_barrier = nullptr;
+    emu_shared = nullptr;
   }
 };
-#define EMU_LAUNCH(k, g, b) Launcher<decltype(&k)>{&k, dim3(g), dim3(b)}
+#define EMU_LAUNCH(k, g, b, s) Launcher<decltype(&k)>{&k, dim3(g), dim3(b), (std::size_t)(s)}

@@ -2,19 +2,21 @@
 
     PYTHONPATH=src python tools/cuda_emu/emulate.py
 
-Compiles each ``src/repro_torch/kernels/csrc/*.cu`` with g++ against the
-stand-in ``cuda_runtime.h`` and the naive ``cgemm.cuh`` twin in this
-directory (``<<<grid, block, 0, s>>>`` launches become loops over blocks
-and threads), loads the libraries with ctypes in place of
+Compiles each ``src/repro_torch/kernels/csrc/*.cu`` with g++ (C++20)
+against the stand-in ``cuda_runtime.h`` and the naive ``cgemm.cuh`` twin
+in this directory (``<<<grid, block, shmem, s>>>`` launches become one
+thread per CUDA thread of a block, walking the blocks in turn, with
+``__syncthreads()`` a barrier; ``extern __shared__`` arrays point at a
+buffer of ``shmem`` bytes), loads the libraries with ctypes in place of
 ``repro_torch.kernels._build``'s, and calls the real CUDA wrappers
 (``*_cuda``) on CPU tensors against their plain versions at small shapes.
 
 What it checks: the index maps, buffer chaining, scales and launch
-parameters of every entry point, and the untangle, repack and Stockham
-stage kernels.  What it cannot check: the tiled GEMM itself (the twin
-replaces it), anything that depends on shared memory, warps or timing.
-Libraries go to ``build/cuda_emu/``.  Exits non-zero if a shape disagrees
-beyond 1e-5 of max|plain|.
+parameters of every entry point, the untangle, repack and Stockham stage
+kernels, and the fused conv kernel's shared-memory stages.  What it
+cannot check: the tiled GEMM itself (the twin replaces it), warps,
+shared-memory limits or timing.  Libraries go to ``build/cuda_emu/``.
+Exits non-zero if a shape disagrees beyond 1e-5 of max|plain|.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ from repro_torch.kernels import _build  # noqa: E402
 OUT = ROOT / "build" / "cuda_emu"
 TOL = 1e-5
 _LIBS: dict = {}
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*[^,]+,\s*\w+>>>\(")
+_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*\w+>>>\(")
+_DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 
 def build(names=_build.SOURCES) -> None:
@@ -52,8 +55,12 @@ def build(names=_build.SOURCES) -> None:
     for name in names:
         src = (_build.CSRC / f"{name}.cu").read_text()
         cpp = OUT / f"{name}.cpp"
-        cpp.write_text(_LAUNCH.sub(r"EMU_LAUNCH(\1, \2, \3)(", src))
-        subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+        src = _LAUNCH.sub(r"EMU_LAUNCH(\1, \2, \3, \4)(", src)
+        src = _DYNAMIC_SHARED.sub(
+            r"\1* \2 = reinterpret_cast<\1*>(emu_shared);", src)
+        cpp.write_text(src)
+        subprocess.run(["g++", "-O2", "-std=c++20", "-pthread", "-shared",
+                        "-fPIC",
                         "-I", str(OUT), "-o", str(OUT / f"lib{name}.so"),
                         str(cpp)], check=True)
 
@@ -97,6 +104,7 @@ def main() -> int:
     from repro_torch.kernels import fft_fourstep as F
     from repro_torch.kernels import fft_stockham as S
     from repro_torch.kernels import rfft2d_fused as R
+    from repro_torch.kernels import fftconv_fused as C
     build()
     install()
     rng = np.random.default_rng(0)
@@ -136,6 +144,20 @@ def main() -> int:
                 results.append((name, shape, inv,
                                 rel(kern(x, inverse=inv),
                                     plain(x, inverse=inv))))
+    # the fused conv: shared banks (odd row counts, rows packed per block
+    # for small m, a ragged last block) and per-batch banks; m = 32768
+    # runs the multi-launch schedule (its 1-D transforms take the plain
+    # versions on CPU tensors, the section kernel is emulated)
+    for m, lead, klead in [(4, (2, 3), (3,)), (8, (3, 5), (3, 5)),
+                           (64, (2, 3), (3,)), (512, (3, 5), (5,)),
+                           (512, (2, 3), (2, 3)), (32768, (2, 3), (3,)),
+                           (32768, (2, 1), (2, 1))]:
+        x = torch.from_numpy(rng.standard_normal(lead + (m,))).float()
+        kf = cplx(klead + (m // 2 + 1,))
+        ef = C.pack_filter(kf, m, torch.float32)
+        results.append(("fftconv_fused", lead + (m,), len(klead) == 1,
+                        rel(C.fftconv_fused_cuda(x, ef),
+                            C.fftconv_fused_plain(x, ef))))
     for r in results:
         print(*r)
     worst = max(r[3] for r in results)
