@@ -19,6 +19,11 @@ float64 numpy:
   its gradient, the filter-spectrum cache, ``circular_conv`` on table 11's
   64-row bank at m = 1024, 4096 and 16384 (and a demoted m = 768), and
   ``fourier_mix`` at (8, 4096, 512);
+- volumes: ``fft3`` at 256^3 x 2 (a DNS / particle-mesh slab) and
+  128^3 x 8 (a PME grid) in fp32, its ``algo="row_col"`` Stockham
+  baseline, a demoted (96, 128, 128), and 256^3 x 2 in bf16 (compensated);
+- bf16 images: ``fft2`` on 16 1024^2 bf16 images, compensated through the
+  registry and plain by explicit variant;
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Each phase prints one JSON line; the
@@ -43,6 +48,11 @@ TOL_2D = 1e-5           # kernel vs plain, error / max|plain|
 TOL_1D = 5e-5
 TOL_NUMPY = 1e-5        # fft2 vs float64 numpy, error / max|ref|
 TOL_ROUNDTRIP = 1e-4
+TOL_3D_NUMPY = 1e-6     # fft3 vs float64 numpy, relative norm (reference)
+TOL_BF16_NUMPY = 5e-3   # bf16 compensated vs float64 numpy, relative norm
+# bf16 kernel vs plain, error / max|plain|: both round the same fp32 sums
+# to bf16, so they differ by rounding ties, one bf16 ulp at the top
+TOL_BF16 = 2.0 ** -7
 
 # the main path's shapes: the paper's 1024x1024 complex fp32 images in a
 # batch of 16 (and 1), and the 1-D plans on either side of 2^20
@@ -52,12 +62,15 @@ MAIN_FOURSTEP = (4, 1 << 20)
 MAIN_STOCKHAM = (2, 1 << 22)
 # (kernel, shape) pairs held against the plain version, forward and inverse
 CHECKS = [("fft2d_gemm", MAIN_2D), ("fft2d_gemm", (2, 8, 4)),
+          ("fft2d_fused", MAIN_2D), ("fft2d_fused", (2, 8, 16)),
+          ("fft2d_fused", (1, 64, 32)), ("fft2d_fused", (1, 256, 256)),
+          ("fft2d_fused", (3, 2, 4096)), ("fft2d_fused", (1, 4096, 2048)),
           ("fft2d_gemm", (3, 256, 512)), ("fft2d_gemm", (1, 4096, 2048)),
           ("fft_fourstep", (64, 4096)), ("fft_fourstep", MAIN_FOURSTEP),
           ("fft_stockham", MAIN_STOCKHAM), ("fft_stockham", (64, 1024)),
           ("fft_stockham", (3, 2)), ("fft_stockham", (5, 8))]
 DEMOTED_2D = (1, 1000, 1000)
-C2C_KERNELS = ("fft2d_gemm", "fft_fourstep", "fft_stockham")
+C2C_KERNELS = ("fft2d_gemm", "fft_fourstep", "fft_stockham", "fft2d_fused")
 
 # the real-input path's shapes: the paper's 1024x1024 images as real fp32
 # (batch 16 and 1), the 1-D rfft whose inner transform is four-step
@@ -86,6 +99,7 @@ CHECKS += [("fft_stockham", MAIN_RFFT_FOURSTEP),
 REAL_KERNELS = ("rfft2d_fused", "irfft2d_fused", "fft_stockham_r2",
                 "fft_fourstep", "fft_stockham")
 MAIN_SHAPE = {"fft2d_gemm": MAIN_2D, "fft_fourstep": MAIN_FOURSTEP,
+              "fft2d_fused": MAIN_2D,
               "fft_stockham": MAIN_STOCKHAM, "rfft2d_fused": MAIN_RFFT2,
               "irfft2d_fused": MAIN_RFFT2, "fft_stockham_r2": MAIN_R2}
 
@@ -121,6 +135,40 @@ CONV_CHECKS += [((SSM_GRAD_X[0],) + MAIN_CONV[1:], MAIN_CONV[1:2])]
 CHECKS += [("fft_fourstep", (FNET_X[0] * FNET_X[1], FNET_X[2])),
            ("fft_fourstep", (FNET_X[0] * FNET_X[2], FNET_X[1]))]
 CONV_KERNELS = ("fftconv_fused", "fft_fourstep")
+
+# the volume path's shapes: the 3-D grids users run on one card, a DNS
+# turbulence or particle-mesh slab at 256^3 (batch 2: every axis four-step,
+# split (16, 16)) and a PME electrostatics grid at 128^3 (batch 8: every
+# axis one dense 128-point DFT); a non-cube with a dense D axis, a (16, 16)
+# H axis and an unequal (16, 32) W axis; a shape that demotes
+MAIN_3D = (2, 256, 256, 256)
+PME_3D = (8, 128, 128, 128)
+ODD_3D = (2, 64, 256, 512)
+DEMOTED_3D = (1, 96, 128, 128)
+CHECKS += [("fft3d_fused", MAIN_3D), ("fft3d_fused", PME_3D),
+           ("fft3d_fused", ODD_3D), ("fft3d_fused", (1, 4, 8, 16)),
+           ("fft3d_fused", (2, 2, 4, 256)), ("fft3d_fused", (1, 256, 4, 4)),
+           ("fft3d_fused", (2, 8, 8, 8)),
+           # the rows fft3(algo="row_col") hands the Stockham kernel
+           ("fft_stockham", (MAIN_3D[0] * MAIN_3D[1] * MAIN_3D[2],
+                             MAIN_3D[3]))]
+# (kernel, shape, variant) in bf16: the bf16 window's images and the
+# volume window's bf16 slab, and small shapes
+BF16_CHECKS = [("fft2d_gemm", MAIN_2D, "compensated"),
+               ("fft2d_gemm", MAIN_2D, "plain"),
+               ("fft2d_gemm", (2, 8, 4), "compensated"),
+               ("fft2d_gemm", (2, 8, 4), "plain"),
+               ("fft3d_fused", MAIN_3D, "compensated"),
+               ("fft3d_fused", ODD_3D, "compensated"),
+               ("fft3d_fused", ODD_3D, "plain"),
+               ("fft3d_fused", (1, 4, 8, 16), "plain")]
+# the CPU tests' bf16 shapes (tests/test_torch_gemm_bf16.py), both variants
+BF16_CHECKS += [(k, shape, v) for k, shape in
+                [("fft2d_gemm", (1, 64, 64)), ("fft2d_gemm", (1, 256, 256)),
+                 ("fft3d_fused", (1, 32, 32, 32))]
+                for v in ("compensated", "plain")]
+VOLUME_KERNELS = ("fft3d_fused", "fft_stockham")
+MAIN_SHAPE["fft3d_fused"] = MAIN_3D
 
 
 def emit(obj) -> None:
@@ -217,6 +265,25 @@ def method_conv(batch, rows, m):
     return batch * rows * (2 * ln * (hm // 2) * 10 + 16 * hm), 16 * (hm // 2)
 
 
+def method_fft3d(b, d, h, w, fac):
+    """(method flops, table bytes) of the GEMM 3-D kernel: the four-step
+    passes along W, H and D."""
+    flops = b * (d * h * _fourstep_flops(w, fac(w)[0])
+                 + d * w * _fourstep_flops(h, fac(h)[0])
+                 + h * w * _fourstep_flops(d, fac(d)[0]))
+    tables = sum(8 * (fac(n)[0] ** 2 + (n // fac(n)[0]) ** 2 + n)
+                 for n in (w, h, d))
+    return flops, tables
+
+
+def method_stockham2d(b, h, w):
+    """(method flops, table bytes) of the fused Stockham 2-D kernel: the
+    1-D kernel's stages on every row and every column."""
+    fw, tw = method_stockham(b * h, w)
+    fh, th = method_stockham(b * w, h)
+    return fw + fh, tw + th
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, \
@@ -268,6 +335,22 @@ def np_errors(got, ref):
     return float(np.abs(to_numpy(got) - ref).max() / np.abs(ref).max())
 
 
+def np_rel_norm(got, ref):
+    import numpy as np
+    return float(np.linalg.norm(to_numpy(got) - ref) / np.linalg.norm(ref))
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel symbol: ptxas resource line} from an nvcc -Xptxas -v log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Used" in line and name is not None:
+            out[name] = line.split(":", 1)[1].strip()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -276,10 +359,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
-    from repro_torch.core import (from_numpy, fft2, get_plan, plan_fft,
-                                  clear_plan_cache, rfft, irfft, rfft2,
-                                  irfft2, fft_conv, circular_conv,
-                                  fourier_mix)
+    from repro_torch.core import (SplitComplex, from_numpy, fft2, fft3,
+                                  get_plan, plan_fft, clear_plan_cache, rfft,
+                                  irfft, rfft2, irfft2, fft_conv,
+                                  circular_conv, fourier_mix)
     from repro_torch.core import fftconv as FC
     from repro_torch.core.fft1d import assert_full_fp32
     from repro_torch.kernels import _build, ops
@@ -288,6 +371,8 @@ def main() -> int:
     from repro_torch.kernels import fft_stockham as S
     from repro_torch.kernels import rfft2d_fused as R
     from repro_torch.kernels import fftconv_fused as C
+    from repro_torch.kernels import fft3d_fused as V
+    from repro_torch.kernels import fft2d_fused as S2
     from repro_torch.kernels.rfft2d_fused import fourstep_factors
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -307,6 +392,9 @@ def main() -> int:
     def real_on_card(z):
         return torch.from_numpy(z).to(dev, torch.float32)
 
+    def bf16(x):
+        return SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+
     # 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -321,11 +409,13 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "Used" in ln]
-             for n, log in logs.items()}
+    ptxas = {n: ptxas_report(log) for n, log in logs.items()}
+    # the fp32 GEMM core's instance, cg::cgemm_kernel<false, false, EPI_F32>
+    f32_gemm = {n: r[k] for n, r in ptxas.items() for k in r
+                if "cgemm_kernel" in k and "Lb0ELb0ELi0E" in k}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": [_build.library_path(n).name for n in _build.SOURCES],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "cgemm_f32": f32_gemm})
 
     # 3. kernel vs plain version, forward and inverse (for the real-input
     # pair the inverse is irfft2d_fused, fed a random half spectrum whose
@@ -350,6 +440,10 @@ def main() -> int:
                                  TOL_1D),
              "fft_stockham_r2": c2c(S.fft_stockham_r2_cuda,
                                     S.fft_stockham_r2_plain, TOL_1D),
+             "fft3d_fused": c2c(V.fft3d_fused_cuda, V.fft3d_fused_plain,
+                                TOL_2D),
+             "fft2d_fused": c2c(S2.fft2d_fused_cuda, S2.fft2d_fused_plain,
+                                TOL_2D),
              "rfft2d_fused": (
                  lambda x, inverse: R.irfft2d_fused_cuda(x) if inverse
                  else R.rfft2d_fused_cuda(x),
@@ -378,6 +472,30 @@ def main() -> int:
                   "ok": ok})
             del x, got, ref
     torch.cuda.empty_cache()
+    bf16_kernels = {"fft2d_gemm": (G.fft2d_gemm_cuda, G.fft2d_gemm_plain),
+                    "fft3d_fused": (V.fft3d_fused_cuda, V.fft3d_fused_plain)}
+    for name, shape, variant in BF16_CHECKS:
+        kern, plain = bf16_kernels[name]
+        for inverse in (False, True):
+            x = bf16(from_numpy(rand(shape), device=dev))
+            got = kern(x, inverse=inverse, variant=variant)
+            torch.cuda.synchronize()
+            ref = plain(x, inverse=inverse, variant=variant)
+            abs_err, rel = errors(tuple(t.float() for t in got),
+                                  tuple(t.float() for t in ref))
+            ok = rel <= TOL_BF16 and got.re.dtype == torch.bfloat16
+            if not ok:
+                failures.append(f"{name}{shape} bf16 {variant} "
+                                f"inverse={inverse}: {rel}")
+            if (name, shape, variant, inverse) == (
+                    "fft2d_gemm", MAIN_2D, "compensated", False):
+                main_err["fft2d_gemm_bf16"] = abs_err
+            emit({"phase": "kernel_vs_plain", "kernel": name,
+                  "dtype": "bfloat16", "variant": variant, "shape": shape,
+                  "inverse": inverse, "max_abs_err": abs_err,
+                  "err_over_max": rel, "tol": TOL_BF16, "ok": ok})
+            del x, got, ref
+    torch.cuda.empty_cache()
 
     # 4. main path through the registry
     clear_plan_cache()
@@ -393,6 +511,8 @@ def main() -> int:
     back1 = fft2(y1, inverse=True, backend="cuda")
     yr = fft2(x1, algo="row_col", backend="cuda")   # two Stockham passes
     backr = fft2(yr, inverse=True, algo="row_col", backend="cuda")
+    ys16 = fft2(x16, algo="fused_stockham", backend="cuda")   # the oracle
+    backs16 = fft2(ys16, inverse=True, algo="fused_stockham", backend="cuda")
     ya = plan_fft(MAIN_FOURSTEP[1], backend="cuda")(xa)
     yb = plan_fft(MAIN_STOCKHAM[1], backend="cuda")(xb)
     torch.cuda.synchronize()
@@ -407,6 +527,8 @@ def main() -> int:
         "fft2_b1_roundtrip": np_errors(back1, z1),
         "fft2_row_col_b1_vs_numpy": np_errors(yr, np.fft.fft2(z1)),
         "fft2_row_col_b1_roundtrip": np_errors(backr, z1),
+        "fft2_fused_stockham_b16_vs_numpy": np_errors(ys16, np.fft.fft2(z16)),
+        "fft2_fused_stockham_b16_roundtrip": np_errors(backs16, z16),
         "fft_2^20_vs_numpy": np_errors(ya, np.fft.fft(za)),
         "fft_2^22_vs_numpy": np_errors(yb, np.fft.fft(zb)),
     }
@@ -415,6 +537,8 @@ def main() -> int:
               "fft2_b1_roundtrip": TOL_ROUNDTRIP,
               "fft2_row_col_b1_vs_numpy": TOL_NUMPY,
               "fft2_row_col_b1_roundtrip": TOL_ROUNDTRIP,
+              "fft2_fused_stockham_b16_vs_numpy": TOL_NUMPY,
+              "fft2_fused_stockham_b16_roundtrip": TOL_ROUNDTRIP,
               "fft_2^20_vs_numpy": TOL_1D, "fft_2^22_vs_numpy": TOL_1D}
     for k, v in checks.items():
         if not (v <= limits[k]):
@@ -427,7 +551,7 @@ def main() -> int:
     for k in C2C_KERNELS:
         if launches[k] <= 0:
             failures.append(f"kernel {k} was not launched on the main path")
-    del x16, y16, back16, xa, ya, xb, yb, yr, backr
+    del x16, y16, back16, xa, ya, xb, yb, yr, backr, ys16, backs16
     torch.cuda.empty_cache()
     # a shape with no kernel path demotes to the torch backend
     zd = rand(DEMOTED_2D)
@@ -650,6 +774,121 @@ def main() -> int:
     del xs, ys, ys_full, yc, g_cuda, g_torch, ym, xf_mix
     torch.cuda.empty_cache()
 
+    # 4d. the volume path: fft3 through the registry at the DNS slab and
+    # the PME grid, the row_col baseline, bf16, and a shape that demotes
+    clear_plan_cache()
+    zv, zp = rand(MAIN_3D), rand(PME_3D)
+    xv, xp = from_numpy(zv, device=dev), from_numpy(zp, device=dev)
+    xvb = bf16(xv)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    yv = fft3(xv, backend="cuda")
+    backv = fft3(yv, inverse=True, backend="cuda")
+    yp = fft3(xp, backend="cuda")
+    backp = fft3(yp, inverse=True, backend="cuda")
+    yrc = fft3(xv, algo="row_col", backend="cuda")   # three Stockham passes
+    yvb = fft3(xvb, backend="cuda")                  # bf16: compensated
+    torch.cuda.synchronize()
+    launches_vol = dict(ops.LAUNCHES)
+    fv = np.fft.fftn(zv, axes=(-3, -2, -1))
+    fp = np.fft.fftn(zp, axes=(-3, -2, -1))
+    vchecks = {"fft3_256^3x2_vs_numpy": np_rel_norm(yv, fv),
+               "fft3_256^3x2_roundtrip": np_errors(backv, zv),
+               "fft3_128^3x8_vs_numpy": np_rel_norm(yp, fp),
+               "fft3_128^3x8_roundtrip": np_errors(backp, zp),
+               "fft3_row_col_256^3x2_vs_numpy": np_rel_norm(yrc, fv),
+               "fft3_bf16_256^3x2_vs_numpy": np_rel_norm(yvb, fv)}
+    del fp
+    vlimits = {k: TOL_ROUNDTRIP if "roundtrip" in k else
+               TOL_BF16_NUMPY if "bf16" in k else TOL_3D_NUMPY
+               for k in vchecks}
+    for k, v in vchecks.items():
+        if not (v <= vlimits[k]):
+            failures.append(f"volume path {k}: {v} > {vlimits[k]}")
+    if yvb.re.dtype != torch.bfloat16:
+        failures.append(f"bf16 fft3 returned {yvb.re.dtype}")
+    vplans = {"fft3_256^3": get_plan(MAIN_3D[1:], backend="cuda"),
+              "fft3_128^3": get_plan(PME_3D[1:], backend="cuda"),
+              "fft3_256^3_bf16": get_plan(MAIN_3D[1:], dtype=torch.bfloat16,
+                                          backend="cuda")}
+    vwant = {"fft3_256^3": "plain", "fft3_128^3": "plain",
+             "fft3_256^3_bf16": "compensated"}
+    for k, pl in vplans.items():
+        if (pl.algo, pl.backend, pl.variant, pl.demote_reason) != \
+                ("fused", "cuda", vwant[k], None):
+            failures.append(f"{k} plan resolved to {pl}")
+    for k in VOLUME_KERNELS:
+        if launches_vol[k] <= 0:
+            failures.append(f"kernel {k} was not launched on the volume "
+                            "path")
+    del xv, yv, backv, xp, yp, backp, yrc, xvb, yvb
+    torch.cuda.empty_cache()
+    zd = rand(DEMOTED_3D)
+    yd = fft3(from_numpy(zd, device=dev), backend="cuda")
+    pd3 = get_plan(DEMOTED_3D[1:], backend="cuda")
+    reason = ("kernels need power-of-two tile dims >= 2, "
+              f"got {DEMOTED_3D[1:]}")
+    vdemote_err = np_errors(yd, np.fft.fftn(zd, axes=(-3, -2, -1)))
+    if (pd3.backend, pd3.algo, pd3.demote_reason) != ("torch", "row_col",
+                                                      reason):
+        failures.append(f"{DEMOTED_3D[1:]} plan: {pd3}")
+    if not vdemote_err <= TOL_NUMPY:
+        failures.append(f"{DEMOTED_3D[1:]} torch path error {vdemote_err}")
+    emit({"phase": "volume_path", "launches": launches_vol,
+          "errors": vchecks, "limits": vlimits,
+          "plans": {k: [pl.algo, pl.backend, pl.variant, pl.demote_reason]
+                    for k, pl in vplans.items()},
+          "demoted_96x128x128": {"backend": pd3.backend,
+                                 "demote_reason": pd3.demote_reason,
+                                 "err_vs_numpy": vdemote_err}})
+    del zd, yd
+    torch.cuda.empty_cache()
+
+    # 4e. bf16 images: fft2 on 16 1024^2 bf16 images, compensated through
+    # the registry and plain by explicit variant, against float64 numpy of
+    # the unrounded input (as the reference's bound is stated)
+    clear_plan_cache()
+    zb = rand(MAIN_2D)
+    xb = bf16(from_numpy(zb, device=dev))
+    plain_plan = get_plan(MAIN_2D[1:], dtype=torch.bfloat16, backend="cuda",
+                          variant="plain")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    yb_c = fft2(xb, backend="cuda")
+    yb_p = plain_plan(xb)
+    backb = fft2(yb_c, inverse=True, backend="cuda")
+    torch.cuda.synchronize()
+    launches_bf16 = dict(ops.LAUNCHES)
+    fb = np.fft.fft2(zb)
+    bchecks = {"fft2_bf16_compensated_vs_numpy": np_rel_norm(yb_c, fb),
+               "fft2_bf16_plain_vs_numpy": np_rel_norm(yb_p, fb),
+               "fft2_bf16_compensated_roundtrip": np_rel_norm(backb, zb)}
+    blimits = {"fft2_bf16_compensated_vs_numpy": TOL_BF16_NUMPY}
+    for k, v in blimits.items():
+        if not (bchecks[k] <= v):
+            failures.append(f"bf16 path {k}: {bchecks[k]} > {v}")
+    if not all(np.isfinite(v) for v in bchecks.values()):
+        failures.append(f"bf16 path: non-finite errors {bchecks}")
+    comp_plan = get_plan(MAIN_2D[1:], dtype=torch.bfloat16, backend="cuda")
+    bplans = {"fft2_1024_bf16": comp_plan, "fft2_1024_bf16_plain": plain_plan}
+    for k, want in (("fft2_1024_bf16", "compensated"),
+                    ("fft2_1024_bf16_plain", "plain")):
+        pl = bplans[k]
+        if (pl.algo, pl.backend, pl.variant) != ("fused", "cuda", want):
+            failures.append(f"{k} plan resolved to {pl}")
+    if launches_bf16["fft2d_gemm"] <= 0:
+        failures.append("kernel fft2d_gemm was not launched on the bf16 "
+                        "path")
+    for y in (yb_c, yb_p, backb):
+        if y.re.dtype != torch.bfloat16:
+            failures.append(f"bf16 fft2 returned {y.re.dtype}")
+    emit({"phase": "bf16_path", "launches": launches_bf16,
+          "errors": bchecks, "limits": blimits,
+          "plans": {k: [pl.algo, pl.backend, pl.variant]
+                    for k, pl in bplans.items()}})
+    del xb, yb_c, yb_p, backb
+    torch.cuda.empty_cache()
+
     # 5. timing at the main paths' shapes; each spec makes its kernel's
     # input and the library call's input from one seeded array
     def complex_inputs(shape):
@@ -665,6 +904,21 @@ def main() -> int:
         x = from_numpy(rand((b, h, w // 2 + 1)), device=dev)
         return x, torch.complex(x.re, x.im)
 
+    def bf16_inputs(shape):
+        """bf16 planes, and the same values as complex64 for the library
+        call (cuFFT has no bf16 transform)."""
+        x = bf16(from_numpy(rand(shape), device=dev))
+        return x, torch.complex(x.re.float(), x.im.float())
+
+    def bf16_counts(batch, n):
+        """fft_counts with 2-byte planes: 8 bytes a complex point in and
+        out."""
+        flops, nbytes = fft_counts(batch, n)
+        return flops, nbytes // 2
+
+    n3 = MAIN_3D[1] * MAIN_3D[2] * MAIN_3D[3]
+    n2 = MAIN_2D[1] * MAIN_2D[2]
+
     kernels = []
     hw = MAIN_RFFT2[1:]
     specs = [
@@ -672,36 +926,58 @@ def main() -> int:
          G.fft2d_gemm_plain, lambda c: torch.fft.fft2(c), complex_inputs,
          fft_counts(MAIN_2D[0], MAIN_2D[1] * MAIN_2D[2]),
          method_fft2d(*MAIN_2D, fourstep_factors),
-         "src/repro/kernels/fft2d_gemm.py:79", "fft2d_gemm", launches),
+         "src/repro/kernels/fft2d_gemm.py:79", "fft2d_gemm",
+         launches["fft2d_gemm"]),
         ("fft_fourstep", MAIN_FOURSTEP, F.fft_fourstep_cuda,
          F.fft_fourstep_plain, lambda c: torch.fft.fft(c), complex_inputs,
          fft_counts(*MAIN_FOURSTEP),
          method_fourstep(*MAIN_FOURSTEP, F._split_n(MAIN_FOURSTEP[1])[0]),
-         "src/repro/kernels/fft_fourstep.py:45", "fft_fourstep", launches),
+         "src/repro/kernels/fft_fourstep.py:45", "fft_fourstep",
+         launches["fft_fourstep"]),
         ("fft_stockham", MAIN_STOCKHAM, S.fft_stockham_cuda,
          S.fft_stockham_plain, lambda c: torch.fft.fft(c), complex_inputs,
          fft_counts(*MAIN_STOCKHAM), method_stockham(*MAIN_STOCKHAM),
-         "src/repro/kernels/fft_stockham.py:45", "fft_stockham", launches),
+         "src/repro/kernels/fft_stockham.py:45", "fft_stockham",
+         launches["fft_stockham"]),
         ("fft_stockham_r2", MAIN_R2, S.fft_stockham_r2_cuda,
          S.fft_stockham_r2_plain, lambda c: torch.fft.fft(c),
          complex_inputs, fft_counts(*MAIN_R2), method_stockham_r2(*MAIN_R2),
          "src/repro/kernels/fft_stockham.py:59", "fft_stockham",
-         launches_real),
+         launches_real["fft_stockham_r2"]),
         ("rfft2d_fused", MAIN_RFFT2, R.rfft2d_fused_cuda,
          R.rfft2d_fused_plain, lambda c: torch.fft.rfft2(c), real_inputs,
          rfft_counts(*MAIN_RFFT2), method_rfft2d(*MAIN_RFFT2,
                                                  fourstep_factors),
          "src/repro/kernels/rfft2d_fused.py:135", "rfft2d_fused",
-         launches_real),
+         launches_real["rfft2d_fused"]),
         ("irfft2d_fused", MAIN_RFFT2, R.irfft2d_fused_cuda,
          R.irfft2d_fused_plain, lambda c: torch.fft.irfft2(c, s=hw),
          half_inputs, rfft_counts(*MAIN_RFFT2),
          method_rfft2d(*MAIN_RFFT2, fourstep_factors),
          "src/repro/kernels/rfft2d_fused.py:163", "rfft2d_fused",
-         launches_real),
+         launches_real["irfft2d_fused"]),
+        ("fft3d_fused", MAIN_3D, V.fft3d_fused_cuda, V.fft3d_fused_plain,
+         lambda c: torch.fft.fftn(c, dim=(-3, -2, -1)), complex_inputs,
+         fft_counts(MAIN_3D[0], n3),
+         method_fft3d(*MAIN_3D, V.fourstep_factors3),
+         "src/repro/kernels/fft3d_fused.py:76", "fft3d_fused",
+         launches_vol["fft3d_fused"]),
+        ("fft2d_fused", MAIN_2D, S2.fft2d_fused_cuda, S2.fft2d_fused_plain,
+         lambda c: torch.fft.fft2(c), complex_inputs,
+         fft_counts(MAIN_2D[0], n2), method_stockham2d(*MAIN_2D),
+         "src/repro/kernels/fft2d_fused.py:37", "fft2d_fused",
+         launches["fft2d_fused"]),
+        # row 1's bf16 line: the compensated variant the registry picks
+        ("fft2d_gemm_bf16", MAIN_2D,
+         lambda x: G.fft2d_gemm_cuda(x, variant="compensated"),
+         lambda x: G.fft2d_gemm_plain(x, variant="compensated"),
+         lambda c: torch.fft.fft2(c), bf16_inputs,
+         bf16_counts(MAIN_2D[0], n2), method_fft2d(*MAIN_2D, fourstep_factors),
+         "src/repro/kernels/fft2d_gemm.py:79", "fft2d_gemm",
+         launches_bf16["fft2d_gemm"]),
     ]
     for name, shape, kern, plain, lib, inputs, (flops, nbytes), \
-            (method_flops, table_bytes), replaces, source, counts in specs:
+            (method_flops, table_bytes), replaces, source, count in specs:
         x, c = inputs(shape)
         k_ms = time_ms(lambda: kern(x), torch)
         p_ms = time_ms(lambda: plain(x), torch)
@@ -712,10 +988,11 @@ def main() -> int:
               "bound_us": b_ms * 1e3, "bound_by": b_by, "fft_flops": flops,
               "io_bytes": nbytes, "method_flops": method_flops,
               "table_bytes": table_bytes,
-              "method_tflops": method_flops / k_ms / 1e9})
+              "method_tflops": method_flops / k_ms / 1e9,
+              "launches": count, "nvidia_smi": smi})
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}.cu",
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": count,
                         "max_abs_err": main_err[name], "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": l_ms})
@@ -744,7 +1021,8 @@ def main() -> int:
           "bound_by": b_by, "fft_flops": flops, "io_bytes": nbytes,
           "method_flops": method_flops, "table_bytes": table_bytes,
           "method_tflops": method_flops / k_ms / 1e9,
-          "hbm_tb_per_s": nbytes / k_ms / 1e9})
+          "hbm_tb_per_s": nbytes / k_ms / 1e9,
+          "launches": launches_conv["fftconv_fused"], "nvidia_smi": smi})
     kernels.append({"name": "fftconv_fused", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/fftconv_fused.cu",
                     "replaces": "src/repro/kernels/fftconv_fused.py:178",
@@ -767,8 +1045,58 @@ def main() -> int:
         b_ms, b_by = bound_ms(*conv_counts(*shape, TABLE11_ROWS))
         emit({"phase": "timing", "kernel": "fftconv_fused", "shape": shape,
               "cell": "table11", "kernel_ms": k_ms, "library_ms": l_ms,
-              "bound_us": b_ms * 1e3, "bound_by": b_by})
+              "bound_us": b_ms * 1e3, "bound_by": b_by, "nvidia_smi": smi})
         del xc, efc, kfc
+    torch.cuda.empty_cache()
+
+    # recorded beside the kernels line, not entries of it: the 3-D kernel
+    # at the PME grid and in bf16, plain bf16 images, and the fused 3-D
+    # kernel against the whole row_col schedule (three Stockham passes and
+    # their relayouts, whose plain twin is the torch backend's schedule),
+    # each with its plain version, the library call and the bound
+    fftn = lambda c: torch.fft.fftn(c, dim=(-3, -2, -1))  # noqa: E731
+    extra = [
+        ("fft3d_fused", "pme_128^3x8", PME_3D, V.fft3d_fused_cuda,
+         V.fft3d_fused_plain, fftn, complex_inputs,
+         fft_counts(PME_3D[0], PME_3D[1] ** 3),
+         method_fft3d(*PME_3D, V.fourstep_factors3),
+         launches_vol["fft3d_fused"]),
+        ("fft3d_fused", "bf16_compensated", MAIN_3D,
+         lambda x: V.fft3d_fused_cuda(x, variant="compensated"),
+         lambda x: V.fft3d_fused_plain(x, variant="compensated"), fftn,
+         bf16_inputs, bf16_counts(MAIN_3D[0], n3),
+         method_fft3d(*MAIN_3D, V.fourstep_factors3),
+         launches_vol["fft3d_fused"]),
+        ("fft2d_gemm", "bf16_plain", MAIN_2D,
+         lambda x: G.fft2d_gemm_cuda(x, variant="plain"),
+         lambda x: G.fft2d_gemm_plain(x, variant="plain"),
+         lambda c: torch.fft.fft2(c), bf16_inputs,
+         bf16_counts(MAIN_2D[0], n2),
+         method_fft2d(*MAIN_2D, fourstep_factors),
+         launches_bf16["fft2d_gemm"]),
+        ("fft3_row_col", "row_col_schedule", MAIN_3D,
+         lambda x: fft3(x, algo="row_col", backend="cuda"),
+         lambda x: fft3(x, algo="row_col", backend="torch"), fftn,
+         complex_inputs, fft_counts(MAIN_3D[0], n3), (None, None),
+         launches_vol["fft_stockham"]),
+    ]
+    for name, cell, shape, kern, plain, lib, inputs, (flops, nbytes), \
+            (method_flops, table_bytes), count in extra:
+        x, c = inputs(shape)
+        k_ms = time_ms(lambda: kern(x), torch)
+        p_ms = time_ms(lambda: plain(x), torch)
+        l_ms = time_ms(lambda: lib(c), torch)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        emit({"phase": "timing", "kernel": name, "cell": cell,
+              "shape": shape, "kernel_ms": k_ms, "plain_ms": p_ms,
+              "library_ms": l_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+              "fft_flops": flops, "io_bytes": nbytes,
+              "method_flops": method_flops, "table_bytes": table_bytes,
+              "method_tflops": method_flops / k_ms / 1e9
+              if method_flops else None, "launches": count,
+              "nvidia_smi": smi})
+        del x, c
+        torch.cuda.empty_cache()
 
     if failures:
         for f in failures:

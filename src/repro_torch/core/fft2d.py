@@ -1,14 +1,17 @@
-"""Single-device 2-D FFTs (the paper's Section 5 workload, one card).
+"""Single-device 2-D / 3-D FFTs (the paper's Section 5 workload, one card).
 
-Counterpart of :mod:`repro.core.fft2d` (``fft2``, ``rfft2`` and ``irfft2``
-of this slice):
+Counterpart of :mod:`repro.core.fft2d` (``fft2``, ``fft3``, ``rfft2`` and
+``irfft2``):
 
 - ``backend="torch"`` — row-column decomposition with the plain 1-D
   algorithms and an explicit transpose between the passes.
 - ``backend="cuda"`` — ``algo="fused"`` (the ``auto`` choice) runs the
-  GEMM-formulated 2-D kernel (:mod:`repro_torch.kernels.fft2d_gemm`);
-  ``algo="row_col"`` runs two Stockham kernel passes with an explicit
-  swap between them, the measured baseline.
+  GEMM-formulated kernels (:mod:`repro_torch.kernels.fft2d_gemm` for 2-D,
+  :mod:`repro_torch.kernels.fft3d_fused` for 3-D; float32 or bfloat16,
+  ``variant`` plain or compensated); ``algo="fused_stockham"`` (2-D) the
+  Stockham-stage fused kernel (:mod:`repro_torch.kernels.fft2d_fused`),
+  the explicit-algo oracle; ``algo="row_col"`` runs one Stockham kernel
+  pass per axis with explicit swaps between them, the measured baseline.
 
 ``rfft2``/``irfft2`` on ``backend="cuda"`` run the fused real-input
 kernels (:mod:`repro_torch.kernels.rfft2d_fused`); an explicit 1-D algo
@@ -53,9 +56,9 @@ def _fft2_direct(x: SplitComplex, *, inverse: bool = False,
                                    block_batch=block_batch or 1,
                                    variant=variant)
         if algo == "fused_stockham":
-            raise NotImplementedError(
-                'algo="fused_stockham" needs the _fft2d_kernel port: '
-                "ROADMAP 'TPU kernels to port' item 7")
+            # the explicit-algo oracle: the Stockham-stage fused kernel
+            return kops.fft2d_fused(x, inverse=inverse,
+                                    block_batch=block_batch or 1)
         bb = block_batch or 8
         y = kops.fft_stockham(x, inverse=inverse, block_batch=bb)
         y = kops.fft_stockham(_swap_contig(y), inverse=inverse,
@@ -81,6 +84,58 @@ def fft2(x: SplitComplex, *, inverse: bool = False, algo: str = "auto",
         return _plan.get_plan(x.shape[-2:], dtype=x.dtype, inverse=inverse,
                               backend=backend)(x)
     return _fft2_direct(x, inverse=inverse, algo=algo, backend=backend)
+
+
+def _fft3_direct(x: SplitComplex, *, inverse: bool = False,
+                 algo: str = "auto", backend: str = "torch",
+                 block_batch: int = None,
+                 variant: str = "plain") -> SplitComplex:
+    """Execute a resolved 3-D plan config (no registry lookup)."""
+    if backend == "cuda":
+        from repro_torch.kernels import ops as kops
+        if algo not in ("auto", "fused", "row_col"):
+            raise ValueError(f'algo={algo!r} has no cuda 3-D path; use '
+                             '"fused" or "row_col" (or backend="torch")')
+        if algo in ("auto", "fused"):
+            return kops.fft3d_fused(x, inverse=inverse,
+                                    block_batch=block_batch or 1,
+                                    variant=variant)
+        # transpose-based baseline: three 1-D kernel passes with explicit
+        # global (HBM) relayouts between them
+        bb = block_batch or 8
+        y = kops.fft_stockham(x, inverse=inverse, block_batch=bb)
+        y = kops.fft_stockham(_swap_contig(y), inverse=inverse,
+                              block_batch=bb)
+        y = _swap_contig(y)
+        y = kops.fft_stockham(_swap(y, -1, -3), inverse=inverse,
+                              block_batch=bb)
+        return _swap(y, -1, -3)
+    if algo == "fused":
+        raise ValueError('algo="fused" requires backend="cuda" '
+                         '(the fused 3-D kernel has no torch equivalent)')
+    pass_algo = "auto" if algo in ("auto", "row_col") else algo
+    y = fft1d.fft(x, inverse=inverse, algo=pass_algo)
+    y = _swap(y, -1, -2)
+    y = fft1d.fft(y, inverse=inverse, algo=pass_algo)
+    y = _swap(y, -1, -2)
+    y = _swap(y, -1, -3)
+    y = fft1d.fft(y, inverse=inverse, algo=pass_algo)
+    return _swap(y, -1, -3)
+
+
+def fft3(x: SplitComplex, *, inverse: bool = False, algo: str = "auto",
+         backend: str = "torch") -> SplitComplex:
+    """3-D FFT over the last three axes, routed through the plan registry:
+    ``algo="auto"`` resolves the (d, h, w) key once per shape; cuda keys
+    select the fused 3-D kernel and demote to torch with a
+    registry-visible reason when the shape has no kernel path."""
+    if len(x.shape) < 3:
+        raise ValueError(f"fft3 needs at least 3 axes, got shape {x.shape}")
+    if algo == "auto":
+        from . import plan as _plan
+        return _plan.get_plan(x.shape[-3:], dtype=x.dtype, inverse=inverse,
+                              backend=backend)(x)
+    return _fft3_direct(x, inverse=inverse, algo=algo, backend=backend)
 
 
 def rfft2(x: torch.Tensor, *, algo: str = "auto",

@@ -1,15 +1,21 @@
 """FFTW-style plan registry: resolve once, apply many times.
 
-Counterpart of :mod:`repro.core.plan` for this slice: c2c and rfft 1-D
-and 2-D keys.  A :class:`FFTPlan` captures (shape, dtype, direction,
-backend, kind) plus the resolved execution config (algo, radix,
-block_batch, variant).  Plans are interned: two requests with the same key
+Counterpart of :mod:`repro.core.plan`: c2c 1-D, 2-D and 3-D keys, rfft
+1-D and 2-D keys and the conv kinds.  A :class:`FFTPlan` captures (shape,
+dtype, direction, backend, kind) plus the resolved execution config
+(algo, radix, block_batch, variant).  Plans are interned: two requests with the same key
 return the same object.
 
 ``backend="torch"`` runs the plain algorithms of
 :mod:`repro_torch.core.fft1d`; ``backend="cuda"`` runs the kernels through
 :mod:`repro_torch.kernels.ops`.  Shapes with no kernel path demote to
 ``"torch"`` with the reference's ``demote_reason`` wording.
+
+3-D c2c keys ``(d, h, w)`` on ``"cuda"`` resolve to the fused 3-D GEMM
+kernel (:mod:`repro_torch.kernels.fft3d_fused`, ``algo="fused"``);
+``"row_col"`` runs three Stockham kernel passes.  GEMM-fused 2-D/3-D
+plans carry a ``variant``: ``"auto"`` resolves to ``"compensated"`` for
+sub-fp32 dtypes (the bf16 path), ``"plain"`` otherwise.
 
 ``kind="rfft"`` interns a real-input plan keyed on the *real* shape: 1-D
 keys resolve the inner complex transform (length n/2 forward, n inverse),
@@ -23,8 +29,8 @@ to the fused conv kernel (:mod:`repro_torch.kernels.fftconv_fused`,
 irfft schedule (``algo="unfused"``).  A conv plan takes the filter half
 spectrum as a second operand: ``plan(x, kf)``.
 
-Not ported yet (each raises ``NotImplementedError``): 3-D keys (ROADMAP
-'Modules to port' item 8), ``tune=True`` and wisdom (item 10).
+Not ported yet (raises ``NotImplementedError``): ``tune=True`` and wisdom
+(ROADMAP 'Modules to port' item 10).
 ``FFTPlan.__call__`` runs ``_execute`` directly; the guarded executor is
 item 9.
 """
@@ -76,7 +82,7 @@ def _plan_key(shape, dtype, inverse, backend, kind="c2c") -> PlanKey:
 
 @dataclasses.dataclass(frozen=True)
 class FFTPlan:
-    shape: Tuple[int, ...]            # transform shape: (n,) or (h, w)
+    shape: Tuple[int, ...]            # (n,), (h, w) or (d, h, w)
     dtype: str = "float32"
     inverse: bool = False
     algo: str = "auto"                # resolved at construction, never "auto"
@@ -122,6 +128,12 @@ class FFTPlan:
         if self.ndim == 2:
             from . import fft2d
             return fft2d._fft2_direct(x, inverse=self.inverse, algo=self.algo,
+                                      backend=self.backend,
+                                      block_batch=self.block_batch,
+                                      variant=self.variant)
+        if self.ndim == 3:
+            from . import fft2d
+            return fft2d._fft3_direct(x, inverse=self.inverse, algo=self.algo,
                                       backend=self.backend,
                                       block_batch=self.block_batch,
                                       variant=self.variant)
@@ -220,11 +232,8 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
         if inverse:
             raise ValueError("conv plans have no inverse direction (the "
                              "irfft is fused inside the plan)")
-    if len(shape) == 3:
-        raise NotImplementedError("3-D plans are not ported yet: ROADMAP "
-                                  "'Modules to port' item 8")
-    if len(shape) not in (1, 2):
-        raise ValueError(f"1-D/2-D plans only, got {shape}")
+    if len(shape) not in (1, 2, 3):
+        raise ValueError(f"1-D/2-D/3-D plans only, got {shape}")
     if tune:
         raise NotImplementedError("plan autotuning and wisdom are not ported "
                                   "yet: ROADMAP 'Modules to port' item 10")
@@ -305,7 +314,8 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
             backend = "torch"
         block_batch = 8
     else:
-        fused_algos = ("fused", "fused_stockham")
+        fused_algos = ("fused", "fused_stockham") if len(shape) == 2 \
+            else ("fused",)           # no 3-D Stockham oracle
         if backend == "cuda" and not kernel_ok:
             demote = ("kernels need power-of-two tile dims >= 2, "
                       f"got {shape}")
@@ -321,13 +331,14 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
                              '(the fused kernels have no torch equivalent)')
         if resolved not in fused_algos + ("row_col",):
             raise ValueError(
-                f'algo={resolved!r} is not a 2-D plan algo; '
+                f'algo={resolved!r} is not a {len(shape)}-D plan algo; '
                 f'use one of {fused_algos + ("row_col",)} or "auto"')
         block_batch = 1 if resolved in fused_algos else 8
 
-    # the GEMM kernel is the only variant-aware path; "auto" picks the
-    # compensated tables for sub-fp32 dtypes, as the reference does
-    gemm_path = (kind == "c2c" and len(shape) == 2 and backend == "cuda"
+    # the GEMM kernels (complex fused 2-D/3-D) are the only variant-aware
+    # paths; "auto" picks the compensated tables for sub-fp32 dtypes, as
+    # the reference does
+    gemm_path = (kind == "c2c" and len(shape) >= 2 and backend == "cuda"
                  and resolved == "fused")
     if variant == "auto":
         res_variant = "compensated" if gemm_path and \
@@ -335,7 +346,8 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
     elif variant == "compensated" and not gemm_path:
         if demote is None:
             raise ValueError('variant="compensated" requires a GEMM fused '
-                             'plan (2-D c2c, backend="cuda", algo="fused")')
+                             'plan (2-D/3-D c2c, backend="cuda", '
+                             'algo="fused")')
         res_variant = "plain"         # the kernel path demoted away
     else:
         res_variant = variant

@@ -35,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm", "rfft2d_fused",
-           "fftconv_fused")
+           "fftconv_fused", "fft3d_fused", "fft2d_fused")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -130,22 +130,26 @@ def function(name: str, symbol: str, argtypes):
     return fn
 
 
-def check_operands(x, ndim: int) -> None:
+def check_operands(x, ndim: int, dtypes=(torch.float32,)) -> None:
     """What every CUDA wrapper requires of its data operand, a
-    :class:`SplitComplex` or one real tensor."""
+    :class:`SplitComplex` or one real tensor: CUDA, one of ``dtypes``
+    (float32 for every kernel but the GEMM transforms), ``ndim`` dims,
+    contiguous."""
     planes = tuple(x) if isinstance(x, SplitComplex) else (x,)
     for t in planes:
         if not t.is_cuda:
             raise ValueError("the CUDA kernel needs CUDA tensors")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"the CUDA kernel takes {names}, got {t.dtype}")
         if t.dim() != ndim:
             raise ValueError(f"expected {ndim}-D planes, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels need contiguous planes")
     if len(planes) == 2 and (x.re.shape != x.im.shape
-                             or x.re.device != x.im.device):
-        raise ValueError("re and im planes differ in shape or device")
+                             or x.re.device != x.im.device
+                             or x.re.dtype != x.im.dtype):
+        raise ValueError("re and im planes differ in shape, device or dtype")
 
 
 def check(code: int, what: str) -> None:

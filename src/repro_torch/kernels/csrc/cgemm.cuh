@@ -1,5 +1,5 @@
-// Tiled split-complex fp32 GEMM shared by fft_fourstep.cu, fft2d_gemm.cu
-// and rfft2d_fused.cu.
+// Tiled split-complex fp32 GEMM shared by fft_fourstep.cu, fft2d_gemm.cu,
+// rfft2d_fused.cu and fft3d_fused.cu.
 //
 //   C_z[m, n] = scale * T[m, n] * sum_k A_z[m, k] * B_z[k, n]
 //
@@ -13,8 +13,17 @@
 // Full fp32 FMA on the CUDA cores: no TF32, no tensor cores.  A 64x64
 // output tile per 256-thread block, 16-deep k tiles staged through shared
 // memory, a 4x4 register micro-tile per thread.
+//
+// bf16 transforms (fft2d_gemm.cu, fft3d_fused.cu) use template instances
+// of the same kernel: the A or the B operand may be raw bf16 (widened on
+// load), and the epilogue stores fp32 (EPI_F32), fp32 rounded through
+// bf16 (EPI_ROUND) or raw bf16 (EPI_BF16); the sums stay fp32.  The bf16
+// code sits behind `if constexpr`, so the fp32 instance <false, false,
+// EPI_F32> carries none of it: the core's speed follows its register
+// count (ROADMAP 2c).
 #pragma once
 #include <cuda_runtime.h>
+#include "bf16.cuh"
 
 namespace cg {
 
@@ -44,6 +53,23 @@ struct Params {
 
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, NT = 256;
 
+enum Epi { EPI_F32 = 0, EPI_ROUND = 1, EPI_BF16 = 2 };
+
+// What one launch reads and stores.
+struct Io {
+  bool a_bf16 = false, b_bf16 = false;
+  int epi = EPI_F32;
+};
+
+template <bool BF16>
+__device__ __forceinline__ float load(const float* base, long long off) {
+  if constexpr (BF16)
+    return bf16_to_f32(reinterpret_cast<const unsigned short*>(base)[off]);
+  else
+    return base[off];
+}
+
+template <bool A_BF16, bool B_BF16, int EPI>
 __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
   __shared__ float asr[BK][BM + 1], asi[BK][BM + 1];
   __shared__ float bsr[BK][BN], bsi[BK][BN];
@@ -68,8 +94,8 @@ __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
         float vr = 0.f, vi = 0.f;
         if (m < p.M && k < p.K) {
           const long long off = oa + at(p.a_m, m) + at(p.a_k, k);
-          vr = p.ar[off];
-          vi = p.ai[off];
+          vr = load<A_BF16>(p.ar, off);
+          vi = load<A_BF16>(p.ai, off);
         }
         asr[kk][mm] = vr;
         asi[kk][mm] = vi;
@@ -81,8 +107,8 @@ __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
         float vr = 0.f, vi = 0.f;
         if (n < p.N && k < p.K) {
           const long long off = ob + at(p.b_k, k) + at(p.b_n, n);
-          vr = p.br[off];
-          vi = p.bi[off];
+          vr = load<B_BF16>(p.br, off);
+          vi = load<B_BF16>(p.bi, off);
         }
         bsr[kk][nn] = vr;
         bsi[kk][nn] = vi;
@@ -129,20 +155,51 @@ __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
           r = nr;
         }
         const long long off = oc + at(p.c_m, m) + at(p.c_n, n);
-        p.cr[off] = r * p.scale;
-        p.ci[off] = im * p.scale;
+        if constexpr (EPI == EPI_BF16) {
+          reinterpret_cast<unsigned short*>(p.cr)[off] = f32_to_bf16(r * p.scale);
+          reinterpret_cast<unsigned short*>(p.ci)[off] = f32_to_bf16(im * p.scale);
+        } else if constexpr (EPI == EPI_ROUND) {
+          p.cr[off] = round_bf16(r * p.scale);
+          p.ci[off] = round_bf16(im * p.scale);
+        } else {
+          p.cr[off] = r * p.scale;
+          p.ci[off] = im * p.scale;
+        }
       }
   }
 }
 
+template <bool A_BF16, bool B_BF16>
+inline cudaError_t run(const Params& p, int epi, dim3 grid,
+                       cudaStream_t stream) {
+  switch (epi) {
+    case EPI_F32:
+      cgemm_kernel<A_BF16, B_BF16, EPI_F32><<<grid, NT, 0, stream>>>(p);
+      break;
+    case EPI_ROUND:
+      cgemm_kernel<A_BF16, B_BF16, EPI_ROUND><<<grid, NT, 0, stream>>>(p);
+      break;
+    case EPI_BF16:
+      cgemm_kernel<A_BF16, B_BF16, EPI_BF16><<<grid, NT, 0, stream>>>(p);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 // Launch on `stream`; returns cudaGetLastError() of the launch.
-inline cudaError_t launch(const Params& p, cudaStream_t stream) {
+inline cudaError_t launch(const Params& p, cudaStream_t stream,
+                          const Io& io = Io{}) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.batch <= 0) return cudaErrorInvalidValue;
   const long long tiles = ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
   if (tiles > 2147483647LL) return cudaErrorInvalidValue;
   const unsigned gy = (unsigned)(p.batch < 65535 ? p.batch : 65535);
-  cgemm_kernel<<<dim3((unsigned)tiles, gy), NT, 0, stream>>>(p);
-  return cudaGetLastError();
+  const dim3 grid((unsigned)tiles, gy);
+  if (io.a_bf16 && io.b_bf16) return cudaErrorInvalidValue;
+  if (io.a_bf16) return run<true, false>(p, io.epi, grid, stream);
+  if (io.b_bf16) return run<false, true>(p, io.epi, grid, stream);
+  return run<false, false>(p, io.epi, grid, stream);
 }
 
 inline int log2i(long long v) {

@@ -53,9 +53,9 @@ unsigned blocks_for(long long total) {
 
 // Length-h complex FFT along axis -2 of (batch, h, c) split planes, c any
 // width, through the scratch pair (tr, ti) of the same size.
-cudaError_t col_pass(const float* sr, const float* si, float* dr, float* di,
-                     float* tr, float* ti, long long batch, long long c,
-                     const Axis& a, cudaStream_t stream) {
+cudaError_t half_col_pass(const float* sr, const float* si, float* dr,
+                          float* di, float* tr, float* ti, long long batch,
+                          long long c, const Axis& a, cudaStream_t stream) {
   const long long h = a.n, hc = h * c;
   if (a.n1 > 1) {
     const int l1 = cg::log2i(a.n1), l2 = cg::log2i(a.n2);
@@ -165,7 +165,8 @@ extern "C" int rfft2d_fused_f32(const float* x, float* outr, float* outi,
                                             cg::log2i(w), c);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)col_pass(s0r, s0i, outr, outi, s1r, s1i, batch, c, ah, s);
+  return (int)half_col_pass(s0r, s0i, outr, outi, s1r, s1i, batch, c, ah,
+                            s);
 }
 
 // (xr, xi) (batch, h, w/2+1) -> out (batch, h, w) real, scaled by 1/(h*w).
@@ -187,7 +188,7 @@ extern "C" int irfft2d_fused_f32(const float* xr, const float* xi, float* out,
   const Axis aw{w, n1w, w / n1w, w1wr, w1wi, w2wr, w2wi, twr, twi};
   const Axis ah{h, n1h, h / n1h, w1hr, w1hi, w2hr, w2hi, thr, thi, vhr, vhi};
   const long long rows = batch * (h / 2), c = w / 2 + 1;
-  cudaError_t e = col_pass(xr, xi, s1r, s1i, s0r, s0i, batch, c, ah, s);
+  cudaError_t e = half_col_pass(xr, xi, s1r, s1i, s0r, s0i, batch, c, ah, s);
   if (e != cudaSuccess) return (int)e;
   const long long total = rows * w;
   repack<<<blocks_for(total), NT, 0, s>>>(s1r, s1i, s0r, s0i, total,

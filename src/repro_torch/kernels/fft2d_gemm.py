@@ -1,8 +1,8 @@
 """GEMM-formulated complex 2-D FFT: the CUDA kernel and its plain PyTorch
-version.
+version, in float32 and bfloat16.
 
-Replaces ``repro/kernels/fft2d_gemm.py::_fft2d_gemm_kernel``
-(``variant="plain"``): a one-level four-step row pass
+Replaces ``repro/kernels/fft2d_gemm.py::_fft2d_gemm_kernel`` (both
+variants): a one-level four-step row pass
 (:func:`~repro_torch.kernels.rfft2d_fused.fft_last_fourstep`), a column
 pass of left-side contractions
 (:func:`~repro_torch.kernels.rfft2d_fused.fft_col_fourstep`, no transpose
@@ -12,68 +12,195 @@ The TPU kernel keeps one image in VMEM; a 1024^2 fp32 image is 8 MB and
 the dense-leaf table (n <= 256) alone is 512 KB, against 227 KB of shared
 memory per block.  ``csrc/fft2d_gemm.cu`` therefore runs each four-step
 step as a launch of one tiled complex fp32 GEMM (``csrc/cgemm.cuh``),
-chained through one scratch buffer that the wrapper allocates, with the
+chained through scratch buffers that the wrapper allocates, with the
 twiddles in GEMM epilogues.  What bounds it: the transform itself is
 bound by bytes (16 per complex point in and out), but the four-step
 method does 8*n*(n1+n2) flops per row and per column, 10x the FFT's
 5*n*log2(n) at 1024^2, so this design is bound by those fp32 operations;
 the HBM round trips between the steps are its known extra traffic.
+
+bfloat16 storage (the reference's ``itemsize < 4`` dtypes; float16 is not
+ported yet and raises ``TypeError``):
+
+- ``variant="compensated"``: the reference splits every table into a bf16
+  pair ``hi + lo`` to fit VMEM and sums them in fp32 inside the kernel;
+  ``fp32(hi) + fp32(lo)`` is exact, so the port builds that fp32 sum once
+  per key (``core/twiddle.py``'s cache) and the GEMMs load fp32 tables.
+  The input is widened to fp32, each pass accumulates in fp32, the tile is
+  rounded to bf16 after the row pass, and the output is cast to bf16.
+- ``variant="plain"``: XLA rounds every einsum and every elementwise
+  result to bf16, which a GEMM kernel cannot match op for op.  The port
+  defines plain bf16 as: tables rounded to bf16 (the ``hi`` half), fp32
+  accumulation inside each complex GEMM (twiddle included), and every
+  GEMM step's output rounded to bf16.  The plain version here does exactly
+  that in torch, so it and the kernel agree to bf16 rounding ties.
+
+Rounding is to nearest even, as torch's float -> bfloat16 cast does.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.complexmath import SplitComplex
+from repro_torch.core.twiddle import _cast
 from . import _build
-from .rfft2d_fused import (fourstep_factors, fft_last_fourstep,
-                           fft_col_fourstep, _check_dims, MAX_DIM)
-from .rfft2d_fused import tables as gemm_tables  # the 12 table operands
+from .rfft2d_fused import (fourstep_factors, fourstep_tables_np,
+                           fft_last_fourstep, fft_col_fourstep, _check_dims,
+                           MAX_DIM)
 
 VARIANTS = ("plain", "compensated")
+DTYPES = (torch.float32, torch.bfloat16)    # what the CUDA kernels store
+# storage modes of csrc/row_pass.cuh
+MODE_F32, MODE_COMPENSATED, MODE_PLAIN_BF16 = 0, 1, 2
 
 
 def check_variant(variant: str) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+
+
+def check_dtype(dtype: torch.dtype) -> None:
+    """The GEMM kernels store float32 or bfloat16 (float64 runs on the
+    CPU only); the other sub-fp32 dtypes are not ported."""
+    if dtype.itemsize < 4 and dtype != torch.bfloat16:
+        raise TypeError(f"the GEMM kernels take float32 or bfloat16, got "
+                        f"{dtype}: other sub-fp32 dtypes are not ported yet "
+                        "(ROADMAP 'TPU kernels to port' item 2e)")
+
+
+def split_table_np(t: np.ndarray, dtype) -> torch.Tensor:
+    """Stack the ``(hi, lo)`` split of a float64 table in storage dtype:
+    ``hi`` is the direct rounding, ``lo`` the rounding of the residual, so
+    ``hi + lo`` (accumulated in fp32) recovers the table to ~storage-eps^2
+    accuracy from two narrow operands."""
+    t = np.asarray(t, np.float64)
+    hi = torch.from_numpy(t).to(dtype)
+    lo = torch.from_numpy(t - hi.double().numpy()).to(dtype)
+    return torch.stack([hi, lo])
+
+
+def _operands(tabs, dtype, variant: str) -> list:
     if variant == "compensated":
-        raise NotImplementedError(
-            'variant="compensated" (bf16 split tables) is not ported yet: '
-            "ROADMAP 'Modules to port' item 8")
+        return [split_table_np(t, dtype) for t in tabs]
+    return [torch.from_numpy(np.asarray(t)).to(dtype) for t in tabs]
+
+
+def gemm_tables(h: int, w: int, inverse: bool, dtype, variant: str) -> list:
+    """The reference kernel's 12 table operands (6 per axis, W then H),
+    plain-cast or split-stacked per ``variant``, as CPU tensors."""
+    tabs = fourstep_tables_np(w, inverse) + fourstep_tables_np(h, inverse)
+    return _operands(tabs, dtype, variant)
+
+
+def _unsplit(tabs, compensated: bool):
+    if compensated:
+        return tuple(t[0].float() + t[1].float() for t in tabs)
+    return tuple(tabs)
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the arithmetic runs in: fp32 for sub-fp32 storage."""
+    return torch.float32 if dtype.itemsize < 4 else dtype
+
+
+def _axis_np(n: int, factors: tuple, inverse: bool, dtype_name: str,
+             variant: str) -> tuple:
+    """One axis' six tables as float64 planes holding exactly the values the
+    kernels compute with: the float64 tables (cast later), or for sub-fp32
+    storage the fp32 sum hi + lo (compensated) or the bf16 hi (plain)."""
+    tabs = fourstep_tables_np(n, inverse, factors)
+    dtype = getattr(torch, dtype_name)
+    if dtype.itemsize >= 4 and variant == "plain":
+        return tabs
+    ops = _unsplit(_operands(tabs, dtype, variant), variant == "compensated")
+    return tuple(t.double().numpy() for t in ops)
+
+
+def axis_tables(n: int, factors, inverse: bool, dtype, variant: str,
+                device) -> tuple:
+    """One axis' six work tables in :func:`compute_dtype` on ``device``,
+    cached per key."""
+    name = str(dtype).replace("torch.", "")
+    return _cast(_axis_np, (n, tuple(factors), bool(inverse), name, variant),
+                 compute_dtype(dtype), torch.device(device))
+
+
+def roundings(dtype: torch.dtype, variant: str):
+    """(boundary, mid): the storage rounding between passes and, for the
+    plain bf16 variant, after the first GEMM of a pass (None otherwise)."""
+    if dtype.itemsize >= 4:
+        return (lambda q: q), None
+
+    def rnd(q):
+        return q.to(dtype).to(torch.float32)
+    return rnd, (rnd if variant == "plain" else None)
 
 
 def fft2d_gemm_plain(x: SplitComplex, *, inverse: bool = False,
                      variant: str = "plain") -> SplitComplex:
     """The kernel's arithmetic in plain PyTorch on (batch, h, w) planes."""
     check_variant(variant)
+    check_dtype(x.dtype)
     _, h, w = x.shape
     _check_dims(h, w)
-    tabs = gemm_tables(h, w, inverse, x.dtype, x.device)
-    re, im = fft_last_fourstep(x.re, x.im, tabs[:6], *fourstep_factors(w))
-    re, im = fft_col_fourstep(re, im, tabs[6:], *fourstep_factors(h))
+    dt = x.dtype
+    rnd, mid = roundings(dt, variant)
+    fw, fh = fourstep_factors(w), fourstep_factors(h)
+    re, im = x.re.to(compute_dtype(dt)), x.im.to(compute_dtype(dt))
+    re, im = fft_last_fourstep(
+        re, im, axis_tables(w, fw, inverse, dt, variant, x.device), *fw,
+        mid=mid)
+    re, im = rnd(re), rnd(im)
+    re, im = fft_col_fourstep(
+        re, im, axis_tables(h, fh, inverse, dt, variant, x.device), *fh,
+        mid=mid)
     if inverse:
         re, im = re * (1.0 / (h * w)), im * (1.0 / (h * w))
-    return SplitComplex(re, im)
+    return SplitComplex(re.to(dt), im.to(dt))
 
 
-_ARGS = [_build.P] * 18 + [_build.L] + [_build.I] * 5 + [_build.P]
+def storage_mode(dtype: torch.dtype, variant: str) -> int:
+    if dtype == torch.float32:
+        return MODE_F32
+    return MODE_COMPENSATED if variant == "compensated" else MODE_PLAIN_BF16
+
+
+def buffers(x: SplitComplex, out: SplitComplex):
+    """The fp32 buffer pairs (f0, f1) the GEMM chain ping-pongs through:
+    out and one scratch pair in fp32, two scratch pairs in bf16 (whose out
+    holds bf16)."""
+    def pair():
+        return SplitComplex(*(torch.empty(x.shape, dtype=torch.float32,
+                                          device=x.device) for _ in "ri"))
+    if x.dtype == torch.float32:
+        return out, pair()
+    return pair(), pair()
+
+
+_ARGS = [_build.P] * 20 + [_build.L] + [_build.I] * 6 + [_build.P]
 
 
 def fft2d_gemm_cuda(x: SplitComplex, *, inverse: bool = False,
                     variant: str = "plain") -> SplitComplex:
-    """Launch the GEMM row and column passes on (batch, h, w) CUDA planes."""
+    """Launch the GEMM row and column passes on (batch, h, w) CUDA planes
+    (float32 or bfloat16)."""
     check_variant(variant)
-    _build.check_operands(x, 3)
+    check_dtype(x.dtype)
+    _build.check_operands(x, 3, DTYPES)
     batch, h, w = x.shape
     _check_dims(h, w)
     if h > MAX_DIM or w > MAX_DIM:
         raise ValueError(f"the CUDA 2-D kernel takes H, W <= {MAX_DIM}, "
                          f"got {(h, w)}")
-    tabs = gemm_tables(h, w, inverse, torch.float32, x.device)
+    fw, fh = fourstep_factors(w), fourstep_factors(h)
+    tabs = (axis_tables(w, fw, inverse, x.dtype, variant, x.device)
+            + axis_tables(h, fh, inverse, x.dtype, variant, x.device))
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    scratch = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    fn = _build.function("fft2d_gemm", "fft2d_gemm_f32", _ARGS)
-    ptrs = [x.re, x.im, out.re, out.im, scratch.re, scratch.im, *tabs]
+    f0, f1 = buffers(x, out)
+    fn = _build.function("fft2d_gemm", "fft2d_gemm", _ARGS)
+    ptrs = [x.re, x.im, out.re, out.im, f0.re, f0.im, f1.re, f1.im, *tabs]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, h, w, fourstep_factors(w)[0], fourstep_factors(h)[0],
-        int(inverse)], "fft2d_gemm_f32", x.device)
+        batch, h, w, fw[0], fh[0], int(inverse),
+        storage_mode(x.dtype, variant)], "fft2d_gemm", x.device)
     return out

@@ -1,0 +1,130 @@
+"""Fused complex 3-D FFT: the CUDA kernel and its plain PyTorch version, in
+float32 and bfloat16.
+
+Replaces ``repro/kernels/fft3d_fused.py::_fft3d_kernel`` (both variants):
+three one-level four-step GEMM passes over a (batch, D, H, W) volume with
+no relayout materialised:
+
+- W pass: :func:`~repro_torch.kernels.rfft2d_fused.fft_last_fourstep` on
+  the contiguous last axis;
+- H pass: :func:`~repro_torch.kernels.rfft2d_fused.fft_col_fourstep` along
+  axis -2, a left-side contraction;
+- D pass: the same contraction on the (batch, D, H*W) view, so D is the
+  contracted axis and the D-H-W relayout disappears the same way;
+
+with one 1/(D*H*W) for the inverse, from 18 host-built tables (6 per axis,
+W, H, then D) split by :func:`fourstep_factors3` (a dense DFT at
+n <= :data:`FOURSTEP_LEAF3`).
+
+The TPU kernel keeps a whole brick in VMEM; a 256^3 fp32 brick is 128 MB
+against 227 KB of shared memory per block, so ``csrc/fft3d_fused.cu``
+runs each four-step step as a launch of the tiled complex GEMM
+(``csrc/cgemm.cuh``), as the 2-D kernel does: up to six launches chained
+through fp32 buffers, the last landing in the output.  What bounds it: the
+transform is bound by bytes (16 per complex fp32 point in and out), the
+method by its 8*(n1+n2) flops a point an axis on the CUDA cores.
+
+bfloat16 follows :mod:`repro_torch.kernels.fft2d_gemm`'s definitions: the
+compensated variant rounds the tile to bf16 after the W and after the H
+pass, the plain variant after every GEMM step.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.complexmath import SplitComplex
+from repro_torch.core.fft1d import _best_split
+from . import _build
+from .rfft2d_fused import (fourstep_tables_np, fft_last_fourstep,
+                           fft_col_fourstep, MAX_DIM)
+from .fft2d_gemm import (DTYPES, check_variant, check_dtype, _operands,
+                         compute_dtype, axis_tables, roundings, storage_mode,
+                         buffers)
+
+# The fused brick runs three passes back to back, so its dense-leaf
+# crossover sits one octave below the 2-D kernel's (the reference's
+# constant, mirrored by its cost model).
+FOURSTEP_LEAF3 = 128
+
+
+def fourstep_factors3(n: int):
+    """(n1, n2) for one axis of the fused 3-D kernel (n1 == 1 means a
+    single dense DFT matmul)."""
+    n1 = 1 if n <= FOURSTEP_LEAF3 else _best_split(n)
+    return n1, n // n1
+
+
+def _check_dims3(d: int, h: int, w: int):
+    for n in (d, h, w):
+        if n & (n - 1) or n < 2:
+            raise ValueError("the fused 3-D kernel needs power-of-two "
+                             f"dims >= 2, got {(d, h, w)}")
+
+
+def gemm_tables3(d: int, h: int, w: int, inverse: bool, dtype,
+                 variant: str) -> list:
+    """The reference kernel's 18 table operands (6 per axis: W, H, then D),
+    plain-cast or split-stacked per ``variant``, as CPU tensors."""
+    tabs = (fourstep_tables_np(w, inverse, fourstep_factors3(w))
+            + fourstep_tables_np(h, inverse, fourstep_factors3(h))
+            + fourstep_tables_np(d, inverse, fourstep_factors3(d)))
+    return _operands(tabs, dtype, variant)
+
+
+def _tables3(d, h, w, inverse, dtype, variant, device) -> tuple:
+    return sum((axis_tables(n, fourstep_factors3(n), inverse, dtype, variant,
+                            device) for n in (w, h, d)), ())
+
+
+def fft3d_fused_plain(x: SplitComplex, *, inverse: bool = False,
+                      variant: str = "plain") -> SplitComplex:
+    """The kernel's arithmetic in plain PyTorch on (batch, d, h, w)
+    planes."""
+    check_variant(variant)
+    check_dtype(x.dtype)
+    bb, d, h, w = x.shape
+    _check_dims3(d, h, w)
+    dt = x.dtype
+    rnd, mid = roundings(dt, variant)
+    tabs = _tables3(d, h, w, inverse, dt, variant, x.device)
+    re, im = x.re.to(compute_dtype(dt)), x.im.to(compute_dtype(dt))
+    re, im = fft_last_fourstep(re, im, tabs[:6], *fourstep_factors3(w),
+                               mid=mid)                           # W pass
+    re, im = rnd(re), rnd(im)
+    re, im = fft_col_fourstep(re, im, tabs[6:12], *fourstep_factors3(h),
+                              mid=mid)                            # H pass
+    re, im = rnd(re), rnd(im)
+    re, im = fft_col_fourstep(re.reshape(bb, d, h * w),
+                              im.reshape(bb, d, h * w), tabs[12:],
+                              *fourstep_factors3(d), mid=mid)     # D pass
+    re, im = re.reshape(bb, d, h, w), im.reshape(bb, d, h, w)
+    if inverse:
+        re, im = re * (1.0 / (d * h * w)), im * (1.0 / (d * h * w))
+    return SplitComplex(re.to(dt), im.to(dt))
+
+
+_ARGS = [_build.P] * 26 + [_build.L] + [_build.I] * 8 + [_build.P]
+
+
+def fft3d_fused_cuda(x: SplitComplex, *, inverse: bool = False,
+                     variant: str = "plain") -> SplitComplex:
+    """Launch the W, H and D GEMM passes on (batch, d, h, w) CUDA planes
+    (float32 or bfloat16)."""
+    check_variant(variant)
+    check_dtype(x.dtype)
+    _build.check_operands(x, 4, DTYPES)
+    batch, d, h, w = x.shape
+    _check_dims3(d, h, w)
+    if max(d, h, w) > MAX_DIM:
+        raise ValueError(f"the CUDA 3-D kernel takes D, H, W <= {MAX_DIM}, "
+                         f"got {(d, h, w)}")
+    tabs = _tables3(d, h, w, inverse, x.dtype, variant, x.device)
+    out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
+    f0, f1 = buffers(x, out)
+    fn = _build.function("fft3d_fused", "fft3d_fused", _ARGS)
+    ptrs = [x.re, x.im, out.re, out.im, f0.re, f0.im, f1.re, f1.im, *tabs]
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
+        batch, d, h, w, fourstep_factors3(w)[0], fourstep_factors3(h)[0],
+        fourstep_factors3(d)[0], int(inverse),
+        storage_mode(x.dtype, variant)], "fft3d_fused", x.device)
+    return out

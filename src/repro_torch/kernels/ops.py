@@ -12,7 +12,9 @@ accept ``block_batch`` for plan parity and do not use it.
 card (one count per call; a call issues several grid launches, see
 PERF.md).  The radix-2 Stockham kernel counts apart from the radix-4 one.
 The fused conv counts once per call; at m > 16384 its 1-D transforms run
-on the 1-D kernels and count in their own counters too.
+on the 1-D kernels and count in their own counters too.  The GEMM
+transforms (``fft2d_gemm``, ``fft3d_fused``) take float32 or bfloat16;
+every other kernel float32.
 """
 from __future__ import annotations
 
@@ -25,12 +27,14 @@ from repro_torch.core.complexmath import SplitComplex
 from . import fft_stockham as _stockham
 from . import fft_fourstep as _fourstep
 from . import fft2d_gemm as _gemm2d
+from . import fft2d_fused as _fused2d
+from . import fft3d_fused as _fused3d
 from . import rfft2d_fused as _rfused2d
 from . import fftconv_fused as _fconv
 
 LAUNCHES = {"fft_stockham": 0, "fft_stockham_r2": 0, "fft_fourstep": 0,
             "fft2d_gemm": 0, "rfft2d_fused": 0, "irfft2d_fused": 0,
-            "fftconv_fused": 0}
+            "fftconv_fused": 0, "fft3d_fused": 0, "fft2d_fused": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +70,13 @@ def _flatten2d(x: SplitComplex):
     lead = x.shape[:-2]
     return SplitComplex(x.re.reshape(-1, h, w),
                         x.im.reshape(-1, h, w)), lead
+
+
+def _flatten3d(x: SplitComplex):
+    d, h, w = x.shape[-3:]
+    lead = x.shape[:-3]
+    return SplitComplex(x.re.reshape(-1, d, h, w).contiguous(),
+                        x.im.reshape(-1, d, h, w).contiguous()), lead
 
 
 def fft_stockham(x: SplitComplex, *, inverse: bool = False, radix: int = 4,
@@ -105,10 +116,28 @@ def fft_fourstep(x: SplitComplex, *, inverse: bool = False,
     return _unflatten(out, lead)
 
 
+def fft2d_fused(x: SplitComplex, *, inverse: bool = False,
+                block_batch: int = 1) -> SplitComplex:
+    """Fused Stockham 2-D FFT over the last two axes (any leading batch
+    dims): the ``algo="fused_stockham"`` oracle."""
+    flat, lead = _flatten2d(x)
+    h, w = flat.shape[-2:]
+    if flat.shape[0] == 0:
+        return x                       # empty batch: nothing to transform
+    if _on_card(flat.re):
+        LAUNCHES["fft2d_fused"] += 1
+        out = _fused2d.fft2d_fused_cuda(flat, inverse=inverse)
+    else:
+        out = _fused2d.fft2d_fused_plain(flat, inverse=inverse)
+    return SplitComplex(out.re.reshape(*lead, h, w),
+                        out.im.reshape(*lead, h, w))
+
+
 def fft2d_gemm(x: SplitComplex, *, inverse: bool = False,
                block_batch: int = 1, variant: str = "plain") -> SplitComplex:
     """GEMM-formulated 2-D FFT over the last two axes (any leading batch
-    dims).  ``variant="compensated"`` raises until it is ported."""
+    dims), float32 or bfloat16; ``variant="compensated"`` is the
+    precision-compensated bf16 path."""
     flat, lead = _flatten2d(x)
     h, w = flat.shape[-2:]
     if flat.shape[0] == 0:
@@ -121,6 +150,26 @@ def fft2d_gemm(x: SplitComplex, *, inverse: bool = False,
         out = _gemm2d.fft2d_gemm_plain(flat, inverse=inverse, variant=variant)
     return SplitComplex(out.re.reshape(*lead, h, w),
                         out.im.reshape(*lead, h, w))
+
+
+def fft3d_fused(x: SplitComplex, *, inverse: bool = False,
+                block_batch: int = 1, variant: str = "plain") -> SplitComplex:
+    """Fused 3-D FFT over the last three axes (any leading batch dims),
+    float32 or bfloat16, the W, H and D GEMM passes with no relayout."""
+    flat, lead = _flatten3d(x)
+    d, h, w = flat.shape[-3:]
+    if flat.shape[0] == 0:
+        _gemm2d.check_variant(variant)
+        return x                       # empty batch: nothing to transform
+    if _on_card(flat.re):
+        LAUNCHES["fft3d_fused"] += 1
+        out = _fused3d.fft3d_fused_cuda(flat, inverse=inverse,
+                                        variant=variant)
+    else:
+        out = _fused3d.fft3d_fused_plain(flat, inverse=inverse,
+                                         variant=variant)
+    return SplitComplex(out.re.reshape(*lead, d, h, w),
+                        out.im.reshape(*lead, d, h, w))
 
 
 def rfft2d_fused(x: torch.Tensor) -> SplitComplex:

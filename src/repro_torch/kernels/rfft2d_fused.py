@@ -92,10 +92,12 @@ def _left(w, x):
     return _matmul(w, x)
 
 
-def fft_last_fourstep(re, im, tabs, n1: int, n2: int):
+def fft_last_fourstep(re, im, tabs, n1: int, n2: int, mid=None):
     """Length-(n1*n2) FFT of the last axis via one four-step level; the
     n1-factor DFT is a left contraction along axis -2 and only the output
-    reordering X[k2*n1 + k1] = Z[k1, k2] transposes the factor axes."""
+    reordering X[k2*n1 + k1] = Z[k1, k2] transposes the factor axes.
+    ``mid``, when given, rounds the twiddled first contraction (the bf16
+    GEMM kernels' plain variant rounds every GEMM's output)."""
     w1r, w1i, w2r, w2i, twr, twi = tabs
     b = re.shape[:-1]
     re = re.reshape(*b, n1, n2)
@@ -104,6 +106,8 @@ def fft_last_fourstep(re, im, tabs, n1: int, n2: int):
         yr = _left(w1r, re) - _left(w1i, im)
         yi = _left(w1i, re) + _left(w1r, im)
         re, im = yr * twr - yi * twi, yr * twi + yi * twr
+        if mid is not None:
+            re, im = mid(re), mid(im)
     zr = _matmul(re, w2r) - _matmul(im, w2i)
     zi = _matmul(re, w2i) + _matmul(im, w2r)
     zr = zr.transpose(-1, -2).reshape(*b, n1 * n2)
@@ -111,9 +115,10 @@ def fft_last_fourstep(re, im, tabs, n1: int, n2: int):
     return zr, zi
 
 
-def fft_col_fourstep(re, im, tabs, n1: int, n2: int):
+def fft_col_fourstep(re, im, tabs, n1: int, n2: int, mid=None):
     """Length-(n1*n2) FFT along axis -2 of an (..., H, C) tile — the column
-    pass — as left-side DFT contractions, absorbing the tile transpose."""
+    pass — as left-side DFT contractions, absorbing the tile transpose.
+    ``mid`` as in :func:`fft_last_fourstep`."""
     w1r, w1i, w2r, w2i, twr, twi = tabs
     b = re.shape[:-2]
     c = re.shape[-1]
@@ -125,6 +130,8 @@ def fft_col_fourstep(re, im, tabs, n1: int, n2: int):
         twr = twr[..., None]
         twi = twi[..., None]
         re, im = yr * twr - yi * twi, yr * twi + yi * twr
+        if mid is not None:
+            re, im = mid(re), mid(im)
     re = re.reshape(*b, n1, n2, c)
     im = im.reshape(*b, n1, n2, c)
     zr = _left(w2r, re) - _left(w2i, im)          # (..., n1, k2, c)

@@ -5,11 +5,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (fft2, from_numpy, irfft2, rfft, irfft, rfft2,
-                              fft_conv)
+from repro_torch.core import (SplitComplex, fft2, fft3, from_numpy, irfft2,
+                              rfft, irfft, rfft2, fft_conv)
 from repro_torch.kernels import ops
 from repro_torch.kernels import (fft2d_gemm, fft_fourstep, fft_stockham,
-                                 rfft2d_fused, fftconv_fused)
+                                 rfft2d_fused, fftconv_fused, fft3d_fused,
+                                 fft2d_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,7 +50,21 @@ def _rel(got, ref):
     (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
      (5, 8), 5e-5),
     (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
-     (3, 4096), 5e-5)])
+     (3, 4096), 5e-5),
+    (fft3d_fused.fft3d_fused_cuda, fft3d_fused.fft3d_fused_plain,
+     (1, 4, 8, 16), 1e-5),
+    (fft3d_fused.fft3d_fused_cuda, fft3d_fused.fft3d_fused_plain,
+     (2, 2, 4, 256), 1e-5),
+    (fft3d_fused.fft3d_fused_cuda, fft3d_fused.fft3d_fused_plain,
+     (1, 256, 4, 4), 1e-5),
+    (fft3d_fused.fft3d_fused_cuda, fft3d_fused.fft3d_fused_plain,
+     (1, 64, 256, 512), 1e-5),
+    (fft2d_fused.fft2d_fused_cuda, fft2d_fused.fft2d_fused_plain,
+     (2, 8, 16), 1e-5),
+    (fft2d_fused.fft2d_fused_cuda, fft2d_fused.fft2d_fused_plain,
+     (3, 2, 4096), 1e-5),
+    (fft2d_fused.fft2d_fused_cuda, fft2d_fused.fft2d_fused_plain,
+     (1, 1024, 512), 1e-5)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_matches_plain_on_card(card, launch, plain, shape, tol,
                                       inverse):
@@ -121,10 +136,13 @@ def test_wrappers_count_launches_on_card(card):
     ops.irfft2d_fused(xf)
     ops.fftconv_fused(torch.from_numpy(_real((2, 3, 64))).float().to(card),
                       from_numpy(_rand((3, 33)), device=card))
+    ops.fft3d_fused(from_numpy(_rand((1, 8, 8, 8)), device=card))
+    ops.fft2d_fused(from_numpy(_rand((1, 64, 64)), device=card))
     assert ops.LAUNCHES == {"fft_stockham": 1, "fft_stockham_r2": 1,
                             "fft_fourstep": 1, "fft2d_gemm": 1,
                             "rfft2d_fused": 1, "irfft2d_fused": 1,
-                            "fftconv_fused": 1}
+                            "fftconv_fused": 1, "fft3d_fused": 1,
+                            "fft2d_fused": 1}
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -168,3 +186,61 @@ def test_fftconv_gradient_on_card(card):
 
     for got, want in zip(grads("cuda"), grads("torch")):
         assert _rel_real(got, want) <= 1e-4
+
+
+def _bf16(z, card):
+    return SplitComplex(torch.from_numpy(z.real).to(card, torch.bfloat16),
+                        torch.from_numpy(z.imag).to(card, torch.bfloat16))
+
+
+# the bf16 modes against the plain versions' definition of them: the two
+# round the same fp32 sums to bf16, so they agree to a rounding tie, one
+# bf16 ulp at the top of the range (2^-7 of max)
+@pytest.mark.parametrize("launch,plain,shape", [
+    (fft2d_gemm.fft2d_gemm_cuda, fft2d_gemm.fft2d_gemm_plain, (2, 8, 4)),
+    (fft2d_gemm.fft2d_gemm_cuda, fft2d_gemm.fft2d_gemm_plain, (2, 512, 1024)),
+    (fft3d_fused.fft3d_fused_cuda, fft3d_fused.fft3d_fused_plain,
+     (1, 32, 32, 32)),
+    (fft3d_fused.fft3d_fused_cuda, fft3d_fused.fft3d_fused_plain,
+     (1, 4, 256, 512))])
+@pytest.mark.parametrize("variant", ["plain", "compensated"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_bf16_kernels_match_plain_on_card(card, launch, plain, shape,
+                                          variant, inverse):
+    x = _bf16(_rand(shape, seed=2), card)
+    got = launch(x, inverse=inverse, variant=variant)
+    torch.cuda.synchronize()
+    assert got.re.dtype == torch.bfloat16
+    ref = plain(x, inverse=inverse, variant=variant)
+    assert _rel(SplitComplex(got.re.float(), got.im.float()),
+                SplitComplex(ref.re.float(), ref.im.float())) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 32), (1, 256, 128, 8)])
+def test_fft3_entry_points_on_card(card, shape):
+    """fft3 through the registry (the fused kernel), its row_col baseline
+    (three Stockham passes) and the bf16 compensated plan, against float64
+    numpy."""
+    z = _rand(shape, seed=9)
+    x = from_numpy(z, device=card)
+    want = np.fft.fftn(z, axes=(-3, -2, -1))
+    for algo in ("auto", "row_col"):
+        y = fft3(x, algo=algo, backend="cuda")
+        zz = y.re.double().cpu().numpy() + 1j * y.im.double().cpu().numpy()
+        assert np.abs(zz - want).max() <= 1e-5 * np.abs(want).max()
+        back = fft3(y, inverse=True, algo=algo, backend="cuda")
+        bb = back.re.double().cpu().numpy() + \
+            1j * back.im.double().cpu().numpy()
+        assert np.abs(bb - z).max() <= 1e-4 * np.abs(z).max()
+    yb = fft3(_bf16(z, card), backend="cuda")
+    zb = yb.re.double().cpu().numpy() + 1j * yb.im.double().cpu().numpy()
+    assert np.linalg.norm(zb - want) / np.linalg.norm(want) <= 5e-3
+
+
+def test_fft2_fused_stockham_on_card(card):
+    z = _rand((2, 1024, 1024), seed=4)
+    y = fft2(from_numpy(z, device=card), algo="fused_stockham",
+             backend="cuda")
+    zz = y.re.double().cpu().numpy() + 1j * y.im.double().cpu().numpy()
+    want = np.fft.fft2(z)
+    assert np.abs(zz - want).max() <= 1e-5 * np.abs(want).max()

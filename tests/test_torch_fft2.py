@@ -107,9 +107,59 @@ def test_fft_explicit_algos_match_reference(algo):
 
 
 def test_fft_axis_and_unported_algo():
+    """fft_axis, and algo="fused_stockham" on a CPU tensor: the Stockham
+    fused kernel's plain version, which refuses the non-power-of-two
+    (3, 8) tile as the reference kernel does."""
     z = _rand((16, 3, 8), seed=2)
     got = to_complex(core.fft_axis(from_numpy(z, device="cpu"), 0)).numpy()
     assert _rel(got, np.fft.fft(z, axis=0)) <= 1e-5
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="power-of-two tile dims"):
         core.fft2(from_numpy(z, device="cpu"), algo="fused_stockham",
                   backend="cuda")
+    z = _rand((16, 4, 8), seed=2)
+    got = to_complex(core.fft2(from_numpy(z, device="cpu"),
+                               algo="fused_stockham", backend="cuda")).numpy()
+    assert _rel(got, np.fft.fft2(z)) <= 1e-5
+
+
+# (2, 8, 16): radix-4 + radix-2 rows, radix-2 tail on columns of 8;
+# (1, 64, 32): all-radix-4 columns; (1, 256, 256): the square tile
+@pytest.mark.parametrize("shape", [(2, 8, 16), (1, 64, 32), (1, 256, 256)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft2d_fused_plain_vs_reference(shape, inverse):
+    """The Stockham fused kernel's plain version against the reference
+    kernel in interpret mode, <= 1e-5 of max (same stages, same fp32
+    arithmetic)."""
+    from repro.kernels import ops as ref_ops
+    from repro_torch.kernels import fft2d_fused
+    z = _rand(shape, seed=shape[-1] + shape[-2])
+    got = to_complex(fft2d_fused.fft2d_fused_plain(
+        from_numpy(z, device="cpu"), inverse=inverse)).numpy()
+    ref = _ref(ref_ops.fft2d_fused(RefSplit(jnp.asarray(z.real),
+                                            jnp.asarray(z.imag)),
+                                   inverse=inverse))
+    assert _rel(got, ref) <= 1e-5
+    want = np.fft.ifft2(z) if inverse else np.fft.fft2(z)
+    assert _rel(got, want) <= 1e-5
+
+
+def test_fft2_fused_stockham_on_torch_raises_the_reference_error():
+    z = _rand((1, 8, 8), seed=4)
+    with pytest.raises(ValueError) as ref:
+        ref_core.fft2(RefSplit(jnp.asarray(z.real), jnp.asarray(z.imag)),
+                      algo="fused_stockham", backend="jnp")
+    with pytest.raises(ValueError) as mine:
+        core.fft2(from_numpy(z, device="cpu"), algo="fused_stockham",
+                  backend="torch")
+    assert str(mine.value) == str(ref.value).replace(
+        '"pallas"', '"cuda"').replace("jnp", "torch")
+
+
+def test_fft2_fused_stockham_plan_counts_launch_only_on_card():
+    z = _rand((2, 16, 32), seed=8)
+    before = dict(ops.LAUNCHES)
+    plan = P.get_plan((16, 32), algo="fused_stockham", backend="cuda")
+    got = to_complex(plan(from_numpy(z, device="cpu"))).numpy()
+    assert (plan.algo, plan.block_batch) == ("fused_stockham", 1)
+    assert _rel(got, np.fft.fft2(z)) <= 1e-5
+    assert ops.LAUNCHES == before

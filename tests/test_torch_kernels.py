@@ -104,9 +104,14 @@ def test_cpu_path_counts_no_launch():
 
 
 def test_unported_options_raise():
+    """float16, the sub-fp32 dtype the GEMM kernels do not take, raises
+    naming its ROADMAP item; an unknown variant is refused."""
     x = from_numpy(_rand((1, 8, 8), 0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ops.fft2d_gemm(x, variant="compensated")
+    half = type(x)(x.re.half(), x.im.half())
+    with pytest.raises(TypeError, match="item 2e"):
+        ops.fft2d_gemm(half, variant="compensated")
+    with pytest.raises(ValueError, match="variant"):
+        ops.fft2d_gemm(x, variant="split")
 
 
 @pytest.mark.parametrize("fn,shape", [(ops.fft2d_gemm, (1, 12, 8)),

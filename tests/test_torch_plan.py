@@ -106,7 +106,7 @@ def test_plan_from_reference_round_trip(shape, backends):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(shape=(8, 8, 8)), "item 8"),
+    (dict(shape=(8, 8, 8), tune=True), "item 10"),
     (dict(shape=(64,), kind="rfft", tune=True), "item 10"),
     (dict(shape=(64,), kind="conv_causal", tune=True), "item 10"),
     (dict(shape=(64,), tune=True), "item 10")])

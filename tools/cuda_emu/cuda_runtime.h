@@ -12,6 +12,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 typedef void* cudaStream_t;
@@ -26,6 +27,8 @@ static dim3 gridDim, blockDim;
 static std::barrier<>* emu_barrier = nullptr;
 static unsigned char* emu_shared = nullptr;  // the launch's dynamic shared memory
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }

@@ -12,11 +12,15 @@ buffer of ``shmem`` bytes), loads the libraries with ctypes in place of
 (``*_cuda``) on CPU tensors against their plain versions at small shapes.
 
 What it checks: the index maps, buffer chaining, scales and launch
-parameters of every entry point, the untangle, repack and Stockham stage
-kernels, and the fused conv kernel's shared-memory stages.  What it
-cannot check: the tiled GEMM itself (the twin replaces it), warps,
-shared-memory limits or timing.  Libraries go to ``build/cuda_emu/``.
-Exits non-zero if a shape disagrees beyond 1e-5 of max|plain|.
+parameters of every entry point, the bf16 storage modes of the GEMM
+transforms (bf16.cuh's conversions run as written; the twin sums in the
+tiled kernel's order), the untangle, repack and Stockham stage kernels,
+and the shared-memory stages of the fused conv and fused Stockham 2-D
+kernels.  What it cannot check: the tiled GEMM itself (the twin replaces
+it), warps, shared-memory limits or timing.  Libraries go to
+``build/cuda_emu/``.  Exits non-zero if a shape disagrees beyond 1e-5 of
+max|plain| (fp32) or one bf16 ulp at the top of the range, 2^-7 of
+max|plain| (bf16).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from repro_torch.kernels import _build  # noqa: E402
 
 OUT = ROOT / "build" / "cuda_emu"
 TOL = 1e-5
+TOL_BF16 = 2.0 ** -7
 _LIBS: dict = {}
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*\w+>>>\(")
 _DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
@@ -73,10 +78,10 @@ def _function(name, symbol, argtypes):
     return fn
 
 
-def _check_operands(x, ndim):
+def _check_operands(x, ndim, dtypes=(torch.float32,)):
     planes = tuple(x) if isinstance(x, SplitComplex) else (x,)
     for t in planes:
-        if t.dtype != torch.float32 or t.dim() != ndim \
+        if t.dtype not in dtypes or t.dim() != ndim \
                 or not t.is_contiguous():
             raise ValueError(f"bad operand {t.dtype} {tuple(t.shape)}")
 
@@ -95,8 +100,9 @@ def install() -> None:
 def rel(a, b) -> float:
     pa = tuple(a) if isinstance(a, SplitComplex) else (a,)
     pb = tuple(b) if isinstance(b, SplitComplex) else (b,)
-    d = max((x - y).abs().max().item() for x, y in zip(pa, pb))
-    return d / max(y.abs().max().item() for y in pb)
+    d = max((x.float() - y.float()).abs().max().item()
+            for x, y in zip(pa, pb))
+    return d / max(y.float().abs().max().item() for y in pb)
 
 
 def main() -> int:
@@ -105,6 +111,8 @@ def main() -> int:
     from repro_torch.kernels import fft_stockham as S
     from repro_torch.kernels import rfft2d_fused as R
     from repro_torch.kernels import fftconv_fused as C
+    from repro_torch.kernels import fft3d_fused as V
+    from repro_torch.kernels import fft2d_fused as S2
     build()
     install()
     rng = np.random.default_rng(0)
@@ -131,6 +139,36 @@ def main() -> int:
             results.append(("fft2d_gemm", shape, inv,
                             rel(G.fft2d_gemm_cuda(x, inverse=inv),
                                 G.fft2d_gemm_plain(x, inverse=inv))))
+    # the GEMM transforms in bf16, both variants; the 3-D kernel in fp32
+    # and bf16 (dense and four-step axes, unequal factors)
+    bf16 = []
+    for shape in [(2, 8, 4), (1, 512, 512), (2, 64, 1024)]:
+        x = cplx(shape)
+        xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+        for variant in ("compensated", "plain"):
+            for inv in (False, True):
+                bf16.append((f"fft2d_gemm/{variant}", shape, inv, rel(
+                    G.fft2d_gemm_cuda(xb, inverse=inv, variant=variant),
+                    G.fft2d_gemm_plain(xb, inverse=inv, variant=variant))))
+    for shape in [(1, 4, 8, 16), (2, 2, 4, 256), (1, 256, 4, 4),
+                  (2, 8, 8, 8), (1, 4, 256, 512)]:
+        x = cplx(shape)
+        for inv in (False, True):
+            results.append(("fft3d_fused", shape, inv,
+                            rel(V.fft3d_fused_cuda(x, inverse=inv),
+                                V.fft3d_fused_plain(x, inverse=inv))))
+        xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+        for variant in ("compensated", "plain"):
+            bf16.append((f"fft3d_fused/{variant}", shape, False, rel(
+                V.fft3d_fused_cuda(xb, variant=variant),
+                V.fft3d_fused_plain(xb, variant=variant))))
+    for shape in [(2, 2, 2), (2, 8, 16), (1, 64, 32), (3, 4, 1024),
+                  (1, 256, 256), (1, 4096, 4), (1, 2, 4096)]:
+        x = cplx(shape)
+        for inv in (False, True):
+            results.append(("fft2d_fused", shape, inv,
+                            rel(S2.fft2d_fused_cuda(x, inverse=inv),
+                                S2.fft2d_fused_plain(x, inverse=inv))))
     for name, kern, plain, shapes in [
             ("fft_stockham", S.fft_stockham_cuda, S.fft_stockham_plain,
              [(3, 2), (5, 8), (2, 2048), (1, 1 << 14)]),
@@ -158,11 +196,13 @@ def main() -> int:
         results.append(("fftconv_fused", lead + (m,), len(klead) == 1,
                         rel(C.fftconv_fused_cuda(x, ef),
                             C.fftconv_fused_plain(x, ef))))
-    for r in results:
+    for r in results + bf16:
         print(*r)
     worst = max(r[3] for r in results)
+    worst_bf16 = max(r[3] for r in bf16)
     print("worst", worst, "tol", TOL)
-    return 0 if worst <= TOL else 1
+    print("worst bf16", worst_bf16, "tol", TOL_BF16)
+    return 0 if worst <= TOL and worst_bf16 <= TOL_BF16 else 1
 
 
 if __name__ == "__main__":
