@@ -24,6 +24,15 @@ float64 numpy:
   baseline, a demoted (96, 128, 128), and 256^3 x 2 in bf16 (compensated);
 - bf16 images: ``fft2`` on 16 1024^2 bf16 images, compensated through the
   registry and plain by explicit variant;
+- the paper's Table 1 ladder: ``ops.fft_staged`` (the per-stage "Initial"
+  kernel) forward and inverse at Table 1's 8 x 16384 and at 512 x 16384,
+  beside the port's other rungs (two- and one-reorder Cooley-Tukey, the
+  Stockham kernel, ``fft(algo="auto")`` and the cuda backend's plan);
+- decode attention: ``ops.decode_attention`` for one decode step of one
+  layer at full width, bf16 caches: starcoder2-15b (16 sequences of up to
+  32768 tokens, GQA 48/4, D 128) and h2o-danube-1.8b (128 sequences on its
+  4096-slot ring cache, window 4096, GQA 32/8, D 80), and in fp32 against
+  float64 numpy;
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Each phase prints one JSON line; the
@@ -170,6 +179,39 @@ BF16_CHECKS += [(k, shape, v) for k, shape in
 VOLUME_KERNELS = ("fft3d_fused", "fft_stockham")
 MAIN_SHAPE["fft3d_fused"] = MAIN_3D
 
+# the Table 1 path's shapes: the paper's 16384-point FFT at the batch of
+# benchmarks/table1_fft_variants.py (BATCH, N) and at a batch that loads the
+# card (512 rows: 134 MB in and out); the stage kernel against its plain
+# version there and at n = 16, 256, 2048, 16384
+TABLE1 = (8, 16384)
+TABLE1_LOADED = (512, 16384)
+CHECKS += [("fft_staged", (4, n)) for n in (16, 256, 2048, 16384)]
+CHECKS += [("fft_staged", TABLE1), ("fft_staged", TABLE1_LOADED)]
+MAIN_SHAPE["fft_staged"] = TABLE1_LOADED
+TABLE1_KERNELS = ("fft_staged", "fft_stockham", "fft_fourstep")
+
+# the decode path's cells, one decode step's attention for one layer at the
+# configs' full widths (src/repro/configs/): (B, S, H, KV, D, window, ring)
+# - starcoder2-15b decode_32k: 16 sequences of up to 32768 tokens, about
+#   what one 80 GB card holds beside 30 GB of bf16 weights (40 layers of
+#   2 x 32768 x 4 x 128 bf16 K and V: 2.7 GB a sequence; 1.07 GB a layer);
+# - h2o-danube-1.8b decode_32k: 128 sequences on the 4096-slot ring cache of
+#   its 4096-token sliding window (models/cache.py kv_init), 1.34 GB a layer
+STARCODER2 = (16, 32768, 48, 4, 128, None, False)
+DANUBE = (128, 4096, 32, 8, 80, 4096, True)
+DECODE_CELLS = {"starcoder2-15b": STARCODER2, "h2o-danube-1.8b": DANUBE}
+TOL_DECODE = 2e-5       # fp32 vs float64 numpy, absolute (the reference's)
+# (shape (B, S, H, KV, D), window, ring, chunk) held against the plain
+# version in fp32 and bf16: the reference test's shapes, a part-filled ring,
+# a window, a group of 12 at D = 80, D not a multiple of 4; then the cells
+DECODE_CHECKS = [((2, 128, 4, 2, 16), None, False, 128),
+                 ((3, 512, 8, 8, 32), None, False, 128),
+                 ((8, 1024, 8, 2, 64), None, False, 128),
+                 ((3, 256, 4, 2, 16), 64, True, 64),
+                 ((3, 256, 12, 1, 80), None, False, 64),
+                 ((3, 100, 8, 8, 18), 40, True, 512)]
+DECODE_CHECKS += [(c[:5], c[5], c[6], 512) for c in DECODE_CELLS.values()]
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -284,6 +326,25 @@ def method_stockham2d(b, h, w):
     return fw + fh, tw + th
 
 
+def staged_floor_bytes(batch: int, n: int) -> int:
+    """Bytes the per-stage design moves: the bit-reverse and each of the
+    log2(n) stages read and write the fp32 planes once."""
+    return 16 * batch * n * (n.bit_length() - 1 + 1)
+
+
+def decode_counts(visible: int, empty_rows: int, b, s, h, kv, d,
+                  cache_size: int, q_size: int):
+    """(flops, bytes) one decode step's attention needs on this run's
+    positions: K and V of each of the ``visible`` (row, slot) pairs and
+    4*H*D flops for each; a row with no visible slot (its output is the
+    mean of V) V of every slot and 2*H*D flops a slot; both position
+    planes, q and the output."""
+    flops = 4 * h * d * visible + 2 * h * d * s * empty_rows
+    nbytes = (2 * visible + s * empty_rows) * kv * d * cache_size \
+        + 4 * b * s + 4 * b + 2 * b * h * d * q_size
+    return flops, nbytes
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, \
@@ -362,7 +423,8 @@ def main() -> int:
     from repro_torch.core import (SplitComplex, from_numpy, fft2, fft3,
                                   get_plan, plan_fft, clear_plan_cache, rfft,
                                   irfft, rfft2, irfft2, fft_conv,
-                                  circular_conv, fourier_mix)
+                                  circular_conv, fourier_mix, fft,
+                                  fft_cooley_tukey)
     from repro_torch.core import fftconv as FC
     from repro_torch.core.fft1d import assert_full_fp32
     from repro_torch.kernels import _build, ops
@@ -373,6 +435,8 @@ def main() -> int:
     from repro_torch.kernels import fftconv_fused as C
     from repro_torch.kernels import fft3d_fused as V
     from repro_torch.kernels import fft2d_fused as S2
+    from repro_torch.kernels import fft_stage as ST
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels.rfft2d_fused import fourstep_factors
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -394,6 +458,71 @@ def main() -> int:
 
     def bf16(x):
         return SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+
+    def decode_case(shape, window, ring, seed):
+        """fp32 q, K and V made on the card from a seed (the caches are
+        gigabytes), positions from numpy: a full cache of per-row lengths
+        (one row full, the rest a quarter to all of S; empty slots -1), or
+        a ring of S slots at per-row q_pos that wrap mid-array, where slot
+        i holds the newest position = i (mod S) that is <= q_pos, with a
+        few short rows (empty slots) and a last row with no slot at all."""
+        b, s, h, kv, d = shape
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        q = torch.randn((b, h, d), generator=g, device=dev)
+        k = torch.randn((b, s, kv, d), generator=g, device=dev)
+        v = torch.randn((b, s, kv, d), generator=g, device=dev)
+        prng = np.random.default_rng(seed)
+        slot = np.arange(s)
+        if ring:
+            q_pos = prng.integers(s, 8 * s, b)
+            q_pos[(q_pos + 1) % s == 0] += 1          # wrap mid-array
+            q_pos[1:4] = (s // 3, 17, s - 2)[:len(q_pos[1:4])]
+            kv_pos = q_pos[:, None] - (q_pos[:, None] - slot) % s
+            kv_pos[kv_pos < 0] = -1
+            kv_pos[-1] = -1
+        else:
+            n = prng.integers(s // 4, s + 1, b)
+            n[0] = s
+            q_pos = n - 1
+            kv_pos = np.where(slot < n[:, None], slot, -1)
+        return (q, k, v,
+                torch.from_numpy(kv_pos).to(dev, torch.int32),
+                torch.from_numpy(q_pos).to(dev, torch.int32))
+
+    def as_bf16(case):
+        return tuple(t.bfloat16() if t.is_floating_point() else t
+                     for t in case)
+
+    def decode_numpy(case, window):
+        """The dense formula in float64 on the host, a row at a time."""
+        q, k, v, kv_pos, q_pos = case
+        b, h, d = q.shape
+        kv = k.shape[2]
+        g = h // kv
+        qn = q.double().cpu().numpy() / np.sqrt(d)
+        pn, qp = kv_pos.cpu().numpy(), q_pos.cpu().numpy()
+        out = np.empty((b, h, d))
+        for i in range(b):
+            kk, vv = k[i].double().cpu().numpy(), v[i].double().cpu().numpy()
+            mask = (pn[i] >= 0) & (pn[i] <= qp[i])
+            if window is not None:
+                mask &= pn[i] > qp[i] - window
+            for j in range(kv):
+                sc = np.where(mask, qn[i, j * g:(j + 1) * g] @ kk[:, j].T,
+                              -1e30)
+                p = np.exp(sc - sc.max(axis=-1, keepdims=True))
+                out[i, j * g:(j + 1) * g] = \
+                    (p / p.sum(axis=-1, keepdims=True)) @ vv[:, j]
+        return out
+
+    def visibility(case, window):
+        """(visible (row, slot) pairs, rows with no visible slot)."""
+        _, _, _, kv_pos, q_pos = case
+        mask = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+        if window is not None:
+            mask &= kv_pos > q_pos[:, None] - window
+        return int(mask.sum().item()), int((~mask.any(dim=1)).sum().item())
 
     # 1. device
     smi = subprocess.run(
@@ -444,6 +573,8 @@ def main() -> int:
                                 TOL_2D),
              "fft2d_fused": c2c(S2.fft2d_fused_cuda, S2.fft2d_fused_plain,
                                 TOL_2D),
+             "fft_staged": c2c(ST.fft_staged_cuda, ST.fft_staged_plain,
+                               TOL_1D),
              "rfft2d_fused": (
                  lambda x, inverse: R.irfft2d_fused_cuda(x) if inverse
                  else R.rfft2d_fused_cuda(x),
@@ -496,6 +627,32 @@ def main() -> int:
                   "err_over_max": rel, "tol": TOL_BF16, "ok": ok})
             del x, got, ref
     torch.cuda.empty_cache()
+    # decode attention: fp32 within the reference's 2e-5 absolute, bf16
+    # within one bf16 ulp at the top of the range
+    for i, (shape, window, ring, chunk) in enumerate(DECODE_CHECKS):
+        case32 = decode_case(shape, window, ring, seed=100 + i)
+        for case, tol in ((case32, TOL_DECODE), (as_bf16(case32), TOL_BF16)):
+            got = DA.decode_attention_cuda(*case, window=window, chunk=chunk)
+            torch.cuda.synchronize()
+            ref = DA.decode_attention_plain(*case, window=window)
+            abs_err, rel = errors(got.float(), ref.float())
+            bf = case[0].dtype == torch.bfloat16
+            ok = (rel if bf else abs_err) <= tol and got.dtype == ref.dtype \
+                and bool(torch.isfinite(got).all())
+            if not ok:
+                failures.append(f"decode_attention{shape} window={window} "
+                                f"{case[0].dtype}: {abs_err}")
+            if bf and shape == STARCODER2[:5]:
+                main_err["decode_attention"] = abs_err
+            emit({"phase": "kernel_vs_plain", "kernel": "decode_attention",
+                  "shape": shape, "window": window, "ring": ring,
+                  "chunk": chunk, "dtype": str(case[0].dtype)[6:],
+                  "max_abs_err": abs_err, "err_over_max": rel,
+                  "tol": tol, "tol_is": "err_over_max" if bf else
+                  "max_abs_err", "ok": ok})
+            del got, ref
+        del case32, case
+        torch.cuda.empty_cache()
 
     # 4. main path through the registry
     clear_plan_cache()
@@ -889,6 +1046,121 @@ def main() -> int:
     del xb, yb_c, yb_p, backb
     torch.cuda.empty_cache()
 
+    # 4f. the paper's Table 1 ladder: the per-stage "Initial" kernel forward
+    # and inverse (a round trip) at Table 1's size and at a loaded batch,
+    # and the same inputs through the port's other rungs
+    clear_plan_cache()
+    t1_z = {shape: rand(shape) for shape in (TABLE1, TABLE1_LOADED)}
+    t1_x = {shape: from_numpy(z, device=dev) for shape, z in t1_z.items()}
+    rungs = {
+        "initial_two_reorder": lambda x: fft_cooley_tukey(
+            x, variant="two_reorder"),
+        "single_copy_one_reorder": lambda x: fft_cooley_tukey(
+            x, variant="one_reorder"),
+        "stockham_kernel": lambda x: ops.fft_stockham(x),
+        "auto_torch_backend": lambda x: fft(x, algo="auto"),
+        "auto_cuda_backend": lambda x: plan_fft(x.shape[-1],
+                                                backend="cuda")(x)}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t1_out = {}
+    for shape, x in t1_x.items():
+        y = ops.fft_staged(x)
+        t1_out[shape, "staged"] = y
+        t1_out[shape, "staged_roundtrip"] = ops.fft_staged(y, inverse=True)
+        for name, fn in rungs.items():
+            t1_out[shape, name] = fn(x)
+    torch.cuda.synchronize()
+    launches_t1 = dict(ops.LAUNCHES)
+    t1checks = {}
+    for shape, z in t1_z.items():
+        want = np.fft.fft(z)
+        tag = f"{shape[0]}x{shape[1]}"
+        for name in ("staged",) + tuple(rungs):
+            t1checks[f"{name}_{tag}_vs_numpy"] = np_errors(
+                t1_out[shape, name], want)
+        t1checks[f"staged_{tag}_roundtrip"] = np_errors(
+            t1_out[shape, "staged_roundtrip"], z)
+    t1limits = {k: TOL_ROUNDTRIP if "roundtrip" in k else TOL_1D
+                for k in t1checks}
+    for k, v in t1checks.items():
+        if not (v <= t1limits[k]):
+            failures.append(f"table1 path {k}: {v} > {t1limits[k]}")
+    p_t1 = plan_fft(TABLE1[1], backend="cuda")
+    if (p_t1.algo, p_t1.backend) != ("four_step", "cuda"):
+        failures.append(f"16384-point cuda plan resolved to {p_t1}")
+    if launches_t1["fft_staged"] != 4:
+        failures.append(f"fft_staged counted {launches_t1['fft_staged']} "
+                        "launches for 4 calls")
+    for k in TABLE1_KERNELS:
+        if launches_t1[k] <= 0:
+            failures.append(f"kernel {k} was not launched on the table1 "
+                            "path")
+    emit({"phase": "table1_path", "launches": launches_t1,
+          "errors": t1checks, "limits": t1limits,
+          "plans": {"fft_16384_cuda": [p_t1.algo, p_t1.backend]}})
+    del t1_out
+    torch.cuda.empty_cache()
+
+    # 4g. the decode path: one decode step's attention for one layer of each
+    # cell in bf16 (the cells' dtype) and fp32, and the danube cell at
+    # chunk 64; bf16 against the plain version, fp32 against float64 numpy
+    dec = {name: decode_case(c[:5], c[5], c[6], seed=7 + i)
+           for i, (name, c) in enumerate(DECODE_CELLS.items())}
+    dec16 = {name: as_bf16(case) for name, case in dec.items()}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    dec_out = {}
+    for name, c in DECODE_CELLS.items():
+        dec_out[name, "bf16"] = ops.decode_attention(*dec16[name],
+                                                     window=c[5])
+        dec_out[name, "fp32"] = ops.decode_attention(*dec[name],
+                                                     window=c[5])
+    dec_out["chunk64"] = ops.decode_attention(
+        *dec["h2o-danube-1.8b"], window=DANUBE[5], chunk=64)
+    torch.cuda.synchronize()
+    launches_dec = dict(ops.LAUNCHES)
+    dchecks, dlimits = {}, {}
+    for name, c in DECODE_CELLS.items():
+        got = dec_out[name, "bf16"]
+        ref = DA.decode_attention_plain(*dec16[name], window=c[5])
+        dchecks[f"{name}_bf16_vs_plain"] = errors(got.float(),
+                                                  ref.float())[1]
+        dlimits[f"{name}_bf16_vs_plain"] = TOL_BF16
+        if got.dtype != torch.bfloat16:
+            failures.append(f"decode {name} bf16 returned {got.dtype}")
+        want = decode_numpy(dec[name], c[5])
+        dchecks[f"{name}_fp32_vs_numpy"] = float(
+            np.abs(to_numpy(dec_out[name, "fp32"]) - want).max())
+        dlimits[f"{name}_fp32_vs_numpy"] = TOL_DECODE
+        del ref, want
+    dchecks["h2o-danube-1.8b_chunk64_vs_chunk512"] = float(
+        (dec_out["chunk64"] - dec_out["h2o-danube-1.8b", "fp32"])
+        .abs().max().item())
+    dlimits["h2o-danube-1.8b_chunk64_vs_chunk512"] = TOL_DECODE
+    empty_row = dec_out["h2o-danube-1.8b", "fp32"][-1]
+    v_mean = dec["h2o-danube-1.8b"][2][-1].double().mean(dim=0)
+    dchecks["h2o-danube-1.8b_empty_row_vs_mean_v"] = float(
+        (empty_row.double() - v_mean.repeat_interleave(
+            DANUBE[2] // DANUBE[3], dim=0)).abs().max().item())
+    dlimits["h2o-danube-1.8b_empty_row_vs_mean_v"] = TOL_DECODE
+    for k, v in dchecks.items():
+        if not (v <= dlimits[k]):
+            failures.append(f"decode path {k}: {v} > {dlimits[k]}")
+    if launches_dec["decode_attention"] != 5:
+        failures.append(f"decode_attention counted "
+                        f"{launches_dec['decode_attention']} launches for "
+                        "5 calls")
+    emit({"phase": "decode_path", "launches": launches_dec,
+          "errors": dchecks, "limits": dlimits,
+          "cells": {name: dict(zip(("B", "S", "H", "KV", "D", "window",
+                                    "ring"), c))
+                    for name, c in DECODE_CELLS.items()},
+          "visible": {name: visibility(dec[name], c[5])
+                      for name, c in DECODE_CELLS.items()}})
+    del dec_out, dec
+    torch.cuda.empty_cache()
+
     # 5. timing at the main paths' shapes; each spec makes its kernel's
     # input and the library call's input from one seeded array
     def complex_inputs(shape):
@@ -1097,6 +1369,99 @@ def main() -> int:
               "nvidia_smi": smi})
         del x, c
         torch.cuda.empty_cache()
+
+    # the Table 1 ladder on the card: every rung at Table 1's size and at
+    # the loaded batch, on one seeded input each; the staged kernel's row
+    # at the loaded batch is its kernels-line entry, with the design's
+    # floor (log2(n) + 1 passes over the planes) beside the bound
+    for shape in (TABLE1, TABLE1_LOADED):
+        x, c = complex_inputs(shape)
+        ladder = {"staged_kernel": lambda: ST.fft_staged_cuda(x),
+                  **{k: (lambda f=f: f(x)) for k, f in rungs.items()},
+                  "torch_fft": lambda: torch.fft.fft(c)}
+        t1_ms = {k: time_ms(f, torch) for k, f in ladder.items()}
+        emit({"phase": "timing", "kernel": "table1_ladder", "shape": shape,
+              "ms": t1_ms, "nvidia_smi": smi})
+        k_ms = t1_ms["staged_kernel"]
+        p_ms = time_ms(lambda: ST.fft_staged_plain(x), torch)
+        l_ms = t1_ms["torch_fft"]
+        flops, nbytes = fft_counts(*shape)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        floor = staged_floor_bytes(*shape)
+        ln = shape[1].bit_length() - 1
+        emit({"phase": "timing", "kernel": "fft_staged", "shape": shape,
+              "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+              "bound_us": b_ms * 1e3, "bound_by": b_by, "fft_flops": flops,
+              "io_bytes": nbytes, "floor_bytes": floor,
+              "floor_us": floor / PEAK_HBM_BYTES * 1e6,
+              "method_flops": shape[0] * ln * (shape[1] // 2) * 10,
+              "table_bytes": 4 * shape[1], "hbm_tb_per_s": floor / k_ms / 1e9,
+              "launches": launches_t1["fft_staged"], "grid_launches": ln + 1,
+              "nvidia_smi": smi})
+        if shape == TABLE1_LOADED:
+            kernels.append({
+                "name": "fft_staged", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/fft_stage.cu",
+                "replaces": "src/repro/kernels/fft_stage.py:25",
+                "launches": launches_t1["fft_staged"],
+                "max_abs_err": main_err["fft_staged"], "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": l_ms})
+        del x, c
+        torch.cuda.empty_cache()
+
+    # decode attention at each cell in bf16; the library call is one
+    # scaled_dot_product_attention with the positions' boolean mask and
+    # GQA, on (B, KV, S, D) views of the caches.  The bound counts the
+    # visible slots of this run's positions; the whole cache beside it
+    nnf = torch.nn.functional
+    for name, c in DECODE_CELLS.items():
+        b, s_len, h, kv, d, window, _ = c
+        q, k, v, kv_pos, q_pos = case = dec16[name]
+        mask = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+        if window is not None:
+            mask &= kv_pos > q_pos[:, None] - window
+        mask = mask[:, None, None, :]
+        qq, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        k_ms = time_ms(lambda: DA.decode_attention_cuda(*case,
+                                                        window=window),
+                       torch)
+        p_ms = time_ms(lambda: DA.decode_attention_plain(*case,
+                                                         window=window),
+                       torch)
+        l_ms = time_ms(lambda: nnf.scaled_dot_product_attention(
+            qq, kt, vt, attn_mask=mask, enable_gqa=True), torch)
+        visible, empty_rows = visibility(case, window)
+        flops, nbytes = decode_counts(visible, empty_rows, b, s_len, h, kv,
+                                      d, 2, 2)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        cache_bytes = 2 * b * s_len * kv * d * 2
+        count = launches_dec["decode_attention"]
+        emit({"phase": "timing", "kernel": "decode_attention", "cell": name,
+              "shape": c[:5], "window": window, "dtype": "bfloat16",
+              "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+              "library": "scaled_dot_product_attention(attn_mask=bool, "
+                         "enable_gqa=True)",
+              "bound_us": b_ms * 1e3, "bound_by": b_by, "flops": flops,
+              "io_bytes": nbytes, "visible_slots": visible,
+              "empty_rows": empty_rows, "cache_bytes": cache_bytes,
+              "cache_us": cache_bytes / PEAK_HBM_BYTES * 1e6,
+              "cache_tb_per_s": cache_bytes / k_ms / 1e9,
+              "tflops": flops / k_ms / 1e9,
+              "splits": -(-s_len // DA.split_length(s_len, 512, h // kv)),
+              "launches": count, "grid_launches": 2, "nvidia_smi": smi})
+        if c == STARCODER2:
+            kernels.append({
+                "name": "decode_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention.py:28",
+                "launches": count,
+                "max_abs_err": main_err["decode_attention"], "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": l_ms})
+        del q, k, v, kv_pos, q_pos, case, mask, qq, kt, vt
+    del dec16
+    torch.cuda.empty_cache()
 
     if failures:
         for f in failures:

@@ -7,6 +7,13 @@ fft2d_gemm   — 2-D FFT as four-step GEMM row and column passes
 rfft2d_fused — real-input 2-D FFT and its inverse (packed row pairs,
                Hermitian untangle, half-width column pass), plus the
                four-step helpers shared with fft2d_gemm
+fftconv_fused — one-pass spectral convolution (packed filter pair E/F)
+fft3d_fused  — 3-D FFT as four-step GEMM passes along W, H and D
+fft2d_fused  — fused Stockham 2-D FFT, the ``fused_stockham`` oracle
+fft_stage    — the paper's per-stage radix-2 "Initial" FFT (Table 1
+               baseline), one launch a butterfly stage
+decode_attention — one-token GQA flash-decode attention over a
+               position-masked KV cache (splits merged in a second launch)
 ops          — dispatch wrappers and the per-kernel launch counters
 _build       — nvcc build of ``csrc/*.cu`` into ctypes-loaded libraries
 """

@@ -12,8 +12,9 @@ and no lock file can be left behind.
 
 Every C entry point returns ``cudaGetLastError()`` of its launches;
 :func:`launch` calls it on the operands' device and stream and raises on a
-non-zero code, and :func:`check_operands` is
-what every wrapper requires of its data before passing pointers.  Nothing here falls back: a
+non-zero code, and :func:`check_operands` (the FFT kernels) and
+:func:`check_decode_operands` (decode attention) are what the wrappers
+require of their data before passing pointers.  Nothing here falls back: a
 missing nvcc, a failed build or a failed launch raises.
 """
 from __future__ import annotations
@@ -35,7 +36,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm", "rfft2d_fused",
-           "fftconv_fused", "fft3d_fused", "fft2d_fused")
+           "fftconv_fused", "fft3d_fused", "fft2d_fused", "fft_stage",
+           "decode_attention")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -140,8 +142,8 @@ def check_operands(x, ndim: int, dtypes=(torch.float32,)) -> None:
         if not t.is_cuda:
             raise ValueError("the CUDA kernel needs CUDA tensors")
         if t.dtype not in dtypes:
-            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
-            raise TypeError(f"the CUDA kernel takes {names}, got {t.dtype}")
+            raise TypeError(f"the CUDA kernel takes {_dtype_name(dtypes)}, "
+                            f"got {t.dtype}")
         if t.dim() != ndim:
             raise ValueError(f"expected {ndim}-D planes, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -150,6 +152,48 @@ def check_operands(x, ndim: int, dtypes=(torch.float32,)) -> None:
                              or x.re.device != x.im.device
                              or x.re.dtype != x.im.dtype):
         raise ValueError("re and im planes differ in shape, device or dtype")
+
+
+def _dtype_name(dtypes) -> str:
+    return " or ".join(str(d).replace("torch.", "") for d in dtypes)
+
+
+def check_decode_operands(q, k, v, kv_pos, q_pos) -> None:
+    """What the decode attention kernel requires: q (B, H, D) and the
+    caches (B, S, KV, D) float32 or bfloat16 (the caches one dtype), with
+    H a multiple of KV; kv_pos (B, S) and q_pos (B,) int32; every operand
+    contiguous on q's CUDA device."""
+    ops = {"q": q, "k_cache": k, "v_cache": v, "kv_pos": kv_pos,
+           "q_pos": q_pos}
+    floats = (torch.float32, torch.bfloat16)
+    for name, t in ops.items():
+        want = (torch.int32,) if name.endswith("pos") else floats
+        if t.dtype not in want:
+            raise TypeError(f"the decode kernel takes {name} as "
+                            f"{_dtype_name(want)}, got {t.dtype} (other "
+                            "dtypes: ROADMAP 'TPU kernels to port' item 2e)")
+    for name, t in ops.items():
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"the decode kernel needs every operand on "
+                             f"q's CUDA device; {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"the decode kernel needs a contiguous {name}")
+    if k.dtype != v.dtype:
+        raise TypeError(f"k_cache and v_cache differ in dtype: {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B, H, D) and equal caches "
+                         f"(B, S, KV, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or not k.shape[2] \
+            or h % k.shape[2]:
+        raise ValueError(f"caches {tuple(k.shape)} do not serve q "
+                         f"{tuple(q.shape)} (H a multiple of KV)")
+    if kv_pos.shape != k.shape[:2] or q_pos.shape != (b,):
+        raise ValueError(f"expected kv_pos {tuple(k.shape[:2])} and q_pos "
+                         f"({b},), got {tuple(kv_pos.shape)}, "
+                         f"{tuple(q_pos.shape)}")
 
 
 def check(code: int, what: str) -> None:

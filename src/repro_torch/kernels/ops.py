@@ -12,9 +12,12 @@ accept ``block_batch`` for plan parity and do not use it.
 card (one count per call; a call issues several grid launches, see
 PERF.md).  The radix-2 Stockham kernel counts apart from the radix-4 one.
 The fused conv counts once per call; at m > 16384 its 1-D transforms run
-on the 1-D kernels and count in their own counters too.  The GEMM
-transforms (``fft2d_gemm``, ``fft3d_fused``) take float32 or bfloat16;
-every other kernel float32.
+on the 1-D kernels and count in their own counters too.  ``fft_staged``
+(the paper's per-stage Table 1 baseline) counts once per call of its
+log2(n) stage launches, ``decode_attention`` (one-token GQA flash-decode)
+once per call of its split and merge launches.  The GEMM transforms
+(``fft2d_gemm``, ``fft3d_fused``) and decode attention take float32 or
+bfloat16; every other kernel float32.
 """
 from __future__ import annotations
 
@@ -31,10 +34,13 @@ from . import fft2d_fused as _fused2d
 from . import fft3d_fused as _fused3d
 from . import rfft2d_fused as _rfused2d
 from . import fftconv_fused as _fconv
+from . import fft_stage as _stage
+from . import decode_attention as _decode
 
 LAUNCHES = {"fft_stockham": 0, "fft_stockham_r2": 0, "fft_fourstep": 0,
             "fft2d_gemm": 0, "rfft2d_fused": 0, "irfft2d_fused": 0,
-            "fftconv_fused": 0, "fft3d_fused": 0, "fft2d_fused": 0}
+            "fftconv_fused": 0, "fft3d_fused": 0, "fft2d_fused": 0,
+            "fft_staged": 0, "decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -114,6 +120,44 @@ def fft_fourstep(x: SplitComplex, *, inverse: bool = False,
     else:
         out = _fourstep.fft_fourstep_plain(flat, inverse=inverse, n1=n1)
     return _unflatten(out, lead)
+
+
+def fft_staged(x: SplitComplex, *, inverse: bool = False,
+               block_batch: int = 8) -> SplitComplex:
+    """Paper-faithful per-stage radix-2 FFT along the last axis (the
+    Table 1 "Initial" baseline): a bit-reverse, then one kernel launch a
+    butterfly stage."""
+    flat, lead = _flatten(x)
+    if flat.shape[0] == 0:
+        return x                       # empty batch: nothing to transform
+    if _on_card(flat.re):
+        LAUNCHES["fft_staged"] += 1
+        out = _stage.fft_staged_cuda(flat, inverse=inverse)
+    else:
+        out = _stage.fft_staged_plain(flat, inverse=inverse)
+    return _unflatten(out, lead)
+
+
+def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, window=None,
+                     chunk: int = 512, block_batch: int = 8):
+    """One-token GQA attention of q (B, H, D) against caches
+    (B, S, KV, D) under the position mask of ``kv_pos`` (B, S) (-1 =
+    empty) and ``q_pos`` (B,), with an optional sliding ``window``;
+    returns (B, H, D) in ``q.dtype``.  As in the reference, ``min(chunk,
+    S)`` must divide S."""
+    s = k_cache.shape[1]
+    c = min(chunk, s)
+    if c <= 0 or s % c:
+        raise ValueError(f"chunk {c} must divide the cache length {s} "
+                         "(both at least 1)")
+    if q.shape[0] == 0:
+        return torch.empty_like(q)     # empty batch: nothing to attend
+    if _on_card(q):
+        LAUNCHES["decode_attention"] += 1
+        return _decode.decode_attention_cuda(q, k_cache, v_cache, kv_pos,
+                                             q_pos, window=window, chunk=c)
+    return _decode.decode_attention_plain(q, k_cache, v_cache, kv_pos,
+                                          q_pos, window=window)
 
 
 def fft2d_fused(x: SplitComplex, *, inverse: bool = False,

@@ -10,7 +10,7 @@ from repro_torch.core import (SplitComplex, fft2, fft3, from_numpy, irfft2,
 from repro_torch.kernels import ops
 from repro_torch.kernels import (fft2d_gemm, fft_fourstep, fft_stockham,
                                  rfft2d_fused, fftconv_fused, fft3d_fused,
-                                 fft2d_fused)
+                                 fft2d_fused, fft_stage, decode_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -64,7 +64,12 @@ def _rel(got, ref):
     (fft2d_fused.fft2d_fused_cuda, fft2d_fused.fft2d_fused_plain,
      (3, 2, 4096), 1e-5),
     (fft2d_fused.fft2d_fused_cuda, fft2d_fused.fft2d_fused_plain,
-     (1, 1024, 512), 1e-5)])
+     (1, 1024, 512), 1e-5),
+    (fft_stage.fft_staged_cuda, fft_stage.fft_staged_plain, (3, 1), 5e-5),
+    (fft_stage.fft_staged_cuda, fft_stage.fft_staged_plain, (5, 8), 5e-5),
+    (fft_stage.fft_staged_cuda, fft_stage.fft_staged_plain, (3, 2048), 5e-5),
+    (fft_stage.fft_staged_cuda, fft_stage.fft_staged_plain, (2, 16384),
+     5e-5)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_matches_plain_on_card(card, launch, plain, shape, tol,
                                       inverse):
@@ -138,11 +143,64 @@ def test_wrappers_count_launches_on_card(card):
                       from_numpy(_rand((3, 33)), device=card))
     ops.fft3d_fused(from_numpy(_rand((1, 8, 8, 8)), device=card))
     ops.fft2d_fused(from_numpy(_rand((1, 64, 64)), device=card))
+    ops.fft_staged(from_numpy(_rand((1, 1024)), device=card))
+    ops.decode_attention(*_decode_operands((1, 64, 4, 2, 16), card))
     assert ops.LAUNCHES == {"fft_stockham": 1, "fft_stockham_r2": 1,
                             "fft_fourstep": 1, "fft2d_gemm": 1,
                             "rfft2d_fused": 1, "irfft2d_fused": 1,
                             "fftconv_fused": 1, "fft3d_fused": 1,
-                            "fft2d_fused": 1}
+                            "fft2d_fused": 1, "fft_staged": 1,
+                            "decode_attention": 1}
+
+
+def _decode_operands(shape, card, dtype=torch.float32, seed=0):
+    """q, caches and a ring-style position plane: per-row query positions,
+    the ring wrapped mid-array, a part-filled row and, with three rows or
+    more, a row with no slot."""
+    b, s, h, kvh, d = shape
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, h, d))).to(card, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, kvh, d)))
+            .to(card, dtype) for _ in range(2))
+    q_pos = rng.integers(s // 2, 3 * s, b)
+    slot = np.arange(s)
+    kv_pos = q_pos[:, None] - (q_pos[:, None] - slot) % s
+    kv_pos[0, s // 3:] = -1
+    if b > 2:
+        kv_pos[-1] = -1
+    return (q, k, v, torch.from_numpy(kv_pos).to(card, torch.int32),
+            torch.from_numpy(q_pos).to(card, torch.int32))
+
+
+# the reference test's shapes, a group of 12 at D = 80, D not a multiple of
+# 4, a group of 40, windows; fp32 at the reference's 2e-5 absolute, bf16
+# at 2^-7 of max|plain|
+@pytest.mark.parametrize("shape,window,chunk", [
+    ((2, 128, 4, 2, 16), None, 128), ((3, 512, 8, 8, 32), None, 128),
+    ((8, 1024, 8, 2, 64), None, 128), ((3, 256, 12, 1, 80), 100, 64),
+    ((3, 100, 8, 8, 18), None, 512), ((3, 512, 40, 1, 8), 300, 512),
+    ((4, 4096, 32, 8, 80), 4096, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_on_card(card, shape, window, chunk,
+                                             dtype):
+    ops_ = _decode_operands(shape, card, dtype)
+    got = decode_attention.decode_attention_cuda(*ops_, window=window,
+                                                 chunk=chunk)
+    torch.cuda.synchronize()
+    want = decode_attention.decode_attention_plain(*ops_, window=window)
+    assert got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 2e-5
+    else:
+        assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+def test_decode_chunk_invariance_on_card(card):
+    ops_ = _decode_operands((4, 4096, 32, 8, 80), card, seed=3)
+    a = ops.decode_attention(*ops_, window=4096, chunk=512)
+    b = ops.decode_attention(*ops_, window=4096, chunk=64)
+    assert (a - b).abs().max().item() <= 2e-5
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -1,0 +1,200 @@
+"""One-token GQA flash-decode on the CPU: ``ops.decode_attention`` (on CPU
+tensors, the decode kernel's plain version) against the reference's
+``ops.decode_attention`` (the Pallas decode kernel in interpret mode) and
+its dense oracle ``ref.decode_attention_ref``, on the same seeded numpy
+inputs: the reference test's shapes, partial fills, a sliding window, a
+ring cache filled by the reference's ``models/cache.kv_update``, per-row
+query positions, a row with no visible slot, a group of 12 at D = 80,
+bf16 caches and chunk invariance.
+
+Tolerances: 2e-5 absolute in fp32, the reference test's own
+(``tests/test_decode_kernel.py``); in bf16 2^-7 of max (one bf16 ulp at
+the top of the range: both round the same fp32 sums)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_oracle
+from repro.models import cache as ref_cache
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import decode_attention as DA
+
+ATOL = 2e-5
+TOL_BF16 = 2.0 ** -7
+
+
+def _setup(b, s, h, kvh, d, seed=0, fill=None):
+    """Seeded numpy q, K, V and a cache filled to ``fill`` slots."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    fill = s if fill is None else fill
+    kv_pos = np.where(np.arange(s) < fill, np.arange(s), -1)
+    kv_pos = np.broadcast_to(kv_pos, (b, s)).astype(np.int32).copy()
+    q_pos = np.full((b,), fill - 1, np.int32)
+    return q, k, v, kv_pos, q_pos
+
+
+def _port(args, dtype=torch.float32, **kw):
+    q, k, v, kv_pos, q_pos = args
+    out = ops.decode_attention(
+        torch.from_numpy(q).to(dtype), torch.from_numpy(k).to(dtype),
+        torch.from_numpy(v).to(dtype), torch.from_numpy(kv_pos),
+        torch.from_numpy(q_pos), **kw)
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+def _ref(args, dtype=jnp.float32, oracle=False, **kw):
+    q, k, v, kv_pos, q_pos = (jnp.asarray(a) for a in args)
+    q, k, v = q.astype(dtype), k.astype(dtype), v.astype(dtype)
+    if oracle:
+        kw.pop("chunk", None)
+        out = ref_oracle.decode_attention_ref(q, k, v, kv_pos, q_pos, **kw)
+    else:
+        out = ref_ops.decode_attention(q, k, v, kv_pos, q_pos, **kw)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _check(args, **kw):
+    got = _port(args, **kw)
+    np.testing.assert_allclose(got, _ref(args, **kw), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, _ref(args, oracle=True, **kw),
+                               atol=ATOL, rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d", [
+    (2, 128, 4, 2, 16),
+    (3, 512, 8, 8, 32),       # MHA, the reference's batch padding path
+    (8, 1024, 8, 2, 64),      # GQA 4x
+    (2, 256, 12, 1, 80),      # a group of 12 at D = 80 (starcoder2's
+    (2, 128, 24, 2, 80),      # group, h2o-danube's head dim)
+])
+def test_matches_reference(b, s, h, kvh, d):
+    _check(_setup(b, s, h, kvh, d), chunk=128)
+
+
+def test_partial_cache_fill():
+    """Empty slots (pos = -1) are masked out."""
+    _check(_setup(2, 256, 4, 2, 16, fill=100), chunk=64)
+
+
+def test_sliding_window():
+    _check(_setup(2, 256, 4, 2, 16, seed=3), window=64, chunk=64)
+
+
+def test_per_row_query_positions():
+    """Rows of different lengths: each row's q_pos and its own empty
+    slots."""
+    q, k, v, kv_pos, q_pos = _setup(3, 256, 8, 2, 32, seed=4)
+    for row, n in enumerate((256, 37, 130)):
+        kv_pos[row, n:] = -1
+        q_pos[row] = n - 1
+    _check((q, k, v, kv_pos, q_pos), chunk=64)
+
+
+def test_ring_cache_wraps():
+    """A sliding-window ring of 16 slots filled token by token by the
+    reference's ``kv_update``: rows of 37 and 20 tokens wrap mid-array,
+    a row of 9 leaves slots empty; window = ring size, as the configs'
+    sliding-window caches use it, and a narrower one."""
+    slots, kvh, d, h = 16, 2, 16, 8
+    rng = np.random.default_rng(5)
+    ks, vs, ps = [], [], []
+    for n in (37, 9, 20):
+        c = {"k": jnp.zeros((1, slots, kvh, d)),
+             "v": jnp.zeros((1, slots, kvh, d)),
+             "pos": jnp.full((1, slots), -1, jnp.int32)}
+        for t in range(n):
+            c, _, _, _ = ref_cache.kv_update(
+                c, jnp.asarray(rng.standard_normal((1, kvh, d)), jnp.float32),
+                jnp.asarray(rng.standard_normal((1, kvh, d)), jnp.float32),
+                jnp.asarray([t], jnp.int32))
+        ks.append(np.asarray(c["k"]))
+        vs.append(np.asarray(c["v"]))
+        ps.append(np.asarray(c["pos"]))
+    kv_pos = np.concatenate(ps)
+    assert kv_pos[0, 37 % slots] == 37 - slots    # the oldest, mid-array
+    assert kv_pos[0, 37 % slots - 1] == 36
+    assert (kv_pos[1, 9:] == -1).all()
+    q = rng.standard_normal((3, h, d)).astype(np.float32)
+    q_pos = np.array([36, 8, 19], np.int32)
+    args = (q, np.concatenate(ks), np.concatenate(vs), kv_pos, q_pos)
+    _check(args, window=slots, chunk=8)
+    _check(args, window=5, chunk=16)
+
+
+def test_row_with_no_visible_slot_is_mean_of_v():
+    """A row whose slots are all empty scores -1e30 everywhere, so its
+    softmax is uniform: the mean of V over its slots, not NaN."""
+    q, k, v, kv_pos, q_pos = _setup(2, 256, 12, 1, 80, seed=6)
+    kv_pos[1] = -1
+    got = _check((q, k, v, kv_pos, q_pos), chunk=64)
+    mean = v[1, :, 0].astype(np.float64).mean(axis=0)
+    np.testing.assert_allclose(got[1], np.broadcast_to(mean, (12, 80)),
+                               atol=ATOL, rtol=0)
+
+
+def test_bf16_cache():
+    """bf16 q and caches cast from the same values on both sides."""
+    args = _setup(2, 256, 12, 1, 80, seed=7, fill=200)
+    got = _port(args, dtype=torch.bfloat16, chunk=64)
+    for want in (_ref(args, dtype=jnp.bfloat16, chunk=64),
+                 _ref(args, dtype=jnp.bfloat16, oracle=True)):
+        assert np.abs(got - want).max() <= TOL_BF16 * np.abs(want).max()
+
+
+def test_chunk_invariance():
+    """The result does not depend on the chunking (nor, on the card, on
+    the split count that follows from it)."""
+    args = _setup(2, 512, 4, 4, 32, seed=7)
+    a = _port(args, chunk=512)
+    b = _port(args, chunk=64)
+    np.testing.assert_allclose(a, b, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(b, _ref(args, chunk=64), atol=ATOL, rtol=0)
+
+
+def test_chunk_must_divide_cache_length():
+    """Both sides refuse a cache length that min(chunk, S) does not
+    divide."""
+    args = _setup(2, 192, 4, 2, 16)
+    with pytest.raises(ValueError, match="must divide"):
+        _port(args, chunk=128)
+    with pytest.raises(AssertionError):
+        _ref(args, chunk=128)
+    _check(args, chunk=64)                    # 64 divides 192
+
+
+def test_empty_batch():
+    out = ops.decode_attention(torch.zeros(0, 4, 16),
+                               torch.zeros(0, 64, 2, 16),
+                               torch.zeros(0, 64, 2, 16),
+                               torch.zeros(0, 64, dtype=torch.int32),
+                               torch.zeros(0, dtype=torch.int32))
+    assert out.shape == (0, 4, 16)
+
+
+def test_split_length_fits_the_scores():
+    """A split holds at most ``chunk`` slots and the group's scores fit
+    the block's shared-memory budget."""
+    assert DA.split_length(32768, 512, 12) == 512
+    assert DA.split_length(100, 512, 4) == 100
+    assert DA.split_length(32768, 32768, 12) == DA.SCORE_FLOATS // 12
+    assert DA.split_length(8192, 8192, 64) * 64 <= DA.SCORE_FLOATS
+
+
+def test_decode_operand_dtypes_refused():
+    """What the CUDA kernel does not take raises before any pointer is
+    passed: int64 positions, float16 caches."""
+    q, k, v, kv_pos, q_pos = (torch.from_numpy(a) for a in
+                              _setup(1, 64, 4, 2, 16))
+    with pytest.raises(TypeError, match="int32"):
+        _build.check_decode_operands(q, k, v, kv_pos.long(), q_pos)
+    with pytest.raises(TypeError, match="2e"):
+        _build.check_decode_operands(q, k.half(), v.half(), kv_pos, q_pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.check_decode_operands(q, k, v, kv_pos, q_pos)

@@ -15,8 +15,9 @@ What it checks: the index maps, buffer chaining, scales and launch
 parameters of every entry point, the bf16 storage modes of the GEMM
 transforms (bf16.cuh's conversions run as written; the twin sums in the
 tiled kernel's order), the untangle, repack and Stockham stage kernels,
-and the shared-memory stages of the fused conv and fused Stockham 2-D
-kernels.  What it cannot check: the tiled GEMM itself (the twin replaces
+the shared-memory stages of the fused conv and fused Stockham 2-D
+kernels, the staged FFT's bit-reverse and stages, and decode attention's
+split and merge kernels (warp shuffles included).  What it cannot check: the tiled GEMM itself (the twin replaces
 it), warps, shared-memory limits or timing.  Libraries go to
 ``build/cuda_emu/``.  Exits non-zero if a shape disagrees beyond 1e-5 of
 max|plain| (fp32) or one bf16 ulp at the top of the range, 2^-7 of
@@ -45,7 +46,8 @@ OUT = ROOT / "build" / "cuda_emu"
 TOL = 1e-5
 TOL_BF16 = 2.0 ** -7
 _LIBS: dict = {}
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*\w+>>>\(")
+_LAUNCH = re.compile(
+    r"(\w+(?:<[^<>]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*\w+>>>\(")
 _DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 
@@ -60,7 +62,7 @@ def build(names=_build.SOURCES) -> None:
     for name in names:
         src = (_build.CSRC / f"{name}.cu").read_text()
         cpp = OUT / f"{name}.cpp"
-        src = _LAUNCH.sub(r"EMU_LAUNCH(\1, \2, \3, \4)(", src)
+        src = _LAUNCH.sub(r"EMU_LAUNCH(\2, \3, \4, \1)(", src)
         src = _DYNAMIC_SHARED.sub(
             r"\1* \2 = reinterpret_cast<\1*>(emu_shared);", src)
         cpp.write_text(src)
@@ -86,6 +88,11 @@ def _check_operands(x, ndim, dtypes=(torch.float32,)):
             raise ValueError(f"bad operand {t.dtype} {tuple(t.shape)}")
 
 
+def _check_decode_operands(*ops):
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("non-contiguous decode operand")
+
+
 def _launch(fn, args, what, device):
     _build.check(fn(*args, None), what)
 
@@ -94,6 +101,7 @@ def install() -> None:
     """Route the CUDA wrappers to the emulated libraries."""
     _build.function = _function
     _build.check_operands = _check_operands
+    _build.check_decode_operands = _check_decode_operands
     _build.launch = _launch
 
 
@@ -113,6 +121,8 @@ def main() -> int:
     from repro_torch.kernels import fftconv_fused as C
     from repro_torch.kernels import fft3d_fused as V
     from repro_torch.kernels import fft2d_fused as S2
+    from repro_torch.kernels import fft_stage as ST
+    from repro_torch.kernels import decode_attention as DA
     build()
     install()
     rng = np.random.default_rng(0)
@@ -175,7 +185,9 @@ def main() -> int:
             ("fft_stockham_r2", S.fft_stockham_r2_cuda,
              S.fft_stockham_r2_plain, [(3, 2), (5, 8), (2, 2048)]),
             ("fft_fourstep", F.fft_fourstep_cuda, F.fft_fourstep_plain,
-             [(2, 512), (2, 1024)])]:
+             [(2, 512), (2, 1024)]),
+            ("fft_staged", ST.fft_staged_cuda, ST.fft_staged_plain,
+             [(3, 1), (3, 2), (5, 8), (2, 16), (2, 2048)])]:
         for shape in shapes:
             x = cplx(shape)
             for inv in (False, True):
@@ -196,6 +208,29 @@ def main() -> int:
         results.append(("fftconv_fused", lead + (m,), len(klead) == 1,
                         rel(C.fftconv_fused_cuda(x, ef),
                             C.fftconv_fused_plain(x, ef))))
+    # decode attention: GQA and MHA, D not a multiple of 4 (scalar loads),
+    # group 12 at D = 80, ragged tiles and splits, a window, a wrapped ring,
+    # a fully masked row, bf16 caches and q
+    for b, s, h, kvh, d, chunk, window, dtype in [
+            (2, 128, 4, 2, 16, 64, None, torch.float32),
+            (3, 100, 8, 8, 18, 512, None, torch.float32),
+            (2, 200, 12, 1, 80, 200, 50, torch.float32),
+            (2, 512, 40, 1, 8, 512, None, torch.float32),
+            (2, 256, 12, 1, 80, 64, None, torch.bfloat16)]:
+        q = torch.from_numpy(rng.standard_normal((b, h, d))).to(dtype)
+        k, v = (torch.from_numpy(rng.standard_normal((b, s, kvh, d)))
+                .to(dtype) for _ in range(2))
+        q_pos = torch.from_numpy(rng.integers(s // 2, 3 * s, b)).int()
+        slot = torch.arange(s)
+        kv_pos = (q_pos[:, None] - (q_pos[:, None] - slot) % s).int()
+        kv_pos[0, s // 3:] = -1                 # a part-filled row
+        kv_pos[-1] = -1                         # a row with no slot
+        got = DA.decode_attention_cuda(q, k, v, kv_pos, q_pos, window=window,
+                                       chunk=chunk)
+        want = DA.decode_attention_plain(q, k, v, kv_pos, q_pos,
+                                         window=window)
+        (bf16 if dtype == torch.bfloat16 else results).append(
+            ("decode_attention", (b, s, h, kvh, d), window, rel(got, want)))
     for r in results + bf16:
         print(*r)
     worst = max(r[3] for r in results)
