@@ -78,6 +78,12 @@ CHECKS = [("fft2d_gemm", MAIN_2D), ("fft2d_gemm", (2, 8, 4)),
           ("fft_fourstep", (64, 4096)), ("fft_fourstep", MAIN_FOURSTEP),
           ("fft_stockham", MAIN_STOCKHAM), ("fft_stockham", (64, 1024)),
           ("fft_stockham", (3, 2)), ("fft_stockham", (5, 8))]
+# the four-step kernel's routes: its smallest default split (16, 32), the
+# one-launch boundary 2^14 and the first two-launch size 2^15, an unequal
+# split (512, 1024) and a batch that no row block divides
+CHECKS += [("fft_fourstep", (3, 512)), ("fft_fourstep", (3, 1 << 14)),
+           ("fft_fourstep", (3, 1 << 15)), ("fft_fourstep", (2, 1 << 19)),
+           ("fft_fourstep", (3, 1 << 20))]
 DEMOTED_2D = (1, 1000, 1000)
 C2C_KERNELS = ("fft2d_gemm", "fft_fourstep", "fft_stockham", "fft2d_fused")
 
@@ -186,7 +192,8 @@ MAIN_SHAPE["fft3d_fused"] = MAIN_3D
 TABLE1 = (8, 16384)
 TABLE1_LOADED = (512, 16384)
 CHECKS += [("fft_staged", (4, n)) for n in (16, 256, 2048, 16384)]
-CHECKS += [("fft_staged", TABLE1), ("fft_staged", TABLE1_LOADED)]
+CHECKS += [("fft_staged", TABLE1), ("fft_staged", TABLE1_LOADED),
+           ("fft_staged", (2, 1 << 16))]
 MAIN_SHAPE["fft_staged"] = TABLE1_LOADED
 TABLE1_KERNELS = ("fft_staged", "fft_stockham", "fft_fourstep")
 
@@ -258,7 +265,24 @@ def method_fft2d(b, h, w, fac):
 
 
 def method_fourstep(b, n, n1):
-    return b * _fourstep_flops(n, n1), 8 * (n1 * n1 + (n // n1) ** 2 + n)
+    """(method flops, table bytes) of the four-step kernel: its n1- and
+    n2-point FFTs, 5*n*log2(n) flops a row (radix-2 count), and T, 6 a
+    point; its one table [w1 | w2 | lo | hi] (n1 + n2 + 2^s + n/2^s
+    entries of 8 bytes, s = ceil(log2(n) / 2))."""
+    s = n.bit_length() // 2
+    flops = b * (5 * n * (n.bit_length() - 1) + 6 * n)
+    return flops, 8 * (n1 + n // n1 + (1 << s) + (n >> s))
+
+
+def fourstep_launches(n: int) -> int:
+    """Grid launches of one four-step call: one up to 2^14, two above."""
+    return 1 if n <= 1 << 14 else 2
+
+
+def fourstep_floor_bytes(batch: int, n: int) -> int:
+    """Bytes the four-step design moves: the fp32 planes read and written
+    once a launch (the second launch through scratch)."""
+    return 16 * batch * n * fourstep_launches(n)
 
 
 def method_rfft2d(b, h, w, fac):
@@ -326,10 +350,16 @@ def method_stockham2d(b, h, w):
     return fw + fh, tw + th
 
 
+def staged_launches(n: int) -> int:
+    """Grid launches of one staged call: one a stage (stage 0 with the
+    bit-reverse), one copy for n = 1."""
+    return max(n.bit_length() - 1, 1)
+
+
 def staged_floor_bytes(batch: int, n: int) -> int:
-    """Bytes the per-stage design moves: the bit-reverse and each of the
-    log2(n) stages read and write the fp32 planes once."""
-    return 16 * batch * n * (n.bit_length() - 1 + 1)
+    """Bytes the per-stage design moves: each launch reads and writes the
+    fp32 planes once."""
+    return 16 * batch * n * staged_launches(n)
 
 
 def decode_counts(visible: int, empty_rows: int, b, s, h, kv, d,
@@ -1261,7 +1291,13 @@ def main() -> int:
               "io_bytes": nbytes, "method_flops": method_flops,
               "table_bytes": table_bytes,
               "method_tflops": method_flops / k_ms / 1e9,
-              "launches": count, "nvidia_smi": smi})
+              "launches": count, "nvidia_smi": smi,
+              **({"grid_launches": fourstep_launches(shape[1]),
+                  "floor_bytes": fourstep_floor_bytes(*shape),
+                  "floor_us": fourstep_floor_bytes(*shape)
+                  / PEAK_HBM_BYTES * 1e6,
+                  "hbm_tb_per_s": fourstep_floor_bytes(*shape) / k_ms / 1e9}
+                 if name == "fft_fourstep" else {})})
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}.cu",
                         "replaces": replaces, "launches": count,
@@ -1373,7 +1409,7 @@ def main() -> int:
     # the Table 1 ladder on the card: every rung at Table 1's size and at
     # the loaded batch, on one seeded input each; the staged kernel's row
     # at the loaded batch is its kernels-line entry, with the design's
-    # floor (log2(n) + 1 passes over the planes) beside the bound
+    # floor (log2(n) passes over the planes) beside the bound
     for shape in (TABLE1, TABLE1_LOADED):
         x, c = complex_inputs(shape)
         ladder = {"staged_kernel": lambda: ST.fft_staged_cuda(x),
@@ -1396,7 +1432,8 @@ def main() -> int:
               "floor_us": floor / PEAK_HBM_BYTES * 1e6,
               "method_flops": shape[0] * ln * (shape[1] // 2) * 10,
               "table_bytes": 4 * shape[1], "hbm_tb_per_s": floor / k_ms / 1e9,
-              "launches": launches_t1["fft_staged"], "grid_launches": ln + 1,
+              "launches": launches_t1["fft_staged"],
+              "grid_launches": staged_launches(shape[1]),
               "nvidia_smi": smi})
         if shape == TABLE1_LOADED:
             kernels.append({

@@ -9,18 +9,31 @@
 //
 // Stage s pairs the elements idx0 = (p >> s) * 2^(s+1) + (p mod 2^s) and
 // idx1 = idx0 + 2^s (repro_torch/core/fft1d.py::_ct_stage_indices, computed
-// here from p instead of read from the tables).  One thread takes a pair,
-// twiddles z[idx1] by W[(p mod 2^s) * n / 2^(s+1)] of the fp32 cast of the
-// float64 table (core/twiddle.py::_twiddle_np) and writes the sum and the
-// difference back to idx0 and idx1.  That is the reference's write reorder
+// here from p instead of read from the tables).  A pair twiddles z[idx1] by
+// W[(p mod 2^s) * n / 2^(s+1)] of the fp32 cast of the float64 table
+// (core/twiddle.py::_twiddle_np) and writes the sum and the difference back
+// to idx0 and idx1.  That is the reference's write reorder
 // out[j] = concat(o0, o1)[inv_perm[j]] in scatter form: inv_perm inverts
 // concat(idx0, idx1), so o0[p] lands at idx0[p] and o1[p] at idx1[p].  A
-// pair's two slots are its own, so the stages run in place on the output.
-// The bit-reverse is a gather kernel of its own; the inverse's 1/n (exact,
-// n a power of two) is folded into the last stage's store.
+// pair's two slots are its own, so stages 1.. run in place on the output.
+// The inverse's 1/n (exact, n a power of two) is folded into the last
+// stage's store.
 //
 // Bound on the card: bytes.  A stage does 10 flops a pair against 32 bytes
-// of data moved, and the log2(n) stages move the array log2(n) times.
+// of data moved, so the design moves each byte of the rung once a stage
+// and no more, with whole sectors:
+//   - the bit-reverse is folded into stage 0's launch, whose pairs
+//     (2p, 2p+1) read x[bitrev(2p)] and x[bitrev(2p + 1)].  For n < 2^10 a
+//     block permutes whole rows in shared memory.  For n >= 2^10 the index
+//     splits as j = (hi, mid, lo) with 5-bit hi and lo, and
+//     bitrev(j) = (rev(lo), rev(mid), rev(hi)): the 32x32 tile of outputs
+//     (hi, lo) at one mid reads the 32x32 tile of inputs (rev(lo), rev(hi))
+//     at rev(mid), contiguous along its rows on both sides, transposed
+//     through shared memory (pitch 33: no bank conflicts).  So log2(n)
+//     launches in all, not log2(n) + 1;
+//   - every stage moves 16-byte float4s: at s = 1 a thread takes the two
+//     pairs of one aligned quad, at s >= 2 four consecutive pairs, whose
+//     idx0 and idx1 are each four consecutive floats.
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,52 +45,163 @@ unsigned blocks_for(long long total) {
   return (unsigned)(b < (1LL << 20) ? b : (1LL << 20));
 }
 
-// y[b, j] = x[b, bitrev(j)] over rows of 2^ln points
+__device__ __forceinline__ unsigned rev_bits(unsigned j, int bits) {
+  return bits ? __brev(j) >> (32 - bits) : 0u;
+}
+
+// the butterfly of one pair: (a + b*w, a - b*w) * scale, into
+// (o0r, o0i) and (o1r, o1i)
+__device__ __forceinline__ void butterfly(float ar, float ai, float br,
+                                          float bi, float w_r, float w_i,
+                                          float scale, float& o0r,
+                                          float& o0i, float& o1r,
+                                          float& o1i) {
+  const float fr = br * w_r - bi * w_i;
+  const float fi = br * w_i + bi * w_r;
+  o0r = (ar + fr) * scale;
+  o0i = (ai + fi) * scale;
+  o1r = (ar - fr) * scale;
+  o1i = (ai - fi) * scale;
+}
+
+// stage 0 with the bit-reverse, n = 2^ln < 2^10: a block holds 1024
+// points (1024 / n rows) in shared memory and writes each pair (2p, 2p+1)
+// as one float2; n = 1 (ln = 0) is a copy
 __global__ void __launch_bounds__(NT)
-bit_reverse(const float* __restrict__ xr, const float* __restrict__ xi,
-            float* __restrict__ yr, float* __restrict__ yi, long long total,
-            int ln) {
-  const long long mask = (1LL << ln) - 1;
-  for (long long t = blockIdx.x * (long long)NT + threadIdx.x; t < total;
-       t += (long long)gridDim.x * NT) {
-    const long long j = t & mask;
-    const long long r = ln ? (long long)(__brev((unsigned)j) >> (32 - ln)) : 0;
-    const long long src = (t - j) + r;
-    yr[t] = xr[src];
-    yi[t] = xi[src];
+first_stage_rows(const float* __restrict__ xr, const float* __restrict__ xi,
+                 float* __restrict__ outr, float* __restrict__ outi,
+                 const float* __restrict__ wr, const float* __restrict__ wi,
+                 long long total, int ln, float scale) {
+  __shared__ float sr[1024], si[1024];
+  const long long base = (long long)blockIdx.x * 1024;
+  for (int e = threadIdx.x; e < 1024; e += NT) {
+    const bool in = base + e < total;
+    sr[e] = in ? xr[base + e] : 0.f;
+    si[e] = in ? xi[base + e] : 0.f;
+  }
+  __syncthreads();
+  if (ln == 0) {
+    for (int e = threadIdx.x; e < 1024; e += NT)
+      if (base + e < total) {
+        outr[base + e] = sr[e];
+        outi[base + e] = si[e];
+      }
+    return;
+  }
+  const int mask = (1 << ln) - 1;
+  const float w_r = wr[0], w_i = wi[0];
+  for (int p = threadIdx.x; p < 512; p += NT) {
+    const int e0 = 2 * p;
+    if (base + e0 >= total) break;
+    const int row = e0 & ~mask, j = e0 & mask;
+    const int s0 = row + (int)rev_bits(j, ln);
+    const int s1 = row + (int)rev_bits(j + 1, ln);
+    float2 o0, o1;
+    butterfly(sr[s0], si[s0], sr[s1], si[s1], w_r, w_i, scale, o0.x, o0.y,
+              o1.x, o1.y);
+    *reinterpret_cast<float2*>(outr + base + e0) = make_float2(o0.x, o1.x);
+    *reinterpret_cast<float2*>(outi + base + e0) = make_float2(o0.y, o1.y);
   }
 }
 
-// butterfly stage s in place: rows of 2^ln points, 2^(ln-1) pairs a row
+// stage 0 with the bit-reverse, n = 2^ln >= 2^10: one 32x32 tile a block.
+// Tile (b, mid) holds the outputs j = hi*2^(ln-5) + mid*32 + lo, which read
+// the inputs rev(lo)*2^(ln-5) + rev(mid)*32 + rev(hi).
 __global__ void __launch_bounds__(NT)
-stage(float* __restrict__ zr, float* __restrict__ zi,
-      const float* __restrict__ wr, const float* __restrict__ wi,
-      long long total, int ln, int s, float scale) {
-  const long long pairs = 1LL << (ln - 1);
+first_stage_tiled(const float* __restrict__ xr, const float* __restrict__ xi,
+                  float* __restrict__ outr, float* __restrict__ outi,
+                  const float* __restrict__ wr, const float* __restrict__ wi,
+                  int ln, float scale) {
+  __shared__ float tr[32 * 33], ti[32 * 33];
+  const int lm = ln - 10;
+  const long long b = blockIdx.x >> lm;
+  const unsigned mid = blockIdx.x & ((1u << lm) - 1);
+  const long long row = b << ln;
+  const long long src = row + ((long long)rev_bits(mid, lm) << 5);
+  for (int e = threadIdx.x; e < 1024; e += NT) {
+    const long long a = src + ((long long)(e >> 5) << (ln - 5)) + (e & 31);
+    tr[(e >> 5) * 33 + (e & 31)] = xr[a];
+    ti[(e >> 5) * 33 + (e & 31)] = xi[a];
+  }
+  __syncthreads();
+  const float w_r = wr[0], w_i = wi[0];
+  const long long dst = row + ((long long)mid << 5);
+  for (int p = threadIdx.x; p < 512; p += NT) {
+    const int hi = p >> 4, lo = (p & 15) << 1;
+    const int c = (int)rev_bits(hi, 5);
+    const int s0 = (int)rev_bits(lo, 5) * 33 + c;
+    const int s1 = (int)rev_bits(lo + 1, 5) * 33 + c;
+    float2 o0, o1;
+    butterfly(tr[s0], ti[s0], tr[s1], ti[s1], w_r, w_i, scale, o0.x, o0.y,
+              o1.x, o1.y);
+    const long long a = dst + ((long long)hi << (ln - 5)) + lo;
+    *reinterpret_cast<float2*>(outr + a) = make_float2(o0.x, o1.x);
+    *reinterpret_cast<float2*>(outi + a) = make_float2(o0.y, o1.y);
+  }
+}
+
+// stage 1 in place: quad u holds the pairs (4u, 4u+2), k = 0, and
+// (4u+1, 4u+3), k = 1
+__global__ void __launch_bounds__(NT)
+stage_one(float* __restrict__ zr, float* __restrict__ zi,
+          const float* __restrict__ wr, const float* __restrict__ wi,
+          long long quads, int ln, float scale) {
+  const float w0r = wr[0], w0i = wi[0];
+  const float w1r = wr[1 << (ln - 2)], w1i = wi[1 << (ln - 2)];
+  float4* r4 = reinterpret_cast<float4*>(zr);
+  float4* i4 = reinterpret_cast<float4*>(zi);
+  for (long long u = blockIdx.x * (long long)NT + threadIdx.x; u < quads;
+       u += (long long)gridDim.x * NT) {
+    const float4 r = r4[u], i = i4[u];
+    float4 o, q;
+    butterfly(r.x, i.x, r.z, i.z, w0r, w0i, scale, o.x, q.x, o.z, q.z);
+    butterfly(r.y, i.y, r.w, i.w, w1r, w1i, scale, o.y, q.y, o.w, q.w);
+    r4[u] = o;
+    i4[u] = q;
+  }
+}
+
+// stage s >= 2 in place: unit u takes the four pairs p = 4u .. 4u+3, whose
+// idx0 (and idx1) are four consecutive, 16-byte aligned floats
+__global__ void __launch_bounds__(NT)
+stage_quad(float* __restrict__ zr, float* __restrict__ zi,
+           const float* __restrict__ wr, const float* __restrict__ wi,
+           long long units, int ln, int s, float scale) {
   const long long half = 1LL << s;
-  for (long long t = blockIdx.x * (long long)NT + threadIdx.x; t < total;
-       t += (long long)gridDim.x * NT) {
-    const long long b = t >> (ln - 1), p = t & (pairs - 1);
+  for (long long u = blockIdx.x * (long long)NT + threadIdx.x; u < units;
+       u += (long long)gridDim.x * NT) {
+    const long long p = u << 2;
     const long long k = p & (half - 1);
-    const long long i0 = (b << ln) + ((p >> s) << (s + 1)) + k;
+    const long long i0 = ((p >> s) << (s + 1)) + k;
     const long long i1 = i0 + half;
-    const long long tw = k << (ln - 1 - s);
-    const float w_r = wr[tw], w_i = wi[tw];
-    const float ar = zr[i0], ai = zi[i0], br = zr[i1], bi = zi[i1];
-    const float fr = br * w_r - bi * w_i;
-    const float fi = br * w_i + bi * w_r;
-    zr[i0] = (ar + fr) * scale;
-    zi[i0] = (ai + fi) * scale;
-    zr[i1] = (ar - fr) * scale;
-    zi[i1] = (ai - fi) * scale;
+    const float4 ar = *reinterpret_cast<const float4*>(zr + i0);
+    const float4 ai = *reinterpret_cast<const float4*>(zi + i0);
+    const float4 br = *reinterpret_cast<const float4*>(zr + i1);
+    const float4 bi = *reinterpret_cast<const float4*>(zi + i1);
+    const int sh = ln - 1 - s;
+    const long long t = k << sh;
+    float4 o0r, o0i, o1r, o1i;
+    butterfly(ar.x, ai.x, br.x, bi.x, wr[t], wi[t], scale, o0r.x, o0i.x,
+              o1r.x, o1i.x);
+    butterfly(ar.y, ai.y, br.y, bi.y, wr[t + (1LL << sh)],
+              wi[t + (1LL << sh)], scale, o0r.y, o0i.y, o1r.y, o1i.y);
+    butterfly(ar.z, ai.z, br.z, bi.z, wr[t + (2LL << sh)],
+              wi[t + (2LL << sh)], scale, o0r.z, o0i.z, o1r.z, o1i.z);
+    butterfly(ar.w, ai.w, br.w, bi.w, wr[t + (3LL << sh)],
+              wi[t + (3LL << sh)], scale, o0r.w, o0i.w, o1r.w, o1i.w);
+    *reinterpret_cast<float4*>(zr + i0) = o0r;
+    *reinterpret_cast<float4*>(zi + i0) = o0i;
+    *reinterpret_cast<float4*>(zr + i1) = o1r;
+    *reinterpret_cast<float4*>(zi + i1) = o1i;
   }
 }
 
 }  // namespace
 
 // out = FFT(x) (inverse: with the 1/n) along rows of n points; w is the
-// fp32 (n,) twiddle table exp(-+2*pi*i*k/n).  One bit-reverse launch and
-// log2(n) stage launches on the current stream.
+// fp32 (n,) twiddle table exp(-+2*pi*i*k/n).  log2(n) launches on the
+// current stream (stage 0 with the bit-reverse, then stages 1..), one copy
+// launch for n = 1.  out must be 16-byte aligned (a fresh allocation).
 extern "C" int fft_staged_f32(const float* xr, const float* xi,
                               float* outr, float* outi,
                               const float* wr, const float* wi,
@@ -88,14 +212,29 @@ extern "C" int fft_staged_f32(const float* xr, const float* xi,
   int ln = 0;
   while ((1 << ln) < n) ++ln;
   const long long total = batch * n;
-  bit_reverse<<<blocks_for(total), NT, 0, s>>>(xr, xi, outr, outi, total, ln);
+  const float last_scale = inverse ? (float)(1.0 / (double)n) : 1.f;
+  const float scale0 = ln == 1 ? last_scale : 1.f;
+  if (ln < 10) {
+    const unsigned blocks = (unsigned)((total + 1023) / 1024);
+    first_stage_rows<<<blocks, NT, 0, s>>>(xr, xi, outr, outi, wr, wi, total,
+                                           ln, scale0);
+  } else {
+    const unsigned blocks = (unsigned)(batch << (ln - 10));
+    first_stage_tiled<<<blocks, NT, 0, s>>>(xr, xi, outr, outi, wr, wi, ln,
+                                            scale0);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const float last_scale = inverse ? (float)(1.0 / (double)n) : 1.f;
-  for (int st = 0; st < ln; ++st) {
-    const long long pairs = batch * (n / 2);
-    stage<<<blocks_for(pairs), NT, 0, s>>>(
-        outr, outi, wr, wi, pairs, ln, st, st == ln - 1 ? last_scale : 1.f);
+  for (int st = 1; st < ln; ++st) {
+    const float scale = st == ln - 1 ? last_scale : 1.f;
+    if (st == 1) {
+      stage_one<<<blocks_for(total / 4), NT, 0, s>>>(outr, outi, wr, wi,
+                                                     total / 4, ln, scale);
+    } else {
+      stage_quad<<<blocks_for(total / 8), NT, 0, s>>>(outr, outi, wr, wi,
+                                                      total / 8, ln, st,
+                                                      scale);
+    }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -1,20 +1,25 @@
 """Four-step (Bailey) FFT: the CUDA kernel and its plain PyTorch version.
 
 Replaces ``repro/kernels/fft_fourstep.py::_fourstep_kernel``: n = n1*n2
-(``_split_n``), an (n1 x n1) DFT matmul with the batch folded into the
-right-hand side's free dimension, the twiddle, an (n2 x n2) DFT matmul and
-the output order X[k2*n1 + k1]; the inverse scales by 1/n.  At n = 2^20
-each DFT table is 1024x1024 (4 MB a plane), so ``csrc/fft_fourstep.cu``
-streams the tables through shared-memory tiles: two launches of one tiled
-complex fp32 GEMM (``csrc/cgemm.cuh``), the twiddle in the first one's
-epilogue and the reordered, scaled store in the second's.  What bounds it:
-the transform itself is bound by bytes (16 per complex point in and out),
-but the dense-DFT method does 8*n*(n1+n2) flops per row, about 160x the
-FFT's 5*n*log2(n) at n = 2^20, so this design is bound by those fp32
-operations on the CUDA cores; the scratch round trip between the two
-GEMMs is its known extra traffic.
+(``_split_n``), column DFTs of length n1 with the batch folded into the
+right-hand side's free dimension, the twiddle T[k1, j2] = W_n^(k1*j2), row
+DFTs of length n2 and the output order X[k2*n1 + k1]; the inverse scales
+by 1/n.  The plain version keeps the reference's dense DFT matmuls.  What
+bounds the function on the card: bytes (16 per complex point in and out,
+~3 flops a byte).  So ``csrc/fft_fourstep.cu`` runs each DFT as a radix-16
+Stockham FFT in shared memory and registers, not as a dense matmul (which
+did 8*n*(n1+n2) flops a row, 160x the FFT's at n = 2^20), and moves the
+planes the fewest times it can: one launch holding whole rows for
+n <= 2^14, and for larger n two launches, columns then rows, through one
+scratch round trip, every load and store coalesced.  Its twiddles come from
+one small table (:func:`kernel_table_np`): the n1- and n2-entry tables of
+the sub-FFTs and two tables of about sqrt(n) entries whose products give
+T.  The kernel takes power-of-two factors of 2 to :data:`MAX_FACTOR`
+(:func:`kernel_factors`), which covers every default split up to 2^20.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -25,6 +30,7 @@ from repro_torch.core.fft1d import _matmul
 from . import _build
 
 
+@functools.lru_cache(maxsize=None)
 def _split_n(n: int) -> tuple:
     """Factor n = n1*n2 with n1 <= n2, n1 the largest divisor <= sqrt(n)."""
     best = None
@@ -55,7 +61,8 @@ def _tables(n1: int, n2: int, inverse: bool, dtype, device):
 
 def fft_fourstep_plain(x: SplitComplex, *, inverse: bool = False,
                        n1: int = None) -> SplitComplex:
-    """The kernel's arithmetic in plain PyTorch on (batch, n) planes."""
+    """The reference kernel's arithmetic in plain PyTorch on (batch, n)
+    planes: dense DFT matmuls on either side of the twiddle."""
     b, n = x.shape
     n1, n2 = _factors(n, n1)
     w1, w2, t = _tables(n1, n2, inverse, x.dtype, x.device)
@@ -79,24 +86,73 @@ def fft_fourstep_plain(x: SplitComplex, *, inverse: bool = False,
     return SplitComplex(dr, di)
 
 
-_ARGS = [_build.P] * 12 + [_build.L, _build.I, _build.I, _build.I, _build.P]
+# the CUDA kernel's limits: each factor a power of two in [2, MAX_FACTOR]
+# (a factor's FFT runs in one block); n <= ONE_LAUNCH_MAX runs in one
+# launch without scratch, larger n in two
+MAX_FACTOR = 1024
+ONE_LAUNCH_MAX = 1 << 14
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_factors(n: int, n1=None) -> tuple:
+    """(n1, n2) for the CUDA kernel: the plain version's split, checked
+    against the kernel's limits; raises ValueError naming them."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"the four-step kernel needs a power-of-two n, "
+                         f"got {n}")
+    n1, n2 = _factors(n, n1)
+    if not (2 <= n1 <= MAX_FACTOR and 2 <= n2 <= MAX_FACTOR):
+        raise ValueError(f"the four-step kernel takes factors of 2 to "
+                         f"{MAX_FACTOR}, got n = {n} = {n1} x {n2}")
+    return n1, n2
+
+
+def level_shift(n: int) -> int:
+    """s of T's two-level lookup W_n^m = hi[m >> s] * lo[m mod 2^s]:
+    ceil(log2(n) / 2), so both tables hold about sqrt(n) entries."""
+    return n.bit_length() // 2
+
+
+def kernel_table_np(n1: int, n2: int, sign: float) -> tuple:
+    """The kernel's one float64 table, (n1 + n2 + 2^s + n/2^s, 2) of
+    (cos, sin) pairs: w1[k] = W_n1^k, w2[k] = W_n2^k, lo[k] = W_n^k
+    (k < 2^s) and hi[k] = W_n^(k * 2^s), with W_N = exp(sign*2*pi*i/N)."""
+    n = n1 * n2
+    s = level_shift(n)
+    parts = [tw._twiddle_np(n1, sign), tw._twiddle_np(n2, sign)]
+    for m in (np.arange(1 << s, dtype=np.float64),
+              np.arange(n >> s, dtype=np.float64) * (1 << s)):
+        ang = sign * 2.0 * np.pi * m / n
+        parts.append((np.cos(ang), np.sin(ang)))
+    return (np.stack([np.concatenate([p[0] for p in parts]),
+                      np.concatenate([p[1] for p in parts])], axis=1),)
+
+
+def kernel_table(n1: int, n2: int, *, inverse: bool = False,
+                 device="cuda") -> torch.Tensor:
+    """:func:`kernel_table_np` as a cached fp32 tensor on ``device``."""
+    return tw._cast(kernel_table_np, (n1, n2, tw._sign(inverse)),
+                    torch.float32, torch.device(device))[0]
+
+
+_ARGS = [_build.P] * 7 + [_build.L, _build.I, _build.I, _build.I, _build.P]
 
 
 def fft_fourstep_cuda(x: SplitComplex, *, inverse: bool = False,
                       n1: int = None) -> SplitComplex:
-    """Launch the two-GEMM four-step kernel on (batch, n) CUDA planes."""
+    """Launch the four-step kernel on (batch, n) CUDA planes: one grid for
+    n <= 2^14, two (columns, then rows through scratch) above."""
+    n1, n2 = kernel_factors(x.shape[-1], n1)
     _build.check_operands(x, 2)
     batch, n = x.shape
-    if n & (n - 1):
-        raise ValueError(f"the four-step kernel needs a power-of-two n, "
-                         f"got {n}")
-    n1, n2 = _factors(n, n1)
-    w1, w2, t = _tables(n1, n2, inverse, torch.float32, x.device)
-    out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    scratch = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
+    tab = kernel_table(n1, n2, inverse=inverse, device=x.device)
+    out = x.re.new_empty((2, batch, n))
+    scratch = x.re.new_empty((2, batch, n)) if n > ONE_LAUNCH_MAX else None
     fn = _build.function("fft_fourstep", "fft_fourstep_f32", _ARGS)
-    ptrs = [x.re, x.im, out.re, out.im, scratch.re, scratch.im,
-            w1.re, w1.im, w2.re, w2.im, t.re, t.im]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + [batch, n1, n2,
-                  int(inverse)], "fft_fourstep_f32", x.device)
-    return out
+    ptrs = [x.re.data_ptr(), x.im.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr()]
+    ptrs += [None, None] if scratch is None else [scratch[0].data_ptr(),
+                                                  scratch[1].data_ptr()]
+    _build.launch(fn, ptrs + [tab.data_ptr(), batch, n1, n2, int(inverse)],
+                  "fft_fourstep_f32", x.device)
+    return SplitComplex(out[0], out[1])

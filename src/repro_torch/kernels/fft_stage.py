@@ -8,7 +8,11 @@ natural order, and 1/n on the inverse.  It is the measured baseline of the
 Table 1 reorder-elimination ladder; the Stockham kernels are where the
 ladder ends.  ``csrc/fft_stage.cu`` keeps the structure, one launch a stage
 over device memory, so the card's Table 1 has the same first rung.  What
-bounds it: bytes, log2(n) passes over the planes.
+bounds it: bytes, one pass over the planes a stage.  So the design moves no
+other bytes: the bit-reverse is folded into stage 0's launch (whole rows
+permuted in shared memory below 2^10 points, 32x32 tiles above), and every
+stage reads and writes whole 16-byte float4s, so a call is log2(n)
+launches (one copy for n = 1).
 """
 from __future__ import annotations
 
@@ -41,15 +45,15 @@ _ARGS = [_build.P] * 6 + [_build.L, _build.I, _build.I, _build.P]
 
 def fft_staged_cuda(x: SplitComplex, *, inverse: bool = False
                     ) -> SplitComplex:
-    """Launch the bit-reverse and the log2(n) stage kernels on (batch, n)
-    CUDA planes."""
+    """Launch the log2(n) stage kernels (stage 0 with the bit-reverse) on
+    (batch, n) CUDA planes."""
     _build.check_operands(x, 2)
     batch, n = x.shape
     _check_n(n)
     w = tw.twiddles(n, inverse=inverse, dtype=torch.float32, device=x.device)
-    out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
+    out = x.re.new_empty((2, batch, n))
     fn = _build.function("fft_stage", "fft_staged_f32", _ARGS)
-    ptrs = [x.re, x.im, out.re, out.im, w.re, w.im]
+    ptrs = [x.re, x.im, out[0], out[1], w.re, w.im]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [batch, n,
                   int(inverse)], "fft_staged_f32", x.device)
-    return out
+    return SplitComplex(out[0], out[1])

@@ -41,6 +41,19 @@ def _rel(got, ref):
      1e-5),
     (fft_fourstep.fft_fourstep_cuda, fft_fourstep.fft_fourstep_plain,
      (3, 8192), 5e-5),
+    # the four-step kernel's routes: the smallest default split (16, 32),
+    # one launch up to 2^14, two from 2^15, an unequal split (512, 1024),
+    # a batch no row block divides
+    (fft_fourstep.fft_fourstep_cuda, fft_fourstep.fft_fourstep_plain,
+     (3, 512), 5e-5),
+    (fft_fourstep.fft_fourstep_cuda, fft_fourstep.fft_fourstep_plain,
+     (3, 1 << 14), 5e-5),
+    (fft_fourstep.fft_fourstep_cuda, fft_fourstep.fft_fourstep_plain,
+     (3, 1 << 15), 5e-5),
+    (fft_fourstep.fft_fourstep_cuda, fft_fourstep.fft_fourstep_plain,
+     (2, 1 << 19), 5e-5),
+    (fft_fourstep.fft_fourstep_cuda, fft_fourstep.fft_fourstep_plain,
+     (3, 1 << 20), 5e-5),
     (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
      (3, 2048), 5e-5),
     (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
@@ -69,6 +82,9 @@ def _rel(got, ref):
     (fft_stage.fft_staged_cuda, fft_stage.fft_staged_plain, (5, 8), 5e-5),
     (fft_stage.fft_staged_cuda, fft_stage.fft_staged_plain, (3, 2048), 5e-5),
     (fft_stage.fft_staged_cuda, fft_stage.fft_staged_plain, (2, 16384),
+     5e-5),
+    # stage 0 through 32x32 tiles from 2^10 points on
+    (fft_stage.fft_staged_cuda, fft_stage.fft_staged_plain, (2, 1 << 16),
      5e-5)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_matches_plain_on_card(card, launch, plain, shape, tol,

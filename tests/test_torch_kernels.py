@@ -138,3 +138,80 @@ def test_from_numpy_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         from_numpy(np.zeros(4, np.complex64))
+
+
+# -- the four-step CUDA kernel's pure-Python parts ---------------------------
+
+@pytest.mark.parametrize("k", range(2, 21))
+def test_fourstep_kernel_takes_every_default_split(k):
+    """Every default split up to 2^20 is within the kernel's limits."""
+    n = 1 << k
+    n1, n2 = fft_fourstep.kernel_factors(n)
+    assert (n1, n2) == fft_fourstep._split_n(n)
+    assert 2 <= n1 <= fft_fourstep.MAX_FACTOR
+    assert 2 <= n2 <= fft_fourstep.MAX_FACTOR
+
+
+@pytest.mark.parametrize("n,n1", [(1 << 21, None), (1 << 12, 2),
+                                  (1 << 13, 4096), (1 << 10, 1 << 10)])
+def test_fourstep_kernel_refuses_factors_past_its_limit(n, n1):
+    """A factor above 1024 (or a 1-point factor) raises, naming the limit;
+    the check runs before the device check, so it shows on CPU tensors."""
+    with pytest.raises(ValueError, match="factors of 2 to 1024"):
+        fft_fourstep.kernel_factors(n, n1)
+    x = from_numpy(np.zeros((1, n), np.complex64), device="cpu")
+    with pytest.raises(ValueError, match="factors of 2 to 1024"):
+        fft_fourstep.fft_fourstep_cuda(x, n1=n1)
+
+
+def test_fourstep_kernel_refuses_non_pow2():
+    with pytest.raises(ValueError, match="power-of-two"):
+        fft_fourstep.kernel_factors(768)
+
+
+def _table_parts(n1, n2, inverse):
+    """(fp32 table, float64 table, s) of the kernel's twiddle table."""
+    sign = 1.0 if inverse else -1.0
+    exact = fft_fourstep.kernel_table_np(n1, n2, sign)[0]
+    got = fft_fourstep.kernel_table(n1, n2, inverse=inverse,
+                                    device="cpu").numpy()
+    return got, exact, fft_fourstep.level_shift(n1 * n2)
+
+
+@pytest.mark.parametrize("n1,n2", [(2, 2), (16, 32), (64, 64), (512, 1024),
+                                   (1024, 1024), (1024, 32)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fourstep_kernel_table_within_one_ulp(n1, n2, inverse):
+    """[w1 | w2 | lo | hi] against exp(sign*2*pi*i*k/N) in float64 numpy:
+    each fp32 entry within 1 ulp of its own value."""
+    got, _, s = _table_parts(n1, n2, inverse)
+    n = n1 * n2
+    sign = 1.0 if inverse else -1.0
+    ks = [np.arange(n1) / n1, np.arange(n2) / n2, np.arange(1 << s) / n,
+          np.arange(n >> s) * (1 << s) / n]
+    want = np.exp(sign * 2j * np.pi * np.concatenate(ks))
+    assert got.dtype == np.float32 and got.shape == (len(want), 2)
+    for col, ref in ((0, want.real), (1, want.imag)):
+        ulp = np.spacing(np.abs(ref).astype(np.float32))
+        assert (np.abs(got[:, col] - ref) <= ulp).all()
+
+
+@pytest.mark.parametrize("n1,n2", [(16, 32), (64, 64), (512, 1024),
+                                   (1024, 1024), (1024, 32)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fourstep_twiddle_two_level_within_two_ulp(n1, n2, inverse):
+    """T's two-level product hi[m >> s] * lo[m mod 2^s], in fp32 as the
+    kernel forms it, for every m = k1*j2 of the split: within 2 ulp of 1
+    (the twiddles' magnitude) of W_n^m in float64."""
+    got, _, s = _table_parts(n1, n2, inverse)
+    n = n1 * n2
+    lo = got[n1 + n2:n1 + n2 + (1 << s)]
+    hi = got[n1 + n2 + (1 << s):]
+    m = np.unique(np.outer(np.arange(n1), np.arange(n2)))
+    a, b = hi[m >> s], lo[m & ((1 << s) - 1)]
+    re = a[:, 0] * b[:, 0] - a[:, 1] * b[:, 1]
+    im = a[:, 0] * b[:, 1] + a[:, 1] * b[:, 0]
+    assert re.dtype == np.float32
+    want = np.exp((1.0 if inverse else -1.0) * 2j * np.pi * m / n)
+    err = np.maximum(np.abs(re - want.real), np.abs(im - want.imag))
+    assert err.max() <= 2 * np.spacing(np.float32(1.0))

@@ -115,3 +115,35 @@ def test_stage_tables_bit_identical(n):
             assert np.array_equal(w.im[idx].numpy(),
                                   np.asarray(jnp.asarray(s[tw_idx],
                                                          jnp.float32)))
+
+
+def _rev(v, bits):
+    """``v`` with its low ``bits`` bits reversed (0 for bits = 0)."""
+    v = np.asarray(v, dtype=np.int64)
+    r = np.zeros_like(v)
+    for b in range(bits):
+        r |= ((v >> b) & 1) << (bits - 1 - b)
+    return r
+
+
+def _tiled_bit_reverse(n):
+    """The input index that ``csrc/fft_stage.cu``'s first_stage_tiled reads
+    for each output j, in its loop order: tile ``mid`` loads the inputs
+    a*2^(ln-5) + rev(mid)*32 + c (a, c < 32) and writes the outputs
+    hi*2^(ln-5) + mid*32 + lo from tile entry (rev(lo), rev(hi))."""
+    ln = n.bit_length() - 1
+    lm = ln - 10
+    a, c = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    r5 = _rev(np.arange(32), 5)
+    src = np.empty(n, dtype=np.int64)
+    for mid in range(1 << lm):
+        tile = (a << (ln - 5)) + (int(_rev(mid, lm)) << 5) + c
+        src[(a << (ln - 5)) + (mid << 5) + c] = tile[r5[c], r5[a]]
+    return src
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(10, 17)])
+def test_tiled_bit_reverse_map(n):
+    """Stage 0's 32x32-tile index map, which the kernel takes from 2^10
+    points on, is the bit reversal at every n up to 2^16."""
+    assert np.array_equal(_tiled_bit_reverse(n), tw.bit_reverse_indices(n))

@@ -35,6 +35,7 @@ static unsigned char* emu_shared = nullptr;  // the launch's dynamic shared memo
 static std::vector<std::unique_ptr<std::barrier<>>>* emu_warps = nullptr;
 static unsigned emu_lanes[1024];             // __shfl_xor_sync's exchange
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 template <class F>
@@ -62,7 +63,7 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
 #define __host__
 #define __shared__ static
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 template <class F> struct Launcher {
   F f; dim3 g, b; std::size_t shmem;

@@ -16,7 +16,8 @@ parameters of every entry point, the bf16 storage modes of the GEMM
 transforms (bf16.cuh's conversions run as written; the twin sums in the
 tiled kernel's order), the untangle, repack and Stockham stage kernels,
 the shared-memory stages of the fused conv and fused Stockham 2-D
-kernels, the staged FFT's bit-reverse and stages, and decode attention's
+kernels, the four-step kernel's shared-memory FFTs (one- and two-launch routes),
+the staged FFT's folded bit-reverse (rows and tiles) and float4 stages, and decode attention's
 split and merge kernels (warp shuffles included).  What it cannot check: the tiled GEMM itself (the twin replaces
 it), warps, shared-memory limits or timing.  Libraries go to
 ``build/cuda_emu/``.  Exits non-zero if a shape disagrees beyond 1e-5 of
@@ -184,16 +185,30 @@ def main() -> int:
              [(3, 2), (5, 8), (2, 2048), (1, 1 << 14)]),
             ("fft_stockham_r2", S.fft_stockham_r2_cuda,
              S.fft_stockham_r2_plain, [(3, 2), (5, 8), (2, 2048)]),
+            # one launch (n <= 2^14, ragged row blocks) and two (2^15)
             ("fft_fourstep", F.fft_fourstep_cuda, F.fft_fourstep_plain,
-             [(2, 512), (2, 1024)]),
+             [(3, 4), (5, 32), (2, 512), (2, 1024), (3, 4096),
+              (1, 1 << 14), (2, 1 << 15)]),
+            # stage 0 through shared rows (n < 2^10) and 32x32 tiles
             ("fft_staged", ST.fft_staged_cuda, ST.fft_staged_plain,
-             [(3, 1), (3, 2), (5, 8), (2, 16), (2, 2048)])]:
+             [(3, 1), (3, 2), (3, 4), (5, 8), (2, 16), (2, 512), (1, 1024),
+              (2, 2048)])]:
         for shape in shapes:
             x = cplx(shape)
             for inv in (False, True):
                 results.append((name, shape, inv,
                                 rel(kern(x, inverse=inv),
                                     plain(x, inverse=inv))))
+    # four-step splits other than the default: n1 > n2 in both routes,
+    # factors at the kernel's bounds
+    for shape, n1 in [((2, 512), 32), ((1, 1 << 15), 256), ((1, 2048), 2),
+                      ((1, 1 << 15), 1024)]:
+        x = cplx(shape)
+        for inv in (False, True):
+            results.append((f"fft_fourstep n1={n1}", shape, inv,
+                            rel(F.fft_fourstep_cuda(x, inverse=inv, n1=n1),
+                                F.fft_fourstep_plain(x, inverse=inv,
+                                                     n1=n1))))
     # the fused conv: shared banks (odd row counts, rows packed per block
     # for small m, a ragged last block) and per-batch banks; m = 32768
     # runs the multi-launch schedule (its 1-D transforms take the plain
