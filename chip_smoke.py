@@ -167,6 +167,15 @@ CHECKS += [("fft3d_fused", MAIN_3D), ("fft3d_fused", PME_3D),
            # the rows fft3(algo="row_col") hands the Stockham kernel
            ("fft_stockham", (MAIN_3D[0] * MAIN_3D[1] * MAIN_3D[2],
                              MAIN_3D[3]))]
+# the 2-D and 3-D kernels' route boundaries (kernels/axis_fft.py): one
+# plane launch at h*w = 2^14, rows then columns at 2^15, columns of C = 4
+# at h = 4096 (w = 8), a 128^3 volume on the plane route, a D pass over
+# whole images (h*w = 4 < 8 columns), and the PME grid's three-launch route
+# ("fft3d_three": W, H, D, the route the plane launch replaces there)
+CHECKS += [("fft2d_gemm", (2, 128, 128)), ("fft2d_gemm", (2, 256, 128)),
+           ("fft2d_gemm", (2, 4096, 8)), ("fft3d_fused", (1, 128, 128, 128)),
+           ("fft3d_fused", (1, 256, 2, 2)), ("fft3d_three", PME_3D),
+           ("fft3d_three", (1, 128, 128, 128))]
 # (kernel, shape, variant) in bf16: the bf16 window's images and the
 # volume window's bf16 slab, and small shapes
 BF16_CHECKS = [("fft2d_gemm", MAIN_2D, "compensated"),
@@ -177,6 +186,11 @@ BF16_CHECKS = [("fft2d_gemm", MAIN_2D, "compensated"),
                ("fft3d_fused", ODD_3D, "compensated"),
                ("fft3d_fused", ODD_3D, "plain"),
                ("fft3d_fused", (1, 4, 8, 16), "plain")]
+# bf16 compensated on each route: a plane launch (2-D, and 3-D with D),
+# rows and columns (the bf16 window's MAIN_2D), three launches (MAIN_3D)
+BF16_CHECKS += [("fft2d_gemm", (2, 128, 128), "compensated"),
+                ("fft3d_fused", (1, 128, 128, 128), "compensated"),
+                ("fft3d_three", (1, 128, 128, 128), "compensated")]
 # the CPU tests' bf16 shapes (tests/test_torch_gemm_bf16.py), both variants
 BF16_CHECKS += [(k, shape, v) for k, shape in
                 [("fft2d_gemm", (1, 64, 64)), ("fft2d_gemm", (1, 256, 256)),
@@ -184,6 +198,7 @@ BF16_CHECKS += [(k, shape, v) for k, shape in
                 for v in ("compensated", "plain")]
 VOLUME_KERNELS = ("fft3d_fused", "fft_stockham")
 MAIN_SHAPE["fft3d_fused"] = MAIN_3D
+MAIN_SHAPE["fft3d_three"] = PME_3D
 
 # the Table 1 path's shapes: the paper's 16384-point FFT at the batch of
 # benchmarks/table1_fft_variants.py (BATCH, N) and at a batch that loads the
@@ -331,15 +346,14 @@ def method_conv(batch, rows, m):
     return batch * rows * (2 * ln * (hm // 2) * 10 + 16 * hm), 16 * (hm // 2)
 
 
-def method_fft3d(b, d, h, w, fac):
-    """(method flops, table bytes) of the GEMM 3-D kernel: the four-step
-    passes along W, H and D."""
-    flops = b * (d * h * _fourstep_flops(w, fac(w)[0])
-                 + d * w * _fourstep_flops(h, fac(h)[0])
-                 + h * w * _fourstep_flops(d, fac(d)[0]))
-    tables = sum(8 * (fac(n)[0] ** 2 + (n // fac(n)[0]) ** 2 + n)
-                 for n in (w, h, d))
-    return flops, tables
+def method_axis(b, dims):
+    """(method flops, table bytes) of the 2-D and 3-D kernels' shared-memory
+    FFTs (fp32 and bf16 compensated): 5*N*log2(N) flops a transform
+    (radix-2 count) and one n-entry float2 table an axis."""
+    n = 1
+    for d in dims:
+        n *= d
+    return 5 * b * n * (n.bit_length() - 1), 8 * sum(dims)
 
 
 def method_stockham2d(b, h, w):
@@ -464,6 +478,7 @@ def main() -> int:
     from repro_torch.kernels import rfft2d_fused as R
     from repro_torch.kernels import fftconv_fused as C
     from repro_torch.kernels import fft3d_fused as V
+    from repro_torch.kernels import axis_fft as AX
     from repro_torch.kernels import fft2d_fused as S2
     from repro_torch.kernels import fft_stage as ST
     from repro_torch.kernels import decode_attention as DA
@@ -579,6 +594,10 @@ def main() -> int:
     # 3. kernel vs plain version, forward and inverse (for the real-input
     # pair the inverse is irfft2d_fused, fed a random half spectrum whose
     # DC and Nyquist bins have imaginary parts)
+    def three_launches(x, inverse=False, variant="plain"):
+        return V._fft3d_cuda(x, inverse=inverse, variant=variant,
+                             planes=False)
+
     def c2c(kern, plain, tol):
         def make(shape, inverse):
             return from_numpy(rand(shape), device=dev)
@@ -601,6 +620,7 @@ def main() -> int:
                                     S.fft_stockham_r2_plain, TOL_1D),
              "fft3d_fused": c2c(V.fft3d_fused_cuda, V.fft3d_fused_plain,
                                 TOL_2D),
+             "fft3d_three": c2c(three_launches, V.fft3d_fused_plain, TOL_2D),
              "fft2d_fused": c2c(S2.fft2d_fused_cuda, S2.fft2d_fused_plain,
                                 TOL_2D),
              "fft_staged": c2c(ST.fft_staged_cuda, ST.fft_staged_plain,
@@ -634,7 +654,8 @@ def main() -> int:
             del x, got, ref
     torch.cuda.empty_cache()
     bf16_kernels = {"fft2d_gemm": (G.fft2d_gemm_cuda, G.fft2d_gemm_plain),
-                    "fft3d_fused": (V.fft3d_fused_cuda, V.fft3d_fused_plain)}
+                    "fft3d_fused": (V.fft3d_fused_cuda, V.fft3d_fused_plain),
+                    "fft3d_three": (three_launches, V.fft3d_fused_plain)}
     for name, shape, variant in BF16_CHECKS:
         kern, plain = bf16_kernels[name]
         for inverse in (False, True):
@@ -1193,6 +1214,25 @@ def main() -> int:
 
     # 5. timing at the main paths' shapes; each spec makes its kernel's
     # input and the library call's input from one seeded array
+    def design_floor(name, shape, nbytes, k_ms):
+        """The grid launches of a call of the redesigned kernels and the
+        bytes they move, each launch one pass over the planes."""
+        if name == "fft_fourstep":
+            grids, floor = fourstep_launches(shape[1]), \
+                fourstep_floor_bytes(*shape)
+        elif name.startswith("fft2d_gemm"):
+            grids = len(AX.plan2d(*shape))
+            floor = grids * nbytes
+        elif name.startswith("fft3d"):
+            grids = len(AX.plan3d(*shape, planes=False if "three" in name
+                                  else None))
+            floor = grids * nbytes
+        else:
+            return {}
+        return {"grid_launches": grids, "floor_bytes": floor,
+                "floor_us": floor / PEAK_HBM_BYTES * 1e6,
+                "hbm_tb_per_s": floor / k_ms / 1e9}
+
     def complex_inputs(shape):
         x = from_numpy(rand(shape), device=dev)
         return x, torch.complex(x.re, x.im)
@@ -1227,7 +1267,7 @@ def main() -> int:
         ("fft2d_gemm", MAIN_2D, G.fft2d_gemm_cuda,
          G.fft2d_gemm_plain, lambda c: torch.fft.fft2(c), complex_inputs,
          fft_counts(MAIN_2D[0], MAIN_2D[1] * MAIN_2D[2]),
-         method_fft2d(*MAIN_2D, fourstep_factors),
+         method_axis(MAIN_2D[0], MAIN_2D[1:]),
          "src/repro/kernels/fft2d_gemm.py:79", "fft2d_gemm",
          launches["fft2d_gemm"]),
         ("fft_fourstep", MAIN_FOURSTEP, F.fft_fourstep_cuda,
@@ -1260,8 +1300,7 @@ def main() -> int:
          launches_real["irfft2d_fused"]),
         ("fft3d_fused", MAIN_3D, V.fft3d_fused_cuda, V.fft3d_fused_plain,
          lambda c: torch.fft.fftn(c, dim=(-3, -2, -1)), complex_inputs,
-         fft_counts(MAIN_3D[0], n3),
-         method_fft3d(*MAIN_3D, V.fourstep_factors3),
+         fft_counts(MAIN_3D[0], n3), method_axis(MAIN_3D[0], MAIN_3D[1:]),
          "src/repro/kernels/fft3d_fused.py:76", "fft3d_fused",
          launches_vol["fft3d_fused"]),
         ("fft2d_fused", MAIN_2D, S2.fft2d_fused_cuda, S2.fft2d_fused_plain,
@@ -1274,7 +1313,7 @@ def main() -> int:
          lambda x: G.fft2d_gemm_cuda(x, variant="compensated"),
          lambda x: G.fft2d_gemm_plain(x, variant="compensated"),
          lambda c: torch.fft.fft2(c), bf16_inputs,
-         bf16_counts(MAIN_2D[0], n2), method_fft2d(*MAIN_2D, fourstep_factors),
+         bf16_counts(MAIN_2D[0], n2), method_axis(MAIN_2D[0], MAIN_2D[1:]),
          "src/repro/kernels/fft2d_gemm.py:79", "fft2d_gemm",
          launches_bf16["fft2d_gemm"]),
     ]
@@ -1292,12 +1331,7 @@ def main() -> int:
               "table_bytes": table_bytes,
               "method_tflops": method_flops / k_ms / 1e9,
               "launches": count, "nvidia_smi": smi,
-              **({"grid_launches": fourstep_launches(shape[1]),
-                  "floor_bytes": fourstep_floor_bytes(*shape),
-                  "floor_us": fourstep_floor_bytes(*shape)
-                  / PEAK_HBM_BYTES * 1e6,
-                  "hbm_tb_per_s": fourstep_floor_bytes(*shape) / k_ms / 1e9}
-                 if name == "fft_fourstep" else {})})
+              **design_floor(name, shape, nbytes, k_ms)})
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}.cu",
                         "replaces": replaces, "launches": count,
@@ -1367,14 +1401,16 @@ def main() -> int:
         ("fft3d_fused", "pme_128^3x8", PME_3D, V.fft3d_fused_cuda,
          V.fft3d_fused_plain, fftn, complex_inputs,
          fft_counts(PME_3D[0], PME_3D[1] ** 3),
-         method_fft3d(*PME_3D, V.fourstep_factors3),
-         launches_vol["fft3d_fused"]),
+         method_axis(PME_3D[0], PME_3D[1:]), launches_vol["fft3d_fused"]),
+        ("fft3d_three", "pme_128^3x8_three_launches", PME_3D, three_launches,
+         V.fft3d_fused_plain, fftn, complex_inputs,
+         fft_counts(PME_3D[0], PME_3D[1] ** 3),
+         method_axis(PME_3D[0], PME_3D[1:]), 0),
         ("fft3d_fused", "bf16_compensated", MAIN_3D,
          lambda x: V.fft3d_fused_cuda(x, variant="compensated"),
          lambda x: V.fft3d_fused_plain(x, variant="compensated"), fftn,
          bf16_inputs, bf16_counts(MAIN_3D[0], n3),
-         method_fft3d(*MAIN_3D, V.fourstep_factors3),
-         launches_vol["fft3d_fused"]),
+         method_axis(MAIN_3D[0], MAIN_3D[1:]), launches_vol["fft3d_fused"]),
         ("fft2d_gemm", "bf16_plain", MAIN_2D,
          lambda x: G.fft2d_gemm_cuda(x, variant="plain"),
          lambda x: G.fft2d_gemm_plain(x, variant="plain"),
@@ -1402,7 +1438,9 @@ def main() -> int:
               "method_flops": method_flops, "table_bytes": table_bytes,
               "method_tflops": method_flops / k_ms / 1e9
               if method_flops else None, "launches": count,
-              "nvidia_smi": smi})
+              "nvidia_smi": smi,
+              **(design_floor(name, shape, nbytes, k_ms)
+                 if "plain" not in cell else {})})
         del x, c
         torch.cuda.empty_cache()
 

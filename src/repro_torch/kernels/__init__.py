@@ -4,12 +4,15 @@ PyTorch version (counterpart of :mod:`repro.kernels`).
 fft_stockham — per-stage mixed radix-4/2 and pure radix-2 Stockham FFTs
 fft_fourstep — Bailey four-step FFT with shared-memory radix-16 sub-FFTs
                (one launch up to 2^14 points, two above)
-fft2d_gemm   — 2-D FFT as four-step GEMM row and column passes
+fft2d_gemm   — 2-D FFT as shared-memory FFT passes (plain bf16: four-step
+               GEMM row and column passes)
+axis_fft     — the 2-D and 3-D kernels' launch plan and twiddle tables
 rfft2d_fused — real-input 2-D FFT and its inverse (packed row pairs,
                Hermitian untangle, half-width column pass), plus the
                four-step helpers shared with fft2d_gemm
 fftconv_fused — one-pass spectral convolution (packed filter pair E/F)
-fft3d_fused  — 3-D FFT as four-step GEMM passes along W, H and D
+fft3d_fused  — 3-D FFT as shared-memory FFT passes along W, H and D
+               (plain bf16: four-step GEMM passes)
 fft2d_fused  — fused Stockham 2-D FFT, the ``fused_stockham`` oracle
 fft_stage    — the paper's per-stage radix-2 "Initial" FFT (Table 1
                baseline), one launch a butterfly stage, the bit-reverse

@@ -20,6 +20,7 @@ missing nvcc, a failed build or a failed launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -196,6 +197,13 @@ def check_decode_operands(q, k, v, kv_pos, q_pos) -> None:
                          f"{tuple(q_pos.shape)}")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of ``device``'s card (the persistent
+    grids' size)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check(code: int, what: str) -> None:
     if code != 0:
         raise KernelLaunchError(f"{what} failed with CUDA error {code}")
@@ -204,11 +212,19 @@ def check(code: int, what: str) -> None:
 def launch(fn, args: list, what: str, device: torch.device) -> None:
     """Call the C entry point ``fn`` with ``device`` made the current
     device and its current stream as the last argument; raise on error."""
+    launch_all(fn, [args], what, device)
+
+
+def launch_all(fn, arg_lists: list, what: str, device: torch.device) -> None:
+    """:func:`launch` for each argument list in turn, raising at the first
+    error, with one switch to ``device``."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        check(fn(*args, stream), what)
+        for args in arg_lists:
+            check(fn(*args, stream), what)
 
 
 P = ctypes.c_void_p          # pointers and the stream
 I = ctypes.c_int
 L = ctypes.c_longlong
+F = ctypes.c_float

@@ -1,0 +1,217 @@
+"""The launches of the 2-D and 3-D FFT kernels (``csrc/axis_fft.cuh``) and
+their twiddle tables.
+
+A launch is one length-n complex FFT along the middle axis of the planes
+viewed as (outer, n, inner), over tiles that a persistent grid walks, or a
+*plane* launch: both FFTs of whole (h, w) images.  The plan takes the
+fewest launches, since the transform is bound by bytes:
+
+- 2-D (:func:`plan2d`): one plane launch for h*w <= :data:`PLANE_MAX`; else
+  the W FFT on rows, then the H FFT on columns;
+- 3-D (:func:`plan3d`): a plane launch and the D FFT on columns for
+  h*w <= :data:`PLANE_MAX`; else W on rows, H and D on columns.
+
+Tiling (:func:`plan_axis`, :func:`plan_plane`): a rows tile holds G whole
+rows, a columns tile C = 8192/n adjacent inner columns of all n rows
+(16384/n from n = 2048, so C >= 8 but at n = 4096, where C = 4) or, where
+inner is narrower, G whole images; a plane tile G whole images.  Tiles of up
+to :data:`TILE` points take two buffers a block and overlap the next tile's
+copy with their passes; larger ones (:data:`TILE_BIG`) take one.  Every
+tile has at least :data:`MIN_POINTS` points (G pads past the last image:
+those images are zero-filled and never stored), so a block has a warp.
+The kernel checks each launch against the same rules
+(``axis_fft_launch``) and takes its tiling from here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import twiddle as tw
+from repro_torch.core.complexmath import SplitComplex
+from . import _build
+
+TILE = 8192            # points of a tile with two buffers a block
+TILE_BIG = 16384       # points of a tile with one buffer (n >= 2048 columns)
+MIN_POINTS = 512       # points of the smallest tile: 32 threads
+PLANE_MAX = 16384      # largest h*w of a plane launch (one 128 KB tile)
+SMEM_MAX = 232448      # dynamic shared memory a block may have (227 KB)
+SM_SHARED = 233472     # shared memory of an SM, 1 KB of it reserved a block
+POINTS_A_THREAD = 16
+
+
+def _log2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def pitch(width: int, lt: int) -> int:
+    """The kernels' padded row pitch (``pitch`` in ``axis_fft.cuh``): 32
+    lanes over 2^lt rows hit 32 banks."""
+    return width + (1 if lt >= 5 else 32 >> lt)
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One launch: ``kind`` "rows" (inner = 1), "cols" or "plane" (n = h,
+    inner = w); a tile holds ``c`` adjacent inner columns of ``g``
+    consecutive images (c < inner: of one image)."""
+    kind: str
+    outer: int
+    n: int
+    inner: int
+    c: int
+    g: int
+
+    @property
+    def points(self) -> int:
+        return self.n * self.c * self.g
+
+    @property
+    def threads(self) -> int:
+        return self.points // POINTS_A_THREAD
+
+    @property
+    def nbuf(self) -> int:
+        """Buffers a block: with two, it copies its next tile in while it
+        transforms one."""
+        return 2 if self.points <= TILE else 1
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.outer // self.g) * (self.inner // self.c)
+
+    @property
+    def work_floats(self) -> int:
+        """Floats a work plane of a tile (``work_floats`` in the kernel)."""
+        if self.kind == "plane":
+            f = pitch(self.inner, _log2(self.g * self.n)) * self.g * self.n
+        elif self.kind == "rows":
+            f = pitch(self.n, _log2(self.g)) * self.g
+        else:
+            f = self.points
+        return -(-f // 32) * 32
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block: nbuf buffers of two work planes."""
+        return self.nbuf * 2 * 4 * self.work_floats
+
+    def blocks(self, sms: int) -> int:
+        """The persistent grid: the blocks that fit on the card at once."""
+        per_sm = min(2048 // self.threads, SM_SHARED // (self.smem + 1024))
+        return min(self.tiles, sms * max(1, per_sm))
+
+
+def _images(cap: int, img: int, outer: int) -> int:
+    """Images a tile holds: up to ``cap`` points, no more than there are,
+    and at least :data:`MIN_POINTS` points."""
+    g = min(max(1, cap // img), _pow2ceil(outer))
+    return max(g, MIN_POINTS // img, 1)
+
+
+def plan_axis(outer: int, n: int, inner: int) -> Launch:
+    """The launch of a length-n FFT along the (outer, n, inner) view."""
+    if inner == 1:
+        return Launch("rows", outer, n, 1, 1, _images(TILE, n, outer))
+    cap = TILE if n <= 1024 else TILE_BIG
+    c = min(inner, cap // n)
+    g = _images(cap, n * inner, outer) if c == inner else 1
+    return Launch("cols", outer, n, inner, c, g)
+
+
+def plan_plane(images: int, h: int, w: int) -> Launch:
+    """The plane launch of both FFTs of ``images`` (h, w) images."""
+    if h * w > PLANE_MAX:
+        raise ValueError(f"a plane launch takes h*w <= {PLANE_MAX}, got "
+                         f"{(h, w)}")
+    cap = TILE if h * w <= TILE else TILE_BIG
+    return Launch("plane", images, h, w, w, _images(cap, h * w, images))
+
+
+def plan2d(batch: int, h: int, w: int) -> tuple:
+    """The launches of a (batch, h, w) 2-D FFT."""
+    if h * w <= PLANE_MAX:
+        return (plan_plane(batch, h, w),)
+    return plan_axis(batch * h, w, 1), plan_axis(batch, h, w)
+
+
+def plan3d(batch: int, d: int, h: int, w: int, planes=None) -> tuple:
+    """The launches of a (batch, d, h, w) 3-D FFT: with ``planes`` (the
+    default where h*w <= :data:`PLANE_MAX`) a plane launch and D, else W,
+    H and D."""
+    if planes is None:
+        planes = h * w <= PLANE_MAX
+    if planes:
+        return plan_plane(batch * d, h, w), plan_axis(batch, d, h * w)
+    return (plan_axis(batch * d * h, w, 1), plan_axis(batch * d, h, w),
+            plan_axis(batch, d, h * w))
+
+
+def twiddle_table_np(n: int, sign: float) -> tuple:
+    """W_n^k = exp(sign*2*pi*i*k/n), k < n, as one float64 (n, 2) array of
+    (cos, sin) pairs: the kernel's table for every pass of a length-n
+    FFT."""
+    c, s = tw._twiddle_np(n, sign)
+    return (np.stack([c, s], axis=1),)
+
+
+def twiddle_table(n: int, *, inverse: bool = False,
+               device="cuda") -> torch.Tensor:
+    """:func:`twiddle_table_np` as a cached fp32 tensor on ``device``."""
+    return tw._cast(twiddle_table_np, (n, tw._sign(inverse)), torch.float32,
+                    torch.device(device))[0]
+
+
+ARGS = ([_build.P] * 6 + [_build.L] + [_build.I] * 7
+        + [_build.F, _build.I, _build.P])
+
+
+def aligned(x: SplitComplex) -> SplitComplex:
+    """x with both planes at 16-byte boundaries (the copies move 16-byte
+    chunks): a view at an odd offset is copied."""
+    if all(p.data_ptr() % 16 == 0 for p in x):
+        return x
+    return SplitComplex(x.re.clone(), x.im.clone())
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_args(plan: tuple, inverse: bool, total: int, bf16: bool,
+                 device: torch.device) -> tuple:
+    """Each launch's table lengths and its arguments after the pointers."""
+    sms = _build.sm_count(device)
+    out = []
+    for i, lp in enumerate(plan):
+        tables = (lp.inner, lp.n) if lp.kind == "plane" else (lp.n,)
+        scale = 1.0 / total if inverse and i == len(plan) - 1 else 1.0
+        out.append((tables, [lp.outer, _log2(lp.n), _log2(lp.inner),
+                             _log2(lp.c), _log2(lp.g),
+                             int(lp.kind == "plane"), lp.blocks(sms),
+                             int(inverse), scale, int(bf16)]))
+    return tuple(out)
+
+
+def run(fn, plan: tuple, x: SplitComplex, out: SplitComplex, total: int,
+        inverse: bool, what: str) -> None:
+    """Launch ``plan`` with the C entry point ``fn``: the first launch
+    x -> out, the others out -> out in place; the inverse's 1/total at the
+    last one's store."""
+    x = aligned(x)
+    dev = x.re.device
+    src = [x.re.data_ptr(), x.im.data_ptr()]
+    dst = [out.re.data_ptr(), out.im.data_ptr()]
+    held, calls = [], []           # the tables stay referenced until launched
+    for i, (lengths, tail) in enumerate(_launch_args(
+            plan, bool(inverse), total, x.dtype == torch.bfloat16, dev)):
+        tabs = [twiddle_table(n, inverse=inverse, device=dev)
+                for n in lengths]
+        held += tabs
+        ptrs = [t.data_ptr() for t in tabs] + [None] * (2 - len(tabs))
+        calls.append((src if i == 0 else dst) + dst + ptrs + tail)
+    _build.launch_all(fn, calls, what, dev)

@@ -1,45 +1,61 @@
-// Batched complex 2-D FFT over (batch, h, w) split planes as four-step
-// GEMM passes: a row pass along w, then a column pass along h done as
-// left-side contractions, so no transpose is ever materialised.
+// Batched complex 2-D FFT over (batch, h, w) split planes.
 //
 // Replaces the Pallas kernel repro/kernels/fft2d_gemm.py::_fft2d_gemm_kernel
-// (both variants).  The TPU kernel holds a whole image in VMEM; a 1024^2
-// fp32 image is 8 MB against 227 KB of shared memory per block, and the
-// dense-leaf table (n <= 256, one 256x256 DFT) is itself 512 KB, so here
-// each four-step step is one launch of the tiled complex GEMM (cgemm.cuh),
-// chained through fp32 buffers (row_pass.cuh's Chain):
-//   row pass    row_pass, shared with rfft2d_fused.cu and fft3d_fused.cu;
-//   column pass col_pass over the batch of (h, w) images.
-// The unscaled tables take one 1/(h*w) in the last step's epilogue.
-// Storage modes (row_pass.cuh): fp32; bf16 compensated (the tables are
-// hi + lo summed in fp32 by the wrapper, fp32 within a pass, the tile
-// rounded through bf16 after the row pass, bf16 out); bf16 plain (the
-// tables' bf16 hi half, every GEMM's output rounded through bf16).  A bf16
-// transform reads bf16 in its first GEMM and stores bf16 from its last;
-// between them two fp32 buffers, since out holds bf16.
-// Bound on the card: fp32 operations (8*n*(n1+n2) per row and column);
-// the HBM round trips between steps (up to three) are the known cost of
-// this design, and fusing them is later work.
+// (both variants).  The TPU kernel holds a whole image in VMEM and runs one
+// level of Bailey four-step DFT matmuls on each axis on its matrix unit.
+// On the card that method costs 8*(n1 + n2) flops a point an axis on the
+// CUDA cores (17.2 GFLOP at 16 x 1024^2, 10x the FFT's 5*log2(n)), and the
+// function is bound by bytes (16 a complex fp32 point in and out, ~3 flops
+// a byte against the card's 20).  So the fp32 and bf16-compensated modes
+// run radix-16 Stockham FFTs in shared memory (axis_fft.cuh), in the fewest
+// passes over device memory (kernels/axis_fft.py::plan2d):
+//   - h*w <= 16384: ONE launch, the TPU kernel's design: a tile holds whole
+//     images, the W FFT runs on its rows and the H FFT on its columns;
+//   - above: TWO launches, the W FFT on the rows (x -> out), then the H FFT
+//     on tiles of C adjacent columns of all h rows (out -> out, in place).
+// The inverse's 1/(h*w) is applied at the last store.  Tiles of up to 8192
+// points overlap the next tile's copy (cp.async) with their passes; the
+// 16384-point tiles (h >= 2048 columns, 128^2 images) do not.
+// bf16 compensated: bf16 in, fp32 within a pass, the W pass's output stored
+// as bf16 (the reference's round at the pass boundary, half the bytes),
+// bf16 out.
+//
+// bf16 plain is defined by the GEMM steps' rounding points (bf16 tables,
+// every GEMM output rounded), which an FFT cannot reproduce; it stays on
+// the four-step GEMM chain (row_pass.cuh, cgemm.cuh): W1 @ X with the
+// twiddle in the epilogue, then @ W2, per axis, through fp32 buffers.
+#include "axis_fft.cuh"
 #include "row_pass.cuh"
 
-// x (batch, h, w) -> out, fp32 planes or raw bf16 ones (mode); the fp32
-// buffer pairs f0 and f1 hold batch*h*w floats a plane (fp32: f0 is out).
-extern "C" int fft2d_gemm(const void* xr, const void* xi, void* outr,
-                          void* outi, float* f0r, float* f0i, float* f1r,
-                          float* f1i,
-                          const float* w1wr, const float* w1wi,
-                          const float* w2wr, const float* w2wi,
-                          const float* twr, const float* twi,
-                          const float* w1hr, const float* w1hi,
-                          const float* w2hr, const float* w2hi,
-                          const float* thr, const float* thi,
-                          long long batch, int h, int w, int n1w, int n1h,
-                          int inverse, int mode, void* stream) {
+// One launch of the planned route (see axis_fft_launch in axis_fft.cuh).
+extern "C" int fft2d_gemm_pass(const void* xr, const void* xi, void* outr,
+                               void* outi, const float* tab,
+                               const float* tab2, long long outer, int ln,
+                               int linner, int lc, int lg, int plane,
+                               int blocks, int inverse, float scale,
+                               int bf16, void* stream) {
+  return (int)axis_fft_launch(xr, xi, outr, outi, tab, tab2, outer, ln,
+                              linner, lc, lg, plane, blocks, inverse, scale,
+                              bf16, (cudaStream_t)stream);
+}
+
+// bf16 plain: x (batch, h, w) raw bf16 -> out raw bf16 through the GEMM
+// chain; the fp32 buffer pairs f0 and f1 hold batch*h*w floats a plane.
+extern "C" int fft2d_gemm_plain_bf16(const void* xr, const void* xi,
+                                     void* outr, void* outi, float* f0r,
+                                     float* f0i, float* f1r, float* f1i,
+                                     const float* w1wr, const float* w1wi,
+                                     const float* w2wr, const float* w2wi,
+                                     const float* twr, const float* twi,
+                                     const float* w1hr, const float* w1hi,
+                                     const float* w2hr, const float* w2hi,
+                                     const float* thr, const float* thi,
+                                     long long batch, int h, int w, int n1w,
+                                     int n1h, int inverse, void* stream) {
   using namespace cg;
   cudaStream_t s = (cudaStream_t)stream;
   if (batch <= 0 || h < 2 || w < 2 || (h & (h - 1)) || (w & (w - 1)) ||
-      n1w < 1 || n1h < 1 || w % n1w || h % n1h || mode < MODE_F32 ||
-      mode > MODE_PLAIN_BF16)
+      n1w < 1 || n1h < 1 || w % n1w || h % n1h)
     return (int)cudaErrorInvalidValue;
   const Axis aw{w, n1w, w / n1w, w1wr, w1wi, w2wr, w2wi, twr, twi};
   const Axis ah{h, n1h, h / n1h, w1hr, w1hi, w2hr, w2hi, thr, thi};
@@ -51,11 +67,11 @@ extern "C" int fft2d_gemm(const void* xr, const void* xi, void* outr,
   ch.next(yr, yi);
   cudaError_t e = row_pass((const float*)xr, (const float*)xi, w, yr, yi, w,
                            tr, ti, batch * h, aw, 1.f, s,
-                           pass_io(mode, 0, 2));
+                           pass_io(MODE_PLAIN_BF16, 0, 2));
   if (e != cudaSuccess) return (int)e;
   float *zr, *zi;
   if (ah.n1 > 1) ch.next(tr, ti);
   ch.next(zr, zi);
   return (int)col_pass(yr, yi, zr, zi, tr, ti, batch, w, ah, scale, s,
-                       pass_io(mode, 1, 2));
+                       pass_io(MODE_PLAIN_BF16, 1, 2));
 }

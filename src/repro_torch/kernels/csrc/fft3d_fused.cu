@@ -1,51 +1,60 @@
-// Batched complex 3-D FFT over (batch, d, h, w) split planes as three
-// four-step GEMM passes, no relayout materialised:
-//   W pass  row_pass over the batch*d*h rows of w points;
-//   H pass  col_pass along axis -2 of the batch*d images of (h, w);
-//   D pass  col_pass along axis -3, i.e. along axis -2 of the batch images
-//           viewed as (d, h*w): the TPU kernel's (bb, d, h*w) reshape.
-// Each axis splits by fourstep_factors3 (a dense DFT at n <= 128).
+// Batched complex 3-D FFT over (batch, d, h, w) split planes.
 //
 // Replaces the Pallas kernel repro/kernels/fft3d_fused.py::_fft3d_kernel
-// (both variants).  The TPU kernel keeps a (bb, d, h, w) brick in VMEM; a
-// 256^3 fp32 brick is 128 MB against 227 KB of shared memory per block, so
-// here, as in fft2d_gemm.cu, each four-step step is one launch of the tiled
-// complex GEMM (cgemm.cuh) chained through fp32 buffers (row_pass.cuh's
-// Chain), up to six launches with the last one landing in out and carrying
-// the inverse's 1/(d*h*w).  Storage modes as in fft2d_gemm.cu: in bf16 the
-// tile is rounded through bf16 at the W->H and H->D boundaries
-// (compensated) or after every GEMM (plain).
-// Bound on the card: the transform is bound by bytes (16 per complex fp32
-// point in and out), but the method does 8*(n1+n2) flops a point an axis
-// on the CUDA cores, and the 16-wide factors at 256 fill a quarter of each
-// 64x64 GEMM tile, so this design is bound by those fp32 operations and
-// the HBM round trips between its launches.
+// (both variants).  The TPU kernel keeps a (bb, d, h, w) brick in VMEM and
+// runs Bailey four-step DFT matmuls along W, H and D (D through the
+// (bb, d, h*w) reshape).  On the card that method costs 8*(n1 + n2) flops a
+// point an axis (25.8 GFLOP at 2 x 256^3) on the CUDA cores, while the
+// function is bound by bytes.  So the fp32 and bf16-compensated modes run
+// radix-16 Stockham FFTs in shared memory (axis_fft.cuh), in the fewest
+// passes over device memory the tiles allow (kernels/axis_fft.py::plan3d),
+// each in place on out after the first:
+//   - h*w <= 16384: TWO launches, a plane launch (W and H on whole (h, w)
+//     images) over the batch*d images, then D on tiles of C adjacent
+//     columns of the (batch, d, h*w) view;
+//   - above: THREE launches, W on rows, H on columns of the (batch*d, h, w)
+//     view, D on columns of the (batch, d, h*w) view.
+// The inverse's 1/(d*h*w) is applied at the last store.  Tiles of up to
+// 8192 points overlap the next tile's copy (cp.async) with their passes;
+// the 16384-point tiles (128^2 planes, columns of n >= 2048) do not.
+// bf16 compensated stores each pass boundary as bf16 (the reference's
+// rounding after W and after H, half the bytes).
+//
+// bf16 plain is defined by the GEMM steps' rounding points and stays on the
+// four-step GEMM chain (row_pass.cuh, cgemm.cuh), as in fft2d_gemm.cu.
+#include "axis_fft.cuh"
 #include "row_pass.cuh"
 
-// x (batch, d, h, w) -> out, fp32 planes or raw bf16 ones (mode); the fp32
-// buffer pairs f0 and f1 hold batch*d*h*w floats a plane (fp32: f0 is
-// out).  The 18 tables are the W, H and D axes' four-step tables.
-extern "C" int fft3d_fused(const void* xr, const void* xi, void* outr,
-                           void* outi, float* f0r, float* f0i, float* f1r,
-                           float* f1i,
-                           const float* w1wr, const float* w1wi,
-                           const float* w2wr, const float* w2wi,
-                           const float* twr, const float* twi,
-                           const float* w1hr, const float* w1hi,
-                           const float* w2hr, const float* w2hi,
-                           const float* thr, const float* thi,
-                           const float* w1dr, const float* w1di,
-                           const float* w2dr, const float* w2di,
-                           const float* tdr, const float* tdi,
-                           long long batch, int d, int h, int w, int n1w,
-                           int n1h, int n1d, int inverse, int mode,
-                           void* stream) {
+// One launch of the planned route (see axis_fft_launch in axis_fft.cuh).
+extern "C" int fft3d_fused_pass(const void* xr, const void* xi, void* outr,
+                                void* outi, const float* tab,
+                                const float* tab2, long long outer, int ln,
+                                int linner, int lc, int lg, int plane,
+                                int blocks, int inverse, float scale,
+                                int bf16, void* stream) {
+  return (int)axis_fft_launch(xr, xi, outr, outi, tab, tab2, outer, ln,
+                              linner, lc, lg, plane, blocks, inverse, scale,
+                              bf16, (cudaStream_t)stream);
+}
+
+// bf16 plain: x (batch, d, h, w) raw bf16 -> out raw bf16 through the GEMM
+// chain (W row_pass, H col_pass, D col_pass over (d, h*w)); the fp32
+// buffer pairs f0 and f1 hold batch*d*h*w floats a plane.  The 18 tables
+// are the W, H and D axes' four-step tables.
+extern "C" int fft3d_fused_plain_bf16(
+    const void* xr, const void* xi, void* outr, void* outi, float* f0r,
+    float* f0i, float* f1r, float* f1i, const float* w1wr, const float* w1wi,
+    const float* w2wr, const float* w2wi, const float* twr, const float* twi,
+    const float* w1hr, const float* w1hi, const float* w2hr,
+    const float* w2hi, const float* thr, const float* thi, const float* w1dr,
+    const float* w1di, const float* w2dr, const float* w2di, const float* tdr,
+    const float* tdi, long long batch, int d, int h, int w, int n1w, int n1h,
+    int n1d, int inverse, void* stream) {
   using namespace cg;
   cudaStream_t s = (cudaStream_t)stream;
   if (batch <= 0 || d < 2 || h < 2 || w < 2 || (d & (d - 1)) ||
       (h & (h - 1)) || (w & (w - 1)) || n1w < 1 || n1h < 1 || n1d < 1 ||
-      w % n1w || h % n1h || d % n1d || mode < MODE_F32 ||
-      mode > MODE_PLAIN_BF16)
+      w % n1w || h % n1h || d % n1d)
     return (int)cudaErrorInvalidValue;
   const Axis aw{w, n1w, w / n1w, w1wr, w1wi, w2wr, w2wi, twr, twi};
   const Axis ah{h, n1h, h / n1h, w1hr, w1hi, w2hr, w2hi, thr, thi};
@@ -59,17 +68,17 @@ extern "C" int fft3d_fused(const void* xr, const void* xi, void* outr,
   ch.next(ar, ai);
   cudaError_t e = row_pass((const float*)xr, (const float*)xi, w, ar, ai, w,
                            tr, ti, batch * d * h, aw, 1.f, s,
-                           pass_io(mode, 0, 3));
+                           pass_io(MODE_PLAIN_BF16, 0, 3));
   if (e != cudaSuccess) return (int)e;
   float *br, *bi;
   if (ah.n1 > 1) ch.next(tr, ti);
   ch.next(br, bi);
   e = col_pass(ar, ai, br, bi, tr, ti, batch * d, w, ah, 1.f, s,
-               pass_io(mode, 1, 3));
+               pass_io(MODE_PLAIN_BF16, 1, 3));
   if (e != cudaSuccess) return (int)e;
   float *cr, *ci;
   if (ad.n1 > 1) ch.next(tr, ti);
   ch.next(cr, ci);
   return (int)col_pass(br, bi, cr, ci, tr, ti, batch, hw, ad, scale, s,
-                       pass_io(mode, 2, 3));
+                       pass_io(MODE_PLAIN_BF16, 2, 3));
 }

@@ -43,155 +43,17 @@
 //     butterfly of the last column pass and spread by powers (products of
 //     the 1st, 2nd, 4th and 8th, at most six deep).
 // The wrapper's table is one float2 array [w1 | w2 | lo | hi]
-// (kernels/fft_fourstep.py::kernel_table_np).
-#include <cuda_runtime.h>
+// (kernels/fft_fourstep.py::kernel_table_np).  The passes, layouts and
+// twiddle helpers live in axis_fft.cuh, shared with the 2-D and 3-D kernels.
+#include "axis_fft.cuh"
 
 namespace {
 
-constexpr int E = 16;            // complex points a thread holds
 constexpr int LTILE = 13;        // log2 of the points a two-pass block holds
 constexpr int TILE = 1 << LTILE;
 constexpr int NT2 = TILE / E;    // threads a two-pass block
 constexpr int ONE_MAX = 16384;   // largest n of the one-launch path
 constexpr int MIN_BLOCKS = 264;  // two blocks for each of the H100's SMs
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-// cos and sin of 2*pi*e/16, e in [0, 8)
-__host__ __device__ constexpr float cos16(int e) {
-  return e == 0 ? 1.f : e == 1 ? 0.92387953251128674f
-       : e == 2 ? 0.70710678118654752f : e == 3 ? 0.38268343236508977f
-       : e == 4 ? 0.f : e == 5 ? -0.38268343236508977f
-       : e == 6 ? -0.70710678118654752f : -0.92387953251128674f;
-}
-
-__host__ __device__ constexpr float sin16(int e) {
-  return e == 0 ? 0.f : e == 1 ? 0.38268343236508977f
-       : e == 2 ? 0.70710678118654752f : e == 3 ? 0.92387953251128674f
-       : e == 4 ? 1.f : e == 5 ? 0.92387953251128674f
-       : e == 6 ? 0.70710678118654752f : 0.38268343236508977f;
-}
-
-// i < 16 with its low `bits` bits reversed: plain shifts, so an unrolled
-// loop index folds to a constant and register arrays stay in registers
-__host__ __device__ constexpr int rev4(int i, int bits) {
-  return (((i & 1) << 3) | ((i & 2) << 1) | ((i & 4) >> 1) | ((i & 8) >> 3))
-         >> (4 - bits);
-}
-
-// b * exp(sg * 2*pi*i * e/16), e a compile-time constant after unrolling
-__device__ __forceinline__ float2 rot16(float2 b, int e, float sg) {
-  if (e == 0) return b;
-  if (e == 4) return make_float2(-sg * b.y, sg * b.x);
-  const float c = cos16(e), s = sg * sin16(e);
-  return make_float2(b.x * c - b.y * s, b.x * s + b.y * c);
-}
-
-// in-register DFT of 2^LR points, natural order in and out (radix-2 DIT)
-template <int LR>
-__device__ __forceinline__ void dft(float2* v, float sg) {
-  constexpr int R = 1 << LR;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int j = rev4(i, LR);
-    if (i < j) {
-      const float2 t = v[i];
-      v[i] = v[j];
-      v[j] = t;
-    }
-  }
-#pragma unroll
-  for (int len = 2; len <= R; len <<= 1) {
-#pragma unroll
-    for (int i = 0; i < R; i += len) {
-#pragma unroll
-      for (int k = 0; k < len / 2; ++k) {
-        const float2 a = v[i + k];
-        const float2 b = rot16(v[i + k + len / 2], k * (16 / len), sg);
-        v[i + k] = cadd(a, b);
-        v[i + k + len / 2] = csub(a, b);
-      }
-    }
-  }
-}
-
-// w^1, w^2, w^4, w^8: w^r for r < 16 is the product of the ones its bits
-// pick, at most six products deep
-struct Powers {
-  float2 w[4];
-  __device__ __forceinline__ explicit Powers(float2 w1) {
-    w[0] = w1;
-    w[1] = cmul(w[0], w[0]);
-    w[2] = cmul(w[1], w[1]);
-    w[3] = cmul(w[2], w[2]);
-  }
-  // b * w^r, r a compile-time constant after unrolling
-  __device__ __forceinline__ float2 times(float2 b, int r) const {
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (r & (1 << k)) b = cmul(b, w[k]);
-    return b;
-  }
-};
-
-// W_n^m = hi[m >> s] * lo[m & (2^s - 1)]
-struct Levels {
-  const float2* lo;
-  const float2* hi;
-  int s;
-  __device__ __forceinline__ float2 operator()(int m) const {
-    return cmul(hi[m >> s], lo[m & ((1 << s) - 1)]);
-  }
-};
-
-// v[r] *= T[k1 = k0 + r*ns, j2] = W_n^(k0*j2) * (W_n^(ns*j2))^r
-template <int R>
-__device__ __forceinline__ void twiddle_t(const Levels& tw, int k0, int ns,
-                                          int j2, float2* v) {
-  const Powers p(tw(ns * j2));
-  const float2 b = tw(k0 * j2);
-#pragma unroll
-  for (int r = 0; r < R; ++r) v[r] = cmul(v[r], p.times(b, r));
-}
-
-// Where element i of transform t sits in shared memory.
-// Rows of pitch p: pass B's tile, the one launch's rows (g, k1).
-struct Rows {
-  int p;
-  __device__ __forceinline__ int at(int t, int i) const { return t * p + i; }
-};
-
-// Columns: transform t = (g, j2) of rows (g, j1), pitch p; pass A's tile
-// [j1][c] is one g of C columns at pitch C.
-struct Columns {
-  int ln2, block, p;
-  __device__ __forceinline__ int at(int t, int i) const {
-    return (t >> ln2) * block + (t & ((1 << ln2) - 1)) + i * p;
-  }
-};
-
-// Where a pass reads element i of transform t: shared memory, or, in the
-// first pass, the input planes themselves (no staging copy, no barrier).
-template <class Lay>
-struct FromShared {
-  const float* sr;
-  const float* si;
-  Lay lay;
-  __device__ __forceinline__ float2 operator()(int t, int i) const {
-    const int a = lay.at(t, i);
-    return make_float2(sr[a], si[a]);
-  }
-};
 
 // rows (g, j1) of n points: transform t = (g, j2) at g*n + j2 + i*n2, rows
 // g >= rows read as zeros (the one launch's ragged last block)
@@ -215,24 +77,6 @@ struct FromRuns {
   __device__ __forceinline__ float2 operator()(int t, int i) const {
     const int a = ((i >> lc) << lrun) + (t << lc) + (i & ((1 << lc) - 1));
     return make_float2(yr[a], yi[a]);
-  }
-};
-
-// A pass hands each butterfly's R outputs k0 + r*ns (r < R) of transform t
-// to one of these: back to shared memory for every pass but the last.
-template <class Lay>
-struct ToShared {
-  float* sr;
-  float* si;
-  Lay lay;
-  template <int R>
-  __device__ __forceinline__ void put(int t, int k0, int ns, float2* v) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int a = lay.at(t, k0 + r * ns);
-      sr[a] = v[r].x;
-      si[a] = v[r].y;
-    }
   }
 };
 
@@ -288,88 +132,6 @@ struct RowsToOutput {
   }
 };
 
-// One radix-2^LR Stockham pass over the 2^lT transforms of length 2^LN read
-// through `in`, after passes whose radices multiply to 2^LNS.  Each of the
-// nt threads takes E/R butterflies q = tid + b*nt; q's low bits pick up to
-// 32 transforms, the next ones the butterfly j, the rest the other
-// transforms.  The twiddle of input r of butterfly j is w[e*r],
-// e = (j mod 2^LNS) * 2^(LN - LNS - LR).
-template <int LR, int LN, int LNS, class In, class Out>
-__device__ __forceinline__ void pass(const In& in, int lT, int nt,
-                                     const float2* w, float sg,
-                                     const Out& out) {
-  constexpr int R = 1 << LR, B = E / R, LNB = LN - LR, NS = 1 << LNS;
-  const int lf = lT < 5 ? lT : 5;
-  const int tid = threadIdx.x;
-  float2 v[E];
-#pragma unroll
-  for (int b = 0; b < B; ++b) {
-    const int q = tid + b * nt;
-    const int rest = q >> lf;
-    const int j = rest & ((1 << LNB) - 1);
-    const int t = ((rest >> LNB) << lf) | (q & ((1 << lf) - 1));
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[b * R + r] = in(t, j + (r << LNB));
-    if (LNS > 0) {
-      const int e = (j & (NS - 1)) << (LN - LNS - LR);
-#pragma unroll
-      for (int r = 1; r < R; ++r) v[b * R + r] = cmul(v[b * R + r], w[e * r]);
-    }
-    dft<LR>(v + b * R, sg);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int b = 0; b < B; ++b) {
-    const int q = tid + b * nt;
-    const int rest = q >> lf;
-    const int j = rest & ((1 << LNB) - 1);
-    const int t = ((rest >> LNB) << lf) | (q & ((1 << lf) - 1));
-    const int k0 = ((j >> LNS) << (LNS + LR)) + (j & (NS - 1));
-    out.template put<R>(t, k0, NS, v + b * R);
-  }
-  __syncthreads();
-}
-
-// The passes of an FFT of length 2^LN (LN >= 1) from the one after those
-// that multiply to 2^LNS: a radix 2^(LN mod 4) pass first when LN is no
-// multiple of 4, then radix 16.  The first reads through `in`, the others
-// from shared memory laid out by `lay`; the last pass hands its outputs to
-// `last`, the others write back to `lay`.
-template <int LN, int LNS, class In, class Lay, class Last>
-__device__ __forceinline__ void passes(const In& in, float* sr, float* si,
-                                       const Lay& lay, int lT, int nt,
-                                       const float2* w, float sg,
-                                       const Last& last) {
-  constexpr int LR = (LNS == 0 && (LN & 3)) ? (LN & 3) : 4;
-  if constexpr (LNS + LR == LN) {
-    pass<LR, LN, LNS>(in, lT, nt, w, sg, last);
-  } else {
-    pass<LR, LN, LNS>(in, lT, nt, w, sg, ToShared<Lay>{sr, si, lay});
-    passes<LN, LNS + LR>(FromShared<Lay>{sr, si, lay}, sr, si, lay, lT, nt,
-                         w, sg, last);
-  }
-}
-
-// the same for a length 2^ln known only at run time, 1 <= ln <= 10
-template <class In, class Lay, class Last>
-__device__ __forceinline__ void fft_any(int ln, const In& in, float* sr,
-                                        float* si, const Lay& lay, int lT,
-                                        int nt, const float2* w, float sg,
-                                        const Last& last) {
-  switch (ln) {
-    case 1: passes<1, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    case 2: passes<2, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    case 3: passes<3, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    case 4: passes<4, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    case 5: passes<5, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    case 6: passes<6, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    case 7: passes<7, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    case 8: passes<8, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    case 9: passes<9, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-    default: passes<10, 0>(in, sr, si, lay, lT, nt, w, sg, last); break;
-  }
-}
-
 struct Tables {
   const float2* w1;
   const float2* w2;
@@ -380,12 +142,6 @@ __device__ __forceinline__ Tables tables(const float2* tab, int ln1, int ln2,
                                          int s) {
   const float2* lo = tab + (1 << ln1) + (1 << ln2);
   return Tables{tab, tab + (1 << ln1), Levels{lo, lo + (1 << s), s}};
-}
-
-// pad a row pitch so that 32 lanes over 2^lt rows (up to 32 of them,
-// 32 / rows consecutive points each) hit 32 distinct banks
-__host__ __device__ constexpr int pitch(int width, int lt) {
-  return width + (lt >= 5 ? 1 : 32 >> lt);
 }
 
 // n <= 2^14: 2^lg rows a block, both FFTs in shared memory, one launch.
@@ -472,26 +228,6 @@ fourstep_rows(const float* __restrict__ yr, const float* __restrict__ yi,
                  Rows{P}, LR, NT2, tb.w2, sg,
                  RowsToOutput{outr + base, outi + base, ln1, ln, LR, 1, r0,
                               scale});
-}
-
-int log2_exact(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return (1 << l) == v ? l : -1;
-}
-
-// cudaFuncSetAttribute once for each kernel, size and device: the largest
-// dynamic shared memory already allowed is remembered
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes, int* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 16 && done[dev] >= (int)bytes) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
-  if (e == cudaSuccess && dev < 16) done[dev] = (int)bytes;
-  return e;
 }
 
 template <int LN1>

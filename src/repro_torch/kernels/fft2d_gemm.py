@@ -1,23 +1,26 @@
-"""GEMM-formulated complex 2-D FFT: the CUDA kernel and its plain PyTorch
-version, in float32 and bfloat16.
+"""Complex 2-D FFT: the CUDA kernel and its plain PyTorch version, in
+float32 and bfloat16.
 
 Replaces ``repro/kernels/fft2d_gemm.py::_fft2d_gemm_kernel`` (both
-variants): a one-level four-step row pass
+variants).  The plain version keeps the reference's arithmetic: a one-level
+four-step row pass
 (:func:`~repro_torch.kernels.rfft2d_fused.fft_last_fourstep`), a column
 pass of left-side contractions
 (:func:`~repro_torch.kernels.rfft2d_fused.fft_col_fourstep`, no transpose
 materialised) and one 1/(H*W) for the inverse, from 12 host-built tables.
 
-The TPU kernel keeps one image in VMEM; a 1024^2 fp32 image is 8 MB and
-the dense-leaf table (n <= 256) alone is 512 KB, against 227 KB of shared
-memory per block.  ``csrc/fft2d_gemm.cu`` therefore runs each four-step
-step as a launch of one tiled complex fp32 GEMM (``csrc/cgemm.cuh``),
-chained through scratch buffers that the wrapper allocates, with the
-twiddles in GEMM epilogues.  What bounds it: the transform itself is
-bound by bytes (16 per complex point in and out), but the four-step
-method does 8*n*(n1+n2) flops per row and per column, 10x the FFT's
-5*n*log2(n) at 1024^2, so this design is bound by those fp32 operations;
-the HBM round trips between the steps are its known extra traffic.
+The TPU kernel keeps one image in VMEM and runs those DFT matmuls on its
+matrix unit.  On the card the four-step method costs 8*(n1 + n2) flops a
+point an axis on the CUDA cores, 10x the FFT's 5*log2(n) at 1024^2, while
+the function is bound by bytes (16 per complex point in and out).  So
+``csrc/fft2d_gemm.cu`` runs radix-16 Stockham FFTs in shared memory
+(``csrc/axis_fft.cuh``) in the fewest passes over device memory
+(:func:`~repro_torch.kernels.axis_fft.plan2d`): one launch holding whole
+images for h*w <= 16384, else the W FFT on rows, then the H FFT on tiles
+of adjacent columns, in place in the output; its twiddles come from one
+fp32 table of n entries an axis
+(:func:`~repro_torch.kernels.axis_fft.twiddle_table`).  It agrees with
+the plain version to fp32 rounding.
 
 bfloat16 storage (the reference's ``itemsize < 4`` dtypes; float16 is not
 ported yet and raises ``TypeError``):
@@ -25,15 +28,18 @@ ported yet and raises ``TypeError``):
 - ``variant="compensated"``: the reference splits every table into a bf16
   pair ``hi + lo`` to fit VMEM and sums them in fp32 inside the kernel;
   ``fp32(hi) + fp32(lo)`` is exact, so the port builds that fp32 sum once
-  per key (``core/twiddle.py``'s cache) and the GEMMs load fp32 tables.
-  The input is widened to fp32, each pass accumulates in fp32, the tile is
-  rounded to bf16 after the row pass, and the output is cast to bf16.
+  per key (``core/twiddle.py``'s cache) for the plain version.  The input
+  is widened to fp32, each pass computes in fp32, the tile is rounded to
+  bf16 after the row pass (the kernel stores it as bf16), and the output
+  is cast to bf16.
 - ``variant="plain"``: XLA rounds every einsum and every elementwise
   result to bf16, which a GEMM kernel cannot match op for op.  The port
   defines plain bf16 as: tables rounded to bf16 (the ``hi`` half), fp32
   accumulation inside each complex GEMM (twiddle included), and every
-  GEMM step's output rounded to bf16.  The plain version here does exactly
-  that in torch, so it and the kernel agree to bf16 rounding ties.
+  GEMM step's output rounded to bf16.  A Stockham FFT has no such rounding
+  points, so this variant alone still runs the four-step GEMM chain
+  (``csrc/row_pass.cuh``, ``csrc/cgemm.cuh``); the plain version does
+  the same in torch, so the two agree to bf16 rounding ties.
 
 Rounding is to nearest even, as torch's float -> bfloat16 cast does.
 """
@@ -44,15 +50,13 @@ import torch
 
 from repro_torch.core.complexmath import SplitComplex
 from repro_torch.core.twiddle import _cast
-from . import _build
+from . import _build, axis_fft
 from .rfft2d_fused import (fourstep_factors, fourstep_tables_np,
                            fft_last_fourstep, fft_col_fourstep, _check_dims,
                            MAX_DIM)
 
 VARIANTS = ("plain", "compensated")
 DTYPES = (torch.float32, torch.bfloat16)    # what the CUDA kernels store
-# storage modes of csrc/row_pass.cuh
-MODE_F32, MODE_COMPENSATED, MODE_PLAIN_BF16 = 0, 1, 2
 
 
 def check_variant(variant: str) -> None:
@@ -160,31 +164,29 @@ def fft2d_gemm_plain(x: SplitComplex, *, inverse: bool = False,
     return SplitComplex(re.to(dt), im.to(dt))
 
 
-def storage_mode(dtype: torch.dtype, variant: str) -> int:
-    if dtype == torch.float32:
-        return MODE_F32
-    return MODE_COMPENSATED if variant == "compensated" else MODE_PLAIN_BF16
+def on_gemm_chain(dtype: torch.dtype, variant: str) -> bool:
+    """Whether the CUDA kernel runs the four-step GEMM chain (plain bf16)
+    rather than the shared-memory FFTs."""
+    return dtype == torch.bfloat16 and variant == "plain"
 
 
-def buffers(x: SplitComplex, out: SplitComplex):
-    """The fp32 buffer pairs (f0, f1) the GEMM chain ping-pongs through:
-    out and one scratch pair in fp32, two scratch pairs in bf16 (whose out
-    holds bf16)."""
+def scratch(x: SplitComplex):
+    """The two fp32 buffer pairs the plain-bf16 GEMM chain ping-pongs
+    through (its output holds bf16)."""
     def pair():
         return SplitComplex(*(torch.empty(x.shape, dtype=torch.float32,
                                           device=x.device) for _ in "ri"))
-    if x.dtype == torch.float32:
-        return out, pair()
     return pair(), pair()
 
 
-_ARGS = [_build.P] * 20 + [_build.L] + [_build.I] * 6 + [_build.P]
+_ARGS_CHAIN = [_build.P] * 20 + [_build.L] + [_build.I] * 5 + [_build.P]
 
 
 def fft2d_gemm_cuda(x: SplitComplex, *, inverse: bool = False,
                     variant: str = "plain") -> SplitComplex:
-    """Launch the GEMM row and column passes on (batch, h, w) CUDA planes
-    (float32 or bfloat16)."""
+    """Launch the 2-D FFT on (batch, h, w) CUDA planes (float32 or
+    bfloat16): the planned shared-memory FFT passes, or the GEMM chain for
+    plain bf16."""
     check_variant(variant)
     check_dtype(x.dtype)
     _build.check_operands(x, 3, DTYPES)
@@ -193,14 +195,18 @@ def fft2d_gemm_cuda(x: SplitComplex, *, inverse: bool = False,
     if h > MAX_DIM or w > MAX_DIM:
         raise ValueError(f"the CUDA 2-D kernel takes H, W <= {MAX_DIM}, "
                          f"got {(h, w)}")
+    out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
+    if not on_gemm_chain(x.dtype, variant):
+        fn = _build.function("fft2d_gemm", "fft2d_gemm_pass", axis_fft.ARGS)
+        axis_fft.run(fn, axis_fft.plan2d(batch, h, w), x, out, h * w, inverse,
+                     "fft2d_gemm")
+        return out
     fw, fh = fourstep_factors(w), fourstep_factors(h)
     tabs = (axis_tables(w, fw, inverse, x.dtype, variant, x.device)
             + axis_tables(h, fh, inverse, x.dtype, variant, x.device))
-    out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    f0, f1 = buffers(x, out)
-    fn = _build.function("fft2d_gemm", "fft2d_gemm", _ARGS)
+    f0, f1 = scratch(x)
+    fn = _build.function("fft2d_gemm", "fft2d_gemm_plain_bf16", _ARGS_CHAIN)
     ptrs = [x.re, x.im, out.re, out.im, f0.re, f0.im, f1.re, f1.im, *tabs]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, h, w, fw[0], fh[0], int(inverse),
-        storage_mode(x.dtype, variant)], "fft2d_gemm", x.device)
+        batch, h, w, fw[0], fh[0], int(inverse)], "fft2d_gemm", x.device)
     return out

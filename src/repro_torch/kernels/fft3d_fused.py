@@ -1,9 +1,10 @@
 """Fused complex 3-D FFT: the CUDA kernel and its plain PyTorch version, in
 float32 and bfloat16.
 
-Replaces ``repro/kernels/fft3d_fused.py::_fft3d_kernel`` (both variants):
-three one-level four-step GEMM passes over a (batch, D, H, W) volume with
-no relayout materialised:
+Replaces ``repro/kernels/fft3d_fused.py::_fft3d_kernel`` (both variants).
+The plain version keeps the reference's arithmetic: three one-level
+four-step GEMM passes over a (batch, D, H, W) volume with no relayout
+materialised:
 
 - W pass: :func:`~repro_torch.kernels.rfft2d_fused.fft_last_fourstep` on
   the contiguous last axis;
@@ -16,17 +17,19 @@ with one 1/(D*H*W) for the inverse, from 18 host-built tables (6 per axis,
 W, H, then D) split by :func:`fourstep_factors3` (a dense DFT at
 n <= :data:`FOURSTEP_LEAF3`).
 
-The TPU kernel keeps a whole brick in VMEM; a 256^3 fp32 brick is 128 MB
-against 227 KB of shared memory per block, so ``csrc/fft3d_fused.cu``
-runs each four-step step as a launch of the tiled complex GEMM
-(``csrc/cgemm.cuh``), as the 2-D kernel does: up to six launches chained
-through fp32 buffers, the last landing in the output.  What bounds it: the
-transform is bound by bytes (16 per complex fp32 point in and out), the
-method by its 8*(n1+n2) flops a point an axis on the CUDA cores.
+The TPU kernel keeps a whole brick in VMEM.  On the card the method's
+8*(n1 + n2) flops a point an axis bound it on the CUDA cores, while the
+function is bound by bytes, so ``csrc/fft3d_fused.cu`` runs radix-16
+Stockham FFTs in shared memory (``csrc/axis_fft.cuh``) in the fewest
+passes over device memory (:func:`~repro_torch.kernels.axis_fft.plan3d`):
+for h*w <= 16384 a plane launch (W and H on whole images) and the D FFT
+on tiles of adjacent columns of the (batch, d, h*w) view, else W on rows,
+H and D on columns; all but the first in place in the output.
 
 bfloat16 follows :mod:`repro_torch.kernels.fft2d_gemm`'s definitions: the
 compensated variant rounds the tile to bf16 after the W and after the H
-pass, the plain variant after every GEMM step.
+pass (the kernel stores those boundaries as bf16), the plain variant after
+every GEMM step, on the GEMM chain (``csrc/row_pass.cuh``).
 """
 from __future__ import annotations
 
@@ -34,12 +37,12 @@ import torch
 
 from repro_torch.core.complexmath import SplitComplex
 from repro_torch.core.fft1d import _best_split
-from . import _build
+from . import _build, axis_fft
 from .rfft2d_fused import (fourstep_tables_np, fft_last_fourstep,
                            fft_col_fourstep, MAX_DIM)
 from .fft2d_gemm import (DTYPES, check_variant, check_dtype, _operands,
-                         compute_dtype, axis_tables, roundings, storage_mode,
-                         buffers)
+                         compute_dtype, axis_tables, roundings, on_gemm_chain,
+                         scratch)
 
 # The fused brick runs three passes back to back, so its dense-leaf
 # crossover sits one octave below the 2-D kernel's (the reference's
@@ -103,13 +106,22 @@ def fft3d_fused_plain(x: SplitComplex, *, inverse: bool = False,
     return SplitComplex(re.to(dt), im.to(dt))
 
 
-_ARGS = [_build.P] * 26 + [_build.L] + [_build.I] * 8 + [_build.P]
+_ARGS_CHAIN = [_build.P] * 26 + [_build.L] + [_build.I] * 7 + [_build.P]
 
 
 def fft3d_fused_cuda(x: SplitComplex, *, inverse: bool = False,
                      variant: str = "plain") -> SplitComplex:
-    """Launch the W, H and D GEMM passes on (batch, d, h, w) CUDA planes
-    (float32 or bfloat16)."""
+    """Launch the 3-D FFT on (batch, d, h, w) CUDA planes (float32 or
+    bfloat16): the planned shared-memory FFT passes, or the GEMM chain for
+    plain bf16."""
+    return _fft3d_cuda(x, inverse=inverse, variant=variant)
+
+
+def _fft3d_cuda(x: SplitComplex, *, inverse: bool = False,
+                variant: str = "plain", planes=None) -> SplitComplex:
+    """:func:`fft3d_fused_cuda`; ``planes`` picks the route where h*w
+    allows both (:func:`~repro_torch.kernels.axis_fft.plan3d`), for
+    timing them against each other."""
     check_variant(variant)
     check_dtype(x.dtype)
     _build.check_operands(x, 4, DTYPES)
@@ -118,13 +130,17 @@ def fft3d_fused_cuda(x: SplitComplex, *, inverse: bool = False,
     if max(d, h, w) > MAX_DIM:
         raise ValueError(f"the CUDA 3-D kernel takes D, H, W <= {MAX_DIM}, "
                          f"got {(d, h, w)}")
-    tabs = _tables3(d, h, w, inverse, x.dtype, variant, x.device)
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    f0, f1 = buffers(x, out)
-    fn = _build.function("fft3d_fused", "fft3d_fused", _ARGS)
+    if not on_gemm_chain(x.dtype, variant):
+        fn = _build.function("fft3d_fused", "fft3d_fused_pass", axis_fft.ARGS)
+        axis_fft.run(fn, axis_fft.plan3d(batch, d, h, w, planes), x, out,
+                     d * h * w, inverse, "fft3d_fused")
+        return out
+    tabs = _tables3(d, h, w, inverse, x.dtype, variant, x.device)
+    f0, f1 = scratch(x)
+    fn = _build.function("fft3d_fused", "fft3d_fused_plain_bf16", _ARGS_CHAIN)
     ptrs = [x.re, x.im, out.re, out.im, f0.re, f0.im, f1.re, f1.im, *tabs]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
         batch, d, h, w, fourstep_factors3(w)[0], fourstep_factors3(h)[0],
-        fourstep_factors3(d)[0], int(inverse),
-        storage_mode(x.dtype, variant)], "fft3d_fused", x.device)
+        fourstep_factors3(d)[0], int(inverse)], "fft3d_fused", x.device)
     return out

@@ -1,0 +1,250 @@
+"""The 2-D and 3-D FFT kernels' launch plan and twiddle tables
+(``repro_torch.kernels.axis_fft``), and what their CUDA wrappers refuse,
+on the CPU.  The kernels themselves run in ``tests/test_torch_cuda.py``
+(on a card) and under ``tools/cuda_emu/emulate.py``."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import SplitComplex, from_numpy
+from repro_torch.kernels import _build, axis_fft as A
+from repro_torch.kernels import fft2d_gemm, fft3d_fused
+
+POW2 = [1 << k for k in range(1, 13)]          # 2 .. 4096
+
+
+@pytest.mark.parametrize("n", POW2)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_twiddle_table_within_two_ulp(n, inverse):
+    """W_n^k = exp(sign*2*pi*i*k/n), k < n, in fp32 against float64: each
+    entry within 2 ulp of 1 (the twiddles' magnitude)."""
+    tab = A.twiddle_table(n, inverse=inverse, device="cpu").numpy()
+    want = np.exp((1.0 if inverse else -1.0) * 2j * np.pi * np.arange(n) / n)
+    assert tab.dtype == np.float32 and tab.shape == (n, 2)
+    err = np.maximum(np.abs(tab[:, 0] - want.real),
+                     np.abs(tab[:, 1] - want.imag))
+    assert err.max() <= 2 * np.spacing(np.float32(1.0))
+
+
+def test_twiddle_table_is_cached():
+    a = A.twiddle_table(256, inverse=True, device="cpu")
+    assert A.twiddle_table(256, inverse=True, device="cpu") is a
+    assert A.twiddle_table(256, inverse=False, device="cpu") is not a
+
+
+def _check_launch(lp):
+    """The tiling rules every launch keeps (the kernel refuses others)."""
+    assert lp.kind in ("rows", "cols", "plane")
+    for v in (lp.n, lp.inner, lp.c, lp.g):
+        assert v >= 1 and v & (v - 1) == 0
+    assert A.MIN_POINTS <= lp.points <= A.TILE_BIG
+    assert lp.threads == lp.points // 16 <= 1024
+    assert lp.nbuf == (2 if lp.points <= A.TILE else 1)
+    assert lp.smem <= A.SMEM_MAX
+    assert lp.c <= lp.inner
+    if lp.c < lp.inner:
+        assert lp.g == 1          # columns of one image at a time
+    if lp.kind == "rows":
+        assert lp.inner == 1 and lp.c == 1 and lp.points <= A.TILE
+    if lp.kind == "cols":
+        assert lp.inner > 1
+        want_c = min(lp.inner, (A.TILE if lp.n <= 1024 else A.TILE_BIG)
+                     // lp.n)
+        assert lp.c == want_c
+        if lp.c < lp.inner:       # every row segment a whole sector but
+            assert lp.c >= (8 if lp.n < 4096 else 4)     # at n = 4096
+    if lp.kind == "plane":
+        assert lp.c == lp.inner and lp.n * lp.inner <= A.PLANE_MAX
+    # the tiles cover the view, and at most one tile's images are padding
+    assert lp.tiles * lp.points >= lp.outer * lp.n * lp.inner
+    assert lp.tiles >= 1 and 1 <= lp.blocks(132) <= lp.tiles
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_plan2d_every_pow2_shape(batch):
+    """One plane launch for h*w <= 16384, else rows along w then columns
+    along h, for every power-of-two (h, w) up to 4096."""
+    for h in POW2:
+        for w in POW2:
+            plan = A.plan2d(batch, h, w)
+            if h * w <= A.PLANE_MAX:
+                assert [lp.kind for lp in plan] == ["plane"]
+                assert (plan[0].outer, plan[0].n, plan[0].inner) == \
+                    (batch, h, w)
+            else:
+                assert [lp.kind for lp in plan] == ["rows", "cols"]
+                assert (plan[0].outer, plan[0].n) == (batch * h, w)
+                assert (plan[1].outer, plan[1].n, plan[1].inner) == \
+                    (batch, h, w)
+            for lp in plan:
+                _check_launch(lp)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_plan3d_every_pow2_shape(batch):
+    """A plane launch and D for h*w <= 16384, else W, H and D, for every
+    power-of-two (d, h, w) up to 4096 a side and 2^27 points; the
+    three-launch route on request."""
+    for d in POW2:
+        for h in POW2:
+            for w in POW2:
+                if d * h * w > 1 << 27:
+                    continue
+                plan = A.plan3d(batch, d, h, w)
+                views = [(lp.outer, lp.n, lp.inner) for lp in plan]
+                if h * w <= A.PLANE_MAX:
+                    assert [lp.kind for lp in plan] == ["plane", "cols"]
+                    assert views == [(batch * d, h, w), (batch, d, h * w)]
+                    three = A.plan3d(batch, d, h, w, planes=False)
+                    assert len(three) == 3
+                    plan = plan + three
+                else:
+                    assert [lp.kind for lp in plan] == ["rows", "cols",
+                                                        "cols"]
+                    assert views == [(batch * d * h, w, 1),
+                                     (batch * d, h, w), (batch, d, h * w)]
+                for lp in plan:
+                    _check_launch(lp)
+
+
+@pytest.mark.parametrize("shape,tiles", [
+    # the main shapes: 8192-point tiles that overlap their copies, but the
+    # 128^2 planes and columns at n >= 2048 (one 128 KB buffer)
+    ((16, 1024, 1024), [("rows", 8, 1, True), ("cols", 1, 8, True)]),
+    ((1, 4096, 2048), [("rows", 4, 1, True), ("cols", 1, 4, False)]),
+    ((2, 8, 4), [("plane", 16, 4, True)]),
+    ((1, 128, 128), [("plane", 1, 128, False)]),
+    ((2, 256, 256, 256), [("rows", 32, 1, True), ("cols", 1, 32, True),
+                          ("cols", 1, 32, True)]),
+    ((8, 128, 128, 128), [("plane", 1, 128, False), ("cols", 1, 64, True)]),
+])
+def test_plan_of_main_shapes(shape, tiles):
+    plan = A.plan2d(*shape) if len(shape) == 3 else A.plan3d(*shape)
+    assert [(lp.kind, lp.g, lp.c, lp.nbuf == 2) for lp in plan] == tiles
+    assert all(lp.blocks(132) <= 132 for lp in plan if lp.points >= 8192)
+
+
+def test_plane_refuses_large_images():
+    with pytest.raises(ValueError, match="h\\*w <= 16384"):
+        A.plan_plane(1, 256, 128)
+    with pytest.raises(ValueError, match="h\\*w <= 16384"):
+        A.plan3d(1, 4, 256, 128, planes=True)
+
+
+def _recorder(monkeypatch):
+    calls = []
+    monkeypatch.setattr(_build, "check_operands", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(_build, "function", lambda *a: a)
+    monkeypatch.setattr(_build, "launch_all",
+                        lambda fn, arg_lists, what, dev: calls.extend(
+                            (fn, args, what) for args in arg_lists))
+    monkeypatch.setattr(_build, "launch",
+                        lambda fn, args, what, dev: calls.append(
+                            (fn, args, what)))
+    A._launch_args.cache_clear()
+    return calls
+
+
+@pytest.mark.parametrize("shape,inverse", [((2, 64, 512), False),
+                                           ((2, 64, 512), True),
+                                           ((3, 8, 16), True)])
+def test_fft2d_wrapper_launches_the_plan(monkeypatch, shape, inverse):
+    """fft2d_gemm_cuda hands the planned launches to the kernel: x -> out,
+    then out -> out; the inverse's 1/(h*w) at the last; the W table for
+    rows, the H table for columns, both for a plane."""
+    calls = _recorder(monkeypatch)
+    x = from_numpy(np.ones(shape, np.complex64), device="cpu")
+    out = fft2d_gemm.fft2d_gemm_cuda(x, inverse=inverse)
+    plan = A.plan2d(*shape)
+    assert len(calls) == len(plan)
+    b, h, w = shape
+    for i, ((fn, args, what), lp) in enumerate(zip(calls, plan)):
+        assert fn == ("fft2d_gemm", "fft2d_gemm_pass", A.ARGS)
+        assert what == "fft2d_gemm" and len(args) == len(A.ARGS) - 1
+        src = x if i == 0 else out
+        assert args[:4] == [src.re.data_ptr(), src.im.data_ptr(),
+                            out.re.data_ptr(), out.im.data_ptr()]
+        tab = A.twiddle_table(w if lp.kind != "cols" else h, inverse=inverse,
+                           device="cpu")
+        assert args[4] == tab.data_ptr()
+        if lp.kind == "plane":
+            assert args[5] == A.twiddle_table(h, inverse=inverse,
+                                           device="cpu").data_ptr()
+        else:
+            assert args[5] is None
+        assert args[6:12] == [lp.outer, lp.n.bit_length() - 1,
+                              lp.inner.bit_length() - 1,
+                              lp.c.bit_length() - 1, lp.g.bit_length() - 1,
+                              int(lp.kind == "plane")]
+        assert args[12] == lp.blocks(132) and args[13] == int(inverse)
+        last = i == len(plan) - 1
+        assert args[14] == (1.0 / (h * w) if inverse and last else 1.0)
+        assert args[15] == 0
+
+
+@pytest.mark.parametrize("variant,chain", [("compensated", False),
+                                           ("plain", True)])
+def test_bf16_variants_pick_their_route(monkeypatch, variant, chain):
+    """bf16 compensated runs the FFT passes (bf16 flag set); bf16 plain the
+    GEMM chain; float32 the FFT passes whatever the variant."""
+    calls = _recorder(monkeypatch)
+    z = np.ones((2, 4, 128, 256), np.complex64)
+    x = from_numpy(z, device="cpu")
+    xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+    fft3d_fused.fft3d_fused_cuda(xb, variant=variant)
+    fft3d_fused.fft3d_fused_cuda(x, variant=variant)
+    if chain:
+        assert calls[0][0][1] == "fft3d_fused_plain_bf16"
+        assert all(c[0][1] == "fft3d_fused_pass" for c in calls[1:])
+        assert len(calls) == 1 + 3
+    else:
+        assert [c[0][1] for c in calls] == ["fft3d_fused_pass"] * 6
+        assert [c[1][15] for c in calls] == [1, 1, 1, 0, 0, 0]
+
+
+def test_unaligned_planes_are_copied():
+    base = torch.zeros(2 * 64 + 1)
+    x = SplitComplex(base[1:65].view(1, 8, 8), base[65:].view(1, 8, 8))
+    y = A.aligned(x)
+    assert all(p.data_ptr() % 16 == 0 for p in y)
+    assert torch.equal(y.re, x.re) and torch.equal(y.im, x.im)
+    z = SplitComplex(torch.zeros(1, 8, 8), torch.zeros(1, 8, 8))
+    assert A.aligned(z) is z
+
+
+_WRAPPERS = [(fft2d_gemm.fft2d_gemm_cuda, (1, 8, 8), (1, 8, 12)),
+             (fft3d_fused.fft3d_fused_cuda, (1, 4, 8, 8), (1, 4, 6, 8))]
+
+
+@pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)
+def test_wrappers_refuse_cpu_tensors(launch, shape, bad):
+    x = from_numpy(np.ones(shape, np.complex64), device="cpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        launch(x)
+
+
+@pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)
+def test_wrappers_refuse_float16(launch, shape, bad):
+    x = SplitComplex(torch.zeros(shape, dtype=torch.float16),
+                     torch.zeros(shape, dtype=torch.float16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch(x)
+
+
+@pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)
+def test_wrappers_refuse_non_pow2_dims(monkeypatch, launch, shape, bad):
+    """Past the operand checks, a dim that is no power of two raises before
+    any launch."""
+    calls = _recorder(monkeypatch)
+    x = from_numpy(np.ones(bad, np.complex64), device="cpu")
+    with pytest.raises(ValueError, match="power-of-two"):
+        launch(x)
+    assert calls == []
+
+
+@pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)
+def test_wrappers_refuse_unknown_variant(launch, shape, bad):
+    x = from_numpy(np.ones(shape, np.complex64), device="cpu")
+    with pytest.raises(ValueError, match="variant must be one of"):
+        launch(x, variant="fast")

@@ -318,3 +318,72 @@ def test_fft2_fused_stockham_on_card(card):
     zz = y.re.double().cpu().numpy() + 1j * y.im.double().cpu().numpy()
     want = np.fft.fft2(z)
     assert np.abs(zz - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# the 2-D and 3-D kernels' routes (kernels/axis_fft.py): one plane launch at
+# h*w = 2^14 (and 128^2 single-buffered), rows then columns at 2^15, C = 8
+# at h = 2048, C = 4 at h = 4096, whole images where w < C; 3-D on the
+# plane route and D (d = 2, a D pass over h*w = 4 columns) and on three
+# launches
+_ROUTES_2D = [(2, 128, 128), (1, 256, 128), (3, 2048, 32), (1, 4096, 16),
+              (2, 4096, 8), (5, 16, 1024)]
+_ROUTES_3D = [((1, 128, 128, 128), None), ((2, 2, 4, 256), None),
+              ((1, 256, 2, 2), None), ((1, 32, 64, 256), None),
+              ((1, 128, 128, 128), False), ((2, 2, 4, 256), False)]
+
+
+@pytest.mark.parametrize("shape", _ROUTES_2D)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft2d_routes_match_plain_on_card(card, shape, inverse):
+    x = from_numpy(_rand(shape, seed=11), device=card)
+    got = fft2d_gemm.fft2d_gemm_cuda(x, inverse=inverse)
+    torch.cuda.synchronize()
+    assert _rel(got, fft2d_gemm.fft2d_gemm_plain(x, inverse=inverse)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,planes", _ROUTES_3D)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft3d_routes_match_plain_on_card(card, shape, planes, inverse):
+    x = from_numpy(_rand(shape, seed=12), device=card)
+    got = fft3d_fused._fft3d_cuda(x, inverse=inverse, planes=planes)
+    torch.cuda.synchronize()
+    assert _rel(got, fft3d_fused.fft3d_fused_plain(x, inverse=inverse)) <= \
+        1e-5
+
+
+@pytest.mark.parametrize("shape,planes", [((2, 128, 128), None),
+                                          ((1, 256, 128), None),
+                                          ((1, 64, 128, 128), None),
+                                          ((1, 64, 128, 128), False)])
+def test_bf16_compensated_routes_on_card(card, shape, planes):
+    """bf16 compensated on every route: within one bf16 ulp at the top of
+    the plain version and 5e-3 of float64 numpy (relative norm)."""
+    z = _rand(shape, seed=13)
+    x = _bf16(z, card)
+    if len(shape) == 3:
+        got = fft2d_gemm.fft2d_gemm_cuda(x, variant="compensated")
+        ref = fft2d_gemm.fft2d_gemm_plain(x, variant="compensated")
+        want = np.fft.fft2(z)
+    else:
+        got = fft3d_fused._fft3d_cuda(x, variant="compensated", planes=planes)
+        ref = fft3d_fused.fft3d_fused_plain(x, variant="compensated")
+        want = np.fft.fftn(z, axes=(-3, -2, -1))
+    torch.cuda.synchronize()
+    assert got.re.dtype == torch.bfloat16
+    assert _rel(SplitComplex(got.re.float(), got.im.float()),
+                SplitComplex(ref.re.float(), ref.im.float())) <= 2.0 ** -7
+    zz = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy()
+    assert np.linalg.norm(zz - want) / np.linalg.norm(want) <= 5e-3
+
+
+def test_fft2d_reads_an_unaligned_view_on_card(card):
+    """Planes at an offset that is no multiple of 16 bytes are copied before
+    the 16-byte cp.async chunks read them."""
+    z = _rand((3, 64, 256), seed=14)
+    x = from_numpy(z, device=card)
+    view = SplitComplex(x.re.flatten()[1:].narrow(0, 0, 2 * 64 * 256)
+                        .view(2, 64, 256), x.im[1:])
+    assert view.re.data_ptr() % 16 != 0
+    got = fft2d_gemm.fft2d_gemm_cuda(view)
+    torch.cuda.synchronize()
+    assert _rel(got, fft2d_gemm.fft2d_gemm_plain(view)) <= 1e-5

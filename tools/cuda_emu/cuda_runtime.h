@@ -11,6 +11,7 @@
 // warp must reach it.  Only blockIdx.x/y and threadIdx.x are emulated, and
 // cgemm.cuh is still replaced by a naive twin.
 #pragma once
+#define CUDA_EMU 1  // axis_fft.cuh's cp.async becomes a plain copy
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -59,6 +60,7 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   return r;
 }
 #define __global__
+#define __grid_constant__
 #define __device__
 #define __host__
 #define __shared__ static

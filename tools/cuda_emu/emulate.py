@@ -17,7 +17,9 @@ transforms (bf16.cuh's conversions run as written; the twin sums in the
 tiled kernel's order), the untangle, repack and Stockham stage kernels,
 the shared-memory stages of the fused conv and fused Stockham 2-D
 kernels, the four-step kernel's shared-memory FFTs (one- and two-launch routes),
-the staged FFT's folded bit-reverse (rows and tiles) and float4 stages, and decode attention's
+the 2-D and 3-D kernels' planned routes (plane, rows and column tiles,
+persistent blocks walking several tiles through both buffers; a cp.async
+becomes a plain copy), the staged FFT's folded bit-reverse (rows and tiles) and float4 stages, and decode attention's
 split and merge kernels (warp shuffles included).  What it cannot check: the tiled GEMM itself (the twin replaces
 it), warps, shared-memory limits or timing.  Libraries go to
 ``build/cuda_emu/``.  Exits non-zero if a shape disagrees beyond 1e-5 of
@@ -52,21 +54,26 @@ _LAUNCH = re.compile(
 _DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 
+def _rewrite(src: str) -> str:
+    """A source's launches and dynamic shared memory in the stand-in's
+    terms."""
+    src = _LAUNCH.sub(r"EMU_LAUNCH(\2, \3, \4, \1)(", src)
+    return _DYNAMIC_SHARED.sub(
+        r"\1* \2 = reinterpret_cast<\1*>(emu_shared);", src)
+
+
 def build(names=_build.SOURCES) -> None:
     """g++ each listed source into ``build/cuda_emu/lib<name>.so``."""
     OUT.mkdir(parents=True, exist_ok=True)
     for h in _build.CSRC.glob("*.cuh"):
         if h.name != "cgemm.cuh":
-            shutil.copy(h, OUT / h.name)
+            (OUT / h.name).write_text(_rewrite(h.read_text()))
     for h in ("cuda_runtime.h", "cgemm.cuh"):
         shutil.copy(HERE / h, OUT / h)
     for name in names:
         src = (_build.CSRC / f"{name}.cu").read_text()
         cpp = OUT / f"{name}.cpp"
-        src = _LAUNCH.sub(r"EMU_LAUNCH(\2, \3, \4, \1)(", src)
-        src = _DYNAMIC_SHARED.sub(
-            r"\1* \2 = reinterpret_cast<\1*>(emu_shared);", src)
-        cpp.write_text(src)
+        cpp.write_text(_rewrite(src))
         subprocess.run(["g++", "-O2", "-std=c++20", "-pthread", "-shared",
                         "-fPIC",
                         "-I", str(OUT), "-o", str(OUT / f"lib{name}.so"),
@@ -94,8 +101,13 @@ def _check_decode_operands(*ops):
         raise ValueError("non-contiguous decode operand")
 
 
+def _launch_all(fn, arg_lists, what, device):
+    for args in arg_lists:
+        _build.check(fn(*args, None), what)
+
+
 def _launch(fn, args, what, device):
-    _build.check(fn(*args, None), what)
+    _launch_all(fn, [args], what, device)
 
 
 def install() -> None:
@@ -104,6 +116,8 @@ def install() -> None:
     _build.check_operands = _check_operands
     _build.check_decode_operands = _check_decode_operands
     _build.launch = _launch
+    _build.launch_all = _launch_all
+    _build.sm_count = lambda device: 2     # persistent blocks walk tiles
 
 
 def rel(a, b) -> float:
@@ -143,8 +157,13 @@ def main() -> int:
         results.append(("irfft2d_fused", shape, True,
                         rel(R.irfft2d_fused_cuda(xf),
                             R.irfft2d_fused_plain(xf))))
+    # the planned routes: one plane launch (h*w <= 16384; 128^2 in one
+    # single-buffered tile), rows then columns above (C = 8 at h = 1024 and
+    # 2048, C = 4 at h = 4096, whole images where w < C)
     for shape in [(2, 2, 2), (2, 8, 8), (1, 8, 512), (1, 512, 8),
-                  (1, 512, 512)]:
+                  (1, 512, 512), (1, 128, 128), (3, 128, 256),
+                  (1, 1024, 64), (1, 2048, 16), (1, 4096, 8), (1, 8, 4096),
+                  (2, 4096, 4)]:
         x = cplx(shape)
         for inv in (False, True):
             results.append(("fft2d_gemm", shape, inv,
@@ -153,7 +172,8 @@ def main() -> int:
     # the GEMM transforms in bf16, both variants; the 3-D kernel in fp32
     # and bf16 (dense and four-step axes, unequal factors)
     bf16 = []
-    for shape in [(2, 8, 4), (1, 512, 512), (2, 64, 1024)]:
+    for shape in [(2, 8, 4), (1, 512, 512), (2, 64, 1024), (1, 128, 128),
+                  (1, 4096, 8)]:
         x = cplx(shape)
         xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
         for variant in ("compensated", "plain"):
@@ -162,12 +182,16 @@ def main() -> int:
                     G.fft2d_gemm_cuda(xb, inverse=inv, variant=variant),
                     G.fft2d_gemm_plain(xb, inverse=inv, variant=variant))))
     for shape in [(1, 4, 8, 16), (2, 2, 4, 256), (1, 256, 4, 4),
-                  (2, 8, 8, 8), (1, 4, 256, 512)]:
+                  (2, 8, 8, 8), (1, 4, 256, 512), (1, 4, 128, 128)]:
         x = cplx(shape)
         for inv in (False, True):
             results.append(("fft3d_fused", shape, inv,
                             rel(V.fft3d_fused_cuda(x, inverse=inv),
                                 V.fft3d_fused_plain(x, inverse=inv))))
+            if shape[2] * shape[3] <= 16384:    # the three-launch route too
+                results.append(("fft3d_fused planes=False", shape, inv, rel(
+                    V._fft3d_cuda(x, inverse=inv, planes=False),
+                    V.fft3d_fused_plain(x, inverse=inv))))
         xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
         for variant in ("compensated", "plain"):
             bf16.append((f"fft3d_fused/{variant}", shape, False, rel(

@@ -1,5 +1,5 @@
-"""Time the redesigned 1-D kernels and the ``cgemm.cuh`` users of one
-checkout of the port on the card, to compare two commits within one call.
+"""Time the redesigned kernels and the ``cgemm.cuh`` users of one checkout
+of the port on the card, to compare two commits within one call.
 
     python3 tools/kernel_ab.py <tree> [--launches]
 
@@ -16,13 +16,20 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   ``rfft``'s inner transform at 4 x 2^21), 64 x 4096, ``fourier_mix``'s
   32768 x 512 and 4096 x 4096, and Table 1's 512 x 16384;
 - ``fft_staged`` at 512 x 16384 and 8 x 16384;
-- the kernels that share ``cgemm.cuh``: ``fft2d_gemm``, ``rfft2d_fused``
-  and ``irfft2d_fused`` at 16 x 1024^2 and ``fft3d_fused`` at 256^3 x 2,
-  with the fp32 GEMM instance's ptxas line.
+- ``fft2d_gemm`` at 16 x 1024^2 and 1 x 1024^2 in fp32, bf16 compensated
+  and bf16 plain (the GEMM chain), and ``fft3d_fused`` at 2 x 256^3,
+  8 x 128^3 (and its three-launch route, where the tree has one) and
+  2 x 256^3 bf16 compensated, with ``fft3(algo="row_col")`` at 2 x 256^3
+  beside them, each with its device time a call;
+- the other kernels that share ``cgemm.cuh``, ``rfft2d_fused`` and
+  ``irfft2d_fused`` at 16 x 1024^2, with the fp32 GEMM instance's ptxas
+  line, and the ptxas lines of the four-step kernels and of every 2-D and
+  3-D kernel instance the tree builds.
 
 With ``--launches`` it also lists every grid launch of one call of
-``fft_fourstep`` at 4 x 2^20 and of ``fft_staged`` at 512 x 16384 with its
-device time, from a ``torch.profiler`` trace.  Unpack the parent into a
+``fft_fourstep`` at 4 x 2^20, of ``fft_staged`` at 512 x 16384, and of
+``fft2d_gemm`` and ``fft3d_fused`` at their main shapes (fp32 and bf16
+compensated), with its device time, from a ``torch.profiler`` trace.  Unpack the parent into a
 directory that .gitignore lists and alternate the trees, one process each:
 
     mkdir -p build/ab_parent
@@ -38,7 +45,7 @@ ROOT = sys.argv[1]
 sys.path.insert(0, ROOT + "/src")
 
 import torch  # noqa: E402
-from repro_torch.core import SplitComplex  # noqa: E402
+from repro_torch.core import SplitComplex, fft3  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fft_fourstep as F  # noqa: E402
 from repro_torch.kernels import fft_stage as ST  # noqa: E402
@@ -50,7 +57,9 @@ FOURSTEP = [(4, 1 << 20), (64, 4096), (32768, 512), (4096, 4096),
             (512, 16384)]
 STAGED = [(512, 16384), (8, 16384)]
 IMAGES = (16, 1024, 1024)
+IMAGE = (1, 1024, 1024)
 VOLUME = (2, 256, 256, 256)
+PME = (8, 128, 128, 128)
 
 
 def time_ms(fn, runs=50, warmup=5):
@@ -92,7 +101,7 @@ def device_us(fn, calls=5):
 
 def ptxas_lines(log):
     """{kernel symbol: registers, stack and spills} from nvcc's -Xptxas -v
-    log ('' when the library was already built)."""
+    log."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -108,10 +117,17 @@ def main():
     torch.set_float32_matmul_precision("highest")
     logs = _build.build_all(("fft_fourstep", "fft_stage", "fft2d_gemm",
                              "rfft2d_fused", "fft3d_fused"))
-    ptxas = {n: ptxas_lines(log) for n, log in logs.items()}
+    # a library built earlier (by chip_smoke.py, or a run before) left its
+    # compiler log beside it
+    ptxas = {n: ptxas_lines(log or _build.library_path(n)
+                            .with_suffix(".log").read_text())
+             for n, log in logs.items()}
     gemm_f32 = [line for n in ("fft2d_gemm", "rfft2d_fused", "fft3d_fused")
                 for k, line in ptxas[n].items() if "Lb0ELb0ELi0E" in k]
-    ptxas = {n: ptxas[n] for n in ("fft_fourstep", "fft_stage")}
+    ptxas = {n: {k: line for k, line in ptxas[n].items()
+                 if "cgemm" not in k}
+             for n in ("fft_fourstep", "fft_stage", "fft2d_gemm",
+                       "fft3d_fused")}
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
 
@@ -127,21 +143,49 @@ def main():
             key = f"{kern.__name__[:-5]} {shape[0]}x{shape[1]}"
             ms[key] = time_ms(lambda: kern(x))
             dev[key] = device_us(lambda: kern(x))
-    x = cplx(IMAGES)
-    ms["fft2d_gemm 16x1024^2"] = time_ms(lambda: G.fft2d_gemm_cuda(x))
+
+    def bf16(x):
+        return SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+
+    three = getattr(V, "_fft3d_cuda", None)   # the route A/B, where it is
+    calls = {}
+    for shape in (IMAGES, IMAGE):
+        tag = f"{shape[0]}x1024^2"
+        calls[f"fft2d_gemm {tag}"] = (G.fft2d_gemm_cuda, shape, False, {})
+        for v in ("compensated", "plain"):
+            calls[f"fft2d_gemm {tag} bf16 {v}"] = (
+                G.fft2d_gemm_cuda, shape, True, {"variant": v})
+    calls["fft3d_fused 2x256^3"] = (V.fft3d_fused_cuda, VOLUME, False, {})
+    calls["fft3d_fused 2x256^3 bf16 compensated"] = (
+        V.fft3d_fused_cuda, VOLUME, True, {"variant": "compensated"})
+    calls["fft3d_fused 8x128^3"] = (V.fft3d_fused_cuda, PME, False, {})
+    if three is not None:
+        calls["fft3d_fused 8x128^3 three launches"] = (
+            three, PME, False, {"planes": False})
+    calls["fft3 row_col 2x256^3"] = (
+        lambda x: fft3(x, algo="row_col", backend="cuda"), VOLUME, False, {})
+    traced = {}
+    for key, (kern, shape, low, kw) in calls.items():
+        x = cplx(shape)
+        if low:
+            x = bf16(x)
+        ms[key] = time_ms(lambda: kern(x, **kw))
+        dev[key] = device_us(lambda: kern(x, **kw))
+        if "--launches" in sys.argv and shape != IMAGE and (
+                "plain" not in key):
+            traced[f"{key} launches"] = launches(lambda: kern(x, **kw))
+        del x
+    torch.cuda.empty_cache()
     r = torch.randn(IMAGES, generator=g, device="cuda")
     ms["rfft2d_fused 16x1024^2"] = time_ms(lambda: R.rfft2d_fused_cuda(r))
     h = cplx(IMAGES[:2] + (IMAGES[2] // 2 + 1,))
     ms["irfft2d_fused 16x1024^2"] = time_ms(lambda: R.irfft2d_fused_cuda(h))
-    del x, r, h
-    v = cplx(VOLUME)
-    ms["fft3d_fused 2x256^3"] = time_ms(lambda: V.fft3d_fused_cuda(v))
-    del v
+    del r, h
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     out = {"tree": ROOT, "nvidia_smi": smi, "ms": ms, "device_us": dev,
-           "cgemm_f32_ptxas": gemm_f32, "ptxas": ptxas}
+           "cgemm_f32_ptxas": gemm_f32, "ptxas": ptxas, **traced}
     if "--launches" in sys.argv:
         x = cplx(FOURSTEP[0])
         out["fft_fourstep 4x2^20 launches"] = launches(
