@@ -90,7 +90,8 @@ C2C_KERNELS = ("fft2d_gemm", "fft_fourstep", "fft_stockham", "fft2d_fused")
 # the real-input path's shapes: the paper's 1024x1024 images as real fp32
 # (batch 16 and 1), the 1-D rfft whose inner transform is four-step
 # (n/2 = 2^20) or Stockham (n/2 = 2^22), and the radix-2 Stockham kernel
-# at 2^20 (its float64 host table is 738 MB a direction at 2^22)
+# at 2^20 (its plain version's packed float64 host table is 738 MB a
+# direction at 2^22)
 MAIN_RFFT2 = (16, 1024, 1024)
 MAIN_RFFT2_SINGLE = (1, 1024, 1024)
 IRFFT2_S = (1024, 512)
@@ -102,6 +103,16 @@ CHECKS += [("rfft2d_fused", MAIN_RFFT2), ("rfft2d_fused", (2, 2, 2)),
            ("rfft2d_fused", (3, 256, 512)), ("rfft2d_fused", (1, 4096, 2048)),
            ("fft_stockham_r2", MAIN_R2), ("fft_stockham_r2", (3, 2)),
            ("fft_stockham_r2", (5, 8))]
+# the radix-2 kernel's routes: one launch up to 2^14 (2^13 the largest with
+# two buffers a block, 2^14 with one), two from 2^15, an odd log2 n (2^17:
+# 512-point columns, then 256-point rows), a batch that no row tile divides
+# (7 rows of 512, 16 a tile); the real-input forward at h != w with a
+# ragged last column tile (33 columns in tiles of 16; 129 in tiles of 8,
+# 2048-point columns)
+CHECKS += [("fft_stockham_r2", (3, 1 << 13)), ("fft_stockham_r2", (3, 1 << 14)),
+           ("fft_stockham_r2", (3, 1 << 15)), ("fft_stockham_r2", (2, 1 << 17)),
+           ("fft_stockham_r2", (7, 512)), ("rfft2d_fused", (2, 512, 64)),
+           ("rfft2d_fused", (3, 2048, 256))]
 # the inner transforms the real-input window runs at shapes of their own:
 # irfft's full-length inverse at 2^21 and 2^23 on the radix-4 kernel, and
 # rfft2/irfft2(algo="stockham2") at 1024^2 on the radix-2 kernel (rows of
@@ -300,10 +311,28 @@ def fourstep_floor_bytes(batch: int, n: int) -> int:
     return 16 * batch * n * fourstep_launches(n)
 
 
-def method_rfft2d(b, h, w, fac):
-    """(method flops, table bytes) of the real-input 2-D kernels: the
-    four-step row pass on h/2 packed rows, the untangle (8 flops a packed
-    bin) and the column pass on w/2+1 columns."""
+def method_rfft2d(b, h, w):
+    """(method flops, table bytes) of the real-input 2-D forward: the
+    shared-memory FFTs (5*n*log2(n) flops, radix-2 count) of the h/2
+    packed rows, the untangle (8 flops a half-spectrum bin pair) and the
+    w/2+1 columns; one float2 table an axis."""
+    c = w // 2 + 1
+    lw, lh = w.bit_length() - 1, h.bit_length() - 1
+    flops = b * ((h // 2) * 5 * w * lw + 8 * (h // 2) * c + c * 5 * h * lh)
+    return flops, 8 * (w + h)
+
+
+def rfft2d_floor_bytes(b, h, w, pitch):
+    """Bytes the two-launch forward moves: the real images read, the
+    untangled half spectra written to and read from the scratch (rows of
+    ``pitch`` bins), and the output written."""
+    return 4 * b * h * w + 16 * b * h * pitch + 8 * b * h * (w // 2 + 1)
+
+
+def method_irfft2d(b, h, w, fac):
+    """(method flops, table bytes) of the real-input 2-D inverse: the
+    column pass's four-step GEMMs on w/2+1 columns, the repack (8 flops a
+    packed bin) and the four-step row pass on h/2 packed rows."""
     n1w, n1h = fac(w)[0], fac(h)[0]
     c = w // 2 + 1
     flops = b * ((h // 2) * _fourstep_flops(w, n1w) + 8 * (h // 2) * c
@@ -315,9 +344,10 @@ def method_rfft2d(b, h, w, fac):
 
 def method_stockham_r2(b, n):
     """(method flops, table bytes) of the radix-2 Stockham kernel: 10
-    flops a butterfly, n/2 butterflies a stage, log2(n) stages."""
+    flops a butterfly, n/2 butterflies a stage, log2(n) stages; one table
+    of n/2 float2 entries."""
     ln = n.bit_length() - 1
-    return b * ln * (n // 2) * 10, 8 * ln * (n // 2)
+    return b * ln * (n // 2) * 10, 8 * (n // 2)
 
 
 def method_stockham(b, n):
@@ -1227,6 +1257,12 @@ def main() -> int:
             grids = len(AX.plan3d(*shape, planes=False if "three" in name
                                   else None))
             floor = grids * nbytes
+        elif name == "fft_stockham_r2":
+            grids = len(S.r2_plan(*shape))
+            floor = grids * nbytes
+        elif name == "rfft2d_fused":
+            rows, cols = R.plan(*shape)
+            grids, floor = 2, rfft2d_floor_bytes(*shape, cols.inner)
         else:
             return {}
         return {"grid_launches": grids, "floor_bytes": floor,
@@ -1288,14 +1324,13 @@ def main() -> int:
          launches_real["fft_stockham_r2"]),
         ("rfft2d_fused", MAIN_RFFT2, R.rfft2d_fused_cuda,
          R.rfft2d_fused_plain, lambda c: torch.fft.rfft2(c), real_inputs,
-         rfft_counts(*MAIN_RFFT2), method_rfft2d(*MAIN_RFFT2,
-                                                 fourstep_factors),
+         rfft_counts(*MAIN_RFFT2), method_rfft2d(*MAIN_RFFT2),
          "src/repro/kernels/rfft2d_fused.py:135", "rfft2d_fused",
          launches_real["rfft2d_fused"]),
         ("irfft2d_fused", MAIN_RFFT2, R.irfft2d_fused_cuda,
          R.irfft2d_fused_plain, lambda c: torch.fft.irfft2(c, s=hw),
          half_inputs, rfft_counts(*MAIN_RFFT2),
-         method_rfft2d(*MAIN_RFFT2, fourstep_factors),
+         method_irfft2d(*MAIN_RFFT2, fourstep_factors),
          "src/repro/kernels/rfft2d_fused.py:163", "rfft2d_fused",
          launches_real["irfft2d_fused"]),
         ("fft3d_fused", MAIN_3D, V.fft3d_fused_cuda, V.fft3d_fused_plain,

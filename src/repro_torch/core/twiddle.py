@@ -110,6 +110,19 @@ def packed_radix2_twiddles_np(n: int, inverse: bool) -> tuple:
     return wr, wi
 
 
+@functools.lru_cache(maxsize=64)
+def radix2_twiddles_np(n: int, inverse: bool) -> tuple:
+    """Row 0 of :func:`packed_radix2_twiddles_np` by the same float64
+    formula, W_n^p for p < n/2, as one (n/2, 2) array of (cos, sin) pairs:
+    the radix-2 kernel's one table.  Row s of the packed table is this row
+    re-indexed, entry j = entry (j >> s) << s, bit for bit: the angle
+    2*pi*p / (n >> s) equals 2*pi*(p << s) / n exactly in float64."""
+    sign = 1.0 if inverse else -1.0
+    p = np.arange(n // 2, dtype=np.float64)
+    ang = sign * 2.0 * np.pi * p / n
+    return (np.stack([np.cos(ang), np.sin(ang)], axis=1),)
+
+
 # ---------------------------------------------------------------------------
 # Tensor casts, cached per (table args, dtype, device)
 # ---------------------------------------------------------------------------
@@ -187,3 +200,11 @@ def packed_radix2_twiddles(n: int, *, inverse: bool = False,
                            dtype=torch.float32, device="cuda") -> SplitComplex:
     """The (stages, n//2) packed radix-2 table on ``device``."""
     return _split(packed_radix2_twiddles_np, (n, bool(inverse)), dtype, device)
+
+
+def radix2_twiddles(n: int, *, inverse: bool = False, dtype=torch.float32,
+                    device="cuda") -> torch.Tensor:
+    """:func:`radix2_twiddles_np` as a cached (n/2, 2) tensor on
+    ``device``."""
+    return _cast(radix2_twiddles_np, (n, bool(inverse)), dtype,
+                 torch.device(device))[0]

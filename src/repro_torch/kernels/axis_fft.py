@@ -9,7 +9,9 @@ fewest launches, since the transform is bound by bytes:
 - 2-D (:func:`plan2d`): one plane launch for h*w <= :data:`PLANE_MAX`; else
   the W FFT on rows, then the H FFT on columns;
 - 3-D (:func:`plan3d`): a plane launch and the D FFT on columns for
-  h*w <= :data:`PLANE_MAX`; else W on rows, H and D on columns.
+  h*w <= :data:`PLANE_MAX`; else W on rows, H and D on columns;
+- the real-input 2-D forward's column pass (:func:`plan_half_cols`): the
+  length-h FFT of c = w/2+1 columns, which is no power of two.
 
 Tiling (:func:`plan_axis`, :func:`plan_plane`): a rows tile holds G whole
 rows, a columns tile C = 8192/n adjacent inner columns of all n rows
@@ -61,7 +63,9 @@ def pitch(width: int, lt: int) -> int:
 class Launch:
     """One launch: ``kind`` "rows" (inner = 1), "cols" or "plane" (n = h,
     inner = w); a tile holds ``c`` adjacent inner columns of ``g``
-    consecutive images (c < inner: of one image)."""
+    consecutive images (c < inner: of one image).  In a plan of
+    :func:`plan_half_cols`, ``inner`` is the row pitch of ragged columns,
+    and the last tile of an image may reach past them."""
     kind: str
     outer: int
     n: int
@@ -85,7 +89,7 @@ class Launch:
 
     @property
     def tiles(self) -> int:
-        return -(-self.outer // self.g) * (self.inner // self.c)
+        return -(-self.outer // self.g) * -(-self.inner // self.c)
 
     @property
     def work_floats(self) -> int:
@@ -133,6 +137,24 @@ def plan_plane(images: int, h: int, w: int) -> Launch:
                          f"{(h, w)}")
     cap = TILE if h * w <= TILE else TILE_BIG
     return Launch("plane", images, h, w, w, _images(cap, h * w, images))
+
+
+def plan_half_cols(batch: int, h: int, width: int) -> Launch:
+    """The length-h FFT of the first ``width`` columns (any number) of
+    (batch, h, pitch) planes, the pitch chosen here: whole images a tile
+    where h * 2^ceil(log2 width) points fit a tile (pitch = C = that power
+    of two); else tiles of C = 8192/h (16384/h from h = 2048) adjacent
+    columns and a pitch of ``width`` rounded up to min(C, 8), so that no
+    C-column row segment straddles a 32-byte sector, the last tile of an
+    image ragged: its chunks past the pitch read nothing."""
+    cap = TILE if h <= 1024 else TILE_BIG
+    whole = _pow2ceil(width)
+    if h * whole <= cap:
+        return Launch("cols", batch, h, whole, whole,
+                      _images(cap, h * whole, batch))
+    c = cap // h
+    align = min(c, 8)
+    return Launch("cols", batch, h, -(-width // align) * align, c, 1)
 
 
 def plan2d(batch: int, h: int, w: int) -> tuple:

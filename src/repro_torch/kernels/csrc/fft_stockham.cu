@@ -4,20 +4,37 @@
 // Replaces the Pallas kernels repro/kernels/fft_stockham.py::_stockham_kernel
 // (radix=4; stage arithmetic repro_torch/core/fft1d.py::stockham_stages)
 // and ::_stockham_kernel_r2 (radix=2; fft1d.py::stockham_radix2_stages).
-// The TPU kernel keeps a whole row in VMEM for all stages; for n > 2^20 no
-// row fits in shared memory, so here every radix-4 stage is
-// one launch over global ping-pong buffers: one thread per butterfly reads
-// the four quarter slices x[j + r*q], twiddles by row s of the packed
-// (s4, 3, n/4) table and writes the interleaved (m, 4, stride) positions.
-// The radix-2 tail (m == 1, twiddle 1) runs last.  The inverse folds its
-// 1/n into the last stage's store.
-// The radix-2 twin runs log2(n) stage launches over the same ping-pong
-// buffers, stage s reading row s of the packed (stages, n/2) table.
-// Bound on the card: bytes.  A radix-4 stage does 34 flops per 4 points
-// against 32 bytes of data plus 24 bytes of table (radix 2: 10 flops per 2
-// points against 16 + 8 bytes); every stage streams the whole array
-// through HBM, which a shared-memory multi-stage variant would avoid.
-#include <cuda_runtime.h>
+// The TPU kernel keeps a whole row in VMEM for all stages.
+//
+// Radix 4: for n > 2^20 no row fits in shared memory, so every radix-4
+// stage is one launch over global ping-pong buffers: one thread per
+// butterfly reads the four quarter slices x[j + r*q], twiddles by row s of
+// the packed (s4, 3, n/4) table and writes the interleaved (m, 4, stride)
+// positions.  The radix-2 tail (m == 1, twiddle 1) runs last.  The inverse
+// folds its 1/n into the last stage's store.  Bound by bytes: every stage
+// streams the array and a table row through HBM.
+//
+// Radix 2 (the oracle): the same butterflies, a + b and (a - b) * w, in the
+// same stage order, but up to four stages a pass in registers (16 points a
+// thread) between shared-memory barriers, over tiles copied in with
+// cp.async (axis_fft.cuh's tile walk), so a launch is one pass over HBM:
+//   n <= 2^14  ONE launch: a tile holds G whole rows and runs every stage;
+//   above      TWO launches (n <= 2^24).  With n = M * Q, M = 2^l1,
+//              l1 = ceil(log2 n / 2): stages 0..l1-1 act on the M points
+//              {q + r*Q} of each column q of the (M, Q) view, and launch A
+//              runs them on tiles of C adjacent columns, writing each point
+//              back where its column lies (x -> scratch); the other stages
+//              act on each stride-M subset {k + t*M} of their output, and
+//              are exactly the length-Q radix-2 Stockham there, so launch B
+//              runs them on rows k of the scratch (G rows a tile) and
+//              stores row k's point t at t*M + k of out, C-wide segments.
+// One table: W_n^m for m < n/2.  Stage s's twiddle at butterfly j is row s
+// of the packed (stages, n/2) table, which is entry (j >> s) << s of row 0
+// bit for bit (the float64 angles are equal), so the kernel reads row 0 at
+// that index: n/2 entries (4 MB at 2^20) where the packed table has
+// log2(n) rows.  Bound by bytes: 16 a point in and out a launch, ~5
+// flops a point a stage.  The inverse's 1/n is applied at the last store.
+#include "axis_fft.cuh"
 
 namespace {
 
@@ -81,32 +98,6 @@ r2_tail(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// one radix-2 stage: the contiguous halves a = x[j], b = x[j + n/2] give
-// (a + b) and (a - b) * w[j], stored at the autosort positions
-// j = p*stride + k  ->  p*2*stride + k and that + stride
-__global__ void __launch_bounds__(NT)
-r2_stage(const float* __restrict__ xr, const float* __restrict__ xi,
-         float* __restrict__ yr, float* __restrict__ yi,
-         const float* __restrict__ wr, const float* __restrict__ wi,
-         long long total, int lh, int ls, float scale) {
-  const long long h = 1LL << lh;
-  const long long stride = 1LL << ls;
-  for (long long t = blockIdx.x * (long long)NT + threadIdx.x; t < total;
-       t += (long long)gridDim.x * NT) {
-    const long long b = t >> lh, j = t & (h - 1);
-    const long long i = b * 2 * h + j;
-    const float ar = xr[i], ai = xi[i], br = xr[i + h], bi = xi[i + h];
-    const float sr = ar - br, si = ai - bi;
-    const float w_r = wr[j], w_i = wi[j];
-    const long long o =
-        b * 2 * h + ((j >> ls) << (ls + 1)) + (j & (stride - 1));
-    yr[o] = (ar + br) * scale;
-    yi[o] = (ai + bi) * scale;
-    yr[o + stride] = (sr * w_r - si * w_i) * scale;
-    yi[o + stride] = (sr * w_i + si * w_r) * scale;
-  }
-}
-
 unsigned blocks_for(long long total) {
   const long long b = (total + NT - 1) / NT;
   return (unsigned)(b < (1LL << 20) ? b : (1LL << 20));
@@ -153,34 +144,311 @@ extern "C" int fft_stockham_f32(const float* xr, const float* xi,
   return (int)cudaSuccess;
 }
 
-// Pure radix-2 Stockham (the oracle kernel): log2(n) stage launches, the
-// last one landing in out with the inverse's 1/n folded into its store.
-extern "C" int fft_stockham_r2_f32(const float* xr, const float* xi,
-                                   float* outr, float* outi,
-                                   float* sr, float* si,
-                                   const float* wr, const float* wi,
-                                   long long batch, int n, int inverse,
-                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (batch <= 0 || n < 2 || (n & (n - 1))) return (int)cudaErrorInvalidValue;
-  int ln = 0;
-  while ((1 << ln) < n) ++ln;
-  const long long h = n / 2;
-  const float last_scale = inverse ? (float)(1.0 / (double)n) : 1.f;
-  float* dst_r[2] = {outr, sr};
-  float* dst_i[2] = {outi, si};
-  const float* src_r = xr;
-  const float* src_i = xi;
-  for (int st = 0; st < ln; ++st) {
-    const int d = (ln - 1 - st) % 2;
-    const long long total = batch * h;
-    r2_stage<<<blocks_for(total), NT, 0, s>>>(
-        src_r, src_i, dst_r[d], dst_i[d], wr + st * h, wi + st * h, total,
-        ln - 1, st, st == ln - 1 ? last_scale : 1.f);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    src_r = dst_r[d];
-    src_i = dst_i[d];
+
+// -- the radix-2 kernel ---------------------------------------------------
+
+namespace {
+
+// i with its bits 4..8 folded into bits 0..4: a permutation of every aligned
+// 32 under which the strides of a radix-2 pass's writes (16 apart at its
+// first stage) land on distinct banks
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 4) & 31); }
+
+// The work layout of a rows tile: transform t's element i at t*p + swz(i),
+// p padded so that 8 rows x 4 points hit 32 banks (pitch())
+struct RowsSw {
+  int p;
+  __device__ __forceinline__ int at(int t, int i) const {
+    return t * p + swz(i);
   }
-  return (int)cudaSuccess;
+};
+
+// ... of a columns tile: element i of column t at swz(i*C + t)
+struct ColsSw {
+  int lc;
+  __device__ __forceinline__ int at(int t, int i) const {
+    return swz((i << lc) + t);
+  }
+};
+
+// Twiddle W_n^m, m = (q + (p << qb)) << s: p the butterfly's p at stage s of
+// its length, q the column of a launch A tile (q0 + t; qb = log2 Q, the
+// column's stages fold the four-step twiddle in), s shifted by s0 = l1 in
+// launch B (its stage s is stage s + l1 of the whole).
+struct Twiddle {
+  const float2* w;
+  int q0, qb, s0;
+  __device__ __forceinline__ float2 operator()(int t, int p, int s) const {
+    return w[(q0 + (qb ? t : 0) + (p << qb)) << (s + s0)];
+  }
+};
+
+// Stages S+K .. S+LR-1 of a length-2^LN radix-2 Stockham on the 2^LR
+// points u[r] = element base + r * 2^(LN-LR) of transform t, in registers,
+// one template instance a stage (so that every index of u is a constant
+// and u stays in registers).  Stage S+K pairs register bit LR-1-K (the
+// current top bit of the index), so the pair's p (its index >> (S+K)) is
+// bits S .. LN-2-K of the first point's index: one twiddle for the 2^K
+// pairs that share them.
+template <int LR, int LN, int S, int K = 0, class Tw>
+__device__ __forceinline__ void r2_stages(float2* u, int base, int t,
+                                          const Tw& tw) {
+  if constexpr (K < LR) {
+    constexpr int HB = LR - 1 - K;
+    const int mask = (1 << (LN - 1 - S - K)) - 1;
+#pragma unroll
+    for (int lo = 0; lo < (1 << HB); ++lo) {
+      const int p = ((base + (lo << (LN - LR))) >> S) & mask;
+      const float2 w = tw(t, p, S + K);
+#pragma unroll
+      for (int hi = 0; hi < (1 << K); ++hi) {
+        const int a = lo | (hi << (HB + 1)), b = a | (1 << HB);
+        const float2 x = u[a], y = u[b];
+        u[a] = cadd(x, y);
+        u[b] = cmul(csub(x, y), w);
+      }
+    }
+    r2_stages<LR, LN, S, K + 1>(u, base, t, tw);
+  }
+}
+
+// One pass: stages S .. S+LR-1 of the 2^lT transforms of length 2^LN read
+// through `in`.  Each of the nt threads takes E / 2^LR groups q = tid +
+// b*nt; q's low bits pick up to 2^LF transforms, the next ones the group's
+// base (its first point, < 2^(LN-LR)), the rest the other transforms.
+// After the stages register r is element (base mod 2^S) + rev(r) * 2^S +
+// (base >> S) * 2^(S+LR), which `out` is handed in order.
+template <int LR, int LN, int S, int LF, class In, class Tw, class Out>
+__device__ __forceinline__ void r2_pass(const In& in, int lT, int nt,
+                                        const Tw& tw, const Out& out) {
+  constexpr int R = 1 << LR, B = E / R, LB = LN - LR;
+  const int lf = lT < LF ? lT : LF;
+  const int tid = threadIdx.x;
+  float2 v[E];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int q = tid + b * nt;
+    const int rest = q >> lf;
+    const int base = rest & ((1 << LB) - 1);
+    const int t = ((rest >> LB) << lf) | (q & ((1 << lf) - 1));
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[b * R + r] = in(t, base + (r << LB));
+    r2_stages<LR, LN, S>(v + b * R, base, t, tw);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int q = tid + b * nt;
+    const int rest = q >> lf;
+    const int base = rest & ((1 << LB) - 1);
+    const int t = ((rest >> LB) << lf) | (q & ((1 << lf) - 1));
+    float2 o[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) o[r] = v[b * R + rev4(r, LR)];
+    out.template put<R>(t, (base & ((1 << S) - 1)) | ((base >> S) << (S + LR)),
+                        1 << S, o);
+  }
+  __syncthreads();
+}
+
+// Every stage from S on: passes of four stages, the last of LN - S mod 4;
+// the first reads through `in`, the others from shared memory laid out by
+// `lay`; the last hands its outputs to `last`, the others write to `lay`.
+template <int LN, int S, int LF, class In, class Lay, class Tw, class Last>
+__device__ __forceinline__ void r2_passes(const In& in, float* sr, float* si,
+                                          const Lay& lay, int lT, int nt,
+                                          const Tw& tw, const Last& last) {
+  constexpr int LR = LN - S < 4 ? LN - S : 4;
+  if constexpr (S + LR == LN) {
+    r2_pass<LR, LN, S, LF>(in, lT, nt, tw, last);
+  } else {
+    r2_pass<LR, LN, S, LF>(in, lT, nt, tw, ToShared<Lay>{sr, si, lay});
+    r2_passes<LN, S + LR, LF>(FromShared<Lay>{sr, si, lay}, sr, si, lay, lT,
+                              nt, tw, last);
+  }
+}
+
+// launch B's last pass: element m of row R = r0 + t (image R >> l1, column
+// R mod 2^l1) to image * 2^(l1 + LN) + m * 2^l1 + column, scaled; rows
+// past `outer` skipped
+struct ToColumns {
+  float* outr;
+  float* outi;
+  long long r0, outer;
+  int l1, ln;
+  float scale;
+  template <int R>
+  __device__ __forceinline__ void put(int t, int k0, int ns, float2* v) const {
+    const long long row = r0 + t;
+    if (row >= outer) return;
+    const long long base =
+        ((row >> l1) << (l1 + ln)) + (row & ((1LL << l1) - 1));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long a = base + ((long long)(k0 + r * ns) << l1);
+      outr[a] = v[r].x * scale;
+      outi[a] = v[r].y * scale;
+    }
+  }
+};
+
+// a rows tile, back in the work layout, to rows of out: 32 lanes store 128
+// contiguous bytes
+template <int LN>
+__device__ __forceinline__ void r2_store_rows(const Geo& g, long long k,
+                                              const float* wr,
+                                              const float* wi,
+                                              const RowsSw& lay) {
+  float* outr = static_cast<float*>(g.outr);
+  float* outi = static_cast<float*>(g.outi);
+  const long long base = (k << g.lg) << LN;
+  const long long left = (g.outer << LN) - base;
+  const int points = 1 << (LN + g.lg);
+  const int n = points < left ? points : (int)left;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int a = lay.at(e >> LN, e & ((1 << LN) - 1));
+    outr[base + e] = wr[a] * g.scale;
+    outi[base + e] = wi[a] * g.scale;
+  }
+  __syncthreads();
+}
+
+enum { R2_ROWS = 0, R2_COLS = 1, R2_TRANSPOSED = 2 };
+
+// One tile's stages: rows (R2_ROWS: every stage, stored as rows;
+// R2_TRANSPOSED: launch B, stored as columns) or columns (R2_COLS: launch A)
+template <int LN, int ROUTE>
+struct R2Run {
+  const Geo& g;
+  float* smem;
+  int lv, mask, l1;
+  __device__ __forceinline__ void operator()(long long k, int b) const {
+    float* wr = smem + b * 2 * g.wf;
+    float* wi = wr + g.wf;
+    const float* sr = wr;
+    const float* si = sr + (1 << (LN + g.lc + g.lg));
+    const int nt = blockDim.x;
+    if constexpr (ROUTE == R2_COLS) {
+      const int cpi = g.linner - g.lc;
+      const int q0 = (int)((k & ((1LL << cpi) - 1)) << g.lc);
+      const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
+      r2_passes<LN, 0, 5>(FromStage<float, Columns>{sr, si, stage}, wr, wi,
+                          ColsSw{g.lc}, g.lc, nt,
+                          Twiddle{g.tab, q0, g.linner, 0},
+                          to_global<float>(g, k));
+    } else {
+      const RowsSw rows{g.p};
+      const FromStage<float, Swizzled> in{sr, si, Swizzled{LN, lv, mask}};
+      if constexpr (ROUTE == R2_TRANSPOSED) {
+        r2_passes<LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
+                            Twiddle{g.tab, 0, 0, l1},
+                            ToColumns{static_cast<float*>(g.outr),
+                                      static_cast<float*>(g.outi),
+                                      k << g.lg, g.outer, l1, LN, g.scale});
+      } else {
+        r2_passes<LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
+                            Twiddle{g.tab, 0, 0, 0},
+                            ToShared<RowsSw>{wr, wi, rows});
+        r2_store_rows<LN>(g, k, wr, wi, rows);
+      }
+    }
+  }
+};
+
+template <int LN, int ROUTE, int NT>
+__global__ void __launch_bounds__(NT, 1)
+r2_fft(const __grid_constant__ Geo g, int l1) {
+  extern __shared__ float smem[];
+  const int lv = chunk_log<float>(g);
+  const int mask = ROUTE != R2_COLS && LN - lv >= 3 ? 7 : 0;
+  walk_tiles(g, TileCopy<float>{g, smem, lv, LN, mask},
+             R2Run<LN, ROUTE>{g, smem, lv, mask, l1});
+}
+
+using R2Launch = cudaError_t (*)(const Geo&, int, unsigned, int, size_t,
+                                 cudaStream_t);
+
+template <int LN, int ROUTE, int NT>
+cudaError_t launch_r2(const Geo& g, int l1, unsigned blocks, int threads,
+                      size_t smem, cudaStream_t st) {
+  static int done[16];
+  const cudaError_t e = allow_smem(r2_fft<LN, ROUTE, NT>, smem, done);
+  if (e != cudaSuccess) return e;
+  r2_fft<LN, ROUTE, NT><<<blocks, threads, smem, st>>>(g, l1);
+  return cudaGetLastError();
+}
+
+template <int ROUTE, int FIRST, int NT, int... L>
+R2Launch r2_for(int ln, std::integer_sequence<int, L...>) {
+  static const R2Launch fns[] = {launch_r2<L + FIRST, ROUTE, NT>...};
+  return fns[ln - FIRST];
+}
+
+// The kernel of a launch: rows up to 2^13 points a row with 512 threads,
+// 2^14 with 1024; launch A's columns of 2^8 .. 2^10 points (8192-point
+// tiles, 512 threads) or 2^11, 2^12 (16384, 1024); launch B's rows of
+// 2^7 .. 2^12.  Null for any other.
+R2Launch r2_pick(int route, int ln, int threads) {
+  if (route == R2_ROWS) {
+    if (ln == 14) return threads == 1024 ? launch_r2<14, R2_ROWS, 1024> : nullptr;
+    return ln >= 1 && ln <= 13 && threads <= 512
+               ? r2_for<R2_ROWS, 1, 512>(ln, std::make_integer_sequence<int, 13>{})
+               : nullptr;
+  }
+  if (route == R2_COLS) {
+    if (ln >= 8 && ln <= 10 && threads <= 512)
+      return r2_for<R2_COLS, 8, 512>(ln, std::make_integer_sequence<int, 3>{});
+    if (ln >= 11 && ln <= 12)
+      return r2_for<R2_COLS, 11, 1024>(ln, std::make_integer_sequence<int, 2>{});
+    return nullptr;
+  }
+  if (route == R2_TRANSPOSED && ln >= 7 && ln <= 12 && threads <= 512)
+    return r2_for<R2_TRANSPOSED, 7, 512>(ln, std::make_integer_sequence<int, 6>{});
+  return nullptr;
+}
+
+}  // namespace
+
+// One launch of the radix-2 kernel x -> out over (outer, 2^ln, 2^linner)
+// with the tiling the host planned (kernels/fft_stockham.py::r2_plan):
+// R2_ROWS (linner = 0; G = 2^lg rows a tile; every stage), R2_COLS (launch
+// A: tiles of 2^lc of the 2^linner columns, stages 0..ln-1 of length
+// n = 2^(ln + linner)) or R2_TRANSPOSED (launch B: rows of 2^ln, stages
+// l1.. of n = 2^(l1 + ln), out[image][m][row mod 2^l1]); `tab` the fp32
+// W_n^m, m < n/2, of the transform's sign as (cos, sin) pairs; `scale` at
+// the store; `blocks` the persistent grid.  Returns cudaErrorInvalidValue
+// for a tiling it does not take.
+extern "C" int fft_stockham_r2_pass(const float* xr, const float* xi,
+                                    float* outr, float* outi,
+                                    const float* tab, long long outer, int ln,
+                                    int linner, int lc, int lg, int route,
+                                    int l1, int blocks, float scale,
+                                    void* stream) {
+  const int lp = ln + lc + lg;
+  const bool rows = route == R2_ROWS || route == R2_TRANSPOSED;
+  if (outer <= 0 || blocks <= 0 || ln < 1 || lc < 0 || lg < 0 || lp > 14 ||
+      (1 << lp) < AXIS_TILE_MIN || (lp == 14 && lg != 0) ||
+      (rows && (linner != 0 || lc != 0)) ||
+      (route == R2_COLS && (lg != 0 || lc >= linner || ln + linner > 24)) ||
+      (route == R2_TRANSPOSED && (l1 < 1 || l1 + ln > 24)))
+    return (int)cudaErrorInvalidValue;
+  const int threads = 1 << (lp - 4);
+  const R2Launch fn = r2_pick(route, ln, threads);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int p = 0;
+  long long wf = 1LL << lp;
+  if (rows) {
+    p = pitch(1 << ln, lg < 3 ? lg : 3);
+    wf = (long long)p << lg;
+  }
+  wf = (wf + 31) / 32 * 32;
+  const int nbuf = (1 << lp) <= AXIS_TILE ? 2 : 1;
+  const size_t smem = (size_t)nbuf * 2 * sizeof(float) * wf;
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const long long per = (outer + (1LL << lg) - 1) >> lg;
+  const Geo g{xr, xi, outr, outi, (const float2*)tab, nullptr, outer,
+              per << (linner - lc), ln, linner, lc, lg, nbuf, (int)wf, p,
+              -1.f, scale};
+  const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
+  return (int)fn(g, l1, grid, threads, smem, (cudaStream_t)stream);
 }

@@ -7,23 +7,30 @@ Replaces ``repro/kernels/rfft2d_fused.py::_rfft2d_kernel`` and
 and im planes of one complex row, so the row pass runs H/2 complex FFTs of
 length W; the Hermitian untangle splits each packed spectrum into the two
 rows' half spectra (W/2+1 bins); the column pass runs along axis -2 of the
-half-width tile as left-side DFT contractions.  The inverse twin runs the
-inverse column pass, repacks each row pair by Hermitian extension and runs
-the inverse row pass, writing the real plane scaled by 1/(H*W).
+half-width tile.  The inverse twin runs the inverse column pass, repacks
+each row pair by Hermitian extension and runs the inverse row pass,
+writing the real plane scaled by 1/(H*W).  The plain versions keep the
+reference's four-step DFT contractions.
 
 The TPU kernel holds one image in VMEM; a 1024^2 real plane is 4 MB
-against 227 KB of shared memory per block, so ``csrc/rfft2d_fused.cu``
-chains launches over the whole batch: the four-step GEMMs of the complex
-kernel (``csrc/cgemm.cuh``), addressing the row pairs in place (base x and
-x + W, row stride 2W), one small untangle (forward) or repack (inverse)
-kernel between the passes, and a column pass that folds the j2 axis into
-the batch because W/2+1 is no power of two.  What bounds it: the function
-is bound by bytes (a real point in, a half-spectrum bin out), but the
-four-step method does 8*n*(n1+n2) flops per row and column, so this design
-is bound by those fp32 operations plus the HBM round trips between its
-five launches.
+against 227 KB of shared memory per block, and the function is bound by
+bytes.  So the forward ``csrc/rfft2d_fused.cu`` makes two launches, each
+one pass over HBM, on the shared-memory FFT passes of ``csrc/axis_fft.cuh``
+(:func:`plan`): the row pass on tiles of whole packed rows (base x and
+x + W, row pitch 2W), untangling at its store into a scratch pair whose
+rows are padded so that no tile's row segment straddles a 32-byte sector,
+then the column pass on tiles of C adjacent columns of that scratch, the
+last tile of an image ragged
+(:func:`repro_torch.kernels.axis_fft.plan_half_cols`).  The inverse still
+chains five launches over the whole batch: the four-step GEMMs of
+``csrc/cgemm.cuh`` (its column pass folds the j2 axis into the batch
+because W/2+1 is no power of two), a repack kernel, and the row pass
+through ``csrc/row_pass.cuh`` storing the row pairs in place; it is bound
+by the GEMMs' fp32 operations plus its HBM round trips.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,6 +40,7 @@ from repro_torch.core.fft1d import _best_split, _matmul
 from repro_torch.core.twiddle import (_cast, _dft_matrix_np,
                                       _fourstep_twiddle_np)
 from . import _build
+from . import axis_fft as _axis
 
 # below this length a single dense DFT matmul replaces the four-step
 # (mirrors resolve_algo's naive-leaf region)
@@ -209,6 +217,7 @@ def irfft2d_fused_plain(xf: SplitComplex) -> torch.Tensor:
 
 MAX_DIM = 4096          # the largest H or W the CUDA kernels take
 _ARGS = [_build.P] * 21 + [_build.L] + [_build.I] * 4 + [_build.P]
+_FWD_ARGS = [_build.P] * 7 + [_build.L] + [_build.I] * 8 + [_build.P]
 
 
 def _check_card_dims(h: int, w: int) -> None:
@@ -218,27 +227,51 @@ def _check_card_dims(h: int, w: int) -> None:
                          f"got {(h, w)}")
 
 
+def plan(batch: int, h: int, w: int) -> tuple:
+    """The forward kernel's two launches: the rows route on the batch*h/2
+    packed rows of w, then the ragged column pass on the w/2+1 columns of
+    the scratch (whose row pitch is the second launch's ``inner``)."""
+    return (_axis.plan_axis(batch * h // 2, w, 1),
+            _axis.plan_half_cols(batch, h, w // 2 + 1))
+
+
 def _scratch(batch: int, h: int, w: int, like: torch.Tensor) -> list:
     n = batch * h * (w // 2 + 1)
     return [torch.empty(n, dtype=torch.float32, device=like.device)
             for _ in range(4)]
 
 
+@functools.lru_cache(maxsize=64)
+def _forward_args(batch: int, h: int, w: int, device: torch.device) -> tuple:
+    """(scratch pitch, the kernel's arguments after the seven pointers)."""
+    rows, cols = plan(batch, h, w)
+    sms = _build.sm_count(device)
+    log2 = _axis._log2
+    return cols.inner, [batch, log2(h), log2(w), cols.inner, log2(rows.g),
+                        rows.blocks(sms), log2(cols.c), log2(cols.g),
+                        cols.blocks(sms)]
+
+
 def rfft2d_fused_cuda(x: torch.Tensor) -> SplitComplex:
-    """Launch the real-input 2-D FFT kernels on a (batch, h, w) fp32 CUDA
+    """Launch the real-input 2-D FFT kernel on a (batch, h, w) fp32 CUDA
     tensor; returns the (batch, h, w/2+1) half spectra."""
     _build.check_operands(x, 3)
     batch, h, w = x.shape
     _check_card_dims(h, w)
-    tabs = _cast(_card_tables_np, (h, w, False), torch.float32, x.device)
+    if x.data_ptr() % 16:            # the copies move 16-byte chunks
+        x = x.clone()
+    dev = x.device
+    pitch, tail = _forward_args(batch, h, w, dev)
     shape = (batch, h, w // 2 + 1)
-    out = SplitComplex(torch.empty(shape, dtype=x.dtype, device=x.device),
-                       torch.empty(shape, dtype=x.dtype, device=x.device))
-    fn = _build.function("rfft2d_fused", "rfft2d_fused_f32", _ARGS)
-    ptrs = [x, out.re, out.im, *_scratch(batch, h, w, x), *tabs]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, h, w, fourstep_factors(w)[0], fourstep_factors(h)[0]],
-        "rfft2d_fused_f32", x.device)
+    out = SplitComplex(torch.empty(shape, dtype=x.dtype, device=dev),
+                       torch.empty(shape, dtype=x.dtype, device=dev))
+    scratch = [torch.empty(batch * h * pitch, dtype=torch.float32,
+                           device=dev) for _ in range(2)]
+    tabs = [_axis.twiddle_table(n, device=dev) for n in (w, h)]
+    fn = _build.function("rfft2d_fused", "rfft2d_fused_f32", _FWD_ARGS)
+    ptrs = [x, out.re, out.im, *scratch, *tabs]
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + tail,
+                  "rfft2d_fused_f32", dev)
     return out
 
 

@@ -1,14 +1,15 @@
 """The 2-D and 3-D FFT kernels' launch plan and twiddle tables
-(``repro_torch.kernels.axis_fft``), and what their CUDA wrappers refuse,
-on the CPU.  The kernels themselves run in ``tests/test_torch_cuda.py``
-(on a card) and under ``tools/cuda_emu/emulate.py``."""
+(``repro_torch.kernels.axis_fft``), the real-input forward's two launches,
+and what their CUDA wrappers refuse, on the CPU.  The kernels themselves
+run in ``tests/test_torch_cuda.py`` (on a card) and under
+``tools/cuda_emu/emulate.py``."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import SplitComplex, from_numpy
 from repro_torch.kernels import _build, axis_fft as A
-from repro_torch.kernels import fft2d_gemm, fft3d_fused
+from repro_torch.kernels import fft2d_gemm, fft3d_fused, rfft2d_fused
 
 POW2 = [1 << k for k in range(1, 13)]          # 2 .. 4096
 
@@ -143,6 +144,7 @@ def _recorder(monkeypatch):
                         lambda fn, args, what, dev: calls.append(
                             (fn, args, what)))
     A._launch_args.cache_clear()
+    rfft2d_fused._forward_args.cache_clear()
     return calls
 
 
@@ -248,3 +250,119 @@ def test_wrappers_refuse_unknown_variant(launch, shape, bad):
     x = from_numpy(np.ones(shape, np.complex64), device="cpu")
     with pytest.raises(ValueError, match="variant must be one of"):
         launch(x, variant="fast")
+
+
+# -- the real-input forward's launches ---------------------------------------
+
+def _check_half_cols(lp, batch, h, width):
+    """The ragged column plan: every one of the ``width`` columns of each
+    image in exactly one tile, rows of 16 bytes (or whole images of a
+    power-of-two pitch), tiles the kernel takes."""
+    assert (lp.kind, lp.outer, lp.n) == ("cols", batch, h)
+    assert lp.c & (lp.c - 1) == 0 and lp.g & (lp.g - 1) == 0
+    assert A.MIN_POINTS <= lp.points <= A.TILE_BIG
+    assert lp.threads == lp.points // 16 <= 1024
+    if lp.points > A.TILE:
+        assert h >= 2048 and lp.nbuf == 1
+    assert lp.smem <= A.SMEM_MAX
+    tpi = -(-lp.inner // lp.c)
+    if lp.c == lp.inner:          # whole images, pitch a power of two
+        assert lp.inner == 1 << (width - 1).bit_length()
+        assert h * lp.inner <= (A.TILE if h <= 1024 else A.TILE_BIG)
+    else:                         # C columns, the last tile ragged
+        assert lp.g == 1 and lp.c >= 4 and lp.c < width
+        align = min(lp.c, 8)            # no segment straddles a sector
+        assert lp.inner % align == 0 and width <= lp.inner < width + align
+        assert lp.c == (A.TILE if h <= 1024 else A.TILE_BIG) // h
+    covered = np.zeros(width, int)
+    for t in range(tpi):
+        cols = np.arange(t * lp.c, (t + 1) * lp.c)
+        assert cols[0] < width            # every tile stores a column
+        covered[cols[cols < width]] += 1
+    assert (covered == 1).all()
+    assert lp.tiles == -(-batch // lp.g) * tpi
+    assert 1 <= lp.blocks(132) <= lp.tiles
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_rfft2_plan_every_pow2_shape(batch):
+    """Two launches at every power-of-two (h, w) up to 4096: the rows route
+    on the batch*h/2 packed rows of w, then the column pass on the w/2+1
+    columns of the scratch."""
+    for h in POW2:
+        for w in POW2:
+            rows, cols = rfft2d_fused.plan(batch, h, w)
+            assert (rows.kind, rows.outer, rows.n, rows.inner) == (
+                "rows", batch * h // 2, w, 1)
+            _check_launch(rows)
+            _check_half_cols(cols, batch, h, w // 2 + 1)
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (rows G, cols C, G, pitch, tiles): 16x1024^2 in 65 column tiles an
+    # image, 1.4 % of the bins read padding; a ragged last tile at h != w;
+    # h = 4096 in 4-column tiles; small images whole
+    ((16, 1024, 1024), (8, 8, 1, 520, 16 * 65)),
+    ((1, 1024, 1024), (8, 8, 1, 520, 65)),
+    ((3, 256, 512), (16, 32, 1, 264, 3 * 9)),
+    ((2, 512, 64), (128, 16, 1, 40, 2 * 3)),
+    ((1, 4096, 2048), (4, 4, 1, 1028, 257)),
+    ((3, 8, 4), (128, 4, 16, 4, 1)),
+    ((2, 2, 2), (256, 2, 128, 2, 1)),
+])
+def test_rfft2_plan_of_checked_shapes(shape, want):
+    rows, cols = rfft2d_fused.plan(*shape)
+    assert (rows.g, cols.c, cols.g, cols.inner, cols.tiles) == want
+
+
+def test_half_cols_plan_any_width():
+    """Widths that are no half spectrum's too (the inverse's column pass
+    will take the user's pitch-c spectra)."""
+    for h in POW2:
+        for width in (1, 2, 3, 7, 100, 513, 1025, 2049):
+            _check_half_cols(A.plan_half_cols(2, h, width), 2, h, width)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 512), (3, 8, 4), (1, 2048, 16)])
+def test_rfft2d_wrapper_launches_the_plan(monkeypatch, shape):
+    """rfft2d_fused_cuda hands the kernel x, the output planes, a scratch
+    pair of batch*h*pitch floats, the W and H tables and the plan."""
+    calls = _recorder(monkeypatch)
+    scratch = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: scratch.append(
+        empty(*a, **k)) or scratch[-1])
+    b, h, w = shape
+    x = torch.zeros(shape)
+    out = rfft2d_fused.rfft2d_fused_cuda(x)
+    rows, cols = rfft2d_fused.plan(*shape)
+    assert out.shape == (b, h, w // 2 + 1)
+    (fn, args, what), = calls
+    assert fn == ("rfft2d_fused", "rfft2d_fused_f32",
+                  rfft2d_fused._FWD_ARGS)
+    assert len(args) == len(rfft2d_fused._FWD_ARGS) - 1
+    s0, s1 = scratch[-2:]
+    assert s0.numel() == s1.numel() == b * h * cols.inner
+    assert args[:7] == [x.data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
+                        s0.data_ptr(), s1.data_ptr(),
+                        A.twiddle_table(w, device="cpu").data_ptr(),
+                        A.twiddle_table(h, device="cpu").data_ptr()]
+    lg = lambda v: v.bit_length() - 1              # noqa: E731
+    assert args[7:] == [b, lg(h), lg(w), cols.inner, lg(rows.g),
+                        rows.blocks(132), lg(cols.c), lg(cols.g),
+                        cols.blocks(132)]
+
+
+def test_rfft2d_wrapper_refuses(monkeypatch):
+    """CPU tensors; then, past the operand checks, dims that are no power
+    of two or past 4096, before any launch."""
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rfft2d_fused.rfft2d_fused_cuda(torch.zeros(1, 8, 8))
+    calls = _recorder(monkeypatch)
+    for shape in [(1, 8, 12), (1, 6, 8)]:
+        with pytest.raises(ValueError, match="power-of-two"):
+            rfft2d_fused.rfft2d_fused_cuda(torch.zeros(shape))
+    with pytest.raises(ValueError, match="H, W <= 4096"):
+        rfft2d_fused.rfft2d_fused_cuda(torch.empty((1, 2, 8192),
+                                                   device="meta"))
+    assert calls == []

@@ -64,6 +64,18 @@ def _rel(got, ref):
      (5, 8), 5e-5),
     (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
      (3, 4096), 5e-5),
+    # the radix-2 kernel's routes: one launch to 2^14, two from 2^15, an
+    # odd log2 n (2^17), a batch no row tile divides (7 rows, 16 a tile)
+    (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
+     (3, 1 << 13), 5e-5),
+    (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
+     (3, 1 << 14), 5e-5),
+    (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
+     (3, 1 << 15), 5e-5),
+    (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
+     (2, 1 << 17), 5e-5),
+    (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
+     (7, 512), 5e-5),
     (fft3d_fused.fft3d_fused_cuda, fft3d_fused.fft3d_fused_plain,
      (1, 4, 8, 16), 1e-5),
     (fft3d_fused.fft3d_fused_cuda, fft3d_fused.fft3d_fused_plain,
@@ -104,10 +116,12 @@ def _rel_real(got, ref):
 
 
 # w = 2, 4, 8, 16, 1024 give half widths c = 2, 3, 5, 9, 513: the column
-# pass at widths that are no power of two
+# pass at widths that are no power of two, whole images a tile or C
+# columns with a ragged last tile (2048- and 4096-point columns too)
 @pytest.mark.parametrize("shape", [(2, 2, 2), (3, 8, 4), (2, 4, 8),
                                    (2, 2, 16), (3, 256, 512),
-                                   (2, 512, 1024)])
+                                   (2, 512, 1024), (2, 512, 64),
+                                   (3, 2048, 256), (1, 4096, 8)])
 def test_rfft2d_kernels_match_plain_on_card(card, shape):
     x = torch.from_numpy(_real(shape)).float().to(card)
     got = rfft2d_fused.rfft2d_fused_cuda(x)

@@ -21,15 +21,20 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   8 x 128^3 (and its three-launch route, where the tree has one) and
   2 x 256^3 bf16 compensated, with ``fft3(algo="row_col")`` at 2 x 256^3
   beside them, each with its device time a call;
-- the other kernels that share ``cgemm.cuh``, ``rfft2d_fused`` and
-  ``irfft2d_fused`` at 16 x 1024^2, with the fp32 GEMM instance's ptxas
-  line, and the ptxas lines of the four-step kernels and of every 2-D and
-  3-D kernel instance the tree builds.
+- ``rfft2d_fused`` at 16 x 1024^2 and 1 x 1024^2, and ``irfft2d_fused``
+  (the other kernel on ``cgemm.cuh``) at 16 x 1024^2, each with its device
+  time a call, and the fp32 GEMM instance's ptxas line;
+- ``fft_stockham_r2`` at 2 x 2^20 and at the shapes ``rfft2(algo=
+  "stockham2")`` gives it at 1024^2: 1024 x 512, 513 x 1024, 1024 x 1024;
+- the ptxas lines of the four-step kernels, of every 2-D and 3-D kernel
+  instance and of the radix-2 and real-input kernels the tree builds.
 
 With ``--launches`` it also lists every grid launch of one call of
-``fft_fourstep`` at 4 x 2^20, of ``fft_staged`` at 512 x 16384, and of
+``fft_fourstep`` at 4 x 2^20, of ``fft_staged`` at 512 x 16384, of
 ``fft2d_gemm`` and ``fft3d_fused`` at their main shapes (fp32 and bf16
-compensated), with its device time, from a ``torch.profiler`` trace.  Unpack the parent into a
+compensated), of ``rfft2d_fused`` and ``irfft2d_fused`` at 16 x 1024^2 and
+of ``fft_stockham_r2`` at 2 x 2^20, with its device time, from a
+``torch.profiler`` trace.  Unpack the parent into a
 directory that .gitignore lists and alternate the trees, one process each:
 
     mkdir -p build/ab_parent
@@ -52,6 +57,7 @@ from repro_torch.kernels import fft_stage as ST  # noqa: E402
 from repro_torch.kernels import fft2d_gemm as G  # noqa: E402
 from repro_torch.kernels import rfft2d_fused as R  # noqa: E402
 from repro_torch.kernels import fft3d_fused as V  # noqa: E402
+from repro_torch.kernels import fft_stockham as S  # noqa: E402
 
 FOURSTEP = [(4, 1 << 20), (64, 4096), (32768, 512), (4096, 4096),
             (512, 16384)]
@@ -60,6 +66,7 @@ IMAGES = (16, 1024, 1024)
 IMAGE = (1, 1024, 1024)
 VOLUME = (2, 256, 256, 256)
 PME = (8, 128, 128, 128)
+R2 = [(2, 1 << 20), (1024, 512), (513, 1024), (1024, 1024)]
 
 
 def time_ms(fn, runs=50, warmup=5):
@@ -116,7 +123,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     logs = _build.build_all(("fft_fourstep", "fft_stage", "fft2d_gemm",
-                             "rfft2d_fused", "fft3d_fused"))
+                             "rfft2d_fused", "fft3d_fused", "fft_stockham"))
     # a library built earlier (by chip_smoke.py, or a run before) left its
     # compiler log beside it
     ptxas = {n: ptxas_lines(log or _build.library_path(n)
@@ -127,7 +134,7 @@ def main():
     ptxas = {n: {k: line for k, line in ptxas[n].items()
                  if "cgemm" not in k}
              for n in ("fft_fourstep", "fft_stage", "fft2d_gemm",
-                       "fft3d_fused")}
+                       "fft3d_fused", "rfft2d_fused", "fft_stockham")}
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
 
@@ -137,7 +144,8 @@ def main():
 
     ms, dev = {}, {}
     for kern, shapes in ((F.fft_fourstep_cuda, FOURSTEP),
-                         (ST.fft_staged_cuda, STAGED)):
+                         (ST.fft_staged_cuda, STAGED),
+                         (S.fft_stockham_r2_cuda, R2)):
         for shape in shapes:
             x = cplx(shape)
             key = f"{kern.__name__[:-5]} {shape[0]}x{shape[1]}"
@@ -176,10 +184,21 @@ def main():
             traced[f"{key} launches"] = launches(lambda: kern(x, **kw))
         del x
     torch.cuda.empty_cache()
-    r = torch.randn(IMAGES, generator=g, device="cuda")
-    ms["rfft2d_fused 16x1024^2"] = time_ms(lambda: R.rfft2d_fused_cuda(r))
+    for shape in (IMAGES, IMAGE):
+        r = torch.randn(shape, generator=g, device="cuda")
+        key = f"rfft2d_fused {shape[0]}x1024^2"
+        ms[key] = time_ms(lambda: R.rfft2d_fused_cuda(r))
+        dev[key] = device_us(lambda: R.rfft2d_fused_cuda(r))
+        if "--launches" in sys.argv and shape == IMAGES:
+            traced[f"{key} launches"] = launches(
+                lambda: R.rfft2d_fused_cuda(r))
     h = cplx(IMAGES[:2] + (IMAGES[2] // 2 + 1,))
-    ms["irfft2d_fused 16x1024^2"] = time_ms(lambda: R.irfft2d_fused_cuda(h))
+    key = "irfft2d_fused 16x1024^2"
+    ms[key] = time_ms(lambda: R.irfft2d_fused_cuda(h))
+    dev[key] = device_us(lambda: R.irfft2d_fused_cuda(h))
+    if "--launches" in sys.argv:
+        traced[f"{key} launches"] = launches(
+            lambda: R.irfft2d_fused_cuda(h))
     del r, h
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -193,6 +212,9 @@ def main():
         x = cplx(STAGED[0])
         out["fft_staged 512x16384 launches"] = launches(
             lambda: ST.fft_staged_cuda(x))
+        x = cplx(R2[0])
+        out["fft_stockham_r2 2x2^20 launches"] = launches(
+            lambda: S.fft_stockham_r2_cuda(x))
     print(json.dumps(out), flush=True)
 
 
