@@ -108,7 +108,8 @@ CHECKS += [("rfft2d_fused", MAIN_RFFT2), ("rfft2d_fused", (2, 2, 2)),
 # 512-point columns, then 256-point rows), a batch that no row tile divides
 # (7 rows of 512, 16 a tile); the real-input forward at h != w with a
 # ragged last column tile (33 columns in tiles of 16; 129 in tiles of 8,
-# 2048-point columns)
+# 2048-point columns); the inverse's column pass reads those shapes' half
+# spectra at their odd pitch
 CHECKS += [("fft_stockham_r2", (3, 1 << 13)), ("fft_stockham_r2", (3, 1 << 14)),
            ("fft_stockham_r2", (3, 1 << 15)), ("fft_stockham_r2", (2, 1 << 17)),
            ("fft_stockham_r2", (7, 512)), ("rfft2d_fused", (2, 512, 64)),
@@ -122,6 +123,14 @@ CHECKS += [("fft_stockham", MAIN_RFFT_FOURSTEP),
            ("fft_stockham_r2", (MAIN_RFFT2[1], MAIN_RFFT2[2] // 2)),
            ("fft_stockham_r2", (MAIN_RFFT2[2] // 2 + 1, MAIN_RFFT2[1])),
            ("fft_stockham_r2", (MAIN_RFFT2[1], MAIN_RFFT2[2]))]
+# the radix-4 kernel's routes: one launch up to 2^14, two from 2^15 (an odd
+# log2 n at 2^15 and 2^17: the radix-2 tail in launch B), 2^24 the largest
+# of two; above, a launch a stage, held against float64 numpy at
+# STOCKHAM_STAGES (its plain version's packed float64 host table would be
+# 4.8 GB)
+CHECKS += [("fft_stockham", (3, 1 << 14)), ("fft_stockham", (3, 1 << 15)),
+           ("fft_stockham", (2, 1 << 17)), ("fft_stockham", (2, 1 << 24))]
+STOCKHAM_STAGES = (1, 1 << 25)
 REAL_KERNELS = ("rfft2d_fused", "irfft2d_fused", "fft_stockham_r2",
                 "fft_fourstep", "fft_stockham")
 MAIN_SHAPE = {"fft2d_gemm": MAIN_2D, "fft_fourstep": MAIN_FOURSTEP,
@@ -312,10 +321,11 @@ def fourstep_floor_bytes(batch: int, n: int) -> int:
 
 
 def method_rfft2d(b, h, w):
-    """(method flops, table bytes) of the real-input 2-D forward: the
-    shared-memory FFTs (5*n*log2(n) flops, radix-2 count) of the h/2
-    packed rows, the untangle (8 flops a half-spectrum bin pair) and the
-    w/2+1 columns; one float2 table an axis."""
+    """(method flops, table bytes) of the real-input 2-D kernels, either
+    direction: the shared-memory FFTs (5*n*log2(n) flops, radix-2 count)
+    of the h/2 packed rows, the untangle or repack (8 flops a
+    half-spectrum bin pair) and the w/2+1 columns; one float2 table an
+    axis."""
     c = w // 2 + 1
     lw, lh = w.bit_length() - 1, h.bit_length() - 1
     flops = b * ((h // 2) * 5 * w * lw + 8 * (h // 2) * c + c * 5 * h * lh)
@@ -323,23 +333,11 @@ def method_rfft2d(b, h, w):
 
 
 def rfft2d_floor_bytes(b, h, w, pitch):
-    """Bytes the two-launch forward moves: the real images read, the
-    untangled half spectra written to and read from the scratch (rows of
-    ``pitch`` bins), and the output written."""
+    """Bytes the two-launch real-input kernels move, either direction: the
+    real images read (written), the half spectra written to and read from
+    the scratch (rows of ``pitch`` bins), and the half spectra written
+    (read)."""
     return 4 * b * h * w + 16 * b * h * pitch + 8 * b * h * (w // 2 + 1)
-
-
-def method_irfft2d(b, h, w, fac):
-    """(method flops, table bytes) of the real-input 2-D inverse: the
-    column pass's four-step GEMMs on w/2+1 columns, the repack (8 flops a
-    packed bin) and the four-step row pass on h/2 packed rows."""
-    n1w, n1h = fac(w)[0], fac(h)[0]
-    c = w // 2 + 1
-    flops = b * ((h // 2) * _fourstep_flops(w, n1w) + 8 * (h // 2) * c
-                 + c * _fourstep_flops(h, n1h))
-    tables = sum(8 * (n1 * n1 + (n // n1) ** 2 + n)
-                 for n, n1 in ((w, n1w), (h, n1h)))
-    return flops, tables
 
 
 def method_stockham_r2(b, n):
@@ -351,10 +349,13 @@ def method_stockham_r2(b, n):
 
 
 def method_stockham(b, n):
+    """(method flops, table bytes) of the radix-4 Stockham kernel: 34 flops
+    a radix-4 butterfly, n/4 a stage, and the radix-2 tail; one table of
+    3 * n/4 float2 entries (w, w^2, w^3)."""
     ln = n.bit_length() - 1
     s4, tail = ln // 2, ln % 2
     flops = b * (s4 * (n // 4) * 34 + tail * (n // 2) * 4)
-    return flops, 8 * max(s4, 1) * 3 * max(n // 4, 1)
+    return flops, 8 * 3 * max(n // 4, 1)
 
 
 def conv_counts(batch: int, rows: int, m: int, bank_rows: int):
@@ -682,6 +683,24 @@ def main() -> int:
                   "max_abs_err": abs_err, "err_over_max": rel, "tol": tol,
                   "ok": ok})
             del x, got, ref
+    torch.cuda.empty_cache()
+    # the radix-4 kernel's per-stage route above 2^24, against float64 numpy
+    z = rand(STOCKHAM_STAGES)
+    x = from_numpy(z, device=dev)
+    for inverse in (False, True):
+        got = S.fft_stockham_cuda(x, inverse=inverse)
+        torch.cuda.synchronize()
+        rel = np_errors(got, np.fft.ifft(z) if inverse else np.fft.fft(z))
+        ok = rel <= TOL_1D
+        if not ok:
+            failures.append(f"fft_stockham{STOCKHAM_STAGES} per-stage "
+                            f"inverse={inverse}: {rel}")
+        emit({"phase": "kernel_vs_numpy", "kernel": "fft_stockham",
+              "route": "per_stage", "shape": STOCKHAM_STAGES,
+              "inverse": inverse, "err_over_max": rel, "tol": TOL_1D,
+              "ok": ok})
+        del got
+    del x, z
     torch.cuda.empty_cache()
     bf16_kernels = {"fft2d_gemm": (G.fft2d_gemm_cuda, G.fft2d_gemm_plain),
                     "fft3d_fused": (V.fft3d_fused_cuda, V.fft3d_fused_plain),
@@ -1260,8 +1279,14 @@ def main() -> int:
         elif name == "fft_stockham_r2":
             grids = len(S.r2_plan(*shape))
             floor = grids * nbytes
+        elif name == "fft_stockham":
+            grids = len(S.r4_plan(*shape))
+            floor = grids * nbytes
         elif name == "rfft2d_fused":
             rows, cols = R.plan(*shape)
+            grids, floor = 2, rfft2d_floor_bytes(*shape, cols.inner)
+        elif name == "irfft2d_fused":
+            cols, rows = R.inverse_plan(*shape)
             grids, floor = 2, rfft2d_floor_bytes(*shape, cols.inner)
         else:
             return {}
@@ -1329,8 +1354,7 @@ def main() -> int:
          launches_real["rfft2d_fused"]),
         ("irfft2d_fused", MAIN_RFFT2, R.irfft2d_fused_cuda,
          R.irfft2d_fused_plain, lambda c: torch.fft.irfft2(c, s=hw),
-         half_inputs, rfft_counts(*MAIN_RFFT2),
-         method_irfft2d(*MAIN_RFFT2, fourstep_factors),
+         half_inputs, rfft_counts(*MAIN_RFFT2), method_rfft2d(*MAIN_RFFT2),
          "src/repro/kernels/rfft2d_fused.py:163", "rfft2d_fused",
          launches_real["irfft2d_fused"]),
         ("fft3d_fused", MAIN_3D, V.fft3d_fused_cuda, V.fft3d_fused_plain,

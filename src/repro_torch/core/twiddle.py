@@ -6,7 +6,8 @@ host tables are bit-identical.  The tensor casts are cached per
 ``(n, inverse, dtype, device)``: each table is built and copied to the
 device once, then later calls reuse it.  The cache holds at most
 :data:`TABLE_CACHE_BYTES` of tensors, least recently used first out; the
-packed Stockham table alone is 277 MB per direction at n = 2^22 in fp32.
+packed radix-4 Stockham table alone is 277 MB per direction at n = 2^22
+in fp32 (the kernel's one-row table 25 MB).
 :func:`clear_table_cache` frees every cached tensor.
 """
 from __future__ import annotations
@@ -123,6 +124,28 @@ def radix2_twiddles_np(n: int, inverse: bool) -> tuple:
     return (np.stack([np.cos(ang), np.sin(ang)], axis=1),)
 
 
+@functools.lru_cache(maxsize=64)
+def radix4_twiddles_np(n: int, inverse: bool) -> tuple:
+    """Row 0 of :func:`packed_radix4_twiddles_np` by the same float64
+    formula, (w, w^2, w^3) of W_n^p for p < n/4, as one (3, n/4, 2) array
+    of (cos, sin) pairs: the radix-4 kernel's one table (a zero row of
+    width 1 for n < 4, as in the packed table).  Row s of the packed table
+    is this row re-indexed, entry j = entry (j >> 2s) << 2s, bit for bit:
+    the angle 2*pi*p / (n >> 2s) equals 2*pi*(p << 2s) / n exactly in
+    float64, and w^2, w^3 are the same float64 products of an equal w."""
+    width = max(n // 4, 1)
+    out = np.zeros((3, width, 2), dtype=np.float64)
+    if n >= 4:
+        sign = 1.0 if inverse else -1.0
+        p = np.arange(n // 4, dtype=np.float64)
+        ang = sign * 2.0 * np.pi * p / n
+        w1 = np.cos(ang) + 1j * np.sin(ang)
+        for r, w in enumerate((w1, w1 * w1, w1 * w1 * w1)):
+            out[r, :, 0] = w.real
+            out[r, :, 1] = w.imag
+    return (out,)
+
+
 # ---------------------------------------------------------------------------
 # Tensor casts, cached per (table args, dtype, device)
 # ---------------------------------------------------------------------------
@@ -207,4 +230,12 @@ def radix2_twiddles(n: int, *, inverse: bool = False, dtype=torch.float32,
     """:func:`radix2_twiddles_np` as a cached (n/2, 2) tensor on
     ``device``."""
     return _cast(radix2_twiddles_np, (n, bool(inverse)), dtype,
+                 torch.device(device))[0]
+
+
+def radix4_twiddles(n: int, *, inverse: bool = False, dtype=torch.float32,
+                    device="cuda") -> torch.Tensor:
+    """:func:`radix4_twiddles_np` as a cached (3, n/4, 2) tensor on
+    ``device``."""
+    return _cast(radix4_twiddles_np, (n, bool(inverse)), dtype,
                  torch.device(device))[0]

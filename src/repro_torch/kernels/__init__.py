@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version (counterpart of :mod:`repro.kernels`).
 
-fft_stockham — per-stage mixed radix-4/2 and pure radix-2 Stockham FFTs
+fft_stockham — mixed radix-4/2 and pure radix-2 Stockham FFTs, stages
+               fused in registers (one launch up to 2^14 points, two up
+               to 2^24; radix 4 a launch a stage above)
 fft_fourstep — Bailey four-step FFT with shared-memory radix-16 sub-FFTs
                (one launch up to 2^14 points, two above)
 fft2d_gemm   — 2-D FFT as shared-memory FFT passes (plain bf16: four-step

@@ -1,5 +1,5 @@
-// Tiled split-complex fp32 GEMM shared by fft2d_gemm.cu, rfft2d_fused.cu
-// and fft3d_fused.cu.
+// Tiled split-complex fp32 GEMM shared by fft2d_gemm.cu and fft3d_fused.cu
+// (their plain-bf16 chains).
 //
 //   C_z[m, n] = scale * T[m, n] * sum_k A_z[m, k] * B_z[k, n]
 //

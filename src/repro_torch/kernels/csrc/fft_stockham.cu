@@ -6,45 +6,55 @@
 // and ::_stockham_kernel_r2 (radix=2; fft1d.py::stockham_radix2_stages).
 // The TPU kernel keeps a whole row in VMEM for all stages.
 //
-// Radix 4: for n > 2^20 no row fits in shared memory, so every radix-4
-// stage is one launch over global ping-pong buffers: one thread per
-// butterfly reads the four quarter slices x[j + r*q], twiddles by row s of
-// the packed (s4, 3, n/4) table and writes the interleaved (m, 4, stride)
-// positions.  The radix-2 tail (m == 1, twiddle 1) runs last.  The inverse
-// folds its 1/n into the last stage's store.  Bound by bytes: every stage
-// streams the array and a table row through HBM.
-//
-// Radix 2 (the oracle): the same butterflies, a + b and (a - b) * w, in the
-// same stage order, but up to four stages a pass in registers (16 points a
-// thread) between shared-memory barriers, over tiles copied in with
-// cp.async (axis_fft.cuh's tile walk), so a launch is one pass over HBM:
+// Both radices run the reference's butterflies in its stage order (radix
+// 4: radix-4 stages, then a radix-2 tail of twiddle 1 for odd log2 n;
+// radix 2: a + b and (a - b) * w), up to four bits of stages a pass in
+// registers (16 points a thread) between shared-memory barriers, over
+// tiles copied in with cp.async (axis_fft.cuh's tile walk), so a launch is
+// one pass over HBM:
 //   n <= 2^14  ONE launch: a tile holds G whole rows and runs every stage;
-//   above      TWO launches (n <= 2^24).  With n = M * Q, M = 2^l1,
-//              l1 = ceil(log2 n / 2): stages 0..l1-1 act on the M points
-//              {q + r*Q} of each column q of the (M, Q) view, and launch A
-//              runs them on tiles of C adjacent columns, writing each point
-//              back where its column lies (x -> scratch); the other stages
-//              act on each stride-M subset {k + t*M} of their output, and
-//              are exactly the length-Q radix-2 Stockham there, so launch B
-//              runs them on rows k of the scratch (G rows a tile) and
-//              stores row k's point t at t*M + k of out, C-wide segments.
-// One table: W_n^m for m < n/2.  Stage s's twiddle at butterfly j is row s
-// of the packed (stages, n/2) table, which is entry (j >> s) << s of row 0
-// bit for bit (the float64 angles are equal), so the kernel reads row 0 at
-// that index: n/2 entries (4 MB at 2^20) where the packed table has
-// log2(n) rows.  Bound by bytes: 16 a point in and out a launch, ~5
-// flops a point a stage.  The inverse's 1/n is applied at the last store.
+//   above      TWO launches (n <= 2^24).  With n = M * Q, M = 2^l1: stages
+//              of bits 0..l1-1 act on the M points {q + r*Q} of each
+//              column q of the (M, Q) view, and launch A runs them on tiles
+//              of C adjacent columns, writing each point back where its
+//              column lies (x -> scratch); the other stages act on each
+//              stride-M subset {k + t*M} of their output, and are exactly
+//              the length-Q Stockham there, so launch B runs them on rows k
+//              of the scratch (G rows a tile) and stores row k's point t at
+//              t*M + k of out, C-wide segments.  Radix 2 splits at
+//              l1 = ceil(log2 n / 2); radix 4 at an even l1, so that launch
+//              A holds whole radix-4 stages (the tail runs in launch B):
+//              2 * floor((log2 n + 1) / 4), 12 from 2^22
+//              (kernels/fft_stockham.py::split).
+// Passes start at bit 0 and take four bits each, so a pass boundary is a
+// radix-4 stage boundary and a pass is two radix-4 stages (or one, and the
+// tail, at its end).
+// One table a radix.  Radix 2: W_n^m for m < n/2; stage s's twiddle at
+// butterfly j is row s of the packed (stages, n/2) table, which is entry
+// (j >> s) << s of row 0 bit for bit (the float64 angles are equal).
+// Radix 4: row 0 of the packed (s4, 3, n/4) table, w, w^2 and w^3 as three
+// rows of n/4; radix-4 stage s reads entry (j >> 2s) << 2s of each, bit for
+// bit row s of the packed table: 25 MB a direction at 2^22 against 277.
+// Bound by bytes: 16 a point in and out a launch, ~4.25 flops a point a
+// radix-2 bit.  The inverse's 1/n is applied at the last store.
+//
+// n > 2^24 (radix 4 only): one launch a radix-4 stage over global
+// ping-pong buffers (one thread a butterfly, the four quarter slices
+// x[j + r*q] in, the interleaved (m, 4, stride) positions out), off the
+// same one table, then the radix-2 tail: log2(n)/2 + 1 passes over HBM.
 #include "axis_fft.cuh"
 
 namespace {
 
 constexpr int NT = 256;
 
+// radix-4 stage `ls / 2` of the per-stage route: twiddles w^r at entry
+// (j >> ls) << ls of row r - 1 of the one (3, n/4) table
 __global__ void __launch_bounds__(NT)
 r4_stage(const float* __restrict__ xr, const float* __restrict__ xi,
          float* __restrict__ yr, float* __restrict__ yi,
-         const float* __restrict__ wr, const float* __restrict__ wi,
-         long long total, int lq, int ls, int inverse, float scale) {
+         const float2* __restrict__ w, long long total, int lq, int ls,
+         int inverse, float scale) {
   const long long q = 1LL << lq;
   const long long n = q << 2;
   const long long stride = 1LL << ls;
@@ -69,11 +79,11 @@ r4_stage(const float* __restrict__ xr, const float* __restrict__ xi,
       y1r = d0r + d1i; y1i = d0i - d1r;
       y3r = d0r - d1i; y3i = d0i + d1r;
     }
-    const float w1r = wr[j], w2r = wr[q + j], w3r = wr[2 * q + j];
-    const float w1i = wi[j], w2i = wi[q + j], w3i = wi[2 * q + j];
-    const float b1r = y1r * w1r - y1i * w1i, b1i = y1r * w1i + y1i * w1r;
-    const float b2r = y2r * w2r - y2i * w2i, b2i = y2r * w2i + y2i * w2r;
-    const float b3r = y3r * w3r - y3i * w3i, b3i = y3r * w3i + y3i * w3r;
+    const long long m = (j >> ls) << ls;
+    const float2 w1 = w[m], w2 = w[q + m], w3 = w[2 * q + m];
+    const float b1r = y1r * w1.x - y1i * w1.y, b1i = y1r * w1.y + y1i * w1.x;
+    const float b2r = y2r * w2.x - y2i * w2.y, b2i = y2r * w2.y + y2i * w2.x;
+    const float b3r = y3r * w3.x - y3i * w3.y, b3i = y3r * w3.y + y3i * w3.x;
     // autosort store: j = p*stride + k  ->  p*4*stride + r*stride + k
     const long long o = b * n + ((j >> ls) << (ls + 2)) + (j & (stride - 1));
     yr[o] = y0r * scale;              yi[o] = y0i * scale;
@@ -105,10 +115,11 @@ unsigned blocks_for(long long total) {
 
 }  // namespace
 
+// The per-stage route of the radix-4 kernel (n > 2^24): x -> out through
+// the scratch pair (sr, si); `tab` the one (3, n/4) table of float2.
 extern "C" int fft_stockham_f32(const float* xr, const float* xi,
                                 float* outr, float* outi,
-                                float* sr, float* si,
-                                const float* wr, const float* wi,
+                                float* sr, float* si, const float* tab,
                                 long long batch, int n, int inverse,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -129,8 +140,8 @@ extern "C" int fft_stockham_f32(const float* xr, const float* xi,
     if (st < s4) {
       const long long total = batch * q;
       r4_stage<<<blocks_for(total), NT, 0, s>>>(
-          src_r, src_i, dst_r[d], dst_i[d], wr + st * 3 * q, wi + st * 3 * q,
-          total, ln - 2, 2 * st, inverse, scale);
+          src_r, src_i, dst_r[d], dst_i[d], (const float2*)tab, total,
+          ln - 2, 2 * st, inverse, scale);
     } else {
       const long long total = batch * (n / 2);
       r2_tail<<<blocks_for(total), NT, 0, s>>>(src_r, src_i, dst_r[d], dst_i[d],
@@ -145,13 +156,13 @@ extern "C" int fft_stockham_f32(const float* xr, const float* xi,
 }
 
 
-// -- the radix-2 kernel ---------------------------------------------------
+// -- the fused kernels (both radices) -----------------------------------
 
 namespace {
 
 // i with its bits 4..8 folded into bits 0..4: a permutation of every aligned
-// 32 under which the strides of a radix-2 pass's writes (16 apart at its
-// first stage) land on distinct banks
+// 32 under which the strides of a pass's writes (16 apart at its first
+// stage) land on distinct banks
 __device__ __forceinline__ int swz(int i) { return i ^ ((i >> 4) & 31); }
 
 // The work layout of a rows tile: transform t's element i at t*p + swz(i),
@@ -171,15 +182,21 @@ struct ColsSw {
   }
 };
 
-// Twiddle W_n^m, m = (q + (p << qb)) << s: p the butterfly's p at stage s of
-// its length, q the column of a launch A tile (q0 + t; qb = log2 Q, the
-// column's stages fold the four-step twiddle in), s shifted by s0 = l1 in
-// launch B (its stage s is stage s + l1 of the whole).
+// Twiddle W_n^m, m = (q + (p << qb)) << s: p the butterfly's p at stage
+// bit s of its length, q the column of a launch A tile (q0 + t; qb = log2
+// Q, the column's stages fold the four-step twiddle in), s shifted by
+// s0 = l1 in launch B (its bit s is bit s + l1 of the whole).  Radix 4
+// reads w^r at m of row r - 1 (rows of `row` = n/4 entries); `sg` is the
+// transform's sign (-1 forward).
 struct Twiddle {
   const float2* w;
-  int q0, qb, s0;
+  int q0, qb, s0, row;
+  float sg;
+  __device__ __forceinline__ int at(int t, int p, int s) const {
+    return (q0 + (qb ? t : 0) + (p << qb)) << (s + s0);
+  }
   __device__ __forceinline__ float2 operator()(int t, int p, int s) const {
-    return w[(q0 + (qb ? t : 0) + (p << qb)) << (s + s0)];
+    return w[at(t, p, s)];
   }
 };
 
@@ -212,14 +229,75 @@ __device__ __forceinline__ void r2_stages(float2* u, int base, int t,
   }
 }
 
-// One pass: stages S .. S+LR-1 of the 2^lT transforms of length 2^LN read
-// through `in`.  Each of the nt threads takes E / 2^LR groups q = tid +
-// b*nt; q's low bits pick up to 2^LF transforms, the next ones the group's
-// base (its first point, < 2^(LN-LR)), the rest the other transforms.
-// After the stages register r is element (base mod 2^S) + rev(r) * 2^S +
-// (base >> S) * 2^(S+LR), which `out` is handed in order.
-template <int LR, int LN, int S, int LF, class In, class Tw, class Out>
-__device__ __forceinline__ void r2_pass(const In& in, int lT, int nt,
+// The same for the mixed radix-4/2 Stockham: a radix-4 stage a step of two
+// bits, which takes register bits HB and HB-1 (HB = LR-1-K) as its digit
+// r (the quarter x[j + r*n/4]) and computes stockham_stages' butterfly
+// (y_r * w^r, the +-i of the transform's sign); the radix-2 tail (stage
+// LN-1, twiddle 1) when one bit is left.
+template <int LR, int LN, int S, int K = 0, class Tw>
+__device__ __forceinline__ void r4_stages(float2* u, int base, int t,
+                                          const Tw& tw) {
+  if constexpr (K + 1 == LR) {
+    static_assert(S + K == LN - 1, "the radix-2 tail is the last stage");
+#pragma unroll
+    for (int hi = 0; hi < (1 << K); ++hi) {
+      const float2 x = u[2 * hi], y = u[2 * hi + 1];
+      u[2 * hi] = cadd(x, y);
+      u[2 * hi + 1] = csub(x, y);
+    }
+  } else if constexpr (K < LR) {
+    constexpr int HB = LR - 1 - K;
+    const int mask = (1 << (LN - 2 - S - K)) - 1;
+    const float sg = tw.sg;
+#pragma unroll
+    for (int lo = 0; lo < (1 << (HB - 1)); ++lo) {
+      const int p = ((base + (lo << (LN - LR))) >> S) & mask;
+      const int m = tw.at(t, p, S + K);
+      const float2 w1 = tw.w[m], w2 = tw.w[m + tw.row],
+                   w3 = tw.w[m + 2 * tw.row];
+#pragma unroll
+      for (int hi = 0; hi < (1 << K); ++hi) {
+        const int i0 = lo | (hi << (HB + 1)), st = 1 << (HB - 1);
+        const float2 a0 = u[i0], a1 = u[i0 + st], a2 = u[i0 + 2 * st],
+                     a3 = u[i0 + 3 * st];
+        const float2 e0 = cadd(a0, a2), d0 = csub(a0, a2);
+        const float2 e1 = cadd(a1, a3), d1 = csub(a1, a3);
+        u[i0] = cadd(e0, e1);
+        u[i0 + st] = cmul(make_float2(d0.x - sg * d1.y, d0.y + sg * d1.x), w1);
+        u[i0 + 2 * st] = cmul(csub(e0, e1), w2);
+        u[i0 + 3 * st] =
+            cmul(make_float2(d0.x + sg * d1.y, d0.y - sg * d1.x), w3);
+      }
+    }
+    r4_stages<LR, LN, S, K + 2>(u, base, t, tw);
+  }
+}
+
+// The register holding output r (element k0 + r * 2^S) after a pass of LR
+// bits: a radix-2 stage moves the top register bit to the next bit of r
+// (bit reversal); a radix-4 stage the top digit, its two bits in order,
+// and the tail the last bit to the top of r.  Plain shifts, so an unrolled
+// r folds to a constant.
+template <int RX>
+__device__ __forceinline__ constexpr int pass_reg(int r, int lr) {
+  if (RX == 2) return rev4(r, lr);
+  int x = 0;
+#pragma unroll
+  for (int k = 0; k + 1 < lr; k += 2)
+    x |= (((r >> (k + 1)) & 1) << (lr - 1 - k)) | (((r >> k) & 1) << (lr - 2 - k));
+  return (lr & 1) ? x | ((r >> (lr - 1)) & 1) : x;
+}
+
+// One pass: stages of bits S .. S+LR-1 of the 2^lT transforms of length
+// 2^LN read through `in`, radix RX.  Each of the nt threads takes E / 2^LR
+// groups q = tid + b*nt; q's low bits pick up to 2^LF transforms, the next
+// ones the group's base (its first point, < 2^(LN-LR)), the rest the other
+// transforms.  After the stages register pass_reg(r) is element
+// (base mod 2^S) + r * 2^S + (base >> S) * 2^(S+LR), which `out` is handed
+// in order.
+template <int RX, int LR, int LN, int S, int LF, class In, class Tw,
+          class Out>
+__device__ __forceinline__ void st_pass(const In& in, int lT, int nt,
                                         const Tw& tw, const Out& out) {
   constexpr int R = 1 << LR, B = E / R, LB = LN - LR;
   const int lf = lT < LF ? lT : LF;
@@ -233,7 +311,10 @@ __device__ __forceinline__ void r2_pass(const In& in, int lT, int nt,
     const int t = ((rest >> LB) << lf) | (q & ((1 << lf) - 1));
 #pragma unroll
     for (int r = 0; r < R; ++r) v[b * R + r] = in(t, base + (r << LB));
-    r2_stages<LR, LN, S>(v + b * R, base, t, tw);
+    if constexpr (RX == 2)
+      r2_stages<LR, LN, S>(v + b * R, base, t, tw);
+    else
+      r4_stages<LR, LN, S>(v + b * R, base, t, tw);
   }
   __syncthreads();
 #pragma unroll
@@ -244,27 +325,28 @@ __device__ __forceinline__ void r2_pass(const In& in, int lT, int nt,
     const int t = ((rest >> LB) << lf) | (q & ((1 << lf) - 1));
     float2 o[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) o[r] = v[b * R + rev4(r, LR)];
+    for (int r = 0; r < R; ++r) o[r] = v[b * R + pass_reg<RX>(r, LR)];
     out.template put<R>(t, (base & ((1 << S) - 1)) | ((base >> S) << (S + LR)),
                         1 << S, o);
   }
   __syncthreads();
 }
 
-// Every stage from S on: passes of four stages, the last of LN - S mod 4;
+// Every stage from bit S on: passes of four bits, the last of LN - S mod 4;
 // the first reads through `in`, the others from shared memory laid out by
 // `lay`; the last hands its outputs to `last`, the others write to `lay`.
-template <int LN, int S, int LF, class In, class Lay, class Tw, class Last>
-__device__ __forceinline__ void r2_passes(const In& in, float* sr, float* si,
+template <int RX, int LN, int S, int LF, class In, class Lay, class Tw,
+          class Last>
+__device__ __forceinline__ void st_passes(const In& in, float* sr, float* si,
                                           const Lay& lay, int lT, int nt,
                                           const Tw& tw, const Last& last) {
   constexpr int LR = LN - S < 4 ? LN - S : 4;
   if constexpr (S + LR == LN) {
-    r2_pass<LR, LN, S, LF>(in, lT, nt, tw, last);
+    st_pass<RX, LR, LN, S, LF>(in, lT, nt, tw, last);
   } else {
-    r2_pass<LR, LN, S, LF>(in, lT, nt, tw, ToShared<Lay>{sr, si, lay});
-    r2_passes<LN, S + LR, LF>(FromShared<Lay>{sr, si, lay}, sr, si, lay, lT,
-                              nt, tw, last);
+    st_pass<RX, LR, LN, S, LF>(in, lT, nt, tw, ToShared<Lay>{sr, si, lay});
+    st_passes<RX, LN, S + LR, LF>(FromShared<Lay>{sr, si, lay}, sr, si, lay,
+                                  lT, nt, tw, last);
   }
 }
 
@@ -295,7 +377,7 @@ struct ToColumns {
 // a rows tile, back in the work layout, to rows of out: 32 lanes store 128
 // contiguous bytes
 template <int LN>
-__device__ __forceinline__ void r2_store_rows(const Geo& g, long long k,
+__device__ __forceinline__ void st_store_rows(const Geo& g, long long k,
                                               const float* wr,
                                               const float* wi,
                                               const RowsSw& lay) {
@@ -313,127 +395,134 @@ __device__ __forceinline__ void r2_store_rows(const Geo& g, long long k,
   __syncthreads();
 }
 
-enum { R2_ROWS = 0, R2_COLS = 1, R2_TRANSPOSED = 2 };
+enum { ST_ROWS = 0, ST_COLS = 1, ST_TRANSPOSED = 2 };
 
-// One tile's stages: rows (R2_ROWS: every stage, stored as rows;
-// R2_TRANSPOSED: launch B, stored as columns) or columns (R2_COLS: launch A)
-template <int LN, int ROUTE>
-struct R2Run {
+// One tile's stages: rows (ST_ROWS: every stage, stored as rows;
+// ST_TRANSPOSED: launch B, stored as columns) or columns (ST_COLS: launch
+// A); `row` the radix-4 table's row length
+template <int RX, int LN, int ROUTE>
+struct StRun {
   const Geo& g;
   float* smem;
-  int lv, mask, l1;
+  int lv, mask, l1, row;
   __device__ __forceinline__ void operator()(long long k, int b) const {
     float* wr = smem + b * 2 * g.wf;
     float* wi = wr + g.wf;
     const float* sr = wr;
     const float* si = sr + (1 << (LN + g.lc + g.lg));
     const int nt = blockDim.x;
-    if constexpr (ROUTE == R2_COLS) {
+    if constexpr (ROUTE == ST_COLS) {
       const int cpi = g.linner - g.lc;
       const int q0 = (int)((k & ((1LL << cpi) - 1)) << g.lc);
       const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
-      r2_passes<LN, 0, 5>(FromStage<float, Columns>{sr, si, stage}, wr, wi,
-                          ColsSw{g.lc}, g.lc, nt,
-                          Twiddle{g.tab, q0, g.linner, 0},
-                          to_global<float>(g, k));
+      st_passes<RX, LN, 0, 5>(FromStage<float, Columns>{sr, si, stage}, wr,
+                              wi, ColsSw{g.lc}, g.lc, nt,
+                              Twiddle{g.tab, q0, g.linner, 0, row, g.sg},
+                              to_global<float>(g, k));
     } else {
       const RowsSw rows{g.p};
       const FromStage<float, Swizzled> in{sr, si, Swizzled{LN, lv, mask}};
-      if constexpr (ROUTE == R2_TRANSPOSED) {
-        r2_passes<LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
-                            Twiddle{g.tab, 0, 0, l1},
-                            ToColumns{static_cast<float*>(g.outr),
-                                      static_cast<float*>(g.outi),
-                                      k << g.lg, g.outer, l1, LN, g.scale});
+      if constexpr (ROUTE == ST_TRANSPOSED) {
+        st_passes<RX, LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
+                                Twiddle{g.tab, 0, 0, l1, row, g.sg},
+                                ToColumns{static_cast<float*>(g.outr),
+                                          static_cast<float*>(g.outi),
+                                          k << g.lg, g.outer, l1, LN,
+                                          g.scale});
       } else {
-        r2_passes<LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
-                            Twiddle{g.tab, 0, 0, 0},
-                            ToShared<RowsSw>{wr, wi, rows});
-        r2_store_rows<LN>(g, k, wr, wi, rows);
+        st_passes<RX, LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
+                                Twiddle{g.tab, 0, 0, 0, row, g.sg},
+                                ToShared<RowsSw>{wr, wi, rows});
+        st_store_rows<LN>(g, k, wr, wi, rows);
       }
     }
   }
 };
 
-template <int LN, int ROUTE, int NT>
+template <int RX, int LN, int ROUTE, int NT>
 __global__ void __launch_bounds__(NT, 1)
-r2_fft(const __grid_constant__ Geo g, int l1) {
+st_fft(const __grid_constant__ Geo g, int l1, int row) {
   extern __shared__ float smem[];
   const int lv = chunk_log<float>(g);
-  const int mask = ROUTE != R2_COLS && LN - lv >= 3 ? 7 : 0;
+  const int mask = ROUTE != ST_COLS && LN - lv >= 3 ? 7 : 0;
   walk_tiles(g, TileCopy<float>{g, smem, lv, LN, mask},
-             R2Run<LN, ROUTE>{g, smem, lv, mask, l1});
+             StRun<RX, LN, ROUTE>{g, smem, lv, mask, l1, row});
 }
 
-using R2Launch = cudaError_t (*)(const Geo&, int, unsigned, int, size_t,
+using StLaunch = cudaError_t (*)(const Geo&, int, int, unsigned, int, size_t,
                                  cudaStream_t);
 
-template <int LN, int ROUTE, int NT>
-cudaError_t launch_r2(const Geo& g, int l1, unsigned blocks, int threads,
-                      size_t smem, cudaStream_t st) {
+template <int RX, int LN, int ROUTE, int NT>
+cudaError_t launch_st(const Geo& g, int l1, int row, unsigned blocks,
+                      int threads, size_t smem, cudaStream_t st) {
   static int done[16];
-  const cudaError_t e = allow_smem(r2_fft<LN, ROUTE, NT>, smem, done);
+  const cudaError_t e = allow_smem(st_fft<RX, LN, ROUTE, NT>, smem, done);
   if (e != cudaSuccess) return e;
-  r2_fft<LN, ROUTE, NT><<<blocks, threads, smem, st>>>(g, l1);
+  st_fft<RX, LN, ROUTE, NT><<<blocks, threads, smem, st>>>(g, l1, row);
   return cudaGetLastError();
 }
 
-template <int ROUTE, int FIRST, int NT, int... L>
-R2Launch r2_for(int ln, std::integer_sequence<int, L...>) {
-  static const R2Launch fns[] = {launch_r2<L + FIRST, ROUTE, NT>...};
+template <int RX, int ROUTE, int FIRST, int NT, int... L>
+StLaunch st_for(int ln, std::integer_sequence<int, L...>) {
+  static const StLaunch fns[] = {launch_st<RX, L + FIRST, ROUTE, NT>...};
   return fns[ln - FIRST];
 }
 
 // The kernel of a launch: rows up to 2^13 points a row with 512 threads,
 // 2^14 with 1024; launch A's columns of 2^8 .. 2^10 points (8192-point
-// tiles, 512 threads) or 2^11, 2^12 (16384, 1024); launch B's rows of
-// 2^7 .. 2^12.  Null for any other.
-R2Launch r2_pick(int route, int ln, int threads) {
-  if (route == R2_ROWS) {
-    if (ln == 14) return threads == 1024 ? launch_r2<14, R2_ROWS, 1024> : nullptr;
+// tiles, 512 threads) or 2^11, 2^12 (16384, 1024), radix 4 the even ones;
+// launch B's rows of 2^7 .. 2^12.  Null for any other.
+template <int RX>
+StLaunch st_pick(int route, int ln, int threads) {
+  if (route == ST_ROWS) {
+    if (ln == 14)
+      return threads == 1024 ? launch_st<RX, 14, ST_ROWS, 1024> : nullptr;
     return ln >= 1 && ln <= 13 && threads <= 512
-               ? r2_for<R2_ROWS, 1, 512>(ln, std::make_integer_sequence<int, 13>{})
+               ? st_for<RX, ST_ROWS, 1, 512>(
+                     ln, std::make_integer_sequence<int, 13>{})
                : nullptr;
   }
-  if (route == R2_COLS) {
-    if (ln >= 8 && ln <= 10 && threads <= 512)
-      return r2_for<R2_COLS, 8, 512>(ln, std::make_integer_sequence<int, 3>{});
-    if (ln >= 11 && ln <= 12)
-      return r2_for<R2_COLS, 11, 1024>(ln, std::make_integer_sequence<int, 2>{});
-    return nullptr;
+  if (route == ST_COLS) {
+    if constexpr (RX == 4) {
+      if (ln == 8 && threads <= 512) return launch_st<4, 8, ST_COLS, 512>;
+      if (ln == 10 && threads <= 512) return launch_st<4, 10, ST_COLS, 512>;
+      if (ln == 12) return launch_st<4, 12, ST_COLS, 1024>;
+      return nullptr;
+    } else {
+      if (ln >= 8 && ln <= 10 && threads <= 512)
+        return st_for<2, ST_COLS, 8, 512>(
+            ln, std::make_integer_sequence<int, 3>{});
+      if (ln >= 11 && ln <= 12)
+        return st_for<2, ST_COLS, 11, 1024>(
+            ln, std::make_integer_sequence<int, 2>{});
+      return nullptr;
+    }
   }
-  if (route == R2_TRANSPOSED && ln >= 7 && ln <= 12 && threads <= 512)
-    return r2_for<R2_TRANSPOSED, 7, 512>(ln, std::make_integer_sequence<int, 6>{});
+  if (route == ST_TRANSPOSED && ln >= 7 && ln <= 12 && threads <= 512)
+    return st_for<RX, ST_TRANSPOSED, 7, 512>(
+        ln, std::make_integer_sequence<int, 6>{});
   return nullptr;
 }
 
-}  // namespace
-
-// One launch of the radix-2 kernel x -> out over (outer, 2^ln, 2^linner)
-// with the tiling the host planned (kernels/fft_stockham.py::r2_plan):
-// R2_ROWS (linner = 0; G = 2^lg rows a tile; every stage), R2_COLS (launch
-// A: tiles of 2^lc of the 2^linner columns, stages 0..ln-1 of length
-// n = 2^(ln + linner)) or R2_TRANSPOSED (launch B: rows of 2^ln, stages
-// l1.. of n = 2^(l1 + ln), out[image][m][row mod 2^l1]); `tab` the fp32
-// W_n^m, m < n/2, of the transform's sign as (cos, sin) pairs; `scale` at
-// the store; `blocks` the persistent grid.  Returns cudaErrorInvalidValue
-// for a tiling it does not take.
-extern "C" int fft_stockham_r2_pass(const float* xr, const float* xi,
-                                    float* outr, float* outi,
-                                    const float* tab, long long outer, int ln,
-                                    int linner, int lc, int lg, int route,
-                                    int l1, int blocks, float scale,
-                                    void* stream) {
+// One launch of the fused kernel of radix RX; the arguments of
+// fft_stockham_r2_pass and fft_stockham_r4_pass.
+template <int RX>
+int stockham_pass(const float* xr, const float* xi, float* outr, float* outi,
+                  const float* tab, long long outer, int ln, int linner,
+                  int lc, int lg, int route, int l1, int blocks, float scale,
+                  float sg, cudaStream_t stream) {
   const int lp = ln + lc + lg;
-  const bool rows = route == R2_ROWS || route == R2_TRANSPOSED;
+  const bool rows = route == ST_ROWS || route == ST_TRANSPOSED;
   if (outer <= 0 || blocks <= 0 || ln < 1 || lc < 0 || lg < 0 || lp > 14 ||
       (1 << lp) < AXIS_TILE_MIN || (lp == 14 && lg != 0) ||
       (rows && (linner != 0 || lc != 0)) ||
-      (route == R2_COLS && (lg != 0 || lc >= linner || ln + linner > 24)) ||
-      (route == R2_TRANSPOSED && (l1 < 1 || l1 + ln > 24)))
+      (route == ST_COLS && (lg != 0 || lc >= linner || ln + linner > 24)) ||
+      (route == ST_TRANSPOSED && (l1 < 1 || l1 + ln > 24)) ||
+      (RX == 4 && ((route == ST_COLS && (ln & 1)) ||
+                   (route == ST_TRANSPOSED && (l1 & 1)))))
     return (int)cudaErrorInvalidValue;
   const int threads = 1 << (lp - 4);
-  const R2Launch fn = r2_pick(route, ln, threads);
+  const StLaunch fn = st_pick<RX>(route, ln, threads);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int p = 0;
   long long wf = 1LL << lp;
@@ -446,9 +535,50 @@ extern "C" int fft_stockham_r2_pass(const float* xr, const float* xi,
   const size_t smem = (size_t)nbuf * 2 * sizeof(float) * wf;
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long per = (outer + (1LL << lg) - 1) >> lg;
+  // the whole transform's log2 length, for the radix-4 table's rows
+  const int lnf = route == ST_COLS ? ln + linner
+                  : route == ST_TRANSPOSED ? l1 + ln : ln;
+  const int row = lnf >= 2 ? 1 << (lnf - 2) : 0;
   const Geo g{xr, xi, outr, outi, (const float2*)tab, nullptr, outer,
               per << (linner - lc), ln, linner, lc, lg, nbuf, (int)wf, p,
-              -1.f, scale};
+              sg, scale};
   const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
-  return (int)fn(g, l1, grid, threads, smem, (cudaStream_t)stream);
+  return (int)fn(g, l1, row, grid, threads, smem, stream);
+}
+
+}  // namespace
+
+// One launch of the fused kernel x -> out over (outer, 2^ln, 2^linner)
+// with the tiling the host planned (kernels/fft_stockham.py::plan):
+// ST_ROWS (linner = 0; G = 2^lg rows a tile; every stage), ST_COLS (launch
+// A: tiles of 2^lc of the 2^linner columns, stages of bits 0..ln-1 of
+// length n = 2^(ln + linner)) or ST_TRANSPOSED (launch B: rows of 2^ln,
+// stages of bits l1.. of n = 2^(l1 + ln), out[image][m][row mod 2^l1]);
+// `scale` at the store; `blocks` the persistent grid.  Returns
+// cudaErrorInvalidValue for a tiling it does not take.
+// Radix 2: `tab` the fp32 W_n^m, m < n/2, of the transform's sign as
+// (cos, sin) pairs.
+extern "C" int fft_stockham_r2_pass(const float* xr, const float* xi,
+                                    float* outr, float* outi,
+                                    const float* tab, long long outer, int ln,
+                                    int linner, int lc, int lg, int route,
+                                    int l1, int blocks, float scale,
+                                    void* stream) {
+  return stockham_pass<2>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
+                          route, l1, blocks, scale, -1.f,
+                          (cudaStream_t)stream);
+}
+
+// Radix 4 (l1 even, so launch A holds whole radix-4 stages): `tab` the fp32
+// (3, n/4) table w, w^2, w^3 of the transform's sign (`inverse`) as
+// (cos, sin) pairs.
+extern "C" int fft_stockham_r4_pass(const float* xr, const float* xi,
+                                    float* outr, float* outi,
+                                    const float* tab, long long outer, int ln,
+                                    int linner, int lc, int lg, int route,
+                                    int l1, int blocks, float scale,
+                                    int inverse, void* stream) {
+  return stockham_pass<4>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
+                          route, l1, blocks, scale, inverse ? 1.f : -1.f,
+                          (cudaStream_t)stream);
 }

@@ -6,9 +6,10 @@
 // and ::_irfft2d_kernel.  The TPU kernel holds a whole image in VMEM; a
 // 1024^2 real plane is 4 MB against 227 KB of shared memory per block.  The
 // function is bound by bytes (4 a real point, 8 a half-spectrum bin; ~2.5
-// log2(N) flops a point), so the forward is two launches, each one pass
+// log2(N) flops a point), so each direction is two launches, each one pass
 // over HBM, on the shared-memory FFT passes of axis_fft.cuh (persistent
-// grids, tiles copied in with cp.async while the last one is transformed):
+// grids, tiles copied in with cp.async while the last one is transformed).
+// The forward:
 //   row pass     rows 2j and 2j+1 of the real image are the re and im
 //                planes of one complex row (base x and x + w, row pitch 2w:
 //                the packing costs no copy); a tile holds G packed rows
@@ -25,103 +26,24 @@
 //                fit a tile (P = C then); stored from registers to the
 //                (batch, h, c) output.  kernels/axis_fft.py::plan_half_cols
 //                plans it.
-// The inverse stays on the five-launch four-step GEMM chain:
-//   column pass  four-step GEMMs along axis -2 of the half-width tile; c is
-//                not a power of two, so the j2 axis of the first
-//                contraction is folded into the batch index, and its left
-//                operand is the j2-th of n2 host-built copies of W1 with
-//                the twiddle folded in, V[j2][k1, a] = T[k1, j2] * W1[k1, a]
-//                (the GEMM's own epilogue twiddle cannot index by j2;
-//                giving it a batch index cost the other kernels 12-14 % of
-//                their time, PERF.md);
-//   repack       Z = A_ext + i B_ext (the Hermitian extension of each row
-//                pair, the imaginary parts of the DC and Nyquist bins
-//                dropped);
-//   row pass     the inverse four-step row pass (row_pass.cuh, two GEMMs)
-//                whose last GEMM stores re to row 2j and im to row 2j+1 of
-//                the real output, scaled by 1/(h*w).
-// The GEMM chain does 8*n*(n1+n2) flops per row and column on the CUDA
-// cores, so it is bound by those fp32 operations plus its HBM round trips.
+// The inverse mirrors it, two launches on the same passes:
+//   column pass  the inverse length-h FFT along axis -2 of the (batch, h, c)
+//                half spectra, on the forward's column tiles, read at the
+//                input's own pitch c (odd: 4-byte chunks) and stored into a
+//                scratch pair of pitch P (the forward's, or c rounded up to
+//                4 where whole images fill a tile).  Columns come first: a
+//                row of the half spectrum is no real row's spectrum yet;
+//   row pass     a tile copies scratch rows 2j (A) and 2j+1 (B) in as one
+//                run and builds Z = A_ext + i B_ext at the first pass's
+//                load (the Hermitian extension, the imaginary parts of the
+//                DC and Nyquist bins dropped: a complex Nyquist bin would
+//                leak row 2j+1's residue into row 2j), runs the rows
+//                route's inverse radix-16 passes and stores re to row 2j
+//                and im to row 2j+1 of the real output, scaled by
+//                1/(h*w), 128 contiguous bytes a warp.
 #include "axis_fft.cuh"
-#include "row_pass.cuh"
 
 namespace {
-
-using cg::Axis;
-using cg::Params;
-using cg::lin;
-using cg::row_pass;
-using cg::two;
-
-constexpr int NT = 256;
-
-unsigned blocks_for(long long total) {
-  const long long b = (total + NT - 1) / NT;
-  return (unsigned)(b < (1LL << 20) ? b : (1LL << 20));
-}
-
-// Length-h complex FFT along axis -2 of (batch, h, c) split planes, c any
-// width, through the scratch pair (tr, ti) of the same size.
-cudaError_t half_col_pass(const float* sr, const float* si, float* dr,
-                          float* di, float* tr, float* ti, long long batch,
-                          long long c, const Axis& a, cudaStream_t stream) {
-  const long long h = a.n, hc = h * c;
-  if (a.n1 > 1) {
-    const int l1 = cg::log2i(a.n1), l2 = cg::log2i(a.n2);
-    Params p = cg::base();  // U[k1, j2, :] = sum_a V[j2][k1, a] Y[a, j2, :]
-    p.ar = a.vr; p.ai = a.vi; p.a_m = lin(a.n1); p.a_k = lin(1);
-    p.a_z = two(l2, 0, (long long)a.n1 * a.n1);  // z = (image, j2)
-    p.br = sr; p.bi = si; p.b_k = lin(a.n2 * c); p.b_n = lin(1);
-    p.b_z = two(l2, hc, c);
-    p.cr = tr; p.ci = ti; p.c_m = lin(a.n2 * c); p.c_n = lin(1);
-    p.c_z = two(l2, hc, c);
-    p.M = a.n1; p.K = a.n1; p.N = c; p.batch = batch * a.n2;
-    cudaError_t e = cg::launch(p, stream);
-    if (e != cudaSuccess) return e;
-    Params q = cg::base();  // Z[k2*n1 + k1] = sum_j2 W2[k2, j2] U[k1, j2]
-    q.ar = a.w2r; q.ai = a.w2i; q.a_m = lin(a.n2); q.a_k = lin(1);
-    q.br = tr; q.bi = ti; q.b_k = lin(c); q.b_n = lin(1);
-    q.b_z = two(l1, hc, a.n2 * c);  // z = (image, k1)
-    q.cr = dr; q.ci = di; q.c_m = lin(a.n1 * c); q.c_n = lin(1);
-    q.c_z = two(l1, hc, c);
-    q.M = a.n2; q.K = a.n2; q.N = c; q.batch = batch * a.n1;
-    return cg::launch(q, stream);
-  }
-  Params p = cg::base();  // one dense DFT per image: Z = W @ Y
-  p.ar = a.w2r; p.ai = a.w2i; p.a_m = lin(h); p.a_k = lin(1);
-  p.br = sr; p.bi = si; p.b_k = lin(c); p.b_n = lin(1); p.b_z = lin(hc);
-  p.cr = dr; p.ci = di; p.c_m = lin(c); p.c_n = lin(1); p.c_z = lin(hc);
-  p.M = h; p.K = h; p.N = c; p.batch = batch;
-  return cg::launch(p, stream);
-}
-
-// half spectra rows 2r (A) and 2r+1 (B) -> packed row r of w bins,
-// Z = A_ext + i B_ext, DC and Nyquist imaginary parts dropped
-__global__ void __launch_bounds__(NT)
-repack(const float* __restrict__ yr, const float* __restrict__ yi,
-       float* __restrict__ zr, float* __restrict__ zi, long long total,
-       int lw, long long c) {
-  const long long w = 1LL << lw, hw = w >> 1;
-  for (long long t = blockIdx.x * (long long)NT + threadIdx.x; t < total;
-       t += (long long)gridDim.x * NT) {
-    const long long r = t >> lw, k = t & (w - 1);
-    const bool mirror = k > hw;
-    const long long kk = mirror ? w - k : k;
-    const long long oa = 2 * r * c + kk, ob = oa + c;
-    const bool ends = kk == 0 || kk == hw;
-    const float ar = yr[oa], br = yr[ob];
-    float ai = ends ? 0.f : yi[oa];
-    float bi = ends ? 0.f : yi[ob];
-    if (mirror) { ai = -ai; bi = -bi; }
-    zr[t] = ar - bi;
-    zi[t] = ai + br;
-  }
-}
-
-bool bad_dims(long long batch, int h, int w, int n1w, int n1h) {
-  return batch <= 0 || h < 2 || w < 2 || (h & (h - 1)) || (w & (w - 1)) ||
-         n1w < 1 || n1h < 1 || w % n1w || h % n1h;
-}
 
 // -- the forward: two launches on axis_fft.cuh's passes --------------------
 
@@ -228,33 +150,36 @@ struct HalfTile {
   }
 };
 
-// Copy column tile k of the (outer, 2^ln, P) scratch as it lies (Columns):
-// C-column row segments, the chunks at or past column P zero-filled; or a
-// run of whole images, those past `outer` zero-filled
+// Copy column tile k of (outer, 2^ln, sp) planes (the forward's scratch,
+// the inverse's input) as it lies (Columns): C-column row segments, the
+// chunks at or past column sp zero-filled; whole images a tile read as one
+// run where sp == C; chunks past `outer` zero-filled
 struct HalfCopy {
   const Geo& g;
   float* smem;
-  int lv, P, tpi;
+  int lv, sp, tpi;
   __device__ __forceinline__ void operator()(long long k, int b) const {
     float* sr = smem + b * 2 * g.wf;
     float* si = sr + (1 << (g.ln + g.lc + g.lg));
     const float* xr = static_cast<const float*>(g.xr);
     const float* xi = static_cast<const float*>(g.xi);
     const HalfTile at(g, k, tpi);
-    const long long img = (long long)P << g.ln;
+    const long long img = (long long)sp << g.ln;
     const int bytes = 4 << lv;
     const int chunks = 1 << (g.ln + g.lc + g.lg - lv);
     for (int q = threadIdx.x; q < chunks; q += blockDim.x) {
       const int e = q << lv;
       long long src;
       int have = bytes;
-      if (tpi == 1) {
+      if (tpi == 1 && sp == 1 << g.lc) {
         src = at.o0 * img + e;
         if (src >= g.outer * img) have = 0;
       } else {
         const int col = at.c0 + (e & ((1 << g.lc) - 1));
-        src = at.o0 * img + (long long)(e >> g.lc) * P + col;
-        if (col >= P) have = 0;
+        const long long o = at.o0 + (e >> (g.ln + g.lc));
+        src = o * img + (long long)((e >> g.lc) & ((1 << g.ln) - 1)) * sp +
+              col;
+        if (col >= sp || o >= g.outer) have = 0;
       }
       if (have == 0) src = 0;
       copy_async(sr + e, xr + src, bytes, have);
@@ -264,22 +189,22 @@ struct HalfCopy {
 };
 
 // the column pass's last pass: element m of transform t = (image o0 +
-// (t >> lc), column c0 + (t mod 2^lc)) to (image * h + m) * width + column,
+// (t >> lc), column c0 + (t mod 2^lc)) to (image * h + m) * dp + column,
 // columns >= width and images >= outer skipped
 struct ToHalf {
   float* outr;
   float* outi;
   long long o0, outer;
-  int c0, lc, lh, width;
+  int c0, lc, lh, width, dp;
   template <int R>
   __device__ __forceinline__ void put(int t, int k0, int ns, float2* v) const {
     const long long o = o0 + (t >> lc);
     const int col = c0 + (t & ((1 << lc) - 1));
     if (o >= outer || col >= width) return;
-    const long long base = (o << lh) * width + col;
+    const long long base = (o << lh) * dp + col;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const long long a = base + (long long)(k0 + r * ns) * width;
+      const long long a = base + (long long)(k0 + r * ns) * dp;
       outr[a] = v[r].x;
       outi[a] = v[r].y;
     }
@@ -290,7 +215,7 @@ template <int LN>
 struct HalfRun {
   const Geo& g;
   float* smem;
-  int tpi, width;
+  int tpi, width, dp;
   __device__ __forceinline__ void operator()(long long k, int b) const {
     float* wr = smem + b * 2 * g.wf;
     float* wi = wr + g.wf;
@@ -302,50 +227,161 @@ struct HalfRun {
         FromStage<float, Columns>{sr, si, cols}, wr, wi, cols, g.lc + g.lg,
         blockDim.x, g.tab, g.sg,
         ToHalf{static_cast<float*>(g.outr), static_cast<float*>(g.outi),
-               at.o0, g.outer, at.c0, g.lc, LN, width});
+               at.o0, g.outer, at.c0, g.lc, LN, width, dp});
   }
 };
 
-// The column pass: length 2^LN along axis -2 of the scratch.
+// The column pass: length 2^LN along axis -2 of the first `width` columns
+// of (outer, 2^LN, sp) planes into (outer, 2^LN, dp) ones.  Chunks of up
+// to 16 bytes that sp divides (a row of the inverse's input starts at any
+// 4 bytes), or of a whole image's run.
 template <int LN, int NT>
 __global__ void __launch_bounds__(NT, 1)
-rfft_cols(const __grid_constant__ Geo g, int P, int width, int tpi) {
+half_cols(const __grid_constant__ Geo g, int sp, int dp, int width,
+          int tpi) {
   extern __shared__ float smem[];
-  const int run = tpi == 1 ? g.ln + g.lc + g.lg : g.lc;
-  const int lv = run < 2 ? run : 2;
-  walk_tiles(g, HalfCopy{g, smem, lv, P, tpi},
-             HalfRun<LN>{g, smem, tpi, width});
+  const bool run = tpi == 1 && sp == 1 << g.lc;
+  const int most = run ? g.ln + g.lc + g.lg : g.lc;
+  int lv = most < 2 ? most : 2;
+  while (!run && (sp & ((1 << lv) - 1))) --lv;
+  walk_tiles(g, HalfCopy{g, smem, lv, sp, tpi},
+             HalfRun<LN>{g, smem, tpi, width, dp});
+}
+
+// -- the inverse's row pass -------------------------------------------------
+
+// Copy row tile k: scratch rows 2R and 2R+1 of the G packed rows R = kG ..
+// (pitch P), one run of 2GP floats a plane; rows past `outer` zero-filled
+struct HalvesCopy {
+  const Geo& g;
+  float* smem;
+  int P;
+  __device__ __forceinline__ void operator()(long long k, int b) const {
+    float* sr = smem + b * 2 * g.wf;
+    float* si = sr + g.wf;
+    const float* xr = static_cast<const float*>(g.xr);
+    const float* xi = static_cast<const float*>(g.xi);
+    const long long base = (k << g.lg) * 2 * P, end = g.outer * 2 * P;
+    const int chunks = (P << g.lg) >> 1;       // 16 bytes each
+    for (int q = threadIdx.x; q < chunks; q += blockDim.x) {
+      const int e = q << 2;
+      long long src = base + e;
+      int have = 16;
+      if (src >= end) {
+        have = 0;
+        src = 0;
+      }
+      copy_async(sr + e, xr + src, 16, have);
+      copy_async(si + e, xi + src, 16, have);
+    }
+  }
+};
+
+// The first pass's read of packed row t's element i: Z = A_ext + i B_ext
+// from the copied rows 2t (A) and 2t+1 (B) at pitch P, the Hermitian
+// extension with the DC and Nyquist bins' imaginary parts dropped, the
+// arithmetic of irfft2d_fused_plain's repack
+template <int LN>
+struct FromHalves {
+  const float* sr;
+  const float* si;
+  int P;
+  __device__ __forceinline__ float2 operator()(int t, int i) const {
+    constexpr int W = 1 << LN, HW = W / 2;
+    const bool mirror = i > HW;
+    const int kk = mirror ? W - i : i;
+    const int oa = 2 * t * P + kk, ob = oa + P;
+    const bool ends = kk == 0 || kk == HW;
+    const float ar = sr[oa], br = sr[ob];
+    float ai = ends ? 0.f : si[oa];
+    float bi = ends ? 0.f : si[ob];
+    if (mirror) {
+      ai = -ai;
+      bi = -bi;
+    }
+    return make_float2(ar - bi, ai + br);
+  }
+};
+
+// A rows tile's transforms Z (rows of pitch p in shared memory) to the
+// real output: re to row 2R, im to row 2R+1, scaled; element e of the run
+// of 2G rows is packed row e >> (LN+1), plane (e >> LN) & 1, point
+// e mod 2^LN, so each warp stores 128 contiguous bytes
+template <int LN>
+__device__ __forceinline__ void store_pairs(const Geo& g, long long k,
+                                            const float* wr,
+                                            const float* wi) {
+  float* out = static_cast<float*>(g.outr);
+  const long long base = (k << g.lg) << (LN + 1);
+  const long long left = (g.outer << (LN + 1)) - base;
+  const int points = 2 << (LN + g.lg);
+  const int n = points < left ? points : (int)left;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int a = (e >> (LN + 1)) * g.p + (e & ((1 << LN) - 1));
+    out[base + e] = ((e >> LN) & 1 ? wi[a] : wr[a]) * g.scale;
+  }
+  __syncthreads();
 }
 
 template <int LN>
+struct HalvesRun {
+  const Geo& g;
+  float* smem;
+  int P;
+  __device__ __forceinline__ void operator()(long long k, int b) const {
+    float* wr = smem + b * 2 * g.wf;
+    float* wi = wr + g.wf;
+    const Rows rows{g.p};
+    passes<LN, 0, 3, true>(FromHalves<LN>{wr, wi, P}, wr, wi, rows, g.lg,
+                           blockDim.x, g.tab, g.sg,
+                           ToShared<Rows>{wr, wi, rows});
+    store_pairs<LN>(g, k, wr, wi);
+  }
+};
+
+// The inverse's row pass: packed row pairs of the scratch -> real rows.
+template <int LN>
+__global__ void __launch_bounds__(512, 1)
+irfft_rows(const __grid_constant__ Geo g, int P) {
+  extern __shared__ float smem[];
+  walk_tiles(g, HalvesCopy{g, smem, P}, HalvesRun<LN>{g, smem, P});
+}
+
+template <int LN, bool INV>
 cudaError_t launch_rows(const Geo& g, unsigned blocks, int threads,
                         size_t smem, int P, cudaStream_t st) {
   static int done[16];
-  const cudaError_t e = allow_smem(rfft_rows<LN>, smem, done);
-  if (e != cudaSuccess) return e;
-  rfft_rows<LN><<<blocks, threads, smem, st>>>(g, P);
+  if constexpr (INV) {
+    const cudaError_t e = allow_smem(irfft_rows<LN>, smem, done);
+    if (e != cudaSuccess) return e;
+    irfft_rows<LN><<<blocks, threads, smem, st>>>(g, P);
+  } else {
+    const cudaError_t e = allow_smem(rfft_rows<LN>, smem, done);
+    if (e != cudaSuccess) return e;
+    rfft_rows<LN><<<blocks, threads, smem, st>>>(g, P);
+  }
   return cudaGetLastError();
 }
 
 template <int LN, int NT>
 cudaError_t launch_cols(const Geo& g, unsigned blocks, int threads,
-                        size_t smem, int P, int width, int tpi,
+                        size_t smem, int sp, int dp, int width, int tpi,
                         cudaStream_t st) {
   static int done[16];
-  const cudaError_t e = allow_smem(rfft_cols<LN, NT>, smem, done);
+  const cudaError_t e = allow_smem(half_cols<LN, NT>, smem, done);
   if (e != cudaSuccess) return e;
-  rfft_cols<LN, NT><<<blocks, threads, smem, st>>>(g, P, width, tpi);
+  half_cols<LN, NT><<<blocks, threads, smem, st>>>(g, sp, dp, width, tpi);
   return cudaGetLastError();
 }
 
 using RowsLaunch = cudaError_t (*)(const Geo&, unsigned, int, size_t, int,
                                    cudaStream_t);
 using ColsLaunch = cudaError_t (*)(const Geo&, unsigned, int, size_t, int,
-                                   int, int, cudaStream_t);
+                                   int, int, int, cudaStream_t);
 
-template <int... L>
+template <bool INV, int... L>
 RowsLaunch rows_for(int ln, std::integer_sequence<int, L...>) {
-  static const RowsLaunch fns[] = {launch_rows<L + 1>...};
+  static const RowsLaunch fns[] = {launch_rows<L + 1, INV>...};
   return fns[ln - 1];
 }
 
@@ -357,6 +393,69 @@ ColsLaunch cols_for(int ln, std::integer_sequence<int, L...>) {
       launch_cols<L + 1, (L + 1 > 10 ? 1024 : 512)>...};
   return fns[ln - 1];
 }
+
+// The two launches' geometry, checked: the column pass's tiles of C =
+// 2^col_lc columns of the (batch, h, width) half spectra (whole images a
+// tile where C >= width, else one image's C-column segments, the last one
+// ragged) and the row pass's tiles of G = 2^row_lg packed rows, `pitch`
+// the scratch's row pitch.  False for a tiling the kernels do not take.
+struct Plan2 {
+  long long batch;
+  int lh, lw, pitch, row_lg, row_blocks, col_lc, col_lg, col_blocks;
+  int width() const { return (1 << lw) / 2 + 1; }
+  bool whole() const { return (1 << col_lc) >= width(); }
+  bool ok(bool forward) const {
+    const int C = 1 << col_lc, rp = lw + row_lg, cp = lh + col_lc + col_lg;
+    return batch > 0 && lh >= 1 && lh <= 12 && lw >= 1 && lw <= 12 &&
+           row_lg >= 0 && col_lc >= 0 && col_lg >= 0 && row_blocks > 0 &&
+           col_blocks > 0 && rp <= 13 && (1 << rp) >= AXIS_TILE_MIN &&
+           cp <= 14 && (1 << cp) >= AXIS_TILE_MIN && (cp < 14 || lh >= 11) &&
+           pitch >= width() &&
+           (whole() ? C < 2 * width() && (forward ? pitch == C
+                                                  : pitch % 4 == 0)
+                    : col_lg == 0 && C >= 4 && pitch % 4 == 0);
+  }
+  int tpi() const {
+    return whole() ? 1 : (width() + (1 << col_lc) - 1) >> col_lc;
+  }
+  // the column pass over (batch, h, *) planes x -> out, sign sg
+  cudaError_t cols(const float* xr, const float* xi, float* outr,
+                   float* outi, const float* tab, int sp, int dp, float sg,
+                   cudaStream_t s) const {
+    const int cp = lh + col_lc + col_lg;
+    const long long wf = ((1LL << cp) + 31) / 32 * 32;
+    const int nb = (1 << cp) <= AXIS_TILE ? 2 : 1;
+    const Geo g{xr, xi, outr, outi, (const float2*)tab, nullptr, batch,
+                ((batch + (1LL << col_lg) - 1) >> col_lg) * tpi(), lh, 0,
+                col_lc, col_lg, nb, (int)wf, 0, sg, 1.f};
+    const size_t smem = (size_t)nb * 2 * sizeof(float) * wf;
+    return cols_for(lh, std::make_integer_sequence<int, 12>{})(
+        g, (unsigned)(g.tiles < col_blocks ? g.tiles : col_blocks),
+        1 << (cp - 4), smem, sp, dp, width(), tpi(), s);
+  }
+  // the row pass over the batch * h/2 packed rows; `staged` the floats a
+  // plane the inverse's copy stages (0 for the forward)
+  template <bool INV>
+  cudaError_t rows(const void* xr, const void* xi, void* outr, void* outi,
+                   const float* tab, float sg, float scale,
+                   cudaStream_t s) const {
+    int p;
+    long long wf = work_floats(lw, 0, 0, row_lg, false, &p);
+    const long long staged = INV ? (2LL * pitch) << row_lg : 0;
+    if (staged > wf) wf = (staged + 31) / 32 * 32;
+    const int rp = lw + row_lg;
+    const long long n = batch << (lh - 1);
+    const int nb = (1 << rp) <= AXIS_TILE ? 2 : 1;
+    const size_t smem = (size_t)nb * 2 * sizeof(float) * wf;
+    if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+    const Geo g{xr, xi, outr, outi, (const float2*)tab, nullptr, n,
+                (n + (1LL << row_lg) - 1) >> row_lg, lw, 0, 0, row_lg, nb,
+                (int)wf, p, sg, scale};
+    return rows_for<INV>(lw, std::make_integer_sequence<int, 12>{})(
+        g, (unsigned)(g.tiles < row_blocks ? g.tiles : row_blocks),
+        1 << (rp - 4), smem, pitch, s);
+  }
+};
 
 }  // namespace
 
@@ -374,69 +473,35 @@ extern "C" int rfft2d_fused_f32(const float* x, float* outr, float* outi,
                                 int row_blocks, int col_lc, int col_lg,
                                 int col_blocks, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int width = (1 << lw) / 2 + 1, C = 1 << col_lc;
-  const int rp = lw + row_lg, cp = lh + col_lc + col_lg;
-  const bool whole = C == pitch_;
-  if (batch <= 0 || lh < 1 || lh > 12 || lw < 1 || lw > 12 || row_lg < 0 ||
-      col_lc < 0 || col_lg < 0 || row_blocks <= 0 || col_blocks <= 0 ||
-      rp > 13 || (1 << rp) < AXIS_TILE_MIN || cp > 14 ||
-      (1 << cp) < AXIS_TILE_MIN || (cp == 14 && lh < 11) ||
-      pitch_ < width ||
-      (whole ? C >= 2 * width : (col_lg != 0 || C < 4 || pitch_ % 4 != 0 ||
-                                 C >= width)))
-    return (int)cudaErrorInvalidValue;
-  const int tpi = whole ? 1 : (pitch_ + C - 1) / C;
-  // the row pass: rows route tiles of the batch * h/2 packed rows
-  int p;
-  const long long wf_r = work_floats(lw, 0, 0, row_lg, false, &p);
-  const long long rows = batch << (lh - 1);
-  const int nb_r = (1 << rp) <= AXIS_TILE ? 2 : 1;
-  const Geo gr{x, nullptr, sr, si, (const float2*)tabw, nullptr, rows,
-               (rows + (1LL << row_lg) - 1) >> row_lg, lw, 0, 0, row_lg,
-               nb_r, (int)wf_r, p, -1.f, 1.f};
-  const size_t smem_r = (size_t)nb_r * 2 * sizeof(float) * wf_r;
-  cudaError_t e = rows_for(lw, std::make_integer_sequence<int, 12>{})(
-      gr, (unsigned)(gr.tiles < row_blocks ? gr.tiles : row_blocks),
-      1 << (rp - 4), smem_r, pitch_, s);
+  const Plan2 pl{batch, lh, lw, pitch_, row_lg, row_blocks, col_lc, col_lg,
+                 col_blocks};
+  if (!pl.ok(true)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      pl.rows<false>(x, nullptr, sr, si, tabw, -1.f, 1.f, s);
   if (e != cudaSuccess) return (int)e;
-  // the column pass over the scratch
-  const long long wf_c = ((1LL << cp) + 31) / 32 * 32;
-  const int nb_c = (1 << cp) <= AXIS_TILE ? 2 : 1;
-  const Geo gc{sr, si, outr, outi, (const float2*)tabh, nullptr, batch,
-               ((batch + (1LL << col_lg) - 1) >> col_lg) * tpi, lh, 0,
-               col_lc, col_lg, nb_c, (int)wf_c, 0, -1.f, 1.f};
-  const size_t smem_c = (size_t)nb_c * 2 * sizeof(float) * wf_c;
-  return (int)cols_for(lh, std::make_integer_sequence<int, 12>{})(
-      gc, (unsigned)(gc.tiles < col_blocks ? gc.tiles : col_blocks),
-      1 << (cp - 4), smem_c, pitch_, width, tpi, s);
+  return (int)pl.cols(sr, si, outr, outi, tabh, pitch_, pl.width(), -1.f, s);
 }
 
-// (xr, xi) (batch, h, w/2+1) -> out (batch, h, w) real, scaled by 1/(h*w).
-// Scratch pairs as for the forward.
+// (xr, xi) (batch, 2^lh, w/2+1) half spectra -> out (batch, 2^lh, 2^lw)
+// real, scaled by 1/(h*w), in two launches with the tiling
+// kernels/rfft2d_fused.py planned: the column pass (read at the input's
+// pitch w/2+1) into the scratch pair (sr, si) of row pitch `pitch`, then
+// the row pass; tabw and tabh of the inverse sign.  Returns
+// cudaErrorInvalidValue for a tiling it does not take.
 extern "C" int irfft2d_fused_f32(const float* xr, const float* xi, float* out,
-                                 float* s0r, float* s0i, float* s1r,
-                                 float* s1i,
-                                 const float* w1wr, const float* w1wi,
-                                 const float* w2wr, const float* w2wi,
-                                 const float* twr, const float* twi,
-                                 const float* w1hr, const float* w1hi,
-                                 const float* w2hr, const float* w2hi,
-                                 const float* thr, const float* thi,
-                                 const float* vhr, const float* vhi,
-                                 long long batch, int h, int w, int n1w,
-                                 int n1h, void* stream) {
+                                 float* sr, float* si, const float* tabw,
+                                 const float* tabh, long long batch, int lh,
+                                 int lw, int pitch_, int row_lg,
+                                 int row_blocks, int col_lc, int col_lg,
+                                 int col_blocks, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (bad_dims(batch, h, w, n1w, n1h)) return (int)cudaErrorInvalidValue;
-  const Axis aw{w, n1w, w / n1w, w1wr, w1wi, w2wr, w2wi, twr, twi};
-  const Axis ah{h, n1h, h / n1h, w1hr, w1hi, w2hr, w2hi, thr, thi, vhr, vhi};
-  const long long rows = batch * (h / 2), c = w / 2 + 1;
-  cudaError_t e = half_col_pass(xr, xi, s1r, s1i, s0r, s0i, batch, c, ah, s);
+  const Plan2 pl{batch, lh, lw, pitch_, row_lg, row_blocks, col_lc, col_lg,
+                 col_blocks};
+  if (!pl.ok(false)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      pl.cols(xr, xi, sr, si, tabh, pl.width(), pitch_, 1.f, s);
   if (e != cudaSuccess) return (int)e;
-  const long long total = rows * w;
-  repack<<<blocks_for(total), NT, 0, s>>>(s1r, s1i, s0r, s0i, total,
-                                          cg::log2i(w), c);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)row_pass(s0r, s0i, w, out, out + w, 2LL * w, s1r, s1i, rows,
-                       aw, (float)(1.0 / ((double)h * w)), s);
+  return (int)pl.rows<true>(sr, si, out, nullptr, tabw, 1.f,
+                            (float)(1.0 / ((double)(1 << lh) * (1 << lw))),
+                            s);
 }

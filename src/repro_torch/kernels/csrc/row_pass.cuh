@@ -1,5 +1,5 @@
-// The four-step passes shared by fft2d_gemm.cu, rfft2d_fused.cu and
-// fft3d_fused.cu, as launches of the tiled GEMM (cgemm.cuh):
+// The four-step passes shared by fft2d_gemm.cu and fft3d_fused.cu, as
+// launches of the tiled GEMM (cgemm.cuh):
 //   row_pass  a length-n complex FFT of every row, source and destination
 //             row strides as parameters:
 //               n1 > 1:  U = W1 @ X with the rows folded into the columns
@@ -20,12 +20,10 @@
 namespace cg {
 
 // One axis' four-step tables: W1 (n1, n1), W2 (n2, n2) (the dense DFT when
-// n1 == 1), the twiddle T (n1, n2), and, for rfft2d_fused's column pass,
-// n2 copies of W1 with the twiddle folded in (nullptr elsewhere).
+// n1 == 1) and the twiddle T (n1, n2).
 struct Axis {
   int n, n1, n2;
   const float *w1r, *w1i, *w2r, *w2i, *tr, *ti;
-  const float *vr = nullptr, *vi = nullptr;
 };
 
 // How a pass reads and stores: `in_bf16` its source is raw bf16, `mid` the

@@ -5,22 +5,24 @@ Replaces ``repro/kernels/fft_stockham.py::_stockham_kernel`` (radix=4) and
 ``::_stockham_kernel_r2`` (radix=2, the oracle and ``algo="stockham2"``).
 The TPU kernel runs all stages of a VMEM-resident batch tile.
 
-Radix 4 (``csrc/fft_stockham.cu``): a row of n > 2^20 points fits no
-shared memory, so one kernel launches per radix-4 stage over global
-ping-pong buffers (one thread per butterfly, twiddles from row s of the
-packed (s4, 3, n/4) table), then the radix-2 tail.  What bounds it:
-bytes -- every stage streams the array and its table row through HBM,
-about 13x the bytes the transform needs at n = 2^22.
+Both radices run the reference's butterflies in its stage order (radix 4:
+radix-4 stages, then a radix-2 tail for odd log2 n), up to four bits of
+stages a pass in registers between shared-memory barriers, over tiles that
+a persistent grid copies in (``csrc/fft_stockham.cu``, :func:`plan`): one
+launch for n <= :data:`ONE_MAX`, two above (the stages of bits 0..l1-1 on
+the columns of the (2^l1, n/2^l1) view, then the rest as
+length-n/2^l1 Stockhams on the stride-2^l1 subsets), each one pass over
+HBM, up to :data:`TWO_MAX`.  Radix 2 splits at l1 = ceil(log2 n / 2),
+radix 4 at an even l1 (:func:`split`), so that launch A holds whole
+radix-4 stages.  Above :data:`TWO_MAX` (radix 4 only) one kernel launches
+per radix-4 stage over global ping-pong buffers, then the radix-2 tail.
 
-Radix 2: the same butterflies in the same order, up to four stages a pass
-in registers between shared-memory barriers, over tiles that a persistent
-grid copies in (:func:`r2_plan`): one launch for n <= :data:`R2_ONE_MAX`,
-two above (stages 0..l1-1 on the columns of the (2^l1, n/2^l1) view, then
-the rest as length-n/2^l1 Stockhams on the stride-2^l1 subsets), each one
-pass over HBM, up to :data:`R2_MAX`.  It reads one table, W_n^p for p < n/2
-(:func:`repro_torch.core.twiddle.radix2_twiddles`), at index
-(j >> s) << s for stage s's butterfly j: the packed (stages, n/2) table's
-row s bit for bit.  The plain version keeps the packed table, as the
+Each radix reads one table: radix 2 W_n^p for p < n/2
+(:func:`repro_torch.core.twiddle.radix2_twiddles`) at (j >> s) << s for
+stage s's butterfly j, radix 4 (w, w^2, w^3) for p < n/4
+(:func:`repro_torch.core.twiddle.radix4_twiddles`) at (j >> 2s) << 2s:
+row s of the packed table bit for bit (25 MB a direction at n = 2^22, the
+packed table 277 MB).  The plain versions keep the packed tables, as the
 reference does.
 """
 from __future__ import annotations
@@ -35,8 +37,8 @@ from repro_torch.core.fft1d import stockham_stages, stockham_radix2_stages
 from . import _build
 from . import axis_fft as _axis
 
-R2_ONE_MAX = 1 << 14    # the largest n of the one-launch radix-2 route
-R2_MAX = 1 << 24        # two launches of up to 2^12-point transforms
+ONE_MAX = 1 << 14       # the largest n of the one-launch route
+TWO_MAX = 1 << 24       # two launches of up to 2^12-point transforms
 
 
 def _check_n(n: int) -> None:
@@ -73,81 +75,88 @@ def fft_stockham_r2_plain(x: SplitComplex, *, inverse: bool = False
     return SplitComplex(re, im)
 
 
-_ARGS = [_build.P] * 8 + [_build.L, _build.I, _build.I, _build.P]
 _R2_ARGS = ([_build.P] * 5 + [_build.L] + [_build.I] * 7
             + [_build.F, _build.P])
-_R2_ROUTES = {"rows": 0, "cols": 1, "transposed": 2}
+_R4_ARGS = _R2_ARGS[:-1] + [_build.I, _build.P]
+_STAGES_ARGS = [_build.P] * 7 + [_build.L, _build.I, _build.I, _build.P]
+_ROUTES = {"rows": 0, "cols": 1, "transposed": 2}
 
 
-def _r2_split(n: int) -> int:
-    """l1 = ceil(log2(n) / 2): the stages of the two-launch route's launch
-    A."""
-    return n.bit_length() // 2
+def split(n: int, radix: int) -> int:
+    """l1, the bits of stages launch A runs: ceil(log2(n) / 2) for radix
+    2.  For radix 4 it is even (whole radix-4 stages), 2 * floor((log2(n)
+    + 1) / 4): columns of at most 1024 points up to 2^21, whose tiles read
+    32-byte row segments (C = 8); from 2^22 it is 12, since l1 = 10 would
+    leave launch B rows of 4096 points, two a tile, stored in 8-byte
+    column segments."""
+    ln = n.bit_length() - 1
+    if radix == 2:
+        return (ln + 1) // 2
+    return 12 if ln >= 22 else 2 * ((ln + 1) // 4)
 
 
-def r2_plan(batch: int, n: int) -> tuple:
-    """The radix-2 kernel's launches, as (route, :class:`axis_fft.Launch`)
-    pairs: ``("rows", ...)`` alone for n <= :data:`R2_ONE_MAX`; above,
-    with n = M * Q and M = 2^l1, l1 = ceil(log2(n) / 2), ``("cols", ...)``
-    (launch A: stages 0..l1-1 on the columns of the (batch, M, Q) view,
-    x -> scratch, each point back in its place) and ``("transposed", ...)``
-    (launch B: the other stages on the batch*M rows of Q of the scratch,
-    row k's point t stored at t*M + k of out)."""
+def plan(batch: int, n: int, radix: int) -> tuple:
+    """The fused kernel's launches, as (route, :class:`axis_fft.Launch`)
+    pairs: ``("rows", ...)`` alone for n <= :data:`ONE_MAX`; above, with
+    n = M * Q and M = 2^l1 (:func:`split`), ``("cols", ...)`` (launch A:
+    the stages of bits 0..l1-1 on the columns of the (batch, M, Q) view,
+    x -> scratch, each point back in its place) and ``("transposed",
+    ...)`` (launch B: the other stages on the batch*M rows of Q of the
+    scratch, row k's point t stored at t*M + k of out)."""
     _check_n(n)
-    if n > R2_MAX:
-        raise ValueError(f"the radix-2 CUDA kernel takes n <= {R2_MAX} "
-                         f"(two launches of up to 2^12 points), got {n}")
-    if n <= R2_ONE_MAX:
+    if n > TWO_MAX:
+        raise ValueError(f"the radix-{radix} CUDA kernel takes n <= "
+                         f"{TWO_MAX} in its fused launches (two of up to "
+                         f"2^12-point transforms), got {n}")
+    if n <= ONE_MAX:
         return (("rows", _axis.plan_axis(batch, n, 1)),)
-    l1 = _r2_split(n)
+    l1 = split(n, radix)
     m, q = 1 << l1, n >> l1
     return (("cols", _axis.plan_axis(batch, m, q)),
             ("transposed", _axis.plan_axis(batch * m, q, 1)))
 
 
-def fft_stockham_cuda(x: SplitComplex, *, inverse: bool = False
-                      ) -> SplitComplex:
-    """Launch the per-stage mixed-radix Stockham kernels on (batch, n) CUDA
-    planes."""
-    _build.check_operands(x, 2)
-    batch, n = x.shape
-    _check_n(n)
-    w = tw.packed_radix4_twiddles(n, inverse=inverse, dtype=torch.float32,
-                                  device=x.device)
-    out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    scratch = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    fn = _build.function("fft_stockham", "fft_stockham_f32", _ARGS)
-    ptrs = [x.re, x.im, out.re, out.im, scratch.re, scratch.im, w.re, w.im]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + [batch, n,
-                  int(inverse)], "fft_stockham_f32", x.device)
-    return out
+def r2_plan(batch: int, n: int) -> tuple:
+    """:func:`plan` of the radix-2 kernel."""
+    return plan(batch, n, 2)
+
+
+def r4_plan(batch: int, n: int) -> tuple:
+    """:func:`plan` of the radix-4 kernel (n <= :data:`TWO_MAX`; above, it
+    launches a kernel a stage)."""
+    return plan(batch, n, 4)
 
 
 @functools.lru_cache(maxsize=64)
-def _r2_launch_args(batch: int, n: int, inverse: bool,
-                    device: torch.device) -> tuple:
+def _launch_args(radix: int, batch: int, n: int, inverse: bool,
+                 device: torch.device) -> tuple:
     """Each planned launch's arguments after the five pointers."""
-    plan = r2_plan(batch, n)
+    steps = plan(batch, n, radix)
     sms = _build.sm_count(device)
     log2 = _axis._log2
+    sign = [int(inverse)] if radix == 4 else []
     return tuple([lp.outer, log2(lp.n), log2(lp.inner), log2(lp.c),
-                  log2(lp.g), _R2_ROUTES[route], _r2_split(n),
+                  log2(lp.g), _ROUTES[route], split(n, radix),
                   lp.blocks(sms),
-                  1.0 / n if inverse and i == len(plan) - 1 else 1.0]
-                 for i, (route, lp) in enumerate(plan))
+                  1.0 / n if inverse and i == len(steps) - 1 else 1.0] + sign
+                 for i, (route, lp) in enumerate(steps))
 
 
-def fft_stockham_r2_cuda(x: SplitComplex, *, inverse: bool = False
-                         ) -> SplitComplex:
-    """Launch the fused radix-2 Stockham kernel on (batch, n) CUDA planes:
-    the launches of :func:`r2_plan`, the inverse's 1/n at the last one's
-    store."""
-    _build.check_operands(x, 2)
+def _fused(x: SplitComplex, inverse: bool, radix: int) -> SplitComplex:
+    """The launches of :func:`plan` on (batch, n) CUDA planes, the
+    inverse's 1/n at the last one's store."""
     batch, n = x.shape
-    tails = _r2_launch_args(batch, n, bool(inverse), x.re.device)
+    tails = _launch_args(radix, batch, n, bool(inverse), x.re.device)
     x = _axis.aligned(x)
     dev = x.re.device
-    tab = tw.radix2_twiddles(n, inverse=inverse, device=dev)
+    if radix == 2:
+        tab = tw.radix2_twiddles(n, inverse=inverse, device=dev)
+        fn = _build.function("fft_stockham", "fft_stockham_r2_pass",
+                             _R2_ARGS)
+    else:
+        tab = tw.radix4_twiddles(n, inverse=inverse, device=dev)
+        fn = _build.function("fft_stockham", "fft_stockham_r4_pass",
+                             _R4_ARGS)
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
     bufs = [x, out]
     if len(tails) == 2:
@@ -156,6 +165,41 @@ def fft_stockham_r2_cuda(x: SplitComplex, *, inverse: bool = False
     calls = [[bufs[i].re.data_ptr(), bufs[i].im.data_ptr(),
               bufs[i + 1].re.data_ptr(), bufs[i + 1].im.data_ptr(),
               tab.data_ptr()] + tail for i, tail in enumerate(tails)]
-    fn = _build.function("fft_stockham", "fft_stockham_r2_pass", _R2_ARGS)
-    _build.launch_all(fn, calls, "fft_stockham_r2", dev)
+    _build.launch_all(fn, calls, f"fft_stockham_r{radix}", dev)
     return out
+
+
+def _per_stage(x: SplitComplex, inverse: bool) -> SplitComplex:
+    """The radix-4 kernel above :data:`TWO_MAX`: a launch a stage, off the
+    one table."""
+    batch, n = x.shape
+    dev = x.re.device
+    tab = tw.radix4_twiddles(n, inverse=inverse, device=dev)
+    out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
+    scratch = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
+    fn = _build.function("fft_stockham", "fft_stockham_f32", _STAGES_ARGS)
+    ptrs = [x.re, x.im, out.re, out.im, scratch.re, scratch.im, tab]
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + [batch, n,
+                  int(inverse)], "fft_stockham_f32", dev)
+    return out
+
+
+def fft_stockham_cuda(x: SplitComplex, *, inverse: bool = False
+                      ) -> SplitComplex:
+    """Launch the mixed-radix Stockham kernel on (batch, n) CUDA planes:
+    the fused launches of :func:`r4_plan` up to :data:`TWO_MAX`, a launch
+    a stage above."""
+    _build.check_operands(x, 2)
+    n = x.shape[1]
+    _check_n(n)
+    if n > TWO_MAX:
+        return _per_stage(x, inverse)
+    return _fused(x, inverse, 4)
+
+
+def fft_stockham_r2_cuda(x: SplitComplex, *, inverse: bool = False
+                         ) -> SplitComplex:
+    """Launch the fused radix-2 Stockham kernel on (batch, n) CUDA planes:
+    the launches of :func:`r2_plan`."""
+    _build.check_operands(x, 2)
+    return _fused(x, inverse, 2)

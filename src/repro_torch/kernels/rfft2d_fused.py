@@ -14,25 +14,25 @@ reference's four-step DFT contractions.
 
 The TPU kernel holds one image in VMEM; a 1024^2 real plane is 4 MB
 against 227 KB of shared memory per block, and the function is bound by
-bytes.  So the forward ``csrc/rfft2d_fused.cu`` makes two launches, each
-one pass over HBM, on the shared-memory FFT passes of ``csrc/axis_fft.cuh``
-(:func:`plan`): the row pass on tiles of whole packed rows (base x and
-x + W, row pitch 2W), untangling at its store into a scratch pair whose
-rows are padded so that no tile's row segment straddles a 32-byte sector,
-then the column pass on tiles of C adjacent columns of that scratch, the
-last tile of an image ragged
-(:func:`repro_torch.kernels.axis_fft.plan_half_cols`).  The inverse still
-chains five launches over the whole batch: the four-step GEMMs of
-``csrc/cgemm.cuh`` (its column pass folds the j2 axis into the batch
-because W/2+1 is no power of two), a repack kernel, and the row pass
-through ``csrc/row_pass.cuh`` storing the row pairs in place; it is bound
-by the GEMMs' fp32 operations plus its HBM round trips.
+bytes.  So ``csrc/rfft2d_fused.cu`` makes two launches a direction, each
+one pass over HBM, on the shared-memory FFT passes of
+``csrc/axis_fft.cuh``.  The forward (:func:`plan`): the row pass on tiles
+of whole packed rows (base x and x + W, row pitch 2W), untangling at its
+store into a scratch pair whose rows are padded so that no tile's row
+segment straddles a 32-byte sector, then the column pass on tiles of C
+adjacent columns of that scratch, the last tile of an image ragged
+(:func:`repro_torch.kernels.axis_fft.plan_half_cols`).  The inverse
+(:func:`inverse_plan`) mirrors it: the column pass on the same tiles, read
+at the input's own pitch W/2+1, into the padded scratch, then the row pass,
+which builds each packed row Z = A_ext + i B_ext from scratch rows 2j and
+2j+1 at its first pass's load and stores re and im to the real rows 2j and
+2j+1, scaled by 1/(H*W).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
-import numpy as np
 import torch
 
 from repro_torch.core.complexmath import SplitComplex
@@ -79,20 +79,6 @@ def tables(h: int, w: int, inverse: bool, dtype=torch.float32,
     device)."""
     return _cast(_tables_np, (h, w, bool(inverse)), dtype,
                  torch.device(device))
-
-
-def _twisted_np(n: int, inverse: bool) -> tuple:
-    """The column pass's first left operand for each j2, with the twiddle
-    folded in: V[j2, k1, a] = T[k1, j2] * W1[k1, a], float64 (n2, n1, n1)
-    planes.  The CUDA column pass runs the j2 axis as a batch index, where
-    the GEMM's epilogue twiddle cannot reach it."""
-    w1r, w1i, _, _, twr, twi = fourstep_tables_np(n, inverse)
-    v = (twr + 1j * twi).T[:, :, None] * (w1r + 1j * w1i)[None, :, :]
-    return np.ascontiguousarray(v.real), np.ascontiguousarray(v.imag)
-
-
-def _card_tables_np(h: int, w: int, inverse: bool) -> tuple:
-    return _tables_np(h, w, inverse) + _twisted_np(h, inverse)
 
 
 def _left(w, x):
@@ -216,8 +202,7 @@ def irfft2d_fused_plain(xf: SplitComplex) -> torch.Tensor:
 
 
 MAX_DIM = 4096          # the largest H or W the CUDA kernels take
-_ARGS = [_build.P] * 21 + [_build.L] + [_build.I] * 4 + [_build.P]
-_FWD_ARGS = [_build.P] * 7 + [_build.L] + [_build.I] * 8 + [_build.P]
+_ARGS = [_build.P] * 7 + [_build.L] + [_build.I] * 8 + [_build.P]
 
 
 def _check_card_dims(h: int, w: int) -> None:
@@ -235,21 +220,52 @@ def plan(batch: int, h: int, w: int) -> tuple:
             _axis.plan_half_cols(batch, h, w // 2 + 1))
 
 
-def _scratch(batch: int, h: int, w: int, like: torch.Tensor) -> list:
-    n = batch * h * (w // 2 + 1)
-    return [torch.empty(n, dtype=torch.float32, device=like.device)
-            for _ in range(4)]
+def inverse_plan(batch: int, h: int, w: int) -> tuple:
+    """The inverse kernel's two launches, in launch order: the column pass
+    on the forward's column tiles (its ``inner`` the scratch's row pitch:
+    the forward's, or w/2+1 rounded up to 4 where whole images fill a
+    tile), then the rows route on the batch*h/2 packed rows of w, G halved
+    until the 2G scratch rows a tile copies in fit its shared memory."""
+    c = w // 2 + 1
+    cols = _axis.plan_half_cols(batch, h, c)
+    if cols.c >= c:
+        cols = dataclasses.replace(cols, inner=-(-c // 4) * 4)
+    rows = _axis.plan_axis(batch * h // 2, w, 1)
+    g = rows.g
+    while 2 * g * cols.inner > _axis.SMEM_MAX // 16 and \
+            g * w > _axis.MIN_POINTS:
+        g //= 2
+    return cols, dataclasses.replace(rows, g=g)
 
 
 @functools.lru_cache(maxsize=64)
-def _forward_args(batch: int, h: int, w: int, device: torch.device) -> tuple:
+def _launch_args(batch: int, h: int, w: int, inverse: bool,
+                 device: torch.device) -> tuple:
     """(scratch pitch, the kernel's arguments after the seven pointers)."""
-    rows, cols = plan(batch, h, w)
+    if inverse:
+        cols, rows = inverse_plan(batch, h, w)
+    else:
+        rows, cols = plan(batch, h, w)
     sms = _build.sm_count(device)
     log2 = _axis._log2
     return cols.inner, [batch, log2(h), log2(w), cols.inner, log2(rows.g),
                         rows.blocks(sms), log2(cols.c), log2(cols.g),
                         cols.blocks(sms)]
+
+
+def _run(symbol: str, ins: list, out: list, batch: int, h: int, w: int,
+         inverse: bool) -> None:
+    """Launch ``symbol`` on the operands ``ins`` -> ``out`` with its scratch
+    pair and the two axes' tables of the transform's sign."""
+    dev = out[0].device
+    pitch, tail = _launch_args(batch, h, w, inverse, dev)
+    scratch = [torch.empty(batch * h * pitch, dtype=torch.float32,
+                           device=dev) for _ in range(2)]
+    tabs = [_axis.twiddle_table(n, inverse=inverse, device=dev)
+            for n in (w, h)]
+    fn = _build.function("rfft2d_fused", symbol, _ARGS)
+    ptrs = [*ins, *out, *scratch, *tabs]
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + tail, symbol, dev)
 
 
 def rfft2d_fused_cuda(x: torch.Tensor) -> SplitComplex:
@@ -260,33 +276,21 @@ def rfft2d_fused_cuda(x: torch.Tensor) -> SplitComplex:
     _check_card_dims(h, w)
     if x.data_ptr() % 16:            # the copies move 16-byte chunks
         x = x.clone()
-    dev = x.device
-    pitch, tail = _forward_args(batch, h, w, dev)
     shape = (batch, h, w // 2 + 1)
-    out = SplitComplex(torch.empty(shape, dtype=x.dtype, device=dev),
-                       torch.empty(shape, dtype=x.dtype, device=dev))
-    scratch = [torch.empty(batch * h * pitch, dtype=torch.float32,
-                           device=dev) for _ in range(2)]
-    tabs = [_axis.twiddle_table(n, device=dev) for n in (w, h)]
-    fn = _build.function("rfft2d_fused", "rfft2d_fused_f32", _FWD_ARGS)
-    ptrs = [x, out.re, out.im, *scratch, *tabs]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + tail,
-                  "rfft2d_fused_f32", dev)
+    out = SplitComplex(torch.empty(shape, dtype=x.dtype, device=x.device),
+                       torch.empty(shape, dtype=x.dtype, device=x.device))
+    _run("rfft2d_fused_f32", [x], list(out), batch, h, w, False)
     return out
 
 
 def irfft2d_fused_cuda(xf: SplitComplex) -> torch.Tensor:
-    """Launch the inverse real-input 2-D FFT kernels on (batch, h, w/2+1)
+    """Launch the inverse real-input 2-D FFT kernel on (batch, h, w/2+1)
     fp32 CUDA half spectra; returns the real (batch, h, w) images."""
     _build.check_operands(xf, 3)
     batch, h, bins = xf.shape
     w = 2 * (bins - 1)
     _check_card_dims(h, w)
-    tabs = _cast(_card_tables_np, (h, w, True), torch.float32, xf.device)
+    xf = _axis.aligned(xf)           # whole-image runs move 16-byte chunks
     out = torch.empty((batch, h, w), dtype=xf.dtype, device=xf.device)
-    fn = _build.function("rfft2d_fused", "irfft2d_fused_f32", _ARGS)
-    ptrs = [xf.re, xf.im, out, *_scratch(batch, h, w, out), *tabs]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, h, w, fourstep_factors(w)[0], fourstep_factors(h)[0]],
-        "irfft2d_fused_f32", xf.device)
+    _run("irfft2d_fused_f32", list(xf), [out], batch, h, w, True)
     return out

@@ -144,7 +144,7 @@ def _recorder(monkeypatch):
                         lambda fn, args, what, dev: calls.append(
                             (fn, args, what)))
     A._launch_args.cache_clear()
-    rfft2d_fused._forward_args.cache_clear()
+    rfft2d_fused._launch_args.cache_clear()
     return calls
 
 
@@ -339,8 +339,8 @@ def test_rfft2d_wrapper_launches_the_plan(monkeypatch, shape):
     assert out.shape == (b, h, w // 2 + 1)
     (fn, args, what), = calls
     assert fn == ("rfft2d_fused", "rfft2d_fused_f32",
-                  rfft2d_fused._FWD_ARGS)
-    assert len(args) == len(rfft2d_fused._FWD_ARGS) - 1
+                  rfft2d_fused._ARGS)
+    assert len(args) == len(rfft2d_fused._ARGS) - 1
     s0, s1 = scratch[-2:]
     assert s0.numel() == s1.numel() == b * h * cols.inner
     assert args[:7] == [x.data_ptr(), out.re.data_ptr(), out.im.data_ptr(),

@@ -58,6 +58,20 @@ def _rel(got, ref):
      (3, 2048), 5e-5),
     (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
      (3, 2), 5e-5),
+    # the radix-4 kernel's routes: one launch to 2^14 (n = 8, a batch no
+    # row tile divides), two from 2^15 (odd log2 n: the tail in launch B)
+    (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
+     (5, 8), 5e-5),
+    (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
+     (7, 512), 5e-5),
+    (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
+     (3, 1 << 14), 5e-5),
+    (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
+     (3, 1 << 15), 5e-5),
+    (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
+     (2, 1 << 17), 5e-5),
+    (fft_stockham.fft_stockham_cuda, fft_stockham.fft_stockham_plain,
+     (2, 1 << 18), 5e-5),
     (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,
      (3, 2), 5e-5),
     (fft_stockham.fft_stockham_r2_cuda, fft_stockham.fft_stockham_r2_plain,

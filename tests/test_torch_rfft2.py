@@ -269,3 +269,76 @@ def test_rfft2_counts_no_launch_on_cpu():
     x = _t(_real((1, 16, 16), seed=0))
     core.irfft2(core.rfft2(x, backend="cuda"), backend="cuda")
     assert ops.LAUNCHES == before
+
+
+def two_pass_inverse_model(xf):
+    """The CUDA inverse's two launches in plain torch (complex128 FFTs),
+    index for index: launch 1 reads each tile of C columns of the user's
+    half spectra at their own pitch w/2+1 (columns past it zero), runs the
+    unscaled inverse length-h FFT down them and stores the first w/2+1
+    into a scratch pair of pitch P (the padding left NaN: nothing may read
+    it); launch 2 copies scratch rows 2j and 2j+1 of each tile of G packed
+    rows in as one run, builds Z = A_ext + i B_ext at the load (the DC and
+    Nyquist imaginary parts dropped), runs the unscaled inverse length-w
+    FFT and stores re to row 2j and im to row 2j+1, scaled by 1/(h*w)."""
+    b, h, c = xf.shape
+    w = 2 * (c - 1)
+    cols, rows = rfft2d_fused.inverse_plan(b, h, w)
+    pitch, cw, g = cols.inner, cols.c, rows.g
+    src = (xf.re.double() + 1j * xf.im.double()).reshape(-1)
+    scratch = torch.full((b * h * pitch,), complex("nan+nanj"),
+                         dtype=torch.complex128)
+    for o in range(b):
+        for c0 in range(0, c, cw):
+            col = torch.arange(c0, c0 + cw)
+            row = torch.arange(h)[:, None]
+            tile = torch.where(col < c, src[(o * h + row) * c
+                                            + col.clamp(max=c - 1)], 0)
+            tile = torch.fft.ifft(tile, dim=0) * h
+            keep = col < c
+            scratch[((o * h + row) * pitch + col)[:, keep]] = tile[:, keep]
+    packed = b * h // 2
+    out = torch.empty(b * h * w, dtype=torch.float64)
+    i = torch.arange(w)
+    mirror = i > w // 2
+    kk = torch.where(mirror, w - i, i)
+    ends = (kk == 0) | (kk == w // 2)
+    for k in range(-(-packed // g)):
+        run = scratch[k * g * 2 * pitch:(k + 1) * g * 2 * pitch]
+        run = torch.cat([run, torch.zeros(2 * g * pitch - run.numel(),
+                                          dtype=run.dtype)])
+        t = torch.arange(g)[:, None]
+        a, bb = run[2 * t * pitch + kk], run[(2 * t + 1) * pitch + kk]
+        ai = torch.where(ends, 0.0, a.imag)
+        bi = torch.where(ends, 0.0, bb.imag)
+        ai, bi = torch.where(mirror, -ai, ai), torch.where(mirror, -bi, bi)
+        z = torch.fft.ifft((a.real - bi) + 1j * (ai + bb.real), dim=-1) * w
+        z = torch.stack([z.real, z.imag], 1).reshape(-1) / (h * w)
+        start = k * g * 2 * w
+        out[start:start + z.numel()] = z[:out.numel() - start]
+    return out.reshape(b, h, w)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (3, 8, 4), (2, 4, 8),
+                                   (3, 16, 2), (2, 64, 128), (1, 128, 128),
+                                   (2, 256, 64)])
+def test_inverse_two_pass_model_matches_plain_and_reference(shape):
+    """Whole images a column tile (pitch w/2+1 rounded up to 4) and C
+    columns with a ragged last tile (128^2: 2 tiles of 64 columns; h = 256,
+    w = 64: 2 tiles of 32, pitch 40), a row tile ragged at the last packed
+    row, on a random half spectrum whose DC and Nyquist bins are complex:
+    the model equals irfft2d_fused_plain and the reference kernel in
+    interpret mode within 1e-6 of max."""
+    b, h, w = shape
+    zf = _rand((b, h, w // 2 + 1), seed=w + h)
+    assert np.abs(zf[..., -1].imag).max() > 0.1
+    got = two_pass_inverse_model(from_numpy(zf, device="cpu")).numpy()
+    plain = rfft2d_fused.irfft2d_fused_plain(
+        from_numpy(zf, device="cpu")).numpy()
+    ref = np.asarray(ref_rfused.irfft2d_fused_pallas(_ref_in(zf),
+                                                     interpret=True))
+    assert np.isfinite(got).all()
+    assert _rel(got, plain) <= 1e-6
+    assert _rel(got, ref) <= 1e-6
+    assert _rel(got, np.fft.irfft2(zf.astype(np.complex128), s=(h, w))) \
+        <= 1e-6

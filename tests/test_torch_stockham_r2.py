@@ -138,7 +138,7 @@ def test_r2_plan_every_n(batch):
     for k in range(1, 25):
         n = 1 << k
         plan = S.r2_plan(batch, n)
-        if n <= S.R2_ONE_MAX:
+        if n <= S.ONE_MAX:
             assert [r for r, _ in plan] == ["rows"]
             lp = plan[0][1]
             assert (lp.kind, lp.outer, lp.n, lp.inner) == ("rows", batch, n,
@@ -184,7 +184,7 @@ def _recorder(monkeypatch):
     monkeypatch.setattr(_build, "launch_all",
                         lambda fn, arg_lists, what, dev: calls.extend(
                             (fn, args, what) for args in arg_lists))
-    S._r2_launch_args.cache_clear()
+    S._launch_args.cache_clear()
     return calls
 
 
@@ -240,11 +240,11 @@ def test_r2_wrapper_refuses_n_past_its_limit(monkeypatch):
     the two launches: ValueError naming the limit, before any launch or
     allocation."""
     calls = _recorder(monkeypatch)
-    n = S.R2_MAX * 2
+    n = S.TWO_MAX * 2
     x = SplitComplex(torch.empty((1, n), device="meta"),
                      torch.empty((1, n), device="meta"))
-    with pytest.raises(ValueError, match=f"n <= {S.R2_MAX}"):
+    with pytest.raises(ValueError, match=f"n <= {S.TWO_MAX}"):
         S.fft_stockham_r2_cuda(x)
-    with pytest.raises(ValueError, match=f"n <= {S.R2_MAX}"):
+    with pytest.raises(ValueError, match=f"n <= {S.TWO_MAX}"):
         S.r2_plan(1, n)
     assert calls == []

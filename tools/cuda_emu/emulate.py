@@ -14,15 +14,19 @@ buffer of ``shmem`` bytes), loads the libraries with ctypes in place of
 What it checks: the index maps, buffer chaining, scales and launch
 parameters of every entry point, the bf16 storage modes of the GEMM
 transforms (bf16.cuh's conversions run as written; the twin sums in the
-tiled kernel's order), the repack and radix-4 Stockham stage kernels,
-the shared-memory stages of the fused conv and fused Stockham 2-D
-kernels, the four-step kernel's shared-memory FFTs (one- and two-launch routes),
-the 2-D and 3-D kernels' planned routes (plane, rows and column tiles,
-persistent blocks walking several tiles through both buffers; a cp.async
-becomes a plain copy), the real-input forward's packed-row tiles with the
-untangle at their store and its ragged column tiles, the radix-2
-Stockham kernel's one- and two-launch routes, the staged FFT's folded bit-reverse (rows and tiles) and float4 stages, and decode attention's
-split and merge kernels (warp shuffles included).  What it cannot check: the tiled GEMM itself (the twin replaces
+tiled kernel's order), the shared-memory stages of the fused conv and
+fused Stockham 2-D kernels, the four-step kernel's shared-memory FFTs
+(one- and two-launch routes), the 2-D and 3-D kernels' planned routes
+(plane, rows and column tiles, persistent blocks walking several tiles
+through both buffers; a cp.async becomes a plain copy), the real-input
+forward's packed-row tiles with the untangle at their store and its
+ragged column tiles, the real-input inverse's column pass read at the
+input's odd pitch (ragged and whole-image tiles) and its row pass building
+the packed rows at its load, the radix-4 and radix-2 Stockham kernels'
+one- and two-launch routes (odd log2 n, n = 2 and 8) and the radix-4
+kernel's per-stage route, the staged FFT's folded bit-reverse (rows and
+tiles) and float4 stages, and decode attention's split and merge kernels
+(warp shuffles included).  What it cannot check: the tiled GEMM itself (the twin replaces
 it), warps, shared-memory limits or timing.  Libraries go to
 ``build/cuda_emu/``.  Exits non-zero if a shape disagrees beyond 1e-5 of
 max|plain| (fp32) or one bf16 ulp at the top of the range, 2^-7 of
@@ -161,12 +165,18 @@ def main() -> int:
                             R.irfft2d_fused_plain(xf))))
     # the forward's packed row tiles (rows past the batch zero-filled) and
     # its column pass: ragged last tiles (C = 32, 16, 8, 4, 1024 columns of
-    # 260, 36, 132, 8, 2052), whole images of pitch 4 at h = 4096
+    # 260, 36, 132, 8, 2052), whole images of pitch 4 at h = 4096; the
+    # inverse's column pass on the same tiles read at the odd pitch w/2+1
     for shape in [(3, 256, 512), (2, 512, 64), (3, 2048, 256), (1, 4096, 8),
                   (3, 4096, 4), (1, 8, 4096), (1, 1024, 1024)]:
         x = torch.from_numpy(rng.standard_normal(shape)).float()
         results.append(("rfft2d_fused", shape, False,
                         rel(R.rfft2d_fused_cuda(x), R.rfft2d_fused_plain(x))))
+        b, h, w = shape
+        xf = cplx((b, h, w // 2 + 1))
+        results.append(("irfft2d_fused", shape, True,
+                        rel(R.irfft2d_fused_cuda(xf),
+                            R.irfft2d_fused_plain(xf))))
     # the planned routes: one plane launch (h*w <= 16384; 128^2 in one
     # single-buffered tile), rows then columns above (C = 8 at h = 1024 and
     # 2048, C = 4 at h = 4096, whole images where w < C)
@@ -215,8 +225,17 @@ def main() -> int:
                             rel(S2.fft2d_fused_cuda(x, inverse=inv),
                                 S2.fft2d_fused_plain(x, inverse=inv))))
     for name, kern, plain, shapes in [
+            # one launch (up to 2^14, odd log2 n, n = 2 and 8, rows a tile
+            # ragged at batch 7) and two (2^15 and 2^17: the tail in launch
+            # B; 2^16, 2^18; 2^21: 4096-point columns, 1024 threads)
             ("fft_stockham", S.fft_stockham_cuda, S.fft_stockham_plain,
-             [(3, 2), (5, 8), (2, 2048), (1, 1 << 14)]),
+             [(3, 2), (5, 8), (2, 2048), (7, 512), (1, 1 << 13),
+              (2, 1 << 14), (3, 1 << 15), (1, 1 << 16), (1, 1 << 17),
+              (1, 1 << 18), (1, 1 << 21)]),
+            # the per-stage route (n > 2^24 on the card) at small n
+            ("fft_stockham per-stage", lambda x, inverse: S._per_stage(
+                x, inverse), S.fft_stockham_plain,
+             [(3, 2), (5, 8), (2, 2048), (1, 1 << 15)]),
             # one launch (up to 2^14, rows a tile ragged at batch 7) and
             # two (2^15, 2^16, and 2^17: an unequal split, 512 x 256)
             ("fft_stockham_r2", S.fft_stockham_r2_cuda,

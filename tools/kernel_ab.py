@@ -22,19 +22,24 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   2 x 256^3 bf16 compensated, with ``fft3(algo="row_col")`` at 2 x 256^3
   beside them, each with its device time a call;
 - ``rfft2d_fused`` at 16 x 1024^2 and 1 x 1024^2, and ``irfft2d_fused``
-  (the other kernel on ``cgemm.cuh``) at 16 x 1024^2, each with its device
-  time a call, and the fp32 GEMM instance's ptxas line;
+  at 16 x 1024^2, each with its device time a call, and the ptxas lines of
+  the fp32 GEMM instance where a tree builds one;
 - ``fft_stockham_r2`` at 2 x 2^20 and at the shapes ``rfft2(algo=
   "stockham2")`` gives it at 1024^2: 1024 x 512, 513 x 1024, 1024 x 1024;
+- ``fft_stockham`` (radix 4) at 2 x 2^22 (the 1-D main path), 2 x 2^23
+  and 4 x 2^21 (``irfft``'s inner transforms), and ``fft2``/``fft3`` with
+  ``algo="row_col"`` (its 1024- and 256-point rows) at 16 x 1024^2 and
+  2 x 256^3, each with its device time a call;
 - the ptxas lines of the four-step kernels, of every 2-D and 3-D kernel
   instance and of the radix-2 and real-input kernels the tree builds.
 
 With ``--launches`` it also lists every grid launch of one call of
 ``fft_fourstep`` at 4 x 2^20, of ``fft_staged`` at 512 x 16384, of
 ``fft2d_gemm`` and ``fft3d_fused`` at their main shapes (fp32 and bf16
-compensated), of ``rfft2d_fused`` and ``irfft2d_fused`` at 16 x 1024^2 and
-of ``fft_stockham_r2`` at 2 x 2^20, with its device time, from a
-``torch.profiler`` trace.  Unpack the parent into a
+compensated), of ``rfft2d_fused`` and ``irfft2d_fused`` at 16 x 1024^2, of
+``fft_stockham_r2`` at 2 x 2^20, of ``fft_stockham`` at 2 x 2^22,
+2 x 2^23 and 4 x 2^21 and of ``fft2``/``fft3(algo="row_col")`` at 16 x 1024^2 and
+2 x 256^3, with its device time, from a ``torch.profiler`` trace.  Unpack the parent into a
 directory that .gitignore lists and alternate the trees, one process each:
 
     mkdir -p build/ab_parent
@@ -50,7 +55,7 @@ ROOT = sys.argv[1]
 sys.path.insert(0, ROOT + "/src")
 
 import torch  # noqa: E402
-from repro_torch.core import SplitComplex, fft3  # noqa: E402
+from repro_torch.core import SplitComplex, fft2, fft3  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fft_fourstep as F  # noqa: E402
 from repro_torch.kernels import fft_stage as ST  # noqa: E402
@@ -67,6 +72,7 @@ IMAGE = (1, 1024, 1024)
 VOLUME = (2, 256, 256, 256)
 PME = (8, 128, 128, 128)
 R2 = [(2, 1 << 20), (1024, 512), (513, 1024), (1024, 1024)]
+R4 = [(2, 1 << 22), (2, 1 << 23), (4, 1 << 21)]
 
 
 def time_ms(fn, runs=50, warmup=5):
@@ -143,14 +149,20 @@ def main():
                             torch.randn(shape, generator=g, device="cuda"))
 
     ms, dev = {}, {}
+    traced = {}
     for kern, shapes in ((F.fft_fourstep_cuda, FOURSTEP),
                          (ST.fft_staged_cuda, STAGED),
-                         (S.fft_stockham_r2_cuda, R2)):
+                         (S.fft_stockham_r2_cuda, R2),
+                         (S.fft_stockham_cuda, R4)):
         for shape in shapes:
             x = cplx(shape)
             key = f"{kern.__name__[:-5]} {shape[0]}x{shape[1]}"
             ms[key] = time_ms(lambda: kern(x))
             dev[key] = device_us(lambda: kern(x))
+            if "--launches" in sys.argv and shapes is R4:
+                traced[f"{key} launches"] = launches(lambda: kern(x))
+            del x
+    torch.cuda.empty_cache()
 
     def bf16(x):
         return SplitComplex(x.re.bfloat16(), x.im.bfloat16())
@@ -172,7 +184,8 @@ def main():
             three, PME, False, {"planes": False})
     calls["fft3 row_col 2x256^3"] = (
         lambda x: fft3(x, algo="row_col", backend="cuda"), VOLUME, False, {})
-    traced = {}
+    calls["fft2 row_col 16x1024^2"] = (
+        lambda x: fft2(x, algo="row_col", backend="cuda"), IMAGES, False, {})
     for key, (kern, shape, low, kw) in calls.items():
         x = cplx(shape)
         if low:
