@@ -244,14 +244,20 @@ DANUBE = (128, 4096, 32, 8, 80, 4096, True)
 DECODE_CELLS = {"starcoder2-15b": STARCODER2, "h2o-danube-1.8b": DANUBE}
 TOL_DECODE = 2e-5       # fp32 vs float64 numpy, absolute (the reference's)
 # (shape (B, S, H, KV, D), window, ring, chunk) held against the plain
-# version in fp32 and bf16: the reference test's shapes, a part-filled ring,
-# a window, a group of 12 at D = 80, D not a multiple of 4; then the cells
+# version in fp32 and bf16, each on the route the wrapper picks (bf16 with
+# D a multiple of 16: the tensor cores; the rest: the CUDA cores): the
+# reference test's shapes, a part-filled ring, a window, a group of 12 at
+# D = 80, D not a multiple of 4, a group of 4 at D = 80 with a window (the
+# danube cell's shape of work), rows filled to a quarter .. all of 8192
+# slots in splits of 64 (whole splits with no visible slot); then the cells
 DECODE_CHECKS = [((2, 128, 4, 2, 16), None, False, 128),
                  ((3, 512, 8, 8, 32), None, False, 128),
                  ((8, 1024, 8, 2, 64), None, False, 128),
                  ((3, 256, 4, 2, 16), 64, True, 64),
                  ((3, 256, 12, 1, 80), None, False, 64),
-                 ((3, 100, 8, 8, 18), 40, True, 512)]
+                 ((3, 100, 8, 8, 18), 40, True, 512),
+                 ((4, 2048, 16, 4, 80), 300, True, 512),
+                 ((4, 8192, 12, 1, 128), None, False, 512)]
 DECODE_CHECKS += [(c[:5], c[5], c[6], 512) for c in DECODE_CELLS.values()]
 
 
@@ -418,6 +424,23 @@ def decode_counts(visible: int, empty_rows: int, b, s, h, kv, d,
     nbytes = (2 * visible + s * empty_rows) * kv * d * cache_size \
         + 4 * b * s + 4 * b + 2 * b * h * d * q_size
     return flops, nbytes
+
+
+def skipped_shares(mask, split: int, tile: int):
+    """(share of (row, tile) pairs, share of (row, split) pairs) with no
+    visible slot in the (B, S) visibility ``mask``: what the decode kernel
+    never reads (tiles of ``tile`` slots within splits of ``split``)."""
+    import torch
+    b, s = mask.shape
+    pad = -s % split
+    m = torch.cat([mask, mask.new_zeros((b, pad))], dim=1) if pad else mask
+    m = m.reshape(b, -1, split)
+    pad = -split % tile
+    if pad:
+        m = torch.cat([m, m.new_zeros(m.shape[:2] + (pad,))], dim=2)
+    seen = m.reshape(b, m.shape[1], -1, tile).any(dim=3)
+    return (1 - seen.float().mean().item(),
+            1 - seen.any(dim=2).float().mean().item())
 
 
 def bound_ms(flops, nbytes):
@@ -747,6 +770,8 @@ def main() -> int:
             emit({"phase": "kernel_vs_plain", "kernel": "decode_attention",
                   "shape": shape, "window": window, "ring": ring,
                   "chunk": chunk, "dtype": str(case[0].dtype)[6:],
+                  "route": DA.route(case[0].dtype, case[1].dtype, shape[4],
+                                    shape[2] // shape[3]),
                   "max_abs_err": abs_err, "err_over_max": rel,
                   "tol": tol, "tol_is": "err_over_max" if bf else
                   "max_abs_err", "ok": ok})
@@ -1288,6 +1313,9 @@ def main() -> int:
         elif name == "irfft2d_fused":
             cols, rows = R.inverse_plan(*shape)
             grids, floor = 2, rfft2d_floor_bytes(*shape, cols.inner)
+        elif name == "fft2d_fused":
+            grids = len(S2.plan(*shape))
+            floor = grids * nbytes
         else:
             return {}
         return {"grid_launches": grids, "floor_bytes": floor,
@@ -1568,6 +1596,10 @@ def main() -> int:
         visible, empty_rows = visibility(case, window)
         flops, nbytes = decode_counts(visible, empty_rows, b, s_len, h, kv,
                                       d, 2, 2)
+        route = DA.route(q.dtype, k.dtype, d, h // kv)
+        split = DA.split_length(s_len, b, kv, h // kv)
+        skipped = skipped_shares(mask[:, 0, 0], split,
+                                 32 if route == "mma" else 64)
         b_ms, b_by = bound_ms(flops, nbytes)
         cache_bytes = 2 * b * s_len * kv * d * 2
         count = launches_dec["decode_attention"]
@@ -1582,7 +1614,9 @@ def main() -> int:
               "cache_us": cache_bytes / PEAK_HBM_BYTES * 1e6,
               "cache_tb_per_s": cache_bytes / k_ms / 1e9,
               "tflops": flops / k_ms / 1e9,
-              "splits": -(-s_len // DA.split_length(s_len, 512, h // kv)),
+              "hbm_tb_per_s": nbytes / k_ms / 1e9, "route": route,
+              "split": split, "splits": -(-s_len // split),
+              "tiles_skipped": skipped[0], "splits_skipped": skipped[1],
               "launches": count, "grid_launches": 2, "nvidia_smi": smi})
         if c == STARCODER2:
             kernels.append({

@@ -1,5 +1,6 @@
 // Batched complex 2-D FFT over (batch, h, w) split fp32 planes, h and w
-// powers of two in [2, 4096], as two shared-memory Stockham passes.
+// powers of two in [2, 4096], as two passes of fused radix-4 Stockham
+// stages over HBM: rows, then columns in place.
 //
 // Replaces the Pallas kernel repro/kernels/fft2d_fused.py::_fft2d_kernel,
 // the algo="fused_stockham" oracle (plain version:
@@ -9,228 +10,163 @@
 // (bb, h, w) tile, transposes the tile in VMEM, runs the same stages on
 // the columns and transposes back.  A 1024^2 fp32 image is 8 MB against
 // 227 KB of shared memory a block, so here the two passes are two
-// launches, each holding a tile of TILE points on chip for all its stages:
-//   rows     a block loads TILE/w whole rows (coalesced), runs every stage
-//            in shared memory with a barrier each, stores into out;
-//   columns  a block loads c = TILE/h adjacent columns of one image
-//            (c-float segments of each row), runs the same stages along h
-//            in shared memory and stores the tile back in place, scaled by
-//            the inverse's 1/(h*w).  The transpose is the indexing: element
-//            i of column l sits at i*c + l, so neighbouring threads take
-//            neighbouring columns of one butterfly and share its twiddle.
-// Stage arithmetic is stockham_stages': radix-4 stage s reads the four
-// quarter slices, twiddles by row s of the packed (s4, 3, n/4) table and
-// stores at the autosort positions; the radix-2 tail runs last (twiddle 1).
-// TILE = 4096 points is 64 KB of ping-pong planes, three blocks an SM.
-// Bound on the card: bytes (16 per complex point in and out, 0.080 ms at
-// 16x1024^2); this design moves the planes twice (0.160 ms), and its
-// column segments are c floats wide (16 bytes at h = 1024).
-#include <cuda_runtime.h>
+// launches (kernels/fft2d_fused.py::plan), each one pass over the planes.
+//
+// Bound on the card: bytes, 16 a complex point in and out (0.080 ms at
+// 16x1024^2 on 3.35 TB/s); this design moves the planes twice (0.160 ms).
+// What held the earlier design back was not the bytes but a barrier and
+// a shared-memory round trip for every radix-4 stage, 4-way bank conflicts
+// on the stage stores, 4096-point tiles copied synchronously, and 16-byte
+// column segments.  So both launches run on fft_stockham's machinery
+// (stockham.cuh) over axis_fft.cuh's tile walk:
+//   rows     tiles of G whole rows (G*w <= 8192 points), double-buffered:
+//            the next tile is copied in with cp.async while this one is
+//            transformed; every stage of length w, two radix-4 stages a
+//            pass in registers (16 points a thread) between barriers, the
+//            radix-2 tail last for odd log2 w; stored as whole rows, 128
+//            contiguous bytes a warp;
+//   columns  tiles of C adjacent whole columns of h points (C = 8192/h, at
+//            least 8, so 32-byte row segments, up to h = 2048 with one
+//            16384-point buffer; C = 4 at h = 4096), or G whole images
+//            where w < C; every stage of length h, the radix-2 tail
+//            included; stored in place from registers, scaled by the
+//            inverse's 1/(h*w).
+// The butterflies are stockham_stages': radix-4 stage s of a length-n
+// transform twiddles by w^r at entry (j >> 2s) << 2s of row r - 1 of the
+// one (3, n/4) table (bit for bit row s of the reference's packed table;
+// no four-step twiddle: it is a plain length-h transform), the tail has
+// twiddle 1.  The rounding is stockham_stages' but for the order of a
+// complex product's two fp32 products, as in fft_stockham.
+#include "stockham.cuh"
 
 namespace {
 
-constexpr int NT = 512;      // threads a block
-constexpr int TILE = 4096;   // complex points a block holds
-constexpr int MAX_DIM = 4096;
+enum { S2_ROWS = 0, S2_COLS = 1 };
 
-// Element i of line l of the block's tile sits at l*ls + i*es.  Thread
-// index t maps to (line, butterfly j) with the line fastest (columns) or
-// the butterfly fastest (rows).
-struct Lines {
-  int count, lcount, ls, es;
-  bool line_fast;
-  __device__ __forceinline__ void split(int t, int lj, int& l, int& j) const {
-    if (line_fast) {
-      l = t & (count - 1);
-      j = t >> lcount;
+// the work layout of a columns tile: element i of transform t = (image
+// t >> lc, column t mod 2^lc) at swz((image * 2^ln + i) * 2^lc + column)
+struct ImageColsSw {
+  int lc, ln;
+  __device__ __forceinline__ int at(int t, int i) const {
+    return swz(((((t >> lc) << ln) + i) << lc) + (t & ((1 << lc) - 1)));
+  }
+};
+
+// One tile's stages, the table's rows `row` = n/4 entries long
+template <int LN, int ROUTE>
+struct S2Run {
+  const Geo& g;
+  float* smem;
+  int lv, mask, row;
+  __device__ __forceinline__ void operator()(long long k, int b) const {
+    float* wr = smem + b * 2 * g.wf;
+    float* wi = wr + g.wf;
+    const float* sr = wr;
+    const float* si = sr + (1 << (LN + g.lc + g.lg));
+    const int nt = blockDim.x;
+    const Twiddle tw{g.tab, 0, 0, 0, row, g.sg};
+    if constexpr (ROUTE == S2_COLS) {
+      const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
+      st_passes<4, LN, 0, 5>(FromStage<float, Columns>{sr, si, stage}, wr, wi,
+                             ImageColsSw{g.lc, LN}, g.lc + g.lg, nt, tw,
+                             to_global<float>(g, k));
     } else {
-      l = t >> lj;
-      j = t & ((1 << lj) - 1);
+      const RowsSw rows{g.p};
+      st_passes<4, LN, 0, 3>(
+          FromStage<float, Swizzled>{sr, si, Swizzled{LN, lv, mask}}, wr, wi,
+          rows, g.lg, nt, tw, ToShared<RowsSw>{wr, wi, rows});
+      st_store_rows<LN>(g, k, wr, wi, rows);
     }
   }
 };
 
-// One radix-4 stage over every line of n = 4q points, s -> d; w points at
-// the stage's table row, (w1, w2, w3) at j, q + j, 2q + j; stride = 4^st.
-__device__ __forceinline__ void r4(const float* sr, const float* si,
-                                   float* dr, float* di,
-                                   const float* __restrict__ wr,
-                                   const float* __restrict__ wi,
-                                   const Lines& ln_, int lq, int lstride,
-                                   int inverse) {
-  const int q = 1 << lq, stride = 1 << lstride;
-  for (int t = threadIdx.x; t < ln_.count * q; t += NT) {
-    int l, j;
-    ln_.split(t, lq, l, j);
-    const int b = l * ln_.ls, es = ln_.es;
-    const float a0r = sr[b + j * es], a1r = sr[b + (j + q) * es];
-    const float a2r = sr[b + (j + 2 * q) * es], a3r = sr[b + (j + 3 * q) * es];
-    const float a0i = si[b + j * es], a1i = si[b + (j + q) * es];
-    const float a2i = si[b + (j + 2 * q) * es], a3i = si[b + (j + 3 * q) * es];
-    const float e0r = a0r + a2r, e0i = a0i + a2i;
-    const float d0r = a0r - a2r, d0i = a0i - a2i;
-    const float e1r = a1r + a3r, e1i = a1i + a3i;
-    const float d1r = a1r - a3r, d1i = a1i - a3i;
-    const float y0r = e0r + e1r, y0i = e0i + e1i;
-    const float y2r = e0r - e1r, y2i = e0i - e1i;
-    float y1r, y1i, y3r, y3i;
-    if (inverse) {  // +i (a1 - a3)
-      y1r = d0r - d1i; y1i = d0i + d1r;
-      y3r = d0r + d1i; y3i = d0i - d1r;
-    } else {        // -i (a1 - a3)
-      y1r = d0r + d1i; y1i = d0i - d1r;
-      y3r = d0r - d1i; y3i = d0i + d1r;
-    }
-    const float w1r = wr[j], w2r = wr[q + j], w3r = wr[2 * q + j];
-    const float w1i = wi[j], w2i = wi[q + j], w3i = wi[2 * q + j];
-    const float b1r = y1r * w1r - y1i * w1i, b1i = y1r * w1i + y1i * w1r;
-    const float b2r = y2r * w2r - y2i * w2i, b2i = y2r * w2i + y2i * w2r;
-    const float b3r = y3r * w3r - y3i * w3i, b3i = y3r * w3i + y3i * w3r;
-    // autosort store: j = p*stride + k  ->  p*4*stride + r*stride + k
-    const int o = ((j >> lstride) << (lstride + 2)) + (j & (stride - 1));
-    dr[b + o * es] = y0r;                 di[b + o * es] = y0i;
-    dr[b + (o + stride) * es] = b1r;      di[b + (o + stride) * es] = b1i;
-    dr[b + (o + 2 * stride) * es] = b2r;  di[b + (o + 2 * stride) * es] = b2i;
-    dr[b + (o + 3 * stride) * es] = b3r;  di[b + (o + 3 * stride) * es] = b3i;
-  }
+template <int LN, int ROUTE, int NT>
+__global__ void __launch_bounds__(NT, 1)
+s2_fft(const __grid_constant__ Geo g, int row) {
+  extern __shared__ float smem[];
+  const int lv = chunk_log<float>(g);
+  const int mask = ROUTE == S2_ROWS && LN - lv >= 3 ? 7 : 0;
+  walk_tiles(g, TileCopy<float>{g, smem, lv, LN, mask},
+             S2Run<LN, ROUTE>{g, smem, lv, mask, row});
 }
 
-// The radix-2 tail over every line of n = 2h points: (a + b, a - b) of the
-// contiguous halves.
-__device__ __forceinline__ void r2(const float* sr, const float* si,
-                                   float* dr, float* di, const Lines& ln_,
-                                   int lh) {
-  const int h = 1 << lh;
-  for (int t = threadIdx.x; t < ln_.count * h; t += NT) {
-    int l, j;
-    ln_.split(t, lh, l, j);
-    const int i = l * ln_.ls + j * ln_.es, k = i + h * ln_.es;
-    const float ar = sr[i], ai = si[i], br = sr[k], bi = si[k];
-    dr[i] = ar + br; di[i] = ai + bi;
-    dr[k] = ar - br; di[k] = ai - bi;
-  }
+using S2Launch = cudaError_t (*)(const Geo&, int, unsigned, int, size_t,
+                                 cudaStream_t);
+
+template <int LN, int ROUTE, int NT>
+cudaError_t launch_s2(const Geo& g, int row, unsigned blocks, int threads,
+                      size_t smem, cudaStream_t st) {
+  static int done[16];
+  const cudaError_t e = allow_smem(s2_fft<LN, ROUTE, NT>, smem, done);
+  if (e != cudaSuccess) return e;
+  s2_fft<LN, ROUTE, NT><<<blocks, threads, smem, st>>>(g, row);
+  return cudaGetLastError();
 }
 
-// Every stage on lines of n = 2^ln points, ping-ponging between (ar, ai)
-// and (br, bi); returns with the result in (ar, ai).
-__device__ __forceinline__ void stages(float*& ar, float*& ai, float*& br,
-                                       float*& bi,
-                                       const float* __restrict__ wr,
-                                       const float* __restrict__ wi, int ln,
-                                       const Lines& lines, int inverse) {
-  const int s4 = ln / 2;
-  for (int st = 0; st < s4; ++st) {
-    const int q3 = 3 << (ln - 2);
-    r4(ar, ai, br, bi, wr + st * q3, wi + st * q3, lines, ln - 2, 2 * st,
-       inverse);
-    __syncthreads();
-    float* t = ar; ar = br; br = t;
-    t = ai; ai = bi; bi = t;
-  }
-  if (ln & 1) {
-    r2(ar, ai, br, bi, lines, ln - 1);
-    __syncthreads();
-    float* t = ar; ar = br; br = t;
-    t = ai; ai = bi; bi = t;
-  }
+template <int ROUTE, int NT, int... L>
+S2Launch s2_for(int ln, std::integer_sequence<int, L...>) {
+  static const S2Launch fns[] = {launch_s2<L + 1, ROUTE, NT>...};
+  return fns[ln - 1];
 }
 
-// Row pass: block b holds rows [b*lines, b*lines + lines) of `rows` rows of
-// w = 2^lw points (a ragged last block loads zeros and stores nothing).
-__global__ void __launch_bounds__(NT)
-rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-            float* __restrict__ yr, float* __restrict__ yi,
-            const float* __restrict__ wr, const float* __restrict__ wi,
-            long long rows, int lw, int lines, int inverse) {
-  extern __shared__ float sm[];
-  const int w = 1 << lw, pts = lines * w;
-  float *ar = sm, *ai = sm + pts, *br = sm + 2 * pts, *bi = sm + 3 * pts;
-  const long long r0 = (long long)blockIdx.x * lines;
-  const long long left = rows - r0;
-  const int valid = (int)((left < lines ? left : lines) * w);
-  const long long base = r0 * w;
-  for (int e = threadIdx.x; e < pts; e += NT) {
-    ar[e] = e < valid ? xr[base + e] : 0.f;
-    ai[e] = e < valid ? xi[base + e] : 0.f;
-  }
-  __syncthreads();
-  const Lines ln_{lines, 0, w, 1, false};
-  stages(ar, ai, br, bi, wr, wi, lw, ln_, inverse);
-  for (int e = threadIdx.x; e < valid; e += NT) {
-    yr[base + e] = ar[e];
-    yi[base + e] = ai[e];
-  }
-}
-
-// Column pass, in place: block b holds columns [c0, c0 + c) of image
-// b / (w / c), c = 2^lc, as an (h, c) tile with element i of column l at
-// i*c + l; the store is scaled by `scale`.
-__global__ void __launch_bounds__(NT)
-cols_kernel(float* __restrict__ yr, float* __restrict__ yi,
-            const float* __restrict__ wr, const float* __restrict__ wi,
-            int lh, int lw, int lc, int inverse, float scale) {
-  extern __shared__ float sm[];
-  const int h = 1 << lh, c = 1 << lc, pts = h * c;
-  float *ar = sm, *ai = sm + pts, *br = sm + 2 * pts, *bi = sm + 3 * pts;
-  const long long tiles = 1LL << (lw - lc);
-  const long long img = blockIdx.x / tiles;
-  const long long base = (img << (lh + lw)) + ((blockIdx.x % tiles) << lc);
-  for (int e = threadIdx.x; e < pts; e += NT) {
-    const long long g = base + ((long long)(e >> lc) << lw) + (e & (c - 1));
-    ar[e] = yr[g];
-    ai[e] = yi[g];
-  }
-  __syncthreads();
-  const Lines ln_{c, lc, 1, c, true};
-  stages(ar, ai, br, bi, wr, wi, lh, ln_, inverse);
-  for (int e = threadIdx.x; e < pts; e += NT) {
-    const long long g = base + ((long long)(e >> lc) << lw) + (e & (c - 1));
-    yr[g] = ar[e] * scale;
-    yi[g] = ai[e] * scale;
-  }
-}
-
-int log2i(int v) {
-  int s = 0;
-  while ((1 << s) < v) ++s;
-  return s;
+// The kernel of a launch: rows of 2^1 .. 2^12 points (tiles of up to 8192
+// points, 512 threads); columns of 2^1 .. 2^10 (8192, 512) or 2^11, 2^12
+// (16384-point tiles, 1024 threads).  Null for any other.
+S2Launch s2_pick(int route, int ln, int threads) {
+  if (ln < 1 || ln > 12) return nullptr;
+  if (route == S2_ROWS)
+    return threads <= 512 ? s2_for<S2_ROWS, 512>(
+                                ln, std::make_integer_sequence<int, 12>{})
+                          : nullptr;
+  if (route != S2_COLS) return nullptr;
+  if (ln <= 10)
+    return threads <= 512 ? s2_for<S2_COLS, 512>(
+                                ln, std::make_integer_sequence<int, 10>{})
+                          : nullptr;
+  return threads == 1024 ? (ln == 11 ? launch_s2<11, S2_COLS, 1024>
+                                     : launch_s2<12, S2_COLS, 1024>)
+                         : nullptr;
 }
 
 }  // namespace
 
-// x (batch, h, w) -> out, fp32 planes; (wwr, wwi) and (whr, whi) are the
-// packed (s4, 3, n/4) Stockham tables of w and h.
-extern "C" int fft2d_fused_f32(const float* xr, const float* xi, float* outr,
-                               float* outi, const float* wwr,
-                               const float* wwi, const float* whr,
-                               const float* whi, long long batch, int h,
-                               int w, int inverse, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (batch <= 0 || h < 2 || w < 2 || h > MAX_DIM || w > MAX_DIM ||
-      (h & (h - 1)) || (w & (w - 1)))
+// One launch x -> out of the view (outer, 2^ln, 2^linner) with the tiling
+// the host planned (kernels/fft2d_fused.py::plan, axis_fft.plan_axis):
+// S2_ROWS (linner = 0: G = 2^lg rows a tile) or S2_COLS (tiles of 2^lc of
+// the 2^linner columns, or, lc == linner, 2^lg whole images), every stage
+// of length 2^ln off `tab`, the fp32 (3, 2^ln / 4) table w, w^2, w^3 of
+// the transform's sign (`inverse`) as (cos, sin) pairs; `scale` at the
+// store; `blocks` the persistent grid.  x and out may be the same planes.
+// Returns cudaErrorInvalidValue for a tiling it does not take.
+extern "C" int fft2d_fused_pass(const float* xr, const float* xi,
+                                float* outr, float* outi, const float* tab,
+                                long long outer, int ln, int linner, int lc,
+                                int lg, int route, int blocks, float scale,
+                                int inverse, void* stream) {
+  const int lp = ln + lc + lg;
+  const bool rows = route == S2_ROWS;
+  if (outer <= 0 || blocks <= 0 || ln < 1 || ln > 12 || lc < 0 || lg < 0 ||
+      lc > linner || linner > 12 || lp > 14 || (1 << lp) < AXIS_TILE_MIN ||
+      (rows && (linner != 0 || lp > 13)) || (lc < linner && lg != 0))
     return (int)cudaErrorInvalidValue;
-  const int lh = log2i(h), lw = log2i(w);
-  const long long rows = batch * h;
-  const int lines = (int)(TILE / w < rows ? TILE / w : rows);
-  const long long row_blocks = (rows + lines - 1) / lines;
-  const int c = TILE / h < w ? TILE / h : w;
-  const long long col_blocks = batch * (w / c);
-  if (row_blocks > 2147483647LL || col_blocks > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  const int row_smem = 16 * lines * w, col_smem = 16 * h * c;
-  cudaError_t e = cudaFuncSetAttribute(
-      rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, row_smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(cols_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           col_smem);
-  if (e != cudaSuccess) return (int)e;
-  rows_kernel<<<(unsigned)row_blocks, NT, row_smem, s>>>(
-      xr, xi, outr, outi, wwr, wwi, rows, lw, lines, inverse);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const float scale = inverse ? (float)(1.0 / ((double)h * w)) : 1.f;
-  cols_kernel<<<(unsigned)col_blocks, NT, col_smem, s>>>(
-      outr, outi, whr, whi, lh, lw, log2i(c), inverse, scale);
-  return (int)cudaGetLastError();
+  const int threads = 1 << (lp - 4);
+  const S2Launch fn = s2_pick(route, ln, threads);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int p = 0;
+  long long wf = 1LL << lp;
+  if (rows) {
+    p = pitch(1 << ln, lg < 3 ? lg : 3);
+    wf = (long long)p << lg;
+  }
+  wf = (wf + 31) / 32 * 32;
+  const int nbuf = (1 << lp) <= AXIS_TILE ? 2 : 1;
+  const size_t smem = (size_t)nbuf * 2 * sizeof(float) * wf;
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const long long per = (outer + (1LL << lg) - 1) >> lg;
+  const int row = ln >= 2 ? 1 << (ln - 2) : 0;
+  const Geo g{xr, xi, outr, outi, (const float2*)tab, nullptr, outer,
+              per << (linner - lc), ln, linner, lc, lg, nbuf, (int)wf, p,
+              inverse ? 1.f : -1.f, scale};
+  const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
+  return (int)fn(g, row, grid, threads, smem, (cudaStream_t)stream);
 }

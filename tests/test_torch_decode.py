@@ -178,13 +178,89 @@ def test_empty_batch():
     assert out.shape == (0, 4, 16)
 
 
-def test_split_length_fits_the_scores():
-    """A split holds at most ``chunk`` slots and the group's scores fit
-    the block's shared-memory budget."""
-    assert DA.split_length(32768, 512, 12) == 512
-    assert DA.split_length(100, 512, 4) == 100
-    assert DA.split_length(32768, 32768, 12) == DA.SCORE_FLOATS // 12
-    assert DA.split_length(8192, 8192, 64) * 64 <= DA.SCORE_FLOATS
+# (B, S, H, KV, D) of the card's two decode cells (chip_smoke.py)
+STARCODER2 = (16, 32768, 48, 4, 128)
+DANUBE = (128, 4096, 32, 8, 80)
+
+
+@pytest.mark.parametrize("cell,split,nsplit", [(STARCODER2, 2048, 16),
+                                               (DANUBE, 4096, 1)])
+def test_split_length_fills_the_card_at_both_cells(cell, split, nsplit):
+    """The split follows the grid, not the chunk: about BLOCKS = 1024
+    blocks (eight an SM of 132) at both cells, and (m, l, acc) partials
+    of 6.3 MB at starcoder2-15b, a quarter of the 512-slot splits'."""
+    b, s, h, kv, d = cell
+    assert DA.split_length(s, b, kv, h // kv) == split
+    assert -(-s // split) == nsplit
+    assert b * kv * nsplit == DA.BLOCKS == 1024
+    assert split % DA.TILE == 0
+    if cell == STARCODER2:
+        assert b * kv * nsplit * (h // kv) * d * 4 == 16 * 4 * 16 * 12 * 128 * 4
+
+
+def test_split_length_rule():
+    """Enough splits for BLOCKS blocks, each a multiple of TILE slots or
+    the whole cache, at most MAX_SPLIT, and no more splits than the merge
+    weighs (MERGE_WEIGHTS over the group)."""
+    assert DA.split_length(100, 2, 2, 4) == 64          # 256 splits wanted
+    assert DA.split_length(40, 1, 1, 1) == 40           # shorter than a tile
+    assert DA.split_length(1 << 22, 1024, 1, 1) == DA.MAX_SPLIT
+    assert DA.split_length(1 << 20, 1, 1, 64) == (1 << 20) // 128
+    for s, b, kv, g in [(32768, 16, 4, 12), (4096, 128, 8, 4), (512, 2, 1, 40),
+                        (1 << 20, 1, 1, 64), (100, 3, 8, 1)]:
+        split = DA.split_length(s, b, kv, g)
+        n = -(-s // split)
+        assert split == s or split % DA.TILE == 0
+        assert 1 <= split <= DA.MAX_SPLIT
+        assert n * g <= DA.MERGE_WEIGHTS
+        assert b * kv * n <= max(DA.BLOCKS, b * kv)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,group,want", [
+    (torch.bfloat16, torch.bfloat16, 128, 12, "mma"),     # starcoder2-15b
+    (torch.bfloat16, torch.bfloat16, 80, 4, "mma"),       # h2o-danube-1.8b
+    (torch.bfloat16, torch.bfloat16, 16, 16, "mma"),
+    (torch.bfloat16, torch.bfloat16, 18, 1, "cores"),     # D % 16
+    (torch.bfloat16, torch.bfloat16, 144, 4, "cores"),    # D > 128
+    (torch.bfloat16, torch.bfloat16, 8, 40, "cores"),     # group > 16
+    (torch.float32, torch.float32, 128, 12, "cores"),
+    (torch.float32, torch.bfloat16, 80, 4, "cores"),      # mixed
+    (torch.bfloat16, torch.float32, 80, 4, "cores"),
+])
+def test_route_from_dtype_and_shape(q_dtype, kv_dtype, d, group, want):
+    """bf16 q and caches, D a multiple of 16 up to 128 and at most 16 heads
+    a KV head take the tensor cores; the rest the CUDA cores, chosen before
+    any launch."""
+    assert DA.route(q_dtype, kv_dtype, d, group) == want
+
+
+@pytest.mark.parametrize("dtype,cell", [(torch.bfloat16, (2, 256, 24, 2, 80)),
+                                        (torch.float32, (2, 256, 24, 2, 80)),
+                                        (torch.bfloat16, (3, 100, 8, 8, 18))])
+def test_wrapper_launches_the_planned_split(monkeypatch, dtype, cell):
+    """One call: the eleven pointers, the shape, the split of
+    split_length, the window, the dtypes, the route flag and a merge helper
+    block an SM."""
+    calls = []
+    monkeypatch.setattr(_build, "check_decode_operands", lambda *a: None)
+    monkeypatch.setattr(_build, "function", lambda *a: a)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(_build, "launch", lambda fn, args, what, dev:
+                        calls.append((fn, args, what)))
+    b, s, h, kvh, d = cell
+    q, k, v, kv_pos, q_pos = (torch.from_numpy(a) for a in
+                              _setup(b, s, h, kvh, d))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    DA.decode_attention_cuda(q, k, v, kv_pos, q_pos, window=64, chunk=64)
+    (fn, args, what), = calls
+    assert fn == ("decode_attention", "decode_attention", DA._ARGS)
+    assert what == "decode_attention" and len(args) == len(DA._ARGS) - 1
+    split = DA.split_length(s, b, kvh, h // kvh)
+    assert args[:5] == [t.data_ptr() for t in (q, k, v, kv_pos, q_pos)]
+    assert args[11:18] == [b, s, h, kvh, d, split, 64]
+    bf16 = int(dtype == torch.bfloat16)
+    mma = DA.route(dtype, dtype, d, h // kvh) == "mma"
+    assert args[18:] == [1, bf16, bf16, int(d % 4 == 0), int(mma), 132]
 
 
 def test_decode_operand_dtypes_refused():

@@ -15,7 +15,8 @@ What it checks: the index maps, buffer chaining, scales and launch
 parameters of every entry point, the bf16 storage modes of the GEMM
 transforms (bf16.cuh's conversions run as written; the twin sums in the
 tiled kernel's order), the shared-memory stages of the fused conv and
-fused Stockham 2-D kernels, the four-step kernel's shared-memory FFTs
+fused Stockham 2-D kernel's row and column passes (odd log2 h and w,
+h = 2, whole images a tile), the four-step kernel's shared-memory FFTs
 (one- and two-launch routes), the 2-D and 3-D kernels' planned routes
 (plane, rows and column tiles, persistent blocks walking several tiles
 through both buffers; a cp.async becomes a plain copy), the real-input
@@ -26,7 +27,9 @@ the packed rows at its load, the radix-4 and radix-2 Stockham kernels'
 one- and two-launch routes (odd log2 n, n = 2 and 8) and the radix-4
 kernel's per-stage route, the staged FFT's folded bit-reverse (rows and
 tiles) and float4 stages, and decode attention's split and merge kernels
-(warp shuffles included).  What it cannot check: the tiled GEMM itself (the twin replaces
+on both routes (warp shuffles and ballots, the tensor-core route's
+ldmatrix and mma.sync fragments, its cp.async ring, skipped tiles and
+splits and the merge's mean of V).  What it cannot check: the tiled GEMM itself (the twin replaces
 it), warps, shared-memory limits or timing.  Libraries go to
 ``build/cuda_emu/``.  Exits non-zero if a shape disagrees beyond 1e-5 of
 max|plain| (fp32) or one bf16 ulp at the top of the range, 2^-7 of
@@ -217,8 +220,14 @@ def main() -> int:
             bf16.append((f"fft3d_fused/{variant}", shape, False, rel(
                 V.fft3d_fused_cuda(xb, variant=variant),
                 V.fft3d_fused_plain(xb, variant=variant))))
+    # the fused Stockham 2-D kernel's two passes: odd log2 h and w (the
+    # radix-2 tail in both), h = 2 and w = 2, whole images a column tile
+    # (w < C, several images a tile), 16384-point column tiles (h = 2048,
+    # 4096), narrow rows whose tile the plan halves (w = 4 at 4096 rows)
     for shape in [(2, 2, 2), (2, 8, 16), (1, 64, 32), (3, 4, 1024),
-                  (1, 256, 256), (1, 4096, 4), (1, 2, 4096)]:
+                  (1, 256, 256), (1, 4096, 4), (1, 2, 4096), (3, 2, 4096),
+                  (2, 32, 8), (1, 128, 512), (1, 1024, 8), (1, 2048, 16),
+                  (1, 8, 2048), (2, 2048, 2)]:
         x = cplx(shape)
         for inv in (False, True):
             results.append(("fft2d_fused", shape, inv,
@@ -281,29 +290,36 @@ def main() -> int:
         results.append(("fftconv_fused", lead + (m,), len(klead) == 1,
                         rel(C.fftconv_fused_cuda(x, ef),
                             C.fftconv_fused_plain(x, ef))))
-    # decode attention: GQA and MHA, D not a multiple of 4 (scalar loads),
-    # group 12 at D = 80, ragged tiles and splits, a window, a wrapped ring,
-    # a fully masked row, bf16 caches and q
-    for b, s, h, kvh, d, chunk, window, dtype in [
-            (2, 128, 4, 2, 16, 64, None, torch.float32),
-            (3, 100, 8, 8, 18, 512, None, torch.float32),
-            (2, 200, 12, 1, 80, 200, 50, torch.float32),
-            (2, 512, 40, 1, 8, 512, None, torch.float32),
-            (2, 256, 12, 1, 80, 64, None, torch.bfloat16)]:
-        q = torch.from_numpy(rng.standard_normal((b, h, d))).to(dtype)
-        k, v = (torch.from_numpy(rng.standard_normal((b, s, kvh, d)))
-                .to(dtype) for _ in range(2))
-        q_pos = torch.from_numpy(rng.integers(s // 2, 3 * s, b)).int()
-        slot = torch.arange(s)
-        kv_pos = (q_pos[:, None] - (q_pos[:, None] - slot) % s).int()
-        kv_pos[0, s // 3:] = -1                 # a part-filled row
-        kv_pos[-1] = -1                         # a row with no slot
-        got = DA.decode_attention_cuda(q, k, v, kv_pos, q_pos, window=window,
-                                       chunk=chunk)
-        want = DA.decode_attention_plain(q, k, v, kv_pos, q_pos,
-                                         window=window)
-        (bf16 if dtype == torch.bfloat16 else results).append(
-            ("decode_attention", (b, s, h, kvh, d), window, rel(got, want)))
+    # decode attention on both routes (fp32 and mixed dtypes, D not a
+    # multiple of 16, D = 8 at a group of 40: the CUDA-core route; bf16 at
+    # D = 16..128, groups 1..16: the tensor cores, ragged tiles and splits):
+    # a part-filled row (whole splits and tiles skipped), a window, a
+    # wrapped ring, a fully masked row (the merge's mean of V)
+    cases = [(2, 128, 4, 2, 16, 64, None), (3, 100, 8, 8, 18, 100, 40),
+             (2, 200, 12, 1, 80, 200, 50), (2, 512, 40, 1, 8, 512, None),
+             (2, 256, 12, 1, 80, 64, None), (2, 300, 8, 2, 80, 300, 64),
+             (1, 384, 48, 4, 128, 128, None), (3, 96, 16, 1, 32, 96, None),
+             (2, 160, 2, 2, 64, 160, 100)]
+    for b, s, h, kvh, d, chunk, window in cases:
+        for qt, kt in [(torch.float32, torch.float32),
+                       (torch.bfloat16, torch.bfloat16),
+                       (torch.bfloat16, torch.float32)]:
+            q = torch.from_numpy(rng.standard_normal((b, h, d))).to(qt)
+            k, v = (torch.from_numpy(rng.standard_normal((b, s, kvh, d)))
+                    .to(kt) for _ in range(2))
+            q_pos = torch.from_numpy(rng.integers(s // 2, 3 * s, b)).int()
+            slot = torch.arange(s)
+            kv_pos = (q_pos[:, None] - (q_pos[:, None] - slot) % s).int()
+            kv_pos[0, s // 3:] = -1                 # a part-filled row
+            kv_pos[-1] = -1                         # a row with no slot
+            got = DA.decode_attention_cuda(q, k, v, kv_pos, q_pos,
+                                           window=window, chunk=chunk)
+            want = DA.decode_attention_plain(q, k, v, kv_pos, q_pos,
+                                             window=window)
+            tag = DA.route(qt, kt, d, h // kvh)
+            (bf16 if qt == torch.bfloat16 else results).append(
+                (f"decode_attention/{tag}", (b, s, h, kvh, d), window,
+                 rel(got, want)))
     for r in results + bf16:
         print(*r)
     worst = max(r[3] for r in results)

@@ -30,16 +30,25 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   and 4 x 2^21 (``irfft``'s inner transforms), and ``fft2``/``fft3`` with
   ``algo="row_col"`` (its 1024- and 256-point rows) at 16 x 1024^2 and
   2 x 256^3, each with its device time a call;
+- ``fft2d_fused`` (the ``fused_stockham`` oracle) at 16 x 1024^2 and
+  1 x 1024^2, forward and inverse, with its device time a call;
+- ``decode_attention`` in bf16 at ``chip_smoke.py``'s two decode cells,
+  starcoder2-15b (16 x 32768 slots filled to a quarter .. all, GQA 48/4,
+  D 128) and h2o-danube-1.8b (128 rings of 4096, window 4096, GQA 32/8,
+  D 80, the last row with no visible slot), with its device time a call;
 - the ptxas lines of the four-step kernels, of every 2-D and 3-D kernel
-  instance and of the radix-2 and real-input kernels the tree builds.
+  instance, of the radix-2, radix-4 and real-input kernels, of the fused
+  Stockham 2-D kernel and of the decode kernels the tree builds.
 
 With ``--launches`` it also lists every grid launch of one call of
 ``fft_fourstep`` at 4 x 2^20, of ``fft_staged`` at 512 x 16384, of
 ``fft2d_gemm`` and ``fft3d_fused`` at their main shapes (fp32 and bf16
 compensated), of ``rfft2d_fused`` and ``irfft2d_fused`` at 16 x 1024^2, of
 ``fft_stockham_r2`` at 2 x 2^20, of ``fft_stockham`` at 2 x 2^22,
-2 x 2^23 and 4 x 2^21 and of ``fft2``/``fft3(algo="row_col")`` at 16 x 1024^2 and
-2 x 256^3, with its device time, from a ``torch.profiler`` trace.  Unpack the parent into a
+2 x 2^23 and 4 x 2^21, of ``fft2``/``fft3(algo="row_col")`` at 16 x 1024^2 and
+2 x 256^3, of ``fft2d_fused`` at 16 x 1024^2 (forward and inverse) and of
+``decode_attention`` at both cells, with its device time, from a
+``torch.profiler`` trace.  Unpack the parent into a
 directory that .gitignore lists and alternate the trees, one process each:
 
     mkdir -p build/ab_parent
@@ -50,6 +59,8 @@ directory that .gitignore lists and alternate the trees, one process each:
 import json
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = sys.argv[1]
 sys.path.insert(0, ROOT + "/src")
@@ -63,6 +74,8 @@ from repro_torch.kernels import fft2d_gemm as G  # noqa: E402
 from repro_torch.kernels import rfft2d_fused as R  # noqa: E402
 from repro_torch.kernels import fft3d_fused as V  # noqa: E402
 from repro_torch.kernels import fft_stockham as S  # noqa: E402
+from repro_torch.kernels import fft2d_fused as S2  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
 
 FOURSTEP = [(4, 1 << 20), (64, 4096), (32768, 512), (4096, 4096),
             (512, 16384)]
@@ -73,6 +86,36 @@ VOLUME = (2, 256, 256, 256)
 PME = (8, 128, 128, 128)
 R2 = [(2, 1 << 20), (1024, 512), (513, 1024), (1024, 1024)]
 R4 = [(2, 1 << 22), (2, 1 << 23), (4, 1 << 21)]
+# (B, S, H, KV, D, window, ring) of chip_smoke.py's decode cells
+DECODE = {"starcoder2-15b": (16, 32768, 48, 4, 128, None, False),
+          "h2o-danube-1.8b": (128, 4096, 32, 8, 80, 4096, True)}
+
+
+def decode_case(b, s, h, kv, d, window, ring, seed):
+    """chip_smoke.py's decode_case in bf16: q, K, V from a seeded
+    generator on the card, positions from numpy (full rows of a quarter to
+    all of S, or rings wrapping mid-array with short rows and an empty last
+    row)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+               for shape in ((b, h, d), (b, s, kv, d), (b, s, kv, d)))
+    prng = np.random.default_rng(seed)
+    slot = np.arange(s)
+    if ring:
+        q_pos = prng.integers(s, 8 * s, b)
+        q_pos[(q_pos + 1) % s == 0] += 1
+        q_pos[1:4] = (s // 3, 17, s - 2)
+        kv_pos = q_pos[:, None] - (q_pos[:, None] - slot) % s
+        kv_pos[kv_pos < 0] = -1
+        kv_pos[-1] = -1
+    else:
+        n = prng.integers(s // 4, s + 1, b)
+        n[0] = s
+        q_pos = n - 1
+        kv_pos = np.where(slot < n[:, None], slot, -1)
+    return (q, k, v, torch.from_numpy(kv_pos).to("cuda", torch.int32),
+            torch.from_numpy(q_pos).to("cuda", torch.int32))
 
 
 def time_ms(fn, runs=50, warmup=5):
@@ -129,7 +172,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     logs = _build.build_all(("fft_fourstep", "fft_stage", "fft2d_gemm",
-                             "rfft2d_fused", "fft3d_fused", "fft_stockham"))
+                             "rfft2d_fused", "fft3d_fused", "fft_stockham",
+                             "fft2d_fused", "decode_attention"))
     # a library built earlier (by chip_smoke.py, or a run before) left its
     # compiler log beside it
     ptxas = {n: ptxas_lines(log or _build.library_path(n)
@@ -140,7 +184,8 @@ def main():
     ptxas = {n: {k: line for k, line in ptxas[n].items()
                  if "cgemm" not in k}
              for n in ("fft_fourstep", "fft_stage", "fft2d_gemm",
-                       "fft3d_fused", "rfft2d_fused", "fft_stockham")}
+                       "fft3d_fused", "rfft2d_fused", "fft_stockham",
+                       "fft2d_fused", "decode_attention")}
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
 
@@ -213,6 +258,31 @@ def main():
         traced[f"{key} launches"] = launches(
             lambda: R.irfft2d_fused_cuda(h))
     del r, h
+    torch.cuda.empty_cache()
+    for shape in (IMAGES, IMAGE):
+        x = cplx(shape)
+        for inv in (False, True):
+            key = f"fft2d_fused {shape[0]}x1024^2" + (" inverse" if inv
+                                                     else "")
+            ms[key] = time_ms(lambda: S2.fft2d_fused_cuda(x, inverse=inv))
+            dev[key] = device_us(lambda: S2.fft2d_fused_cuda(x, inverse=inv))
+            if "--launches" in sys.argv and shape == IMAGES:
+                traced[f"{key} launches"] = launches(
+                    lambda: S2.fft2d_fused_cuda(x, inverse=inv))
+        del x
+    torch.cuda.empty_cache()
+    for i, (name, c) in enumerate(DECODE.items()):
+        case = decode_case(*c, seed=7 + i)
+        key = f"decode_attention {name} bf16"
+        ms[key] = time_ms(lambda: DA.decode_attention_cuda(*case,
+                                                          window=c[5]))
+        dev[key] = device_us(lambda: DA.decode_attention_cuda(*case,
+                                                             window=c[5]))
+        if "--launches" in sys.argv:
+            traced[f"{key} launches"] = launches(
+                lambda: DA.decode_attention_cuda(*case, window=c[5]))
+        del case
+        torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
