@@ -232,6 +232,42 @@ CHECKS += [("fft_staged", TABLE1), ("fft_staged", TABLE1_LOADED),
 MAIN_SHAPE["fft_staged"] = TABLE1_LOADED
 TABLE1_KERNELS = ("fft_staged", "fft_stockham", "fft_fourstep")
 
+# the long-axis routes: 2-D images and 3-D volumes with an axis past 4096
+# (kernels/axis_fft.py::plan_split, the fused Stockham kernel's split
+# launches, the real-input kernels' split steps), held against float64
+# numpy through the entry points and against the plain versions; one timed
+# 8192^2 image; the four-step kernel's factors past 1024
+# (fft_fourstep.axis_plan) and radix 2 past 2^24 (a launch a stage)
+LONG_2D = [(2, 2, 8192), (2, 8192, 4), (1, 2, 16384)]
+LONG_3D = [(1, 2, 2, 8192), (1, 8192, 2, 4)]
+LONG_TIMED = (1, 8192, 8192)
+CHECKS += [(k, shape) for shape in LONG_2D
+           for k in ("fft2d_gemm", "fft2d_fused", "rfft2d_fused")]
+CHECKS += [("fft3d_fused", shape) for shape in LONG_3D]
+# (shape, n1 or None for the plan's split, how it is reached)
+FOURSTEP_FACTORS = [((1, 1 << 21), None, "plan"), ((2, 1 << 22), None, "plan"),
+                    ((3, 4096), 2, "ops"), ((3, 1 << 15), 2, "ops"),
+                    ((3, 1 << 14), 1 << 14, "ops")]
+R2_STAGES = (1, 1 << 25)
+LONG_KERNELS = ("fft2d_gemm", "fft2d_fused", "rfft2d_fused",
+                "irfft2d_fused", "fft3d_fused", "fft_fourstep",
+                "fft_stockham_r2")
+# bf16 planes on the kernels that took float32 only: each kernel's own
+# small shape and its path's main shape, against float64 numpy of the
+# bf16-rounded input, within the reference's bf16 bound (6e-2 of max|X|,
+# tests/test_kernels.py) and within the plain version's own error (same
+# call) plus 2^-7 of max|X|
+TOL_BF16_REF = 6e-2
+BF16_SLACK = 2.0 ** -7
+BF16_F4 = [("fft_stockham", (4, 256)), ("fft_stockham", MAIN_STOCKHAM),
+           ("fft_stockham_r2", (4, 256)), ("fft_stockham_r2", MAIN_R2),
+           ("fft_fourstep", (4, 256)), ("fft_fourstep", MAIN_FOURSTEP),
+           ("fft_staged", (4, 256)), ("fft_staged", TABLE1),
+           ("rfft2d_fused", (2, 64, 64)), ("rfft2d_fused", MAIN_RFFT2),
+           ("irfft2d_fused", (2, 64, 64)), ("irfft2d_fused", MAIN_RFFT2),
+           ("fft2d_fused", (2, 64, 64)), ("fft2d_fused", MAIN_2D),
+           ("fftconv_fused", (2, 3, 64)), ("fftconv_fused", MAIN_CONV)]
+
 # the decode path's cells, one decode step's attention for one layer at the
 # configs' full widths (src/repro/configs/): (B, S, H, KV, D, window, ring)
 # - starcoder2-15b decode_32k: 16 sequences of up to 32768 tokens, about
@@ -375,12 +411,15 @@ def conv_counts(batch: int, rows: int, m: int, bank_rows: int):
 
 
 def method_conv(batch, rows, m):
-    """(method flops, table bytes) of the one-pass kernel: 2 * log2(m/2)
-    radix-2 stages of m/4 butterflies (10 flops each) and the section
-    (16 flops a bin) a row; two twiddle tables of m/4 complex entries."""
+    """(method flops, table bytes) of the one-pass kernel: a row's two
+    FFTs as radix-4 stages of m/8 butterflies (34 flops each: three
+    complex multiplies, eight complex adds) and, for odd log2(m/2), a
+    radix-2 tail of m/4 (4 flops each), and the multiply (16 flops a bin);
+    two (3, m/8) float2 tables."""
     hm = m // 2
     ln = hm.bit_length() - 1
-    return batch * rows * (2 * ln * (hm // 2) * 10 + 16 * hm), 16 * (hm // 2)
+    fft = (ln // 2) * (hm // 4) * 34 + (ln & 1) * (hm // 2) * 4
+    return batch * rows * (2 * fft + 16 * hm), 2 * 3 * (hm // 4) * 8
 
 
 def method_axis(b, dims):
@@ -1286,6 +1325,186 @@ def main() -> int:
     del dec_out, dec
     torch.cuda.empty_cache()
 
+    # 4h. the long axes through the entry points: fft2/ifft2 (the fused
+    # route and the fused_stockham oracle), rfft2/irfft2 and fft3 with an
+    # axis past 4096; the four-step plans whose factors pass 1024 and
+    # ops.fft_fourstep at explicit factors; radix 2 past 2^24
+    clear_plan_cache()
+    lz = {s_: rand(s_) for s_ in LONG_2D + LONG_3D}
+    lr = {s_: real(s_) for s_ in LONG_2D}
+    lx = {s_: from_numpy(z, device=dev) for s_, z in lz.items()}
+    lxr = {s_: real_on_card(z) for s_, z in lr.items()}
+    fz = {(s_, n1): rand(s_) for s_, n1, _ in FOURSTEP_FACTORS}
+    fx = {k: from_numpy(z, device=dev) for k, z in fz.items()}
+    r2z = rand(R2_STAGES)
+    r2x = from_numpy(r2z, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    lout = {}
+    for s_ in LONG_2D:
+        lout[s_, "fft2"] = fft2(lx[s_], backend="cuda")
+        lout[s_, "ifft2"] = fft2(lx[s_], inverse=True, backend="cuda")
+        lout[s_, "fft2_stockham"] = fft2(lx[s_], algo="fused_stockham",
+                                         backend="cuda")
+        lout[s_, "ifft2_stockham"] = fft2(lx[s_], inverse=True,
+                                          algo="fused_stockham",
+                                          backend="cuda")
+        lout[s_, "rfft2"] = rfft2(lxr[s_], backend="cuda")
+        lout[s_, "irfft2"] = irfft2(lout[s_, "rfft2"], s=s_[1:],
+                                    backend="cuda")
+    for s_ in LONG_3D:
+        lout[s_, "fft3"] = fft3(lx[s_], backend="cuda")
+        lout[s_, "ifft3"] = fft3(lx[s_], inverse=True, backend="cuda")
+    fplans = {}
+    for s_, n1, how in FOURSTEP_FACTORS:
+        if how == "plan":
+            fplans[s_] = get_plan(s_[1:], algo="four_step", backend="cuda")
+            lout[s_, n1] = fplans[s_](fx[s_, n1])
+        else:
+            lout[s_, n1] = ops.fft_fourstep(fx[s_, n1], n1=n1)
+    p_r2s = plan_fft(R2_STAGES[1], algo="stockham2", backend="cuda")
+    lout["r2"] = p_r2s(r2x)
+    lout["r2_inverse"] = plan_fft(R2_STAGES[1], algo="stockham2",
+                                  inverse=True, backend="cuda")(r2x)
+    torch.cuda.synchronize()
+    launches_long = dict(ops.LAUNCHES)
+    lchecks, llimits = {}, {}
+    for s_ in LONG_2D:
+        tag = "x".join(map(str, s_))
+        z, zr_ = lz[s_], lr[s_]
+        for k, want in (("fft2", np.fft.fft2(z)), ("ifft2", np.fft.ifft2(z)),
+                        ("fft2_stockham", np.fft.fft2(z)),
+                        ("ifft2_stockham", np.fft.ifft2(z)),
+                        ("rfft2", np.fft.rfft2(zr_)), ("irfft2", zr_)):
+            lchecks[f"{k}_{tag}_vs_numpy"] = np_errors(lout[s_, k], want)
+            llimits[f"{k}_{tag}_vs_numpy"] = TOL_NUMPY
+    for s_ in LONG_3D:
+        tag = "x".join(map(str, s_))
+        z = lz[s_]
+        for k, want in (("fft3", np.fft.fftn(z, axes=(-3, -2, -1))),
+                        ("ifft3", np.fft.ifftn(z, axes=(-3, -2, -1)))):
+            lchecks[f"{k}_{tag}_vs_numpy"] = np_rel_norm(lout[s_, k], want)
+            llimits[f"{k}_{tag}_vs_numpy"] = TOL_3D_NUMPY
+    for s_, n1, how in FOURSTEP_FACTORS:
+        tag = f"{s_[0]}x{s_[1]}_n1={n1}"
+        got = lout[s_, n1]
+        lchecks[f"fourstep_{tag}_vs_numpy"] = np_errors(got,
+                                                        np.fft.fft(fz[s_, n1]))
+        llimits[f"fourstep_{tag}_vs_numpy"] = TOL_1D
+        lchecks[f"fourstep_{tag}_vs_plain"] = errors(
+            got, F.fft_fourstep_plain(fx[s_, n1], n1=n1))[1]
+        llimits[f"fourstep_{tag}_vs_plain"] = TOL_1D
+    lchecks["stockham2_2^25_vs_numpy"] = np_errors(lout["r2"],
+                                                   np.fft.fft(r2z))
+    lchecks["stockham2_2^25_inverse_vs_numpy"] = np_errors(
+        lout["r2_inverse"], np.fft.ifft(r2z))
+    r2_plain = S.fft_stockham_r2_plain(r2x)
+    lchecks["stockham2_2^25_vs_plain"] = errors(lout["r2"], r2_plain)[1]
+    main_err["fft_stockham_r2_stages"] = errors(lout["r2"], r2_plain)[0]
+    del r2_plain
+    for k in ("stockham2_2^25_vs_numpy", "stockham2_2^25_inverse_vs_numpy",
+              "stockham2_2^25_vs_plain"):
+        llimits[k] = TOL_1D
+    for k, v in lchecks.items():
+        if not (v <= llimits[k]):
+            failures.append(f"long-axis path {k}: {v} > {llimits[k]}")
+    lplans = {f"fft2_{'x'.join(map(str, s_[1:]))}":
+              get_plan(s_[1:], backend="cuda") for s_ in LONG_2D}
+    lplans.update({f"rfft2_{'x'.join(map(str, s_[1:]))}":
+                   get_plan(s_[1:], kind="rfft", backend="cuda")
+                   for s_ in LONG_2D})
+    lplans.update({f"fft3_{'x'.join(map(str, s_[1:]))}":
+                   get_plan(s_[1:], backend="cuda") for s_ in LONG_3D})
+    for k, pl in lplans.items():
+        if (pl.algo, pl.backend, pl.demote_reason) != ("fused", "cuda",
+                                                       None):
+            failures.append(f"{k} plan resolved to {pl}")
+    for s_, pl in fplans.items():
+        if (pl.algo, pl.backend, pl.demote_reason) != ("four_step", "cuda",
+                                                       None):
+            failures.append(f"four-step plan at {s_} resolved to {pl}")
+    if (p_r2s.algo, p_r2s.backend, p_r2s.radix) != ("stockham", "cuda", 2):
+        failures.append(f"stockham2 plan at 2^25 resolved to {p_r2s}")
+    for k in LONG_KERNELS:
+        if launches_long[k] <= 0:
+            failures.append(f"kernel {k} was not launched on the long-axis "
+                            "path")
+    emit({"phase": "long_axis_path", "launches": launches_long,
+          "errors": lchecks, "limits": llimits,
+          "plans": {k: [pl.algo, pl.backend, pl.demote_reason]
+                    for k, pl in lplans.items()},
+          "fourstep_factors": {str(s_): list(F.kernel_factors(s_[1], n1))
+                               + [F.kernel_route(s_[1], n1)]
+                               for s_, n1, _ in FOURSTEP_FACTORS},
+          "split_factors": {str(s_): [list(AX.split_factors(n))
+                                      for n in s_[1:]]
+                            for s_ in LONG_2D + LONG_3D}})
+    del lx, lxr, lout, fx, r2x
+    S.tw.packed_radix2_twiddles_np.cache_clear()
+    S.tw.clear_table_cache()
+    torch.cuda.empty_cache()
+
+    # 4i. bf16 planes on the 1-D, real-input, conv, stage and fused
+    # Stockham kernels: kernel and plain version against float64 numpy of
+    # the bf16-rounded input
+    def bf16_case(name, shape):
+        """(kernel call, plain call, bf16 input, float64 numpy output)."""
+        if name in ("rfft2d_fused", "irfft2d_fused"):
+            b, h, w = shape
+            if name == "rfft2d_fused":
+                x = real_on_card(real(shape)).bfloat16()
+                xn = x.double().cpu().numpy()
+                return (R.rfft2d_fused_cuda, R.rfft2d_fused_plain, x,
+                        np.fft.rfft2(xn))
+            x = bf16(from_numpy(rand((b, h, w // 2 + 1)), device=dev))
+            xn = to_numpy(x)
+            return (R.irfft2d_fused_cuda, R.irfft2d_fused_plain, x,
+                    np.fft.irfft2(xn, s=(h, w)))
+        if name == "fftconv_fused":
+            m = shape[-1]
+            x = real_on_card(real(shape)).bfloat16()
+            zk = rand((shape[1], m // 2 + 1))
+            zk[:, 0] = zk[:, 0].real
+            zk[:, -1] = zk[:, -1].real
+            ef = C.pack_filter(from_numpy(zk, device=dev), m,
+                               torch.bfloat16)
+            want = np.fft.irfft(np.fft.rfft(x.double().cpu().numpy()) * zk,
+                                m)
+            return (lambda t: C.fftconv_fused_cuda(t, ef),
+                    lambda t: C.fftconv_fused_plain(t, ef), x, want)
+        x = bf16(from_numpy(rand(shape), device=dev))
+        xn = to_numpy(x)
+        fns = {"fft_stockham": (S.fft_stockham_cuda, S.fft_stockham_plain),
+               "fft_stockham_r2": (S.fft_stockham_r2_cuda,
+                                   S.fft_stockham_r2_plain),
+               "fft_fourstep": (F.fft_fourstep_cuda, F.fft_fourstep_plain),
+               "fft_staged": (ST.fft_staged_cuda, ST.fft_staged_plain),
+               "fft2d_fused": (S2.fft2d_fused_cuda, S2.fft2d_fused_plain)}
+        want = np.fft.fft2(xn) if name == "fft2d_fused" else np.fft.fft(xn)
+        return (*fns[name], x, want)
+
+    for name, shape in BF16_F4:
+        kern, plain, x, want = bf16_case(name, shape)
+        got = kern(x)
+        torch.cuda.synchronize()
+        pl = plain(x)
+        scale = float(np.abs(want).max())
+        k_err = float(np.abs(to_numpy(got) - want).max()) / scale
+        p_err = float(np.abs(to_numpy(pl) - want).max()) / scale
+        dtype = (got.re if isinstance(got, SplitComplex) else got).dtype
+        ok = (k_err <= TOL_BF16_REF and k_err <= p_err + BF16_SLACK
+              and dtype == torch.bfloat16)
+        if not ok:
+            failures.append(f"{name}{shape} bf16: {k_err} (plain {p_err})")
+        if shape in (MAIN_SHAPE.get(name), MAIN_CONV, TABLE1):
+            main_err[f"{name}_bf16"] = k_err * scale
+        emit({"phase": "kernel_vs_numpy", "kernel": name,
+              "dtype": "bfloat16", "shape": shape, "err_over_max": k_err,
+              "plain_err_over_max": p_err, "tol": TOL_BF16_REF,
+              "tol_vs_plain": p_err + BF16_SLACK, "ok": ok})
+        del x, got, pl, want
+        torch.cuda.empty_cache()
+
     # 5. timing at the main paths' shapes; each spec makes its kernel's
     # input and the library call's input from one seeded array
     def design_floor(name, shape, nbytes, k_ms):
@@ -1451,7 +1670,11 @@ def main() -> int:
           "method_flops": method_flops, "table_bytes": table_bytes,
           "method_tflops": method_flops / k_ms / 1e9,
           "hbm_tb_per_s": nbytes / k_ms / 1e9,
-          "launches": launches_conv["fftconv_fused"], "nvidia_smi": smi})
+          "launches": launches_conv["fftconv_fused"], "grid_launches": 1,
+          "bound_share": b_ms / k_ms,
+          "rows_a_tile": C.rows_a_tile(MAIN_CONV[0] * MAIN_CONV[1], m,
+                                       _build.sm_count(xc.device)),
+          "nvidia_smi": smi})
     kernels.append({"name": "fftconv_fused", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/fftconv_fused.cu",
                     "replaces": "src/repro/kernels/fftconv_fused.py:178",
@@ -1474,9 +1697,51 @@ def main() -> int:
         b_ms, b_by = bound_ms(*conv_counts(*shape, TABLE11_ROWS))
         emit({"phase": "timing", "kernel": "fftconv_fused", "shape": shape,
               "cell": "table11", "kernel_ms": k_ms, "library_ms": l_ms,
-              "bound_us": b_ms * 1e3, "bound_by": b_by, "nvidia_smi": smi})
+              "bound_us": b_ms * 1e3, "bound_by": b_by,
+              "bound_share": b_ms / k_ms, "grid_launches": 1,
+              "rows_a_tile": C.rows_a_tile(TABLE11_ROWS, m,
+                                           _build.sm_count(xc.device)),
+              "nvidia_smi": smi})
         del xc, efc, kfc
     torch.cuda.empty_cache()
+
+    # the long-axis routes: fft2 at 8192^2 (each axis two launches of the
+    # split), the four-step kernel at 2^21 = 1024 x 2048 (the axis route)
+    # and radix 2 at 2^25 (a launch a stage), each with its plain version,
+    # the library call and the bound; launches from the long-axis window
+    route_specs = [
+        ("fft2d_gemm", "split_axis_8192^2", LONG_TIMED, G.fft2d_gemm_cuda,
+         G.fft2d_gemm_plain, lambda c: torch.fft.fft2(c),
+         fft_counts(LONG_TIMED[0], LONG_TIMED[1] * LONG_TIMED[2]),
+         len(AX.plan2d(*LONG_TIMED)), launches_long["fft2d_gemm"], 25),
+        ("fft_fourstep", "axis_route_1024x2048", FOURSTEP_FACTORS[0][0],
+         F.fft_fourstep_cuda, F.fft_fourstep_plain,
+         lambda c: torch.fft.fft(c), fft_counts(*FOURSTEP_FACTORS[0][0]),
+         len(F.axis_plan(*FOURSTEP_FACTORS[0][0])),
+         launches_long["fft_fourstep"], 25),
+        ("fft_stockham_r2", "per_stage_2^25", R2_STAGES,
+         S.fft_stockham_r2_cuda, S.fft_stockham_r2_plain,
+         lambda c: torch.fft.fft(c), fft_counts(*R2_STAGES),
+         R2_STAGES[1].bit_length() - 1, launches_long["fft_stockham_r2"],
+         5)]
+    for name, cell, shape, kern, plain, lib, (flops, nbytes), grids, \
+            count, runs in route_specs:
+        x, c = complex_inputs(shape)
+        k_ms = time_ms(lambda: kern(x), torch)
+        p_ms = time_ms(lambda: plain(x), torch, runs=runs, warmup=1)
+        l_ms = time_ms(lambda: lib(c), torch)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        emit({"phase": "timing", "kernel": name, "cell": cell,
+              "shape": shape, "kernel_ms": k_ms, "plain_ms": p_ms,
+              "library_ms": l_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+              "bound_share": b_ms / k_ms, "fft_flops": flops,
+              "io_bytes": nbytes, "grid_launches": grids,
+              "floor_us": grids * nbytes / PEAK_HBM_BYTES * 1e6,
+              "launches": count, "nvidia_smi": smi})
+        del x, c
+        S.tw.packed_radix2_twiddles_np.cache_clear()
+        S.tw.clear_table_cache()
+        torch.cuda.empty_cache()
 
     # recorded beside the kernels line, not entries of it: the 3-D kernel
     # at the PME grid and in bf16, plain bf16 images, and the fused 3-D

@@ -35,6 +35,19 @@
 // 128 contiguous bytes a warp.  Stores are scaled (the inverse's 1/N) and
 // rounded to bf16 for bf16 planes.  Every pass runs in place, so a launch
 // may read and write the same planes.
+// Axes longer than one launch holds (n > 4096 in the 2-D and 3-D kernels,
+// four-step factors past 1024) split four-step fashion, n = n1 * n2 (*
+// n3), one launch a factor, planned on the host (axis_fft.py::plan_split):
+//   TWIDDLE  the FFT along n1 of the (outer, n1, n2*inner) view, each point
+//            (k1, j2) multiplied at its store by W_M^(k1*j2) (M = n1*n2; a
+//            two-level table, W_M^m = hi[m >> s] * lo[m mod 2^s]), in place;
+//   REVERSED the FFT along the last factor of the (outer*n1(*n2), n2,
+//            inner) view, point k2 of image (o, k1) stored at its
+//            digit-reversed place (o, k2*n1 + k1) (with a third factor,
+//            (o, k3*n1*n2 + k2*n1 + k1)), so it reads other planes than
+//            it writes.
+// Images of a view may lie further apart than their points (img_in,
+// img_out: the real-input kernels' packed row pairs).
 #pragma once
 #include <cuda_runtime.h>
 #include <utility>
@@ -43,6 +56,9 @@
 namespace {
 
 constexpr int E = 16;            // complex points a thread holds
+
+// how an axis launch stores (the split routes; see Geo)
+enum { PLAIN = 0, TWIDDLE = 1, REVERSED = 2 };
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -487,6 +503,46 @@ struct ToGlobal {
   }
 };
 
+// the last pass of a split's launch (Geo): TWIDDLE stores element k of
+// transform t as ToGlobal does, multiplied by W_M^(k * (column >> ljr));
+// REVERSED stores it at image o >> (lr1 + lr2), row ((k << lr2 | b) <<
+// lr1) | a of that image's rows, where the low bits of o are (a, b), a of
+// lr1 bits, img the stride of the split's images
+template <class T, int MODE>
+struct ToSplit {
+  T* outr;
+  T* outi;
+  long long o0, outer, img, c0;
+  int lc, linner;
+  float scale;
+  Levels tw;
+  int ljr, lr1, lr2;
+  template <int R>
+  __device__ __forceinline__ void put(int t, int k0, int ns, float2* v) const {
+    const long long o = o0 + (t >> lc);
+    if (o >= outer) return;
+    const long long col = c0 + (t & ((1 << lc) - 1));
+    long long base = o * img + col;
+    int lk = linner;
+    if constexpr (MODE == REVERSED) {
+      const int lr = lr1 + lr2;
+      const long long lo = o & ((1LL << lr) - 1);
+      const long long rev = ((lo & ((1LL << lr2) - 1)) << lr1) | (lo >> lr2);
+      base = (o >> lr) * img + (rev << linner) + col;
+      lk = linner + lr;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float2 x = v[r];
+      if constexpr (MODE == TWIDDLE)
+        x = cmul(x, tw((int)((long long)(k0 + r * ns) * (col >> ljr))));
+      const long long a = base + ((long long)(k0 + r * ns) << lk);
+      outr[a] = narrow<T>(x.x * scale);
+      outi[a] = narrow<T>(x.y * scale);
+    }
+  }
+};
+
 // One launch: the view (outer, 2^ln, 2^linner) of the planes x -> out and
 // its tiling, planned on the host.  A tile holds 2^lc adjacent inner
 // columns (lc < linner: of one image) of 2^lg consecutive images (lc ==
@@ -504,7 +560,15 @@ struct Geo {
   long long outer, tiles;
   int ln, linner, lc, lg, nbuf, wf, p;
   float sg, scale;
+  // the split routes (zero: a plain launch of dense images): the TWIDDLE
+  // store's [lo | hi] table and its level shift, log2 of the inner extent
+  // whose multiples are j2; the REVERSED store's digit widths (n1, n2)
+  const float2* tlo;
+  int tls, ljr, lr1, lr2;
+  // elements between consecutive images of the input and output views
+  long long img_in, img_out;
 };
+
 
 // log2 of the elements a chunk copies: up to 16 bytes of the tile's runs
 template <class T>
@@ -524,7 +588,7 @@ __device__ __forceinline__ void load_tile(const Geo& g, long long k, T* sr,
   const int cpi = g.linner - g.lc;
   const long long o0 = (k >> cpi) << g.lg;
   const long long c0 = (k & ((1LL << cpi) - 1)) << g.lc;
-  const long long img = 1LL << (g.ln + g.linner);
+  const long long img = g.img_in ? g.img_in : 1LL << (g.ln + g.linner);
   const T* xr = static_cast<const T*>(g.xr);
   const T* xi = static_cast<const T*>(g.xi);
   const int bytes = (int)sizeof(T) << lv;
@@ -601,6 +665,28 @@ __device__ __forceinline__ ToGlobal<T> to_global(const Geo& g, long long k) {
                      g.scale};
 }
 
+// a split launch's store (MODE TWIDDLE or REVERSED)
+template <class T, int MODE>
+__device__ __forceinline__ ToSplit<T, MODE> to_split(const Geo& g,
+                                                     long long k) {
+  const int cpi = g.linner - g.lc;
+  const int lr = MODE == REVERSED ? g.lr1 + g.lr2 : 0;
+  return ToSplit<T, MODE>{
+      static_cast<T*>(g.outr), static_cast<T*>(g.outi), (k >> cpi) << g.lg,
+      g.outer, g.img_out ? g.img_out : 1LL << (g.ln + g.linner + lr),
+      (k & ((1LL << cpi) - 1)) << g.lc, g.lc, g.linner, g.scale,
+      Levels{g.tlo, g.tlo + (1 << g.tls), g.tls}, g.ljr, g.lr1, g.lr2};
+}
+
+// the store of an axis launch of MODE
+template <class T, int MODE>
+__device__ __forceinline__ auto store_for(const Geo& g, long long k) {
+  if constexpr (MODE == PLAIN)
+    return to_global<T>(g, k);
+  else
+    return to_split<T, MODE>(g, k);
+}
+
 // A rows tile's transform, back in the work layout (rows of pitch p), to
 // device memory: element e of the tile is row e >> ln, point e mod n, so
 // each warp stores 128 contiguous bytes (the last pass's lanes take 8 or
@@ -623,8 +709,9 @@ __device__ __forceinline__ void store_rows(const Geo& g, long long k,
   __syncthreads();
 }
 
-// the FFT of one tile of the rows (ROWS) or cols route
-template <int LN, bool ROWS, class T>
+// the FFT of one tile of the rows (ROWS) or cols route, stored as MODE
+// says (a REVERSED rows tile from registers, its rows' points scattered)
+template <int LN, bool ROWS, class T, int MODE>
 struct AxisRun {
   const Geo& g;
   float* smem;
@@ -635,7 +722,12 @@ struct AxisRun {
     const T* sr = reinterpret_cast<const T*>(wr);
     const T* si = sr + (1 << (LN + g.lc + g.lg));
     const int lT = g.lc + g.lg, nt = blockDim.x;
-    if constexpr (ROWS) {
+    if constexpr (ROWS && MODE == REVERSED) {
+      const Rows rows{g.p};
+      passes<LN, 0, 3, true>(
+          FromStage<T, Swizzled>{sr, si, Swizzled{LN, lv, mask}}, wr, wi,
+          rows, lT, nt, g.tab, g.sg, to_split<T, MODE>(g, k));
+    } else if constexpr (ROWS) {
       const Rows rows{g.p};
       passes<LN, 0, 3, true>(
           FromStage<T, Swizzled>{sr, si, Swizzled{LN, lv, mask}}, wr, wi,
@@ -644,20 +736,21 @@ struct AxisRun {
     } else {
       const Columns cols{g.lc, 1 << (LN + g.lc), 1 << g.lc};
       passes<LN, 0, -1, true>(FromStage<T, Columns>{sr, si, cols}, wr, wi,
-                              cols, lT, nt, g.tab, g.sg, to_global<T>(g, k));
+                              cols, lT, nt, g.tab, g.sg,
+                              store_for<T, MODE>(g, k));
     }
   }
 };
 
 // The axis FFT of length 2^LN over rows (ROWS, inner = 1) or columns.
-template <int LN, bool ROWS, class T, int NT>
+template <int LN, bool ROWS, class T, int NT, int MODE>
 __global__ void __launch_bounds__(NT, 1)
 axis_fft(const __grid_constant__ Geo g) {
   extern __shared__ float smem[];
   const int lv = chunk_log<T>(g);
   const int mask = ROWS && LN - lv >= 3 ? 7 : 0;
   walk_tiles(g, TileCopy<T>{g, smem, lv, LN, mask},
-             AxisRun<LN, ROWS, T>{g, smem, lv, mask});
+             AxisRun<LN, ROWS, T, MODE>{g, smem, lv, mask});
 }
 
 // the FFT of one tile of whole (h, w) images: rows, then columns
@@ -697,13 +790,14 @@ plane_fft(const __grid_constant__ Geo g) {
 using AxisLaunch = cudaError_t (*)(const Geo&, unsigned, int, size_t,
                                    cudaStream_t);
 
-template <int LN, bool ROWS, class T, int NT>
+template <int LN, bool ROWS, class T, int NT, int MODE>
 cudaError_t launch_axis(const Geo& g, unsigned blocks, int threads,
                         size_t smem, cudaStream_t st) {
   static int done[16];
-  const cudaError_t e = allow_smem(axis_fft<LN, ROWS, T, NT>, smem, done);
+  const cudaError_t e =
+      allow_smem(axis_fft<LN, ROWS, T, NT, MODE>, smem, done);
   if (e != cudaSuccess) return e;
-  axis_fft<LN, ROWS, T, NT><<<blocks, threads, smem, st>>>(g);
+  axis_fft<LN, ROWS, T, NT, MODE><<<blocks, threads, smem, st>>>(g);
   return cudaGetLastError();
 }
 
@@ -717,19 +811,47 @@ cudaError_t launch_plane(const Geo& g, unsigned blocks, int threads,
   return cudaGetLastError();
 }
 
-template <bool ROWS, class T, int... L>
+template <int MODE, bool ROWS, class T, int... L>
 AxisLaunch axis_for(int ln, std::integer_sequence<int, L...>) {
-  static const AxisLaunch fns[] = {launch_axis<L + 1, ROWS, T, 512>...};
+  static const AxisLaunch fns[] = {launch_axis<L + 1, ROWS, T, 512, MODE>...};
   return fns[ln - 1];
 }
 
+// The kernel of a launch, null for none: rows of 2^1 .. 2^13 points (512
+// threads) and 2^14 (1024); columns of 2^1 .. 2^12 (512) and 2^11 ..
+// 2^12 (16384-point tiles, 1024), TWIDDLE columns to 2^14 (the four-step
+// kernel's factors); no TWIDDLE rows (a split's first factor has columns).
+template <class T, int MODE>
+AxisLaunch pick_mode(int ln, bool rows, int threads) {
+  if (rows) {
+    if (MODE == TWIDDLE) return nullptr;
+    if (threads > 512) return ln == 14 ? launch_axis<14, true, T, 1024, MODE>
+                                       : nullptr;
+    return ln <= 13 ? axis_for<MODE, true, T>(
+                          ln, std::make_integer_sequence<int, 13>{})
+                    : nullptr;
+  }
+  if (threads > 512) {  // 16384-point column tiles
+    switch (ln) {
+      case 11: return launch_axis<11, false, T, 1024, MODE>;
+      case 12: return launch_axis<12, false, T, 1024, MODE>;
+      case 13: return MODE == TWIDDLE ? launch_axis<13, false, T, 1024, MODE>
+                                      : nullptr;
+      case 14: return MODE == TWIDDLE ? launch_axis<14, false, T, 1024, MODE>
+                                      : nullptr;
+      default: return nullptr;
+    }
+  }
+  return ln <= 12 ? axis_for<MODE, false, T>(
+                        ln, std::make_integer_sequence<int, 12>{})
+                  : nullptr;
+}
+
 template <class T>
-AxisLaunch pick(int ln, bool rows, int threads) {
-  if (threads > 512)  // 16384-point column tiles
-    return ln == 11 ? launch_axis<11, false, T, 1024>
-                    : launch_axis<12, false, T, 1024>;
-  const auto lns = std::make_integer_sequence<int, 12>{};
-  return rows ? axis_for<true, T>(ln, lns) : axis_for<false, T>(ln, lns);
+AxisLaunch pick(int ln, bool rows, int threads, int mode) {
+  return mode == TWIDDLE    ? pick_mode<T, TWIDDLE>(ln, rows, threads)
+         : mode == REVERSED ? pick_mode<T, REVERSED>(ln, rows, threads)
+                            : pick_mode<T, PLAIN>(ln, rows, threads);
 }
 
 // Floats a work plane of a tile: G rows of pitch p (rows), G images of h
@@ -753,25 +875,39 @@ inline long long work_floats(int ln, int linner, int lc, int lg, bool plane,
 }  // namespace
 
 // One launch of the axis FFT (plane = 0) or of the plane FFT (plane = 1)
-// on x -> out (which may be the same planes), fp32 or raw bf16 (bf16 = 1),
-// with the tiling the host planned (kernels/axis_fft.py): log2 of n, of
-// the inner extent, of the columns and of the images a tile holds; `tab`
-// the fp32 table W_n^k (plane: the W axis'; `tab2` the H axis') of the
-// transform's sign, `scale` applied at the store, `blocks` the persistent
-// grid.  Returns cudaErrorInvalidValue for a tiling it does not take.  (A
-// template, so that a source that includes this header and never calls it,
-// fft_fourstep.cu, instantiates none of the kernels.)
+// on x -> out (which may be the same planes but for mode REVERSED), fp32 or
+// raw bf16 (bf16 = 1), with the tiling the host planned
+// (kernels/axis_fft.py): log2 of n, of the inner extent, of the columns
+// and of the images a tile holds; `tab` the fp32 table W_n^k (plane: the W
+// axis'; `tab2` the H axis') of the transform's sign, `scale` applied at
+// the store, `blocks` the persistent grid.  `mode` PLAIN, TWIDDLE (`tw` the
+// fp32 [lo | hi] table of level shift `tls`, j2 = column >> ljr) or
+// REVERSED (digit widths lr1, lr2); img_in / img_out the images' strides
+// (0: dense).  Returns cudaErrorInvalidValue for a tiling it does not
+// take.  (A template, so that a source that includes this header and never
+// calls it instantiates none of the kernels.)
 template <int = 0>
 cudaError_t axis_fft_launch(const void* xr, const void* xi, void* outr,
                             void* outi, const float* tab,
                             const float* tab2, long long outer, int ln,
                             int linner, int lc, int lg, int plane, int blocks,
-                            int inverse, float scale, int bf16,
+                            int inverse, float scale, int bf16, int mode,
+                            const float* tw, int tls, int ljr, int lr1,
+                            int lr2, long long img_in, long long img_out,
                             cudaStream_t st) {
   const int lp = ln + lc + lg;
-  if (ln < 1 || ln > 12 || lc < 0 || lg < 0 || lc > linner || linner > 30 ||
+  const long long img = 1LL << (ln + linner);
+  if (ln < 1 || ln > 14 || lc < 0 || lg < 0 || lc > linner || linner > 30 ||
       outer <= 0 || blocks <= 0 || lp > 14 || (1 << lp) < AXIS_TILE_MIN ||
-      (lc < linner && lg != 0) || (plane && (lc != linner || ln + lc > 14)))
+      (lc < linner && lg != 0) || (plane && (lc != linner || ln + lc > 14 ||
+                                             mode != PLAIN)) ||
+      mode < PLAIN || mode > REVERSED ||
+      (mode == TWIDDLE && (tw == nullptr || tls < 0 || tls > 20 ||
+                           ljr < 0 || ljr > linner)) ||
+      (mode == REVERSED && (lr1 < 0 || lr2 < 0 || lr1 + lr2 > 30 ||
+                            xr == outr || xi == outi)) ||
+      (img_in != 0 && (img_in < img || (lg != 0 && img_in != img))) ||
+      (img_out != 0 && (img_out < img || mode == PLAIN)))
     return cudaErrorInvalidValue;
   int p;
   const long long wf = work_floats(ln, linner, lc, lg, plane != 0, &p);
@@ -781,15 +917,16 @@ cudaError_t axis_fft_launch(const void* xr, const void* xi, void* outr,
   const long long per = (outer + (1LL << lg) - 1) >> lg;
   Geo g{xr, xi, outr, outi, (const float2*)tab, (const float2*)tab2, outer,
         per << (linner - lc), ln, linner, lc, lg, nbuf, (int)wf, p,
-        inverse ? 1.f : -1.f, scale};
+        inverse ? 1.f : -1.f, scale, (const float2*)tw, tls, ljr, lr1, lr2,
+        img_in, img_out};
   const int threads = 1 << (lp - 4);
   const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
   if (plane)
     return bf16 ? launch_plane<unsigned short>(g, grid, threads, smem, st)
                 : launch_plane<float>(g, grid, threads, smem, st);
   const bool rows = linner == 0;
-  if (threads > 512 && (rows || ln < 11)) return cudaErrorInvalidValue;
-  const AxisLaunch fn = bf16 ? pick<unsigned short>(ln, rows, threads)
-                             : pick<float>(ln, rows, threads);
+  const AxisLaunch fn = bf16 ? pick<unsigned short>(ln, rows, threads, mode)
+                             : pick<float>(ln, rows, threads, mode);
+  if (fn == nullptr) return cudaErrorInvalidValue;
   return fn(g, grid, threads, smem, st);
 }

@@ -1,6 +1,6 @@
-// Batched complex 2-D FFT over (batch, h, w) split fp32 planes, h and w
-// powers of two in [2, 4096], as two passes of fused radix-4 Stockham
-// stages over HBM: rows, then columns in place.
+// Batched complex 2-D FFT over (batch, h, w) split fp32 or bf16 planes, h
+// and w powers of two >= 2, as two passes of fused radix-4 Stockham stages
+// over HBM: rows, then columns in place.
 //
 // Replaces the Pallas kernel repro/kernels/fft2d_fused.py::_fft2d_kernel,
 // the algo="fused_stockham" oracle (plain version:
@@ -19,7 +19,8 @@
 // on the stage stores, 4096-point tiles copied synchronously, and 16-byte
 // column segments.  So both launches run on fft_stockham's machinery
 // (stockham.cuh) over axis_fft.cuh's tile walk:
-//   rows     tiles of G whole rows (G*w <= 8192 points), double-buffered:
+//   rows     fft_stockham's rows route (stockham.cuh: ST_ROWS): tiles of
+//            G whole rows (G*w <= 8192 points), double-buffered:
 //            the next tile is copied in with cp.async while this one is
 //            transformed; every stage of length w, two radix-4 stages a
 //            pass in registers (16 points a thread) between barriers, the
@@ -31,6 +32,15 @@
 //            where w < C; every stage of length h, the radix-2 tail
 //            included; stored in place from registers, scaled by the
 //            inverse's 1/(h*w).
+// Longer axes take the 1-D kernel's routes (stockham.cuh), planned by
+// kernels/fft2d_fused.py::plan: rows of w <= 2^14 one rows tile a row, of
+// up to 2^24 its two launches (launch A on columns of the (rows, M, Q)
+// view, launch B on rows stored transposed), columns of h <= 2^14 in
+// 2- or 1-column tiles, of up to 2^24 the same two launches over the
+// columns of the images (ST_COLS with q = column / w, ST_TCOLS storing
+// (o, t*M + k, i)), and past 2^24 a launch a stage (stockham.cuh's
+// per_stage) along either axis.
+// bf16 planes are widened at the load and rounded to bf16 at each store.
 // The butterflies are stockham_stages': radix-4 stage s of a length-n
 // transform twiddles by w^r at entry (j >> 2s) << 2s of row r - 1 of the
 // one (3, n/4) table (bit for bit row s of the reference's packed table;
@@ -41,132 +51,145 @@
 
 namespace {
 
-enum { S2_ROWS = 0, S2_COLS = 1 };
-
-// the work layout of a columns tile: element i of transform t = (image
-// t >> lc, column t mod 2^lc) at swz((image * 2^ln + i) * 2^lc + column)
-struct ImageColsSw {
-  int lc, ln;
-  __device__ __forceinline__ int at(int t, int i) const {
-    return swz(((((t >> lc) << ln) + i) << lc) + (t & ((1 << lc) - 1)));
-  }
-};
-
-// One tile's stages, the table's rows `row` = n/4 entries long
-template <int LN, int ROUTE>
+// One columns tile's stages, the table's rows `row` = n/4 entries long:
+// C adjacent whole columns of one image, or G whole images, in the work
+// layout ImageColsSw, stored from registers
+template <int LN, class T>
 struct S2Run {
   const Geo& g;
   float* smem;
-  int lv, mask, row;
+  int row;
   __device__ __forceinline__ void operator()(long long k, int b) const {
     float* wr = smem + b * 2 * g.wf;
     float* wi = wr + g.wf;
-    const float* sr = wr;
-    const float* si = sr + (1 << (LN + g.lc + g.lg));
-    const int nt = blockDim.x;
-    const Twiddle tw{g.tab, 0, 0, 0, row, g.sg};
-    if constexpr (ROUTE == S2_COLS) {
-      const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
-      st_passes<4, LN, 0, 5>(FromStage<float, Columns>{sr, si, stage}, wr, wi,
-                             ImageColsSw{g.lc, LN}, g.lc + g.lg, nt, tw,
-                             to_global<float>(g, k));
-    } else {
-      const RowsSw rows{g.p};
-      st_passes<4, LN, 0, 3>(
-          FromStage<float, Swizzled>{sr, si, Swizzled{LN, lv, mask}}, wr, wi,
-          rows, g.lg, nt, tw, ToShared<RowsSw>{wr, wi, rows});
-      st_store_rows<LN>(g, k, wr, wi, rows);
-    }
+    const T* sr = reinterpret_cast<const T*>(wr);
+    const T* si = sr + (1 << (LN + g.lc + g.lg));
+    const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
+    st_passes<4, LN, 0, 5>(FromStage<T, Columns>{sr, si, stage}, wr, wi,
+                           ImageColsSw{g.lc, LN}, g.lc + g.lg, blockDim.x,
+                           Twiddle{g.tab, 0, 0, 0, row, g.sg, 0},
+                           to_global<T>(g, k));
   }
 };
 
-template <int LN, int ROUTE, int NT>
+template <int LN, int NT, class T>
 __global__ void __launch_bounds__(NT, 1)
 s2_fft(const __grid_constant__ Geo g, int row) {
   extern __shared__ float smem[];
-  const int lv = chunk_log<float>(g);
-  const int mask = ROUTE == S2_ROWS && LN - lv >= 3 ? 7 : 0;
-  walk_tiles(g, TileCopy<float>{g, smem, lv, LN, mask},
-             S2Run<LN, ROUTE>{g, smem, lv, mask, row});
+  walk_tiles(g, TileCopy<T>{g, smem, chunk_log<T>(g), LN, 0},
+             S2Run<LN, T>{g, smem, row});
 }
 
 using S2Launch = cudaError_t (*)(const Geo&, int, unsigned, int, size_t,
                                  cudaStream_t);
 
-template <int LN, int ROUTE, int NT>
+template <int LN, int NT, class T>
 cudaError_t launch_s2(const Geo& g, int row, unsigned blocks, int threads,
                       size_t smem, cudaStream_t st) {
   static int done[16];
-  const cudaError_t e = allow_smem(s2_fft<LN, ROUTE, NT>, smem, done);
+  const cudaError_t e = allow_smem(s2_fft<LN, NT, T>, smem, done);
   if (e != cudaSuccess) return e;
-  s2_fft<LN, ROUTE, NT><<<blocks, threads, smem, st>>>(g, row);
+  s2_fft<LN, NT, T><<<blocks, threads, smem, st>>>(g, row);
   return cudaGetLastError();
 }
 
-template <int ROUTE, int NT, int... L>
+template <int NT, class T, int... L>
 S2Launch s2_for(int ln, std::integer_sequence<int, L...>) {
-  static const S2Launch fns[] = {launch_s2<L + 1, ROUTE, NT>...};
+  static const S2Launch fns[] = {launch_s2<L + 1, NT, T>...};
   return fns[ln - 1];
 }
 
-// The kernel of a launch: rows of 2^1 .. 2^12 points (tiles of up to 8192
-// points, 512 threads); columns of 2^1 .. 2^10 (8192, 512) or 2^11, 2^12
-// (16384-point tiles, 1024 threads).  Null for any other.
-S2Launch s2_pick(int route, int ln, int threads) {
-  if (ln < 1 || ln > 12) return nullptr;
-  if (route == S2_ROWS)
-    return threads <= 512 ? s2_for<S2_ROWS, 512>(
-                                ln, std::make_integer_sequence<int, 12>{})
-                          : nullptr;
-  if (route != S2_COLS) return nullptr;
-  if (ln <= 10)
-    return threads <= 512 ? s2_for<S2_COLS, 512>(
-                                ln, std::make_integer_sequence<int, 10>{})
-                          : nullptr;
-  return threads == 1024 ? (ln == 11 ? launch_s2<11, S2_COLS, 1024>
-                                     : launch_s2<12, S2_COLS, 1024>)
-                         : nullptr;
+// The kernel of a columns launch: columns of 2^1 .. 2^13 points (8192-
+// point tiles, 512 threads: of 2^11 and more, whole images where w is
+// narrow) or 2^11 .. 2^14 (16384-point tiles, 1024 threads).  Null for any
+// other.
+template <class T>
+S2Launch s2_pick(int ln, int threads) {
+  if (ln < 1 || ln > 14) return nullptr;
+  if (threads <= 512)
+    return ln <= 13 ? s2_for<512, T>(ln,
+                                     std::make_integer_sequence<int, 13>{})
+                    : nullptr;
+  switch (ln) {
+    case 11: return launch_s2<11, 1024, T>;
+    case 12: return launch_s2<12, 1024, T>;
+    case 13: return launch_s2<13, 1024, T>;
+    case 14: return launch_s2<14, 1024, T>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// One launch x -> out of the view (outer, 2^ln, 2^linner) with the tiling
-// the host planned (kernels/fft2d_fused.py::plan, axis_fft.plan_axis):
-// S2_ROWS (linner = 0: G = 2^lg rows a tile) or S2_COLS (tiles of 2^lc of
-// the 2^linner columns, or, lc == linner, 2^lg whole images), every stage
-// of length 2^ln off `tab`, the fp32 (3, 2^ln / 4) table w, w^2, w^3 of
-// the transform's sign (`inverse`) as (cos, sin) pairs; `scale` at the
-// store; `blocks` the persistent grid.  x and out may be the same planes.
-// Returns cudaErrorInvalidValue for a tiling it does not take.
-extern "C" int fft2d_fused_pass(const float* xr, const float* xi,
-                                float* outr, float* outi, const float* tab,
+// One column launch x -> out of the view (outer, 2^ln, 2^linner) with the
+// tiling the host planned (kernels/fft2d_fused.py::plan,
+// axis_fft.plan_axis): tiles of 2^lc of the 2^linner columns, or, lc ==
+// linner, 2^lg whole images, every stage of length 2^ln off `tab`, the
+// fp32 (3, 2^ln / 4) table w, w^2, w^3 of the transform's sign
+// (`inverse`) as (cos, sin) pairs; `scale` at the store; `blocks` the
+// persistent grid; raw bf16 planes for bf16 = 1.  x and out may be the
+// same planes.  Returns cudaErrorInvalidValue for a tiling it does not
+// take.
+extern "C" int fft2d_fused_pass(const void* xr, const void* xi, void* outr,
+                                void* outi, const float* tab,
                                 long long outer, int ln, int linner, int lc,
-                                int lg, int route, int blocks, float scale,
-                                int inverse, void* stream) {
+                                int lg, int blocks, float scale, int inverse,
+                                int bf16, void* stream) {
   const int lp = ln + lc + lg;
-  const bool rows = route == S2_ROWS;
-  if (outer <= 0 || blocks <= 0 || ln < 1 || ln > 12 || lc < 0 || lg < 0 ||
-      lc > linner || linner > 12 || lp > 14 || (1 << lp) < AXIS_TILE_MIN ||
-      (rows && (linner != 0 || lp > 13)) || (lc < linner && lg != 0))
+  if (outer <= 0 || blocks <= 0 || ln < 1 || ln > 14 || lc < 0 || lg < 0 ||
+      lc > linner || linner < 1 || linner > 24 || lp > 14 ||
+      (1 << lp) < AXIS_TILE_MIN || (lc < linner && lg != 0))
     return (int)cudaErrorInvalidValue;
   const int threads = 1 << (lp - 4);
-  const S2Launch fn = s2_pick(route, ln, threads);
+  const S2Launch fn = bf16 ? s2_pick<unsigned short>(ln, threads)
+                           : s2_pick<float>(ln, threads);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  int p = 0;
-  long long wf = 1LL << lp;
-  if (rows) {
-    p = pitch(1 << ln, lg < 3 ? lg : 3);
-    wf = (long long)p << lg;
-  }
-  wf = (wf + 31) / 32 * 32;
+  const long long wf = ((1LL << lp) + 31) / 32 * 32;
   const int nbuf = (1 << lp) <= AXIS_TILE ? 2 : 1;
   const size_t smem = (size_t)nbuf * 2 * sizeof(float) * wf;
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long per = (outer + (1LL << lg) - 1) >> lg;
   const int row = ln >= 2 ? 1 << (ln - 2) : 0;
   const Geo g{xr, xi, outr, outi, (const float2*)tab, nullptr, outer,
-              per << (linner - lc), ln, linner, lc, lg, nbuf, (int)wf, p,
+              per << (linner - lc), ln, linner, lc, lg, nbuf, (int)wf, 0,
               inverse ? 1.f : -1.f, scale};
   const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
   return (int)fn(g, row, grid, threads, smem, (cudaStream_t)stream);
+}
+
+// One launch on the 1-D kernel's routes (stockham.cuh's stockham_pass<4>):
+// the row pass (ST_ROWS, rows of up to 2^14), or an axis past 2^14 as
+// launches A (ST_COLS) and B (ST_TRANSPOSED on rows, ST_TCOLS on
+// columns); l1 launch A's bits, lin log2 of the images' inner extent
+// (ST_COLS over columns; ST_TCOLS: linner), `tab` the axis' (3, n/4)
+// table.
+extern "C" int fft2d_fused_1d(const void* xr, const void* xi, void* outr,
+                              void* outi, const float* tab, long long outer,
+                              int ln, int linner, int lc, int lg, int route,
+                              int l1, int lin, int blocks, float scale,
+                              int inverse, int bf16, void* stream) {
+  return stockham_pass<4>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
+                          route, l1, lin, blocks, scale,
+                          inverse ? 1.f : -1.f, bf16, (cudaStream_t)stream);
+}
+
+// An axis past 2^24: a launch a radix-4 stage (then the radix-2 tail)
+// along the middle axis of the (batch, 2^ln, 2^lin) view, x -> out through
+// the scratch pair (sr, si), off the axis' (3, n/4) table, `scale` at the
+// last store.
+extern "C" int fft2d_fused_stages(const void* xr, const void* xi, void* outr,
+                                  void* outi, void* sr, void* si,
+                                  const float* tab, long long batch, int ln,
+                                  int lin, float scale, int inverse,
+                                  int bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (batch <= 0 || ln < 1 || ln > 40 || lin < 0 || lin > 30)
+    return (int)cudaErrorInvalidValue;
+  const float2* w = (const float2*)tab;
+  using B = unsigned short;
+  using F = float;
+  return bf16 ? per_stage<4>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
+                             (B*)sr, (B*)si, w, batch, ln, lin, inverse, scale, s)
+              : per_stage<4>((const F*)xr, (const F*)xi, (F*)outr, (F*)outi,
+                             (F*)sr, (F*)si, w, batch, ln, lin, inverse, scale, s);
 }

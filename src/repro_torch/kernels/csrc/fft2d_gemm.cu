@@ -33,10 +33,13 @@ extern "C" int fft2d_gemm_pass(const void* xr, const void* xi, void* outr,
                                const float* tab2, long long outer, int ln,
                                int linner, int lc, int lg, int plane,
                                int blocks, int inverse, float scale,
-                               int bf16, void* stream) {
+                               int bf16, int mode, const float* tw, int tls,
+                               int ljr, int lr1, int lr2, long long img_in,
+                               long long img_out, void* stream) {
   return (int)axis_fft_launch(xr, xi, outr, outi, tab, tab2, outer, ln,
                               linner, lc, lg, plane, blocks, inverse, scale,
-                              bf16, (cudaStream_t)stream);
+                              bf16, mode, tw, tls, ljr, lr1, lr2, img_in,
+                              img_out, (cudaStream_t)stream);
 }
 
 // bf16 plain: x (batch, h, w) raw bf16 -> out raw bf16 through the GEMM

@@ -1,5 +1,8 @@
 // The paper's "Initial" FFT: radix-2 decimation in time on (batch, n) split
-// fp32 planes, n a power of two, one launch per butterfly stage.
+// fp32 or bf16 planes, n a power of two, one launch per butterfly stage.
+// bf16 planes are widened at every load and rounded at every store, so
+// each stage's output is rounded to bf16 as the reference's bf16 arrays
+// are; the arithmetic and the tables stay fp32.
 //
 // Replaces the Pallas kernel repro/kernels/fft_stage.py::_stage_kernel and
 // its caller fft_staged_pallas: a bit-reverse, then log2(n) single-stage
@@ -35,8 +38,46 @@
 //     pairs of one aligned quad, at s >= 2 four consecutive pairs, whose
 //     idx0 and idx1 are each four consecutive floats.
 #include <cuda_runtime.h>
+#include "bf16.cuh"
 
 namespace {
+
+__device__ __forceinline__ float wide(float v) { return v; }
+__device__ __forceinline__ float wide(unsigned short v) {
+  return cg::bf16_to_f32(v);
+}
+
+template <class T>
+__device__ __forceinline__ T thin(float v) {
+  if constexpr (sizeof(T) == 2)
+    return cg::f32_to_bf16(v);
+  else
+    return v;
+}
+
+// four consecutive elements (16 bytes of fp32, 8 of bf16) as a float4
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const unsigned short* p) {
+  const ushort4 v = *reinterpret_cast<const ushort4*>(p);
+  return make_float4(wide(v.x), wide(v.y), wide(v.z), wide(v.w));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(unsigned short* p, float4 v) {
+  *reinterpret_cast<ushort4*>(p) =
+      make_ushort4(thin<unsigned short>(v.x), thin<unsigned short>(v.y),
+                   thin<unsigned short>(v.z), thin<unsigned short>(v.w));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(unsigned short* p, float a, float b) {
+  *reinterpret_cast<ushort2*>(p) =
+      make_ushort2(thin<unsigned short>(a), thin<unsigned short>(b));
+}
 
 constexpr int NT = 256;
 
@@ -67,24 +108,25 @@ __device__ __forceinline__ void butterfly(float ar, float ai, float br,
 // stage 0 with the bit-reverse, n = 2^ln < 2^10: a block holds 1024
 // points (1024 / n rows) in shared memory and writes each pair (2p, 2p+1)
 // as one float2; n = 1 (ln = 0) is a copy
+template <class T>
 __global__ void __launch_bounds__(NT)
-first_stage_rows(const float* __restrict__ xr, const float* __restrict__ xi,
-                 float* __restrict__ outr, float* __restrict__ outi,
+first_stage_rows(const T* __restrict__ xr, const T* __restrict__ xi,
+                 T* __restrict__ outr, T* __restrict__ outi,
                  const float* __restrict__ wr, const float* __restrict__ wi,
                  long long total, int ln, float scale) {
   __shared__ float sr[1024], si[1024];
   const long long base = (long long)blockIdx.x * 1024;
   for (int e = threadIdx.x; e < 1024; e += NT) {
     const bool in = base + e < total;
-    sr[e] = in ? xr[base + e] : 0.f;
-    si[e] = in ? xi[base + e] : 0.f;
+    sr[e] = in ? wide(xr[base + e]) : 0.f;
+    si[e] = in ? wide(xi[base + e]) : 0.f;
   }
   __syncthreads();
   if (ln == 0) {
     for (int e = threadIdx.x; e < 1024; e += NT)
       if (base + e < total) {
-        outr[base + e] = sr[e];
-        outi[base + e] = si[e];
+        outr[base + e] = thin<T>(sr[e]);
+        outi[base + e] = thin<T>(si[e]);
       }
     return;
   }
@@ -99,17 +141,18 @@ first_stage_rows(const float* __restrict__ xr, const float* __restrict__ xi,
     float2 o0, o1;
     butterfly(sr[s0], si[s0], sr[s1], si[s1], w_r, w_i, scale, o0.x, o0.y,
               o1.x, o1.y);
-    *reinterpret_cast<float2*>(outr + base + e0) = make_float2(o0.x, o1.x);
-    *reinterpret_cast<float2*>(outi + base + e0) = make_float2(o0.y, o1.y);
+    store2(outr + base + e0, o0.x, o1.x);
+    store2(outi + base + e0, o0.y, o1.y);
   }
 }
 
 // stage 0 with the bit-reverse, n = 2^ln >= 2^10: one 32x32 tile a block.
 // Tile (b, mid) holds the outputs j = hi*2^(ln-5) + mid*32 + lo, which read
 // the inputs rev(lo)*2^(ln-5) + rev(mid)*32 + rev(hi).
+template <class T>
 __global__ void __launch_bounds__(NT)
-first_stage_tiled(const float* __restrict__ xr, const float* __restrict__ xi,
-                  float* __restrict__ outr, float* __restrict__ outi,
+first_stage_tiled(const T* __restrict__ xr, const T* __restrict__ xi,
+                  T* __restrict__ outr, T* __restrict__ outi,
                   const float* __restrict__ wr, const float* __restrict__ wi,
                   int ln, float scale) {
   __shared__ float tr[32 * 33], ti[32 * 33];
@@ -120,8 +163,8 @@ first_stage_tiled(const float* __restrict__ xr, const float* __restrict__ xi,
   const long long src = row + ((long long)rev_bits(mid, lm) << 5);
   for (int e = threadIdx.x; e < 1024; e += NT) {
     const long long a = src + ((long long)(e >> 5) << (ln - 5)) + (e & 31);
-    tr[(e >> 5) * 33 + (e & 31)] = xr[a];
-    ti[(e >> 5) * 33 + (e & 31)] = xi[a];
+    tr[(e >> 5) * 33 + (e & 31)] = wide(xr[a]);
+    ti[(e >> 5) * 33 + (e & 31)] = wide(xi[a]);
   }
   __syncthreads();
   const float w_r = wr[0], w_i = wi[0];
@@ -135,36 +178,36 @@ first_stage_tiled(const float* __restrict__ xr, const float* __restrict__ xi,
     butterfly(tr[s0], ti[s0], tr[s1], ti[s1], w_r, w_i, scale, o0.x, o0.y,
               o1.x, o1.y);
     const long long a = dst + ((long long)hi << (ln - 5)) + lo;
-    *reinterpret_cast<float2*>(outr + a) = make_float2(o0.x, o1.x);
-    *reinterpret_cast<float2*>(outi + a) = make_float2(o0.y, o1.y);
+    store2(outr + a, o0.x, o1.x);
+    store2(outi + a, o0.y, o1.y);
   }
 }
 
 // stage 1 in place: quad u holds the pairs (4u, 4u+2), k = 0, and
 // (4u+1, 4u+3), k = 1
+template <class T>
 __global__ void __launch_bounds__(NT)
-stage_one(float* __restrict__ zr, float* __restrict__ zi,
+stage_one(T* __restrict__ zr, T* __restrict__ zi,
           const float* __restrict__ wr, const float* __restrict__ wi,
           long long quads, int ln, float scale) {
   const float w0r = wr[0], w0i = wi[0];
   const float w1r = wr[1 << (ln - 2)], w1i = wi[1 << (ln - 2)];
-  float4* r4 = reinterpret_cast<float4*>(zr);
-  float4* i4 = reinterpret_cast<float4*>(zi);
   for (long long u = blockIdx.x * (long long)NT + threadIdx.x; u < quads;
        u += (long long)gridDim.x * NT) {
-    const float4 r = r4[u], i = i4[u];
+    const float4 r = load4(zr + 4 * u), i = load4(zi + 4 * u);
     float4 o, q;
     butterfly(r.x, i.x, r.z, i.z, w0r, w0i, scale, o.x, q.x, o.z, q.z);
     butterfly(r.y, i.y, r.w, i.w, w1r, w1i, scale, o.y, q.y, o.w, q.w);
-    r4[u] = o;
-    i4[u] = q;
+    store4(zr + 4 * u, o);
+    store4(zi + 4 * u, q);
   }
 }
 
 // stage s >= 2 in place: unit u takes the four pairs p = 4u .. 4u+3, whose
 // idx0 (and idx1) are four consecutive, 16-byte aligned floats
+template <class T>
 __global__ void __launch_bounds__(NT)
-stage_quad(float* __restrict__ zr, float* __restrict__ zi,
+stage_quad(T* __restrict__ zr, T* __restrict__ zi,
            const float* __restrict__ wr, const float* __restrict__ wi,
            long long units, int ln, int s, float scale) {
   const long long half = 1LL << s;
@@ -174,10 +217,8 @@ stage_quad(float* __restrict__ zr, float* __restrict__ zi,
     const long long k = p & (half - 1);
     const long long i0 = ((p >> s) << (s + 1)) + k;
     const long long i1 = i0 + half;
-    const float4 ar = *reinterpret_cast<const float4*>(zr + i0);
-    const float4 ai = *reinterpret_cast<const float4*>(zi + i0);
-    const float4 br = *reinterpret_cast<const float4*>(zr + i1);
-    const float4 bi = *reinterpret_cast<const float4*>(zi + i1);
+    const float4 ar = load4(zr + i0), ai = load4(zi + i0);
+    const float4 br = load4(zr + i1), bi = load4(zi + i1);
     const int sh = ln - 1 - s;
     const long long t = k << sh;
     float4 o0r, o0i, o1r, o1i;
@@ -189,26 +230,17 @@ stage_quad(float* __restrict__ zr, float* __restrict__ zi,
               wi[t + (2LL << sh)], scale, o0r.z, o0i.z, o1r.z, o1i.z);
     butterfly(ar.w, ai.w, br.w, bi.w, wr[t + (3LL << sh)],
               wi[t + (3LL << sh)], scale, o0r.w, o0i.w, o1r.w, o1i.w);
-    *reinterpret_cast<float4*>(zr + i0) = o0r;
-    *reinterpret_cast<float4*>(zi + i0) = o0i;
-    *reinterpret_cast<float4*>(zr + i1) = o1r;
-    *reinterpret_cast<float4*>(zi + i1) = o1i;
+    store4(zr + i0, o0r);
+    store4(zi + i0, o0i);
+    store4(zr + i1, o1r);
+    store4(zi + i1, o1i);
   }
 }
 
-}  // namespace
-
-// out = FFT(x) (inverse: with the 1/n) along rows of n points; w is the
-// fp32 (n,) twiddle table exp(-+2*pi*i*k/n).  log2(n) launches on the
-// current stream (stage 0 with the bit-reverse, then stages 1..), one copy
-// launch for n = 1.  out must be 16-byte aligned (a fresh allocation).
-extern "C" int fft_staged_f32(const float* xr, const float* xi,
-                              float* outr, float* outi,
-                              const float* wr, const float* wi,
-                              long long batch, int n, int inverse,
-                              void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (batch <= 0 || n < 1 || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+template <class T>
+int staged(const T* xr, const T* xi, T* outr, T* outi, const float* wr,
+           const float* wi, long long batch, int n, int inverse,
+           cudaStream_t s) {
   int ln = 0;
   while ((1 << ln) < n) ++ln;
   const long long total = batch * n;
@@ -216,27 +248,47 @@ extern "C" int fft_staged_f32(const float* xr, const float* xi,
   const float scale0 = ln == 1 ? last_scale : 1.f;
   if (ln < 10) {
     const unsigned blocks = (unsigned)((total + 1023) / 1024);
-    first_stage_rows<<<blocks, NT, 0, s>>>(xr, xi, outr, outi, wr, wi, total,
-                                           ln, scale0);
+    first_stage_rows<T><<<blocks, NT, 0, s>>>(xr, xi, outr, outi, wr, wi,
+                                              total, ln, scale0);
   } else {
     const unsigned blocks = (unsigned)(batch << (ln - 10));
-    first_stage_tiled<<<blocks, NT, 0, s>>>(xr, xi, outr, outi, wr, wi, ln,
-                                            scale0);
+    first_stage_tiled<T><<<blocks, NT, 0, s>>>(xr, xi, outr, outi, wr, wi,
+                                               ln, scale0);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   for (int st = 1; st < ln; ++st) {
     const float scale = st == ln - 1 ? last_scale : 1.f;
     if (st == 1) {
-      stage_one<<<blocks_for(total / 4), NT, 0, s>>>(outr, outi, wr, wi,
-                                                     total / 4, ln, scale);
+      stage_one<T><<<blocks_for(total / 4), NT, 0, s>>>(outr, outi, wr, wi,
+                                                        total / 4, ln, scale);
     } else {
-      stage_quad<<<blocks_for(total / 8), NT, 0, s>>>(outr, outi, wr, wi,
-                                                      total / 8, ln, st,
-                                                      scale);
+      stage_quad<T><<<blocks_for(total / 8), NT, 0, s>>>(
+          outr, outi, wr, wi, total / 8, ln, st, scale);
     }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;
+}
+
+}  // namespace
+
+// out = FFT(x) (inverse: with the 1/n) along rows of n points; w is the
+// fp32 (n,) twiddle table exp(-+2*pi*i*k/n).  log2(n) launches on the
+// current stream (stage 0 with the bit-reverse, then stages 1..), one copy
+// launch for n = 1; raw bf16 planes for bf16 = 1.  out must be 16-byte
+// aligned (a fresh allocation).
+extern "C" int fft_staged_pass(const void* xr, const void* xi, void* outr,
+                               void* outi, const float* wr, const float* wi,
+                               long long batch, int n, int inverse, int bf16,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (batch <= 0 || n < 1 || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+  using B = unsigned short;
+  if (bf16)
+    return staged<B>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi, wr, wi,
+                     batch, n, inverse, s);
+  return staged<float>((const float*)xr, (const float*)xi, (float*)outr,
+                       (float*)outi, wr, wi, batch, n, inverse, s);
 }

@@ -4,9 +4,12 @@
 // that the points stay in registers), passes between shared-memory
 // barriers in bank-spreading layouts, twiddles off one table a radix (the
 // radix-4 one (3, n/4): w, w^2, w^3, read at (j >> 2s) << 2s for stage s,
-// bit for bit row s of the packed (s4, 3, n/4) table), and the stores of a
-// rows tile (whole rows, or launch B's columns).  The tile walk, the
-// copies and FromShared / ToShared / FromStage are axis_fft.cuh's.
+// bit for bit row s of the packed (s4, 3, n/4) table), the 1-D kernel's
+// fused launches (StRun, st_pick, stockham_pass: rows, launches A and B of
+// the two-launch split, on rows or on the columns of images) and its
+// per-stage route past 2^24 (per_stage), each on fp32 or raw bf16 planes.
+// The tile walk, the copies, FromShared / ToShared / FromStage and the
+// stores (ToGlobal, ToSplit) are axis_fft.cuh's.
 #pragma once
 #include "axis_fft.cuh"
 
@@ -35,17 +38,19 @@ struct ColsSw {
 };
 
 // Twiddle W_n^m, m = (q + (p << qb)) << s: p the butterfly's p at stage
-// bit s of its length, q the column of a launch A tile (q0 + t; qb = log2
-// Q, the column's stages fold the four-step twiddle in), s shifted by
-// s0 = l1 in launch B (its bit s is bit s + l1 of the whole).  Radix 4
-// reads w^r at m of row r - 1 (rows of `row` = n/4 entries); `sg` is the
-// transform's sign (-1 forward).
+// bit s of its length, q the column of a launch A tile ((q0 + t) >> lin;
+// qb = log2 Q, the column's stages fold the four-step twiddle in; lin =
+// log2 of the inner extent when launch A runs over columns of images), s
+// shifted by s0 = l1 in launch B (its bit s is bit s + l1 of the whole).
+// Radix 4 reads w^r at m of row r - 1 (rows of `row` = n/4 entries); `sg`
+// is the transform's sign (-1 forward).
 struct Twiddle {
   const float2* w;
   int q0, qb, s0, row;
   float sg;
+  int lin;
   __device__ __forceinline__ int at(int t, int p, int s) const {
-    return (q0 + (qb ? t : 0) + (p << qb)) << (s + s0);
+    return (((q0 + (qb ? t : 0)) >> lin) + (p << qb)) << (s + s0);
   }
   __device__ __forceinline__ float2 operator()(int t, int p, int s) const {
     return w[at(t, p, s)];
@@ -202,49 +207,350 @@ __device__ __forceinline__ void st_passes(const In& in, float* sr, float* si,
   }
 }
 
-// launch B's last pass: element m of row R = r0 + t (image R >> l1, column
-// R mod 2^l1) to image * 2^(l1 + LN) + m * 2^l1 + column, scaled; rows
-// past `outer` skipped
-struct ToColumns {
-  float* outr;
-  float* outi;
-  long long r0, outer;
-  int l1, ln;
-  float scale;
-  template <int R>
-  __device__ __forceinline__ void put(int t, int k0, int ns, float2* v) const {
-    const long long row = r0 + t;
-    if (row >= outer) return;
-    const long long base =
-        ((row >> l1) << (l1 + ln)) + (row & ((1LL << l1) - 1));
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const long long a = base + ((long long)(k0 + r * ns) << l1);
-      outr[a] = v[r].x * scale;
-      outi[a] = v[r].y * scale;
-    }
-  }
-};
-
 // a rows tile, back in the work layout, to rows of out: 32 lanes store 128
 // contiguous bytes
-template <int LN>
+template <int LN, class T, class Lay>
 __device__ __forceinline__ void st_store_rows(const Geo& g, long long k,
                                               const float* wr,
                                               const float* wi,
-                                              const RowsSw& lay) {
-  float* outr = static_cast<float*>(g.outr);
-  float* outi = static_cast<float*>(g.outi);
+                                              const Lay& lay) {
+  T* outr = static_cast<T*>(g.outr);
+  T* outi = static_cast<T*>(g.outi);
   const long long base = (k << g.lg) << LN;
   const long long left = (g.outer << LN) - base;
   const int points = 1 << (LN + g.lg);
   const int n = points < left ? points : (int)left;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int a = lay.at(e >> LN, e & ((1 << LN) - 1));
-    outr[base + e] = wr[a] * g.scale;
-    outi[base + e] = wi[a] * g.scale;
+    outr[base + e] = narrow<T>(wr[a] * g.scale);
+    outi[base + e] = narrow<T>(wi[a] * g.scale);
   }
   __syncthreads();
+}
+
+// the work layout of a columns tile of G images: element i of transform t
+// = (image t >> lc, column t mod 2^lc) at swz((image * 2^ln + i) * 2^lc +
+// column)
+struct ImageColsSw {
+  int lc, ln;
+  __device__ __forceinline__ int at(int t, int i) const {
+    return swz(((((t >> lc) << ln) + i) << lc) + (t & ((1 << lc) - 1)));
+  }
+};
+
+// -- the fused launches of the 1-D kernel's routes -------------------------
+//   ST_ROWS        tiles of G whole rows, every stage, stored as rows;
+//   ST_COLS        launch A: stages of bits 0..ln-1 of a length-2^(ln+lq)
+//                  transform on tiles of C columns of the (outer, 2^ln,
+//                  2^lq * 2^lin) view (q = column >> lin), in place;
+//   ST_TRANSPOSED  launch B on rows (lin = 0): stages of bits l1.. of the
+//                  rows of the (outer * 2^l1, 2^ln) view, row k's point t
+//                  stored at t * 2^l1 + k (axis_fft.cuh's REVERSED store);
+//   ST_TCOLS       launch B on columns: the same over tiles of C columns
+//                  (or G whole images) of the (outer * 2^l1, 2^ln, 2^lin)
+//                  view, point t of (o, k, i) stored at (o, t * 2^l1 + k, i).
+enum { ST_ROWS = 0, ST_COLS = 1, ST_TRANSPOSED = 2, ST_TCOLS = 3 };
+
+// One tile's stages; `row` the radix-4 table's row length
+template <int RX, int LN, int ROUTE, class T>
+struct StRun {
+  const Geo& g;
+  float* smem;
+  int lv, mask, l1, row, lin;
+  __device__ __forceinline__ void operator()(long long k, int b) const {
+    float* wr = smem + b * 2 * g.wf;
+    float* wi = wr + g.wf;
+    const T* sr = reinterpret_cast<const T*>(wr);
+    const T* si = sr + (1 << (LN + g.lc + g.lg));
+    const int nt = blockDim.x;
+    if constexpr (ROUTE == ST_COLS) {
+      const int cpi = g.linner - g.lc;
+      const int q0 = (int)((k & ((1LL << cpi) - 1)) << g.lc);
+      const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
+      st_passes<RX, LN, 0, 5>(FromStage<T, Columns>{sr, si, stage}, wr, wi,
+                              ColsSw{g.lc}, g.lc, nt,
+                              Twiddle{g.tab, q0, g.linner - lin, 0, row,
+                                      g.sg, lin},
+                              to_global<T>(g, k));
+    } else if constexpr (ROUTE == ST_TCOLS) {
+      const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
+      st_passes<RX, LN, 0, 5>(FromStage<T, Columns>{sr, si, stage}, wr, wi,
+                              ImageColsSw{g.lc, LN}, g.lc + g.lg, nt,
+                              Twiddle{g.tab, 0, 0, l1, row, g.sg, 0},
+                              to_split<T, REVERSED>(g, k));
+    } else {
+      const RowsSw rows{g.p};
+      const FromStage<T, Swizzled> in{sr, si, Swizzled{LN, lv, mask}};
+      if constexpr (ROUTE == ST_TRANSPOSED) {
+        st_passes<RX, LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
+                                Twiddle{g.tab, 0, 0, l1, row, g.sg, 0},
+                                to_split<T, REVERSED>(g, k));
+      } else {
+        st_passes<RX, LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
+                                Twiddle{g.tab, 0, 0, 0, row, g.sg, 0},
+                                ToShared<RowsSw>{wr, wi, rows});
+        st_store_rows<LN, T>(g, k, wr, wi, rows);
+      }
+    }
+  }
+};
+
+template <int RX, int LN, int ROUTE, int NT, class T>
+__global__ void __launch_bounds__(NT, 1)
+st_fft(const __grid_constant__ Geo g, int l1, int row, int lin) {
+  extern __shared__ float smem[];
+  const int lv = chunk_log<T>(g);
+  const int mask =
+      (ROUTE == ST_ROWS || ROUTE == ST_TRANSPOSED) && LN - lv >= 3 ? 7 : 0;
+  walk_tiles(g, TileCopy<T>{g, smem, lv, LN, mask},
+             StRun<RX, LN, ROUTE, T>{g, smem, lv, mask, l1, row, lin});
+}
+
+using StLaunch = cudaError_t (*)(const Geo&, int, int, int, unsigned, int,
+                                 size_t, cudaStream_t);
+
+template <int RX, int LN, int ROUTE, int NT, class T>
+cudaError_t launch_st(const Geo& g, int l1, int row, int lin,
+                      unsigned blocks, int threads, size_t smem,
+                      cudaStream_t st) {
+  static int done[16];
+  const cudaError_t e = allow_smem(st_fft<RX, LN, ROUTE, NT, T>, smem, done);
+  if (e != cudaSuccess) return e;
+  st_fft<RX, LN, ROUTE, NT, T><<<blocks, threads, smem, st>>>(g, l1, row,
+                                                              lin);
+  return cudaGetLastError();
+}
+
+template <int RX, int ROUTE, int FIRST, int NT, class T, int... L>
+StLaunch st_for(int ln, std::integer_sequence<int, L...>) {
+  static const StLaunch fns[] = {launch_st<RX, L + FIRST, ROUTE, NT, T>...};
+  return fns[ln - FIRST];
+}
+
+// The kernel of a launch: rows up to 2^13 points a row with 512 threads,
+// 2^14 with 1024; launch A's columns of 2^8 .. 2^10 points (8192-point
+// tiles, 512 threads) or 2^11, 2^12 (16384, 1024), radix 4 the even ones;
+// launch B's rows and columns of 2^7 .. 2^12 (columns 2^11, 2^12 at 1024
+// threads).  Null for any other.
+template <int RX, class T>
+StLaunch st_pick(int route, int ln, int threads) {
+  if (route == ST_ROWS) {
+    if (ln == 14)
+      return threads == 1024 ? launch_st<RX, 14, ST_ROWS, 1024, T> : nullptr;
+    return ln >= 1 && ln <= 13 && threads <= 512
+               ? st_for<RX, ST_ROWS, 1, 512, T>(
+                     ln, std::make_integer_sequence<int, 13>{})
+               : nullptr;
+  }
+  if (route == ST_COLS) {
+    if constexpr (RX == 4) {
+      if (ln == 8 && threads <= 512) return launch_st<4, 8, ST_COLS, 512, T>;
+      if (ln == 10 && threads <= 512)
+        return launch_st<4, 10, ST_COLS, 512, T>;
+      if (ln == 12) return launch_st<4, 12, ST_COLS, 1024, T>;
+      return nullptr;
+    } else {
+      if (ln >= 8 && ln <= 10 && threads <= 512)
+        return st_for<2, ST_COLS, 8, 512, T>(
+            ln, std::make_integer_sequence<int, 3>{});
+      if (ln >= 11 && ln <= 12)
+        return st_for<2, ST_COLS, 11, 1024, T>(
+            ln, std::make_integer_sequence<int, 2>{});
+      return nullptr;
+    }
+  }
+  if (route == ST_TRANSPOSED && ln >= 7 && ln <= 12 && threads <= 512)
+    return st_for<RX, ST_TRANSPOSED, 7, 512, T>(
+        ln, std::make_integer_sequence<int, 6>{});
+  if (route == ST_TCOLS && ln >= 7 && ln <= 12) {
+    if (threads <= 512)
+      return ln <= 10 ? st_for<RX, ST_TCOLS, 7, 512, T>(
+                            ln, std::make_integer_sequence<int, 4>{})
+                      : nullptr;
+    return ln == 11 ? launch_st<RX, 11, ST_TCOLS, 1024, T>
+                    : launch_st<RX, 12, ST_TCOLS, 1024, T>;
+  }
+  return nullptr;
+}
+
+// One fused launch of radix RX x -> out over (outer, 2^ln, 2^linner) with
+// the tiling the host planned (kernels/fft_stockham.py::plan,
+// kernels/fft2d_fused.py::plan), fp32 or raw bf16 planes (bf16 = 1): the
+// route, l1 (launch B: the bits of launch A), lin (ST_COLS: log2 of the
+// images' inner extent; ST_TCOLS: linner), `scale` at the store, `blocks`
+// the persistent grid; `tab` the radix's one table of the transform's
+// sign `sg`.  Returns cudaErrorInvalidValue for a tiling it does not take.
+template <int RX>
+int stockham_pass(const void* xr, const void* xi, void* outr, void* outi,
+                  const float* tab, long long outer, int ln, int linner,
+                  int lc, int lg, int route, int l1, int lin, int blocks,
+                  float scale, float sg, int bf16, cudaStream_t stream) {
+  const int lp = ln + lc + lg;
+  const bool rows = route == ST_ROWS || route == ST_TRANSPOSED;
+  if (outer <= 0 || blocks <= 0 || ln < 1 || lc < 0 || lg < 0 || lp > 14 ||
+      (1 << lp) < AXIS_TILE_MIN || (lp == 14 && lg != 0) || lin < 0 ||
+      lc > linner || (lc < linner && lg != 0) || route < ST_ROWS ||
+      route > ST_TCOLS ||
+      (rows && (linner != 0 || lc != 0 || lin != 0)) ||
+      (route == ST_COLS && (lg != 0 || lc >= linner || lin > linner ||
+                            ln + linner - lin > 24)) ||
+      (route == ST_TCOLS && (linner < 1 || lin != linner)) ||
+      ((route == ST_TRANSPOSED || route == ST_TCOLS) &&
+       (l1 < 1 || l1 + ln > 24 || xr == outr || xi == outi)) ||
+      (RX == 4 && ((route == ST_COLS && (ln & 1)) ||
+                   ((route == ST_TRANSPOSED || route == ST_TCOLS) &&
+                    (l1 & 1)))))
+    return (int)cudaErrorInvalidValue;
+  const int threads = 1 << (lp - 4);
+  const StLaunch fn = bf16 ? st_pick<RX, unsigned short>(route, ln, threads)
+                           : st_pick<RX, float>(route, ln, threads);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int p = 0;
+  long long wf = 1LL << lp;
+  if (rows) {
+    p = pitch(1 << ln, lg < 3 ? lg : 3);
+    wf = (long long)p << lg;
+  }
+  wf = (wf + 31) / 32 * 32;
+  const int nbuf = (1 << lp) <= AXIS_TILE ? 2 : 1;
+  const size_t smem = (size_t)nbuf * 2 * sizeof(float) * wf;
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const long long per = (outer + (1LL << lg) - 1) >> lg;
+  // the whole transform's log2 length, for the radix-4 table's rows
+  const int lnf = route == ST_COLS ? ln + linner - lin
+                  : route == ST_ROWS ? ln : l1 + ln;
+  const int row = lnf >= 2 ? 1 << (lnf - 2) : 0;
+  Geo g{xr, xi, outr, outi, (const float2*)tab, nullptr, outer,
+        per << (linner - lc), ln, linner, lc, lg, nbuf, (int)wf, p,
+        sg, scale};
+  g.lr1 = route == ST_TRANSPOSED || route == ST_TCOLS ? l1 : 0;
+  const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
+  return (int)fn(g, l1, row, lin, grid, threads, smem, stream);
+}
+
+// -- the per-stage route (transforms past the fused launches) --------------
+
+constexpr int ST_NT = 256;
+
+inline long long st_blocks(long long total) {
+  const long long b = (total + ST_NT - 1) / ST_NT;
+  return b < (1LL << 20) ? b : (1LL << 20);
+}
+
+template <class T>
+__device__ __forceinline__ float2 ld2(const T* r, const T* i, long long a) {
+  return make_float2(widen(r[a]), widen(i[a]));
+}
+
+template <class T>
+__device__ __forceinline__ void st2(T* r, T* i, long long a, float2 v,
+                                    float scale) {
+  r[a] = narrow<T>(v.x * scale);
+  i[a] = narrow<T>(v.y * scale);
+}
+
+// radix-4 stage `ls / 2` of a length-4q transform along the middle axis of
+// the (batch, 4q, 2^lin) view: twiddles w^r at entry (j >> ls) << ls of
+// row r - 1 of the one (3, n/4) table; thread t is (b, j, i), i fastest
+template <class T>
+__global__ void __launch_bounds__(ST_NT)
+r4_stage(const T* __restrict__ xr, const T* __restrict__ xi,
+         T* __restrict__ yr, T* __restrict__ yi,
+         const float2* __restrict__ w, long long total, int lq, int ls,
+         int lin, float sg, float scale) {
+  const long long q = 1LL << lq;
+  const long long n = q << 2;
+  const long long stride = 1LL << ls;
+  for (long long t = blockIdx.x * (long long)ST_NT + threadIdx.x; t < total;
+       t += (long long)gridDim.x * ST_NT) {
+    const long long i = t & ((1LL << lin) - 1);
+    const long long j = (t >> lin) & (q - 1), b = t >> (lin + lq);
+    const long long base = (b * n << lin) + i;
+    const float2 a0 = ld2(xr, xi, base + (j << lin));
+    const float2 a1 = ld2(xr, xi, base + ((j + q) << lin));
+    const float2 a2 = ld2(xr, xi, base + ((j + 2 * q) << lin));
+    const float2 a3 = ld2(xr, xi, base + ((j + 3 * q) << lin));
+    const float2 e0 = cadd(a0, a2), d0 = csub(a0, a2);
+    const float2 e1 = cadd(a1, a3), d1 = csub(a1, a3);
+    const long long m = (j >> ls) << ls;
+    const float2 y1 = cmul(make_float2(d0.x - sg * d1.y, d0.y + sg * d1.x),
+                           w[m]);
+    const float2 y2 = cmul(csub(e0, e1), w[q + m]);
+    const float2 y3 = cmul(make_float2(d0.x + sg * d1.y, d0.y - sg * d1.x),
+                           w[2 * q + m]);
+    // autosort store: j = p*stride + k  ->  p*4*stride + r*stride + k
+    const long long o = ((j >> ls) << (ls + 2)) + (j & (stride - 1));
+    st2(yr, yi, base + (o << lin), cadd(e0, e1), scale);
+    st2(yr, yi, base + ((o + stride) << lin), y1, scale);
+    st2(yr, yi, base + ((o + 2 * stride) << lin), y2, scale);
+    st2(yr, yi, base + ((o + 3 * stride) << lin), y3, scale);
+  }
+}
+
+// radix-2 stage ls of a length-2h transform along the middle axis: a + b
+// and (a - b) * W_n^((j >> ls) << ls) off the one n/2 table (TW), or
+// a - b (radix 4's tail)
+template <class T, bool TW>
+__global__ void __launch_bounds__(ST_NT)
+r2_stage(const T* __restrict__ xr, const T* __restrict__ xi,
+         T* __restrict__ yr, T* __restrict__ yi,
+         const float2* __restrict__ w, long long total, int lh, int ls,
+         int lin, float scale) {
+  const long long h = 1LL << lh;
+  const long long stride = 1LL << ls;
+  for (long long t = blockIdx.x * (long long)ST_NT + threadIdx.x; t < total;
+       t += (long long)gridDim.x * ST_NT) {
+    const long long i = t & ((1LL << lin) - 1);
+    const long long j = (t >> lin) & (h - 1), b = t >> (lin + lh);
+    const long long base = (b * 2 * h << lin) + i;
+    const float2 a = ld2(xr, xi, base + (j << lin));
+    const float2 c = ld2(xr, xi, base + ((j + h) << lin));
+    const long long o = ((j >> ls) << (ls + 1)) + (j & (stride - 1));
+    st2(yr, yi, base + (o << lin), cadd(a, c), scale);
+    const float2 d = csub(a, c);
+    st2(yr, yi, base + ((o + stride) << lin),
+        TW ? cmul(d, w[(j >> ls) << ls]) : d, scale);
+  }
+}
+
+// One launch a stage of radix RX (radix 4: then the radix-2 tail, twiddle
+// 1, for odd log2 n) along the middle axis of the (batch, n, 2^lin) view,
+// x -> out through the scratch pair (sr, si) (global ping-pong buffers),
+// off the radix's one table; `last_scale` at the last store.
+template <int RX, class T>
+int per_stage(const T* xr, const T* xi, T* outr, T* outi, T* sr, T* si,
+              const float2* tab, long long batch, int ln, int lin,
+              int inverse, float last_scale, cudaStream_t s) {
+  const int stages = RX == 2 ? ln : ln / 2 + (ln & 1);
+  const float sg = inverse ? 1.f : -1.f;
+  // stage i writes the buffer that makes the last stage land in out
+  T* dst_r[2] = {outr, sr};
+  T* dst_i[2] = {outi, si};
+  const T* src_r = xr;
+  const T* src_i = xi;
+  const long long pts = (batch << ln) << lin;
+  for (int st = 0; st < stages; ++st) {
+    const int d = (stages - 1 - st) % 2;
+    const float scale = st == stages - 1 ? last_scale : 1.f;
+    if (RX == 4 && st < ln / 2) {
+      r4_stage<T><<<(unsigned)st_blocks(pts / 4), ST_NT, 0, s>>>(
+          src_r, src_i, dst_r[d], dst_i[d], tab, pts / 4, ln - 2, 2 * st,
+          lin, sg, scale);
+    } else if (RX == 2) {
+      r2_stage<T, true><<<(unsigned)st_blocks(pts / 2), ST_NT, 0, s>>>(
+          src_r, src_i, dst_r[d], dst_i[d], tab, pts / 2, ln - 1, st, lin,
+          scale);
+    } else {  // radix 4's tail: stage ln - 1, twiddle 1
+      r2_stage<T, false><<<(unsigned)st_blocks(pts / 2), ST_NT, 0, s>>>(
+          src_r, src_i, dst_r[d], dst_i[d], tab, pts / 2, ln - 1, ln - 1,
+          lin, scale);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    src_r = dst_r[d];
+    src_i = dst_i[d];
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace

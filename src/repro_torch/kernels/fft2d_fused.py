@@ -17,7 +17,12 @@ place, the transpose being the column tiles' indexing.  Each launch reads
 the one (3, n/4) table of its length (:func:`tables`), whose entry
 (j >> 2s) << 2s is row s of the packed table the plain version takes.
 What bounds it: bytes (16 per complex point in and out); the design moves
-the planes twice.  float32 only.
+the planes twice.  Longer axes take the 1-D kernel's routes on the same
+machinery: rows of up to 2^14 points one a tile, columns of up to 2^14 in
+2- and 1-column tiles, either axis up to 2^24 as the 1-D kernel's launches
+A and B (the columns' launch B storing whole tiles of columns,
+"split_tcols"), and past that a launch a stage.  float32 or bfloat16
+planes (bf16 widened at the load, rounded at each store).
 """
 from __future__ import annotations
 
@@ -31,9 +36,12 @@ from repro_torch.core import twiddle as tw
 from repro_torch.core.fft1d import stockham_stages
 from . import _build
 from . import axis_fft as _axis
+from .fft_stockham import split
 
-MAX_DIM = 4096          # the largest H or W the CUDA kernel takes
-_ROUTES = {"rows": 0, "cols": 1}
+ONE_MAX = 1 << 14       # the longest axis one launch holds
+TWO_MAX = 1 << 24       # ... two (the 1-D kernel's launches A and B)
+_ROUTES = {"rows": 0, "split_cols": 1, "split_rows": 2, "split_tcols": 3}
+_OTHER = ("split_rows", "split_tcols", "stages")   # read other planes
 
 
 def _check_dims(h: int, w: int) -> None:
@@ -62,10 +70,6 @@ def fft2d_fused_plain(x: SplitComplex, *, inverse: bool = False
     return SplitComplex(re.contiguous(), im.contiguous())
 
 
-_ARGS = ([_build.P] * 5 + [_build.L] + [_build.I] * 6
-         + [_build.F, _build.I, _build.P])
-
-
 def rows_smem(w: int, g: int) -> int:
     """The row pass's shared memory a block (``fft2d_fused_pass``): G rows
     of pitch ``pitch(w, min(log2 G, 3))`` a work plane."""
@@ -74,61 +78,133 @@ def rows_smem(w: int, g: int) -> int:
     return nbuf * 2 * 4 * (-(-floats // 32) * 32)
 
 
+def _axis_steps(outer: int, n: int, inner: int) -> list:
+    """The launches of every stage of length n along the (outer, n, inner)
+    view (inner = 1: rows), as (route, Launch) pairs; a "split_*" Launch
+    keeps launch A's bits in ``lr[0]`` and log2 of the images' inner
+    extent in ``ljr``."""
+    if n <= ONE_MAX:
+        if inner == 1:
+            rows = _axis.plan_axis(outer, n, 1)
+            g = rows.g
+            while rows_smem(n, g) > _axis.SMEM_MAX:
+                g //= 2
+            return [("rows", dataclasses.replace(rows, g=g))]
+        return [("cols", _axis.plan_axis(outer, n, inner))]
+    if n > TWO_MAX:
+        return [("stages", _axis.Launch("stages", outer, n, inner, 1, 1))]
+    l1 = split(n, 4)
+    m, q = 1 << l1, n >> l1
+    lin = _axis._log2(inner)
+    a = dataclasses.replace(_axis.plan_axis(outer, m, q * inner), ljr=lin)
+    b = dataclasses.replace(_axis.plan_axis(outer * m, q, inner), ljr=lin,
+                            lr=(l1, 0))
+    return [("split_cols", a),
+            ("split_rows" if inner == 1 else "split_tcols", b)]
+
+
 def plan(batch: int, h: int, w: int) -> tuple:
-    """The two launches, as (route, :class:`axis_fft.Launch`) pairs:
-    ``("rows", ...)``, every stage of length w on the batch*h rows (tiles
-    of G whole rows, :func:`axis_fft.plan_axis`'s, halved where narrow
-    rows' padded pitch would overflow shared memory), x -> out;
-    ``("cols", ...)``, every stage of length h on the columns of the
-    (batch, h, w) view (tiles of C = 8192/h adjacent columns, 16384/h from
-    h = 2048, or G whole images where w < C), out in place."""
+    """The launches, as (route, :class:`axis_fft.Launch`) pairs: every
+    stage of length w on the batch*h rows, then every stage of length h on
+    the columns of the (batch, h, w) view.  An axis of up to 2^14 is one
+    launch: ``("rows", ...)`` on tiles of G whole rows
+    (:func:`axis_fft.plan_axis`'s, halved where narrow rows' padded pitch
+    would overflow shared memory), ``("cols", ...)`` on tiles of C =
+    8192/h adjacent columns (16384/h from h = 2048), or G whole images
+    where w < C.  Up to 2^24 it is the 1-D kernel's two launches (l1 =
+    :func:`fft_stockham.split`): ``("split_cols", ...)`` on columns of the
+    (., 2^l1, n/2^l1 * inner) view, then ``("split_rows", ...)`` or, for
+    columns, ``("split_tcols", ...)``, stored transposed; past 2^24
+    ``("stages", ...)``, a launch a stage."""
     _check_dims(h, w)
-    rows = _axis.plan_axis(batch * h, w, 1)
-    g = rows.g
-    while rows_smem(w, g) > _axis.SMEM_MAX:
-        g //= 2
-    return (("rows", dataclasses.replace(rows, g=g)),
-            ("cols", _axis.plan_axis(batch, h, w)))
+    return tuple(_axis_steps(batch * h, w, 1) + _axis_steps(batch, h, w))
+
+
+def buffers(steps: tuple) -> list:
+    """(src, dst) planes of each launch: 0 x, 1 out, 2 a scratch pair; the
+    last writes out, the routes of ``_OTHER`` read other planes than they
+    write, the others work in place (:func:`axis_fft.buffers`)."""
+    return _axis.buffers(tuple(dataclasses.replace(
+        lp, mode="reversed" if route in _OTHER else "plain")
+        for route, lp in steps))
 
 
 def tables(h: int, w: int, inverse: bool, device) -> tuple:
-    """Each launch's one (3, n/4) radix-4 table: w's, then h's."""
+    """Each axis' one (3, n/4) radix-4 table: w's, then h's."""
     return tuple(tw.radix4_twiddles(n, inverse=inverse, device=device)
                  for n in (w, h))
 
 
 @functools.lru_cache(maxsize=64)
-def _launch_args(batch: int, h: int, w: int, inverse: bool,
+def _launch_args(batch: int, h: int, w: int, inverse: bool, bf16: bool,
                  device: torch.device) -> tuple:
-    """Each launch's arguments after the five pointers."""
+    """Each launch's (route, axis, arguments after the pointers)."""
     sms = _build.sm_count(device)
     log2 = _axis._log2
-    return tuple((lp.outer, log2(lp.n), log2(lp.inner), log2(lp.c),
-                  log2(lp.g), _ROUTES[route], lp.blocks(sms),
-                  1.0 / (h * w) if inverse and route == "cols" else 1.0,
-                  int(inverse))
-                 for route, lp in plan(batch, h, w))
+    steps = plan(batch, h, w)
+    out = []
+    for i, (route, lp) in enumerate(steps):
+        axis = 0 if i < len(steps) - len(_axis_steps(batch, h, w)) else 1
+        scale = 1.0 / (h * w) if inverse and i == len(steps) - 1 else 1.0
+        if route == "stages":
+            args = [lp.outer, log2(lp.n), log2(lp.inner), scale,
+                    int(inverse), int(bf16)]
+        elif route == "cols":
+            args = [lp.outer, log2(lp.n), log2(lp.inner), log2(lp.c),
+                    log2(lp.g), lp.blocks(sms), scale, int(inverse),
+                    int(bf16)]
+        else:
+            args = [lp.outer, log2(lp.n), log2(lp.inner), log2(lp.c),
+                    log2(lp.g), _ROUTES[route], lp.lr[0],
+                    lp.ljr if route in ("split_cols", "split_tcols") else 0,
+                    lp.blocks(sms), scale, int(inverse), int(bf16)]
+        out.append((route, axis, args))
+    return tuple(out)
+
+
+_ARGS = ([_build.P] * 5 + [_build.L] + [_build.I] * 5
+         + [_build.F, _build.I, _build.I, _build.P])
+_1D_ARGS = ([_build.P] * 5 + [_build.L] + [_build.I] * 8
+            + [_build.F, _build.I, _build.I, _build.P])
+_STAGES_ARGS = ([_build.P] * 7 + [_build.L, _build.I, _build.I, _build.F,
+                                     _build.I, _build.I, _build.P])
 
 
 def fft2d_fused_cuda(x: SplitComplex, *, inverse: bool = False
                      ) -> SplitComplex:
     """Launch the row and column passes of :func:`plan` on (batch, h, w)
-    fp32 CUDA planes, the inverse's 1/(h*w) at the column pass's store."""
-    _build.check_operands(x, 3)
+    CUDA planes (float32 or bfloat16), the inverse's 1/(h*w) at the last
+    store."""
+    _build.check_operands(x, 3, _axis.DTYPES)
     batch, h, w = x.shape
     _check_dims(h, w)
-    if h > MAX_DIM or w > MAX_DIM:
-        raise ValueError("the CUDA fused Stockham 2-D kernel takes H, W <= "
-                         f"{MAX_DIM}, got {(h, w)}")
     x = _axis.aligned(x)
     dev = x.re.device
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    ptrs = [x.re.data_ptr(), x.im.data_ptr()]
-    dst = [out.re.data_ptr(), out.im.data_ptr()]
-    calls = [(ptrs if i == 0 else dst) + dst + [tab.data_ptr(), *tail]
-             for i, (tab, tail) in enumerate(zip(
-                 tables(h, w, inverse, dev),
-                 _launch_args(batch, h, w, bool(inverse), dev)))]
-    fn = _build.function("fft2d_fused", "fft2d_fused_pass", _ARGS)
-    _build.launch_all(fn, calls, "fft2d_fused", dev)
+    steps = plan(batch, h, w)
+    planes = [x, out]
+    routes = buffers(steps)
+    if any(2 in r for r in routes):
+        planes.append(SplitComplex(torch.empty_like(x.re),
+                                   torch.empty_like(x.im)))
+    if any(route == "stages" for route, _ in steps):
+        stage_scratch = SplitComplex(torch.empty_like(x.re),
+                                     torch.empty_like(x.im))
+    tabs = tables(h, w, inverse, dev)
+    fns = {}
+    for (src, dst), (route, axis, args) in zip(routes, _launch_args(
+            batch, h, w, bool(inverse), x.dtype == torch.bfloat16, dev)):
+        ptrs = [*(p.data_ptr() for p in planes[src]),
+                *(p.data_ptr() for p in planes[dst])]
+        if route == "stages":
+            ptrs += [p.data_ptr() for p in stage_scratch]
+            sym, argt = "fft2d_fused_stages", _STAGES_ARGS
+        elif route == "cols":
+            sym, argt = "fft2d_fused_pass", _ARGS
+        else:
+            sym, argt = "fft2d_fused_1d", _1D_ARGS
+        if sym not in fns:
+            fns[sym] = _build.function("fft2d_fused", sym, argt)
+        _build.launch(fns[sym], ptrs + [tabs[axis].data_ptr()] + args,
+                      "fft2d_fused", dev)
     return out

@@ -52,8 +52,7 @@ from repro_torch.core.complexmath import SplitComplex
 from repro_torch.core.twiddle import _cast
 from . import _build, axis_fft
 from .rfft2d_fused import (fourstep_factors, fourstep_tables_np,
-                           fft_last_fourstep, fft_col_fourstep, _check_dims,
-                           MAX_DIM)
+                           fft_last_fourstep, fft_col_fourstep, _check_dims)
 
 VARIANTS = ("plain", "compensated")
 DTYPES = (torch.float32, torch.bfloat16)    # what the CUDA kernels store
@@ -192,9 +191,6 @@ def fft2d_gemm_cuda(x: SplitComplex, *, inverse: bool = False,
     _build.check_operands(x, 3, DTYPES)
     batch, h, w = x.shape
     _check_dims(h, w)
-    if h > MAX_DIM or w > MAX_DIM:
-        raise ValueError(f"the CUDA 2-D kernel takes H, W <= {MAX_DIM}, "
-                         f"got {(h, w)}")
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
     if not on_gemm_chain(x.dtype, variant):
         fn = _build.function("fft2d_gemm", "fft2d_gemm_pass", axis_fft.ARGS)

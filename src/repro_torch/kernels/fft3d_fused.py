@@ -39,7 +39,7 @@ from repro_torch.core.complexmath import SplitComplex
 from repro_torch.core.fft1d import _best_split
 from . import _build, axis_fft
 from .rfft2d_fused import (fourstep_tables_np, fft_last_fourstep,
-                           fft_col_fourstep, MAX_DIM)
+                           fft_col_fourstep)
 from .fft2d_gemm import (DTYPES, check_variant, check_dtype, _operands,
                          compute_dtype, axis_tables, roundings, on_gemm_chain,
                          scratch)
@@ -127,9 +127,6 @@ def _fft3d_cuda(x: SplitComplex, *, inverse: bool = False,
     _build.check_operands(x, 4, DTYPES)
     batch, d, h, w = x.shape
     _check_dims3(d, h, w)
-    if max(d, h, w) > MAX_DIM:
-        raise ValueError(f"the CUDA 3-D kernel takes D, H, W <= {MAX_DIM}, "
-                         f"got {(d, h, w)}")
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
     if not on_gemm_chain(x.dtype, variant):
         fn = _build.function("fft3d_fused", "fft3d_fused_pass", axis_fft.ARGS)

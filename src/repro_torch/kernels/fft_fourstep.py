@@ -28,6 +28,7 @@ from repro_torch.core.complexmath import SplitComplex
 from repro_torch.core import twiddle as tw
 from repro_torch.core.fft1d import _matmul
 from . import _build
+from . import axis_fft as _axis
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,25 +87,47 @@ def fft_fourstep_plain(x: SplitComplex, *, inverse: bool = False,
     return SplitComplex(dr, di)
 
 
-# the CUDA kernel's limits: each factor a power of two in [2, MAX_FACTOR]
+# the fused kernel's limits: each factor a power of two in [2, MAX_FACTOR]
 # (a factor's FFT runs in one block); n <= ONE_LAUNCH_MAX runs in one
-# launch without scratch, larger n in two
+# launch without scratch, larger n in two.  Other factors up to
+# axis_fft.FACTOR_MAX (and bf16 planes) take the axis route: axis_fft.cuh's
+# launches, the "twiddle" one along n1, the "reversed" one along n2.
 MAX_FACTOR = 1024
 ONE_LAUNCH_MAX = 1 << 14
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_factors(n: int, n1=None) -> tuple:
-    """(n1, n2) for the CUDA kernel: the plain version's split, checked
-    against the kernel's limits; raises ValueError naming them."""
+    """(n1, n2) for the CUDA kernel: the plain version's split, each factor
+    at most :data:`axis_fft.FACTOR_MAX` (a larger one's dense table is
+    beyond the reference's reach too); raises ValueError naming the
+    limit."""
     if n < 1 or n & (n - 1):
         raise ValueError(f"the four-step kernel needs a power-of-two n, "
                          f"got {n}")
     n1, n2 = _factors(n, n1)
-    if not (2 <= n1 <= MAX_FACTOR and 2 <= n2 <= MAX_FACTOR):
-        raise ValueError(f"the four-step kernel takes factors of 2 to "
-                         f"{MAX_FACTOR}, got n = {n} = {n1} x {n2}")
+    if max(n1, n2) > _axis.FACTOR_MAX:
+        raise ValueError(f"the four-step kernel takes factors of up to "
+                         f"{_axis.FACTOR_MAX}, got n = {n} = {n1} x {n2}")
     return n1, n2
+
+
+def kernel_route(n: int, n1=None, dtype=torch.float32) -> str:
+    """"fused" (``fft_fourstep_f32``: fp32, both factors in [2,
+    :data:`MAX_FACTOR`]) or "axis" (:func:`axis_plan`)."""
+    n1, n2 = kernel_factors(n, n1)
+    if dtype == torch.float32 and max(n1, n2) <= MAX_FACTOR and n2 >= 2:
+        return "fused"
+    return "axis"
+
+
+def axis_plan(batch: int, n: int, n1=None) -> tuple:
+    """The axis route's launches: the four-step split (n1, n2)
+    (:func:`axis_fft.plan_split`), or one rows launch for n2 = 1."""
+    n1, n2 = kernel_factors(n, n1)
+    if n2 == 1:
+        return (_axis.plan_axis(batch, n, 1),)
+    return _axis.plan_split(batch, n, 1, factors=(n1, n2))
 
 
 def level_shift(n: int) -> int:
@@ -140,11 +163,19 @@ _ARGS = [_build.P] * 7 + [_build.L, _build.I, _build.I, _build.I, _build.P]
 
 def fft_fourstep_cuda(x: SplitComplex, *, inverse: bool = False,
                       n1: int = None) -> SplitComplex:
-    """Launch the four-step kernel on (batch, n) CUDA planes: one grid for
-    n <= 2^14, two (columns, then rows through scratch) above."""
+    """Launch the four-step kernel on (batch, n) CUDA planes (float32 or
+    bfloat16): one grid for n <= 2^14, two (columns, then rows through
+    scratch) above; the axis route (:func:`kernel_route`) for bf16 and
+    factors past :data:`MAX_FACTOR`."""
     n1, n2 = kernel_factors(x.shape[-1], n1)
-    _build.check_operands(x, 2)
+    _build.check_operands(x, 2, _axis.DTYPES)
     batch, n = x.shape
+    if kernel_route(n, n1, x.dtype) == "axis":
+        out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
+        fn = _build.function("fft_fourstep", "fft_fourstep_axis", _axis.ARGS)
+        _axis.run(fn, axis_plan(batch, n, n1), x, out, n, inverse,
+                  "fft_fourstep")
+        return out
     tab = kernel_table(n1, n2, inverse=inverse, device=x.device)
     out = x.re.new_empty((2, batch, n))
     scratch = x.re.new_empty((2, batch, n)) if n > ONE_LAUNCH_MAX else None

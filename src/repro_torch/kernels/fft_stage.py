@@ -40,20 +40,22 @@ def fft_staged_plain(x: SplitComplex, *, inverse: bool = False
     return fft_cooley_tukey(x, inverse=inverse, variant="two_reorder")
 
 
-_ARGS = [_build.P] * 6 + [_build.L, _build.I, _build.I, _build.P]
+_ARGS = [_build.P] * 6 + [_build.L, _build.I, _build.I, _build.I, _build.P]
 
 
 def fft_staged_cuda(x: SplitComplex, *, inverse: bool = False
                     ) -> SplitComplex:
     """Launch the log2(n) stage kernels (stage 0 with the bit-reverse) on
-    (batch, n) CUDA planes."""
-    _build.check_operands(x, 2)
+    (batch, n) CUDA planes, float32 or bfloat16 (each stage's output
+    rounded to bf16, as the reference's bf16 arrays are)."""
+    _build.check_operands(x, 2, (torch.float32, torch.bfloat16))
     batch, n = x.shape
     _check_n(n)
     w = tw.twiddles(n, inverse=inverse, dtype=torch.float32, device=x.device)
     out = x.re.new_empty((2, batch, n))
-    fn = _build.function("fft_stage", "fft_staged_f32", _ARGS)
+    fn = _build.function("fft_stage", "fft_staged_pass", _ARGS)
     ptrs = [x.re, x.im, out[0], out[1], w.re, w.im]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + [batch, n,
-                  int(inverse)], "fft_staged_f32", x.device)
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
+        batch, n, int(inverse), int(x.dtype == torch.bfloat16)],
+        "fft_staged_pass", x.device)
     return SplitComplex(out[0], out[1])

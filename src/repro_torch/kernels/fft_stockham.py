@@ -14,8 +14,10 @@ the columns of the (2^l1, n/2^l1) view, then the rest as
 length-n/2^l1 Stockhams on the stride-2^l1 subsets), each one pass over
 HBM, up to :data:`TWO_MAX`.  Radix 2 splits at l1 = ceil(log2 n / 2),
 radix 4 at an even l1 (:func:`split`), so that launch A holds whole
-radix-4 stages.  Above :data:`TWO_MAX` (radix 4 only) one kernel launches
-per radix-4 stage over global ping-pong buffers, then the radix-2 tail.
+radix-4 stages.  Above :data:`TWO_MAX` one kernel launches per stage over
+global ping-pong buffers (radix 4: its stages, then the radix-2 tail).
+float32 or bfloat16 planes: bf16 is widened at the load and rounded at
+each store, the stages run in fp32 off the fp32 tables.
 
 Each radix reads one table: radix 2 W_n^p for p < n/2
 (:func:`repro_torch.core.twiddle.radix2_twiddles`) at (j >> s) << s for
@@ -76,9 +78,9 @@ def fft_stockham_r2_plain(x: SplitComplex, *, inverse: bool = False
 
 
 _R2_ARGS = ([_build.P] * 5 + [_build.L] + [_build.I] * 7
-            + [_build.F, _build.P])
-_R4_ARGS = _R2_ARGS[:-1] + [_build.I, _build.P]
-_STAGES_ARGS = [_build.P] * 7 + [_build.L, _build.I, _build.I, _build.P]
+            + [_build.F, _build.I, _build.P])
+_R4_ARGS = _R2_ARGS[:-2] + [_build.I, _build.I, _build.P]
+_STAGES_ARGS = [_build.P] * 7 + [_build.L] + [_build.I] * 4 + [_build.P]
 _ROUTES = {"rows": 0, "cols": 1, "transposed": 2}
 
 
@@ -96,18 +98,18 @@ def split(n: int, radix: int) -> int:
 
 
 def plan(batch: int, n: int, radix: int) -> tuple:
-    """The fused kernel's launches, as (route, :class:`axis_fft.Launch`)
-    pairs: ``("rows", ...)`` alone for n <= :data:`ONE_MAX`; above, with
-    n = M * Q and M = 2^l1 (:func:`split`), ``("cols", ...)`` (launch A:
-    the stages of bits 0..l1-1 on the columns of the (batch, M, Q) view,
-    x -> scratch, each point back in its place) and ``("transposed",
-    ...)`` (launch B: the other stages on the batch*M rows of Q of the
-    scratch, row k's point t stored at t*M + k of out)."""
+    """The kernel's launches, as (route, :class:`axis_fft.Launch`) pairs:
+    ``("rows", ...)`` alone for n <= :data:`ONE_MAX`; up to
+    :data:`TWO_MAX`, with n = M * Q and M = 2^l1 (:func:`split`),
+    ``("cols", ...)`` (launch A: the stages of bits 0..l1-1 on the columns
+    of the (batch, M, Q) view, x -> scratch, each point back in its place)
+    and ``("transposed", ...)`` (launch B: the other stages on the batch*M
+    rows of Q of the scratch, row k's point t stored at t*M + k of out);
+    above, ``("stages", ...)``: one launch a stage (radix 4: then the
+    radix-2 tail) over the (batch, n) planes."""
     _check_n(n)
     if n > TWO_MAX:
-        raise ValueError(f"the radix-{radix} CUDA kernel takes n <= "
-                         f"{TWO_MAX} in its fused launches (two of up to "
-                         f"2^12-point transforms), got {n}")
+        return (("stages", _axis.Launch("stages", batch, n, 1, 1, 1)),)
     if n <= ONE_MAX:
         return (("rows", _axis.plan_axis(batch, n, 1)),)
     l1 = split(n, radix)
@@ -122,15 +124,14 @@ def r2_plan(batch: int, n: int) -> tuple:
 
 
 def r4_plan(batch: int, n: int) -> tuple:
-    """:func:`plan` of the radix-4 kernel (n <= :data:`TWO_MAX`; above, it
-    launches a kernel a stage)."""
+    """:func:`plan` of the radix-4 kernel."""
     return plan(batch, n, 4)
 
 
 @functools.lru_cache(maxsize=64)
 def _launch_args(radix: int, batch: int, n: int, inverse: bool,
                  device: torch.device) -> tuple:
-    """Each planned launch's arguments after the five pointers."""
+    """Each fused launch's arguments after the five pointers."""
     steps = plan(batch, n, radix)
     sms = _build.sm_count(device)
     log2 = _axis._log2
@@ -142,6 +143,13 @@ def _launch_args(radix: int, batch: int, n: int, inverse: bool,
                  for i, (route, lp) in enumerate(steps))
 
 
+def table(n: int, radix: int, inverse: bool, device) -> torch.Tensor:
+    """The radix's one fp32 table on ``device``."""
+    if radix == 2:
+        return tw.radix2_twiddles(n, inverse=inverse, device=device)
+    return tw.radix4_twiddles(n, inverse=inverse, device=device)
+
+
 def _fused(x: SplitComplex, inverse: bool, radix: int) -> SplitComplex:
     """The launches of :func:`plan` on (batch, n) CUDA planes, the
     inverse's 1/n at the last one's store."""
@@ -149,57 +157,58 @@ def _fused(x: SplitComplex, inverse: bool, radix: int) -> SplitComplex:
     tails = _launch_args(radix, batch, n, bool(inverse), x.re.device)
     x = _axis.aligned(x)
     dev = x.re.device
-    if radix == 2:
-        tab = tw.radix2_twiddles(n, inverse=inverse, device=dev)
-        fn = _build.function("fft_stockham", "fft_stockham_r2_pass",
-                             _R2_ARGS)
-    else:
-        tab = tw.radix4_twiddles(n, inverse=inverse, device=dev)
-        fn = _build.function("fft_stockham", "fft_stockham_r4_pass",
-                             _R4_ARGS)
+    tab = table(n, radix, inverse, dev)
+    args = _R2_ARGS if radix == 2 else _R4_ARGS
+    fn = _build.function("fft_stockham", f"fft_stockham_r{radix}_pass", args)
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
     bufs = [x, out]
     if len(tails) == 2:
         bufs.insert(1, SplitComplex(torch.empty_like(x.re),
                                     torch.empty_like(x.im)))
+    bf16 = [int(x.dtype == torch.bfloat16)]
     calls = [[bufs[i].re.data_ptr(), bufs[i].im.data_ptr(),
               bufs[i + 1].re.data_ptr(), bufs[i + 1].im.data_ptr(),
-              tab.data_ptr()] + tail for i, tail in enumerate(tails)]
+              tab.data_ptr()] + tail + bf16 for i, tail in enumerate(tails)]
     _build.launch_all(fn, calls, f"fft_stockham_r{radix}", dev)
     return out
 
 
-def _per_stage(x: SplitComplex, inverse: bool) -> SplitComplex:
-    """The radix-4 kernel above :data:`TWO_MAX`: a launch a stage, off the
+def _per_stage(x: SplitComplex, inverse: bool, radix: int = 4
+               ) -> SplitComplex:
+    """The kernel above :data:`TWO_MAX`: a launch a stage, off the radix's
     one table."""
     batch, n = x.shape
     dev = x.re.device
-    tab = tw.radix4_twiddles(n, inverse=inverse, device=dev)
+    tab = table(n, radix, inverse, dev)
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
     scratch = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    fn = _build.function("fft_stockham", "fft_stockham_f32", _STAGES_ARGS)
+    fn = _build.function("fft_stockham", "fft_stockham_stages", _STAGES_ARGS)
     ptrs = [x.re, x.im, out.re, out.im, scratch.re, scratch.im, tab]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + [batch, n,
-                  int(inverse)], "fft_stockham_f32", dev)
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
+        batch, n.bit_length() - 1, int(inverse), radix,
+        int(x.dtype == torch.bfloat16)], "fft_stockham_stages", dev)
     return out
+
+
+def _cuda(x: SplitComplex, inverse: bool, radix: int) -> SplitComplex:
+    _build.check_operands(x, 2, _axis.DTYPES)
+    n = x.shape[1]
+    _check_n(n)
+    if n > TWO_MAX:
+        return _per_stage(x, inverse, radix)
+    return _fused(x, inverse, radix)
 
 
 def fft_stockham_cuda(x: SplitComplex, *, inverse: bool = False
                       ) -> SplitComplex:
-    """Launch the mixed-radix Stockham kernel on (batch, n) CUDA planes:
-    the fused launches of :func:`r4_plan` up to :data:`TWO_MAX`, a launch
-    a stage above."""
-    _build.check_operands(x, 2)
-    n = x.shape[1]
-    _check_n(n)
-    if n > TWO_MAX:
-        return _per_stage(x, inverse)
-    return _fused(x, inverse, 4)
+    """Launch the mixed-radix Stockham kernel on (batch, n) CUDA planes
+    (float32 or bfloat16): the fused launches of :func:`r4_plan` up to
+    :data:`TWO_MAX`, a launch a stage above."""
+    return _cuda(x, inverse, 4)
 
 
 def fft_stockham_r2_cuda(x: SplitComplex, *, inverse: bool = False
                          ) -> SplitComplex:
-    """Launch the fused radix-2 Stockham kernel on (batch, n) CUDA planes:
-    the launches of :func:`r2_plan`."""
-    _build.check_operands(x, 2)
-    return _fused(x, inverse, 2)
+    """Launch the radix-2 Stockham kernel on (batch, n) CUDA planes
+    (float32 or bfloat16): the launches of :func:`r2_plan`."""
+    return _cuda(x, inverse, 2)

@@ -20,9 +20,11 @@ The TPU kernel runs both transforms as four-step DFT matmuls.  The
 function is bound by bytes on the H100 (a real sample in and out, an E/F
 bin pair in: 340 MB, 0.101 ms at 3.35 TB/s at the SSM conv shape, against
 0.034 ms of FFT flops), so ``csrc/fftconv_fused.cu`` keeps each row on
-chip instead: for m <= 16384 one block holds a row's m/2 points in shared
-memory and runs radix-2 Stockham stages, the packed-domain multiply and
-the inverse stages there, reading x and E/F once and writing y once.  A
+chip instead: for m <= 16384 a persistent grid walks tiles of G rows
+(:func:`rows_a_tile`), copied in asynchronously as interleaved complex
+while the last tile is transformed, and runs fft_stockham's fused radix-4
+passes, the packed-domain multiply and the inverse passes in shared memory
+and registers, reading x and E/F once and writing y once.  A
 longer row fits no shared memory; it runs a multi-launch schedule: the
 port's 1-D kernels at length m/2 (four-step up to 2^20, Stockham beyond),
 the spectral-section kernel between them, and the even/odd split and the
@@ -30,6 +32,8 @@ interleave as strided torch copies.
 
 Layout: x is (batch, R, m) real; E and F are (R, m/2) (one filter per
 row, shared across the batch: the SSM channel bank) or (batch, R, m/2).
+The kernel takes float32 or bfloat16 x with E/F of the same dtype (bf16
+widened at the load and rounded at the store, the FFTs in fp32).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 from repro_torch.core import twiddle as tw
 from repro_torch.core.complexmath import SplitComplex
 from . import _build
+from . import axis_fft as _axis
 from .rfft2d_fused import (fft_last_fourstep, fourstep_factors,
                            fourstep_tables_np)
 
@@ -88,8 +93,8 @@ def _pack_filter_np(kre, kri, m: int, dtype):
     the host and cast once, onto the filter's device."""
     hm = m // 2
     dev = kre.device
-    kc = kre.detach().cpu().numpy().astype(np.float64) \
-        + 1j * kri.detach().cpu().numpy().astype(np.float64)
+    kc = kre.detach().double().cpu().numpy() \
+        + 1j * kri.detach().double().cpu().numpy()
     # the C2R convention ignores the DC/Nyquist imaginary parts; zero them
     # here so residue in the fp32 spectrum cannot alias across the edges
     kc[..., 0] = kc[..., 0].real
@@ -210,36 +215,74 @@ def fftconv_fused_plain(x: torch.Tensor, ef) -> torch.Tensor:
     return out * (2.0 / m)
 
 
-_ONE_PASS_ARGS = [_build.P] * 10 + [_build.L, _build.I, _build.I, _build.I,
-                                    _build.P]
-_SECTION_ARGS = [_build.P] * 8 + [_build.L, _build.I, _build.I, _build.I,
-                                  _build.P]
+_ONE_PASS_ARGS = ([_build.P] * 8 + [_build.L] + [_build.I] * 6
+                  + [_build.P])
+_SECTION_ARGS = [_build.P] * 8 + [_build.L] + [_build.I] * 4 + [_build.P]
+TILE_POINTS = 4096      # complex points a tile holds where rows allow
+
+
+def rows_a_tile(rows: int, m: int, sms: int) -> int:
+    """G, the rows of a one-pass tile: :data:`TILE_POINTS` / (m/2) (at
+    least one row, at least 512 points: a warp), halved while the tiles
+    would leave fewer than two a streaming multiprocessor (table 11's
+    64-row banks get a row a tile)."""
+    hm = m // 2
+    g = max(1, TILE_POINTS // hm, _axis.MIN_POINTS // hm)
+    while g > 1 and g // 2 * hm >= _axis.MIN_POINTS \
+            and -(-rows // g) < 2 * sms:
+        g //= 2
+    return g
+
+
+REGISTERS = 128         # a thread of the one-pass kernel (its launch bound)
+
+
+def one_pass_blocks(rows: int, m: int, sms: int) -> tuple:
+    """(G, the persistent grid's blocks) of the one-pass launch: as many
+    blocks as are resident on the card at once, by threads, shared memory
+    and registers (a block more an SM than fit would wait for a whole
+    tile walk, and the grid's last tiles with it)."""
+    g = rows_a_tile(rows, m, sms)
+    hm = m // 2
+    lp = (g * hm).bit_length() - 1
+    threads = 1 << (lp - 4)
+    wf = -(-(_axis.pitch(hm, min(g.bit_length() - 1, 3)) * g) // 32) * 32
+    smem = 2 * 2 * 4 * wf
+    per_sm = min(2048 // threads, _axis.SM_SHARED // (smem + 1024),
+                 65536 // (threads * REGISTERS))
+    tiles = -(-rows // g)
+    return g, min(tiles, sms * max(1, per_sm))
 
 
 def fftconv_fused_cuda(x: torch.Tensor, ef) -> torch.Tensor:
-    """Launch the fused conv on a (batch, r, m) fp32 CUDA tensor with the
-    packed pair ef (fp32 CUDA planes): the one-pass kernel for
-    m <= :data:`MAX_ONE_PASS`, else the multi-launch schedule."""
-    _build.check_operands(x, 3)
+    """Launch the fused conv on a (batch, r, m) CUDA tensor (float32 or
+    bfloat16) with the packed pair ef (CUDA planes of x's dtype): the
+    one-pass kernel for m <= :data:`MAX_ONE_PASS`, else the multi-launch
+    schedule."""
+    _build.check_operands(x, 3, _axis.DTYPES)
     shared = _check_bank(x, ef)
     e, f = ef
     for sc in ef:
-        _build.check_operands(sc, 2 if shared else 3)
+        _build.check_operands(sc, 2 if shared else 3, (x.dtype,))
         if sc.device != x.device:
             raise ValueError("x and the packed filter are on different "
                              "devices")
     batch, r, m = x.shape
     hm = m // 2
+    bf16 = int(x.dtype == torch.bfloat16)
     if m <= MAX_ONE_PASS:
-        wf = tw.twiddles(hm, dtype=torch.float32, device=x.device)
-        wb = tw.twiddles(hm, inverse=True, dtype=torch.float32,
-                         device=x.device)
+        if x.data_ptr() % 16:            # the copies move 16-byte chunks
+            x = x.clone()
+        g, blocks = one_pass_blocks(batch * r, m, _build.sm_count(x.device))
+        tabf = tw.radix4_twiddles(hm, device=x.device)
+        tabb = tw.radix4_twiddles(hm, inverse=True, device=x.device)
         out = torch.empty_like(x)
-        fn = _build.function("fftconv_fused", "fftconv_fused_f32",
+        fn = _build.function("fftconv_fused", "fftconv_fused_pass",
                              _ONE_PASS_ARGS)
-        ptrs = [x, e.re, e.im, f.re, f.im, wf.re, wf.im, wb.re, wb.im, out]
+        ptrs = [x, e.re, e.im, f.re, f.im, tabf, tabb, out]
         _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-            batch, r, m, int(shared)], "fftconv_fused_f32", x.device)
+            batch, r, m, g.bit_length() - 1, blocks, int(shared), bf16],
+            "fftconv_fused_pass", x.device)
         return out
     # multi-launch: the 1-D kernels at length m/2 around the section
     # kernel; the even/odd split and the interleave are strided copies
@@ -248,11 +291,11 @@ def fftconv_fused_cuda(x: torch.Tensor, ef) -> torch.Tensor:
     z = _fft_inner(SplitComplex(x[..., 0::2], x[..., 1::2]), algo=algo,
                    backend="cuda")
     y = SplitComplex(torch.empty_like(z.re), torch.empty_like(z.im))
-    fn = _build.function("fftconv_fused", "spectral_section_f32",
+    fn = _build.function("fftconv_fused", "spectral_section_pass",
                          _SECTION_ARGS)
     ptrs = [z.re, z.im, e.re, e.im, f.re, f.im, y.re, y.im]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, r, hm, int(shared)], "spectral_section_f32", x.device)
+        batch, r, hm, int(shared), bf16], "spectral_section_pass", x.device)
     # the inverse's 1/(m/2) is the kernel's 2/m
     y = _fft_inner(y, inverse=True, algo=algo, backend="cuda")
     return torch.stack([y.re, y.im], -1).reshape(batch, r, m)

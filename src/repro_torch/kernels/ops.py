@@ -15,9 +15,9 @@ The fused conv counts once per call; at m > 16384 its 1-D transforms run
 on the 1-D kernels and count in their own counters too.  ``fft_staged``
 (the paper's per-stage Table 1 baseline) counts once per call of its
 log2(n) stage launches, ``decode_attention`` (one-token GQA flash-decode)
-once per call of its split and merge launches.  The GEMM transforms
-(``fft2d_gemm``, ``fft3d_fused``) and decode attention take float32 or
-bfloat16; every other kernel float32.
+once per call of its split and merge launches.  Every kernel takes
+float32 or bfloat16 (the FFT kernels the same dtype in and out); float16
+is refused (ROADMAP 2e).
 """
 from __future__ import annotations
 

@@ -26,7 +26,12 @@ adjacent columns of that scratch, the last tile of an image ragged
 at the input's own pitch W/2+1, into the padded scratch, then the row pass,
 which builds each packed row Z = A_ext + i B_ext from scratch rows 2j and
 2j+1 at its first pass's load and stores re and im to the real rows 2j and
-2j+1, scaled by 1/(H*W).
+2j+1, scaled by 1/(H*W).  An axis longer than
+:data:`axis_fft.AXIS_MAX` takes :func:`steps` instead: that axis as
+``axis_fft.cuh``'s split launches (the packed rows read or stored at a
+row pitch of 2W), with the untangle, the Hermitian repack and a change of
+row pitch as launches of their own between it and the other axis.  x and
+the half spectra are float32 or bfloat16 (the scratch stays fp32).
 """
 from __future__ import annotations
 
@@ -201,15 +206,13 @@ def irfft2d_fused_plain(xf: SplitComplex) -> torch.Tensor:
     return out * (1.0 / (h * w))
 
 
-MAX_DIM = 4096          # the largest H or W the CUDA kernels take
-_ARGS = [_build.P] * 7 + [_build.L] + [_build.I] * 8 + [_build.P]
-
-
-def _check_card_dims(h: int, w: int) -> None:
-    _check_dims(h, w)
-    if h > MAX_DIM or w > MAX_DIM:
-        raise ValueError(f"the CUDA rfft2 kernels take H, W <= {MAX_DIM}, "
-                         f"got {(h, w)}")
+_ARGS = [_build.P] * 7 + [_build.L] + [_build.I] * 9 + [_build.P]
+_ROWS_ARGS = [_build.P] * 4 + [_build.L] + [_build.I] * 6 + [_build.P]
+_IROWS_ARGS = ([_build.P] * 4 + [_build.L] + [_build.I] * 5
+               + [_build.F, _build.I, _build.P])
+_COLS_ARGS = [_build.P] * 5 + [_build.L] + [_build.I] * 9 + [_build.P]
+_EW_ARGS = [_build.P] * 4 + [_build.L] + [_build.I] * 3 + [_build.P]
+_REPITCH_ARGS = [_build.P] * 4 + [_build.L] + [_build.I] * 5 + [_build.P]
 
 
 def plan(batch: int, h: int, w: int) -> tuple:
@@ -218,6 +221,17 @@ def plan(batch: int, h: int, w: int) -> tuple:
     the scratch (whose row pitch is the second launch's ``inner``)."""
     return (_axis.plan_axis(batch * h // 2, w, 1),
             _axis.plan_half_cols(batch, h, w // 2 + 1))
+
+
+def _inverse_rows(batch: int, h: int, w: int, pitch: int) -> _axis.Launch:
+    """The inverse's rows route on the batch*h/2 packed rows of w, G halved
+    until the 2G scratch rows of ``pitch`` a tile copies in fit its shared
+    memory."""
+    rows = _axis.plan_axis(batch * h // 2, w, 1)
+    g = rows.g
+    while 2 * g * pitch > _axis.SMEM_MAX // 16 and g * w > _axis.MIN_POINTS:
+        g //= 2
+    return dataclasses.replace(rows, g=g)
 
 
 def inverse_plan(batch: int, h: int, w: int) -> tuple:
@@ -230,12 +244,79 @@ def inverse_plan(batch: int, h: int, w: int) -> tuple:
     cols = _axis.plan_half_cols(batch, h, c)
     if cols.c >= c:
         cols = dataclasses.replace(cols, inner=-(-c // 4) * 4)
-    rows = _axis.plan_axis(batch * h // 2, w, 1)
-    g = rows.g
-    while 2 * g * cols.inner > _axis.SMEM_MAX // 16 and \
-            g * w > _axis.MIN_POINTS:
-        g //= 2
-    return cols, dataclasses.replace(rows, g=g)
+    return cols, _inverse_rows(batch, h, w, cols.inner)
+
+
+def split_pitch(w: int) -> int:
+    """The scratch's row pitch where h takes the split launches: w/2+1
+    rounded up to a power of two (their inner extent), at least 4."""
+    return max(4, _axis._pow2ceil(w // 2 + 1))
+
+
+def scratch_pitch(batch: int, h: int, w: int, inverse: bool) -> int:
+    """The row pitch of the fp32 half-spectrum scratch: :func:`split_pitch`
+    where h splits, else the column pass's (:func:`plan`,
+    :func:`inverse_plan`)."""
+    if h > _axis.AXIS_MAX:
+        return split_pitch(w)
+    return (inverse_plan if inverse else plan)(batch, h, w)[
+        0 if inverse else 1].inner
+
+
+def _chain(src: str, mid: str, dst: str, launches: tuple) -> list:
+    """A split's launches as steps: the first from ``src`` into ``mid``,
+    the others in place on ``mid`` but the "reversed" last, into ``dst``."""
+    out = [("axis", src, mid, launches[0])]
+    out += [("axis", mid, mid, lp) for lp in launches[1:-1]]
+    return out + [("axis", mid, dst, launches[-1])]
+
+
+def steps(batch: int, h: int, w: int, inverse: bool = False) -> tuple:
+    """The launches of a direction, as (kind, src, dst, what) with buffer
+    names x (the input), out, Z and Z2 (packed complex rows, the input's
+    dtype), S and S2 (fp32 half spectra at the scratch's pitch).  Up to
+    :data:`axis_fft.AXIS_MAX` on both axes: ("fused", x, out, None), the
+    two launches of :func:`plan` or :func:`inverse_plan` in one call.
+    Longer axes split (:func:`axis_fft.plan_split`, kind "axis", what the
+    Launch): the packed rows read (forward) or stored (inverse) at a row
+    pitch of 2w; kinds "rows", "irows" and "cols" (what the Launch, its
+    scratch pitch in ``inner`` for "cols") are the short axis' pass alone;
+    "untangle" and "repack" (what the pitch) turn packed spectra into
+    half spectra and back; "repitch" (what (width, src pitch, dst
+    pitch)) moves rows between the input's or output's pitch w/2+1 and
+    the split's pitch (:func:`split_pitch`)."""
+    _check_dims(h, w)
+    big_h, big_w = h > _axis.AXIS_MAX, w > _axis.AXIS_MAX
+    if not (big_h or big_w):
+        return (("fused", "x", "out", None),)
+    c, pairs = w // 2 + 1, batch * h // 2
+    p = scratch_pitch(batch, h, w, inverse)
+    out = []
+    if not inverse:
+        if big_w:
+            out += _chain("x", "Z", "Z2", _axis.plan_split(pairs, w, 1,
+                                                           img_in=2 * w))
+            out.append(("untangle", "Z2", "S", p))
+        else:
+            out.append(("rows", "x", "S", _axis.plan_axis(pairs, w, 1)))
+        if big_h:
+            out += _chain("S", "S", "S2", _axis.plan_split(batch, h, p))
+            out.append(("repitch", "S2", "out", (c, p, c)))
+        else:
+            out.append(("cols", "S", "out", plan(batch, h, w)[1]))
+        return tuple(out)
+    if big_h:
+        out.append(("repitch", "x", "S", (c, c, p)))
+        out += _chain("S", "S", "S2", _axis.plan_split(batch, h, p))
+    else:
+        out.append(("cols", "x", "S2", inverse_plan(batch, h, w)[0]))
+    if big_w:
+        out.append(("repack", "S2", "Z", p))
+        out += _chain("Z", "Z", "out", _axis.plan_split(pairs, w, 1,
+                                                        img_out=2 * w))
+    else:
+        out.append(("irows", "S2", "out", _inverse_rows(batch, h, w, p)))
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=64)
@@ -254,7 +335,7 @@ def _launch_args(batch: int, h: int, w: int, inverse: bool,
 
 
 def _run(symbol: str, ins: list, out: list, batch: int, h: int, w: int,
-         inverse: bool) -> None:
+         inverse: bool, bf16: bool) -> None:
     """Launch ``symbol`` on the operands ``ins`` -> ``out`` with its scratch
     pair and the two axes' tables of the transform's sign."""
     dev = out[0].device
@@ -265,32 +346,124 @@ def _run(symbol: str, ins: list, out: list, batch: int, h: int, w: int,
             for n in (w, h)]
     fn = _build.function("rfft2d_fused", symbol, _ARGS)
     ptrs = [*ins, *out, *scratch, *tabs]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + tail, symbol, dev)
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + tail + [int(bf16)],
+                  symbol, dev)
+
+
+def _run_steps(x, out, batch: int, h: int, w: int, inverse: bool) -> None:
+    """Launch :func:`steps` (a long axis): ``x`` and ``out`` the real plane
+    and the half spectra's SplitComplex, in the direction's order."""
+    real = out if inverse else x              # the real plane
+    dev, dtype = real.device, real.dtype
+    bf16 = dtype == torch.bfloat16
+    sms = _build.sm_count(dev)
+    log2 = _axis._log2
+    todo = steps(batch, h, w, inverse)
+    pairs = batch * h // 2
+    pitch = scratch_pitch(batch, h, w, inverse)
+    names = {k for _, s_, d_, _ in todo for k in (s_, d_)}
+    buf = {}
+    for name in ("S", "S2"):
+        if name in names:
+            buf[name] = [torch.empty(batch * h * pitch, dtype=torch.float32,
+                                     device=dev) for _ in range(2)]
+    for name in ("Z", "Z2"):
+        if name in names:
+            buf[name] = [torch.empty(pairs * w, dtype=dtype, device=dev)
+                         for _ in range(2)]
+    elt = real.element_size()
+    if not inverse:
+        buf["x"] = [real.data_ptr(), real.data_ptr() + w * elt]
+        buf["out"] = list(out)
+    else:
+        buf["x"] = list(x)
+        buf["out"] = [real.data_ptr(), real.data_ptr() + w * elt]
+    ptr = {k: [p if isinstance(p, int) else p.data_ptr() for p in v]
+           for k, v in buf.items()}
+    tw_w = _axis.twiddle_table(w, inverse=inverse, device=dev)
+    tw_h = _axis.twiddle_table(h, inverse=inverse, device=dev)
+    scale = 1.0 / (h * w) if inverse else 1.0
+    held = [buf, tw_w, tw_h]
+    for i, (kind, src, dst, what) in enumerate(todo):
+        last = i == len(todo) - 1
+        if kind == "axis":
+            fn = _build.function("rfft2d_fused", "rfft2d_axis_pass",
+                                 _axis.ARGS)
+            calls, tabs = _axis.call_args(
+                (what,), [ptr[src] + ptr[dst]], inverse,
+                scale if last else 1.0, bf16 and src not in ("S", "S2"), dev)
+            held.append(tabs)
+            _build.launch_all(fn, calls, "rfft2d_fused", dev)
+        elif kind == "rows":
+            fn = _build.function("rfft2d_fused", "rfft2d_rows_pass",
+                                 _ROWS_ARGS)
+            _build.launch(fn, [ptr[src][0], *ptr[dst], tw_w.data_ptr(),
+                               batch, log2(h), log2(w), pitch,
+                               log2(what.g), what.blocks(sms), int(bf16)],
+                          "rfft2d_fused", dev)
+        elif kind == "irows":
+            fn = _build.function("rfft2d_fused", "irfft2d_rows_pass",
+                                 _IROWS_ARGS)
+            _build.launch(fn, [*ptr[src], ptr[dst][0], tw_w.data_ptr(),
+                               batch, log2(h), log2(w), pitch,
+                               log2(what.g), what.blocks(sms), scale,
+                               int(bf16)], "rfft2d_fused", dev)
+        elif kind == "cols":
+            fn = _build.function("rfft2d_fused", "rfft2d_cols_pass",
+                                 _COLS_ARGS)
+            _build.launch(fn, [*ptr[src], *ptr[dst], tw_h.data_ptr(),
+                               batch, log2(h), log2(w), what.inner,
+                               log2(what.c), log2(what.g), what.blocks(sms),
+                               int(inverse), int(bf16 and inverse),
+                               int(bf16 and not inverse)],
+                          "rfft2d_fused", dev)
+        elif kind in ("untangle", "repack"):
+            fn = _build.function("rfft2d_fused", f"rfft2d_{kind}", _EW_ARGS)
+            _build.launch(fn, [*ptr[src], *ptr[dst], pairs, log2(w), what,
+                               int(bf16)], "rfft2d_fused", dev)
+        else:                                     # repitch
+            width, sp, dp = what
+            fn = _build.function("rfft2d_fused", "rfft2d_repitch",
+                                 _REPITCH_ARGS)
+            _build.launch(fn, [*ptr[src], *ptr[dst], batch * h, width, sp,
+                               dp, int(bf16 and src == "x"),
+                               int(bf16 and dst == "out")],
+                          "rfft2d_fused", dev)
 
 
 def rfft2d_fused_cuda(x: torch.Tensor) -> SplitComplex:
-    """Launch the real-input 2-D FFT kernel on a (batch, h, w) fp32 CUDA
-    tensor; returns the (batch, h, w/2+1) half spectra."""
-    _build.check_operands(x, 3)
+    """Launch the real-input 2-D FFT kernel on a (batch, h, w) CUDA tensor,
+    float32 or bfloat16; returns the (batch, h, w/2+1) half spectra of the
+    same dtype."""
+    _build.check_operands(x, 3, _axis.DTYPES)
     batch, h, w = x.shape
-    _check_card_dims(h, w)
+    _check_dims(h, w)
     if x.data_ptr() % 16:            # the copies move 16-byte chunks
         x = x.clone()
     shape = (batch, h, w // 2 + 1)
     out = SplitComplex(torch.empty(shape, dtype=x.dtype, device=x.device),
                        torch.empty(shape, dtype=x.dtype, device=x.device))
-    _run("rfft2d_fused_f32", [x], list(out), batch, h, w, False)
+    if steps(batch, h, w)[0][0] == "fused":
+        _run("rfft2d_fused_pass", [x], list(out), batch, h, w, False,
+             x.dtype == torch.bfloat16)
+    else:
+        _run_steps(x, out, batch, h, w, False)
     return out
 
 
 def irfft2d_fused_cuda(xf: SplitComplex) -> torch.Tensor:
     """Launch the inverse real-input 2-D FFT kernel on (batch, h, w/2+1)
-    fp32 CUDA half spectra; returns the real (batch, h, w) images."""
-    _build.check_operands(xf, 3)
+    CUDA half spectra, float32 or bfloat16; returns the real (batch, h, w)
+    images of the same dtype."""
+    _build.check_operands(xf, 3, _axis.DTYPES)
     batch, h, bins = xf.shape
     w = 2 * (bins - 1)
-    _check_card_dims(h, w)
+    _check_dims(h, w)
     xf = _axis.aligned(xf)           # whole-image runs move 16-byte chunks
     out = torch.empty((batch, h, w), dtype=xf.dtype, device=xf.device)
-    _run("irfft2d_fused_f32", list(xf), [out], batch, h, w, True)
+    if steps(batch, h, w, True)[0][0] == "fused":
+        _run("irfft2d_fused_pass", list(xf), [out], batch, h, w, True,
+             xf.dtype == torch.bfloat16)
+    else:
+        _run_steps(xf, out, batch, h, w, True)
     return out

@@ -338,7 +338,7 @@ def test_rfft2d_wrapper_launches_the_plan(monkeypatch, shape):
     rows, cols = rfft2d_fused.plan(*shape)
     assert out.shape == (b, h, w // 2 + 1)
     (fn, args, what), = calls
-    assert fn == ("rfft2d_fused", "rfft2d_fused_f32",
+    assert fn == ("rfft2d_fused", "rfft2d_fused_pass",
                   rfft2d_fused._ARGS)
     assert len(args) == len(rfft2d_fused._ARGS) - 1
     s0, s1 = scratch[-2:]
@@ -350,19 +350,21 @@ def test_rfft2d_wrapper_launches_the_plan(monkeypatch, shape):
     lg = lambda v: v.bit_length() - 1              # noqa: E731
     assert args[7:] == [b, lg(h), lg(w), cols.inner, lg(rows.g),
                         rows.blocks(132), lg(cols.c), lg(cols.g),
-                        cols.blocks(132)]
+                        cols.blocks(132), 0]
 
 
 def test_rfft2d_wrapper_refuses(monkeypatch):
     """CPU tensors; then, past the operand checks, dims that are no power
-    of two or past 4096, before any launch."""
+    of two, before any launch.  An axis past 4096 is no refusal: the
+    wrapper launches the split steps (:func:`rfft2d_fused.steps`)."""
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         rfft2d_fused.rfft2d_fused_cuda(torch.zeros(1, 8, 8))
     calls = _recorder(monkeypatch)
     for shape in [(1, 8, 12), (1, 6, 8)]:
         with pytest.raises(ValueError, match="power-of-two"):
             rfft2d_fused.rfft2d_fused_cuda(torch.zeros(shape))
-    with pytest.raises(ValueError, match="H, W <= 4096"):
-        rfft2d_fused.rfft2d_fused_cuda(torch.empty((1, 2, 8192),
-                                                   device="meta"))
     assert calls == []
+    rfft2d_fused.rfft2d_fused_cuda(torch.empty((1, 2, 8192), device="meta"))
+    symbols = [fn[1] for fn, _, _ in calls]
+    assert symbols == ["rfft2d_axis_pass", "rfft2d_axis_pass",
+                       "rfft2d_untangle", "rfft2d_cols_pass"]

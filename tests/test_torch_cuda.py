@@ -415,3 +415,121 @@ def test_fft2d_reads_an_unaligned_view_on_card(card):
     got = fft2d_gemm.fft2d_gemm_cuda(view)
     torch.cuda.synchronize()
     assert _rel(got, fft2d_gemm.fft2d_gemm_plain(view)) <= 1e-5
+
+
+# -- the long-axis routes and bf16 planes ---------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 2, 8192), (2, 8192, 4),
+                                   (1, 2, 16384)])
+def test_long_axes_entry_points_on_card(card, shape):
+    """fft2/ifft2 (the fused route and the fused_stockham oracle),
+    rfft2/irfft2 with an axis past 4096: within 1e-5 of max|X| of numpy."""
+    z = _rand(shape, 5)
+    x = from_numpy(z, device=card)
+    zr = np.random.default_rng(6).standard_normal(shape)
+    xr = torch.from_numpy(zr).to(card, torch.float32)
+
+    def err(got, want):
+        g = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy() \
+            if isinstance(got, SplitComplex) else got.double().cpu().numpy()
+        return np.abs(g - want).max() / np.abs(want).max()
+    for algo in ("auto", "fused_stockham"):
+        assert err(fft2(x, algo=algo, backend="cuda"), np.fft.fft2(z)) <= 1e-5
+        assert err(fft2(x, inverse=True, algo=algo, backend="cuda"),
+                   np.fft.ifft2(z)) <= 1e-5
+    f = rfft2(xr, backend="cuda")
+    assert err(f, np.fft.rfft2(zr)) <= 1e-5
+    assert err(irfft2(f, s=shape[1:], backend="cuda"), zr) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2, 8192), (1, 8192, 2, 4)])
+def test_long_axes_fft3_on_card(card, shape):
+    z = _rand(shape, 7)
+    got = fft3(from_numpy(z, device=card), backend="cuda")
+    g = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy()
+    want = np.fft.fftn(z, axes=(-3, -2, -1))
+    assert np.linalg.norm(g - want) / np.linalg.norm(want) <= 1e-6
+
+
+@pytest.mark.parametrize("shape,n1", [((1, 1 << 21), None), ((3, 4096), 2),
+                                      ((3, 1 << 15), 2),
+                                      ((3, 1 << 14), 1 << 14)])
+def test_fourstep_factors_on_card(card, shape, n1):
+    """The four-step kernel's factors past 1024 (the axis route): within
+    5e-5 of max|X| of numpy and of the plain version."""
+    x = from_numpy(_rand(shape, 8), device=card)
+    got = ops.fft_fourstep(x, n1=n1)
+    assert _rel(got, fft_fourstep.fft_fourstep_plain(x, n1=n1)) <= 5e-5
+
+
+def test_stockham_r2_per_stage_on_card(card):
+    """Radix 2 past 2^24: a launch a stage, within 5e-5 of max|X| of
+    numpy."""
+    z = _rand((1, 1 << 25), 9)
+    got = fft_stockham.fft_stockham_r2_cuda(from_numpy(z, device=card))
+    g = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy()
+    want = np.fft.fft(z)
+    assert np.abs(g - want).max() <= 5e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("fft_stockham", (4, 256)), ("fft_stockham_r2", (4, 256)),
+    ("fft_fourstep", (4, 256)), ("fft_staged", (4, 256)),
+    ("fft2d_fused", (2, 64, 64)), ("rfft2d_fused", (2, 64, 64)),
+    ("irfft2d_fused", (2, 64, 64)), ("fftconv_fused", (2, 3, 64))])
+def test_bf16_planes_on_card(card, name, shape):
+    """bf16 in, bf16 out; against float64 numpy of the bf16-rounded input
+    within 6e-2 of max|X| and within the plain version's own error plus
+    2^-7."""
+    rng = np.random.default_rng(10)
+
+    def f64(y):
+        if isinstance(y, SplitComplex):
+            return f64(y.re) + 1j * f64(y.im)
+        return y.double().cpu().numpy()
+    if name in ("rfft2d_fused", "fftconv_fused"):
+        x = torch.from_numpy(rng.standard_normal(shape)).to(card).bfloat16()
+    elif name == "irfft2d_fused":
+        b, h, w = shape
+        z = _rand((b, h, w // 2 + 1), 11)
+        x = SplitComplex(*(torch.from_numpy(p).to(card).bfloat16()
+                           for p in (z.real, z.imag)))
+    else:
+        z = _rand(shape, 12)
+        x = SplitComplex(*(torch.from_numpy(p).to(card).bfloat16()
+                           for p in (z.real, z.imag)))
+    kern = {"fft_stockham": (fft_stockham.fft_stockham_cuda,
+                             fft_stockham.fft_stockham_plain, np.fft.fft),
+            "fft_stockham_r2": (fft_stockham.fft_stockham_r2_cuda,
+                                fft_stockham.fft_stockham_r2_plain,
+                                np.fft.fft),
+            "fft_fourstep": (fft_fourstep.fft_fourstep_cuda,
+                             fft_fourstep.fft_fourstep_plain, np.fft.fft),
+            "fft_staged": (fft_stage.fft_staged_cuda,
+                           fft_stage.fft_staged_plain, np.fft.fft),
+            "fft2d_fused": (fft2d_fused.fft2d_fused_cuda,
+                            fft2d_fused.fft2d_fused_plain, np.fft.fft2),
+            "rfft2d_fused": (rfft2d_fused.rfft2d_fused_cuda,
+                             rfft2d_fused.rfft2d_fused_plain, np.fft.rfft2),
+            "irfft2d_fused": (rfft2d_fused.irfft2d_fused_cuda,
+                              rfft2d_fused.irfft2d_fused_plain,
+                              lambda a: np.fft.irfft2(a, s=shape[1:]))}
+    if name == "fftconv_fused":
+        m = shape[-1]
+        kz = _rand((shape[1], m // 2 + 1), 13)
+        kz[:, 0], kz[:, -1] = kz[:, 0].real, kz[:, -1].real
+        ef = fftconv_fused.pack_filter(from_numpy(kz, device=card), m,
+                                       torch.bfloat16)
+        launch = lambda t: fftconv_fused.fftconv_fused_cuda(t, ef)  # noqa
+        plain = lambda t: fftconv_fused.fftconv_fused_plain(t, ef)  # noqa
+        want = np.fft.irfft(np.fft.rfft(f64(x)) * kz, m)
+    else:
+        launch, plain, ref = kern[name]
+        want = ref(f64(x))
+    got = launch(x)
+    assert (got.re if isinstance(got, SplitComplex) else got).dtype == \
+        torch.bfloat16
+    scale = np.abs(want).max()
+    k_err = np.abs(f64(got) - want).max() / scale
+    p_err = np.abs(f64(plain(x)) - want).max() / scale
+    assert k_err <= 6e-2 and k_err <= p_err + 2.0 ** -7

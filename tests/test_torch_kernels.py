@@ -13,7 +13,7 @@ import torch
 
 from repro.core.complexmath import SplitComplex as RefSplit
 from repro.kernels import ops as ref_ops
-from repro_torch.core import from_numpy, to_complex
+from repro_torch.core import SplitComplex, from_numpy, to_complex
 from repro_torch.kernels import ops
 from repro_torch.kernels import fft2d_gemm, fft_fourstep, fft_stockham
 
@@ -144,23 +144,28 @@ def test_from_numpy_without_cuda_raises():
 
 @pytest.mark.parametrize("k", range(2, 21))
 def test_fourstep_kernel_takes_every_default_split(k):
-    """Every default split up to 2^20 is within the kernel's limits."""
+    """Every default split up to 2^20 is within the fused kernel's limits
+    (the "fused" route, fp32); bf16 takes the axis route."""
     n = 1 << k
     n1, n2 = fft_fourstep.kernel_factors(n)
     assert (n1, n2) == fft_fourstep._split_n(n)
     assert 2 <= n1 <= fft_fourstep.MAX_FACTOR
     assert 2 <= n2 <= fft_fourstep.MAX_FACTOR
+    assert fft_fourstep.kernel_route(n) == "fused"
+    assert fft_fourstep.kernel_route(n, dtype=torch.bfloat16) == "axis"
 
 
-@pytest.mark.parametrize("n,n1", [(1 << 21, None), (1 << 12, 2),
-                                  (1 << 13, 4096), (1 << 10, 1 << 10)])
+@pytest.mark.parametrize("n,n1", [(1 << 15, 1 << 15), (1 << 16, 2),
+                                  (1 << 29, None), (1 << 28, 1 << 13)])
 def test_fourstep_kernel_refuses_factors_past_its_limit(n, n1):
-    """A factor above 1024 (or a 1-point factor) raises, naming the limit;
-    the check runs before the device check, so it shows on CPU tensors."""
-    with pytest.raises(ValueError, match="factors of 2 to 1024"):
+    """A factor above 2^14 (whose dense DFT table is past the reference's
+    reach too) raises, naming the limit; the check runs before the device
+    check, so it shows on CPU tensors."""
+    with pytest.raises(ValueError, match="factors of up to 16384"):
         fft_fourstep.kernel_factors(n, n1)
-    x = from_numpy(np.zeros((1, n), np.complex64), device="cpu")
-    with pytest.raises(ValueError, match="factors of 2 to 1024"):
+    x = SplitComplex(torch.empty((1, n), device="meta"),
+                     torch.empty((1, n), device="meta"))
+    with pytest.raises(ValueError, match="factors of up to 16384"):
         fft_fourstep.fft_fourstep_cuda(x, n1=n1)
 
 

@@ -164,9 +164,10 @@ def _recorder(monkeypatch):
 @pytest.mark.parametrize("shape", CHECKS)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_wrapper_launches_the_plan(monkeypatch, shape, inverse):
-    """Two calls: rows x -> out off w's table, columns out -> out off h's;
+    """Two calls: rows x -> out off w's table (the 1-D kernel's rows route,
+    ``fft2d_fused_1d``), columns out -> out off h's (``fft2d_fused_pass``);
     each launch's view, tiling, route and grid; 1/(h*w) at the column
-    store only; the transform's sign last."""
+    store only; the transform's sign, then the bf16 flag, last."""
     calls = _recorder(monkeypatch)
     x = SplitComplex(torch.zeros(shape), torch.zeros(shape))
     out = S2.fft2d_fused_cuda(x, inverse=inverse)
@@ -176,17 +177,22 @@ def test_wrapper_launches_the_plan(monkeypatch, shape, inverse):
     outp = [out.re.data_ptr(), out.im.data_ptr()]
     for i, ((fn, args, what), (route, lp)) in enumerate(
             zip(calls, S2.plan(*shape))):
-        assert fn == ("fft2d_fused", "fft2d_fused_pass", S2._ARGS)
-        assert what == "fft2d_fused" and len(args) == len(S2._ARGS) - 1
+        if route == "rows":       # the 1-D kernel's rows route
+            assert fn == ("fft2d_fused", "fft2d_fused_1d", S2._1D_ARGS)
+        else:
+            assert fn == ("fft2d_fused", "fft2d_fused_pass", S2._ARGS)
+        assert what == "fft2d_fused" and len(args) == len(fn[2]) - 1
         src = [x.re.data_ptr(), x.im.data_ptr()] if i == 0 else outp
         assert args[:5] == src + outp + [tabs[i].data_ptr()]
         assert tabs[i].shape == (3, max(lp.n // 4, 1), 2)
         assert args[5:10] == [lp.outer, _lg(lp.n), _lg(lp.inner), _lg(lp.c),
                               _lg(lp.g)]
-        assert args[10] == {"rows": 0, "cols": 1}[route]
-        assert args[11] == lp.blocks(132)
-        assert args[12] == (1.0 / (h * w) if inverse and i == 1 else 1.0)
-        assert args[13] == int(inverse)
+        if route == "rows":
+            assert args[10:13] == [0, 0, 0]        # ST_ROWS, l1, lin
+            args = args[:10] + args[13:]
+        assert args[10] == lp.blocks(132)
+        assert args[11] == (1.0 / (h * w) if inverse and i == 1 else 1.0)
+        assert args[12] == int(inverse) and args[13] == 0
 
 
 def test_wrapper_refuses_cpu_tensors():
@@ -195,11 +201,13 @@ def test_wrapper_refuses_cpu_tensors():
         S2.fft2d_fused_cuda(x)
 
 
-@pytest.mark.parametrize("shape", [(1, 12, 8), (1, 8, 1), (1, 8192, 2),
-                                   (1, 2, 8192)])
+@pytest.mark.parametrize("shape", [(1, 12, 8), (1, 8, 1), (1, 6, 8),
+                                   (1, 8, 24)])
 def test_wrapper_refuses_shapes_it_does_not_take(monkeypatch, shape):
+    """Dims that are no power of two >= 2, before any launch (an axis past
+    4096 takes the long-axis routes: the tests below)."""
     calls = _recorder(monkeypatch)
     x = SplitComplex(torch.zeros(shape), torch.zeros(shape))
-    with pytest.raises(ValueError, match="power-of-two|4096"):
+    with pytest.raises(ValueError, match="power-of-two"):
         S2.fft2d_fused_cuda(x)
     assert calls == []

@@ -236,15 +236,64 @@ def test_r2_wrapper_refuses_non_pow2(monkeypatch, n):
 
 
 def test_r2_wrapper_refuses_n_past_its_limit(monkeypatch):
-    """n > 2^24 would need a transform of more than 2^12 points in one of
-    the two launches: ValueError naming the limit, before any launch or
-    allocation."""
-    calls = _recorder(monkeypatch)
-    n = S.TWO_MAX * 2
-    x = SplitComplex(torch.empty((1, n), device="meta"),
-                     torch.empty((1, n), device="meta"))
-    with pytest.raises(ValueError, match=f"n <= {S.TWO_MAX}"):
-        S.fft_stockham_r2_cuda(x)
-    with pytest.raises(ValueError, match=f"n <= {S.TWO_MAX}"):
-        S.r2_plan(1, n)
-    assert calls == []
+    """Past 2^24 (two launches of up to 2^12-point transforms) there is no
+    limit to refuse at any more: the plan is one "stages" step and the
+    wrapper calls the per-stage entry once (radix 2, x -> out through a
+    scratch pair, off the one n/2 table), shown on meta tensors at 2^25 and
+    2^27."""
+    for n in (S.TWO_MAX * 2, S.TWO_MAX * 8):
+        calls = _recorder(monkeypatch)
+        x = SplitComplex(torch.empty((1, n), device="meta"),
+                         torch.empty((1, n), device="meta"))
+        out = S.fft_stockham_r2_cuda(x)
+        (route, lp), = S.r2_plan(1, n)
+        assert route == "stages" and (lp.outer, lp.n) == (1, n)
+        (fn, args, what), = calls
+        assert fn == ("fft_stockham", "fft_stockham_stages", S._STAGES_ARGS)
+        assert what == "fft_stockham_stages"
+        assert len(args) == len(S._STAGES_ARGS) - 1
+        assert out.re.shape == (1, n)
+        assert args[7:] == [1, n.bit_length() - 1, 0, 2, 0]
+
+
+def per_stage_model(re, im, n, inverse):
+    """The radix-2 per-stage route in plain torch, off the one table: stage
+    s reads a = x[j], b = x[j + n/2] and stores a + b at o = ((j >> s) <<
+    (s + 1)) + j mod 2^s and (a - b) * W[(j >> s) << s] at o + 2^s, the
+    last stage scaled by 1/n on the inverse (``r2_stage``)."""
+    tab = tw.radix2_twiddles(n, inverse=inverse, device="cpu")
+    h = n // 2
+    j = torch.arange(h)
+    for s in range(n.bit_length() - 1):
+        ar, ai, br, bi = re[..., :h], im[..., :h], re[..., h:], im[..., h:]
+        wr, wi = tab[(j >> s) << s, 0], tab[(j >> s) << s, 1]
+        dr, di = ar - br, ai - bi
+        o = ((j >> s) << (s + 1)) + (j & ((1 << s) - 1))
+        yr, yi = torch.empty_like(re), torch.empty_like(im)
+        yr[..., o], yi[..., o] = ar + br, ai + bi
+        yr[..., o + (1 << s)] = dr * wr - di * wi
+        yi[..., o + (1 << s)] = dr * wi + di * wr
+        re, im = yr, yi
+    if inverse:
+        re, im = re * (1.0 / n), im * (1.0 / n)
+    return re, im
+
+
+@pytest.mark.parametrize("n", [2, 8, 1 << 10, 1 << 13])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_per_stage_route_equals_the_plain_version(monkeypatch, n, inverse):
+    """With TWO_MAX lowered so that n takes the per-stage route, its
+    plain-torch model equals the plain version (the stage-by-stage oracle
+    on the packed table, then 1/n) under torch.equal, and the plan is the
+    one "stages" step."""
+    monkeypatch.setattr(S, "TWO_MAX", 1)
+    rng = np.random.default_rng(n)
+    z = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    x = from_numpy(z, device="cpu")
+    want = S.fft_stockham_r2_plain(x, inverse=inverse)
+    got = per_stage_model(x.re, x.im, n, inverse)
+    assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
+    assert [r for r, _ in S.r2_plan(3, n)] == ["stages"]
+    ref = np.fft.ifft(z) if inverse else np.fft.fft(z)
+    err = np.abs(got[0].numpy() + 1j * got[1].numpy() - ref).max()
+    assert err <= 5e-5 * np.abs(ref).max()

@@ -291,20 +291,25 @@ def test_r4_wrapper_runs_a_launch_a_stage_above_its_fused_limit(
     x = from_numpy(np.ones((3, n), np.complex64), device="cpu")
     out = S.fft_stockham_cuda(x, inverse=inverse)
     (fn, args, what), = calls
-    assert fn == ("fft_stockham", "fft_stockham_f32", S._STAGES_ARGS)
-    assert what == "fft_stockham_f32"
+    assert fn == ("fft_stockham", "fft_stockham_stages", S._STAGES_ARGS)
+    assert what == "fft_stockham_stages"
     assert len(args) == len(S._STAGES_ARGS) - 1
     tab = tw.radix4_twiddles(n, inverse=inverse, device="cpu")
     assert args[:4] == [x.re.data_ptr(), x.im.data_ptr(), out.re.data_ptr(),
                         out.im.data_ptr()]
     assert args[4] not in args[:4] and args[5] not in args[:4]
     assert args[6] == tab.data_ptr()
-    assert args[7:] == [3, n, int(inverse)]
+    assert args[7:] == [3, n.bit_length() - 1, int(inverse), 4, 0]
 
 
 def test_r4_plan_refuses_n_past_the_fused_limit():
-    with pytest.raises(ValueError, match=f"n <= {S.TWO_MAX}"):
-        S.r4_plan(1, S.TWO_MAX * 2)
+    """Past TWO_MAX the plan has no fused launch: it is the one "stages"
+    step (a launch a stage), for radix 4 as for radix 2."""
+    for radix in (4, 2):
+        (route, lp), = S.plan(1, S.TWO_MAX * 2, radix)
+        assert route == "stages" and lp.n == S.TWO_MAX * 2
+    (route, _), = S.r4_plan(2, S.TWO_MAX * 4)
+    assert route == "stages"
 
 
 def test_r4_wrapper_refuses_cpu_tensors():

@@ -35,6 +35,11 @@ struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
+struct alignas(4) ushort2 { unsigned short x, y; };
+struct alignas(8) ushort4 { unsigned short x, y, z, w; };
+inline ushort2 make_ushort2(unsigned short a, unsigned short b) { return ushort2{a, b}; }
+inline ushort4 make_ushort4(unsigned short a, unsigned short b, unsigned short c,
+                            unsigned short d) { return ushort4{a, b, c, d}; }
 struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 static thread_local dim3 blockIdx, threadIdx;

@@ -33,7 +33,12 @@ splits and the merge's mean of V).  What it cannot check: the tiled GEMM itself 
 it), warps, shared-memory limits or timing.  Libraries go to
 ``build/cuda_emu/``.  Exits non-zero if a shape disagrees beyond 1e-5 of
 max|plain| (fp32) or one bf16 ulp at the top of the range, 2^-7 of
-max|plain| (bf16).
+max|plain| (bf16 on the GEMM transforms and decode), or, for bf16 planes
+on the other kernels, if the kernel's error against float64 numpy of the
+bf16-rounded input passes 6e-2 of max|X| or the plain version's own error
+plus 2^-7.  It also runs the long-axis routes scaled down (the split
+launches with lowered thresholds, the real-input steps at 8192, the
+four-step kernel's axis route, the per-stage routes).
 """
 from __future__ import annotations
 
@@ -320,13 +325,168 @@ def main() -> int:
             (bf16 if qt == torch.bfloat16 else results).append(
                 (f"decode_attention/{tag}", (b, s, h, kvh, d), window,
                  rel(got, want)))
+    results += long_axes(rng, cplx)
+    f4 = bf16_planes(rng, cplx)
     for r in results + bf16:
+        print(*r)
+    for r in f4:
         print(*r)
     worst = max(r[3] for r in results)
     worst_bf16 = max(r[3] for r in bf16)
+    f4_ok = all(k <= TOL_BF16_REF and k <= p + TOL_BF16 for *_, k, p in f4)
     print("worst", worst, "tol", TOL)
     print("worst bf16", worst_bf16, "tol", TOL_BF16)
-    return 0 if worst <= TOL and worst_bf16 <= TOL_BF16 else 1
+    print("bf16 planes within 6e-2 and the plain version's error + 2^-7:",
+          f4_ok)
+    return 0 if worst <= TOL and worst_bf16 <= TOL_BF16 and f4_ok else 1
+
+
+def long_axes(rng, cplx) -> list:
+    """The long-axis routes, scaled down: the 2-D and 3-D kernels' split
+    with AXIS_MAX at 16 (three factors past 2^8 with FACTOR_MAX at 16),
+    the real-input kernels' split steps at 8192 and 16384 (their packed
+    rows need 8192-point tiles), the fused Stockham 2-D kernel's 1-D
+    routes at 2^13 .. 2^16 and its per-stage route with TWO_MAX at 2^10,
+    the four-step kernel's axis route (factors 2 .. 2^14), the radix-2
+    kernel's per-stage route with TWO_MAX at 2^10."""
+    from repro_torch.kernels import axis_fft as A
+    from repro_torch.kernels import fft2d_gemm as G
+    from repro_torch.kernels import fft3d_fused as V
+    from repro_torch.kernels import rfft2d_fused as R
+    from repro_torch.kernels import fft2d_fused as S2
+    from repro_torch.kernels import fft_fourstep as F
+    from repro_torch.kernels import fft_stockham as S
+    out = []
+    limits = A.AXIS_MAX, A.FACTOR_MAX
+    A.AXIS_MAX, A.FACTOR_MAX = 16, 16
+    A._launch_args.cache_clear()
+    try:
+        for shape in [(2, 2, 64), (1, 64, 4), (2, 32, 32), (1, 2, 512)]:
+            x = cplx(shape)
+            for inv in (False, True):
+                out.append(("fft2d_gemm split", shape, inv, rel(
+                    G.fft2d_gemm_cuda(x, inverse=inv),
+                    G.fft2d_gemm_plain(x, inverse=inv))))
+        for shape in [(1, 2, 2, 64), (1, 64, 2, 4), (1, 2, 64, 4)]:
+            x = cplx(shape)
+            out.append(("fft3d_fused split", shape, False, rel(
+                V.fft3d_fused_cuda(x), V.fft3d_fused_plain(x))))
+    finally:
+        A.AXIS_MAX, A.FACTOR_MAX = limits
+        A._launch_args.cache_clear()
+    for shape in [(1, 2, 8192), (1, 8192, 4), (1, 4, 16384)]:
+        x = torch.from_numpy(rng.standard_normal(shape)).float()
+        out.append(("rfft2d_fused split", shape, False,
+                    rel(R.rfft2d_fused_cuda(x), R.rfft2d_fused_plain(x))))
+        b, h, w = shape
+        xf = cplx((b, h, w // 2 + 1))
+        out.append(("irfft2d_fused split", shape, True,
+                    rel(R.irfft2d_fused_cuda(xf), R.irfft2d_fused_plain(xf))))
+    for shape in [(1, 2, 8192), (1, 8192, 2), (1, 2, 1 << 15),
+                  (1, 1 << 15, 2), (2, 1 << 15, 4)]:
+        x = cplx(shape)
+        out.append(("fft2d_fused long", shape, True, rel(
+            S2.fft2d_fused_cuda(x, inverse=True),
+            S2.fft2d_fused_plain(x, inverse=True))))
+    S2.TWO_MAX = 1 << 10
+    try:
+        for shape in [(2, 4, 2048), (1, 2048, 4)]:
+            x = cplx(shape)
+            out.append(("fft2d_fused stages", shape, True, rel(
+                S2.fft2d_fused_cuda(x, inverse=True),
+                S2.fft2d_fused_plain(x, inverse=True))))
+    finally:
+        S2.TWO_MAX = 1 << 24
+    for shape, n1 in [((3, 4096), 2), ((2, 8192), 8192), ((1, 16384), 16384),
+                      ((1, 1 << 15), 2), ((2, 4096), 2048)]:
+        x = cplx(shape)
+        out.append((f"fft_fourstep axis n1={n1}", shape, False, rel(
+            F.fft_fourstep_cuda(x, n1=n1), F.fft_fourstep_plain(x, n1=n1))))
+    S.TWO_MAX = 1 << 10
+    try:
+        for shape in [(3, 2), (2, 2048), (1, 1 << 13)]:
+            x = cplx(shape)
+            for inv in (False, True):
+                out.append(("fft_stockham_r2 per-stage", shape, inv, rel(
+                    S.fft_stockham_r2_cuda(x, inverse=inv),
+                    S.fft_stockham_r2_plain(x, inverse=inv))))
+    finally:
+        S.TWO_MAX = 1 << 24
+    return out
+
+
+TOL_BF16_REF = 6e-2
+
+
+def bf16_planes(rng, cplx) -> list:
+    """bf16 planes on the kernels that took float32 only: (name, shape,
+    kernel error, plain error), each of max|X| against float64 of the
+    bf16-rounded input (the kernel within 6e-2 and within the plain
+    version's error + 2^-7)."""
+    from repro_torch.kernels import fft_stockham as S
+    from repro_torch.kernels import fft_fourstep as F
+    from repro_torch.kernels import fft_stage as ST
+    from repro_torch.kernels import fft2d_fused as S2
+    from repro_torch.kernels import rfft2d_fused as R
+    from repro_torch.kernels import fftconv_fused as C
+    out = []
+
+    def f64(y):
+        if isinstance(y, SplitComplex):
+            return f64(y.re) + 1j * f64(y.im)
+        return y.double().numpy()
+
+    def err(y, want):
+        return float(np.abs(f64(y) - want).max() / np.abs(want).max())
+
+    def c2c(name, kern, plain, shape, numpy_fn):
+        x = cplx(shape)
+        xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+        want = numpy_fn(f64(xb))
+        got = kern(xb)
+        assert got.re.dtype == torch.bfloat16
+        out.append((name, shape, "bf16", err(got, want),
+                    err(plain(xb), want)))
+
+    fft1 = np.fft.fft
+    for shape in [(4, 256), (3, 2), (1, 1 << 15)]:
+        c2c("fft_stockham", S.fft_stockham_cuda, S.fft_stockham_plain,
+            shape, fft1)
+        c2c("fft_stockham_r2", S.fft_stockham_r2_cuda,
+            S.fft_stockham_r2_plain, shape, fft1)
+    for shape in [(4, 256), (2, 1 << 15)]:
+        c2c("fft_fourstep", F.fft_fourstep_cuda, F.fft_fourstep_plain,
+            shape, fft1)
+    for shape in [(4, 256), (2, 2048)]:
+        c2c("fft_staged", ST.fft_staged_cuda, ST.fft_staged_plain, shape,
+            fft1)
+    for shape in [(2, 64, 64), (1, 2, 8192)]:
+        c2c("fft2d_fused", S2.fft2d_fused_cuda, S2.fft2d_fused_plain, shape,
+            np.fft.fft2)
+    for shape in [(2, 64, 64), (3, 8, 4), (1, 2, 8192)]:
+        x = torch.from_numpy(rng.standard_normal(shape)).bfloat16()
+        got = R.rfft2d_fused_cuda(x)
+        want = np.fft.rfft2(f64(x))
+        out.append(("rfft2d_fused", shape, "bf16", err(got, want),
+                    err(R.rfft2d_fused_plain(x), want)))
+        b, h, w = shape
+        xf = cplx((b, h, w // 2 + 1))
+        xf = SplitComplex(xf.re.bfloat16(), xf.im.bfloat16())
+        want = np.fft.irfft2(f64(xf), s=(h, w))
+        out.append(("irfft2d_fused", shape, "bf16",
+                    err(R.irfft2d_fused_cuda(xf), want),
+                    err(R.irfft2d_fused_plain(xf), want)))
+    for lead, m in [((2, 3), 64), ((1, 2), 4096), ((2, 1), 32768)]:
+        x = torch.from_numpy(rng.standard_normal(lead + (m,))).bfloat16()
+        kz = rng.standard_normal((lead[-1], m // 2 + 1)) \
+            + 1j * rng.standard_normal((lead[-1], m // 2 + 1))
+        kz[:, 0], kz[:, -1] = kz[:, 0].real, kz[:, -1].real
+        ef = C.pack_filter(from_numpy(kz, device="cpu"), m, torch.bfloat16)
+        want = np.fft.irfft(np.fft.rfft(f64(x)) * kz, m)
+        out.append(("fftconv_fused", lead + (m,), "bf16",
+                    err(C.fftconv_fused_cuda(x, ef), want),
+                    err(C.fftconv_fused_plain(x, ef), want)))
+    return out
 
 
 if __name__ == "__main__":

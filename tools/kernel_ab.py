@@ -32,13 +32,25 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   2 x 256^3, each with its device time a call;
 - ``fft2d_fused`` (the ``fused_stockham`` oracle) at 16 x 1024^2 and
   1 x 1024^2, forward and inverse, with its device time a call;
+- ``fftconv_fused`` at the SSM conv shape 8 x 576 x 8192 and table 11's
+  64-row banks at m = 1024, 4096, 16384 (one pass) and 32768 (the 1-D
+  kernels around the section kernel), with its device time a call; and
+  the conv entry points (``fft_conv`` at the SSM shape, ``circular_conv``
+  on each table 11 bank) traced: device-busy share of 20 calls (the sum of
+  their kernels' device time over the host time the calls take, synced)
+  and each launch's device time;
+- the long-axis routes, where the tree has them (a tree without them
+  refuses, and its entry is null): ``fft2d_gemm`` at 1 x 8192^2,
+  ``fft_fourstep`` at 1 x 2^21 (1024 x 2048) and ``fft_stockham_r2`` at
+  1 x 2^25;
 - ``decode_attention`` in bf16 at ``chip_smoke.py``'s two decode cells,
   starcoder2-15b (16 x 32768 slots filled to a quarter .. all, GQA 48/4,
   D 128) and h2o-danube-1.8b (128 rings of 4096, window 4096, GQA 32/8,
   D 80, the last row with no visible slot), with its device time a call;
 - the ptxas lines of the four-step kernels, of every 2-D and 3-D kernel
   instance, of the radix-2, radix-4 and real-input kernels, of the fused
-  Stockham 2-D kernel and of the decode kernels the tree builds.
+  Stockham 2-D kernel, of the conv kernels and of the decode kernels the
+  tree builds.
 
 With ``--launches`` it also lists every grid launch of one call of
 ``fft_fourstep`` at 4 x 2^20, of ``fft_staged`` at 512 x 16384, of
@@ -66,7 +78,8 @@ ROOT = sys.argv[1]
 sys.path.insert(0, ROOT + "/src")
 
 import torch  # noqa: E402
-from repro_torch.core import SplitComplex, fft2, fft3  # noqa: E402
+from repro_torch.core import (SplitComplex, fft2, fft3, fft_conv,  # noqa
+                              circular_conv)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fft_fourstep as F  # noqa: E402
 from repro_torch.kernels import fft_stage as ST  # noqa: E402
@@ -76,6 +89,7 @@ from repro_torch.kernels import fft3d_fused as V  # noqa: E402
 from repro_torch.kernels import fft_stockham as S  # noqa: E402
 from repro_torch.kernels import fft2d_fused as S2  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
+from repro_torch.kernels import fftconv_fused as C  # noqa: E402
 
 FOURSTEP = [(4, 1 << 20), (64, 4096), (32768, 512), (4096, 4096),
             (512, 16384)]
@@ -86,6 +100,11 @@ VOLUME = (2, 256, 256, 256)
 PME = (8, 128, 128, 128)
 R2 = [(2, 1 << 20), (1024, 512), (513, 1024), (1024, 1024)]
 R4 = [(2, 1 << 22), (2, 1 << 23), (4, 1 << 21)]
+CONV = [(8, 576, 8192), (1, 64, 1024), (1, 64, 4096), (1, 64, 16384),
+        (1, 64, 32768)]
+SSM = ((8, 576, 4096), (1, 576, 4))     # fft_conv's x and filter bank
+LONG = [("fft2d_gemm", (1, 8192, 8192)), ("fft_fourstep", (1, 1 << 21)),
+        ("fft_stockham_r2", (1, 1 << 25))]
 # (B, S, H, KV, D, window, ring) of chip_smoke.py's decode cells
 DECODE = {"starcoder2-15b": (16, 32768, 48, 4, 128, None, False),
           "h2o-danube-1.8b": (128, 4096, 32, 8, 80, 4096, True)}
@@ -155,6 +174,25 @@ def device_us(fn, calls=5):
     return sum(us for _, us in launches(fn, calls)) / calls
 
 
+def busy_share(fn, calls=20):
+    """(device-busy share, host ms a call) of ``calls`` calls: their
+    kernels' device time over the host time from the first call to the
+    synchronize after the last."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / (wall * 1e6), wall * 1e3 / calls
+
+
 def ptxas_lines(log):
     """{kernel symbol: registers, stack and spills} from nvcc's -Xptxas -v
     log."""
@@ -173,7 +211,8 @@ def main():
     torch.set_float32_matmul_precision("highest")
     logs = _build.build_all(("fft_fourstep", "fft_stage", "fft2d_gemm",
                              "rfft2d_fused", "fft3d_fused", "fft_stockham",
-                             "fft2d_fused", "decode_attention"))
+                             "fft2d_fused", "fftconv_fused",
+                             "decode_attention"))
     # a library built earlier (by chip_smoke.py, or a run before) left its
     # compiler log beside it
     ptxas = {n: ptxas_lines(log or _build.library_path(n)
@@ -185,7 +224,7 @@ def main():
                  if "cgemm" not in k}
              for n in ("fft_fourstep", "fft_stage", "fft2d_gemm",
                        "fft3d_fused", "rfft2d_fused", "fft_stockham",
-                       "fft2d_fused", "decode_attention")}
+                       "fft2d_fused", "fftconv_fused", "decode_attention")}
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
 
@@ -271,6 +310,49 @@ def main():
                     lambda: S2.fft2d_fused_cuda(x, inverse=inv))
         del x
     torch.cuda.empty_cache()
+    conv_trace = {}
+    for shape in CONV:
+        m = shape[-1]
+        x = torch.randn(shape, generator=g, device="cuda")
+        kf = cplx((shape[1], m // 2 + 1))
+        ef = C.pack_filter(kf, m, torch.float32)
+        key = f"fftconv_fused {'x'.join(map(str, shape))}"
+        ms[key] = time_ms(lambda: C.fftconv_fused_cuda(x, ef))
+        dev[key] = device_us(lambda: C.fftconv_fused_cuda(x, ef))
+        if "--launches" in sys.argv:
+            traced[f"{key} launches"] = launches(
+                lambda: C.fftconv_fused_cuda(x, ef))
+        if shape[1] == 64 and m <= 16384:      # table 11's bank, entry point
+            kk = torch.zeros((64, m), device="cuda")
+            kk[:, :129] = torch.randn((64, 129), generator=g, device="cuda")
+            conv_trace[f"circular_conv 64x{m}"] = busy_share(
+                lambda: circular_conv(x[0], kk, backend="cuda"))
+            conv_trace[f"circular_conv 64x{m} launches"] = launches(
+                lambda: circular_conv(x[0], kk, backend="cuda"))
+        del x, kf, ef
+    xs = torch.randn(SSM[0], generator=g, device="cuda")
+    ks = torch.randn(SSM[1], generator=g, device="cuda")
+    conv_trace["fft_conv ssm"] = busy_share(
+        lambda: fft_conv(xs, ks, backend="cuda"))
+    conv_trace["fft_conv ssm launches"] = launches(
+        lambda: fft_conv(xs, ks, backend="cuda"))
+    del xs, ks
+    torch.cuda.empty_cache()
+    for name, shape in LONG:
+        x = cplx(shape)
+        kern = {"fft2d_gemm": G.fft2d_gemm_cuda,
+                "fft_fourstep": F.fft_fourstep_cuda,
+                "fft_stockham_r2": S.fft_stockham_r2_cuda}[name]
+        key = f"{name} {'x'.join(map(str, shape))}"
+        try:
+            kern(x)
+        except (ValueError, TypeError):      # a tree that refuses it
+            ms[key] = dev[key] = None
+        else:
+            ms[key] = time_ms(lambda: kern(x))
+            dev[key] = device_us(lambda: kern(x))
+        del x
+        torch.cuda.empty_cache()
     for i, (name, c) in enumerate(DECODE.items()):
         case = decode_case(*c, seed=7 + i)
         key = f"decode_attention {name} bf16"
@@ -287,7 +369,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     out = {"tree": ROOT, "nvidia_smi": smi, "ms": ms, "device_us": dev,
-           "cgemm_f32_ptxas": gemm_f32, "ptxas": ptxas, **traced}
+           "conv_trace": conv_trace, "cgemm_f32_ptxas": gemm_f32,
+           "ptxas": ptxas, **traced}
     if "--launches" in sys.argv:
         x = cplx(FOURSTEP[0])
         out["fft_fourstep 4x2^20 launches"] = launches(
