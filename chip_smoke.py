@@ -34,8 +34,21 @@ float64 numpy:
   4096-slot ring cache, window 4096, GQA 32/8, D 80), and in fp32 against
   float64 numpy;
 
+- serving: a threaded, pre-warmed ``SpectralServer`` on the card with
+  buckets for 16 1024^2 complex, real and inverse-real images and 4
+  2^20-point transforms, a seeded closed loop of 96 requests (1000^2 ones
+  padded up), every spectrum against float64 numpy; one bucket tuned, its
+  wisdom saved and loaded back (no second measurement); the same buckets
+  behind a ``serve.prewarm`` fault, degraded to their torch twins;
+- resilience: the guarded executor at 16 1024^2 images under an output
+  fault and a launch fault, the circuit breaker's walk, and the guard's
+  cost against the raw execution, there and at every entry-point path's
+  main shape (rfft2, fft3, the SSM conv and its gradient, table 11's
+  conv banks);
+
 and times every kernel beside its plain version, ``torch.fft`` and its
-bound.  Each phase prints one JSON line; the
+bound.  Every plan call runs through the guarded executor, and no
+earlier phase may have fallen back.  Each phase prints one JSON line; the
 last line is the device record.  Exits non-zero, with no device record,
 when CUDA is missing, a kernel fails to build or launch, or any check fails.
 """
@@ -44,6 +57,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -267,6 +281,30 @@ BF16_F4 = [("fft_stockham", (4, 256)), ("fft_stockham", MAIN_STOCKHAM),
            ("irfft2d_fused", (2, 64, 64)), ("irfft2d_fused", MAIN_RFFT2),
            ("fft2d_fused", (2, 64, 64)), ("fft2d_fused", MAIN_2D),
            ("fftconv_fused", (2, 3, 64)), ("fftconv_fused", MAIN_CONV)]
+
+# the serving path: a SpectralServer on the card with the paper's 1024^2
+# images as buckets (complex, real forward, real inverse; 16 a dispatch)
+# and the 1-D 2^20 transform (4 a dispatch), driven by a seeded closed loop
+# whose mix pads 1000^2 forward requests up to 1024^2
+SERVE_BUCKETS = [((1024, 1024), "c2c", False, 16),
+                 ((1024, 1024), "rfft", False, 16),
+                 ((1024, 1024), "rfft", True, 16),
+                 ((1 << 20,), "c2c", False, 4)]
+# (shape, kind, inverse, weight) of the closed loop's mix
+SERVE_MIX = [((1024, 1024), "c2c", False, 3.0),
+             ((1000, 1000), "c2c", False, 1.0),
+             ((1024, 1024), "rfft", False, 2.0),
+             ((1000, 1000), "rfft", False, 1.0),
+             ((1024, 1024), "rfft", True, 2.0),
+             ((1 << 20,), "c2c", False, 1.0)]
+SERVE_REQUESTS, SERVE_CONCURRENCY, SERVE_SEED = 96, 32, 22
+SERVE_WAIT_S = 120.0        # a request's longest wait before the run fails
+SERVE_KERNELS = ("fft2d_gemm", "rfft2d_fused", "irfft2d_fused",
+                 "fft_fourstep")
+TOL_DEGRADED = 1e-6         # degraded vs healthy server, of max|healthy|
+# the guarded executor on the card: 16 1024^2 complex fp32 images
+RESILIENCE_2D = MAIN_2D
+GUARD_STREAM = 10       # back-to-back calls a run in the guard's stream mode
 
 # the decode path's cells, one decode step's attention for one layer at the
 # configs' full widths (src/repro/configs/): (B, S, H, KV, D, window, ring)
@@ -538,6 +576,30 @@ def np_rel_norm(got, ref):
     return float(np.linalg.norm(to_numpy(got) - ref) / np.linalg.norm(ref))
 
 
+def host_value(v):
+    """A served result (a pair of host planes, or one real plane) as a
+    float64/complex128 array."""
+    import numpy as np
+    if isinstance(v, tuple):
+        return np.asarray(v[0], np.float64) + 1j * np.asarray(v[1],
+                                                             np.float64)
+    return np.asarray(v, np.float64)
+
+
+def serve_reference(payload, kind, inverse, bucket_shape):
+    """float64 numpy of what the server computes for one request: the
+    payload zero-padded into its bucket's leading corner, then the
+    bucket's transform (the inverse real transform takes the half
+    spectrum as it is)."""
+    import numpy as np
+    if kind == "rfft" and inverse:
+        return np.fft.irfft2(host_value(payload), s=bucket_shape)
+    src = host_value(payload)
+    x = np.zeros(bucket_shape, src.dtype)
+    x[tuple(slice(0, d) for d in src.shape)] = src
+    return np.fft.rfft2(x) if kind == "rfft" else np.fft.fftn(x)
+
+
 def ptxas_report(log: str) -> dict:
     """{kernel symbol: ptxas resource line} from an nvcc -Xptxas -v log."""
     out, name = {}, None
@@ -576,6 +638,18 @@ def main() -> int:
     from repro_torch.kernels import fft_stage as ST
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels.rfft2d_fused import fourstep_factors
+    from repro_torch import resilience
+    from repro_torch.core.plan import (_plan_key, autotune_count,
+                                       load_wisdom, save_wisdom)
+    from repro_torch.resilience import config as rconfig
+    from repro_torch.resilience import executor as rexec
+    from repro_torch.resilience import faults as rfaults
+    from repro_torch.resilience import guards as rguards
+    from repro_torch.resilience import policy as rpolicy
+    from repro_torch.resilience.policy import RUNTIME_DEMOTE_REASON
+    from repro_torch.serve.spectral import (BucketConfig, MixItem,
+                                            SpectralServer, closed_loop)
+    from repro_torch.serve.spectral.loadgen import _pick, make_payload
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -680,7 +754,8 @@ def main() -> int:
     # the fp32 GEMM core's instance, cg::cgemm_kernel<false, false, EPI_F32>
     f32_gemm = {n: r[k] for n, r in ptxas.items() for k in r
                 if "cgemm_kernel" in k and "Lb0ELb0ELi0E" in k}
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+    build_s = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": round(build_s, 3),
           "libraries": [_build.library_path(n).name for n in _build.SOURCES],
           "ptxas": ptxas, "cgemm_f32": f32_gemm})
 
@@ -1505,6 +1580,427 @@ def main() -> int:
         del x, got, pl, want
         torch.cuda.empty_cache()
 
+    # 4j. every plan call above ran through the guarded executor: none may
+    # have fallen back (a fallback would have hidden a kernel)
+    stats = rexec.stats()
+    hidden = {str(k): v for k, v in stats.items()
+              if v["failures"] or v["fallbacks"] or v["short_circuits"]}
+    if hidden:
+        failures.append(f"the guarded executor fell back: {hidden}")
+    emit({"phase": "guarded_executor", "cuda_keys": len(stats),
+          "attempts": sum(v["attempts"] for v in stats.values()),
+          "fell_back": hidden})
+
+    # 4k. the serving path: a threaded, pre-warmed SpectralServer on the
+    # card, a seeded closed loop over the four buckets, every spectrum held
+    # to float64 numpy of its (padded) input
+    clear_plan_cache()
+    resilience.reset()
+    S.tw.clear_table_cache()          # pre-warm uploads the tables again
+    buckets = [BucketConfig(s, kind=k, inverse=i, max_batch=b)
+               for s, k, i, b in SERVE_BUCKETS]
+    mix = [MixItem(s, k, inverse=i, weight=w) for s, k, i, w in SERVE_MIX]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv = SpectralServer(buckets, unmatched="pad_up", device=dev)
+    startup_s = time.perf_counter() - t0
+    records = {}
+    result = srv.result
+
+    def keep(rid, timeout=None):
+        """The server's result() with a bound on the wait, keeping every
+        record for the checks below."""
+        rec = result(rid, timeout=SERVE_WAIT_S if timeout is None
+                     else timeout)
+        if rec is None:
+            raise RuntimeError(f"request {rid!r} not done in "
+                               f"{SERVE_WAIT_S} s")
+        records[rid] = rec
+        return rec
+
+    srv.result = keep
+    summary = closed_loop(srv, mix, requests=SERVE_REQUESTS,
+                          concurrency=SERVE_CONCURRENCY, seed=SERVE_SEED,
+                          rid_prefix="serve")
+    # one request a bucket, served again by the degraded server below
+    probe_rng = np.random.default_rng(SERVE_SEED + 1)
+    probes = {b.label: make_payload(probe_rng, MixItem(b.shape, b.kind,
+                                                       inverse=b.inverse))
+              for b in buckets}
+    for b in buckets:
+        srv.submit(("probe", b.label), probes[b.label], kind=b.kind,
+                   inverse=b.inverse)
+    healthy = {lbl: keep(("probe", lbl)).value for lbl in probes}
+    snap = srv.snapshot()
+    threads = list(srv.executor._threads)
+    closed = srv.close(timeout_s=SERVE_WAIT_S)
+    torch.cuda.synchronize()
+    launches_serve = dict(ops.LAUNCHES)
+    orphans = srv._n_outstanding() + len(srv._done)
+    if not closed or orphans or any(t.is_alive() for t in threads):
+        failures.append(f"serve_path: close() {closed}, {orphans} requests "
+                        "left, pipeline threads alive: "
+                        f"{[t.name for t in threads if t.is_alive()]}")
+    if srv.degraded_buckets or snap["totals"]["fallback_served"]:
+        failures.append(f"serve_path: degraded {srv.degraded_buckets}, "
+                        f"{snap['totals']['fallback_served']} served by a "
+                        "fallback")
+    for k in SERVE_KERNELS:
+        if launches_serve[k] <= 0:
+            failures.append(f"kernel {k} was not launched on the serve "
+                            "path")
+    # replay the closed loop's seeded draws: the same items and payloads
+    replay = np.random.default_rng(SERVE_SEED)
+    serve_err, lat, t_payload = {}, {}, 0.0
+    for i in range(SERVE_REQUESTS):
+        t1 = time.perf_counter()
+        item = _pick(replay, mix)
+        payload = make_payload(replay, item)
+        t_payload += time.perf_counter() - t1
+        rec = records.get(f"serve-{SERVE_SEED}-{i}")
+        if rec is None or rec.status != "completed":
+            failures.append(f"serve_path request {i}: "
+                            f"{None if rec is None else rec.status}")
+            continue
+        bshape = srv.states[rec.bucket].cfg.shape
+        want = serve_reference(payload, item.kind, item.inverse, bshape)
+        err = float(np.abs(host_value(rec.value) - want).max()
+                    / np.abs(want).max())
+        tol = TOL_1D if len(bshape) == 1 else TOL_NUMPY
+        if not err <= tol:
+            failures.append(f"serve_path request {i} ({rec.bucket}, padded "
+                            f"{rec.padded}): {err} > {tol}")
+        lbl = rec.bucket + ("/padded" if rec.padded else "")
+        serve_err[lbl] = max(serve_err.get(lbl, 0.0), err)
+        lat.setdefault(rec.bucket, []).append(rec.latency_s * 1e3)
+    del records
+    buckets_out = {}
+    for lbl, sec in snap["buckets"].items():
+        if lbl not in lat:
+            continue
+        ms = np.asarray(lat[lbl])
+        buckets_out[lbl] = {
+            "completed": sec["counters"]["completed"],
+            "padded_up": sec["counters"]["padded_up"],
+            "batches": sec["counters"]["batches"],
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "occupancy_mean": sec["gauges"]["batch_occupancy"]["mean"],
+            "queue_mean_ms": sec["latency"]["queue"]["mean_ms"],
+            "service_mean_ms": sec["latency"]["service"]["mean_ms"],
+            "plan": [sec["plan_backend"], sec["plan_algo"]],
+            "prewarm_s": sec["prewarm_compile_s"]}
+    rep = srv.prewarm_report
+    emit({"phase": "serve_path", "launches": launches_serve,
+          "requests": SERVE_REQUESTS, "concurrency": SERVE_CONCURRENCY,
+          "requests_per_s": summary["achieved_qps"],
+          "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+          "wall_s": summary["wall_s"],
+          "client_payload_s": t_payload,
+          "startup_s": startup_s, "prewarm_s": rep.total_s,
+          "build_s_apart": build_s, "buckets": buckets_out,
+          "err_over_max": serve_err,
+          "limits": {"2-D": TOL_NUMPY, "1-D": TOL_1D},
+          "fallback_served": snap["totals"]["fallback_served"],
+          "degraded": srv.degraded_buckets, "nvidia_smi": smi})
+
+    # one bucket tuned on the card, its winner saved as wisdom and loaded
+    # back into a fresh registry: the second server does not measure
+    clear_plan_cache()
+    tb = BucketConfig(SERVE_BUCKETS[0][0], max_batch=16)
+    with SpectralServer([tb], threaded=False, tune=True, tune_batch=16,
+                        device=dev) as tsrv:
+        tplan = tsrv.states[tb.label].plan
+        tsrv.submit("tuned", probes[tb.label])
+        tsrv.drain(timeout_s=SERVE_WAIT_S)
+        trec = tsrv.result("tuned", timeout=SERVE_WAIT_S)
+    tuned_err = None
+    if trec is not None and trec.status == "completed":
+        want = serve_reference(probes[tb.label], "c2c", False, tb.shape)
+        tuned_err = float(np.abs(host_value(trec.value) - want).max()
+                          / np.abs(want).max())
+    runs_tuned = autotune_count(tb.shape, backend="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath = str(Path(tmp) / "wisdom.json")
+        saved = save_wisdom(wpath)
+        clear_plan_cache()
+        loaded = load_wisdom(wpath)
+    with SpectralServer([tb], threaded=False, tune=True, tune_batch=16,
+                        prewarm=False, device=dev) as wsrv:
+        wplan = wsrv.states[tb.label].plan
+    runs_wisdom = autotune_count(tb.shape, backend="cuda")
+    if not (tplan.tuned and runs_tuned == 1 and saved == 1 and loaded == 1
+            and runs_wisdom == 0
+            and wplan.tune_report.get("source") == "wisdom"
+            and (wplan.algo, wplan.block_batch, wplan.variant)
+            == (tplan.algo, tplan.block_batch, tplan.variant)):
+        failures.append(f"tune/wisdom: runs {runs_tuned} then "
+                        f"{runs_wisdom}, saved {saved}, loaded {loaded}, "
+                        f"{tplan} vs {wplan}")
+    if tuned_err is None or not tuned_err <= TOL_NUMPY:
+        failures.append(f"tuned bucket's spectrum: {tuned_err}")
+    emit({"phase": "serve_tune", "bucket": tb.label,
+          "tune_report_us": tplan.tune_report,
+          "winner": [tplan.algo, tplan.block_batch, tplan.variant],
+          "err_over_max": tuned_err, "autotune_runs": runs_tuned,
+          "wisdom_saved": saved, "wisdom_loaded": loaded,
+          "autotune_runs_after_wisdom": runs_wisdom,
+          "note": "the CUDA kernels take no batch tile: the bb candidates "
+                  "time the same launches", "nvidia_smi": smi})
+
+    # the same buckets behind a serve.prewarm fault: every bucket comes up
+    # degraded (its torch twin, on the card) and serves the probes within
+    # 1e-6 of max|healthy| (the reference's BENCH_serve.json criterion)
+    clear_plan_cache()
+    with rfaults.inject("serve.prewarm", "error", times=None):
+        dsrv = SpectralServer(buckets, unmatched="pad_up", device=dev)
+    with dsrv:
+        for b in buckets:
+            dsrv.submit(("probe", b.label), probes[b.label], kind=b.kind,
+                        inverse=b.inverse)
+        degraded = {lbl: dsrv.result(("probe", lbl), timeout=SERVE_WAIT_S)
+                    for lbl in probes}
+        dsnap = dsrv.snapshot()
+        dlabels = dsrv.degraded_buckets
+    degrade_err = {}
+    for lbl, rec in degraded.items():
+        if rec is None or rec.status != "completed":
+            failures.append(f"degraded server {lbl}: {rec}")
+            continue
+        h = host_value(healthy[lbl])
+        degrade_err[lbl] = float(np.abs(host_value(rec.value) - h).max()
+                                 / max(1.0, np.abs(h).max()))
+        if not degrade_err[lbl] <= TOL_DEGRADED:
+            failures.append(f"degraded server {lbl}: {degrade_err[lbl]} > "
+                            f"{TOL_DEGRADED}")
+    if sorted(dlabels) != sorted(probes):
+        failures.append(f"degraded server: degraded {dlabels}")
+    emit({"phase": "serve_degraded", "degraded": dlabels,
+          "fallback_served": dsnap["totals"]["fallback_served"],
+          "err_vs_healthy": degrade_err, "tol": TOL_DEGRADED})
+    del healthy, degraded, probes
+    torch.cuda.empty_cache()
+
+    # 4l. the guarded executor on the card: an output fault, then a launch
+    # fault, each three times; the breaker opens after failure_threshold
+    # failures (the key demoted), cooldown_calls calls later the half-open
+    # probe restores it, and every call's result is on the card within the
+    # numpy bound
+    clear_plan_cache()
+    resilience.reset()
+    hw = RESILIENCE_2D[1:]
+    zg = rand(RESILIENCE_2D)
+    xg = from_numpy(zg, device=dev)
+    wantg = torch.from_numpy(np.fft.fft2(zg)).to(dev)
+    scale_g = wantg.abs().max().item()
+    key = _plan_key(hw, torch.float32, False, "cuda", "c2c")
+    threshold = rconfig.get("failure_threshold")
+    cooldown = rconfig.get("cooldown_calls")
+    want_states = ["closed"] * (threshold - 1) + ["open"] * cooldown + \
+        ["closed"]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    walks = {}
+    for site, kind in (("plan.output", "nan"), ("plan.execute", "error")):
+        resilience.reset()
+        fp = rfaults.FaultPlan(seed=0).add(site, kind, times=threshold)
+        rows = []
+        with fp:
+            for _ in range(threshold + cooldown):
+                pl = get_plan(hw, backend="cuda")
+                y = pl(xg)
+                torch.cuda.synchronize()
+                err = (torch.complex(y.re.double(), y.im.double())
+                       - wantg).abs().max().item() / scale_g
+                live = get_plan(hw, backend="cuda")
+                rows.append({"served_by": pl.backend,
+                             "device": str(y.re.device), "err": err,
+                             "state": rpolicy.breaker_state(key),
+                             "registry": [live.backend,
+                                          live.demote_reason]})
+                del y
+        br = rpolicy.breaker(key)
+        st = rexec.stats(key)
+        walks[f"{site}:{kind}"] = {"calls": rows, "stats": st,
+                                   "transitions": br.transitions,
+                                   "fired": fp.fired()}
+        demoted = rows[threshold - 1]["registry"]
+        if not ([r["state"] for r in rows] == want_states
+                and br.transitions == ["open", "half_open", "closed"]
+                and demoted == ["torch", RUNTIME_DEMOTE_REASON]
+                and rows[-1]["registry"] == ["cuda", None]
+                and fp.fired() == threshold
+                and (st["failures"], st["fallbacks"], st["short_circuits"])
+                == (threshold, threshold, cooldown - 1)
+                and all(r["device"].startswith("cuda") and
+                        r["err"] <= TOL_NUMPY for r in rows)):
+            failures.append(f"resilience_path {site}:{kind}: "
+                            f"{walks[f'{site}:{kind}']}")
+    torch.cuda.synchronize()
+    launches_res = dict(ops.LAUNCHES)
+    if launches_res["fft2d_gemm"] <= 0:
+        failures.append("kernel fft2d_gemm was not launched on the "
+                        "resilience path")
+    # the guard's cost: guarded call against the raw _execute, in turns
+    resilience.reset()
+    pl = get_plan(hw, backend="cuda")
+
+    def wall_ms(fn, runs=25):
+        """Median host time of fn() and a synchronize."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(runs):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return sorted(ts)[runs // 2]
+
+    raw = lambda: pl._execute(xg)         # noqa: E731
+    guarded = lambda: pl(xg)              # noqa: E731
+    turns = [wall_ms(raw), wall_ms(guarded), wall_ms(guarded), wall_ms(raw)]
+    ev = {"raw": time_ms(raw, torch), "guarded": time_ms(guarded, torch)}
+    yg = pl._execute(xg)
+    scan_ms = time_ms(lambda: rguards.finite_check(yg), torch)
+    # the scans the guard could have been, on the same output
+    other_scans = {
+        "aminmax": time_ms(lambda: bool(torch.isfinite(torch.stack(
+            [torch.stack(torch.aminmax(q)) for q in yg])).all()), torch),
+        "isfinite_all": time_ms(lambda: bool(torch.stack(
+            [torch.isfinite(q).all() for q in yg]).all()), torch),
+        "sum_float64": time_ms(lambda: bool(torch.isfinite(sum(
+            q.sum(dtype=torch.float64) for q in yg))), torch),
+        "sum_float32": time_ms(lambda: bool(torch.isfinite(sum(
+            q.sum() for q in yg))), torch)}
+    # the scan sees a NaN or an infinity anywhere on the card
+    for bad in (float("nan"), float("inf"), float("-inf")):
+        for plane in (0, 1):
+            for at in (0, yg.re.numel() // 3, yg.re.numel() - 1):
+                poisoned = [yg.re.clone(), yg.im.clone()]
+                poisoned[plane].view(-1)[at] = bad
+                if rguards.finite_check(SplitComplex(*poisoned)):
+                    failures.append(f"finite_check missed {bad} at "
+                                    f"plane {plane}, element {at}")
+                del poisoned
+    raw_ms, guard_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
+    emit({"phase": "resilience_path", "shape": RESILIENCE_2D,
+          "launches": launches_res, "walks": walks,
+          "failure_threshold": threshold, "cooldown_calls": cooldown,
+          "tol": TOL_NUMPY, "wall_ms_turns": turns,
+          "event_ms": ev, "finite_scan_ms": scan_ms,
+          "other_scans_ms": other_scans,
+          "finite_scan_bound_ms": 2 * yg.re.numel() * 4
+          / PEAK_HBM_BYTES * 1e3,
+          "guard_overhead_share": (guard_ms - raw_ms) / raw_ms,
+          "nvidia_smi": smi})
+    del xg, wantg, yg, zg
+    resilience.reset()
+    torch.cuda.empty_cache()
+
+    # 4m. the guard's cost on every entry-point path at its main shape:
+    # each entry point guarded (the default) against the same call with
+    # the executor off (enabled=False runs plan._execute raw), in turns
+    # raw, guarded, guarded, raw.  "sync" is one call and a synchronize;
+    # "stream" is GUARD_STREAM calls back to back and one synchronize, where
+    # the raw calls queue on the card and each guarded one waits for it
+    clear_plan_cache()
+    resilience.reset()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+
+    def card_real(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def card_complex(shape):
+        return SplitComplex(card_real(shape), card_real(shape))
+
+    x2g, xr2g, x3g = (card_complex(MAIN_2D), card_real(MAIN_RFFT2),
+                      card_complex(MAIN_3D))
+    xsg, ksg = card_real(SSM_X), card_real(SSM_K)
+    xgg = card_real(SSM_GRAD_X).requires_grad_(True)
+    kgg = card_real(SSM_K).requires_grad_(True)
+
+    def ssm_grad():
+        loss = (fft_conv(xgg, kgg, backend="cuda") ** 2).sum()
+        return torch.autograd.grad(loss, (xgg, kgg))
+
+    def bank(m):
+        k = torch.zeros((TABLE11_ROWS, m), device=dev)
+        k[:, :TABLE11_TAPS] = card_real((TABLE11_ROWS, TABLE11_TAPS))
+        return card_real((TABLE11_ROWS, m)), k
+
+    guard_paths = {
+        "fft2": lambda: fft2(x2g, backend="cuda"),
+        "rfft2": lambda: rfft2(xr2g, backend="cuda"),
+        "fft3": lambda: fft3(x3g, backend="cuda"),
+        "ssm_fft_conv": lambda: fft_conv(xsg, ksg, backend="cuda"),
+        "ssm_fft_conv_grad": ssm_grad}
+    for m in TABLE11_M:
+        xb, kb = bank(m)
+        guard_paths[f"circular_conv_m{m}"] = \
+            (lambda xb=xb, kb=kb: circular_conv(xb, kb, backend="cuda"))
+
+    def host_ms(fn, calls, runs):
+        """Median host time a call of ``calls`` back-to-back calls of fn()
+        and one synchronize."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(runs):
+            t1 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3 / calls)
+        return sorted(ts)[runs // 2]
+
+    def unguarded(fn):
+        def run():
+            with rconfig.overrides(enabled=False):
+                return fn()
+        return run
+
+    def flat(out):
+        ts = out if isinstance(out, tuple) else (out,)
+        return [q for t in ts for q in _planes(t)]
+
+    guard_cost = {}
+    for name, fn in guard_paths.items():
+        got, want = flat(fn()), flat(unguarded(fn)())
+        err = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(got, want))
+        del got, want
+        row = {"guarded_vs_raw": err}
+        for mode, calls, runs in (("sync", 1, 15),
+                                  ("stream", GUARD_STREAM, 5)):
+            turns = [host_ms(unguarded(fn), calls, runs),
+                     host_ms(fn, calls, runs), host_ms(fn, calls, runs),
+                     host_ms(unguarded(fn), calls, runs)]
+            raw_t, guard_t = min(turns[0], turns[3]), min(turns[1], turns[2])
+            row[mode] = {"raw_ms": raw_t, "guarded_ms": guard_t,
+                         "share": (guard_t - raw_t) / raw_t, "turns": turns}
+        guard_cost[name] = row
+        if not err <= TOL_2D:
+            failures.append(f"guard_cost {name}: guarded and raw calls "
+                            f"differ by {err:.3g}")
+    gstats = rexec.stats()
+    if not gstats or any(st["fallbacks"] or st["failures"]
+                         for st in gstats.values()):
+        failures.append(f"guard_cost: the guarded calls fell back or never "
+                        f"ran through the executor: {gstats}")
+    emit({"phase": "guard_cost", "paths": guard_cost,
+          "stream_calls": GUARD_STREAM,
+          "executor_keys": {"x".join(map(str, k[0])) + "/" + k[4]:
+                            st["attempts"] for k, st in gstats.items()},
+          "nvidia_smi": smi})
+    del x2g, xr2g, x3g, xsg, ksg, xgg, kgg, guard_paths
+    resilience.reset()
+    torch.cuda.empty_cache()
+
     # 5. timing at the main paths' shapes; each spec makes its kernel's
     # input and the library call's input from one seeded array
     def design_floor(name, shape, nbytes, k_ms):
@@ -1566,6 +2062,16 @@ def main() -> int:
         flops, nbytes = fft_counts(batch, n)
         return flops, nbytes // 2
 
+    # which timed calls are entry points: since the guarded executor every
+    # plan call runs through it; the timed kernel rows below call the
+    # kernel wrappers and plain versions directly
+    emit({"phase": "timed_entry_points",
+          "guarded": ["table1_ladder.auto_cuda_backend"],
+          "guarded_and_raw": ["guard_cost." + k for k in guard_cost],
+          "executor_unguarded": ["table1_ladder.auto_torch_backend"],
+          "direct": "every other timed call (the kernel wrappers, their "
+                    "plain versions, fft3(algo='row_col') and the library "
+                    "calls)"})
     n3 = MAIN_3D[1] * MAIN_3D[2] * MAIN_3D[3]
     n2 = MAIN_2D[1] * MAIN_2D[2]
 

@@ -5,6 +5,19 @@ The package mirrors ``repro``'s module names (``core.fft2d``, ``core.plan``,
 ``kernels.ops``, ...) so each module's counterpart is easy to find.  It
 imports ``torch`` and numpy only: never ``jax`` and nothing of ``repro``.
 
+Modules ported so far:
+
+- ``core``        split-complex FFTs, the plan registry (resolution,
+                  autotune, wisdom, ``warm``), conv and spectral mixing;
+- ``kernels``     the hand-written CUDA kernels, their plain versions and
+                  the dispatch wrappers (``kernels.ops``);
+- ``resilience``  fault injection, guards, the circuit breaker and the
+                  guarded executor every ``FFTPlan`` call runs through;
+- ``data``        the bounded ``Prefetcher`` and the synthetic LM batches;
+- ``models``      ``ModelConfig`` only (the model stack is ROADMAP item 14);
+- ``serve``       the spectral server (``serve.spectral``);
+- ``launch``      ``launch.serve --workload spectral``.
+
 Backend names: ``"cuda"`` (the hand-written kernels; on a CPU tensor each
 kernel wrapper runs its plain PyTorch version) takes the place of
 ``"pallas"``, and ``"torch"`` (plain PyTorch algorithms) the place of

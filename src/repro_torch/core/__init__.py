@@ -6,6 +6,7 @@ Public API of this slice:
   fft, ifft, rfft, irfft, fft_axis, fft2, fft3, rfft2, irfft2
   fft_conv, circular_conv, fourier_mix
   plan_fft, plan_ifft, plan_fft2, plan_ifft2, FFTPlan, get_plan
+  autotune_count, save_wisdom, load_wisdom, warm, WarmResult
 """
 from .complexmath import (SplitComplex, from_complex, to_complex, from_real,
                           from_numpy, add, sub, mul, conj, scale)
@@ -16,5 +17,6 @@ from .fft2d import fft2, fft3, rfft2, irfft2
 from .fftconv import fft_conv, circular_conv
 from .spectral import fourier_mix
 from .plan import (FFTPlan, plan_fft, plan_ifft, plan_fft2, plan_ifft2,
-                   get_plan, clear_plan_cache, plan_cache_size,
-                   plan_from_reference)
+                   get_plan, clear_plan_cache, autotune_count,
+                   plan_cache_size, save_wisdom, load_wisdom, warm,
+                   WarmResult, plan_from_reference)

@@ -533,3 +533,116 @@ def test_bf16_planes_on_card(card, name, shape):
     k_err = np.abs(f64(got) - want).max() / scale
     p_err = np.abs(f64(plain(x)) - want).max() / scale
     assert k_err <= 6e-2 and k_err <= p_err + 2.0 ** -7
+
+
+def test_guarded_fallback_stays_on_the_card(card):
+    """A launch fault on a cuda plan falls back to the torch twin on the
+    card, and the result agrees with the kernel's within the 2-D bound."""
+    from repro_torch import resilience
+    from repro_torch.core import plan as P
+    from repro_torch.resilience import faults
+    resilience.reset()
+    P.clear_plan_cache()
+    x = from_numpy(_rand((4, 64, 64), seed=11), device=card)
+    pl = P.get_plan((64, 64), backend="cuda")
+    want = pl(x)
+    with faults.inject("plan.execute", "error"):
+        got = pl(x)
+    assert got.re.device.type == "cuda" and got.im.device.type == "cuda"
+    assert _rel(got, want) <= 1e-5
+    key = P._plan_key((64, 64), torch.float32, False, "cuda", "c2c")
+    assert resilience.executor.stats(key)["fallbacks"] == 1
+    resilience.reset()
+
+
+def test_kernel_failure_on_the_card_raises(card, monkeypatch):
+    """A kernel wrapper that fails with an error that is not an injected
+    fault (a build failure, here) raises through the guarded executor, the
+    tuning warm and the server's pre-warm: nothing falls back to the torch
+    twin on the card, and no breaker opens."""
+    from repro_torch import resilience
+    from repro_torch.core import plan as P
+    from repro_torch.serve.spectral import BucketConfig, SpectralServer
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("nvcc failed to build fft2d_gemm")
+
+    resilience.reset()
+    P.clear_plan_cache()
+    monkeypatch.setattr(fft2d_gemm, "fft2d_gemm_cuda", broken)
+    x = from_numpy(_rand((2, 64, 64), seed=13), device=card)
+    pl = P.get_plan((64, 64), backend="cuda")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        pl(x)
+    key = P._plan_key((64, 64), torch.float32, False, "cuda", "c2c")
+    assert resilience.executor.stats(key)["fallbacks"] == 0
+    assert resilience.policy.breaker(key) is None
+    P.clear_plan_cache()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        P.warm([(64, 64)], tune=True, tune_batch=2, device=card)
+    P.clear_plan_cache()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        SpectralServer([BucketConfig((64, 64), max_batch=2)], device=card)
+    resilience.reset()
+    P.clear_plan_cache()
+
+
+def test_tune_measures_on_the_card(card):
+    from repro_torch.core import plan as P
+    P.clear_plan_cache()
+    pl = P.get_plan((64, 64), backend="cuda", tune=True, tune_batch=2,
+                    device=card)
+    times = [v for k, v in pl.tune_report.items()
+             if k not in ("n_candidates", "n_measured", "winner")]
+    assert pl.tuned and len(times) == pl.tune_report["n_candidates"]
+    assert all(isinstance(t, float) and t > 0 for t in times)
+    P.clear_plan_cache()
+
+
+def test_spectral_server_on_the_card(card):
+    """A threaded server on the card: staged on a side stream, dispatched
+    on a compute stream, every spectrum against float64 numpy, and the
+    kernels counted."""
+    from repro_torch.serve.spectral import BucketConfig, SpectralServer
+    rng = np.random.default_rng(12)
+    ops.reset_launches()
+    buckets = [BucketConfig((64, 64), max_batch=4),
+               BucketConfig((64, 64), kind="rfft", max_batch=4)]
+    want = {}
+    with SpectralServer(buckets, unmatched="pad_up", device=card) as srv:
+        for i in range(12):
+            if i % 2:
+                x = rng.standard_normal((64, 64)).astype(np.float32)
+                srv.submit(i, x, kind="rfft")
+                want[i] = np.fft.rfft2(x.astype(np.float64))
+            else:
+                z = _rand((60, 64), seed=i)
+                srv.submit(i, z.astype(np.complex64))
+                pad = np.zeros((64, 64), np.complex128)
+                pad[:60] = z.astype(np.complex64)
+                want[i] = np.fft.fft2(pad)
+        assert srv.drain(timeout_s=120)
+        for i, w in want.items():
+            rec = srv.result(i, timeout=60)
+            got = rec.value.re.astype(np.float64) + 1j * rec.value.im
+            assert np.abs(got - w).max() <= 1e-5 * np.abs(w).max()
+        assert srv.snapshot()["totals"]["fallback_served"] == 0
+    assert ops.LAUNCHES["fft2d_gemm"] > 0 and ops.LAUNCHES["rfft2d_fused"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_finite_check_on_the_card(card, dtype):
+    """The guard's scan sees a NaN or an infinity anywhere in either plane
+    on the card, and passes the largest finite values."""
+    from repro_torch.resilience import guards
+    y = from_numpy(_rand((2, 64, 64), seed=14), device=card, dtype=dtype)
+    assert guards.finite_check(y)
+    for bad in (float("nan"), float("inf"), float("-inf")):
+        for plane in (0, 1):
+            for at in (0, 4097, y.re.numel() - 1):
+                p = [y.re.clone(), y.im.clone()]
+                p[plane].view(-1)[at] = bad
+                assert not guards.finite_check(SplitComplex(*p))
+    big = torch.full((4096,), torch.finfo(dtype).max, device=card,
+                     dtype=dtype)
+    assert guards.finite_check(SplitComplex(big, -big))

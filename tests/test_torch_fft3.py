@@ -202,5 +202,21 @@ def test_fft3_entry_errors():
         fft3(x, algo="stockham", backend="cuda")
     with pytest.raises(ValueError, match="power-of-two dims >= 2"):
         ops.fft3d_fused(from_numpy(_rand((1, 6, 8, 8), seed=1), device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.get_plan((8, 8, 8), tune=True)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        P.get_plan((8, 8, 8), tune=True, prune="model", device="cpu")
+
+
+@pytest.mark.parametrize("backends", BACKENDS)
+def test_fft3_tuned_plan(backends):
+    """A tuned 3-D plan measures the reference's candidates and its winner
+    computes fft3 within the 3-D bound (1e-5 of max against numpy)."""
+    ref = RP.get_plan((4, 8, 16), backend=backends[0], tune=True,
+                      tune_batch=2)
+    plan = P.get_plan((4, 8, 16), backend=backends[1], tune=True,
+                      tune_batch=2, device="cpu")
+    crossed = P.plan_from_reference(dataclasses.asdict(ref))
+    assert plan.tuned and list(plan.tune_report) == list(crossed.tune_report)
+    z = _rand((2, 4, 8, 16), seed=3)
+    got = to_complex(plan(from_numpy(z, device="cpu"))).numpy()
+    want = np.fft.fftn(z, axes=AXES)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

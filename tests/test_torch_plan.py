@@ -105,11 +105,40 @@ def test_plan_from_reference_round_trip(shape, backends):
     assert crossed == P.get_plan(shape, backend=backends[1])
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(shape=(8, 8, 8), tune=True), "item 10"),
-    (dict(shape=(64,), kind="rfft", tune=True), "item 10"),
-    (dict(shape=(64,), kind="conv_causal", tune=True), "item 10"),
-    (dict(shape=(64,), tune=True), "item 10")])
+# one key of each kind; the Tensix cost model that prune="model" ranks
+# candidates with is ROADMAP item 13, so those requests still raise
+TUNE_KEYS = [dict(shape=(8, 8, 8)), dict(shape=(64,), kind="rfft"),
+             dict(shape=(64,), kind="conv_causal"), dict(shape=(64,))]
+
+
+@pytest.mark.parametrize("kw,item", [(kw, "item 13") for kw in TUNE_KEYS])
 def test_unported_plan_requests_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
-        P.get_plan(**kw)
+        P.get_plan(**kw, tune=True, prune="model", device="cpu")
+    assert P.autotune_count(kw["shape"], kind=kw.get("kind", "c2c")) == 0
+
+
+@pytest.mark.parametrize("kw", TUNE_KEYS)
+@pytest.mark.parametrize("backends", BACKENDS)
+def test_tune_one_key_per_kind(kw, backends):
+    """A tuned key on the CPU measures the reference's candidate labels
+    (backend names mapped) once, and keeps the key's shape and kind.  The
+    labels come from the reference's ``_candidates``: its own tuner cannot
+    measure a pallas conv key (the filter pack cache leaks a tracer out of
+    the jitted candidates, ROADMAP §3)."""
+    ref = RP.get_plan(**kw, backend=backends[0])
+    labels = [P._port_label(lbl) for lbl, _ in
+              RP._candidates(ref, fixed_radix=ref.radix == 2, batch=2)]
+    mine = P.get_plan(**kw, backend=backends[1], tune=True, tune_batch=2,
+                      device="cpu")
+    assert mine.tuned
+    assert [k for k in mine.tune_report if k not in
+            ("n_candidates", "n_measured", "winner")] == labels
+    assert mine.tune_report["winner"] in labels
+    assert mine.tune_report["n_candidates"] == len(labels)
+    for f in ("shape", "dtype", "inverse", "kind"):
+        assert getattr(mine, f) == getattr(ref, f), f
+    assert P.get_plan(**kw, backend=backends[1], tune=True,
+                      device="cpu") is mine
+    assert P.autotune_count(kw["shape"], kind=kw.get("kind", "c2c"),
+                            backend=P.REFERENCE_BACKENDS[ref.backend]) == 1
