@@ -45,6 +45,22 @@ float64 numpy:
   cost against the raw execution, there and at every entry-point path's
   main shape (rfft2, fft3, the SSM conv and its gradient, table 11's
   conv banks);
+- distributed (``dist_path``): 4 ranks of one process group
+  (``repro_torch.dist.local.LocalGroup``: NCCL with a card a rank where
+  the host has 4 cards, else gloo on the shared card), the pencil FFTs on
+  the 1-D kernels: ``pfft2`` at 8192^2 (chunks, both layouts and the
+  roundtrip, the three wire formats, ``verify=True`` under wire faults),
+  ``prfft2``/``pirfft2``, the two-hop hierarchy, ``pfft3`` at 512^3 on a
+  (2, 2) mesh (every pass four-step), ``pfft1d`` at 2^26, ``pfft2`` at (16, 2^21) (rows on
+  ``fft_stockham``), and ``pipelined_apply`` over 4 stages; each block
+  against float64 numpy, each compressed wire also against float64 numpy
+  with the wire's rounding applied, each exchange's logged bytes against
+  ``exchange_bytes``; then one ``pfft2`` at 16384^2 over every card on
+  NCCL (``dist_nccl``);
+- the cost model (``tt_path``): ``get_plan(tune=True, prune="model")`` on
+  the main path's key beside the unpruned tune, ``trace_dist``'s exchange
+  bytes against the wire log, and the model's predictions for the main
+  path's keys (the reference's wormhole_n300, not this card);
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Every plan call runs through the guarded executor, and no
@@ -609,6 +625,642 @@ def ptxas_report(log: str) -> dict:
         elif "Used" in line and name is not None:
             out[name] = line.split(":", 1)[1].strip()
     return out
+
+
+# -- dist_path: the ranks' side ----------------------------------------------
+#
+# The distributed phase runs 4 ranks of one process group (spawned with
+# repro_torch.dist.local.LocalGroup; they import this file as their main
+# module and find these functions by name).  The parent writes each global
+# input and its float64 numpy reference to .npy files; every rank maps
+# them, cuts its block by the reference's PartitionSpec, runs the port's
+# transform on the card and measures its own block's error.
+
+DIST_2D = (8192, 8192)            # 512 MB complex fp32, 128 MB a rank
+DIST_3D = (512, 512, 512)         # 1 GiB, 256 MiB a rank; 512-point
+                                  # passes on fft_fourstep (256 runs torch)
+DIST_1D = 1 << 26                 # four-step (8192, 8192)
+DIST_STOCKHAM = (16, 1 << 21)     # local rows of 2^21 on fft_stockham
+DIST_NCCL = (16384, 16384)
+DIST_RANKS = 4
+DIST_RUNS = 3                     # timed calls a transform (median)
+# float64 numpy bounds (PERF.md section 2): 2-D of max|X|, 3-D relative
+# norm, 1-D of max|X|, roundtrips of max|x|; the compressed wires at the
+# reference tests' own bounds (tests/test_dist_rfft.py)
+TOL_DIST = {"none": TOL_NUMPY, "bf16": 5e-2, "int8": 0.35}
+# the compressed wires against float64 numpy with the same wire rounding
+# applied to each rank's row-FFT block (of max|X|): only the values whose
+# rounding the fp32 row pass flips differ, about 5e-5 (bf16) and 1e-4
+# (int8); an uncompressed wire is 1.5e-3 / 1.1e-2 away, an int8 block
+# dequantised with another rank's scale about 1e-2 (PERF.md section 6)
+TOL_WIRE = {"bf16": 5e-4, "int8": 1e-3}
+PIPE = (4, 1024, 64, 4)           # stages, width, batch, microbatches
+
+_MESHES = {}
+
+
+def _rank_mesh(shape, names):
+    from repro_torch.dist import make_mesh
+    key = (tuple(shape), tuple(names))
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh(shape, names, device="cuda")
+    return _MESHES[key]
+
+
+def _rank_setup():
+    import torch
+    from repro_torch.core.fft1d import assert_full_fp32
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    assert_full_fp32()
+    ops.reset_launches()
+
+
+def _rank_block(path, mesh, spec):
+    """This rank's block of a global .npy array, as a host array."""
+    import numpy as np
+    from repro_torch.dist import local_block
+    return np.array(local_block(np.load(path, mmap_mode="r"), mesh, spec))
+
+
+def _rank_complex(tmp, name, mesh, spec):
+    import torch
+    from repro_torch.core.complexmath import SplitComplex
+    return SplitComplex(*(torch.from_numpy(_rank_block(
+        f"{tmp}/{name}_{part}.npy", mesh, spec)).to("cuda")
+        for part in ("re", "im")))
+
+
+def _rank_err(got, ref_block):
+    """(max |got - ref|, max |ref|, sum |got - ref|^2, sum |ref|^2) of this
+    rank's block, in float64 on the card."""
+    import torch
+    ref = torch.from_numpy(ref_block).to("cuda")
+    if isinstance(got, tuple):
+        g = torch.complex(got.re.double(), got.im.double())
+    else:
+        g = got.double()
+    d = (g - ref).abs()
+    r = ref.abs()
+    return (d.max().item(), r.max().item(), float((d * d).sum().item()),
+            float((r * r).sum().item()))
+
+
+def _rank_timed(fn, runs=DIST_RUNS):
+    """(last output, wall seconds of each of ``runs`` calls after one
+    warm-up; every rank starts each call together)."""
+    import torch
+    import torch.distributed as dist
+    out = fn()
+    times = []
+    for _ in range(runs):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def _rank_exchange_split(fn):
+    """(wall seconds, seconds inside the exchanges) of one call, the card
+    synchronized around every exchange."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import pencil
+    spent, orig = [], pencil._a2a
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = orig(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return y
+    pencil._a2a = timed
+    try:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pencil._a2a = orig
+    return wall, sum(spent)
+
+
+def _rank_case(name, fn, ref_path, ref_spec, mesh, *, transpose=None,
+               exchange_bytes=None):
+    """Run one transform: timings, the exchange split, its wire log and
+    its block's error against the float64 reference."""
+    import numpy as np
+    from repro_torch.dist import local_block, pencil
+    pencil.reset_wire_log()
+    fn()
+    logged = pencil.logged_exchange_bytes()
+    out, times = _rank_timed(fn)
+    wall, exch = _rank_exchange_split(fn)
+    ref = np.load(ref_path, mmap_mode="r")
+    if transpose is not None:
+        ref = ref.transpose(transpose)
+    err = _rank_err(out, np.array(local_block(ref, mesh, ref_spec)))
+    return out, {"case": name, "err": err, "times": times,
+                 "split": [wall, exch], "logged_bytes": logged,
+                 "priced_bytes": exchange_bytes}
+
+
+def _rank_launches():
+    from repro_torch.kernels import ops
+    return dict(ops.LAUNCHES)
+
+
+def _rank_pfft2_cases(tmp):
+    """pfft2 at DIST_2D: chunks, both layouts and the roundtrip, the wire
+    formats, verify under wire faults; then the two-hop hierarchy."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import local_block, pencil
+    from repro_torch.resilience import faults
+    _rank_setup()
+    m = _rank_mesh((DIST_RANKS,), ("data",))
+    x = _rank_complex(tmp, "x", m, ("data", None))
+    h, w = DIST_2D
+    ref = f"{tmp}/fft2.npy"
+    res = []
+    for chunks, t, c in ((1, True, "none"), (4, True, "none"),
+                         (1, False, "none"), (1, True, "bf16"),
+                         (1, True, "int8")):
+        def fn(chunks=chunks, t=t, c=c):
+            return pencil.pfft2(x, m, chunks=chunks, transposed_output=t,
+                                compress=c, backend="cuda")
+        out, r = _rank_case(
+            f"pfft2/chunks{chunks}/{'T' if t else 'N'}/{c}", fn, ref,
+            ("data", None), m, transpose=(1, 0) if t else None,
+            exchange_bytes=pencil.exchange_bytes(h, w, DIST_RANKS, method=c,
+                                                 transposed_output=t))
+        r["wire"] = c
+        if c != "none":
+            wref = np.load(f"{tmp}/fft2_{c}.npy", mmap_mode="r").T
+            r["err_wire"] = _rank_err(out, np.array(
+                local_block(wref, m, ("data", None))))
+        res.append(r)
+        if not t:
+            natural = out
+    back, times = _rank_timed(lambda: pencil.pfft2(
+        natural, m, inverse=True, transposed_output=False, backend="cuda"))
+    x_host = (_rank_block(f"{tmp}/x_re.npy", m, ("data", None))
+              + 1j * _rank_block(f"{tmp}/x_im.npy", m, ("data", None)))
+    res.append({"case": "pfft2/roundtrip", "err": _rank_err(back, x_host),
+                "times": times, "wire": "roundtrip"})
+    del natural, back
+    # verify=True under each wire fault, and a fault that persists
+    clean = pencil.pfft2(x, m, backend="cuda")
+    verify = {}
+    for kind in ("drop", "corrupt", "nan"):
+        pencil.reset_exchange_log()
+        with faults.inject("dist.exchange", kind) as fp:
+            y = pencil.pfft2(x, m, backend="cuda", verify=True)
+        verify[kind] = {
+            "attempts": [e["ok"] for e in pencil.exchange_log()],
+            "fired": fp.fired(),
+            "bit_identical": bool(torch.equal(y.re, clean.re)
+                                  and torch.equal(y.im, clean.im))}
+    try:
+        with faults.inject("dist.exchange", "corrupt", times=None):
+            pencil.pfft2(x, m, backend="cuda", verify=True)
+        verify["persistent"] = "no error"
+    except pencil.ExchangeIntegrityError as e:
+        verify["persistent"] = type(e).__name__ + ": " + e.tag
+    del clean, y, x
+    torch.cuda.empty_cache()
+    mh = _rank_mesh((2, 2), ("pod", "data"))
+    xh = _rank_complex(tmp, "x", mh, (("pod", "data"), None))
+    _, r = _rank_case("pfft2_hierarchical/(2,2)", lambda: pencil.
+                      pfft2_hierarchical(xh, mh, backend="cuda"), ref,
+                      (("data", "pod"), None), mh, transpose=(1, 0))
+    res.append(r)
+    return res, verify, _rank_launches()
+
+
+def _rank_prfft2(tmp):
+    import torch
+    from repro_torch.dist import pencil
+    _rank_setup()
+    m = _rank_mesh((DIST_RANKS,), ("data",))
+    h, w = DIST_2D
+    xr = torch.from_numpy(_rank_block(f"{tmp}/xr.npy", m,
+                                      ("data", None))).to("cuda")
+    out, r = _rank_case(
+        "prfft2", lambda: pencil.prfft2(xr, m, backend="cuda"),
+        f"{tmp}/rfft2_packed_t.npy", ("data", None), m,
+        exchange_bytes=pencil.exchange_bytes(h, w, DIST_RANKS, real=True))
+    back, times = _rank_timed(lambda: pencil.pirfft2(out, m,
+                                                     backend="cuda"))
+    rt = {"case": "pirfft2/roundtrip",
+          "err": _rank_err(back, xr.double().cpu().numpy()),
+          "times": times}
+    return [r, rt], _rank_launches()
+
+
+def _rank_pfft3(tmp):
+    from repro_torch.dist import pencil
+    _rank_setup()
+    m = _rank_mesh((2, 2), ("data", "model"))
+    x = _rank_complex(tmp, "x3", m, ("data", "model", None))
+    _, r = _rank_case("pfft3/(2,2)", lambda: pencil.pfft3(
+        x, m, backend="cuda"), f"{tmp}/fftn_t.npy", ("model", "data", None),
+        m)
+    return [r], _rank_launches()
+
+
+def _rank_pfft1d(tmp):
+    from repro_torch.dist import pencil
+    _rank_setup()
+    m = _rank_mesh((DIST_RANKS,), ("data",))
+    v = _rank_complex(tmp, "v", m, ("data",))
+    out, r = _rank_case("pfft1d", lambda: pencil.pfft1d(
+        v, m, backend="cuda"), f"{tmp}/fft1d_fourstep.npy", ("data",), m)
+    back, times = _rank_timed(lambda: pencil.pfft1d(out, m, inverse=True,
+                                                    backend="cuda"))
+    v_host = (_rank_block(f"{tmp}/v_re.npy", m, ("data",))
+              + 1j * _rank_block(f"{tmp}/v_im.npy", m, ("data",)))
+    return [r, {"case": "pfft1d/inverse", "err": _rank_err(back, v_host),
+                "times": times}], _rank_launches()
+
+
+def _rank_stockham(tmp):
+    from repro_torch.core.plan import get_plan
+    from repro_torch.dist import pencil
+    _rank_setup()
+    m = _rank_mesh((DIST_RANKS,), ("data",))
+    x = _rank_complex(tmp, "xs", m, ("data", None))
+    h, w = DIST_STOCKHAM
+    _, r = _rank_case(
+        f"pfft2/{h}x{w}", lambda: pencil.pfft2(x, m, backend="cuda"),
+        f"{tmp}/fft2_stockham.npy", ("data", None), m, transpose=(1, 0),
+        exchange_bytes=pencil.exchange_bytes(h, w, DIST_RANKS))
+    plans = {}
+    for n in (w, h):
+        pl = get_plan((n,), backend="cuda")
+        plans[str(n)] = [pl.algo, pl.backend, pl.demote_reason]
+    r["plans"] = plans
+    return [r], _rank_launches()
+
+
+def _rank_pipeline():
+    """pipelined_apply over 4 stages against the sequential loop on the
+    rank's card: forward, the rank's stage gradient and dx."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist._compat import p2p_route
+    from repro_torch.dist.pipeline import pipelined_apply
+    _rank_setup()
+    m = _rank_mesh((DIST_RANKS,), ("pod",))
+    stages, width, batch, micro = PIPE
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    ws = torch.randn((stages, width, width), generator=g,
+                     device="cuda") / width ** 0.5
+    x = torch.randn((batch, width), generator=g, device="cuda")
+    i = m.get_local_rank("pod")
+
+    def stage(w, v):
+        return torch.tanh(v @ w)
+    w = ws[i].clone().requires_grad_()
+    xx = x.clone().requires_grad_()
+    out, times = _rank_timed(lambda: pipelined_apply(m, "pod", stage, w,
+                                                     xx, micro))
+    (out ** 2).sum().backward()
+    wr, xr = ws.clone().requires_grad_(), x.clone().requires_grad_()
+    y = xr
+    for s in range(stages):
+        y = stage(wr[s], y)
+    (y ** 2).sum().backward()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+    return {"exchange": dist.get_backend(m.get_group("pod")),
+            "p2p": p2p_route(m, "pod", "cuda"),
+            "forward": rel(out.detach(), y.detach()),
+            "grad_w": rel(w.grad, wr.grad[i]), "grad_x": rel(xx.grad,
+                                                           xr.grad),
+            "times": times}
+
+
+def _rank_nccl_pfft2(shape):
+    """pfft2 at ``shape`` over every card of the host on NCCL; each rank
+    makes the global input from one seed and holds its block against
+    float64 ``torch.fft.fft2`` of it on its card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.complexmath import SplitComplex
+    from repro_torch.dist import local_block, pencil
+    _rank_setup()
+    world = dist.get_world_size()
+    m = _rank_mesh((world,), ("data",))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    glob = torch.complex(torch.randn(shape, generator=g, device="cuda"),
+                         torch.randn(shape, generator=g, device="cuda"))
+    blk = local_block(glob, m, ("data", None))
+    x = SplitComplex(blk.real.contiguous(), blk.imag.contiguous())
+    pencil.reset_wire_log()
+    out, times = _rank_timed(lambda: pencil.pfft2(x, m, backend="cuda"))
+    logged = pencil.logged_exchange_bytes() // (DIST_RUNS + 1)
+    ref = torch.fft.fft2(glob.to(torch.complex128)).T
+    del glob
+    want = local_block(ref, m, ("data", None))
+    d = (torch.complex(out.re.double(), out.im.double()) - want).abs()
+    err = (d.max() / want.abs().max()).item()
+    return {"err": err, "times": times, "logged_bytes": logged,
+            "priced_bytes": pencil.exchange_bytes(*shape, world),
+            "backend": dist.get_backend(), "launches": _rank_launches()}
+
+
+def dist_path(failures, smi):
+    """The pencil FFTs and the pipeline over 4 ranks: emits the phase's
+    line, appends to ``failures`` and returns the cases.  With 4 cards or more NCCL runs
+    one rank a card; otherwise the ranks share cuda:0 over gloo (NCCL
+    refuses two ranks on one card), chosen here, never after a failure."""
+    import numpy as np
+    import torch
+    from repro_torch.dist.local import LocalGroup
+    n_cards = torch.cuda.device_count()
+    dist_backend = "nccl" if n_cards >= DIST_RANKS else "gloo"
+    torch.cuda.empty_cache()
+    drng = np.random.default_rng(23)
+    dist_cases, dist_launches, dist_verify = [], {}, {}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            dist_launches[k] = dist_launches.get(k, 0) + v
+
+    def save_complex(tmp, name, z):
+        np.save(f"{tmp}/{name}_re.npy", np.ascontiguousarray(z.real,
+                                                              np.float32))
+        np.save(f"{tmp}/{name}_im.npy", np.ascontiguousarray(z.imag,
+                                                              np.float32))
+
+    def wire_reference(z, method):
+        """float64 fft2 of ``z`` with ``method``'s wire rounding applied
+        to each rank's row-FFT block, one int8 scale a block and plane,
+        as dist.compression.all_to_all_compressed rounds pfft2's
+        exchange."""
+        y = np.fft.fft(z, axis=1)
+        rows = y.shape[0] // DIST_RANKS
+        for plane in (y.real, y.imag):
+            for r in range(DIST_RANKS):
+                blk = plane[r * rows:(r + 1) * rows]
+                if method == "bf16":
+                    blk[...] = torch.from_numpy(blk).float().bfloat16() \
+                        .double().numpy()
+                else:
+                    s = np.float32(np.abs(blk).max()) / np.float32(127)
+                    blk[...] = np.round(blk / s) * s
+        return np.fft.fft(y, axis=0)
+
+    def complex_input(shape):
+        z = np.empty(shape, np.complex128)
+        z.real = drng.standard_normal(shape, dtype=np.float32)
+        z.imag = drng.standard_normal(shape, dtype=np.float32)
+        return z
+
+    def collect(results, bound, norm=False):
+        """One line a case from every rank's result: the error over the
+        assembled output, the median wall over runs of the slowest rank,
+        the exchange split, and the wire log against exchange_bytes."""
+        for rs in zip(*results):
+            r0 = rs[0]
+            errs = [r["err"] for r in rs]
+            if norm:
+                err = (sum(e[2] for e in errs) / sum(e[3] for e in errs)) \
+                    ** 0.5
+            else:
+                err = max(e[0] for e in errs) / max(e[1] for e in errs)
+            lim = bound(r0)
+            walls = sorted(max(t) for t in zip(*(r["times"] for r in rs)))
+            line = {"case": r0["case"], "err": err, "bound": lim,
+                    "wall_ms": walls[len(walls) // 2] * 1e3}
+            if "split" in r0:
+                line["exchange_ms"] = max(r["split"][1] for r in rs) * 1e3
+                line["local_ms"] = max(r["split"][0] - r["split"][1]
+                                       for r in rs) * 1e3
+                line["bytes_per_rank"] = r0["logged_bytes"]
+                if r0["priced_bytes"] is not None and any(
+                        r["logged_bytes"] != r["priced_bytes"] for r in rs):
+                    failures.append(f"dist {r0['case']}: logged bytes "
+                                    f"{[r['logged_bytes'] for r in rs]} != "
+                                    f"exchange_bytes {r0['priced_bytes']}")
+            if "plans" in r0:
+                line["plans"] = r0["plans"]
+            if "err_wire" in r0:
+                e = [r["err_wire"] for r in rs]
+                werr = max(x[0] for x in e) / max(x[1] for x in e)
+                wlim = TOL_WIRE[r0["wire"]]
+                line["err_vs_wire_ref"], line["wire_bound"] = werr, wlim
+                if not werr <= wlim:
+                    failures.append(f"dist {r0['case']} against the wire "
+                                    f"reference: {werr} > {wlim}")
+            if not err <= lim:
+                failures.append(f"dist {r0['case']}: {err} > {lim}")
+            dist_cases.append(line)
+
+    t_dist, rank_s = time.perf_counter(), [0.0]
+
+    def ranks(fn, *args):
+        t0 = time.perf_counter()
+        out = group.run(fn, *args)
+        rank_s[0] += time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp, \
+            LocalGroup(DIST_RANKS, backend=dist_backend, device="cuda",
+                       threads=2, timeout_s=600) as group:
+        # complex 8192^2: pfft2 and the hierarchy
+        z = complex_input(DIST_2D)
+        save_complex(tmp, "x", z)
+        np.save(f"{tmp}/fft2.npy", np.fft.fft2(z))
+        for c in ("bf16", "int8"):
+            np.save(f"{tmp}/fft2_{c}.npy", wire_reference(z, c))
+        del z
+        res, dist_verify, counts = zip(*ranks(_rank_pfft2_cases, tmp))
+        add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
+        collect(res, lambda r: TOL_ROUNDTRIP if r.get("wire") == "roundtrip"
+                else TOL_DIST.get(r.get("wire"), TOL_NUMPY))
+        dist_verify = dist_verify[0] if all(
+            v == dist_verify[0] for v in dist_verify) else list(dist_verify)
+        # real 8192^2: prfft2 -> pirfft2; the packed transposed reference
+        zr = drng.standard_normal(DIST_2D, dtype=np.float32)
+        np.save(f"{tmp}/xr.npy", zr)
+        spec_t = np.fft.rfft2(zr.astype(np.float64)).T
+        packed = spec_t[:-1].copy()
+        packed[0] = spec_t[0] + 1j * spec_t[-1]
+        np.save(f"{tmp}/rfft2_packed_t.npy", packed)
+        del zr, spec_t, packed
+        res, counts = zip(*ranks(_rank_prfft2, tmp))
+        add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
+        collect(res, lambda r: TOL_ROUNDTRIP if "roundtrip" in r["case"]
+                else TOL_NUMPY)
+        for f in Path(tmp).glob("*.npy"):
+            f.unlink()
+        # 512^3 on a (2, 2) mesh; the reference in its (Z, Y, X) layout
+        z = complex_input(DIST_3D)
+        save_complex(tmp, "x3", z)
+        np.save(f"{tmp}/fftn_t.npy",
+                np.ascontiguousarray(np.fft.fftn(z).transpose(2, 1, 0)))
+        del z
+        res, counts = zip(*ranks(_rank_pfft3, tmp))
+        add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
+        if sum(c.get("fft_fourstep", 0) for c in counts) <= 0:
+            failures.append("kernel fft_fourstep was not launched by pfft3")
+        collect(res, lambda r: TOL_3D_NUMPY, norm=True)
+        for f in Path(tmp).glob("*.npy"):
+            f.unlink()
+        # 2^26 points, four-step (8192, 8192)
+        from repro_torch.dist.pencil import fourstep_split
+        h1, w1 = fourstep_split(DIST_1D, DIST_RANKS)
+        z = complex_input((DIST_1D,))
+        save_complex(tmp, "v", z)
+        np.save(f"{tmp}/fft1d_fourstep.npy", np.ascontiguousarray(
+            np.fft.fft(z).reshape(w1, h1).T).reshape(-1))
+        del z
+        res, counts = zip(*ranks(_rank_pfft1d, tmp))
+        add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
+        collect(res, lambda r: TOL_ROUNDTRIP if "inverse" in r["case"]
+                else TOL_1D)
+        for f in Path(tmp).glob("*.npy"):
+            f.unlink()
+        # (16, 2^21): local rows of 2^21 on fft_stockham
+        z = complex_input(DIST_STOCKHAM)
+        save_complex(tmp, "xs", z)
+        np.save(f"{tmp}/fft2_stockham.npy", np.fft.fft2(z))
+        del z
+        res, counts = zip(*ranks(_rank_stockham, tmp))
+        add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
+        collect(res, lambda r: TOL_NUMPY)
+        pipe = ranks(_rank_pipeline)
+    dist_s = time.perf_counter() - t_dist
+    for kind in ("drop", "corrupt", "nan"):
+        v = dist_verify.get(kind, {}) if isinstance(dist_verify, dict) \
+            else {}
+        if v != {"attempts": [False, True], "fired": 1,
+                 "bit_identical": True}:
+            failures.append(f"dist verify {kind}: {dist_verify}")
+    if not (isinstance(dist_verify, dict) and dist_verify.get(
+            "persistent") == "ExchangeIntegrityError: pfft2"):
+        failures.append(f"dist verify persistent: {dist_verify}")
+    pipe_walls = sorted(max(t) for t in zip(*(p["times"] for p in pipe)))
+    pipe_line = {k: max(p[k] for p in pipe)
+                 for k in ("forward", "grad_w", "grad_x")}
+    for k, lim in (("forward", 1e-5), ("grad_w", 1e-4), ("grad_x", 1e-4)):
+        if not pipe_line[k] <= lim:
+            failures.append(f"pipelined_apply {k}: {pipe_line[k]} > {lim}")
+    for k in ("fft_fourstep", "fft_stockham"):
+        if dist_launches.get(k, 0) <= 0:
+            failures.append(f"kernel {k} was not launched on the dist path")
+    emit({"phase": "dist_path", "ranks": DIST_RANKS, "cards": n_cards,
+          "backend": dist_backend, "exchange": pipe[0]["exchange"],
+          "p2p": pipe[0]["p2p"],
+          "note": ("gloo moves card tensors through host memory: these "
+                   "exchange times are not NVLink numbers")
+          if dist_backend == "gloo" else "NCCL, one rank a card",
+          "cases": dist_cases, "verify": dist_verify,
+          "pipeline": dict(pipe_line, stages=PIPE[0], width=PIPE[1],
+                           batch=PIPE[2], microbatches=PIPE[3],
+                           wall_ms=pipe_walls[len(pipe_walls) // 2] * 1e3),
+          "launches": dist_launches, "seconds": dist_s,
+          "rank_seconds": rank_s[0],
+          "nvidia_smi": smi})
+    return dist_cases
+
+
+def nccl_path(failures, smi, n_cards):
+    """One pfft2 at DIST_NCCL over every card of the host on NCCL (on one
+    card: one rank, a self-exchange)."""
+    from repro_torch.dist.local import LocalGroup
+    with LocalGroup(n_cards, backend="nccl", device="cuda",
+                    timeout_s=600) as group:
+        nccl = group.run(_rank_nccl_pfft2, DIST_NCCL)
+    nccl_err = max(r["err"] for r in nccl)
+    nccl_walls = sorted(max(t) for t in zip(*(r["times"] for r in nccl)))
+    nccl_launches = {k: sum(r["launches"][k] for r in nccl)
+                     for k in nccl[0]["launches"]}
+    if not nccl_err <= TOL_NUMPY:
+        failures.append(f"NCCL pfft2{DIST_NCCL}: {nccl_err} > {TOL_NUMPY}")
+    if any(r["logged_bytes"] != r["priced_bytes"] for r in nccl):
+        failures.append(f"NCCL pfft2 logged bytes: {nccl}")
+    if nccl_launches["fft_fourstep"] <= 0:
+        failures.append("kernel fft_fourstep was not launched on the NCCL "
+                        "pfft2")
+    emit({"phase": "dist_nccl", "shape": DIST_NCCL, "ranks": n_cards,
+          "backend": nccl[0]["backend"], "err_vs_fp64": nccl_err,
+          "reference": "torch.fft.fft2 in complex128 on the card",
+          "wall_ms": nccl_walls[len(nccl_walls) // 2] * 1e3,
+          "bytes_per_rank": nccl[0]["logged_bytes"],
+          "launches": nccl_launches, "nvidia_smi": smi})
+
+
+
+def tt_path(failures, smi, dist_cases):
+    """Model-pruned autotune on the main path's key, the model's exchange
+    bytes against dist_path's wire log, and the cost model's predictions
+    for the main path's keys (wormhole_n300 model inputs)."""
+    import torch
+    from repro_torch.core.plan import clear_plan_cache, get_plan
+    from repro_torch.tt.trace import trace_dist, trace_plan
+    key = dict(dtype=torch.float32, backend="cuda", device="cuda",
+               tune=True, tune_batch=MAIN_2D[0])
+    clear_plan_cache()
+    full = get_plan(MAIN_2D[1:], **key).tune_report
+    clear_plan_cache()
+    pruned_plan = get_plan(MAIN_2D[1:], prune="model", **key)
+    pruned = pruned_plan.tune_report
+    clear_plan_cache()
+    kept = [k for k, v in pruned.items() if isinstance(v, float)]
+    if pruned["n_measured"] >= pruned["n_candidates"] or "default" not in kept:
+        failures.append(f"prune='model' measured {pruned}")
+    logged = {c["case"]: c.get("bytes_per_rank") for c in dist_cases}
+    tt_bytes = {}
+    for real_in, case in ((False, "pfft2/chunks1/T/none"),
+                          (True, "prfft2")):
+        tr = trace_dist(DIST_2D, devices=DIST_RANKS, real=real_in,
+                        backend="cuda")
+        want = logged[case] * (DIST_RANKS - 1) / DIST_RANKS
+        tt_bytes[case] = {"predicted_wire_bytes": tr.exchange_wire_bytes,
+                          "logged_payload_bytes": logged[case]}
+        if tr.exchange_wire_bytes != want:
+            failures.append(f"trace_dist {case}: {tr.exchange_wire_bytes} "
+                            f"!= {want}")
+    predictions = {}
+    for name, shape, kw, batch in (
+            ("fft2_1024", MAIN_2D[1:], {}, MAIN_2D[0]),
+            ("rfft2_1024", MAIN_RFFT2[1:], {"kind": "rfft"}, MAIN_RFFT2[0]),
+            ("fft_2^20", MAIN_FOURSTEP[1:], {}, MAIN_FOURSTEP[0]),
+            ("fft_2^22", MAIN_STOCKHAM[1:], {}, MAIN_STOCKHAM[0]),
+            ("fft3_256", MAIN_3D[1:], {}, MAIN_3D[0])):
+        pl = get_plan(shape, backend="cuda", **kw)
+        t = trace_plan(pl, arch="wormhole_n300", batch=batch)
+        # predict_cost is t.seconds where the working set fits the arch's
+        # SRAM budget, +inf where it does not
+        predictions[name] = {"algo": pl.algo, "batch": batch,
+                             "predicted_s": t.seconds, "fits": t.fits,
+                             "stages": len(t.stages)}
+    emit({"phase": "tt_path", "key": [MAIN_2D[0], *MAIN_2D[1:]],
+          "model_arch": "tpu_v5e (get_plan's default)",
+          "kept": kept, "pruned": pruned.get("model_pruned", "").split("|"),
+          "kept_us": {k: pruned[k] for k in kept},
+          "winner": pruned["winner"], "unpruned_winner": full["winner"],
+          "unpruned_us": {k: v for k, v in full.items()
+                          if isinstance(v, float)},
+          "unpruned_winner_kept": full["winner"] in kept,
+          "exchange_bytes": tt_bytes,
+          "predictions": {"model": "wormhole_n300 (the reference's cost "
+                                   "model; not an H100 number)",
+                          **predictions},
+          "nvidia_smi": smi})
 
 
 def main() -> int:
@@ -2401,6 +3053,10 @@ def main() -> int:
         del q, k, v, kv_pos, q_pos, case, mask, qq, kt, vt
     del dec16
     torch.cuda.empty_cache()
+
+    dist_cases = dist_path(failures, smi)
+    nccl_path(failures, smi, torch.cuda.device_count())
+    tt_path(failures, smi, dist_cases)
 
     if failures:
         for f in failures:

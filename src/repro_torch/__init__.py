@@ -16,7 +16,11 @@ Modules ported so far:
 - ``data``        the bounded ``Prefetcher`` and the synthetic LM batches;
 - ``models``      ``ModelConfig`` only (the model stack is ROADMAP item 14);
 - ``serve``       the spectral server (``serve.spectral``);
-- ``launch``      ``launch.serve --workload spectral``.
+- ``launch``      ``launch.serve --workload spectral``;
+- ``dist``        the pencil FFTs, compressed collectives, straggler
+                  policy and pipeline over ``torch.distributed``;
+- ``tt``          the reference's Wormhole/Tensix cost model, and the
+                  ranking behind ``get_plan(prune="model")``.
 
 Backend names: ``"cuda"`` (the hand-written kernels; on a CPU tensor each
 kernel wrapper runs its plain PyTorch version) takes the place of

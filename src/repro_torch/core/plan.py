@@ -43,9 +43,9 @@ the winner is recorded in the registry, at most once per key.  Tuned
 winners persist FFTW-"wisdom" style (:func:`save_wisdom` /
 :func:`load_wisdom`, autoloaded at import from ``$REPRO_TORCH_FFT_WISDOM``);
 the port reads only wisdom it wrote itself.  :func:`warm` bulk-resolves
-keys for the serving pre-warm.  ``prune="model"`` needs the Tensix cost
-model (ROADMAP 'Modules to port' item 13) and raises
-``NotImplementedError`` until it is ported.
+keys for the serving pre-warm.  ``prune="model"`` ranks the candidates
+with the Tensix cost model (:func:`repro_torch.tt.trace.predict_cost`)
+and measures only the most promising.
 """
 from __future__ import annotations
 
@@ -244,7 +244,8 @@ class FFTPlan:
 def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
              algo: str = "auto", backend: str = "torch", kind: str = "c2c",
              variant: str = "auto", tune: bool = False, tune_batch: int = 8,
-             prune: str = "none",
+             prune: str = "none", prune_k: Optional[int] = None,
+             model_arch: str = "tpu_v5e",
              measure_timeout_s: Optional[float] = "config",
              device="cuda") -> FFTPlan:
     """Return the interned plan for this key, resolving (or autotuning) it
@@ -258,10 +259,13 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
     measures only that algo's variants.  ``measure_timeout_s`` is the
     per-candidate watchdog (one retry, then the candidate is excluded);
     the default defers to ``resilience.config.get("measure_timeout_s")``,
-    ``None`` disables it.  ``prune="model"`` (rank candidates with the
-    Tensix cost model, measure only the best few) raises
-    ``NotImplementedError`` until ROADMAP item 13 ports the model; its
-    ``prune_k`` and ``model_arch`` knobs come with it."""
+    ``None`` disables it.
+
+    ``prune="model"`` makes the autotuner rank candidates with the
+    :mod:`repro_torch.tt.trace` cost model on ``model_arch`` (one of the
+    reference's arches, :mod:`repro_torch.tt.arch`) and measure only the
+    ``prune_k`` most promising (default: half, min 2 — the heuristic
+    default config is always measured)."""
     shape = tuple(int(d) for d in shape)
     if kind not in PLAN_KINDS:
         raise ValueError(f"kind must be one of {PLAN_KINDS}, got {kind}")
@@ -283,10 +287,6 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
         raise ValueError(f"1-D/2-D/3-D plans only, got {shape}")
     if prune not in ("none", "model"):
         raise ValueError(f'prune must be "none" or "model", got {prune!r}')
-    if tune and prune == "model":
-        raise NotImplementedError("model-pruned autotuning needs the Tensix "
-                                  "cost model (repro_torch.tt), not ported "
-                                  "yet: ROADMAP 'Modules to port' item 13")
     # the kernels need power-of-two tile dims of at least 2
     kernel_ok = all(_is_pow2(d) and d >= 2 for d in shape)
     radix = 4
@@ -418,6 +418,7 @@ def get_plan(shape, *, dtype=torch.float32, inverse: bool = False,
         plan = _autotune(cache_key, plan, batch=tune_batch,
                          fixed_algo=algo != "auto", fixed_radix=fixed_radix,
                          fixed_variant=variant != "auto",
+                         prune=prune, prune_k=prune_k, model_arch=model_arch,
                          measure_timeout_s=measure_timeout_s, device=device)
         cache[cache_key] = plan
     return plan
@@ -954,13 +955,48 @@ def _tune_inputs(plan: FFTPlan, batch: int, device):
     return SplitComplex(t(shp), t(shp)), ()
 
 
+def _model_prune(cands, *, batch: int, prune_k: Optional[int],
+                 model_arch: str):
+    """Rank candidates with the analytic cost model and keep the top-k.
+
+    The heuristic default (candidate 0) is always kept, so pruning can
+    only *add* model-favoured configs to the measured set, never remove
+    the config the registry would have used untuned.  Candidates on a
+    *different backend* than the default are also always kept: the model
+    is an intra-backend ranker, and the cross-backend wall-clock question
+    is exactly what it cannot see.  Candidates whose working set busts the
+    arch's SRAM budget rank last (predict_cost is +inf for them).  Returns
+    (kept, pruned_labels).
+    """
+    if len(cands) <= 2:
+        return cands, []
+    from repro_torch.tt.trace import predict_cost
+    k = prune_k if prune_k is not None else max(2, (len(cands) + 1) // 2)
+    k = max(2, min(k, len(cands)))
+    if k >= len(cands):
+        return cands, []
+    base_backend = cands[0][1].backend
+    forced = [i for i in range(1, len(cands))
+              if cands[i][1].backend != base_backend]
+    costs = [predict_cost(c, arch=model_arch, batch=batch)
+             for _, c in cands]
+    rest = sorted((i for i in range(1, len(cands)) if i not in forced),
+                  key=costs.__getitem__)
+    keep_idx = sorted(set([0] + forced + rest[:max(0, k - 1 - len(forced))]))
+    kept = [cands[i] for i in keep_idx]
+    pruned = [cands[i][0] for i in range(len(cands)) if i not in keep_idx]
+    return kept, pruned
+
+
 def _autotune(key, plan: FFTPlan, *, batch: int = 8,
               fixed_algo: bool = False, fixed_radix: bool = False,
               fixed_variant: bool = False,
+              prune: str = "none", prune_k: Optional[int] = None,
+              model_arch: str = "tpu_v5e",
               measure_timeout_s: Optional[float] = "config",
               device="cuda") -> FFTPlan:
-    """Measure every candidate config on ``device`` and return the winner
-    (tuned=True).  Candidates that exceed the per-measurement watchdog are
+    """Measure every candidate config (or, with ``prune="model"``, the
+    model-ranked top-k) on ``device`` and return the winner (tuned=True).  Candidates that exceed the per-measurement watchdog are
     excluded (one retry first) and named in ``tune_report["timeouts"]``;
     if *every* candidate times out the heuristic default is kept untouched
     (winner ``"default/untimed"``)."""
@@ -971,13 +1007,21 @@ def _autotune(key, plan: FFTPlan, *, batch: int = 8,
         measure_timeout_s = _rcfg.get("measure_timeout_s")
     cands = _candidates(plan, fixed_algo=fixed_algo, fixed_radix=fixed_radix,
                         fixed_variant=fixed_variant, batch=batch)
+    n_all = len(cands)
+    pruned_labels = []
+    if prune == "model":
+        cands, pruned_labels = _model_prune(cands, batch=batch,
+                                            prune_k=prune_k,
+                                            model_arch=model_arch)
     times, timed_out = _time_candidates(
         [c for _, c in cands], x, labels=[lbl for lbl, _ in cands],
         timeout_s=measure_timeout_s, extra=extra)
     report = {label: (round(us, 1) if us != float("inf") else "timeout")
               for (label, _), us in zip(cands, times)}
-    report["n_candidates"] = len(cands)
+    report["n_candidates"] = n_all
     report["n_measured"] = len(cands)
+    if pruned_labels:
+        report["model_pruned"] = "|".join(pruned_labels)
     if timed_out:
         report["timeouts"] = "|".join(timed_out)
     if all(t == float("inf") for t in times):

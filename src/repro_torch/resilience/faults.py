@@ -20,8 +20,10 @@ site                   where it fires / kinds that make sense there
 ``autotune.measure``   inside each autotune candidate measurement
                        (``kind="hang"`` = a candidate that never returns;
                        ``duration`` = seconds it stalls)
-``dist.exchange``      the distributed exchanges (ROADMAP item 12, not
-                       ported yet; ``kind="drop"/"corrupt"/"nan"``)
+``dist.exchange``      every exchange of ``dist/pencil.py``: every rank
+                       consults it, and the rank at index 0 of the axis
+                       corrupts what it received
+                       (``kind="drop"/"corrupt"/"nan"``)
 ``wisdom.save``        mid-write inside
                        :func:`repro_torch.core.plan.save_wisdom`
                        (``kind="error"`` = crash leaving a torn temp file)

@@ -202,8 +202,16 @@ def test_fft3_entry_errors():
         fft3(x, algo="stockham", backend="cuda")
     with pytest.raises(ValueError, match="power-of-two dims >= 2"):
         ops.fft3d_fused(from_numpy(_rand((1, 6, 8, 8), seed=1), device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.get_plan((8, 8, 8), tune=True, prune="model", device="cpu")
+    # prune="model" (ROADMAP item 13, once refused here) now tunes the
+    # key, measuring the candidates the reference's model keeps
+    ref = RP.get_plan((8, 8, 8), backend="pallas")
+    _, pruned = RP._model_prune(RP._candidates(ref, batch=2), batch=2,
+                                prune_k=None, model_arch="tpu_v5e")
+    pl = P.get_plan((8, 8, 8), backend="cuda", tune=True, tune_batch=2,
+                    prune="model", device="cpu")
+    assert pl.tuned and pruned
+    assert pl.tune_report["model_pruned"] == "|".join(
+        P._port_label(lbl) for lbl in pruned)
 
 
 @pytest.mark.parametrize("backends", BACKENDS)

@@ -20,6 +20,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.ops" in mods and "repro_torch.core.plan" in mods
+    assert {"repro_torch.dist.pencil", "repro_torch.dist.pipeline",
+            "repro_torch.dist.local", "repro_torch.tt.trace",
+            "repro_torch.tt.report"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

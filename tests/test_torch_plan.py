@@ -105,17 +105,33 @@ def test_plan_from_reference_round_trip(shape, backends):
     assert crossed == P.get_plan(shape, backend=backends[1])
 
 
-# one key of each kind; the Tensix cost model that prune="model" ranks
-# candidates with is ROADMAP item 13, so those requests still raise
+# one key of each kind
 TUNE_KEYS = [dict(shape=(8, 8, 8)), dict(shape=(64,), kind="rfft"),
              dict(shape=(64,), kind="conv_causal"), dict(shape=(64,))]
 
 
 @pytest.mark.parametrize("kw,item", [(kw, "item 13") for kw in TUNE_KEYS])
 def test_unported_plan_requests_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        P.get_plan(**kw, tune=True, prune="model", device="cpu")
-    assert P.autotune_count(kw["shape"], kind=kw.get("kind", "c2c")) == 0
+    """The requests that raised until ROADMAP ``item`` ported the Tensix
+    cost model: ``prune="model"`` now tunes the key once, measuring only
+    the candidates the model keeps (the reference's ``_model_prune`` on
+    the reference's candidates, backend names mapped)."""
+    for backends in BACKENDS:
+        ref = RP.get_plan(**kw, backend=backends[0])
+        kept, pruned = RP._model_prune(RP._candidates(ref, batch=4),
+                                       batch=4, prune_k=None,
+                                       model_arch="tpu_v5e")
+        pl = P.get_plan(**kw, backend=backends[1], tune=True, tune_batch=4,
+                        prune="model", device="cpu")
+        measured = [k for k, v in pl.tune_report.items()
+                    if isinstance(v, float)]
+        assert measured == [P._port_label(lbl) for lbl, _ in kept], item
+        assert pl.tune_report["n_measured"] == len(kept)
+        assert pl.tune_report.get("model_pruned", "") == "|".join(
+            P._port_label(lbl) for lbl in pruned)
+        assert P.autotune_count(kw["shape"], kind=kw.get("kind", "c2c"),
+                                backend=P.REFERENCE_BACKENDS[
+                                    ref.backend]) == 1
 
 
 @pytest.mark.parametrize("kw", TUNE_KEYS)

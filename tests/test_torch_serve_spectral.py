@@ -520,12 +520,28 @@ def test_deadline_expires_queued_deterministic_clock():
         assert srv.metrics.counter("c2c/f/64x64", "completed") == 1
 
 
-def test_deadline_expires_inflight_under_step_hang():
+def test_deadline_expires_inflight_under_step_hang(monkeypatch):
+    """The step hangs past the deadline on the server's (fake) clock: the
+    hang advances the clock by its duration instead of sleeping, so the
+    request can only expire in flight, however slow the host is."""
+    clk = FakeClock()
+    site_check = faults.check
+
+    def hang_on_fake_clock(site, tag=None):
+        if site != "serve.step":
+            return site_check(site, tag)
+        spec = faults.fire(site, tag)
+        if spec is not None and spec.kind == "hang":
+            clk.t += spec.duration
+
+    monkeypatch.setattr(faults, "check", hang_on_fake_clock)
     rng = np.random.default_rng(7)
-    with _server([BucketConfig((64, 64))], threaded=False) as srv:
-        with faults.inject("serve.step", "hang", duration=0.25):
+    with _server([BucketConfig((64, 64))], threaded=False,
+                 clock=clk) as srv:
+        with faults.inject("serve.step", "hang", duration=0.25) as fp:
             srv.submit("late", _c2c_payload(rng, (64, 64)), deadline_s=0.05)
             assert srv.drain(timeout_s=TIMEOUT)
+        assert fp.fired("serve.step") == 1 and clk.t == 0.25
         rec = srv.result("late")
         assert rec.status == "timed_out_inflight" and rec.value is None
         assert srv.metrics.counter("c2c/f/64x64", "timed_out_inflight") == 1
@@ -856,7 +872,10 @@ def test_threaded_staging_crash_still_releases_pipeline():
 
     srv.scheduler.next_batch = boom
     srv.executor.poke()
-    time.sleep(0.2)
+    # the staging thread has left the pipeline when the drain loop has its
+    # sentinel: wait for that, not for wall time
+    for t in threads:
+        t.join(timeout=TIMEOUT)
     t0 = time.monotonic()
     srv.executor.shutdown()
     assert time.monotonic() - t0 < 5.0
