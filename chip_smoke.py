@@ -61,6 +61,15 @@ float64 numpy:
   the main path's key beside the unpruned tune, ``trace_dist``'s exchange
   bytes against the wire log, and the model's predictions for the main
   path's keys (the reference's wormhole_n300, not this card);
+- the LM serving path (``lm_path``): h2o-danube-1.8b at full width in
+  fp32 (random weights from a seed, made on the card) served through
+  ``serve.engine.Engine`` at ``launch.serve``'s defaults (8 requests,
+  batch 4, 16 new tokens, max_len 256), every decode attention on the
+  decode kernel (launches = steps x 24), the kernel against the plain
+  ``_attend_chunked`` at one step's operands, stepwise decode against
+  bulk prefill; ``ssm_demo``'s prefill (its conv on ``fftconv_fused``)
+  and ``fnet_demo``'s forward (``fourier_mix`` on ``fft_fourstep``) at 8
+  x 4096 tokens against their plain twins;
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Every plan call runs through the guarded executor, and no
@@ -1261,6 +1270,270 @@ def tt_path(failures, smi, dist_cases):
                                    "model; not an H100 number)",
                           **predictions},
           "nvidia_smi": smi})
+
+
+# the LM serving path (lm_path): h2o-danube-1.8b at full width in its
+# config's float32 (1.83 B parameters, 7.3 GB, made on the card from a
+# seed) through the engine at the launcher's defaults; then the two demo
+# configs whose mixers run the FFT kernels, at their full configs
+LM_ARCH = "h2o-danube-1.8b"
+LM_REQUESTS, LM_BATCH, LM_MAX_NEW, LM_MAX_LEN = 8, 4, 16, 256
+LM_PROMPT = (2, 32)     # decode vs prefill: two rows of 32 tokens
+TOL_LM_DECODE = 1e-3    # stepwise decode vs bulk prefill, of max|logits|
+LM_SEQ = (8, 4096)      # ssm_demo prefill and fnet_demo forward
+TOL_LM_FFT = 1e-4       # FFT-kernel mixers vs their plain twins, of max|logits|
+
+
+def lm_path(failures, smi):
+    """``launch.serve --workload lm``'s path on the card: serve
+    h2o-danube-1.8b through the engine (every attention of a decode step on
+    the decode kernel), hold one layer's kernel call against the plain
+    ``_attend_chunked``, stepwise decode against bulk prefill, ``ssm_demo``'s
+    prefill on ``fftconv_fused`` against the direct conv, and
+    ``fnet_demo``'s forward on ``fft_fourstep`` against the torch backend.
+    Returns each kernel's launches over the phase."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import repro_torch.configs as RCFG
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine, ServeConfig
+    torch.cuda.empty_cache()
+    dev = "cuda"
+    lm_launches = {k: 0 for k in ops.LAUNCHES}
+
+    def window_launches():
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        for k, v in got.items():
+            lm_launches[k] += v
+        return got
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    # 1. serve
+    cfg = RCFG.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_params(gen(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = M.param_count(params)
+    eng = Engine(cfg, ServeConfig(batch_size=LM_BATCH, max_len=LM_MAX_LEN,
+                                  device=dev), params)
+    rng = np.random.default_rng(0)
+    reqs = [(i, rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12))
+             .astype(np.int32)) for i in range(LM_REQUESTS)]
+    step_ms, snap = [], {}
+    decode, attend = eng._decode, ops.decode_attention
+
+    def timed_decode(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def recording_attend(*args, **kw):
+        # the first layer's operands at each step; the last step's stay
+        if ops.LAUNCHES["decode_attention"] % cfg.n_layers == 0:
+            snap["args"] = [a.clone() for a in args]
+            snap["kw"] = kw
+        return attend(*args, **kw)
+
+    eng._decode, ops.decode_attention = timed_decode, recording_attend
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        served = eng.run(reqs, max_new=LM_MAX_NEW)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        ops.decode_attention = attend
+    serve_launches = window_launches()
+    steps = len(step_ms)
+    new_tokens = sum(len(v) - 1 for v in served.values())
+    if sorted(served) != list(range(LM_REQUESTS)) or \
+            any(len(v) != 1 + LM_MAX_NEW for v in served.values()):
+        failures.append(f"lm serve: {({k: len(v) for k, v in served.items()})}")
+    if serve_launches["decode_attention"] != steps * cfg.n_layers:
+        failures.append(f"lm serve: {serve_launches['decode_attention']} "
+                        f"decode_attention launches for {steps} steps x "
+                        f"{cfg.n_layers} layers")
+    others = {k: v for k, v in serve_launches.items()
+              if v and k != "decode_attention"}
+    if others:
+        failures.append(f"lm serve launched FFT kernels: {others}")
+
+    # where a served run's time goes: the same requests through a fresh
+    # engine under the profiler; its device time over the wall time of
+    # that same window (one stream, so the device intervals do not
+    # overlap), and the device operations a decode step makes
+    from torch.profiler import ProfilerActivity, profile
+    peng = Engine(cfg, ServeConfig(batch_size=LM_BATCH, max_len=LM_MAX_LEN,
+                                   device=dev), params)
+    pdecode, psteps = peng._decode, []
+
+    def counted_decode(*args):
+        psteps.append(1)
+        return pdecode(*args)
+
+    peng._decode = counted_decode
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pserved = peng.run(reqs, max_new=LM_MAX_NEW)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    window_launches()
+    del peng
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in dev_events if e.name.startswith(("Memcpy",
+                                                          "Memset"))]
+    by_kernel = {}
+    for e in dev_events:
+        name = e.name[:48]
+        by_kernel[name] = by_kernel.get(name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3 / len(psteps)
+    prof_device_ms = sum(e.time_range.elapsed_us()
+                         for e in dev_events) / 1e3
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+    profiled = {"steps": len(psteps), "wall_ms": prof_wall_ms,
+                "device_ms": prof_device_ms,
+                "device_busy_share": prof_device_ms / prof_wall_ms,
+                "kernels_per_step": (len(dev_events) - len(copies))
+                / len(psteps),
+                "copies_per_step": len(copies) / len(psteps),
+                "tokens_equal_unprofiled": pserved == served,
+                "device_ms_per_step_top": top}
+    if not prof_device_ms:
+        failures.append("lm serve: the profiler saw no device time")
+
+    # 2. the kernel against the plain _attend_chunked at one engine step's
+    # operands (the first layer at the last step; idle rows included),
+    # through the wrapper and arguments the engine called; these launches
+    # are the comparison's, not the path's
+    q, k, v, kv_pos, q_pos = snap["args"]
+    ops.reset_launches()
+    got = ops.decode_attention(q, k, v, kv_pos, q_pos, **snap["kw"])
+    torch.cuda.synchronize()
+    ref = L._attend_chunked(q[:, None], k, v, cfg, q_pos[:, None], kv_pos)
+    kern_err = (got - ref[:, 0]).abs().max().item()
+    active = int((q_pos >= 0).sum().item())
+    if ops.LAUNCHES["decode_attention"] != 1:
+        failures.append("lm decode kernel vs _attend_chunked: the wrapper "
+                        "launched no kernel")
+    if not kern_err <= TOL_DECODE:
+        failures.append(f"lm decode kernel vs _attend_chunked: {kern_err}")
+    k_ms = time_ms(lambda: ops.decode_attention(q, k, v, kv_pos, q_pos,
+                                                **snap["kw"]), torch)
+    p_ms = time_ms(lambda: L._attend_chunked(q[:, None], k, v, cfg,
+                                             q_pos[:, None], kv_pos), torch)
+    ops.reset_launches()
+    kw = dict(snap["kw"])
+    del snap, got, ref
+
+    # 3. stepwise decode (the kernel) against bulk prefill (flash forward)
+    b, s = LM_PROMPT
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, s))).to(dev)
+    ops.reset_launches()
+    with torch.inference_mode():
+        pre, _ = M.prefill(params, cfg, tokens=toks,
+                           cache=M.init_cache(cfg, b, s, device=dev))
+        cache = M.init_cache(cfg, b, s, device=dev)
+        for t in range(s):
+            lg, cache = M.decode_step(params, cfg, toks[:, t], cache,
+                                      torch.full((b,), t, dtype=torch.int32,
+                                                 device=dev))
+    dp_launches = window_launches()
+    dp_err = ((lg - pre[:, -1]).abs().max()
+              / pre[:, -1].abs().max()).item()
+    if not dp_err <= TOL_LM_DECODE:
+        failures.append(f"lm decode vs prefill: {dp_err}")
+    if dp_launches["decode_attention"] != s * cfg.n_layers:
+        failures.append(f"lm decode vs prefill launches {dp_launches}")
+    emit({"phase": "lm_path", "arch": LM_ARCH, "dtype": cfg.dtype,
+          "params": n_params, "init_s": init_s,
+          "requests": LM_REQUESTS, "batch": LM_BATCH, "max_new": LM_MAX_NEW,
+          "max_len": LM_MAX_LEN, "new_tokens": new_tokens,
+          "served_tokens": sum(len(v) for v in served.values()),
+          "serve_s": serve_s, "tokens_per_s": new_tokens / serve_s,
+          "steps": steps,
+          "step_ms_median": sorted(step_ms)[steps // 2],
+          "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+          "decode_attention_launches": serve_launches["decode_attention"],
+          "profiled_serve": profiled,
+          "kernel_vs_attend_chunked": {
+              "call": "ops.decode_attention", **kw,
+              "shape": [*k.shape[:2], q.shape[1], *k.shape[2:]],
+              "active_rows": active, "max_abs_err": kern_err,
+              "tol": TOL_DECODE, "kernel_ms": k_ms, "plain_ms": p_ms},
+          "decode_vs_prefill": {"rows": b, "prompt": s,
+                                "err_over_max": dp_err,
+                                "tol": TOL_LM_DECODE},
+          "nvidia_smi": smi})
+    del params, eng, cache, pre, lg, q, k, v, kv_pos, q_pos
+    torch.cuda.empty_cache()
+
+    # 4. ssm_demo prefill: the Mamba2 conv on fftconv_fused against the
+    # direct conv; 5. fnet_demo forward: fourier_mix on fft_fourstep
+    # against the torch backend
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 32000, LM_SEQ)).to(dev)
+    fft_phase = {}
+    for arch, kernel, plain_cfg in (
+            ("ssm_demo", "fftconv_fused",
+             lambda c: dataclasses.replace(c, use_fft_conv=False)),
+            ("fnet_demo", "fft_fourstep",
+             lambda c: dataclasses.replace(c, fft_backend="torch"))):
+        cfg = dataclasses.replace(RCFG.get_config(arch), fft_backend="cuda")
+        params = M.init_params(gen(3), cfg, device=dev)
+
+        def run(c):
+            if arch == "ssm_demo":
+                return M.prefill(params, c, tokens=toks, cache=M.init_cache(
+                    c, LM_SEQ[0], LM_SEQ[1], device=dev))[0]
+            return M.forward(params, c, tokens=toks)[0]
+
+        ops.reset_launches()
+        with torch.inference_mode():
+            got = run(cfg)
+            launches = window_launches()
+            ref = run(plain_cfg(cfg))
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            finite = bool(torch.isfinite(got).all())
+            del got, ref
+            ops.reset_launches()
+            ms = time_ms(lambda: run(cfg), torch, runs=3, warmup=1)
+            plain_ms = time_ms(lambda: run(plain_cfg(cfg)), torch, runs=3,
+                               warmup=1)
+        ops.reset_launches()
+        # one conv a mamba2 layer; a 512- and an S-point pass a fourier one
+        want = cfg.repeat * (cfg.block_pattern.count("mamba2")
+                             if kernel == "fftconv_fused"
+                             else 2 * cfg.block_pattern.count("fourier_mlp"))
+        if launches[kernel] != want:
+            failures.append(f"lm {arch}: {kernel} launched "
+                            f"{launches[kernel]} times, not {want}")
+        if not (err <= TOL_LM_FFT and finite):
+            failures.append(f"lm {arch} vs its plain twin: {err}")
+        fft_phase[arch] = {"entry": "prefill" if arch == "ssm_demo"
+                           else "forward", "shape": LM_SEQ,
+                           "kernel": kernel, "launches": launches[kernel],
+                           "err_over_max": err, "tol": TOL_LM_FFT,
+                           "ms": ms, "plain_twin_ms": plain_ms}
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_fft_mixers", **fft_phase, "nvidia_smi": smi})
+    return lm_launches
 
 
 def main() -> int:
@@ -3057,6 +3330,9 @@ def main() -> int:
     dist_cases = dist_path(failures, smi)
     nccl_path(failures, smi, torch.cuda.device_count())
     tt_path(failures, smi, dist_cases)
+    lm = lm_path(failures, smi)
+    for entry in kernels:
+        entry["lm_path_launches"] = lm.get(entry["name"], 0)
 
     if failures:
         for f in failures:

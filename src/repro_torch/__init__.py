@@ -14,9 +14,12 @@ Modules ported so far:
 - ``resilience``  fault injection, guards, the circuit breaker and the
                   guarded executor every ``FFTPlan`` call runs through;
 - ``data``        the bounded ``Prefetcher`` and the synthetic LM batches;
-- ``models``      ``ModelConfig`` only (the model stack is ROADMAP item 14);
-- ``serve``       the spectral server (``serve.spectral``);
-- ``launch``      ``launch.serve --workload spectral``;
+- ``models``      the model stack's serving path (layers, caches, the
+                  flash forward, Mamba2, MoE, xLSTM, the unified model);
+                  training is ROADMAP item 14b;
+- ``configs``     the model registry (the reference's configs);
+- ``serve``       the LM decode engine and the spectral server;
+- ``launch``      ``launch.serve --workload lm|spectral``;
 - ``dist``        the pencil FFTs, compressed collectives, straggler
                   policy and pipeline over ``torch.distributed``;
 - ``tt``          the reference's Wormhole/Tensix cost model, and the

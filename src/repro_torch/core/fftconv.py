@@ -70,9 +70,10 @@ def _filter_spectrum(plan, k: torch.Tensor, m: int) -> cm.SplitComplex:
     plan key.  A hit needs the same tensor at the same ``_version``; a
     fresh tensor, or one updated in place, recomputes and replaces the
     entry (never staler than the filter actually passed).  A filter that
-    autograd records through is recomputed every call, in the graph."""
-    from repro_torch.kernels.fftconv_fused import records_grad
-    if records_grad(k):
+    autograd records through is recomputed every call, in the graph, and
+    so is an inference-mode tensor, which has no version to test."""
+    from repro_torch.kernels.fftconv_fused import uncacheable
+    if uncacheable(k):
         return _compute_kf(k, m)
     key = _spectrum_key(plan)
     stats = SPECTRUM_STATS.setdefault(key, {"computes": 0, "hits": 0})

@@ -13,7 +13,7 @@ Produces token (or stub-embedding) batches that are:
 server's staging stage (:mod:`repro_torch.serve.spectral.executor`) and the
 batch iterator sit on.  The reference's ``make_batch_specs`` (shape stand-ins
 for the sharded dry run) waits for the training launcher, ROADMAP 'Modules
-to port' item 14.
+to port' item 14b.
 """
 from __future__ import annotations
 

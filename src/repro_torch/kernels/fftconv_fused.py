@@ -137,10 +137,13 @@ def _pack_filter_torch(kf: SplitComplex, m: int, dtype):
     return SplitComplex(er, ei), SplitComplex(fr, fi)
 
 
-def records_grad(*ts) -> bool:
-    """Whether autograd would record through any of ``ts``: the port's
-    counterpart of the reference's test for a traced (jit-time) value."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+def uncacheable(*ts) -> bool:
+    """Whether a value derived from ``ts`` must be recomputed every call:
+    autograd records through one of them (the port's counterpart of the
+    reference's test for a traced, jit-time value), or one is an
+    inference-mode tensor, which has no ``_version`` to test a hit by."""
+    return (torch.is_grad_enabled() and any(t.requires_grad for t in ts)) \
+        or any(t.is_inference() for t in ts)
 
 
 def pack_filter(kf: SplitComplex, m: int, dtype):
@@ -152,8 +155,12 @@ def pack_filter(kf: SplitComplex, m: int, dtype):
     of (..., m/2).  Other filters build in float64 and are cached (one
     entry per lead-shape/length key); the hit test is the identity of
     both planes and their ``_version``, so a filter updated in place
-    repacks.  Filters that autograd records through build in the graph."""
-    if records_grad(kf.re, kf.im):
+    repacks.  Filters that autograd records through build in the graph,
+    and inference-mode spectra (no version to test; a served model's conv
+    makes one a call) build the same way on their device, uncached: the
+    host build's round trip took about 240 ms a layer of ssm_demo's
+    prefill at 8 x 4096 on an H100 (PERF.md)."""
+    if uncacheable(kf.re, kf.im):
         return _pack_filter_torch(kf, m, dtype)
     key = (tuple(kf.re.shape[:-1]), m, str(dtype))
     vers = (kf.re._version, kf.im._version)

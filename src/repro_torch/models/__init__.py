@@ -1,3 +1,6 @@
-"""repro_torch.models — the model stack (counterpart of
-:mod:`repro.models`).  Only :mod:`~repro_torch.models.config` is ported so
-far; the layers and models are ROADMAP 'Modules to port' item 14."""
+"""repro_torch.models — config-driven model zoo (counterpart of
+:mod:`repro.models`): dicts of tensors, the serving path on the card.
+Training (``loss_fn``, the flash backward) is ROADMAP 'Modules to port'
+item 14b."""
+from .config import ModelConfig
+from . import model, layers, moe, ssm, xlstm, cache

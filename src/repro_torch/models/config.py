@@ -4,9 +4,9 @@ its own).
 
 A model is a stack of ``repeat`` copies of a *super-block*, a static tuple
 of block types, so heterogeneous stacks (zamba2's mamba+shared-attention,
-xlstm's mLSTM/sLSTM mix) repeat one block pattern.  The model stack that
-reads it is ROADMAP 'Modules to port' item 14; :mod:`repro_torch.data.
-pipeline` reads it today.
+xlstm's mLSTM/sLSTM mix) repeat one block pattern.  The model stack
+(:mod:`repro_torch.models.model`) and :mod:`repro_torch.data.pipeline` read
+it.
 """
 from __future__ import annotations
 

@@ -1,0 +1,297 @@
+"""Core transformer layers: norms, RoPE, GQA attention, MLPs, embeddings
+(counterpart of :mod:`repro.models.layers`).
+
+Plain functions on tensors and dicts of tensors, init/apply pairs.  Inits
+draw from a :class:`torch.Generator` with the reference's scales (the draws
+are not JAX's; :func:`repro_torch.models.model.params_from_numpy` carries
+the reference's weights across).  Full-sequence attention runs the
+streaming-softmax forward of :mod:`repro_torch.models.flash`; one-token
+decode runs :func:`repro_torch.kernels.ops.decode_attention`, the
+hand-written CUDA kernel on a card tensor and its plain version on a CPU
+one.  :func:`_attend_chunked` is the reference's chunked decode formula,
+kept as the plain twin the kernel is held against.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+NEG_INF = -1e30
+EMPTY_POS = -1_000_000     # position of a padded or unused slot
+
+
+def _init(gen, shape, scale=None, dtype=torch.float32):
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[0])
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def _ones(gen, n):
+    return torch.ones((n,), dtype=torch.float32, device=gen.device)
+
+
+def _zeros(gen, n):
+    return torch.zeros((n,), dtype=torch.float32, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_init(gen, cfg: ModelConfig, d: Optional[int] = None):
+    d = d or cfg.d_model
+    p = {"scale": _ones(gen, d)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = _zeros(gen, d)
+    return p
+
+
+def norm_apply(p, x, cfg: ModelConfig):
+    dt = x.dtype
+    x32 = x.float()
+    if cfg.norm_type == "layernorm":
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, unbiased=False)
+        y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"] + p["bias"]
+    else:
+        ms = x32.square().mean(dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]
+    return y.to(dt)
+
+
+def rms_head_norm(x, scale, eps=1e-6):
+    """Per-head RMS norm (qk-norm): x (..., head_dim)."""
+    x32 = x.float()
+    ms = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D), positions: (B, S) or (S,)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)           # (D/2,)
+    ang = positions[..., None].float() * freqs             # (B, S, D/2)
+    cos = torch.cos(ang)[..., None, :]                     # (B, S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attention_init(gen, cfg: ModelConfig):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": _init(gen, (d, h * hd)),
+        "wk": _init(gen, (d, kv * hd)),
+        "wv": _init(gen, (d, kv * hd)),
+        "wo": _init(gen, (h * hd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = _zeros(gen, h * hd)
+        p["bk"] = _zeros(gen, kv * hd)
+        p["bv"] = _zeros(gen, kv * hd)
+    if cfg.qk_norm:
+        p["q_norm"] = _ones(gen, hd)
+        p["k_norm"] = _ones(gen, hd)
+    return p
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend_chunked(q, k, v, cfg: ModelConfig, q_positions, kv_positions):
+    """Streaming-softmax attention, the reference's decode formula.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D).  Loops over KV chunks with a
+    running (max, denom, acc).  Causality and sliding windows are applied
+    from positions; the cache is padded to whole chunks with empty slots.
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    chunk = min(cfg.attn_chunk, skv)
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=EMPTY_POS)
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, sq, kvh, group, hd) * scale
+    if not cfg.causal:
+        q_positions = torch.full_like(q_positions, skv + 1)  # attend everywhere
+    m = torch.full((b, sq, kvh, group), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, sq, kvh, group, hd), dtype=torch.float32,
+                      device=q.device)
+    for i in range(n_chunks):
+        kb = k[:, i * chunk:(i + 1) * chunk]
+        vb = v[:, i * chunk:(i + 1) * chunk]
+        pb = kv_positions[:, i * chunk:(i + 1) * chunk]
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg.float(), kb.float())
+        mask = pb[:, None, :] <= q_positions[:, :, None]   # causal
+        if cfg.sliding_window is not None:
+            mask = mask & (pb[:, None, :] > q_positions[:, :, None]
+                           - cfg.sliding_window)
+        mask = mask & (pb[:, None, :] >= 0)                # padding
+        s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(s - m_new[..., None])
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", pexp, vb.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_apply(p, x, cfg: ModelConfig, positions):
+    """Full-sequence attention (training / prefill) through the flash
+    forward."""
+    from .flash import flash_attention
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = flash_attention(q, k, v, positions, positions, cfg.attn_chunk,
+                          cfg.sliding_window, cfg.causal)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def attention_decode(p, x, cfg: ModelConfig, cache, position):
+    """One-token decode with a KV cache (see :mod:`.cache`), written in
+    place.  The attention is :func:`repro_torch.kernels.ops.
+    decode_attention`: the CUDA kernel on a card tensor, its plain version
+    on a CPU one."""
+    from repro_torch.kernels import ops
+    from . import cache as cache_lib
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg, position[:, None])
+    cache, k_all, v_all, kv_pos = cache_lib.kv_update(cache, k[:, 0], v[:, 0],
+                                                      position)
+    slots = k_all.shape[1]
+    q_pos = position if cfg.causal else torch.full_like(position, slots + 1)
+    # the kernel's split follows from its grid, so the whole cache is one
+    # chunk (a ring of min(max_len, window) slots need not be a multiple
+    # of attn_chunk)
+    out = ops.decode_attention(q[:, 0].contiguous(), k_all, v_all, kv_pos,
+                               q_pos.to(torch.int32).contiguous(),
+                               window=cfg.sliding_window, chunk=slots)
+    return out.reshape(b, 1, -1) @ p["wo"], cache
+
+
+def attention_prefill(p, x, cfg: ModelConfig, positions, cache):
+    """Bulk prefill: full-sequence attention + write K/V into the cache (in
+    place).
+
+    Only the last min(S, slots) positions are written (a sliding-window ring
+    keeps just the window; later positions win by construction, no duplicate
+    scatter indices)."""
+    from .flash import flash_attention
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = flash_attention(q, k, v, positions, positions, cfg.attn_chunk,
+                          cfg.sliding_window, cfg.causal)
+    slots = cache["k"].shape[1]
+    keep = min(s, slots)
+    pos_t = positions[:, -keep:]
+    idx = pos_t % slots
+    rows = torch.arange(b, device=x.device)[:, None]
+    cache["k"][rows, idx] = k[:, -keep:].to(cache["k"].dtype)
+    cache["v"][rows, idx] = v[:, -keep:].to(cache["v"].dtype)
+    cache["pos"][rows, idx] = pos_t.to(torch.int32)
+    return out.reshape(b, s, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg: ModelConfig, d_ff: Optional[int] = None):
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        p = {"wi": _init(gen, (d, ff)), "wg": _init(gen, (d, ff)),
+             "wo": _init(gen, (ff, d))}
+    else:
+        p = {"wi": _init(gen, (d, ff)), "wo": _init(gen, (ff, d))}
+    if cfg.mlp_bias:
+        p["bi"] = _zeros(gen, ff)
+        p["bo"] = _zeros(gen, d)
+    return p
+
+
+def mlp_apply(p, x, cfg: ModelConfig):
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    elif cfg.mlp_type == "gelu":
+        h = x @ p["wi"]
+        if cfg.mlp_bias:
+            h = h + p["bi"]
+        h = F.gelu(h, approximate="tanh")         # jax.nn.gelu's default
+    elif cfg.mlp_type == "relu2":                 # nemotron-4 squared-ReLU
+        h = F.relu(x @ p["wi"]).square()
+    else:
+        raise ValueError(cfg.mlp_type)
+    out = h @ p["wo"]
+    if cfg.mlp_bias:
+        out = out + p["bo"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Embeddings / head
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen, cfg: ModelConfig):
+    p = {"tok": _init(gen, (cfg.padded_vocab, cfg.d_model), scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = _init(gen, (cfg.d_model, cfg.padded_vocab))
+    return p
+
+
+def embed(p, tokens, cfg: ModelConfig):
+    return p["tok"][tokens]
+
+
+def unembed(p, x, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return x @ p["tok"].T
+    return x @ p["head"]

@@ -1,0 +1,357 @@
+"""The unified LM: config-driven assembly of every architecture in the pool
+(counterpart of :mod:`repro.models.model`).
+
+Depth is ``repeat`` copies of a super-block (``cfg.block_pattern``).
+Parameters and caches are dicts of tensors with the reference's key paths,
+each leaf of a repeated super-block stacked on a leading ``(repeat, ...)``
+axis; the reference's ``lax.scan`` over that axis is a Python loop over
+views of the stacked tensors.  Zamba2-style shared blocks live outside the
+stack (one copy of the weights, applied every super-block).  Caches are
+written in place: a decode or prefill returns the cache it was given.
+
+Entry points:
+  init_params / params_from_numpy       param trees (dict-of-dicts)
+  forward(params, cfg, tokens=...)      logits, aux
+  init_cache / prefill / decode_step    serving path (one token, cached)
+  param_count / active_param_count      N for MODEL_FLOPS = 6*N*D
+
+``loss_fn`` comes with training, ROADMAP 'Modules to port' item 14b.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+import repro_torch
+from . import actsharding
+from . import cache as cache_lib
+from . import layers, moe, ssm, xlstm
+from .config import ModelConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A config's dtype name (or a torch dtype) as a torch dtype."""
+    return DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+
+# ---------------------------------------------------------------------------
+# Trees
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _stack(trees):
+    """One tree whose leaves stack the given trees' leaves on axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack([t[i] for t in trees])
+                           for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def _index(tree, r: int):
+    """Views of repeat ``r`` of a stacked tree."""
+    return tree_map(lambda t: t[r], tree)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _block_init(gen, blk: str, cfg: ModelConfig):
+    if blk == "attn_mlp":
+        return {"norm1": layers.norm_init(gen, cfg),
+                "attn": layers.attention_init(gen, cfg),
+                "norm2": layers.norm_init(gen, cfg),
+                "mlp": layers.mlp_init(gen, cfg)}
+    if blk == "attn_moe":
+        return {"norm1": layers.norm_init(gen, cfg),
+                "attn": layers.attention_init(gen, cfg),
+                "norm2": layers.norm_init(gen, cfg),
+                "moe": moe.moe_init(gen, cfg)}
+    if blk == "fourier_mlp":
+        return {"norm1": layers.norm_init(gen, cfg),
+                "norm2": layers.norm_init(gen, cfg),
+                "mlp": layers.mlp_init(gen, cfg)}
+    if blk == "mamba2":
+        return {"norm": layers.norm_init(gen, cfg),
+                "mixer": ssm.mamba2_init(gen, cfg)}
+    if blk == "mlstm":
+        return {"norm": layers.norm_init(gen, cfg),
+                "mixer": xlstm.mlstm_init(gen, cfg)}
+    if blk == "slstm":
+        return {"norm": layers.norm_init(gen, cfg),
+                "mixer": xlstm.slstm_init(gen, cfg)}
+    if blk == "shared_attn":
+        return {}                       # weights live in params["shared"]
+    raise ValueError(blk)
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, *,
+                device="cuda"):
+    """Random weights at the reference's scales, drawn from ``generator``
+    on ``device`` (a full-width model is made where it runs, never on the
+    host first)."""
+    dev = repro_torch.device(device)
+    if torch.device(generator.device).type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params asked "
+                         f"for on {dev}")
+    gen = generator
+    params = {"embed": layers.embedding_init(gen, cfg)}
+    blocks = []
+    for _ in range(cfg.repeat):
+        blocks.append({f"b{j}": _block_init(gen, blk, cfg)
+                       for j, blk in enumerate(cfg.block_pattern)})
+    params["blocks"] = _stack(blocks)
+    del blocks
+    if "shared_attn" in cfg.block_pattern:
+        params["shared"] = {
+            "norm1": layers.norm_init(gen, cfg),
+            "attn": layers.attention_init(gen, cfg),
+            "norm2": layers.norm_init(gen, cfg),
+            "mlp": layers.mlp_init(gen, cfg)}
+    params["final_norm"] = layers.norm_init(gen, cfg)
+    dtype = torch_dtype(cfg.dtype)
+    if dtype != torch.float32:
+        params = tree_map(lambda a: a.to(dtype), params)
+    return params
+
+
+def _from_numpy(a, dev) -> torch.Tensor:
+    a = np.array(a)                     # a writable copy
+    if a.dtype.name == "bfloat16":      # ml_dtypes: exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(a).to(dev)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, *, device="cuda"):
+    """The reference's ``init_params`` tree, as numpy arrays
+    (``jax.tree.map(np.asarray, p)``), as the port's tree on ``device``
+    with dtypes kept."""
+    want = {f"b{j}" for j in range(len(cfg.block_pattern))}
+    if set(tree["blocks"]) != want:
+        raise ValueError(f"tree blocks {sorted(tree['blocks'])} do not match "
+                         f"the block pattern {cfg.block_pattern}")
+    dev = repro_torch.device(device)
+    return tree_map(lambda a: _from_numpy(a, dev), tree)
+
+
+def param_count(tree) -> int:
+    return int(sum(int(np.prod(x.shape)) for x in tree_leaves(tree)))
+
+
+def active_param_count(cfg: ModelConfig, tree) -> int:
+    """Params touched per token (MoE: active experts only)."""
+    total = param_count(tree)
+    if cfg.n_experts == 0:
+        return total
+    moe_total = sum(
+        param_count({k: v for k, v in tree["blocks"][f"b{j}"]["moe"].items()
+                     if k in ("wi", "wg", "wo")})
+        for j, blk in enumerate(cfg.block_pattern) if blk == "attn_moe")
+    inactive = moe_total * (1.0 - cfg.n_experts_active / cfg.n_experts)
+    return int(total - inactive)
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+# mixer blocks: (apply, prefill, decode)
+_MIXERS = {
+    "mamba2": (ssm.mamba2_apply, ssm.mamba2_prefill, ssm.mamba2_decode),
+    "mlstm": (xlstm.mlstm_apply, xlstm.mlstm_prefill, xlstm.mlstm_decode),
+    "slstm": (xlstm.slstm_apply, xlstm.slstm_prefill, xlstm.slstm_decode),
+}
+
+
+def _fourier_mlp(bp, x, cfg: ModelConfig):
+    from repro_torch.core.spectral import fourier_mix
+    x = x + fourier_mix(layers.norm_apply(bp["norm1"], x, cfg),
+                        backend=cfg.fft_backend)
+    return x + layers.mlp_apply(bp["mlp"],
+                                layers.norm_apply(bp["norm2"], x, cfg), cfg)
+
+
+def _block_apply(bp, shared, blk: str, x, cfg: ModelConfig, positions):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if blk in ("attn_mlp", "attn_moe", "shared_attn"):
+        sp = shared if blk == "shared_attn" else bp
+        x = x + layers.attention_apply(sp["attn"],
+                                       layers.norm_apply(sp["norm1"], x, cfg),
+                                       cfg, positions)
+        h = layers.norm_apply(sp["norm2"], x, cfg)
+        if blk == "attn_moe":
+            y, aux = moe.moe_apply(sp["moe"], h, cfg)
+            x = x + y
+        else:
+            x = x + layers.mlp_apply(sp["mlp"], h, cfg)
+    elif blk == "fourier_mlp":
+        x = _fourier_mlp(bp, x, cfg)
+    elif blk in _MIXERS:
+        x = x + _MIXERS[blk][0](bp["mixer"],
+                                layers.norm_apply(bp["norm"], x, cfg), cfg)
+    else:
+        raise ValueError(blk)
+    return x, aux
+
+
+def _inputs(params, cfg: ModelConfig, tokens, embeds, positions):
+    if tokens is not None:
+        x = layers.embed(params["embed"], tokens, cfg)
+        b, s = tokens.shape
+    else:
+        if embeds is None:
+            raise ValueError("need tokens or embeds")
+        x = embeds
+        b, s = embeds.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+    return actsharding.constrain(x), positions
+
+
+def hidden_states(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                  positions=None):
+    """Trunk: embeddings -> super-blocks -> final norm.
+    Returns (x (B,S,d), aux_loss)."""
+    x, positions = _inputs(params, cfg, tokens, embeds, positions)
+    shared = params.get("shared")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.repeat):
+        sbp = _index(params["blocks"], r)
+        x = actsharding.constrain(x)
+        for j, blk in enumerate(cfg.block_pattern):
+            x, a = _block_apply(sbp[f"b{j}"], shared, blk, x, cfg, positions)
+            aux = aux + a
+    x = layers.norm_apply(params["final_norm"], x, cfg)
+    return x, aux
+
+
+def _logits(params, cfg: ModelConfig, x):
+    logits = layers.unembed(params["embed"], x, cfg)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+            positions=None):
+    """Returns (logits, aux_loss).  tokens (B,S) or embeds (B,S,d); both
+    kinds are accepted whatever ``cfg.input_mode`` says."""
+    x, aux = hidden_states(params, cfg, tokens=tokens, embeds=embeds,
+                           positions=positions)
+    return _logits(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, *, device="cuda"):
+    """Stacked (repeat, ...) caches matching the param stack."""
+    dev = repro_torch.device(device)
+    dtype = torch_dtype(dtype)
+    one = {f"b{j}": cache_lib.block_cache_init(blk, cfg, batch, max_len,
+                                               dtype, dev)
+           for j, blk in enumerate(cfg.block_pattern)}
+    return _stack([one] * cfg.repeat)
+
+
+def _block_cached(bp, shared, blk: str, x, cfg: ModelConfig, cache,
+                  positions, decode: bool):
+    """One block of a prefill (positions (B, S)) or a decode step
+    (positions (B,)), its cache written in place."""
+    if blk in ("attn_mlp", "attn_moe", "shared_attn"):
+        sp = shared if blk == "shared_attn" else bp
+        h = layers.norm_apply(sp["norm1"], x, cfg)
+        if decode:
+            y, _ = layers.attention_decode(sp["attn"], h, cfg, cache,
+                                           positions)
+        else:
+            y, _ = layers.attention_prefill(sp["attn"], h, cfg, positions,
+                                            cache)
+        x = x + y
+        h = layers.norm_apply(sp["norm2"], x, cfg)
+        if blk == "attn_moe":
+            # decode: dropless; prefill: capacity with headroom (dropless
+            # cap=Tg would materialise a (G,E,Tg,d) dispatch tensor)
+            y, _ = moe.moe_apply(sp["moe"], h, cfg, dropless=True) if decode \
+                else moe.moe_apply(sp["moe"], h, cfg,
+                                   cap_scale=cfg.moe_prefill_cap_scale)
+            x = x + y
+        else:
+            x = x + layers.mlp_apply(sp["mlp"], h, cfg)
+    elif blk == "fourier_mlp":
+        if decode:
+            # parameter-free mixing degenerates at S=1: identity on decode
+            x = x + layers.mlp_apply(bp["mlp"],
+                                     layers.norm_apply(bp["norm2"], x, cfg),
+                                     cfg)
+        else:
+            x = _fourier_mlp(bp, x, cfg)
+    elif blk in _MIXERS:
+        h = layers.norm_apply(bp["norm"], x, cfg)
+        if decode:
+            y, _ = _MIXERS[blk][2](bp["mixer"], h, cfg, cache,
+                                   live=positions >= 0)
+        else:
+            y, _ = _MIXERS[blk][1](bp["mixer"], h, cfg, cache)
+        x = x + y
+    else:
+        raise ValueError(blk)
+    return x
+
+
+def _run_cached(params, cfg: ModelConfig, x, cache, positions, decode):
+    shared = params.get("shared")
+    for r in range(cfg.repeat):
+        sbp, sbc = _index(params["blocks"], r), _index(cache, r)
+        x = actsharding.constrain(x)
+        for j, blk in enumerate(cfg.block_pattern):
+            x = _block_cached(sbp[f"b{j}"], shared, blk, x, cfg,
+                              sbc[f"b{j}"], positions, decode)
+    return layers.norm_apply(params["final_norm"], x, cfg)
+
+
+def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+            cache=None, positions=None):
+    """Serving prefill: forward over the prompt, ``cache`` populated in
+    place.  Returns (logits (B, S, V), cache)."""
+    if cache is None:
+        raise ValueError("prefill needs a cache (init_cache)")
+    x, positions = _inputs(params, cfg, tokens, embeds, positions)
+    x = _run_cached(params, cfg, x, cache, positions, decode=False)
+    return _logits(params, cfg, x), cache
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, position):
+    """One decode step.  tokens: (B,) int; position: (B,) int32 absolute
+    position.  Returns (logits (B, V), cache), the cache updated in place.
+    Embedding-input archs (vlm/audio) still decode over tokens."""
+    x = layers.embed(params["embed"], tokens[:, None], cfg)
+    x = _run_cached(params, cfg, actsharding.constrain(x), cache, position,
+                    decode=True)
+    return _logits(params, cfg, x)[:, 0], cache

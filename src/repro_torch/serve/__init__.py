@@ -1,3 +1,8 @@
-"""repro_torch.serve — serving (counterpart of :mod:`repro.serve`): the
-spectral server (:mod:`~repro_torch.serve.spectral`).  The LM decode
-engine is ROADMAP 'Modules to port' item 14."""
+"""repro_torch.serve — serving layer (counterpart of :mod:`repro.serve`).
+
+- :mod:`repro_torch.serve.engine`: the LM decode engine with a batched
+  slot scheduler.
+- :mod:`repro_torch.serve.spectral`: continuous-batching spectral serving.
+"""
+from .engine import ServeConfig, Engine
+from . import spectral

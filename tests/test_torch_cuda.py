@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.core import (SplitComplex, fft2, fft3, from_numpy, irfft2,
                               rfft, irfft, rfft2, fft_conv)
+import repro_torch.configs as C
 from repro_torch.kernels import ops
 from repro_torch.kernels import (fft2d_gemm, fft_fourstep, fft_stockham,
                                  rfft2d_fused, fftconv_fused, fft3d_fused,
@@ -646,3 +647,44 @@ def test_finite_check_on_the_card(card, dtype):
     big = torch.full((4096,), torch.finfo(dtype).max, device=card,
                      dtype=dtype)
     assert guards.finite_check(SplitComplex(big, -big))
+
+
+def _model_run(cfg, params, toks, dev):
+    """Bulk prefill of 16 tokens, then 4 decode steps; the last-position
+    logits of each, stacked."""
+    from repro_torch.models import model as M
+    with torch.inference_mode():
+        t = toks.to(dev)
+        lg, cache = M.prefill(params, cfg, tokens=t,
+                              cache=M.init_cache(cfg, 2, 24, device=dev))
+        out = [lg[:, -1]]
+        for i in range(4):
+            lg, cache = M.decode_step(
+                params, cfg, t[:, i], cache,
+                torch.full((2,), 16 + i, dtype=torch.int32, device=dev))
+            out.append(lg)
+        return torch.stack(out).float().cpu()
+
+
+@pytest.mark.parametrize("arch", sorted(C.REGISTRY))
+def test_model_serving_path_on_the_card(card, arch):
+    """Every registry config reduced: prefill and decode on the card (each
+    attention layer of a step on the decode kernel, ssm_demo's conv on the
+    fused conv kernel) agree with the same on the CPU within 1e-4 of
+    max(1, max|logits|)."""
+    from repro_torch.models import model as M
+    cfg = C.get_config(arch).reduced()
+    host = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = M.tree_map(lambda t: t.to(card), host)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 16)))
+    ops.reset_launches()
+    got = _model_run(cfg, params, toks, card)
+    attn = sum(b in ("attn_mlp", "attn_moe", "shared_attn")
+               for b in cfg.block_pattern) * cfg.repeat
+    assert ops.LAUNCHES["decode_attention"] == 4 * attn
+    if cfg.use_fft_conv:
+        assert ops.LAUNCHES["fftconv_fused"] >= cfg.repeat
+    want = _model_run(cfg, host, toks, "cpu")
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want.abs().max().item()), err

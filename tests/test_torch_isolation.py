@@ -22,7 +22,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.ops" in mods and "repro_torch.core.plan" in mods
     assert {"repro_torch.dist.pencil", "repro_torch.dist.pipeline",
             "repro_torch.dist.local", "repro_torch.tt.trace",
-            "repro_torch.tt.report"} <= set(mods)
+            "repro_torch.tt.report", "repro_torch.models.model",
+            "repro_torch.models.layers", "repro_torch.serve.engine",
+            "repro_torch.configs"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

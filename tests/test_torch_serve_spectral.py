@@ -395,7 +395,7 @@ def test_synthetic_lm_matches_reference(mode):
     assert [s for s, _ in steps] == [2, 3, 4]
     assert torch.equal(steps[0][1], mine.batch_at(2)["labels"])
     assert SyntheticLM.restore_step(mine.checkpoint_state(7)) == 7
-    assert not hasattr(pipeline, "make_batch_specs")     # ROADMAP item 14
+    assert not hasattr(pipeline, "make_batch_specs")     # ROADMAP item 14b
 
 
 # -- server: correctness through the full pipeline ---------------------------
@@ -965,8 +965,17 @@ def test_launch_serve_spectral_and_lm():
                            "--buckets", "16x16,32", "--requests", "6"])
     text = out.getvalue()
     assert "3 buckets pre-warmed" in text and "6 completed" in text
-    with pytest.raises(NotImplementedError, match="item 14"):
-        launch_serve.main(["--workload", "lm"])
+    out = io.StringIO()
+    with redirect_stdout(out):
+        served = launch_serve.main(["--workload", "lm", "--reduced",
+                                    "--device", "cpu", "--requests", "3",
+                                    "--max-new", "2"])
+    assert sorted(served) == [0, 1, 2]
+    assert all(len(v) == 3 for v in served.values())
+    assert "3 requests, 9 tokens" in out.getvalue()
+    if not torch.cuda.is_available():       # the card, or a refusal
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            launch_serve.main(["--workload", "lm", "--reduced"])
     with pytest.raises(SystemExit):
         launch_serve.main(["--workload", "spectral", "--device", "cpu",
                            "--buckets", "2x2x2"])
