@@ -70,6 +70,14 @@ float64 numpy:
   bulk prefill; ``ssm_demo``'s prefill (its conv on ``fftconv_fused``)
   and ``fnet_demo``'s forward (``fourier_mix`` on ``fft_fourstep``) at 8
   x 4096 tokens against their plain twins;
+- training (``train_lm``, ``train_ssm``): h2o-danube-1.8b at full width
+  in fp32 through ``make_train_step`` (AdamW, remat) for 3 steps of one
+  8192-token sequence and one more under the profiler, and the flash
+  backward against dense autograd at one layer's shape; ``ssm_demo``
+  through ``python -m repro_torch.launch.train`` (8 x 4096, its conv on
+  ``fftconv_fused``: launches = steps x 4 layers x 2) for 6 steps, then
+  resumed from its step-3 checkpoint to the same final params, and one
+  step's grads with the conv on the kernel against the direct conv's;
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Every plan call runs through the guarded executor, and no
@@ -80,6 +88,7 @@ when CUDA is missing, a kernel fails to build or launch, or any check fails.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -1534,6 +1543,293 @@ def lm_path(failures, smi):
         torch.cuda.empty_cache()
     emit({"phase": "lm_fft_mixers", **fft_phase, "nvidia_smi": smi})
     return lm_launches
+
+
+TRAIN_LM_STEPS = 3
+TRAIN_LM_SEQ = (1, 8192)        # past danube's 4096 window
+TRAIN_LM_PARAMS = 1_831_201_280
+FLASH_CHECK = (1, 8192, 32, 8, 80, 4096, 512)   # b, s, h, kv, d, window, chunk
+TOL_FLASH = 1e-4                # flash grads vs dense autograd, of max|dense|
+TRAIN_SSM = ["--arch", "ssm_demo", "--seq-len", "4096", "--global-batch",
+             "8", "--steps", "6", "--ckpt-every", "3", "--log-every", "1",
+             "--deterministic"]
+TOL_RESUME = 1e-6               # resumed vs straight final params, absolute
+TOL_SSM_GRAD = 1e-4             # conv kernel vs direct conv grads, of max|grad|
+
+
+def _flash_vs_dense(torch, failures, gen):
+    """dq, dk, dv of the flash backward against autograd through the dense
+    masked softmax at one danube layer's shape, one KV head group at a
+    time (the dense (4, S, S) scores fit)."""
+    from repro_torch.models.flash import flash_attention
+    b, s, h, kv, d, window, chunk = FLASH_CHECK
+    g = h // kv
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                     for shape in ((b, s, h, d), (b, s, kv, d),
+                                   (b, s, kv, d), (b, s, h, d)))
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s)
+
+    def flash_grads():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention(qq, kk, vv, pos, pos, chunk, window, True)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+    flash_grads()                                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = flash_grads()
+    torch.cuda.synchronize()
+    flash_ms = (time.perf_counter() - t0) * 1e3
+    qp = torch.arange(s, device="cuda")
+    mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - window)
+    want = [torch.empty_like(t) for t in (q, k, v)]
+    for j in range(kv):
+        hs = slice(j * g, (j + 1) * g)
+        qq = q[:, :, hs].detach().requires_grad_(True)
+        kk = k[:, :, j].detach().requires_grad_(True)
+        vv = v[:, :, j].detach().requires_grad_(True)
+        sc = torch.einsum("bqgd,bcd->bgqc", qq / d ** 0.5, kk)
+        p = torch.softmax(torch.where(mask, sc, -1e30), dim=-1)
+        out = torch.einsum("bgqc,bcd->bqgd", p, vv)
+        dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), dout[:, :, hs])
+        want[0][:, :, hs], want[1][:, :, j], want[2][:, :, j] = dq, dk, dv
+        del sc, p, out
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = ((a - w).abs().max() / w.abs().max()).item()
+        if not errs[name] <= TOL_FLASH:
+            failures.append(f"train_lm flash {name} vs dense: {errs[name]}")
+    return {"shape": FLASH_CHECK, "err_over_max": errs, "tol": TOL_FLASH,
+            "fwd_bwd_ms": flash_ms}
+
+
+def train_lm(failures, smi):
+    """h2o-danube-1.8b at full width in fp32: ``make_train_step`` with
+    AdamW and remat on, TRAIN_LM_STEPS steps of one 8192-token sequence
+    from ``SyntheticLM``; one more step under the profiler; and the flash
+    backward against dense autograd at one layer's shape."""
+    import torch
+    import repro_torch.configs as RCFG
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    flash = _flash_vs_dense(torch, failures, gen)
+    torch.cuda.empty_cache()
+
+    cfg = RCFG.get_config(LM_ARCH)
+    gen.manual_seed(0)
+    params = M.init_params(gen, cfg, device="cuda")
+    n_params = M.param_count(params)
+    if n_params != TRAIN_LM_PARAMS or not cfg.remat:
+        failures.append(f"train_lm: {n_params} params, remat {cfg.remat}")
+    ocfg = opt_lib.AdamWConfig(lr=3e-3, warmup_steps=5,
+                               total_steps=TRAIN_LM_STEPS + 1)
+    state = init_opt_state(cfg, ocfg, params)
+    b, s = TRAIN_LM_SEQ
+    data = SyntheticLM(DataConfig(seq_len=s, global_batch=b), cfg,
+                       device="cuda")
+    step_fn = make_train_step(cfg, ocfg)
+    probe = [params["blocks"]["b0"]["attn"]["wq"][0, :8, :8].clone(),
+             params["final_norm"]["scale"][:8].clone()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    steps = []
+    for i in range(TRAIN_LM_STEPS):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"step": i, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+               "ms": ms, "tokens_per_s": b * s / ms * 1e3}
+        steps.append(rec)
+        print(f"train_lm step {i}: {rec}", flush=True)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                 for r in steps)
+    moved = [not torch.equal(a, c) for a, c in zip(probe, (
+        params["blocks"]["b0"]["attn"]["wq"][0, :8, :8],
+        params["final_norm"]["scale"][:8]))]
+    if not finite or not all(moved):
+        failures.append(f"train_lm: finite {finite}, params moved {moved}")
+
+    # one more step under the profiler: device time by kernel over the
+    # step's wall time
+    batch = data.batch_at(TRAIN_LM_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kernel = {}
+    for e in dev_events:
+        by_kernel[e.name[:48]] = by_kernel.get(e.name[:48], 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_kernel.values())
+    if not device_ms:
+        failures.append("train_lm: the profiler saw no device time")
+    del params, state, m, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "train_lm", "arch": LM_ARCH, "dtype": cfg.dtype,
+          "params": n_params, "remat": cfg.remat, "batch": b, "seq": s,
+          "steps": steps,
+          "step_ms_median": sorted(r["ms"] for r in steps)[len(steps) // 2],
+          "peak_memory_gib": peak / 2 ** 30, "launches": launches,
+          "profiled_step": {
+              "wall_ms": prof_ms, "device_ms": device_ms,
+              "device_busy_share": device_ms / prof_ms,
+              "kernels": len(dev_events),
+              "device_ms_top": dict(sorted(by_kernel.items(),
+                                           key=lambda kv: -kv[1])[:8])},
+          "flash_vs_dense": flash, "nvidia_smi": smi})
+    return launches
+
+
+def _launch_train(ckpt_dir):
+    """``python -m repro_torch.launch.train`` with TRAIN_SSM; its printed
+    losses, tokens/s, ms a step, kernel launches and peak memory."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *TRAIN_SSM, "--ckpt-dir", str(ckpt_dir)],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    out = run.stdout
+    if run.returncode:
+        raise RuntimeError(f"launch.train exited {run.returncode}:\n"
+                           f"{out[-3000:]}\n{run.stderr[-3000:]}")
+    rate = re.search(r"tokens/sec (\d+) .*steady steps (\d+), "
+                     r"([\d.]+) ms/step", out)
+    peak = re.search(r"peak memory ([\d.]+) GiB", out)
+    launches = json.loads(re.search(r"kernel launches (\{.*\})",
+                                    out).group(1))
+    return {"steps": [(int(a), float(b_), float(c)) for a, b_, c in
+                      re.findall(r"step\s+(\d+) loss ([\d.]+) gnorm "
+                                 r"([\d.]+)", out)],
+            "resumed": "resumed from step 3" in out,
+            "tokens_per_s": int(rate.group(1)) if rate else None,
+            "steady_steps": int(rate.group(2)) if rate else 0,
+            "ms_per_step": float(rate.group(3)) if rate else None,
+            "peak_memory_gib": float(peak.group(1)) if peak else None,
+            "launches": launches, "wall_s": wall}
+
+
+def train_ssm(failures, smi):
+    """ssm_demo's full config through ``python -m repro_torch.launch.train``
+    (8 x 4096 tokens, its Mamba2 conv on ``fftconv_fused``: 8 x 576 rows
+    at m = 8192): 6 steps with checkpoints at 3 and 6, then the same
+    command from the step-3 checkpoint alone, whose final params must equal
+    the straight run's; and one step's grads with the conv on the kernel
+    against the direct conv's."""
+    import dataclasses
+    import shutil
+    import torch
+    import repro_torch.configs as RCFG
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_step import init_opt_state
+    cfg = RCFG.get_config("ssm_demo")
+    per_step = cfg.repeat * cfg.block_pattern.count("mamba2") * 2
+    with tempfile.TemporaryDirectory(prefix="train_ssm_") as tmp:
+        straight, resumed = Path(tmp) / "straight", Path(tmp) / "resumed"
+        runs = {"straight": _launch_train(straight)}
+        shutil.copytree(straight / "step_00000003",
+                        resumed / "step_00000003")
+        runs["resumed"] = _launch_train(resumed)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = M.init_params(gen, cfg, device="cuda")
+        target = (params, init_opt_state(cfg, opt_lib.AdamWConfig(), params))
+        a, _ = CheckpointManager(str(straight)).restore(6, target)
+        c, _ = CheckpointManager(str(resumed)).restore(6, target)
+        resume_err = max((x.double() - y.double()).abs().max().item()
+                         for x, y in zip(M.tree_leaves(a), M.tree_leaves(c)))
+        del a, c, target
+    for name, n_steps in (("straight", 6), ("resumed", 2)):
+        got = runs[name]["launches"].get("fftconv_fused", 0)
+        if got != n_steps * per_step:
+            failures.append(f"train_ssm {name}: {got} fftconv_fused "
+                            f"launches for {n_steps} steps x {per_step}")
+    if not runs["resumed"]["resumed"] or not resume_err <= TOL_RESUME:
+        failures.append(f"train_ssm resume: {resume_err}")
+
+    # one step's grads: the conv on the kernel against the direct conv
+    batch = SyntheticLM(DataConfig(seq_len=4096, global_batch=8), cfg,
+                        device="cuda").batch_at(0)
+    leaves = [t.requires_grad_(True) for t in M.tree_leaves(params)]
+
+    def grads(c):
+        loss, _ = M.loss_fn(params, c, batch)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    ops.reset_launches()
+    loss_k, g_k = grads(cfg)
+    torch.cuda.synchronize()
+    grad_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    loss_d, g_d = grads(dataclasses.replace(cfg, use_fft_conv=False))
+    # where a step's loss and grads spend their time: one more call of
+    # the kernel path under the profiler (its launches are not the path's)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grads(cfg)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name[:48]] = by_kernel.get(e.name[:48], 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_kernel.values())
+    paths = [p for p, _ in M.tree_flatten_with_paths(params)]
+    leaf_err = {"/".join(p): ((x - y).abs().max() / y.abs().max()).item()
+                for p, x, y in zip(paths, g_k, g_d)}
+    worst = max(leaf_err, key=leaf_err.get)
+    if grad_launches.get("fftconv_fused") != per_step or \
+            not leaf_err[worst] <= TOL_SSM_GRAD:
+        failures.append(f"train_ssm grads: {grad_launches}, {worst} "
+                        f"{leaf_err[worst]}")
+    del params, leaves, g_k, g_d
+    torch.cuda.empty_cache()
+    emit({"phase": "train_ssm", "command": "python -m "
+          "repro_torch.launch.train " + " ".join(TRAIN_SSM), "runs": runs,
+          "resume_max_abs_err": resume_err, "tol_resume": TOL_RESUME,
+          "fftconv_fused_per_step": per_step,
+          "grads_vs_direct_conv": {
+              "loss_kernel": loss_k, "loss_direct": loss_d,
+              "worst_leaf": worst, "err_over_max": leaf_err[worst],
+              "tol": TOL_SSM_GRAD, "launches": grad_launches},
+          "profiled_loss_and_grads": {
+              "wall_ms": prof_ms, "device_ms": device_ms,
+              "device_busy_share": device_ms / prof_ms,
+              "device_ms_top": dict(sorted(by_kernel.items(),
+                                           key=lambda kv: -kv[1])[:8])},
+          "nvidia_smi": smi})
+    total = {}
+    for counts in [r["launches"] for r in runs.values()] + [grad_launches]:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def main() -> int:
@@ -3331,8 +3627,12 @@ def main() -> int:
     nccl_path(failures, smi, torch.cuda.device_count())
     tt_path(failures, smi, dist_cases)
     lm = lm_path(failures, smi)
+    train = train_lm(failures, smi)
+    for k, v in train_ssm(failures, smi).items():
+        train[k] = train.get(k, 0) + v
     for entry in kernels:
         entry["lm_path_launches"] = lm.get(entry["name"], 0)
+        entry["train_path_launches"] = train.get(entry["name"], 0)
 
     if failures:
         for f in failures:

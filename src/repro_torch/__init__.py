@@ -14,12 +14,14 @@ Modules ported so far:
 - ``resilience``  fault injection, guards, the circuit breaker and the
                   guarded executor every ``FFTPlan`` call runs through;
 - ``data``        the bounded ``Prefetcher`` and the synthetic LM batches;
-- ``models``      the model stack's serving path (layers, caches, the
-                  flash forward, Mamba2, MoE, xLSTM, the unified model);
-                  training is ROADMAP item 14b;
+- ``models``      the model stack (layers, caches, flash attention with
+                  its backward, Mamba2, MoE, xLSTM, the unified model and
+                  its chunked loss);
+- ``train``       AdamW, the train step, checkpoints;
 - ``configs``     the model registry (the reference's configs);
 - ``serve``       the LM decode engine and the spectral server;
-- ``launch``      ``launch.serve --workload lm|spectral``;
+- ``launch``      ``launch.serve --workload lm|spectral``,
+                  ``launch.train``, meshes and sharding rules;
 - ``dist``        the pencil FFTs, compressed collectives, straggler
                   policy and pipeline over ``torch.distributed``;
 - ``tt``          the reference's Wormhole/Tensix cost model, and the

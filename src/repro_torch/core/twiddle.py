@@ -172,8 +172,12 @@ def _cast(builder, args: tuple, dtype: torch.dtype, dev: torch.device):
         if key in _TABLES:
             _TABLES.move_to_end(key)
             return _TABLES[key]
-    planes = tuple(torch.from_numpy(np.ascontiguousarray(p)).to(dev, dtype)
-                   for p in builder(*args))
+    # normal tensors even when the first caller runs in inference mode: an
+    # inference tensor cannot be saved for a later caller's backward
+    # (ROADMAP §3 F10)
+    with torch.inference_mode(False):
+        planes = tuple(torch.from_numpy(np.ascontiguousarray(p))
+                       .to(dev, dtype) for p in builder(*args))
     with _TABLES_LOCK:
         _TABLES[key] = planes
         held = sum(_nbytes(v) for v in _TABLES.values())

@@ -11,9 +11,8 @@ Produces token (or stub-embedding) batches that are:
 
 :class:`Prefetcher` is the bounded background prefetch the spectral
 server's staging stage (:mod:`repro_torch.serve.spectral.executor`) and the
-batch iterator sit on.  The reference's ``make_batch_specs`` (shape stand-ins
-for the sharded dry run) waits for the training launcher, ROADMAP 'Modules
-to port' item 14b.
+batch iterator sit on.  :func:`make_batch_specs` gives one batch's shapes
+and dtypes as meta tensors (the sharding rules read them).
 """
 from __future__ import annotations
 
@@ -180,3 +179,19 @@ class SyntheticLM:
     @staticmethod
     def restore_step(state: dict) -> int:
         return int(state["step"])
+
+
+def make_batch_specs(mcfg: ModelConfig, seq_len: int, global_batch: int,
+                     dtype=None):
+    """Meta-device stand-ins for one training batch (no allocation)."""
+    from repro_torch.models.model import torch_dtype
+    dtype = torch_dtype(dtype or mcfg.dtype)
+    labels = torch.empty((global_batch, seq_len), dtype=torch.int32,
+                         device="meta")
+    if mcfg.input_mode == "embeddings":
+        return {"embeds": torch.empty((global_batch, seq_len, mcfg.d_model),
+                                      dtype=dtype, device="meta"),
+                "labels": labels}
+    return {"tokens": torch.empty((global_batch, seq_len), dtype=torch.int32,
+                                  device="meta"),
+            "labels": labels}

@@ -18,6 +18,14 @@ log2(n) stage launches, ``decode_attention`` (one-token GQA flash-decode)
 once per call of its split and merge launches.  Every kernel takes
 float32 or bfloat16 (the FFT kernels the same dtype in and out); float16
 is refused (ROADMAP 2e).
+
+No kernel has a backward.  Every wrapper but :func:`fftconv_fused` (an
+``autograd.Function`` whose backward is its plain twin's VJP) refuses,
+on both devices, an input that autograd records through, with
+:class:`GradientNotSupported`: the kernels write through raw pointers
+into buffers autograd does not track, so a gradient would be dropped
+without a word.  The reference's Pallas calls refuse the same way
+(``jax.grad`` fails to linearize them).
 """
 from __future__ import annotations
 
@@ -46,6 +54,24 @@ LAUNCHES = {"fft_stockham": 0, "fft_stockham_r2": 0, "fft_fourstep": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class GradientNotSupported(TypeError):
+    """A kernel wrapper was handed an input that requires grad while grad
+    mode is on.  The guarded executor never recovers it (a fallback to the
+    torch twin would let the gradient through on the CPU only)."""
+
+
+def _refuse_grad(name: str, *operands) -> None:
+    if not torch.is_grad_enabled():
+        return
+    for x in operands:
+        planes = (x.re, x.im) if isinstance(x, SplitComplex) else (x,)
+        if any(t.requires_grad for t in planes):
+            raise GradientNotSupported(
+                f"{name}: the kernel has no backward and its input requires "
+                "grad; differentiate through backend='torch', or call it "
+                "under torch.no_grad()")
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -91,6 +117,7 @@ def fft_stockham(x: SplitComplex, *, inverse: bool = False, radix: int = 4,
     (``radix=4``) or pure radix-2 (``radix=2``, the oracle kernel)."""
     if radix not in (2, 4):
         raise ValueError(f"radix must be 2 or 4, got {radix}")
+    _refuse_grad("fft_stockham_r2" if radix == 2 else "fft_stockham", x)
     flat, lead = _flatten(x)
     if flat.shape[0] == 0:
         return x                       # empty batch: nothing to transform
@@ -111,6 +138,7 @@ def fft_stockham(x: SplitComplex, *, inverse: bool = False, radix: int = 4,
 def fft_fourstep(x: SplitComplex, *, inverse: bool = False,
                  block_batch: int = 4, n1: int = None) -> SplitComplex:
     """Bailey four-step FFT along the last axis."""
+    _refuse_grad("fft_fourstep", x)
     flat, lead = _flatten(x)
     if flat.shape[0] == 0:
         return x
@@ -127,6 +155,7 @@ def fft_staged(x: SplitComplex, *, inverse: bool = False,
     """Paper-faithful per-stage radix-2 FFT along the last axis (the
     Table 1 "Initial" baseline): a bit-reverse, then one kernel launch a
     butterfly stage."""
+    _refuse_grad("fft_staged", x)
     flat, lead = _flatten(x)
     if flat.shape[0] == 0:
         return x                       # empty batch: nothing to transform
@@ -145,6 +174,7 @@ def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, window=None,
     empty) and ``q_pos`` (B,), with an optional sliding ``window``;
     returns (B, H, D) in ``q.dtype``.  As in the reference, ``min(chunk,
     S)`` must divide S."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
     s = k_cache.shape[1]
     c = min(chunk, s)
     if c <= 0 or s % c:
@@ -164,6 +194,7 @@ def fft2d_fused(x: SplitComplex, *, inverse: bool = False,
                 block_batch: int = 1) -> SplitComplex:
     """Fused Stockham 2-D FFT over the last two axes (any leading batch
     dims): the ``algo="fused_stockham"`` oracle."""
+    _refuse_grad("fft2d_fused", x)
     flat, lead = _flatten2d(x)
     h, w = flat.shape[-2:]
     if flat.shape[0] == 0:
@@ -182,6 +213,7 @@ def fft2d_gemm(x: SplitComplex, *, inverse: bool = False,
     """GEMM-formulated 2-D FFT over the last two axes (any leading batch
     dims), float32 or bfloat16; ``variant="compensated"`` is the
     precision-compensated bf16 path."""
+    _refuse_grad("fft2d_gemm", x)
     flat, lead = _flatten2d(x)
     h, w = flat.shape[-2:]
     if flat.shape[0] == 0:
@@ -200,6 +232,7 @@ def fft3d_fused(x: SplitComplex, *, inverse: bool = False,
                 block_batch: int = 1, variant: str = "plain") -> SplitComplex:
     """Fused 3-D FFT over the last three axes (any leading batch dims),
     float32 or bfloat16, the W, H and D GEMM passes with no relayout."""
+    _refuse_grad("fft3d_fused", x)
     flat, lead = _flatten3d(x)
     d, h, w = flat.shape[-3:]
     if flat.shape[0] == 0:
@@ -219,6 +252,7 @@ def fft3d_fused(x: SplitComplex, *, inverse: bool = False,
 def rfft2d_fused(x: torch.Tensor) -> SplitComplex:
     """Real-input 2-D FFT over the last two axes (any leading batch dims):
     real (..., h, w) -> (..., h, w//2+1) half spectra."""
+    _refuse_grad("rfft2d_fused", x)
     h, w = x.shape[-2:]
     lead = tuple(x.shape[:-2])
     batch = math.prod(lead)
@@ -238,6 +272,7 @@ def rfft2d_fused(x: torch.Tensor) -> SplitComplex:
 def irfft2d_fused(xf: SplitComplex) -> torch.Tensor:
     """Inverse of :func:`rfft2d_fused`: (..., h, w/2+1) half spectra ->
     real (..., h, w)."""
+    _refuse_grad("irfft2d_fused", xf)
     h, bins = xf.shape[-2:]
     w = 2 * (bins - 1)
     lead = tuple(xf.shape[:-2])

@@ -12,15 +12,19 @@ written in place: a decode or prefill returns the cache it was given.
 Entry points:
   init_params / params_from_numpy       param trees (dict-of-dicts)
   forward(params, cfg, tokens=...)      logits, aux
+  loss_fn(params, cfg, batch)           scalar loss, metrics
   init_cache / prefill / decode_step    serving path (one token, cached)
   param_count / active_param_count      N for MODEL_FLOPS = 6*N*D
 
-``loss_fn`` comes with training, ROADMAP 'Modules to port' item 14b.
+With ``cfg.remat`` each super-block runs under
+``torch.utils.checkpoint`` while grad mode is on: only its input is kept
+for the backward pass, and the block is recomputed there.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 import repro_torch
 from . import actsharding
@@ -40,13 +44,17 @@ def torch_dtype(dtype) -> torch.dtype:
 # Trees
 # ---------------------------------------------------------------------------
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a tree of dicts and tuples."""
+def tree_map(fn, tree, *rest):
+    """``fn`` on every leaf of a tree of dicts and tuples; with ``rest``,
+    ``fn(leaf, *matching nodes of rest)`` (``jax.tree.map`` over several
+    trees, ``tree``'s structure leading)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -56,6 +64,31 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_flatten_with_paths(tree, prefix=()) -> list:
+    """``(path, leaf)`` pairs in ``tree_leaves`` order; a path is the
+    tuple of dict keys and sequence indices (as strings) down to the
+    leaf, as ``jax.tree_util.tree_flatten_with_path`` spells them."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_flatten_with_paths(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_flatten_with_paths(v, prefix + (str(i),))]
+    return [(prefix, tree)]
+
+
+def tree_map_with_path(fn, tree, prefix=()):
+    """``fn(path, leaf)`` on every leaf (paths as in
+    :func:`tree_flatten_with_paths`), keeping the tree's structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
 
 
 def _stack(trees):
@@ -237,15 +270,26 @@ def hidden_states(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     Returns (x (B,S,d), aux_loss)."""
     x, positions = _inputs(params, cfg, tokens, embeds, positions)
     shared = params.get("shared")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(cfg.repeat):
-        sbp = _index(params["blocks"], r)
+
+    def superblock(x, sbp):
         x = actsharding.constrain(x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, blk in enumerate(cfg.block_pattern):
             x, a = _block_apply(sbp[f"b{j}"], shared, blk, x, cfg, positions)
             aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    auxs = []
+    for r in range(cfg.repeat):
+        sbp = _index(params["blocks"], r)
+        if remat:
+            x, a = checkpoint(superblock, x, sbp, use_reentrant=False)
+        else:
+            x, a = superblock(x, sbp)
+        auxs.append(a)
     x = layers.norm_apply(params["final_norm"], x, cfg)
-    return x, aux
+    return x, torch.stack(auxs).sum()
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -263,6 +307,52 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     x, aux = hidden_states(params, cfg, tokens=tokens, embeds=embeds,
                            positions=positions)
     return _logits(params, cfg, x), aux
+
+
+def _pad_bias(cfg: ModelConfig, dtype, device):
+    return torch.where(torch.arange(cfg.padded_vocab, device=device)
+                       < cfg.vocab_size, 0.0, -1e30).to(dtype)
+
+
+# sequence-chunk size for the CE head: bounds the live (B, chunk, V) logits
+# slab; the full (B, S, V) tensor is never materialised
+LOSS_CHUNK = 512
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch: dict(tokens|embeds, labels, [mask]).  Next-token CE, computed
+    over sequence chunks, each recomputed in the backward pass.  Returns
+    (loss, {"ce", "aux"})."""
+    x, aux = hidden_states(params, cfg, tokens=batch.get("tokens"),
+                           embeds=batch.get("embeds"))
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    b, s, d = x.shape
+    c = min(LOSS_CHUNK, s)
+    n_chunks = s // c if s % c == 0 else 1
+    if s % c != 0:
+        c = s
+
+    def ce_chunk(xb, lb, mb):
+        logits = layers.unembed(params["embed"], xb, cfg)
+        logits = (logits + _pad_bias(cfg, logits.dtype, xb.device)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, lb[..., None].long())[..., 0] - lse
+        return torch.sum(ll * mb)
+
+    ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        args = (x[:, sl], labels[:, sl], mask[:, sl])
+        part = checkpoint(ce_chunk, *args, use_reentrant=False) \
+            if torch.is_grad_enabled() else ce_chunk(*args)
+        ce_sum = ce_sum - part
+    ce = ce_sum / torch.clamp(mask.sum(), min=1.0)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -90,10 +90,14 @@ def _ssd_chunked(x, dt, a, b_in, c_in, d_skip, cfg: ModelConfig,
     cc = c_in.reshape(bsz, nc, q, ns).float()
 
     seg = torch.cumsum(dac, dim=2)                         # within-chunk csum
-    # intra-chunk: L[t, u] = exp(seg_t - seg_u) for u <= t
+    # intra-chunk: L[t, u] = exp(seg_t - seg_u) for u <= t.  The mask
+    # goes in before the exp: above the diagonal seg_t - seg_u > 0 and
+    # overflows over a long chunk, and where(mask, exp(rel), 0)'s
+    # backward then multiplies that inf by 0 (ROADMAP §3 F9)
     rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]    # (B,NC,q,q,H)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(rel), 0.0)
+    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], rel,
+                                  -math.inf))
     cb = torch.einsum("bctn,bcun->bctu", cc, bc)           # (B,NC,q,q)
     dx = dtc[..., None] * xc                               # (B,NC,q,H,P)
     y_intra = torch.einsum("bctuh,bcuhp->bcthp", cb[..., None] * l_mat, dx)

@@ -68,7 +68,13 @@ def recoverable(exc: BaseException, on_card: bool) -> bool:
     """Whether a failure may fall back to the torch twin.  On the CPU any
     ``Exception`` may (the reference's rule); on the card only an injected
     fault or a guard violation: a build error, a CUDA runtime error or a
-    wrapper's refusal there is a broken kernel, and it raises."""
+    wrapper's refusal there is a broken kernel, and it raises.  A
+    wrapper's refusal of an input that requires grad
+    (``kernels.ops.GradientNotSupported``) never falls back, on either
+    device: the torch twin would differentiate where the kernel cannot."""
+    from repro_torch.kernels.ops import GradientNotSupported
+    if isinstance(exc, GradientNotSupported):
+        return False
     if on_card:
         return isinstance(exc, (FaultInjected, GuardViolation))
     return isinstance(exc, Exception)

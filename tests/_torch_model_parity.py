@@ -1,7 +1,9 @@
 """Shared set-up of the model parity tests (``test_torch_models.py``,
-``test_torch_models_decode.py``): each registry config ``reduced()`` with
-the reference's weights carried across, seeded inputs, and the logits
-tolerance, 1e-4 of max(1, max|ref|)."""
+``test_torch_models_decode.py``, ``test_torch_loss.py``,
+``test_torch_train.py``): each registry config ``reduced()`` with the
+reference's weights carried across, seeded inputs, the logits tolerance,
+1e-4 of max(1, max|ref|), and the training tolerances with their leaf
+and tree comparisons."""
 import dataclasses
 import functools
 
@@ -16,6 +18,12 @@ from repro_torch.models import model as TM
 
 B, S, STEPS = 2, 32, 8
 TOL = 1e-4
+TOL_LOSS = 1e-5         # training parity: the loss, relative
+TOL_GRAD = 1e-4         # each gradient leaf, of max(1, max|ref|)
+# tests/test_train.py's config
+SMALL = dict(name="t", family="dense", d_model=64, n_heads=4, n_kv_heads=2,
+             d_ff=128, vocab_size=128, block_pattern=("attn_mlp",), repeat=2,
+             head_dim=16, attn_chunk=16, vocab_pad_multiple=32)
 ARCHS = sorted(RC.REGISTRY)
 
 
@@ -61,3 +69,22 @@ def _setup(arch):
 
 def _torch_inputs(inputs):
     return {k: torch.from_numpy(v) for k, v in inputs.items()}
+
+
+def _leaf_close(got, ref, what, tol=TOL_GRAD):
+    ref = np.asarray(ref, np.float64)
+    got = got.detach().double().numpy()
+    assert got.shape == ref.shape, what
+    err = float(np.abs(got - ref).max()) if ref.size else 0.0
+    bound = tol * max(1.0, float(np.abs(ref).max()) if ref.size else 0.0)
+    assert err <= bound, f"{what}: {err} > {bound}"
+
+
+def _tree_close(got, ref, what, tol=TOL_GRAD):
+    ref_flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+    got_flat = TM.tree_flatten_with_paths(got)
+    assert len(got_flat) == len(ref_flat), what
+    for (path, g), (rpath, r) in zip(got_flat, ref_flat):
+        assert "/".join(path) == "/".join(
+            str(getattr(k, "key", getattr(k, "idx", k))) for k in rpath)
+        _leaf_close(g, r, f"{what} {'/'.join(path)}", tol)

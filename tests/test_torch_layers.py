@@ -134,14 +134,6 @@ def test_flash_forward(window, causal, chunk):
     _close(lse, r_lse)
 
 
-def test_flash_backward_waits_for_training():
-    q, k, v = (_t(a).requires_grad_(True) for a in _qkv(sq=8, skv=8))
-    pos = torch.arange(8, dtype=torch.int32).expand(2, 8)
-    out = t_flash.flash_attention(q, k, v, pos, pos, 4, None, True)
-    with pytest.raises(NotImplementedError, match="14b"):
-        out.sum().backward()
-
-
 @pytest.mark.parametrize("window,causal,chunk", [
     (None, True, 16), (None, True, 48), (8, True, 16), (None, False, 16),
     (8, False, 32)])

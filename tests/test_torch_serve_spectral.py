@@ -395,7 +395,15 @@ def test_synthetic_lm_matches_reference(mode):
     assert [s for s, _ in steps] == [2, 3, 4]
     assert torch.equal(steps[0][1], mine.batch_at(2)["labels"])
     assert SyntheticLM.restore_step(mine.checkpoint_state(7)) == 7
-    assert not hasattr(pipeline, "make_batch_specs")     # ROADMAP item 14b
+    specs = pipeline.make_batch_specs(
+        _model_cfg(ModelConfig, input_mode=mode), 16, 4)
+    want = ref_pipeline.make_batch_specs(
+        _model_cfg(RefModelConfig, input_mode=mode), 16, 4)
+    assert sorted(specs) == sorted(want)
+    for k in specs:
+        assert specs[k].device.type == "meta"
+        assert tuple(specs[k].shape) == tuple(want[k].shape)
+        assert str(specs[k].dtype) == f"torch.{want[k].dtype}"
 
 
 # -- server: correctness through the full pipeline ---------------------------
