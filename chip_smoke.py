@@ -78,6 +78,14 @@ float64 numpy:
   ``fftconv_fused``: launches = steps x 4 layers x 2) for 6 steps, then
   resumed from its step-3 checkpoint to the same final params, and one
   step's grads with the conv on the kernel against the direct conv's;
+- float16 planes (``f16_path``): every FFT kernel in float16 through its
+  entry point at its path's main shape, then against float64 numpy of
+  the float16-rounded input and its plain version, timed beside fp32;
+- the sharded step (``train_sharded``): 4 ranks on the card over the
+  host-staged gloo backend, a (2, 2) mesh, h2o-danube-1.8b at full width
+  on DTensors against the single-process step (loss, grad norm, every
+  grad leaf), and ``ssm_demo`` with ``fftconv_fused`` on each rank's
+  shard;
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Every plan call runs through the guarded executor, and no
@@ -369,7 +377,13 @@ DECODE_CHECKS = [((2, 128, 4, 2, 16), None, False, 128),
 DECODE_CHECKS += [(c[:5], c[5], c[6], 512) for c in DECODE_CELLS.values()]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since start."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1830,6 +1844,528 @@ def train_ssm(failures, smi):
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+# -- the sharded train step (ROADMAP item 14c) ----------------------------------
+#
+# Four gloo ranks on the one card (NCCL refuses two ranks on one card),
+# their collectives staged through host memory (repro_torch.dist.
+# hoststaged: gloo's functional collectives on card tensors crash), a
+# (2, 2) ("data", "model") mesh.  h2o-danube-1.8b at full width, fp32,
+# remat, AdamW, a global batch of 2 x 2048: step 0's loss, grad norm and
+# every gradient leaf against the single-process step on the same params
+# and batch (its own subprocess, first), then one more step, with the wall
+# time inside its collectives.  ssm_demo at 8 x 4096, one step: each
+# rank's fftconv_fused launches and the loss against the single-process
+# step.
+SHARDED_LM = ("h2o-danube-1.8b", 2, 2048)       # arch, global batch, seq
+SHARDED_SSM = ("ssm_demo", 8, 4096)
+SHARDED_RANKS = 4
+TOL_SHARDED_LOSS = 1e-5         # relative, the single-process step's loss
+TOL_SHARDED_GNORM = 1e-4        # relative, its grad norm
+TOL_SHARDED_GRAD = 1e-4         # each leaf, of the leaf's max|grad|
+
+
+def _train_setup(arch, batch, seq):
+    """The config (remat on), AdamW, params from seed 0 and the batches of
+    a sharded-step run on the card, each the same in every process."""
+    import dataclasses
+    import torch
+    import repro_torch.configs as RCFG
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = dataclasses.replace(RCFG.get_config(arch), remat=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = M.init_params(gen, cfg, device="cuda")
+    data = SyntheticLM(DataConfig(seq_len=seq, global_batch=batch), cfg,
+                       device="cuda")
+    return cfg, opt_lib.AdamWConfig(lr=3e-4, warmup_steps=1,
+                                    total_steps=10), params, data
+
+
+def _sharded_reference(out):
+    """The single-process run the ranks are held to: step 0's loss, grad
+    norm and grads of SHARDED_LM (grads saved to ``out``/grads.pt), and
+    SHARDED_SSM's step 0 loss and fftconv_fused launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    res = {}
+    cfg, ocfg, params, data = _train_setup(*SHARDED_LM)
+    t0 = time.perf_counter()
+    loss, _, grads = ts._grads_of(cfg, params, data.batch_at(0))
+    gnorm = float(opt_lib.global_norm(grads))
+    flat = M.tree_flatten_with_paths(grads)
+    res["lm"] = {"loss": float(loss), "grad_norm": gnorm,
+                 "grads_s": time.perf_counter() - t0,
+                 "grad_max": {"/".join(p): float(g.abs().max())
+                              for p, g in flat}}
+    torch.save({"/".join(p): g.cpu() for p, g in flat}, f"{out}/grads.pt")
+    del params, grads
+    cfg, ocfg, params, data = _train_setup(*SHARDED_SSM)
+    opt = ts.init_opt_state(cfg, ocfg, params)
+    ops.reset_launches()
+    _, _, m = ts.make_train_step(cfg, ocfg)(params, opt, data.batch_at(0))
+    res["ssm"] = {"loss": float(m["loss"]),
+                  "fftconv_fused": ops.LAUNCHES["fftconv_fused"]}
+    with open(f"{out}/reference.json", "w") as f:
+        json.dump(res, f)
+
+
+def _rank_lay_out(cfg, ocfg, params, mesh):
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train.train_step import init_opt_state
+    params = sh.lay_out(params, sh.param_shardings(cfg, mesh, params))
+    opt = init_opt_state(cfg, ocfg, params)
+    return params, sh.lay_out(opt, sh.opt_shardings(cfg, mesh, opt, params))
+
+
+def _rank_train_sharded(tmp):
+    """One rank of the sharded run: SHARDED_LM's step 0 (its loss, grad
+    norm and this rank's block of every gradient leaf against the same
+    block of the single-process grads), the AdamW update, one more step;
+    then SHARDED_SSM's step.  Each step's wall time and the wall time
+    inside its collectives."""
+    import faulthandler
+    import json as json_
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import hoststaged, make_mesh
+    faulthandler.enable(all_threads=True)       # a crash names its frame
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import actsharding
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    def full(t):
+        return float(t.full_tensor())
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
+
+    def timed(fn, *args):
+        """fn(*args) under the activation spec, started together on every
+        rank: its result, this rank's wall time to its last kernel and the
+        wall time inside its collectives (ms), both read before the
+        closing barrier."""
+        torch.cuda.synchronize()
+        dist.barrier()
+        spent = hoststaged.SPENT["seconds"]
+        t0 = time.perf_counter()
+        with actsharding.activation_spec(mesh, mesh_lib.data_axes(mesh),
+                                         "model"):
+            out = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coll = hoststaged.SPENT["seconds"] - spent
+        dist.barrier()
+        return out, wall * 1e3, coll * 1e3
+
+    def step0(params, opt, batch):
+        loss, _, grads = ts._grads_of(cfg, params, batch)
+        params, opt, m = opt_lib.adamw_update(ocfg, grads, opt, params)
+        return loss, grads, params, opt, m
+
+    res = {"rank": dist.get_rank()}
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ocfg, params, data = _train_setup(*SHARDED_LM)
+    params, opt = _rank_lay_out(cfg, ocfg, params, mesh)
+    bshard = sh.batch_shardings(cfg, mesh, data.batch_at(0))
+    batches = [sh.lay_out(data.batch_at(i), bshard) for i in range(2)]
+    (loss, grads, params, opt, m), res["step0_ms"], res[
+        "step0_collective_ms"] = timed(step0, params, opt, batches[0])
+    res["loss"], res["grad_norm"] = full(loss), full(m["grad_norm"])
+    ref = torch.load(f"{tmp}/grads.pt", mmap=True)
+    with open(f"{tmp}/reference.json") as f:
+        ref_max = json_.load(f)["lm"]["grad_max"]
+    worst, worst_leaf = 0.0, None
+    for path, g in M.tree_flatten_with_paths(grads):
+        key = "/".join(path)
+        r = ref[key]
+        block = r[sh.shard_slices(tuple(r.shape), mesh, g.placements)]
+        err = float((g.to_local() - block.cuda()).abs().max()) / max(
+            ref_max[key], 1e-30)
+        if err > worst or worst_leaf is None:
+            worst, worst_leaf = err, key
+    res["grad_worst"], res["grad_worst_leaf"] = worst, worst_leaf
+    res["grad_leaves"] = len(ref)
+    del ref, grads
+    (params, opt, m), res["step1_ms"], res["step1_collective_ms"] = timed(
+        ts.make_train_step(cfg, ocfg), params, opt, batches[1])
+    res["step1_loss"] = full(m["loss"])
+    del params, opt, batches, m
+    res["lm_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    cfg, ocfg, params, data = _train_setup(*SHARDED_SSM)
+    params, opt = _rank_lay_out(cfg, ocfg, params, mesh)
+    batch = sh.lay_out(data.batch_at(0),
+                       sh.batch_shardings(cfg, mesh, data.batch_at(0)))
+    step = ts.make_train_step(cfg, ocfg)
+    ops.reset_launches()
+    (_, _, m), res["ssm_ms"], res["ssm_collective_ms"] = timed(
+        step, params, opt, batch)
+    res["ssm_fftconv_fused"] = ops.LAUNCHES["fftconv_fused"]
+    res["ssm_loss"] = full(m["loss"])
+    res["ssm_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def train_sharded(failures, smi) -> dict:
+    """The sharded step on the card (see the constants above); returns the
+    kernel launches of its window (every rank's, and the single-process
+    reference's)."""
+    from repro_torch.dist import hoststaged
+    from repro_torch.dist.local import LocalGroup
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        t0 = time.perf_counter()
+        code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+                f"{str(ROOT / 'src')!r}]; import chip_smoke; "
+                f"chip_smoke._sharded_reference({tmp!r})")
+        run = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode:
+            raise RuntimeError(f"the single-process reference exited "
+                               f"{run.returncode}:\n{run.stderr[-3000:]}")
+        ref_s = time.perf_counter() - t0
+        with open(f"{tmp}/reference.json") as f:
+            ref = json.load(f)
+        t0 = time.perf_counter()
+        with LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
+                        device="cuda", threads=2, timeout_s=900) as group:
+            ranks = group.run(_rank_train_sharded, tmp)
+        group_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    lm, ssm = ref["lm"], ref["ssm"]
+    loss_err = abs(r0["loss"] - lm["loss"]) / abs(lm["loss"])
+    gnorm_err = abs(r0["grad_norm"] - lm["grad_norm"]) / lm["grad_norm"]
+    grad_worst = max(r["grad_worst"] for r in ranks)
+    ssm_err = abs(r0["ssm_loss"] - ssm["loss"]) / abs(ssm["loss"])
+    launches = [r["ssm_fftconv_fused"] for r in ranks]
+    if not loss_err <= TOL_SHARDED_LOSS:
+        failures.append(f"train_sharded loss {r0['loss']} vs "
+                        f"{lm['loss']}: {loss_err}")
+    if not gnorm_err <= TOL_SHARDED_GNORM:
+        failures.append(f"train_sharded grad norm {r0['grad_norm']} vs "
+                        f"{lm['grad_norm']}: {gnorm_err}")
+    if not grad_worst <= TOL_SHARDED_GRAD:
+        failures.append(f"train_sharded grads: {grad_worst} "
+                        f"({[r['grad_worst_leaf'] for r in ranks]})")
+    if not ssm_err <= TOL_SHARDED_LOSS:
+        failures.append(f"train_sharded ssm_demo loss {r0['ssm_loss']} vs "
+                        f"{ssm['loss']}")
+    if any(n != ssm["fftconv_fused"] or n <= 0 for n in launches):
+        failures.append(f"train_sharded ssm_demo fftconv_fused launches "
+                        f"{launches}, single process {ssm['fftconv_fused']}")
+
+    def per_rank(key):
+        return [r[key] for r in ranks]
+
+    def share(step):
+        # each rank's time in collectives over its own step, then the most
+        return max(r[f"{step}_collective_ms"] / r[f"{step}_ms"]
+                   for r in ranks)
+    emit({"phase": "train_sharded", "ranks": SHARDED_RANKS,
+          "mesh": {"data": 2, "model": 2}, "backend": hoststaged.NAME,
+          "lm": {"arch": SHARDED_LM[0], "global_batch": SHARDED_LM[1],
+                 "seq_len": SHARDED_LM[2], "loss": r0["loss"],
+                 "loss_single": lm["loss"], "loss_rel_err": loss_err,
+                 "grad_norm": r0["grad_norm"],
+                 "grad_norm_single": lm["grad_norm"],
+                 "grad_norm_rel_err": gnorm_err,
+                 "grad_leaves": r0["grad_leaves"],
+                 "grad_worst_over_max": grad_worst,
+                 "grad_worst_leaf": per_rank("grad_worst_leaf"),
+                 "step0_ms": per_rank("step0_ms"),
+                 "step0_collective_ms": per_rank("step0_collective_ms"),
+                 "step0_collective_share": share("step0"),
+                 "step1_ms": per_rank("step1_ms"),
+                 "step1_collective_ms": per_rank("step1_collective_ms"),
+                 "step1_collective_share": share("step1"),
+                 "step1_loss": r0["step1_loss"],
+                 "single_grads_s": lm["grads_s"],
+                 "peak_gib_a_rank": per_rank("lm_peak_gib")},
+          "ssm": {"arch": SHARDED_SSM[0], "global_batch": SHARDED_SSM[1],
+                  "seq_len": SHARDED_SSM[2], "loss": r0["ssm_loss"],
+                  "loss_single": ssm["loss"], "loss_rel_err": ssm_err,
+                  "fftconv_fused_a_rank": launches,
+                  "fftconv_fused_single": ssm["fftconv_fused"],
+                  "step_ms": per_rank("ssm_ms"),
+                  "collective_ms": per_rank("ssm_collective_ms"),
+                  "collective_share": share("ssm"),
+                  "peak_gib_a_rank": per_rank("ssm_peak_gib")},
+          "tols": {"loss": TOL_SHARDED_LOSS, "grad_norm": TOL_SHARDED_GNORM,
+                   "grad_leaf": TOL_SHARDED_GRAD},
+          "reference_s": ref_s, "group_s": group_s,
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return {"fftconv_fused": sum(launches) + ssm["fftconv_fused"]}
+
+
+# -- float16 planes (F11) -------------------------------------------------------
+#
+# Each FFT kernel in float16 through its entry point at the path's main
+# shape (launches counted in that window) and, at the main and a small
+# shape, the kernel against float64 numpy of the float16-rounded input and
+# against its plain version on the same call.  Inputs are unit normals:
+# their spectra (at most ~4600 at 1024^2, ~9200 at 2^22) stay under
+# float16's 65504, where the reference overflows too.
+TOL_F16_NUMPY = 1e-3    # kernel vs float64 numpy, error / max|X|
+F16_SLACK = 2.0 ** -10  # kernel error over the plain version's own
+F16_MAIN = {"fft2d_gemm": MAIN_2D, "rfft2d_fused": MAIN_RFFT2,
+            "irfft2d_fused": MAIN_RFFT2, "fft_fourstep": MAIN_FOURSTEP,
+            "fft_stockham": MAIN_STOCKHAM, "fft_stockham_r2": MAIN_R2,
+            "fftconv_fused": MAIN_CONV, "fft3d_fused": PME_3D,
+            "fft2d_fused": MAIN_2D, "fft_staged": TABLE1_LOADED}
+F16_SMALL = {"fft2d_gemm": (2, 64, 64), "rfft2d_fused": (2, 64, 64),
+             "irfft2d_fused": (2, 64, 64), "fft_fourstep": (4, 256),
+             "fft_stockham": (4, 256), "fft_stockham_r2": (4, 256),
+             "fftconv_fused": (2, 3, 64), "fft3d_fused": (1, 4, 8, 16),
+             "fft2d_fused": (2, 64, 64), "fft_staged": (4, 256)}
+F16_SOURCES = {"fft2d_gemm": "fft2d_gemm.cu", "rfft2d_fused": "rfft2d_fused.cu",
+               "irfft2d_fused": "rfft2d_fused.cu",
+               "fft_fourstep": "fft_fourstep.cu",
+               "fft_stockham": "fft_stockham.cu",
+               "fft_stockham_r2": "fft_stockham.cu",
+               "fftconv_fused": "fftconv_fused.cu",
+               "fft3d_fused": "fft3d_fused.cu", "fft2d_fused": "fft2d_fused.cu",
+               "fft_staged": "fft_stage.cu"}
+
+
+def f16_counts(name: str, shape):
+    """(flops, bytes) of a kernel's function on float16 planes: the fp32
+    counts with every stored value two bytes (E/F four float16 planes)."""
+    if name in ("rfft2d_fused", "irfft2d_fused"):
+        flops, nbytes = rfft_counts(*shape)
+    elif name == "fftconv_fused":
+        flops, nbytes = conv_counts(*shape, shape[1])
+    else:
+        flops, nbytes = fft_counts(shape[0], math.prod(shape[1:]))
+    return flops, nbytes // 2
+
+
+def f16_path(failures, smi) -> dict:
+    """float16 planes on every FFT kernel: {kernel: its f16_path launches,
+    float16 ms at the main shape}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (SplitComplex, fft2, fft3, get_plan, rfft2,
+                                  irfft2, fft_conv, clear_plan_cache)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import fft2d_gemm as G
+    from repro_torch.kernels import fft_fourstep as F
+    from repro_torch.kernels import fft_stockham as S
+    from repro_torch.kernels import rfft2d_fused as R
+    from repro_torch.kernels import fftconv_fused as C
+    from repro_torch.kernels import fft3d_fused as V
+    from repro_torch.kernels import fft2d_fused as S2
+    from repro_torch.kernels import fft_stage as ST
+    dev = "cuda"
+    rng = np.random.default_rng(16)
+    clear_plan_cache()
+
+    def cplx(shape, dtype=torch.float16):
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(rng.integers(1 << 30)))
+        return SplitComplex(
+            torch.randn(shape, generator=g, device=dev).to(dtype),
+            torch.randn(shape, generator=g, device=dev).to(dtype))
+
+    def realt(shape, dtype=torch.float16):
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(rng.integers(1 << 30)))
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def axes(x):
+        return tuple(range(1, x.dim())) if isinstance(x, torch.Tensor) \
+            else tuple(range(1, x.re.dim()))
+
+    def conv_case(shape, dtype):
+        m = shape[-1]
+        x = realt(shape, dtype)
+        zk = rng.standard_normal((shape[1], m // 2 + 1)) \
+            + 1j * rng.standard_normal((shape[1], m // 2 + 1))
+        zk[:, 0], zk[:, -1] = zk[:, 0].real, zk[:, -1].real
+        from repro_torch.core import from_numpy
+        ef = C.pack_filter(from_numpy(zk, device=dev), m, dtype)
+        return x, ef, zk
+
+    def case(name, shape, dtype=torch.float16):
+        """(kernel call, plain call, input, float64 numpy of the output or
+        None where the caller computes it, library call)."""
+        if name == "fftconv_fused":
+            x, ef, zk = conv_case(shape, dtype)
+            xn = x.double().cpu().numpy()
+            want = np.fft.irfft(np.fft.rfft(xn) * zk, shape[-1])
+            kc = torch.complex(torch.from_numpy(zk.real).to(dtype),
+                               torch.from_numpy(zk.imag).to(dtype)).to(dev)
+
+            def lib():
+                return torch.fft.irfft(torch.fft.rfft(x) * kc, shape[-1])
+            return (lambda t: C.fftconv_fused_cuda(t, ef),
+                    lambda t: C.fftconv_fused_plain(t, ef), x, want, lib)
+        if name == "rfft2d_fused":
+            x = realt(shape, dtype)
+            return (R.rfft2d_fused_cuda, R.rfft2d_fused_plain, x,
+                    np.fft.rfft2(x.double().cpu().numpy()),
+                    lambda: torch.fft.rfft2(x))
+        if name == "irfft2d_fused":
+            b, h, w = shape
+            x = cplx((b, h, w // 2 + 1), dtype)
+            xn = to_numpy(x)
+            xc = torch.complex(x.re, x.im)
+            return (R.irfft2d_fused_cuda, R.irfft2d_fused_plain, x,
+                    np.fft.irfft2(xn, s=(h, w)),
+                    lambda: torch.fft.irfft2(xc, s=(h, w)))
+        x = cplx(shape, dtype)
+        xn = to_numpy(x)
+        xc = torch.complex(x.re, x.im)
+        fns = {
+            "fft2d_gemm": (lambda t: G.fft2d_gemm_cuda(
+                t, variant="compensated"), lambda t: G.fft2d_gemm_plain(
+                t, variant="compensated"), np.fft.fft2, torch.fft.fft2),
+            "fft2d_fused": (S2.fft2d_fused_cuda, S2.fft2d_fused_plain,
+                            np.fft.fft2, torch.fft.fft2),
+            "fft3d_fused": (lambda t: V.fft3d_fused_cuda(
+                t, variant="compensated"), lambda t: V.fft3d_fused_plain(
+                t, variant="compensated"),
+                lambda a: np.fft.fftn(a, axes=(1, 2, 3)),
+                lambda a: torch.fft.fftn(a, dim=(1, 2, 3))),
+            "fft_fourstep": (F.fft_fourstep_cuda, F.fft_fourstep_plain,
+                             np.fft.fft, torch.fft.fft),
+            "fft_stockham": (S.fft_stockham_cuda, S.fft_stockham_plain,
+                             np.fft.fft, torch.fft.fft),
+            "fft_stockham_r2": (S.fft_stockham_r2_cuda,
+                                S.fft_stockham_r2_plain, np.fft.fft,
+                                torch.fft.fft),
+            "fft_staged": (ST.fft_staged_cuda, ST.fft_staged_plain,
+                           np.fft.fft, torch.fft.fft)}
+        kern, plain, npf, tf = fns[name]
+        return kern, plain, x, npf(xn), lambda: tf(xc)
+
+    # the entry points at each main shape, float16 in and out, launches
+    # counted in this window alone
+    entries = {
+        "fft2d_gemm": lambda x: fft2(x, backend="cuda"),
+        "fft2d_fused": lambda x: fft2(x, algo="fused_stockham",
+                                      backend="cuda"),
+        "rfft2d_fused": lambda x: rfft2(x, backend="cuda"),
+        "irfft2d_fused": lambda x: irfft2(x, backend="cuda"),
+        "fft3d_fused": lambda x: fft3(x, backend="cuda"),
+        "fft_fourstep": lambda x: get_plan(
+            (x.shape[-1],), dtype=torch.float16, backend="cuda")(x),
+        "fft_stockham": lambda x: get_plan(
+            (x.shape[-1],), dtype=torch.float16, backend="cuda")(x),
+        "fft_stockham_r2": lambda x: get_plan(
+            (x.shape[-1],), dtype=torch.float16, algo="stockham2",
+            backend="cuda")(x),
+        "fft_staged": lambda x: ops.fft_staged(x)}
+    launches, out = {}, {}
+    for name, fn in entries.items():
+        _, _, x, want, _ = case(name, F16_MAIN[name])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        y = fn(x)
+        torch.cuda.synchronize()
+        launches[name] = ops.LAUNCHES[name]
+        dtype = (y.re if isinstance(y, SplitComplex) else y).dtype
+        err = float(np.abs(to_numpy(y) - want).max() / np.abs(want).max())
+        ok = launches[name] > 0 and dtype == torch.float16 and \
+            np.isfinite(err) and (name == "fft_staged"
+                                  or err <= TOL_F16_NUMPY)
+        if not ok:
+            failures.append(f"f16 entry {name}{F16_MAIN[name]}: launches "
+                            f"{launches[name]}, {dtype}, error {err}")
+        out[name] = {"entry_err_over_max": err, "launches": launches[name]}
+        del x, y, want
+        torch.cuda.empty_cache()
+    # the SSM conv through fft_conv: (8, 576, 4096) by a (1, 576, 4) bank,
+    # padded to m = 8192, against float64 numpy's direct causal conv
+    xs, ks = realt(SSM_X), realt(SSM_K)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ys = fft_conv(xs, ks, backend="cuda")
+    torch.cuda.synchronize()
+    launches["fftconv_fused"] = ops.LAUNCHES["fftconv_fused"]
+    xn, kn = xs.double().cpu().numpy(), ks.double().cpu().numpy()
+    m = MAIN_CONV[-1]
+    want = np.fft.irfft(np.fft.rfft(xn, m) * np.fft.rfft(kn, m),
+                        m)[..., :SSM_X[-1]]
+    err = float(np.abs(to_numpy(ys) - want).max() / np.abs(want).max())
+    if not (launches["fftconv_fused"] > 0 and ys.dtype == torch.float16
+            and err <= TOL_F16_NUMPY):
+        failures.append(f"f16 fft_conv: launches {launches['fftconv_fused']}"
+                        f", {ys.dtype}, error {err}")
+    out["fftconv_fused"] = {"entry_err_over_max": err,
+                            "launches": launches["fftconv_fused"]}
+    del xs, ks, ys, want
+    torch.cuda.empty_cache()
+    emit({"phase": "f16_path", "launches": launches,
+          "entry_errors": {k: v["entry_err_over_max"] for k, v in out.items()},
+          "tol_vs_numpy": TOL_F16_NUMPY, "nvidia_smi": smi})
+
+    # each kernel against float64 numpy and its plain version, at its small
+    # and main shape; timed at the main shape beside its fp32 time
+    for name in F16_MAIN:
+        for shape in (F16_SMALL[name], F16_MAIN[name]):
+            kern, plain, x, want, lib = case(name, shape)
+            got = kern(x)
+            torch.cuda.synchronize()
+            pl = plain(x)
+            scale = float(np.abs(want).max())
+            k_err = float(np.abs(to_numpy(got) - want).max()) / scale
+            p_err = float(np.abs(to_numpy(pl) - want).max()) / scale
+            dtype = (got.re if isinstance(got, SplitComplex) else got).dtype
+            ok = (k_err <= p_err + F16_SLACK and dtype == torch.float16
+                  and (name == "fft_staged" or k_err <= TOL_F16_NUMPY))
+            if not ok:
+                failures.append(f"{name}{shape} float16: {k_err} (plain "
+                                f"{p_err}, {dtype})")
+            rec = {"phase": "kernel_vs_numpy", "kernel": name,
+                   "dtype": "float16", "shape": shape,
+                   "err_over_max": k_err, "plain_err_over_max": p_err,
+                   "tol": None if name == "fft_staged" else TOL_F16_NUMPY,
+                   "tol_vs_plain": p_err + F16_SLACK, "ok": ok}
+            del pl
+            if shape == F16_MAIN[name]:
+                k_ms = time_ms(lambda: kern(x), torch)
+                p_ms = time_ms(lambda: plain(x), torch)
+                try:
+                    lib()
+                    l_ms, l_kind = time_ms(lib, torch), "complex32"
+                except RuntimeError:           # no half FFT for this call
+                    l_ms, l_kind = time_ms(case(name, shape,
+                                                torch.float32)[4],
+                                           torch), "complex64"
+                k32, _, x32, _, _ = case(name, shape, torch.float32)
+                f32_ms = time_ms(lambda: k32(x32), torch)
+                del x32
+                b_ms, b_by = bound_ms(*f16_counts(name, shape))
+                rec.update({"kernel_ms": k_ms, "plain_ms": p_ms,
+                            "library_ms": l_ms, "library_dtype": l_kind,
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "fp32_kernel_ms": f32_ms,
+                            "max_abs_err": k_err * scale,
+                            "source": F16_SOURCES[name],
+                            "nvidia_smi": smi})
+                out[name].update({"ms": k_ms, "plain_ms": p_ms,
+                                  "library_ms": l_ms, "fp32_ms": f32_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "max_abs_err": k_err * scale,
+                                  "shape": shape})
+            emit(rec)
+            del x, got, want
+            torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -3623,12 +4159,22 @@ def main() -> int:
     del dec16
     torch.cuda.empty_cache()
 
+    f16 = f16_path(failures, smi)
+    for entry in kernels:
+        rec = f16.get(entry["name"], {})
+        entry["f16_path_launches"] = rec.get("launches", 0)
+        entry["f16"] = {k: rec[k] for k in ("shape", "ms", "bound_ms",
+                                            "plain_ms", "library_ms",
+                                            "fp32_ms", "max_abs_err")
+                        if k in rec}
     dist_cases = dist_path(failures, smi)
     nccl_path(failures, smi, torch.cuda.device_count())
     tt_path(failures, smi, dist_cases)
     lm = lm_path(failures, smi)
     train = train_lm(failures, smi)
     for k, v in train_ssm(failures, smi).items():
+        train[k] = train.get(k, 0) + v
+    for k, v in train_sharded(failures, smi).items():
         train[k] = train.get(k, 0) + v
     for entry in kernels:
         entry["lm_path_launches"] = lm.get(entry["name"], 0)

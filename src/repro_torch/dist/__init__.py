@@ -6,7 +6,7 @@ named ``DeviceMesh`` (:func:`make_mesh`); each function takes and returns
 the rank's local blocks.  The reference's ``shard_map`` has no
 counterpart: the functions are the per-rank bodies.
 """
-from . import compression, pencil, pipeline, straggler  # noqa: F401
+from . import compression, hoststaged, pencil, pipeline, straggler  # noqa: F401
 from ._compat import all_to_all, assemble, local_block, make_mesh  # noqa: F401
 from .compression import (all_to_all_compressed, psum_compressed,  # noqa: F401
                           wire_bytes)
@@ -15,3 +15,5 @@ from .pencil import (pfft1d, pfft2, pfft2_hierarchical, pfft3,  # noqa: F401
                      unpack_half_spectrum)
 from .pipeline import pipelined_apply  # noqa: F401
 from .straggler import rebalance, should_eject  # noqa: F401
+
+hoststaged.register()

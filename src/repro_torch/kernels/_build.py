@@ -133,11 +133,36 @@ def function(name: str, symbol: str, argtypes):
     return fn
 
 
+FFT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_STORE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def store_code(dtype: torch.dtype) -> int:
+    """The C entry points' ``store`` argument: 0 float32, 1 bfloat16 (raw
+    16 bits, ``csrc/bf16.cuh``), 2 float16 (``csrc/f16.cuh``)."""
+    return _STORE[dtype]
+
+
+def refuse_dtensor(*operands) -> None:
+    """A DTensor's ``data_ptr`` is not its shard's data, so a kernel
+    handed one would read the wrong memory: run the kernel on local
+    shards (``torch.distributed.tensor.experimental.local_map``, or
+    ``to_local()``) instead."""
+    from torch.distributed.tensor import DTensor
+    for x in operands:
+        planes = tuple(x) if isinstance(x, SplitComplex) else (x,)
+        if any(isinstance(t, DTensor) for t in planes):
+            raise TypeError("a CUDA kernel got a DTensor; call it on the "
+                            "local shards under torch.distributed.tensor."
+                            "experimental.local_map (or on to_local())")
+
+
 def check_operands(x, ndim: int, dtypes=(torch.float32,)) -> None:
     """What every CUDA wrapper requires of its data operand, a
-    :class:`SplitComplex` or one real tensor: CUDA, one of ``dtypes``
-    (float32 for every kernel but the GEMM transforms), ``ndim`` dims,
-    contiguous."""
+    :class:`SplitComplex` or one real tensor: a plain CUDA tensor (no
+    DTensor), one of ``dtypes`` (:data:`FFT_DTYPES` for the FFT kernels),
+    ``ndim`` dims, contiguous."""
+    refuse_dtensor(x)
     planes = tuple(x) if isinstance(x, SplitComplex) else (x,)
     for t in planes:
         if not t.is_cuda:
@@ -163,7 +188,8 @@ def check_decode_operands(q, k, v, kv_pos, q_pos) -> None:
     """What the decode attention kernel requires: q (B, H, D) and the
     caches (B, S, KV, D) float32 or bfloat16 (the caches one dtype), with
     H a multiple of KV; kv_pos (B, S) and q_pos (B,) int32; every operand
-    contiguous on q's CUDA device."""
+    contiguous on q's CUDA device, none a DTensor."""
+    refuse_dtensor(q, k, v, kv_pos, q_pos)
     ops = {"q": q, "k_cache": k, "v_cache": v, "kv_pos": kv_pos,
            "q_pos": q_pos}
     floats = (torch.float32, torch.bfloat16)

@@ -49,7 +49,7 @@ MIN_POINTS = 512       # points of the smallest tile: 32 threads
 PLANE_MAX = 16384      # largest h*w of a plane launch (one 128 KB tile)
 AXIS_MAX = 4096        # longest axis of one launch of the 2-D/3-D kernels
 FACTOR_MAX = 1 << 14   # longest factor a launch takes (the four-step's)
-DTYPES = (torch.float32, torch.bfloat16)    # what the kernels store
+DTYPES = _build.FFT_DTYPES                   # what the kernels store
 SMEM_MAX = 232448      # dynamic shared memory a block may have (227 KB)
 SM_SHARED = 233472     # shared memory of an SM, 1 KB of it reserved a block
 POINTS_A_THREAD = 16
@@ -310,7 +310,7 @@ def buffers(plan: tuple) -> list:
 
 
 @functools.lru_cache(maxsize=64)
-def _launch_args(plan: tuple, inverse: bool, total: int, bf16: bool,
+def _launch_args(plan: tuple, inverse: bool, total: int, store: int,
                  device: torch.device) -> tuple:
     """Each launch's table lengths, twiddle length (0: none) and its
     arguments after the pointers, in two parts around the twiddle's."""
@@ -322,7 +322,7 @@ def _launch_args(plan: tuple, inverse: bool, total: int, bf16: bool,
         out.append((tables, lp.m, [lp.outer, _log2(lp.n), _log2(lp.inner),
                                    _log2(lp.c), _log2(lp.g),
                                    int(lp.kind == "plane"), lp.blocks(sms),
-                                   int(inverse), scale, int(bf16),
+                                   int(inverse), scale, store,
                                    MODES[lp.mode]],
                     [level_shift(lp.m) if lp.m else 0, lp.ljr, *lp.lr,
                      lp.img_in, lp.img_out]))
@@ -330,13 +330,13 @@ def _launch_args(plan: tuple, inverse: bool, total: int, bf16: bool,
 
 
 def call_args(plan: tuple, ptrs: list, inverse: bool, scale: float,
-              bf16: bool, device) -> tuple:
+              store: int, device) -> tuple:
     """The argument lists of ``plan``'s launches, ``ptrs`` each launch's
     four plane pointers (src re, im, dst re, im), ``scale`` at the last
     launch's store; returns (argument lists, the tables they point at)."""
     held, calls = [], []
     for p4, (lengths, m, head, tail) in zip(ptrs, _launch_args(
-            plan, bool(inverse), 1, bool(bf16), device)):
+            plan, bool(inverse), 1, int(store), device)):
         tabs = [twiddle_table(n, inverse=inverse, device=device)
                 for n in lengths]
         twt = split_table(m, inverse=inverse, device=device) if m else None
@@ -366,5 +366,5 @@ def run(fn, plan: tuple, x: SplitComplex, out: SplitComplex, total: int,
             for s, d in routes]
     calls, held = call_args(plan, ptrs, inverse,
                             1.0 / total if inverse else 1.0,
-                            x.dtype == torch.bfloat16, dev)
+                            _build.store_code(x.dtype), dev)
     _build.launch_all(fn, calls, what, dev)

@@ -28,13 +28,13 @@
 // 16384 points (cols at n >= 2048, 128^2 planes; 128 KB) hold one buffer
 // and do not overlap.  A tile is copied as it lies in memory in chunks of
 // up to 16 bytes (rows' chunks swizzled by row so that the first pass reads
-// 8 rows x 4 points from 32 banks); the first pass reads it (widening bf16)
-// and writes the work layout over it in fp32.  The cols and plane routes'
-// last pass stores from registers (its lanes take adjacent columns); the
-// rows route's goes back to shared memory and the tile leaves row by row,
-// 128 contiguous bytes a warp.  Stores are scaled (the inverse's 1/N) and
-// rounded to bf16 for bf16 planes.  Every pass runs in place, so a launch
-// may read and write the same planes.
+// 8 rows x 4 points from 32 banks); the first pass reads it (widening bf16
+// or float16) and writes the work layout over it in fp32.  The cols and
+// plane routes' last pass stores from registers (its lanes take adjacent
+// columns); the rows route's goes back to shared memory and the tile leaves
+// row by row, 128 contiguous bytes a warp.  Stores are scaled (the
+// inverse's 1/N) and rounded to bf16 or float16 for such planes.  Every
+// pass runs in place, so a launch may read and write the same planes.
 // Axes longer than one launch holds (n > 4096 in the 2-D and 3-D kernels,
 // four-step factors past 1024) split four-step fashion, n = n1 * n2 (*
 // n3), one launch a factor, planned on the host (axis_fft.py::plan_split):
@@ -50,8 +50,10 @@
 // img_out: the real-input kernels' packed row pairs).
 #pragma once
 #include <cuda_runtime.h>
+#include <type_traits>
 #include <utility>
 #include "bf16.cuh"
+#include "f16.cuh"
 
 namespace {
 
@@ -427,17 +429,41 @@ __device__ __forceinline__ void copy_wait() {
 #endif
 }
 
+// The storage types: float, bf16 (raw unsigned short) and float16
+// (cg::f16); the arithmetic is fp32 whatever the storage.
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(unsigned short v) {
   return cg::bf16_to_f32(v);
 }
+__device__ __forceinline__ float widen(cg::f16 v) { return cg::widen_f16(v); }
 
 template <class T>
 __device__ __forceinline__ T narrow(float v) {
-  if constexpr (sizeof(T) == 2)
+  if constexpr (std::is_same_v<T, cg::f16>)
+    return cg::narrow_f16(v);
+  else if constexpr (sizeof(T) == 2)
     return cg::f32_to_bf16(v);
   else
     return v;
+}
+
+// v rounded to the storage type T, kept as a float
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  return widen(narrow<T>(v));
+}
+
+template <class T>
+struct Stored {
+  using type = T;
+};
+
+// f(Stored<T>{}) for the storage type of `store`: 0 float, 1 bf16, 2 float16
+template <class F>
+auto by_store(int store, F f) {
+  return store == 2   ? f(Stored<cg::f16>{})
+         : store == 1 ? f(Stored<unsigned short>{})
+                      : f(Stored<float>{});
 }
 
 // A tile as copied: rows of 2^lrow elements, transform t = row t, with the
@@ -461,9 +487,9 @@ struct FromStage {
   }
 };
 
-// the plane's W FFT's last pass: back to shared, rounded through bf16 at a
-// bf16 transform's pass boundary
-template <class Lay, bool ROUND>
+// the plane's W FFT's last pass: back to shared, rounded through the
+// storage type T at a sub-fp32 transform's pass boundary
+template <class Lay, class T>
 struct ToWork {
   float* sr;
   float* si;
@@ -473,8 +499,8 @@ struct ToWork {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int a = lay.at(t, k0 + r * ns);
-      sr[a] = ROUND ? cg::round_bf16(v[r].x) : v[r].x;
-      si[a] = ROUND ? cg::round_bf16(v[r].y) : v[r].y;
+      sr[a] = round_to<T>(v[r].x);
+      si[a] = round_to<T>(v[r].y);
     }
   }
 };
@@ -769,7 +795,7 @@ struct PlaneRun {
     fft_any12<3, true>(
         lw, FromStage<T, Swizzled>{sr, si, Swizzled{lw, lv, mask}}, wr, wi,
         rows, g.lg + lh, nt, g.tab, g.sg,
-        ToWork<Rows, sizeof(T) == 2>{wr, wi, rows});
+        ToWork<Rows, T>{wr, wi, rows});
     const Columns cols{lw, g.p << lh, g.p};
     fft_any12<-1, true>(lh, FromShared<Columns>{wr, wi, cols}, wr, wi, cols,
                         g.lg + lw, nt, g.tab2, g.sg, to_global<T>(g, k));
@@ -875,9 +901,9 @@ inline long long work_floats(int ln, int linner, int lc, int lg, bool plane,
 }  // namespace
 
 // One launch of the axis FFT (plane = 0) or of the plane FFT (plane = 1)
-// on x -> out (which may be the same planes but for mode REVERSED), fp32 or
-// raw bf16 (bf16 = 1), with the tiling the host planned
-// (kernels/axis_fft.py): log2 of n, of the inner extent, of the columns
+// on x -> out (which may be the same planes but for mode REVERSED), fp32,
+// raw bf16 (store = 1) or raw float16 (store = 2), with the tiling the host
+// planned (kernels/axis_fft.py): log2 of n, of the inner extent, of the columns
 // and of the images a tile holds; `tab` the fp32 table W_n^k (plane: the W
 // axis'; `tab2` the H axis') of the transform's sign, `scale` applied at
 // the store, `blocks` the persistent grid.  `mode` PLAIN, TWIDDLE (`tw` the
@@ -891,7 +917,7 @@ cudaError_t axis_fft_launch(const void* xr, const void* xi, void* outr,
                             void* outi, const float* tab,
                             const float* tab2, long long outer, int ln,
                             int linner, int lc, int lg, int plane, int blocks,
-                            int inverse, float scale, int bf16, int mode,
+                            int inverse, float scale, int store, int mode,
                             const float* tw, int tls, int ljr, int lr1,
                             int lr2, long long img_in, long long img_out,
                             cudaStream_t st) {
@@ -922,11 +948,14 @@ cudaError_t axis_fft_launch(const void* xr, const void* xi, void* outr,
   const int threads = 1 << (lp - 4);
   const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
   if (plane)
-    return bf16 ? launch_plane<unsigned short>(g, grid, threads, smem, st)
-                : launch_plane<float>(g, grid, threads, smem, st);
+    return by_store(store, [&](auto t) {
+      return launch_plane<typename decltype(t)::type>(g, grid, threads, smem,
+                                                      st);
+    });
   const bool rows = linner == 0;
-  const AxisLaunch fn = bf16 ? pick<unsigned short>(ln, rows, threads, mode)
-                             : pick<float>(ln, rows, threads, mode);
+  const AxisLaunch fn = by_store(store, [&](auto t) {
+    return pick<typename decltype(t)::type>(ln, rows, threads, mode);
+  });
   if (fn == nullptr) return cudaErrorInvalidValue;
   return fn(g, grid, threads, smem, st);
 }

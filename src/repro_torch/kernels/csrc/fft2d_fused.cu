@@ -1,6 +1,6 @@
-// Batched complex 2-D FFT over (batch, h, w) split fp32 or bf16 planes, h
-// and w powers of two >= 2, as two passes of fused radix-4 Stockham stages
-// over HBM: rows, then columns in place.
+// Batched complex 2-D FFT over (batch, h, w) split fp32, bf16 or float16
+// planes, h and w powers of two >= 2, as two passes of fused radix-4
+// Stockham stages over HBM: rows, then columns in place.
 //
 // Replaces the Pallas kernel repro/kernels/fft2d_fused.py::_fft2d_kernel,
 // the algo="fused_stockham" oracle (plain version:
@@ -40,7 +40,8 @@
 // columns of the images (ST_COLS with q = column / w, ST_TCOLS storing
 // (o, t*M + k, i)), and past 2^24 a launch a stage (stockham.cuh's
 // per_stage) along either axis.
-// bf16 planes are widened at the load and rounded to bf16 at each store.
+// bf16 and float16 planes are widened at the load and rounded to their
+// dtype at each store.
 // The butterflies are stockham_stages': radix-4 stage s of a length-n
 // transform twiddles by w^r at entry (j >> 2s) << 2s of row r - 1 of the
 // one (3, n/4) table (bit for bit row s of the reference's packed table;
@@ -127,22 +128,23 @@ S2Launch s2_pick(int ln, int threads) {
 // linner, 2^lg whole images, every stage of length 2^ln off `tab`, the
 // fp32 (3, 2^ln / 4) table w, w^2, w^3 of the transform's sign
 // (`inverse`) as (cos, sin) pairs; `scale` at the store; `blocks` the
-// persistent grid; raw bf16 planes for bf16 = 1.  x and out may be the
-// same planes.  Returns cudaErrorInvalidValue for a tiling it does not
+// persistent grid; raw bf16 planes for store = 1, raw float16 for store =
+// 2.  x and out may be the same planes.  Returns cudaErrorInvalidValue for a tiling it does not
 // take.
 extern "C" int fft2d_fused_pass(const void* xr, const void* xi, void* outr,
                                 void* outi, const float* tab,
                                 long long outer, int ln, int linner, int lc,
                                 int lg, int blocks, float scale, int inverse,
-                                int bf16, void* stream) {
+                                int store, void* stream) {
   const int lp = ln + lc + lg;
   if (outer <= 0 || blocks <= 0 || ln < 1 || ln > 14 || lc < 0 || lg < 0 ||
       lc > linner || linner < 1 || linner > 24 || lp > 14 ||
       (1 << lp) < AXIS_TILE_MIN || (lc < linner && lg != 0))
     return (int)cudaErrorInvalidValue;
   const int threads = 1 << (lp - 4);
-  const S2Launch fn = bf16 ? s2_pick<unsigned short>(ln, threads)
-                           : s2_pick<float>(ln, threads);
+  const S2Launch fn = by_store(store, [&](auto t) {
+    return s2_pick<typename decltype(t)::type>(ln, threads);
+  });
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const long long wf = ((1LL << lp) + 31) / 32 * 32;
   const int nbuf = (1 << lp) <= AXIS_TILE ? 2 : 1;
@@ -167,10 +169,10 @@ extern "C" int fft2d_fused_1d(const void* xr, const void* xi, void* outr,
                               void* outi, const float* tab, long long outer,
                               int ln, int linner, int lc, int lg, int route,
                               int l1, int lin, int blocks, float scale,
-                              int inverse, int bf16, void* stream) {
+                              int inverse, int store, void* stream) {
   return stockham_pass<4>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
                           route, l1, lin, blocks, scale,
-                          inverse ? 1.f : -1.f, bf16, (cudaStream_t)stream);
+                          inverse ? 1.f : -1.f, store, (cudaStream_t)stream);
 }
 
 // An axis past 2^24: a launch a radix-4 stage (then the radix-2 tail)
@@ -181,15 +183,14 @@ extern "C" int fft2d_fused_stages(const void* xr, const void* xi, void* outr,
                                   void* outi, void* sr, void* si,
                                   const float* tab, long long batch, int ln,
                                   int lin, float scale, int inverse,
-                                  int bf16, void* stream) {
+                                  int store, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (batch <= 0 || ln < 1 || ln > 40 || lin < 0 || lin > 30)
     return (int)cudaErrorInvalidValue;
   const float2* w = (const float2*)tab;
-  using B = unsigned short;
-  using F = float;
-  return bf16 ? per_stage<4>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
-                             (B*)sr, (B*)si, w, batch, ln, lin, inverse, scale, s)
-              : per_stage<4>((const F*)xr, (const F*)xi, (F*)outr, (F*)outi,
-                             (F*)sr, (F*)si, w, batch, ln, lin, inverse, scale, s);
+  return by_store(store, [&](auto t) {
+    using B = typename decltype(t)::type;
+    return per_stage<4>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
+                        (B*)sr, (B*)si, w, batch, ln, lin, inverse, scale, s);
+  });
 }

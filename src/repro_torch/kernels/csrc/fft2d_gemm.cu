@@ -16,9 +16,9 @@
 // The inverse's 1/(h*w) is applied at the last store.  Tiles of up to 8192
 // points overlap the next tile's copy (cp.async) with their passes; the
 // 16384-point tiles (h >= 2048 columns, 128^2 images) do not.
-// bf16 compensated: bf16 in, fp32 within a pass, the W pass's output stored
-// as bf16 (the reference's round at the pass boundary, half the bytes),
-// bf16 out.
+// bf16 and float16 compensated: bf16 (float16) in, fp32 within a pass, the
+// W pass's output stored as bf16 (float16: the reference's round at the
+// pass boundary, half the bytes), bf16 (float16) out.
 //
 // bf16 plain is defined by the GEMM steps' rounding points (bf16 tables,
 // every GEMM output rounded), which an FFT cannot reproduce; it stays on
@@ -27,18 +27,19 @@
 #include "axis_fft.cuh"
 #include "row_pass.cuh"
 
-// One launch of the planned route (see axis_fft_launch in axis_fft.cuh).
+// One launch of the planned route (see axis_fft_launch in axis_fft.cuh;
+// store 0 fp32, 1 bf16, 2 float16).
 extern "C" int fft2d_gemm_pass(const void* xr, const void* xi, void* outr,
                                void* outi, const float* tab,
                                const float* tab2, long long outer, int ln,
                                int linner, int lc, int lg, int plane,
                                int blocks, int inverse, float scale,
-                               int bf16, int mode, const float* tw, int tls,
+                               int store, int mode, const float* tw, int tls,
                                int ljr, int lr1, int lr2, long long img_in,
                                long long img_out, void* stream) {
   return (int)axis_fft_launch(xr, xi, outr, outi, tab, tab2, outer, ln,
                               linner, lc, lg, plane, blocks, inverse, scale,
-                              bf16, mode, tw, tls, ljr, lr1, lr2, img_in,
+                              store, mode, tw, tls, ljr, lr1, lr2, img_in,
                               img_out, (cudaStream_t)stream);
 }
 

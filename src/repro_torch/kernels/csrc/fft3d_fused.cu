@@ -17,26 +17,27 @@
 // The inverse's 1/(d*h*w) is applied at the last store.  Tiles of up to
 // 8192 points overlap the next tile's copy (cp.async) with their passes;
 // the 16384-point tiles (128^2 planes, columns of n >= 2048) do not.
-// bf16 compensated stores each pass boundary as bf16 (the reference's
-// rounding after W and after H, half the bytes).
+// bf16 and float16 compensated store each pass boundary in the planes'
+// dtype (the reference's rounding after W and after H, half the bytes).
 //
 // bf16 plain is defined by the GEMM steps' rounding points and stays on the
 // four-step GEMM chain (row_pass.cuh, cgemm.cuh), as in fft2d_gemm.cu.
 #include "axis_fft.cuh"
 #include "row_pass.cuh"
 
-// One launch of the planned route (see axis_fft_launch in axis_fft.cuh).
+// One launch of the planned route (see axis_fft_launch in axis_fft.cuh;
+// store 0 fp32, 1 bf16, 2 float16).
 extern "C" int fft3d_fused_pass(const void* xr, const void* xi, void* outr,
                                 void* outi, const float* tab,
                                 const float* tab2, long long outer, int ln,
                                 int linner, int lc, int lg, int plane,
                                 int blocks, int inverse, float scale,
-                                int bf16, int mode, const float* tw, int tls,
+                                int store, int mode, const float* tw, int tls,
                                 int ljr, int lr1, int lr2, long long img_in,
                                 long long img_out, void* stream) {
   return (int)axis_fft_launch(xr, xi, outr, outi, tab, tab2, outer, ln,
                               linner, lc, lg, plane, blocks, inverse, scale,
-                              bf16, mode, tw, tls, ljr, lr1, lr2, img_in,
+                              store, mode, tw, tls, ljr, lr1, lr2, img_in,
                               img_out, (cudaStream_t)stream);
 }
 

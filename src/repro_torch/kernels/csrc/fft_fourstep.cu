@@ -312,19 +312,19 @@ extern "C" int fft_fourstep_f32(const float* xr, const float* xi,
   return (int)e;
 }
 
-// The axis route (factors past 1024 or bf16 planes; see axis_fft_launch in
-// axis_fft.cuh): one launch of kernels/fft_fourstep.py::axis_plan.
+// The axis route (factors past 1024, bf16 or float16 planes; see
+// axis_fft_launch in axis_fft.cuh): one launch of kernels/fft_fourstep.py::axis_plan.
 extern "C" int fft_fourstep_axis(const void* xr, const void* xi, void* outr,
                                  void* outi, const float* tab,
                                  const float* tab2, long long outer, int ln,
                                  int linner, int lc, int lg, int plane,
                                  int blocks, int inverse, float scale,
-                                 int bf16, int mode, const float* tw,
+                                 int store, int mode, const float* tw,
                                  int tls, int ljr, int lr1, int lr2,
                                  long long img_in, long long img_out,
                                  void* stream) {
   return (int)axis_fft_launch(xr, xi, outr, outi, tab, tab2, outer, ln,
                               linner, lc, lg, plane, blocks, inverse, scale,
-                              bf16, mode, tw, tls, ljr, lr1, lr2, img_in,
+                              store, mode, tw, tls, ljr, lr1, lr2, img_in,
                               img_out, (cudaStream_t)stream);
 }

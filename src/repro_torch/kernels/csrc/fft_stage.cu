@@ -1,8 +1,9 @@
 // The paper's "Initial" FFT: radix-2 decimation in time on (batch, n) split
-// fp32 or bf16 planes, n a power of two, one launch per butterfly stage.
-// bf16 planes are widened at every load and rounded at every store, so
-// each stage's output is rounded to bf16 as the reference's bf16 arrays
-// are; the arithmetic and the tables stay fp32.
+// fp32, bf16 or float16 planes, n a power of two, one launch per butterfly
+// stage.  bf16 and float16 planes are widened at every load and rounded at
+// every store, so each stage's output is rounded to the planes' dtype as
+// the reference's bf16 and float16 arrays are; the arithmetic and the
+// tables stay fp32.
 //
 // Replaces the Pallas kernel repro/kernels/fft_stage.py::_stage_kernel and
 // its caller fft_staged_pallas: a bit-reverse, then log2(n) single-stage
@@ -38,7 +39,9 @@
 //     pairs of one aligned quad, at s >= 2 four consecutive pairs, whose
 //     idx0 and idx1 are each four consecutive floats.
 #include <cuda_runtime.h>
+#include <type_traits>
 #include "bf16.cuh"
+#include "f16.cuh"
 
 namespace {
 
@@ -46,37 +49,58 @@ __device__ __forceinline__ float wide(float v) { return v; }
 __device__ __forceinline__ float wide(unsigned short v) {
   return cg::bf16_to_f32(v);
 }
+__device__ __forceinline__ float wide(cg::f16 v) { return cg::widen_f16(v); }
 
 template <class T>
 __device__ __forceinline__ T thin(float v) {
-  if constexpr (sizeof(T) == 2)
+  if constexpr (std::is_same_v<T, cg::f16>)
+    return cg::narrow_f16(v);
+  else if constexpr (sizeof(T) == 2)
     return cg::f32_to_bf16(v);
   else
     return v;
 }
 
-// four consecutive elements (16 bytes of fp32, 8 of bf16) as a float4
+// the raw 16 bits of a bf16 (T = unsigned short) or float16 value
+template <class T>
+__device__ __forceinline__ unsigned short bits(float v) {
+  if constexpr (std::is_same_v<T, cg::f16>)
+    return cg::f32_to_f16(v);
+  else
+    return cg::f32_to_bf16(v);
+}
+__device__ __forceinline__ float widen_bits(unsigned short b, unsigned short) {
+  return cg::bf16_to_f32(b);
+}
+__device__ __forceinline__ float widen_bits(unsigned short b, cg::f16) {
+  return cg::f16_to_f32(b);
+}
+
+// four consecutive elements (16 bytes of fp32, 8 of bf16 or float16) as a
+// float4
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const unsigned short* p) {
+template <class T, class = std::enable_if_t<sizeof(T) == 2>>
+__device__ __forceinline__ float4 load4(const T* p) {
   const ushort4 v = *reinterpret_cast<const ushort4*>(p);
-  return make_float4(wide(v.x), wide(v.y), wide(v.z), wide(v.w));
+  return make_float4(widen_bits(v.x, T{}), widen_bits(v.y, T{}),
+                     widen_bits(v.z, T{}), widen_bits(v.w, T{}));
 }
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(unsigned short* p, float4 v) {
-  *reinterpret_cast<ushort4*>(p) =
-      make_ushort4(thin<unsigned short>(v.x), thin<unsigned short>(v.y),
-                   thin<unsigned short>(v.z), thin<unsigned short>(v.w));
+template <class T, class = std::enable_if_t<sizeof(T) == 2>>
+__device__ __forceinline__ void store4(T* p, float4 v) {
+  *reinterpret_cast<ushort4*>(p) = make_ushort4(
+      bits<T>(v.x), bits<T>(v.y), bits<T>(v.z), bits<T>(v.w));
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(unsigned short* p, float a, float b) {
-  *reinterpret_cast<ushort2*>(p) =
-      make_ushort2(thin<unsigned short>(a), thin<unsigned short>(b));
+template <class T, class = std::enable_if_t<sizeof(T) == 2>>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  *reinterpret_cast<ushort2*>(p) = make_ushort2(bits<T>(a), bits<T>(b));
 }
 
 constexpr int NT = 256;
@@ -277,16 +301,20 @@ int staged(const T* xr, const T* xi, T* outr, T* outi, const float* wr,
 // out = FFT(x) (inverse: with the 1/n) along rows of n points; w is the
 // fp32 (n,) twiddle table exp(-+2*pi*i*k/n).  log2(n) launches on the
 // current stream (stage 0 with the bit-reverse, then stages 1..), one copy
-// launch for n = 1; raw bf16 planes for bf16 = 1.  out must be 16-byte
-// aligned (a fresh allocation).
+// launch for n = 1; raw bf16 planes for store = 1, raw float16 for store =
+// 2.  out must be 16-byte aligned (a fresh allocation).
 extern "C" int fft_staged_pass(const void* xr, const void* xi, void* outr,
                                void* outi, const float* wr, const float* wi,
-                               long long batch, int n, int inverse, int bf16,
+                               long long batch, int n, int inverse, int store,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (batch <= 0 || n < 1 || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+  if (store == 2)
+    return staged<cg::f16>((const cg::f16*)xr, (const cg::f16*)xi,
+                           (cg::f16*)outr, (cg::f16*)outi, wr, wi, batch, n,
+                           inverse, s);
   using B = unsigned short;
-  if (bf16)
+  if (store == 1)
     return staged<B>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi, wr, wi,
                      batch, n, inverse, s);
   return staged<float>((const float*)xr, (const float*)xi, (float*)outr,

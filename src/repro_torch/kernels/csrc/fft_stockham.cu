@@ -1,5 +1,5 @@
-// Mixed radix-4 / radix-2 Stockham autosort FFT on (batch, n) split fp32
-// or bf16 planes (bf16 widened at the load, fp32 in registers and shared
+// Mixed radix-4 / radix-2 Stockham autosort FFT on (batch, n) split fp32,
+// bf16 or float16 planes (widened at the load, fp32 in registers and shared
 // memory, rounded at the store), n a power of two >= 2, and its pure
 // radix-2 twin.
 //
@@ -56,17 +56,17 @@
 // length n = 2^(ln + linner)) or ST_TRANSPOSED (launch B: rows of 2^ln,
 // stages of bits l1.. of n = 2^(l1 + ln), out[image][m][row mod 2^l1]);
 // `scale` at the store; `blocks` the persistent grid; raw bf16 planes for
-// bf16 = 1.  Returns cudaErrorInvalidValue for a tiling it does not take.
+// store = 1, raw float16 for store = 2.  Returns cudaErrorInvalidValue for a tiling it does not take.
 // Radix 2: `tab` the fp32 W_n^m, m < n/2, of the transform's sign as
 // (cos, sin) pairs.
 extern "C" int fft_stockham_r2_pass(const void* xr, const void* xi,
                                     void* outr, void* outi,
                                     const float* tab, long long outer, int ln,
                                     int linner, int lc, int lg, int route,
-                                    int l1, int blocks, float scale, int bf16,
+                                    int l1, int blocks, float scale, int store,
                                     void* stream) {
   return stockham_pass<2>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
-                          route, l1, 0, blocks, scale, -1.f, bf16,
+                          route, l1, 0, blocks, scale, -1.f, store,
                           (cudaStream_t)stream);
 }
 
@@ -78,37 +78,32 @@ extern "C" int fft_stockham_r4_pass(const void* xr, const void* xi,
                                     const float* tab, long long outer, int ln,
                                     int linner, int lc, int lg, int route,
                                     int l1, int blocks, float scale,
-                                    int inverse, int bf16, void* stream) {
+                                    int inverse, int store, void* stream) {
   return stockham_pass<4>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
                           route, l1, 0, blocks, scale, inverse ? 1.f : -1.f,
-                          bf16, (cudaStream_t)stream);
+                          store, (cudaStream_t)stream);
 }
 
 // The per-stage route (n > 2^24) of radix `radix`: x -> out through the
-// scratch pair (sr, si), 1/n on the inverse, raw bf16 planes for bf16 = 1;
-// `tab` the radix's
-// one table (radix 2: n/2 entries; radix 4: (3, n/4)) of float2.
+// scratch pair (sr, si), 1/n on the inverse, raw bf16 planes for store = 1,
+// raw float16 for store = 2; `tab` the radix's one table (radix 2: n/2
+// entries; radix 4: (3, n/4)) of float2.
 extern "C" int fft_stockham_stages(const void* xr, const void* xi,
                                    void* outr, void* outi, void* sr,
                                    void* si, const float* tab,
                                    long long batch, int ln, int inverse,
-                                   int radix, int bf16, void* stream) {
+                                   int radix, int store, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (batch <= 0 || ln < 1 || ln > 40 || (radix != 2 && radix != 4))
     return (int)cudaErrorInvalidValue;
   const float2* w = (const float2*)tab;
   const float sc = inverse ? (float)(1.0 / (double)(1LL << ln)) : 1.f;
-  using B = unsigned short;
-  if (bf16)
+  return by_store(store, [&](auto t) {
+    using B = typename decltype(t)::type;
     return radix == 2
                ? per_stage<2>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
                               (B*)sr, (B*)si, w, batch, ln, 0, inverse, sc, s)
                : per_stage<4>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
                               (B*)sr, (B*)si, w, batch, ln, 0, inverse, sc, s);
-  using F = float;
-  return radix == 2
-             ? per_stage<2>((const F*)xr, (const F*)xi, (F*)outr, (F*)outi,
-                            (F*)sr, (F*)si, w, batch, ln, 0, inverse, sc, s)
-             : per_stage<4>((const F*)xr, (const F*)xi, (F*)outr, (F*)outi,
-                            (F*)sr, (F*)si, w, batch, ln, 0, inverse, sc, s);
+  });
 }

@@ -1,5 +1,5 @@
-// Fused spectral convolution over (batch, r, m) real rows, fp32 or bf16, m
-// a power of two >= 4: rfft -> pointwise multiply -> irfft with the
+// Fused spectral convolution over (batch, r, m) real rows, fp32, bf16 or
+// float16, m a power of two >= 4: rfft -> pointwise multiply -> irfft with the
 // spectrum kept on chip.
 //
 // Replaces the Pallas kernel repro/kernels/fftconv_fused.py::_fftconv_kernel
@@ -32,8 +32,9 @@
 //               pair k, m/2 - k, reading both Z and both E/F bins once.
 //               The inverse's last pass goes back to shared memory and the
 //               rows leave interleaved, scaled by 2/m, 8 contiguous bytes a
-//               thread (4 for bf16).  bf16 x, E/F and y are widened at the
-//               load and rounded at the store; the FFTs run in fp32.
+//               thread (4 for bf16, float16).  bf16 and float16 x, E/F
+//               and y are widened at the load and rounded at the store;
+//               the FFTs run in fp32.
 //   m > 16384   spectral_section_pass: the multiply alone, one thread per
 //               bin over global memory, between the port's 1-D kernels at
 //               length m/2 (four-step up to 2^20, Stockham beyond), which
@@ -72,7 +73,8 @@ struct ConvCopy {
   }
 };
 
-// the interleaved (re, im) of one output point: 8 bytes (fp32) or 4 (bf16)
+// the interleaved (re, im) of one output point: 8 bytes (fp32) or 4 (bf16,
+// float16)
 __device__ __forceinline__ void store_pair(float* y, float re, float im) {
   *reinterpret_cast<float2*>(y) = make_float2(re, im);
 }
@@ -80,6 +82,10 @@ __device__ __forceinline__ void store_pair(unsigned short* y, float re,
                                            float im) {
   *reinterpret_cast<unsigned*>(y) =
       (unsigned)cg::f32_to_bf16(re) | ((unsigned)cg::f32_to_bf16(im) << 16);
+}
+__device__ __forceinline__ void store_pair(cg::f16* y, float re, float im) {
+  *reinterpret_cast<unsigned*>(y) =
+      (unsigned)cg::f32_to_f16(re) | ((unsigned)cg::f32_to_f16(im) << 16);
 }
 
 // the forward's first pass reads element i of row t from the stage: the
@@ -236,13 +242,13 @@ int log2i(long long n) {
 // grid of `blocks`.  (er, ei), (fr, fi): the packed filter pair, (r, m/2)
 // when shared != 0, else (batch, r, m/2).  tabf, tabb: the fp32 (3, m/8)
 // radix-4 tables of the forward and inverse sign (one entry for m <= 8).
-// Raw bf16 x, E/F and out for bf16 = 1.
+// Raw bf16 x, E/F and out for store = 1, raw float16 for store = 2.
 extern "C" int fftconv_fused_pass(const void* x, const void* er,
                                   const void* ei, const void* fr,
                                   const void* fi, const float* tabf,
                                   const float* tabb, void* out,
                                   long long batch, int r, int m, int lg,
-                                  int blocks, int shared, int bf16,
+                                  int blocks, int shared, int store,
                                   void* stream) {
   if (batch <= 0 || r <= 0 || m < 4 || (m & (m - 1)) || m > MAX_ONE_PASS ||
       lg < 0 || blocks <= 0)
@@ -259,8 +265,9 @@ extern "C" int fftconv_fused_pass(const void* x, const void* er,
               tiles, ln, 0, 0, lg, 2, (int)wf, p, -1.f,
               (float)(2.0 / (double)m)};
   const auto lns = std::make_integer_sequence<int, 13>{};
-  const ConvLaunch fn = bf16 ? conv_for<unsigned short>(ln, lns)
-                             : conv_for<float>(ln, lns);
+  const ConvLaunch fn = by_store(store, [&](auto t) {
+    return conv_for<typename decltype(t)::type>(ln, lns);
+  });
   const unsigned grid = (unsigned)(tiles < blocks ? tiles : blocks);
   return (int)fn(g, er, ei, fr, fi, (const float2*)tabb, r, shared, grid,
                  1 << (lp - 4), smem, (cudaStream_t)stream);
@@ -268,12 +275,12 @@ extern "C" int fftconv_fused_pass(const void* x, const void* er,
 
 // The spectral section of the multi-launch schedule: (zr, zi) the forward
 // spectra (batch, r, hm) -> (yr, yi), same shape; E/F as above at hm bins;
-// raw bf16 planes for bf16 = 1.
+// raw bf16 planes for store = 1, raw float16 for store = 2.
 extern "C" int spectral_section_pass(const void* zr, const void* zi,
                                      const void* er, const void* ei,
                                      const void* fr, const void* fi,
                                      void* yr, void* yi, long long batch,
-                                     int r, int hm, int shared, int bf16,
+                                     int r, int hm, int shared, int store,
                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (batch <= 0 || r <= 0 || hm < 2 || (hm & (hm - 1)))
@@ -281,16 +288,13 @@ extern "C" int spectral_section_pass(const void* zr, const void* zi,
   const long long total = batch * r * (long long)hm;
   long long blocks = (total + NT_SECTION - 1) / NT_SECTION;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  using B = unsigned short;
-  if (bf16)
+  by_store(store, [&](auto t) {
+    using B = typename decltype(t)::type;
     section<B><<<(unsigned)blocks, NT_SECTION, 0, s>>>(
         (const B*)zr, (const B*)zi, (const B*)er, (const B*)ei,
         (const B*)fr, (const B*)fi, (B*)yr, (B*)yi, total, (long long)r * hm,
         log2i(hm), shared);
-  else
-    section<float><<<(unsigned)blocks, NT_SECTION, 0, s>>>(
-        (const float*)zr, (const float*)zi, (const float*)er,
-        (const float*)ei, (const float*)fr, (const float*)fi, (float*)yr,
-        (float*)yi, total, (long long)r * hm, log2i(hm), shared);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// Real-input 2-D FFT over (batch, h, w) fp32 or bf16 images, h and w powers
-// of two >= 2, and its inverse: real (batch, h, w) <-> split half spectra
-// (batch, h, c), c = w/2 + 1 (bf16 widened at the load and rounded at the
-// store; the scratch between the launches is fp32).
+// Real-input 2-D FFT over (batch, h, w) fp32, bf16 or float16 images, h and
+// w powers of two >= 2, and its inverse: real (batch, h, w) <-> split half
+// spectra (batch, h, c), c = w/2 + 1 (bf16 and float16 widened at the load
+// and rounded at the store; the scratch between the launches is fp32).
 //
 // Replaces the Pallas kernels repro/kernels/rfft2d_fused.py::_rfft2d_kernel
 // and ::_irfft2d_kernel.  The TPU kernel holds a whole image in VMEM; a
@@ -155,7 +155,7 @@ struct HalfTile {
 
 // `bytes` (2, 4, 8 or 16) copied from device to shared memory, of which the
 // first `have` are read and the rest zero-filled: cp.async, or for 2 bytes
-// (bf16 rows at an odd pitch) a plain load
+// (bf16 or float16 rows at an odd pitch) a plain load
 __device__ __forceinline__ void copy_chunk(void* dst, const void* src,
                                            int bytes, int have) {
   if (bytes == 2)
@@ -413,14 +413,17 @@ ColsLaunch cols_for(int ln, std::integer_sequence<int, L...>) {
   return fns[ln - 1];
 }
 
-using B16 = unsigned short;
-
-// the column pass's instance: fp32 scratch on the other side of bf16 planes
-inline ColsLaunch pick_cols(int ln, int in_bf16, int out_bf16) {
+// the column pass's instance: fp32 scratch on the other side of bf16 or
+// float16 planes (store codes as in axis_fft_launch)
+inline ColsLaunch pick_cols(int ln, int in_store, int out_store) {
   const auto lns = std::make_integer_sequence<int, 12>{};
-  if (in_bf16) return cols_for<B16, float>(ln, lns);
-  if (out_bf16) return cols_for<float, B16>(ln, lns);
-  return cols_for<float, float>(ln, lns);
+  if (in_store)
+    return by_store(in_store, [&](auto t) {
+      return cols_for<typename decltype(t)::type, float>(ln, lns);
+    });
+  return by_store(out_store, [&](auto t) {
+    return cols_for<float, typename decltype(t)::type>(ln, lns);
+  });
 }
 
 // The two launches' geometry, checked: the column pass's tiles of C =
@@ -455,8 +458,8 @@ struct Plan2 {
   }
   // the column pass over (batch, h, *) planes x -> out, sign sg
   cudaError_t cols(const void* xr, const void* xi, void* outr, void* outi,
-                   const float* tab, int sp, int dp, float sg, int in_bf16,
-                   int out_bf16, cudaStream_t s) const {
+                   const float* tab, int sp, int dp, float sg, int in_store,
+                   int out_store, cudaStream_t s) const {
     const int cp = lh + col_lc + col_lg;
     const long long wf = ((1LL << cp) + 31) / 32 * 32;
     const int nb = (1 << cp) <= AXIS_TILE ? 2 : 1;
@@ -464,7 +467,7 @@ struct Plan2 {
                 ((batch + (1LL << col_lg) - 1) >> col_lg) * tpi(), lh, 0,
                 col_lc, col_lg, nb, (int)wf, 0, sg, 1.f};
     const size_t smem = (size_t)nb * 2 * sizeof(float) * wf;
-    return pick_cols(lh, in_bf16, out_bf16)(
+    return pick_cols(lh, in_store, out_store)(
         g, (unsigned)(g.tiles < col_blocks ? g.tiles : col_blocks),
         1 << (cp - 4), smem, sp, dp, width(), tpi(), s);
   }
@@ -472,7 +475,7 @@ struct Plan2 {
   // plane the inverse's copy stages (0 for the forward)
   template <bool INV>
   cudaError_t rows(const void* xr, const void* xi, void* outr, void* outi,
-                   const float* tab, float sg, float scale, int bf16,
+                   const float* tab, float sg, float scale, int store,
                    cudaStream_t s) const {
     int p;
     long long wf = work_floats(lw, 0, 0, row_lg, false, &p);
@@ -487,8 +490,9 @@ struct Plan2 {
                 (n + (1LL << row_lg) - 1) >> row_lg, lw, 0, 0, row_lg, nb,
                 (int)wf, p, sg, scale};
     const auto lns = std::make_integer_sequence<int, 12>{};
-    const RowsLaunch fn = bf16 ? rows_for<INV, B16>(lw, lns)
-                               : rows_for<INV, float>(lw, lns);
+    const RowsLaunch fn = by_store(store, [&](auto t) {
+      return rows_for<INV, typename decltype(t)::type>(lw, lns);
+    });
     return fn(g, (unsigned)(g.tiles < row_blocks ? g.tiles : row_blocks),
               1 << (rp - 4), smem, pitch, s);
   }
@@ -578,23 +582,23 @@ repitch(const TI* __restrict__ xr, const TI* __restrict__ xi,
 // row pitch `pitch`, then the column pass (2^col_lc columns and 2^col_lg
 // images a tile); tabw and tabh the fp32 W_n^k, k < n, of the forward
 // sign for n = w and h; the blocks of each persistent grid; raw bf16 x and
-// out for bf16 = 1.  Returns cudaErrorInvalidValue for a tiling it does
-// not take.
+// out for store = 1, raw float16 for store = 2.  Returns
+// cudaErrorInvalidValue for a tiling it does not take.
 extern "C" int rfft2d_fused_pass(const void* x, void* outr, void* outi,
                                  float* sr, float* si, const float* tabw,
                                  const float* tabh, long long batch, int lh,
                                  int lw, int pitch_, int row_lg,
                                  int row_blocks, int col_lc, int col_lg,
-                                 int col_blocks, int bf16, void* stream) {
+                                 int col_blocks, int store, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Plan2 pl{batch, lh, lw, pitch_, row_lg, row_blocks, col_lc, col_lg,
                  col_blocks};
   if (!pl.ok(true)) return (int)cudaErrorInvalidValue;
   const cudaError_t e =
-      pl.rows<false>(x, nullptr, sr, si, tabw, -1.f, 1.f, bf16, s);
+      pl.rows<false>(x, nullptr, sr, si, tabw, -1.f, 1.f, store, s);
   if (e != cudaSuccess) return (int)e;
   return (int)pl.cols(sr, si, outr, outi, tabh, pitch_, pl.width(), -1.f, 0,
-                      bf16, s);
+                      store, s);
 }
 
 // (xr, xi) (batch, 2^lh, w/2+1) half spectra -> out (batch, 2^lh, 2^lw)
@@ -602,24 +606,24 @@ extern "C" int rfft2d_fused_pass(const void* x, void* outr, void* outi,
 // kernels/rfft2d_fused.py planned: the column pass (read at the input's
 // pitch w/2+1) into the fp32 scratch pair (sr, si) of row pitch `pitch`,
 // then the row pass; tabw and tabh of the inverse sign; raw bf16 input
-// and output for bf16 = 1.  Returns cudaErrorInvalidValue for a tiling it
-// does not take.
+// and output for store = 1, raw float16 for store = 2.  Returns
+// cudaErrorInvalidValue for a tiling it does not take.
 extern "C" int irfft2d_fused_pass(const void* xr, const void* xi, void* out,
                                   float* sr, float* si, const float* tabw,
                                   const float* tabh, long long batch, int lh,
                                   int lw, int pitch_, int row_lg,
                                   int row_blocks, int col_lc, int col_lg,
-                                  int col_blocks, int bf16, void* stream) {
+                                  int col_blocks, int store, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Plan2 pl{batch, lh, lw, pitch_, row_lg, row_blocks, col_lc, col_lg,
                  col_blocks};
   if (!pl.ok(false)) return (int)cudaErrorInvalidValue;
   const cudaError_t e = pl.cols(xr, xi, sr, si, tabh, pl.width(), pitch_,
-                                1.f, bf16, 0, s);
+                                1.f, store, 0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)pl.rows<true>(sr, si, out, nullptr, tabw, 1.f,
                             (float)(1.0 / ((double)(1 << lh) * (1 << lw))),
-                            bf16, s);
+                            store, s);
 }
 
 // -- the long-axis routes' launches, one an entry (kernels/rfft2d_fused.py
@@ -631,10 +635,10 @@ extern "C" int irfft2d_fused_pass(const void* xr, const void* xi, void* out,
 extern "C" int rfft2d_rows_pass(const void* x, float* sr, float* si,
                                 const float* tabw, long long batch, int lh,
                                 int lw, int pitch_, int row_lg,
-                                int row_blocks, int bf16, void* stream) {
+                                int row_blocks, int store, void* stream) {
   const Plan2 pl{batch, lh, lw, pitch_, row_lg, row_blocks, 0, 0, 1};
   if (!pl.ok_rows()) return (int)cudaErrorInvalidValue;
-  return (int)pl.rows<false>(x, nullptr, sr, si, tabw, -1.f, 1.f, bf16,
+  return (int)pl.rows<false>(x, nullptr, sr, si, tabw, -1.f, 1.f, store,
                              (cudaStream_t)stream);
 }
 
@@ -643,30 +647,31 @@ extern "C" int rfft2d_rows_pass(const void* x, float* sr, float* si,
 extern "C" int irfft2d_rows_pass(const float* sr, const float* si, void* out,
                                  const float* tabw, long long batch, int lh,
                                  int lw, int pitch_, int row_lg,
-                                 int row_blocks, float scale, int bf16,
+                                 int row_blocks, float scale, int store,
                                  void* stream) {
   const Plan2 pl{batch, lh, lw, pitch_, row_lg, row_blocks, 0, 0, 1};
   if (!pl.ok_rows() || pitch_ % 4) return (int)cudaErrorInvalidValue;
-  return (int)pl.rows<true>(sr, si, out, nullptr, tabw, 1.f, scale, bf16,
+  return (int)pl.rows<true>(sr, si, out, nullptr, tabw, 1.f, scale, store,
                             (cudaStream_t)stream);
 }
 
 // Either direction's column pass alone (h <= 4096): (xr, xi) of pitch sp
 // -> (outr, outi) of pitch dp, the fp32 scratch on the side that is not
-// bf16 (in_bf16 / out_bf16), sign of `inverse`.
+// bf16 or float16 (the store codes in_store / out_store), sign of
+// `inverse`.
 extern "C" int rfft2d_cols_pass(const void* xr, const void* xi, void* outr,
                                 void* outi, const float* tabh,
                                 long long batch, int lh, int lw, int pitch_,
                                 int col_lc, int col_lg, int col_blocks,
-                                int inverse, int in_bf16, int out_bf16,
+                                int inverse, int in_store, int out_store,
                                 void* stream) {
   const Plan2 pl{batch, lh, lw, pitch_, 0, 1, col_lc, col_lg, col_blocks};
-  if (!pl.ok_cols(!inverse) || (in_bf16 && out_bf16))
+  if (!pl.ok_cols(!inverse) || (in_store && out_store))
     return (int)cudaErrorInvalidValue;
   const int sp = inverse ? pl.width() : pitch_;
   const int dp = inverse ? pitch_ : pl.width();
   return (int)pl.cols(xr, xi, outr, outi, tabh, sp, dp,
-                      inverse ? 1.f : -1.f, in_bf16, out_bf16,
+                      inverse ? 1.f : -1.f, in_store, out_store,
                       (cudaStream_t)stream);
 }
 
@@ -678,73 +683,78 @@ extern "C" int rfft2d_axis_pass(const void* xr, const void* xi, void* outr,
                                 const float* tab2, long long outer, int ln,
                                 int linner, int lc, int lg, int plane,
                                 int blocks, int inverse, float scale,
-                                int bf16, int mode, const float* tw, int tls,
+                                int store, int mode, const float* tw, int tls,
                                 int ljr, int lr1, int lr2, long long img_in,
                                 long long img_out, void* stream) {
   return (int)axis_fft_launch(xr, xi, outr, outi, tab, tab2, outer, ln,
                               linner, lc, lg, plane, blocks, inverse, scale,
-                              bf16, mode, tw, tls, ljr, lr1, lr2, img_in,
+                              store, mode, tw, tls, ljr, lr1, lr2, img_in,
                               img_out, (cudaStream_t)stream);
 }
 
-// The packed spectra (batch*h/2 rows of 2^lw, raw bf16 for bf16 = 1) ->
-// the untangled fp32 scratch of pitch P.
+// The packed spectra (batch*h/2 rows of 2^lw; raw bf16 for store = 1, raw
+// float16 for store = 2) -> the untangled fp32 scratch of pitch P.
 extern "C" int rfft2d_untangle(const void* zr, const void* zi, float* yr,
                                float* yi, long long pairs, int lw, int P,
-                               int bf16, void* stream) {
+                               int store, void* stream) {
   if (pairs <= 0 || lw < 1 || lw > 30 || P < (1 << lw) / 2 + 1)
     return (int)cudaErrorInvalidValue;
   const long long total = pairs * ((1LL << lw) / 2 + 1);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    untangle<B16><<<ew_blocks(total), EW_NT, 0, s>>>(
-        (const B16*)zr, (const B16*)zi, yr, yi, pairs, lw, P);
-  else
-    untangle<float><<<ew_blocks(total), EW_NT, 0, s>>>(
-        (const float*)zr, (const float*)zi, yr, yi, pairs, lw, P);
+  by_store(store, [&](auto t) {
+    using T = typename decltype(t)::type;
+    untangle<T><<<ew_blocks(total), EW_NT, 0, s>>>(
+        (const T*)zr, (const T*)zi, yr, yi, pairs, lw, P);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 
 // The fp32 half spectra of pitch P -> packed rows of 2^lw (raw bf16 for
-// bf16 = 1).
+// store = 1, raw float16 for store = 2).
 extern "C" int rfft2d_repack(const float* sr, const float* si, void* zr,
                              void* zi, long long pairs, int lw, int P,
-                             int bf16, void* stream) {
+                             int store, void* stream) {
   if (pairs <= 0 || lw < 1 || lw > 30 || P < (1 << lw) / 2 + 1)
     return (int)cudaErrorInvalidValue;
   const long long total = pairs << lw;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    repack<B16><<<ew_blocks(total), EW_NT, 0, s>>>(sr, si, (B16*)zr,
-                                                    (B16*)zi, pairs, lw, P);
-  else
-    repack<float><<<ew_blocks(total), EW_NT, 0, s>>>(
-        sr, si, (float*)zr, (float*)zi, pairs, lw, P);
+  by_store(store, [&](auto t) {
+    using T = typename decltype(t)::type;
+    repack<T><<<ew_blocks(total), EW_NT, 0, s>>>(sr, si, (T*)zr, (T*)zi,
+                                                  pairs, lw, P);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 
 // Rows of `width` at pitch sp -> pitch dp (zero-filled past width); the
-// side flagged bf16 raw bf16, the other fp32.
+// side with a non-zero store code (in_store, out_store) raw bf16 or
+// float16, the other fp32.
 extern "C" int rfft2d_repitch(const void* xr, const void* xi, void* yr,
                               void* yi, long long rows, int width, int sp,
-                              int dp, int in_bf16, int out_bf16,
+                              int dp, int in_store, int out_store,
                               void* stream) {
   if (rows <= 0 || width < 1 || sp < width || dp < width ||
-      (in_bf16 && out_bf16))
+      (in_store && out_store))
     return (int)cudaErrorInvalidValue;
   const long long total = rows * dp;
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_bf16)
-    repitch<B16, float><<<ew_blocks(total), EW_NT, 0, s>>>(
-        (const B16*)xr, (const B16*)xi, (float*)yr, (float*)yi, rows, width,
-        sp, dp);
-  else if (out_bf16)
-    repitch<float, B16><<<ew_blocks(total), EW_NT, 0, s>>>(
-        (const float*)xr, (const float*)xi, (B16*)yr, (B16*)yi, rows, width,
-        sp, dp);
+  if (in_store)
+    by_store(in_store, [&](auto t) {
+      using T = typename decltype(t)::type;
+      repitch<T, float><<<ew_blocks(total), EW_NT, 0, s>>>(
+          (const T*)xr, (const T*)xi, (float*)yr, (float*)yi, rows, width,
+          sp, dp);
+      return 0;
+    });
   else
-    repitch<float, float><<<ew_blocks(total), EW_NT, 0, s>>>(
-        (const float*)xr, (const float*)xi, (float*)yr, (float*)yi, rows,
-        width, sp, dp);
+    by_store(out_store, [&](auto t) {
+      using T = typename decltype(t)::type;
+      repitch<float, T><<<ew_blocks(total), EW_NT, 0, s>>>(
+          (const float*)xr, (const float*)xi, (T*)yr, (T*)yi, rows, width,
+          sp, dp);
+      return 0;
+    });
   return (int)cudaGetLastError();
 }

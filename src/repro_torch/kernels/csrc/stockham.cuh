@@ -7,7 +7,8 @@
 // bit for bit row s of the packed (s4, 3, n/4) table), the 1-D kernel's
 // fused launches (StRun, st_pick, stockham_pass: rows, launches A and B of
 // the two-launch split, on rows or on the columns of images) and its
-// per-stage route past 2^24 (per_stage), each on fp32 or raw bf16 planes.
+// per-stage route past 2^24 (per_stage), each on fp32, raw bf16 or raw
+// float16 planes (`store` 0, 1, 2).
 // The tile walk, the copies, FromShared / ToShared / FromStage and the
 // stores (ToGlobal, ToSplit) are axis_fft.cuh's.
 #pragma once
@@ -375,7 +376,8 @@ StLaunch st_pick(int route, int ln, int threads) {
 
 // One fused launch of radix RX x -> out over (outer, 2^ln, 2^linner) with
 // the tiling the host planned (kernels/fft_stockham.py::plan,
-// kernels/fft2d_fused.py::plan), fp32 or raw bf16 planes (bf16 = 1): the
+// kernels/fft2d_fused.py::plan), fp32 or raw bf16 / float16 planes (store
+// 0, 1, 2): the
 // route, l1 (launch B: the bits of launch A), lin (ST_COLS: log2 of the
 // images' inner extent; ST_TCOLS: linner), `scale` at the store, `blocks`
 // the persistent grid; `tab` the radix's one table of the transform's
@@ -384,7 +386,7 @@ template <int RX>
 int stockham_pass(const void* xr, const void* xi, void* outr, void* outi,
                   const float* tab, long long outer, int ln, int linner,
                   int lc, int lg, int route, int l1, int lin, int blocks,
-                  float scale, float sg, int bf16, cudaStream_t stream) {
+                  float scale, float sg, int store, cudaStream_t stream) {
   const int lp = ln + lc + lg;
   const bool rows = route == ST_ROWS || route == ST_TRANSPOSED;
   if (outer <= 0 || blocks <= 0 || ln < 1 || lc < 0 || lg < 0 || lp > 14 ||
@@ -402,8 +404,9 @@ int stockham_pass(const void* xr, const void* xi, void* outr, void* outi,
                     (l1 & 1)))))
     return (int)cudaErrorInvalidValue;
   const int threads = 1 << (lp - 4);
-  const StLaunch fn = bf16 ? st_pick<RX, unsigned short>(route, ln, threads)
-                           : st_pick<RX, float>(route, ln, threads);
+  const StLaunch fn = by_store(store, [&](auto t) {
+    return st_pick<RX, typename decltype(t)::type>(route, ln, threads);
+  });
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int p = 0;
   long long wf = 1LL << lp;

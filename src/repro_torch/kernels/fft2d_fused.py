@@ -21,8 +21,8 @@ the planes twice.  Longer axes take the 1-D kernel's routes on the same
 machinery: rows of up to 2^14 points one a tile, columns of up to 2^14 in
 2- and 1-column tiles, either axis up to 2^24 as the 1-D kernel's launches
 A and B (the columns' launch B storing whole tiles of columns,
-"split_tcols"), and past that a launch a stage.  float32 or bfloat16
-planes (bf16 widened at the load, rounded at each store).
+"split_tcols"), and past that a launch a stage.  float32, bfloat16 or
+float16 planes (widened at the load, rounded at each store).
 """
 from __future__ import annotations
 
@@ -136,7 +136,7 @@ def tables(h: int, w: int, inverse: bool, device) -> tuple:
 
 
 @functools.lru_cache(maxsize=64)
-def _launch_args(batch: int, h: int, w: int, inverse: bool, bf16: bool,
+def _launch_args(batch: int, h: int, w: int, inverse: bool, store: int,
                  device: torch.device) -> tuple:
     """Each launch's (route, axis, arguments after the pointers)."""
     sms = _build.sm_count(device)
@@ -148,16 +148,16 @@ def _launch_args(batch: int, h: int, w: int, inverse: bool, bf16: bool,
         scale = 1.0 / (h * w) if inverse and i == len(steps) - 1 else 1.0
         if route == "stages":
             args = [lp.outer, log2(lp.n), log2(lp.inner), scale,
-                    int(inverse), int(bf16)]
+                    int(inverse), store]
         elif route == "cols":
             args = [lp.outer, log2(lp.n), log2(lp.inner), log2(lp.c),
                     log2(lp.g), lp.blocks(sms), scale, int(inverse),
-                    int(bf16)]
+                    store]
         else:
             args = [lp.outer, log2(lp.n), log2(lp.inner), log2(lp.c),
                     log2(lp.g), _ROUTES[route], lp.lr[0],
                     lp.ljr if route in ("split_cols", "split_tcols") else 0,
-                    lp.blocks(sms), scale, int(inverse), int(bf16)]
+                    lp.blocks(sms), scale, int(inverse), store]
         out.append((route, axis, args))
     return tuple(out)
 
@@ -173,8 +173,8 @@ _STAGES_ARGS = ([_build.P] * 7 + [_build.L, _build.I, _build.I, _build.F,
 def fft2d_fused_cuda(x: SplitComplex, *, inverse: bool = False
                      ) -> SplitComplex:
     """Launch the row and column passes of :func:`plan` on (batch, h, w)
-    CUDA planes (float32 or bfloat16), the inverse's 1/(h*w) at the last
-    store."""
+    CUDA planes (float32, bfloat16 or float16), the inverse's 1/(h*w) at
+    the last store."""
     _build.check_operands(x, 3, _axis.DTYPES)
     batch, h, w = x.shape
     _check_dims(h, w)
@@ -193,7 +193,7 @@ def fft2d_fused_cuda(x: SplitComplex, *, inverse: bool = False
     tabs = tables(h, w, inverse, dev)
     fns = {}
     for (src, dst), (route, axis, args) in zip(routes, _launch_args(
-            batch, h, w, bool(inverse), x.dtype == torch.bfloat16, dev)):
+            batch, h, w, bool(inverse), _build.store_code(x.dtype), dev)):
         ptrs = [*(p.data_ptr() for p in planes[src]),
                 *(p.data_ptr() for p in planes[dst])]
         if route == "stages":

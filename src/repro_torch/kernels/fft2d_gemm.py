@@ -1,5 +1,5 @@
 """Complex 2-D FFT: the CUDA kernel and its plain PyTorch version, in
-float32 and bfloat16.
+float32, bfloat16 and float16.
 
 Replaces ``repro/kernels/fft2d_gemm.py::_fft2d_gemm_kernel`` (both
 variants).  The plain version keeps the reference's arithmetic: a one-level
@@ -22,16 +22,15 @@ fp32 table of n entries an axis
 (:func:`~repro_torch.kernels.axis_fft.twiddle_table`).  It agrees with
 the plain version to fp32 rounding.
 
-bfloat16 storage (the reference's ``itemsize < 4`` dtypes; float16 is not
-ported yet and raises ``TypeError``):
+bfloat16 and float16 storage (the reference's ``itemsize < 4`` dtypes):
 
 - ``variant="compensated"``: the reference splits every table into a bf16
   pair ``hi + lo`` to fit VMEM and sums them in fp32 inside the kernel;
   ``fp32(hi) + fp32(lo)`` is exact, so the port builds that fp32 sum once
   per key (``core/twiddle.py``'s cache) for the plain version.  The input
   is widened to fp32, each pass computes in fp32, the tile is rounded to
-  bf16 after the row pass (the kernel stores it as bf16), and the output
-  is cast to bf16.
+  the storage dtype after the row pass (the kernel stores it so), and the
+  output is cast to it.  This is the plans' variant for both dtypes.
 - ``variant="plain"``: XLA rounds every einsum and every elementwise
   result to bf16, which a GEMM kernel cannot match op for op.  The port
   defines plain bf16 as: tables rounded to bf16 (the ``hi`` half), fp32
@@ -39,9 +38,13 @@ ported yet and raises ``TypeError``):
   GEMM step's output rounded to bf16.  A Stockham FFT has no such rounding
   points, so this variant alone still runs the four-step GEMM chain
   (``csrc/row_pass.cuh``, ``csrc/cgemm.cuh``); the plain version does
-  the same in torch, so the two agree to bf16 rounding ties.
+  the same in torch, so the two agree to bf16 rounding ties.  The plain
+  version computes plain float16 the same way; the CUDA kernel does not
+  take it (:func:`check_chain`: the GEMM chain stores bf16 only, ROADMAP
+  'TPU kernels to port' item 2e), and no plan resolves to it.
 
-Rounding is to nearest even, as torch's float -> bfloat16 cast does.
+Rounding is to nearest even, as torch's float -> bfloat16 and float ->
+float16 casts do (``csrc/bf16.cuh``, ``csrc/f16.cuh``).
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ from .rfft2d_fused import (fourstep_factors, fourstep_tables_np,
                            fft_last_fourstep, fft_col_fourstep, _check_dims)
 
 VARIANTS = ("plain", "compensated")
-DTYPES = (torch.float32, torch.bfloat16)    # what the CUDA kernels store
+DTYPES = _build.FFT_DTYPES                   # what the CUDA kernels store
 
 
 def check_variant(variant: str) -> None:
@@ -64,12 +67,24 @@ def check_variant(variant: str) -> None:
 
 
 def check_dtype(dtype: torch.dtype) -> None:
-    """The GEMM kernels store float32 or bfloat16 (float64 runs on the
-    CPU only); the other sub-fp32 dtypes are not ported."""
-    if dtype.itemsize < 4 and dtype != torch.bfloat16:
-        raise TypeError(f"the GEMM kernels take float32 or bfloat16, got "
-                        f"{dtype}: other sub-fp32 dtypes are not ported yet "
-                        "(ROADMAP 'TPU kernels to port' item 2e)")
+    """The GEMM transforms store float32, bfloat16 or float16 (float64 runs
+    on the CPU only); other sub-fp32 dtypes are not ported."""
+    if dtype.itemsize < 4 and dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"the GEMM kernels take float32, bfloat16 or "
+                        f"float16, got {dtype}: other sub-fp32 dtypes are "
+                        "not ported (ROADMAP 'TPU kernels to port' item 2e)")
+
+
+def check_chain(dtype: torch.dtype, variant: str) -> None:
+    """What the CUDA kernel refuses beyond :func:`check_dtype`: plain
+    float16, which would run the GEMM chain, whose stores are bf16 only.
+    No plan resolves to it (float16 plans take ``"compensated"``)."""
+    if dtype == torch.float16 and variant == "plain":
+        raise TypeError("variant='plain' float16 runs the GEMM chain "
+                        "(row_pass.cuh, cgemm.cuh), which stores bf16 only: "
+                        "not ported (ROADMAP 'TPU kernels to port' item "
+                        "2e); variant='compensated', the plans' float16 "
+                        "variant, runs the FFT kernels")
 
 
 def split_table_np(t: np.ndarray, dtype) -> torch.Tensor:
@@ -183,11 +198,12 @@ _ARGS_CHAIN = [_build.P] * 20 + [_build.L] + [_build.I] * 5 + [_build.P]
 
 def fft2d_gemm_cuda(x: SplitComplex, *, inverse: bool = False,
                     variant: str = "plain") -> SplitComplex:
-    """Launch the 2-D FFT on (batch, h, w) CUDA planes (float32 or
-    bfloat16): the planned shared-memory FFT passes, or the GEMM chain for
-    plain bf16."""
+    """Launch the 2-D FFT on (batch, h, w) CUDA planes (float32, bfloat16
+    or float16): the planned shared-memory FFT passes, or the GEMM chain
+    for plain bf16."""
     check_variant(variant)
     check_dtype(x.dtype)
+    check_chain(x.dtype, variant)
     _build.check_operands(x, 3, DTYPES)
     batch, h, w = x.shape
     _check_dims(h, w)

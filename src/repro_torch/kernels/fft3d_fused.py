@@ -1,5 +1,5 @@
 """Fused complex 3-D FFT: the CUDA kernel and its plain PyTorch version, in
-float32 and bfloat16.
+float32, bfloat16 and float16.
 
 Replaces ``repro/kernels/fft3d_fused.py::_fft3d_kernel`` (both variants).
 The plain version keeps the reference's arithmetic: three one-level
@@ -26,10 +26,11 @@ for h*w <= 16384 a plane launch (W and H on whole images) and the D FFT
 on tiles of adjacent columns of the (batch, d, h*w) view, else W on rows,
 H and D on columns; all but the first in place in the output.
 
-bfloat16 follows :mod:`repro_torch.kernels.fft2d_gemm`'s definitions: the
-compensated variant rounds the tile to bf16 after the W and after the H
-pass (the kernel stores those boundaries as bf16), the plain variant after
-every GEMM step, on the GEMM chain (``csrc/row_pass.cuh``).
+bfloat16 and float16 follow :mod:`repro_torch.kernels.fft2d_gemm`'s
+definitions: the compensated variant rounds the tile to the storage dtype
+after the W and after the H pass (the kernel stores those boundaries so),
+the plain variant after every GEMM step, on the GEMM chain
+(``csrc/row_pass.cuh``; bf16 only on the card).
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ from repro_torch.core.fft1d import _best_split
 from . import _build, axis_fft
 from .rfft2d_fused import (fourstep_tables_np, fft_last_fourstep,
                            fft_col_fourstep)
-from .fft2d_gemm import (DTYPES, check_variant, check_dtype, _operands,
+from .fft2d_gemm import (DTYPES, check_variant, check_dtype, check_chain,
+                         _operands,
                          compute_dtype, axis_tables, roundings, on_gemm_chain,
                          scratch)
 
@@ -111,9 +113,9 @@ _ARGS_CHAIN = [_build.P] * 26 + [_build.L] + [_build.I] * 7 + [_build.P]
 
 def fft3d_fused_cuda(x: SplitComplex, *, inverse: bool = False,
                      variant: str = "plain") -> SplitComplex:
-    """Launch the 3-D FFT on (batch, d, h, w) CUDA planes (float32 or
-    bfloat16): the planned shared-memory FFT passes, or the GEMM chain for
-    plain bf16."""
+    """Launch the 3-D FFT on (batch, d, h, w) CUDA planes (float32,
+    bfloat16 or float16): the planned shared-memory FFT passes, or the
+    GEMM chain for plain bf16."""
     return _fft3d_cuda(x, inverse=inverse, variant=variant)
 
 
@@ -124,6 +126,7 @@ def _fft3d_cuda(x: SplitComplex, *, inverse: bool = False,
     timing them against each other."""
     check_variant(variant)
     check_dtype(x.dtype)
+    check_chain(x.dtype, variant)
     _build.check_operands(x, 4, DTYPES)
     batch, d, h, w = x.shape
     _check_dims3(d, h, w)

@@ -90,8 +90,9 @@ def fft_fourstep_plain(x: SplitComplex, *, inverse: bool = False,
 # the fused kernel's limits: each factor a power of two in [2, MAX_FACTOR]
 # (a factor's FFT runs in one block); n <= ONE_LAUNCH_MAX runs in one
 # launch without scratch, larger n in two.  Other factors up to
-# axis_fft.FACTOR_MAX (and bf16 planes) take the axis route: axis_fft.cuh's
-# launches, the "twiddle" one along n1, the "reversed" one along n2.
+# axis_fft.FACTOR_MAX (and bf16 and float16 planes) take the axis route:
+# axis_fft.cuh's launches, the "twiddle" one along n1, the "reversed" one
+# along n2.
 MAX_FACTOR = 1024
 ONE_LAUNCH_MAX = 1 << 14
 
@@ -163,10 +164,10 @@ _ARGS = [_build.P] * 7 + [_build.L, _build.I, _build.I, _build.I, _build.P]
 
 def fft_fourstep_cuda(x: SplitComplex, *, inverse: bool = False,
                       n1: int = None) -> SplitComplex:
-    """Launch the four-step kernel on (batch, n) CUDA planes (float32 or
-    bfloat16): one grid for n <= 2^14, two (columns, then rows through
-    scratch) above; the axis route (:func:`kernel_route`) for bf16 and
-    factors past :data:`MAX_FACTOR`."""
+    """Launch the four-step kernel on (batch, n) CUDA planes (float32,
+    bfloat16 or float16): one grid for n <= 2^14, two (columns, then rows
+    through scratch) above; the axis route (:func:`kernel_route`) for
+    bf16, float16 and factors past :data:`MAX_FACTOR`."""
     n1, n2 = kernel_factors(x.shape[-1], n1)
     _build.check_operands(x, 2, _axis.DTYPES)
     batch, n = x.shape

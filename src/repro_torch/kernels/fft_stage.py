@@ -46,9 +46,9 @@ _ARGS = [_build.P] * 6 + [_build.L, _build.I, _build.I, _build.I, _build.P]
 def fft_staged_cuda(x: SplitComplex, *, inverse: bool = False
                     ) -> SplitComplex:
     """Launch the log2(n) stage kernels (stage 0 with the bit-reverse) on
-    (batch, n) CUDA planes, float32 or bfloat16 (each stage's output
-    rounded to bf16, as the reference's bf16 arrays are)."""
-    _build.check_operands(x, 2, (torch.float32, torch.bfloat16))
+    (batch, n) CUDA planes, float32, bfloat16 or float16 (each stage's
+    output rounded to the planes' dtype, as the reference's arrays are)."""
+    _build.check_operands(x, 2, _build.FFT_DTYPES)
     batch, n = x.shape
     _check_n(n)
     w = tw.twiddles(n, inverse=inverse, dtype=torch.float32, device=x.device)
@@ -56,6 +56,6 @@ def fft_staged_cuda(x: SplitComplex, *, inverse: bool = False
     fn = _build.function("fft_stage", "fft_staged_pass", _ARGS)
     ptrs = [x.re, x.im, out[0], out[1], w.re, w.im]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, n, int(inverse), int(x.dtype == torch.bfloat16)],
+        batch, n, int(inverse), _build.store_code(x.dtype)],
         "fft_staged_pass", x.device)
     return SplitComplex(out[0], out[1])

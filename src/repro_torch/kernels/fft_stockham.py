@@ -16,8 +16,9 @@ HBM, up to :data:`TWO_MAX`.  Radix 2 splits at l1 = ceil(log2 n / 2),
 radix 4 at an even l1 (:func:`split`), so that launch A holds whole
 radix-4 stages.  Above :data:`TWO_MAX` one kernel launches per stage over
 global ping-pong buffers (radix 4: its stages, then the radix-2 tail).
-float32 or bfloat16 planes: bf16 is widened at the load and rounded at
-each store, the stages run in fp32 off the fp32 tables.
+float32, bfloat16 or float16 planes: sub-fp32 planes are widened at the
+load and rounded at each store, the stages run in fp32 off the fp32
+tables.
 
 Each radix reads one table: radix 2 W_n^p for p < n/2
 (:func:`repro_torch.core.twiddle.radix2_twiddles`) at (j >> s) << s for
@@ -165,10 +166,10 @@ def _fused(x: SplitComplex, inverse: bool, radix: int) -> SplitComplex:
     if len(tails) == 2:
         bufs.insert(1, SplitComplex(torch.empty_like(x.re),
                                     torch.empty_like(x.im)))
-    bf16 = [int(x.dtype == torch.bfloat16)]
+    store = [_build.store_code(x.dtype)]
     calls = [[bufs[i].re.data_ptr(), bufs[i].im.data_ptr(),
               bufs[i + 1].re.data_ptr(), bufs[i + 1].im.data_ptr(),
-              tab.data_ptr()] + tail + bf16 for i, tail in enumerate(tails)]
+              tab.data_ptr()] + tail + store for i, tail in enumerate(tails)]
     _build.launch_all(fn, calls, f"fft_stockham_r{radix}", dev)
     return out
 
@@ -186,7 +187,7 @@ def _per_stage(x: SplitComplex, inverse: bool, radix: int = 4
     ptrs = [x.re, x.im, out.re, out.im, scratch.re, scratch.im, tab]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
         batch, n.bit_length() - 1, int(inverse), radix,
-        int(x.dtype == torch.bfloat16)], "fft_stockham_stages", dev)
+        _build.store_code(x.dtype)], "fft_stockham_stages", dev)
     return out
 
 
@@ -202,13 +203,13 @@ def _cuda(x: SplitComplex, inverse: bool, radix: int) -> SplitComplex:
 def fft_stockham_cuda(x: SplitComplex, *, inverse: bool = False
                       ) -> SplitComplex:
     """Launch the mixed-radix Stockham kernel on (batch, n) CUDA planes
-    (float32 or bfloat16): the fused launches of :func:`r4_plan` up to
-    :data:`TWO_MAX`, a launch a stage above."""
+    (float32, bfloat16 or float16): the fused launches of :func:`r4_plan`
+    up to :data:`TWO_MAX`, a launch a stage above."""
     return _cuda(x, inverse, 4)
 
 
 def fft_stockham_r2_cuda(x: SplitComplex, *, inverse: bool = False
                          ) -> SplitComplex:
     """Launch the radix-2 Stockham kernel on (batch, n) CUDA planes
-    (float32 or bfloat16): the launches of :func:`r2_plan`."""
+    (float32, bfloat16 or float16): the launches of :func:`r2_plan`."""
     return _cuda(x, inverse, 2)

@@ -32,8 +32,8 @@ interleave as strided torch copies.
 
 Layout: x is (batch, R, m) real; E and F are (R, m/2) (one filter per
 row, shared across the batch: the SSM channel bank) or (batch, R, m/2).
-The kernel takes float32 or bfloat16 x with E/F of the same dtype (bf16
-widened at the load and rounded at the store, the FFTs in fp32).
+The kernel takes float32, bfloat16 or float16 x with E/F of the same dtype
+(widened at the load and rounded at the store, the FFTs in fp32).
 """
 from __future__ import annotations
 
@@ -262,9 +262,9 @@ def one_pass_blocks(rows: int, m: int, sms: int) -> tuple:
 
 
 def fftconv_fused_cuda(x: torch.Tensor, ef) -> torch.Tensor:
-    """Launch the fused conv on a (batch, r, m) CUDA tensor (float32 or
-    bfloat16) with the packed pair ef (CUDA planes of x's dtype): the
-    one-pass kernel for m <= :data:`MAX_ONE_PASS`, else the multi-launch
+    """Launch the fused conv on a (batch, r, m) CUDA tensor (float32,
+    bfloat16 or float16) with the packed pair ef (CUDA planes of x's
+    dtype): the one-pass kernel for m <= :data:`MAX_ONE_PASS`, else the multi-launch
     schedule."""
     _build.check_operands(x, 3, _axis.DTYPES)
     shared = _check_bank(x, ef)
@@ -276,7 +276,7 @@ def fftconv_fused_cuda(x: torch.Tensor, ef) -> torch.Tensor:
                              "devices")
     batch, r, m = x.shape
     hm = m // 2
-    bf16 = int(x.dtype == torch.bfloat16)
+    store = _build.store_code(x.dtype)
     if m <= MAX_ONE_PASS:
         if x.data_ptr() % 16:            # the copies move 16-byte chunks
             x = x.clone()
@@ -288,7 +288,7 @@ def fftconv_fused_cuda(x: torch.Tensor, ef) -> torch.Tensor:
                              _ONE_PASS_ARGS)
         ptrs = [x, e.re, e.im, f.re, f.im, tabf, tabb, out]
         _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-            batch, r, m, g.bit_length() - 1, blocks, int(shared), bf16],
+            batch, r, m, g.bit_length() - 1, blocks, int(shared), store],
             "fftconv_fused_pass", x.device)
         return out
     # multi-launch: the 1-D kernels at length m/2 around the section
@@ -302,7 +302,8 @@ def fftconv_fused_cuda(x: torch.Tensor, ef) -> torch.Tensor:
                          _SECTION_ARGS)
     ptrs = [z.re, z.im, e.re, e.im, f.re, f.im, y.re, y.im]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, r, hm, int(shared), bf16], "spectral_section_pass", x.device)
+        batch, r, hm, int(shared), store], "spectral_section_pass",
+        x.device)
     # the inverse's 1/(m/2) is the kernel's 2/m
     y = _fft_inner(y, inverse=True, algo=algo, backend="cuda")
     return torch.stack([y.re, y.im], -1).reshape(batch, r, m)

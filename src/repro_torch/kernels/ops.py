@@ -15,9 +15,9 @@ The fused conv counts once per call; at m > 16384 its 1-D transforms run
 on the 1-D kernels and count in their own counters too.  ``fft_staged``
 (the paper's per-stage Table 1 baseline) counts once per call of its
 log2(n) stage launches, ``decode_attention`` (one-token GQA flash-decode)
-once per call of its split and merge launches.  Every kernel takes
-float32 or bfloat16 (the FFT kernels the same dtype in and out); float16
-is refused (ROADMAP 2e).
+once per call of its split and merge launches.  The FFT kernels take
+float32, bfloat16 or float16, the same dtype in and out (plain float16 on
+the GEMM chain excepted); decode takes float32 or bfloat16 (ROADMAP 2e).
 
 No kernel has a backward.  Every wrapper but :func:`fftconv_fused` (an
 ``autograd.Function`` whose backward is its plain twin's VJP) refuses,
@@ -211,8 +211,8 @@ def fft2d_fused(x: SplitComplex, *, inverse: bool = False,
 def fft2d_gemm(x: SplitComplex, *, inverse: bool = False,
                block_batch: int = 1, variant: str = "plain") -> SplitComplex:
     """GEMM-formulated 2-D FFT over the last two axes (any leading batch
-    dims), float32 or bfloat16; ``variant="compensated"`` is the
-    precision-compensated bf16 path."""
+    dims), float32, bfloat16 or float16; ``variant="compensated"`` is the
+    precision-compensated sub-fp32 path."""
     _refuse_grad("fft2d_gemm", x)
     flat, lead = _flatten2d(x)
     h, w = flat.shape[-2:]
@@ -231,7 +231,8 @@ def fft2d_gemm(x: SplitComplex, *, inverse: bool = False,
 def fft3d_fused(x: SplitComplex, *, inverse: bool = False,
                 block_batch: int = 1, variant: str = "plain") -> SplitComplex:
     """Fused 3-D FFT over the last three axes (any leading batch dims),
-    float32 or bfloat16, the W, H and D GEMM passes with no relayout."""
+    float32, bfloat16 or float16, the W, H and D GEMM passes with no
+    relayout."""
     _refuse_grad("fft3d_fused", x)
     flat, lead = _flatten3d(x)
     d, h, w = flat.shape[-3:]

@@ -335,7 +335,7 @@ def _launch_args(batch: int, h: int, w: int, inverse: bool,
 
 
 def _run(symbol: str, ins: list, out: list, batch: int, h: int, w: int,
-         inverse: bool, bf16: bool) -> None:
+         inverse: bool, store: int) -> None:
     """Launch ``symbol`` on the operands ``ins`` -> ``out`` with its scratch
     pair and the two axes' tables of the transform's sign."""
     dev = out[0].device
@@ -346,7 +346,7 @@ def _run(symbol: str, ins: list, out: list, batch: int, h: int, w: int,
             for n in (w, h)]
     fn = _build.function("rfft2d_fused", symbol, _ARGS)
     ptrs = [*ins, *out, *scratch, *tabs]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + tail + [int(bf16)],
+    _build.launch(fn, [p.data_ptr() for p in ptrs] + tail + [store],
                   symbol, dev)
 
 
@@ -355,7 +355,7 @@ def _run_steps(x, out, batch: int, h: int, w: int, inverse: bool) -> None:
     and the half spectra's SplitComplex, in the direction's order."""
     real = out if inverse else x              # the real plane
     dev, dtype = real.device, real.dtype
-    bf16 = dtype == torch.bfloat16
+    store = _build.store_code(dtype)
     sms = _build.sm_count(dev)
     log2 = _axis._log2
     todo = steps(batch, h, w, inverse)
@@ -391,7 +391,8 @@ def _run_steps(x, out, batch: int, h: int, w: int, inverse: bool) -> None:
                                  _axis.ARGS)
             calls, tabs = _axis.call_args(
                 (what,), [ptr[src] + ptr[dst]], inverse,
-                scale if last else 1.0, bf16 and src not in ("S", "S2"), dev)
+                scale if last else 1.0,
+                0 if src in ("S", "S2") else store, dev)
             held.append(tabs)
             _build.launch_all(fn, calls, "rfft2d_fused", dev)
         elif kind == "rows":
@@ -399,7 +400,7 @@ def _run_steps(x, out, batch: int, h: int, w: int, inverse: bool) -> None:
                                  _ROWS_ARGS)
             _build.launch(fn, [ptr[src][0], *ptr[dst], tw_w.data_ptr(),
                                batch, log2(h), log2(w), pitch,
-                               log2(what.g), what.blocks(sms), int(bf16)],
+                               log2(what.g), what.blocks(sms), store],
                           "rfft2d_fused", dev)
         elif kind == "irows":
             fn = _build.function("rfft2d_fused", "irfft2d_rows_pass",
@@ -407,33 +408,34 @@ def _run_steps(x, out, batch: int, h: int, w: int, inverse: bool) -> None:
             _build.launch(fn, [*ptr[src], ptr[dst][0], tw_w.data_ptr(),
                                batch, log2(h), log2(w), pitch,
                                log2(what.g), what.blocks(sms), scale,
-                               int(bf16)], "rfft2d_fused", dev)
+                               store], "rfft2d_fused", dev)
         elif kind == "cols":
             fn = _build.function("rfft2d_fused", "rfft2d_cols_pass",
                                  _COLS_ARGS)
             _build.launch(fn, [*ptr[src], *ptr[dst], tw_h.data_ptr(),
                                batch, log2(h), log2(w), what.inner,
                                log2(what.c), log2(what.g), what.blocks(sms),
-                               int(inverse), int(bf16 and inverse),
-                               int(bf16 and not inverse)],
+                               int(inverse), store if inverse else 0,
+                               0 if inverse else store],
                           "rfft2d_fused", dev)
         elif kind in ("untangle", "repack"):
             fn = _build.function("rfft2d_fused", f"rfft2d_{kind}", _EW_ARGS)
             _build.launch(fn, [*ptr[src], *ptr[dst], pairs, log2(w), what,
-                               int(bf16)], "rfft2d_fused", dev)
+                               store], "rfft2d_fused", dev)
         else:                                     # repitch
             width, sp, dp = what
             fn = _build.function("rfft2d_fused", "rfft2d_repitch",
                                  _REPITCH_ARGS)
             _build.launch(fn, [*ptr[src], *ptr[dst], batch * h, width, sp,
-                               dp, int(bf16 and src == "x"),
-                               int(bf16 and dst == "out")],
+                               dp, store if src == "x" else 0,
+                               store if dst == "out" else 0],
                           "rfft2d_fused", dev)
 
 
 def rfft2d_fused_cuda(x: torch.Tensor) -> SplitComplex:
     """Launch the real-input 2-D FFT kernel on a (batch, h, w) CUDA tensor,
-    float32 or bfloat16; returns the (batch, h, w/2+1) half spectra of the
+    float32, bfloat16 or float16; returns the (batch, h, w/2+1) half
+    spectra of the
     same dtype."""
     _build.check_operands(x, 3, _axis.DTYPES)
     batch, h, w = x.shape
@@ -445,7 +447,7 @@ def rfft2d_fused_cuda(x: torch.Tensor) -> SplitComplex:
                        torch.empty(shape, dtype=x.dtype, device=x.device))
     if steps(batch, h, w)[0][0] == "fused":
         _run("rfft2d_fused_pass", [x], list(out), batch, h, w, False,
-             x.dtype == torch.bfloat16)
+             _build.store_code(x.dtype))
     else:
         _run_steps(x, out, batch, h, w, False)
     return out
@@ -453,7 +455,8 @@ def rfft2d_fused_cuda(x: torch.Tensor) -> SplitComplex:
 
 def irfft2d_fused_cuda(xf: SplitComplex) -> torch.Tensor:
     """Launch the inverse real-input 2-D FFT kernel on (batch, h, w/2+1)
-    CUDA half spectra, float32 or bfloat16; returns the real (batch, h, w)
+    CUDA half spectra, float32, bfloat16 or float16; returns the real
+    (batch, h, w)
     images of the same dtype."""
     _build.check_operands(xf, 3, _axis.DTYPES)
     batch, h, bins = xf.shape
@@ -463,7 +466,7 @@ def irfft2d_fused_cuda(xf: SplitComplex) -> torch.Tensor:
     out = torch.empty((batch, h, w), dtype=xf.dtype, device=xf.device)
     if steps(batch, h, w, True)[0][0] == "fused":
         _run("irfft2d_fused_pass", list(xf), [out], batch, h, w, True,
-             xf.dtype == torch.bfloat16)
+             _build.store_code(xf.dtype))
     else:
         _run_steps(xf, out, batch, h, w, True)
     return out

@@ -240,3 +240,17 @@ def cache_shardings(cfg: ModelConfig, mesh, abstract_cache: Any,
 
 def replicated(mesh, tree: Any):
     return tree_map(lambda _: NamedSharding(mesh, ()), tree)
+
+
+def lay_out(tree: Any, shardings: Any):
+    """``tree`` with each leaf laid out by its :class:`NamedSharding`
+    (``shardings`` has the tree's structure): a plain tensor distributed,
+    every rank keeping its block of it (every rank holds it whole), a
+    DTensor redistributed."""
+    from torch.distributed.tensor import DTensor
+
+    def one(leaf, sh):
+        if isinstance(leaf, DTensor):
+            return leaf.redistribute(sh.mesh, sh.placements)
+        return sh.distribute(leaf)
+    return tree_map(one, tree, shardings)

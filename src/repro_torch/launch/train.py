@@ -12,9 +12,13 @@ launches of the run.
 ``--mesh single|multi`` builds the production mesh (16x16 or 2x16x16
 ranks) over the process group the launcher is started in (one process a
 rank, ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT`` set, as
-``torchrun`` does).  The sharded step over DTensor is ROADMAP 'Modules to
-port' item 14c: with a group of the mesh's size the launcher raises
-``NotImplementedError``.
+``torchrun`` does, or a group already initialised by the caller) and runs
+the step on DTensors, as the reference's launcher runs its jitted step on
+sharded arrays: params laid out by ``sharding.param_shardings``, the
+optimizer state by ``opt_shardings``, each batch by ``batch_shardings``,
+under ``actsharding.activation_spec(mesh, data_axes(mesh), "model")``.
+Every rank builds the same params and batches from the seed and keeps its
+block of them; checkpoints hold each rank's shards.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import time
 
 
 def _production_mesh(args, dev):
-    """Build the production mesh, then refuse: the sharded step is 14c."""
+    """The production mesh over the process group (initialised here from
+    the environment unless the caller did)."""
     import torch.distributed as dist
     from . import mesh as mesh_lib
     ranks = 512 if args.mesh == "multi" else 256
@@ -37,12 +42,13 @@ def _production_mesh(args, dev):
                 "start one process a rank with RANK, WORLD_SIZE, MASTER_ADDR "
                 "and MASTER_PORT set (torchrun does)")
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-    mesh = mesh_lib.make_production_mesh(multi_pod=args.mesh == "multi",
+    return mesh_lib.make_production_mesh(multi_pod=args.mesh == "multi",
                                          device=dev.type)
-    raise NotImplementedError(
-        f"built the {dict(zip(mesh.mesh_dim_names, mesh.shape))} mesh; the "
-        "sharded train step over DTensor is ROADMAP 'Modules to port' item "
-        "14c")
+
+
+def _value(t):
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def main(argv=None) -> None:
@@ -72,12 +78,17 @@ def main(argv=None) -> None:
 
     if args.deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import contextlib
+
     import torch
     import repro_torch
     import repro_torch.configs as C
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
+    from repro_torch.models import actsharding
     from repro_torch.models import model as M
+    from . import mesh as mesh_lib
+    from . import sharding as sh
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.train_step import init_opt_state, make_train_step
@@ -90,8 +101,7 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     if args.fft_backend is not None:
         cfg = dataclasses.replace(cfg, fft_backend=args.fft_backend)
-    if args.mesh != "none":
-        _production_mesh(args, dev)
+    mesh = _production_mesh(args, dev) if args.mesh != "none" else None
     dcfg = DataConfig(seq_len=args.seq_len, global_batch=args.global_batch)
     data = SyntheticLM(dcfg, cfg, device=dev)
     ocfg = opt_lib.AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
@@ -108,11 +118,28 @@ def main(argv=None) -> None:
           f"{args.steps} steps, batch {args.global_batch} x {args.seq_len} "
           f"on {dev}")
 
+    ctx = contextlib.nullcontext
+    shardings = None
+    if mesh is not None:
+        pshard = sh.param_shardings(cfg, mesh, params)
+        params = sh.lay_out(params, pshard)
+        opt_state = init_opt_state(cfg, ocfg, params, compress=compress)
+        shardings = (pshard, sh.opt_shardings(cfg, mesh, opt_state, params))
+        opt_state = sh.lay_out(opt_state, shardings[1])
+        bshard = sh.batch_shardings(cfg, mesh, data.batch_at(0))
+        print(f"[train] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+              "the step on DTensors")
+
+        def ctx():
+            return actsharding.activation_spec(
+                mesh, mesh_lib.data_axes(mesh), "model")
+
     mgr = CheckpointManager(args.ckpt_dir, keep=3)
     start = 0
     latest = mgr.latest_step()
     if latest is not None:
-        (params, opt_state), extra = mgr.restore(latest, (params, opt_state))
+        (params, opt_state), extra = mgr.restore(latest, (params, opt_state),
+                                                 shardings=shardings)
         start = int(extra.get("data_step", latest))
         print(f"[train] resumed from step {latest}")
 
@@ -125,12 +152,16 @@ def main(argv=None) -> None:
     t_steady = None                        # set after the first step
     for step in range(start, args.steps):
         batch = data.batch_at(step)
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if mesh is not None:
+            batch = sh.lay_out(batch, bshard)
+        with ctx():
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0
-            print(f"[train] step {step:5d} loss {float(metrics['loss']):.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)", flush=True)
+            m = {k: float(_value(v)) for k, v in metrics.items()}
+            print(f"[train] step {step:5d} loss {m['loss']:.4f} "
+                  f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e} "
+                  f"({dt:.1f}s)", flush=True)
         if t_steady is None:
             sync()
             t_steady = time.time()         # first-step costs excluded

@@ -10,6 +10,18 @@ activation to that placement: the batch over the data axes and, for a
 (Megatron-style sequence parallelism for the inter-block residuals).  A
 plain tensor, or any tensor with no spec installed, passes through
 unchanged (one card, unit tests).
+
+Where the reference's partitioner places collectives around a block, the
+sharded step here states them (one rule, two forms):
+
+- :func:`on_shards` runs a block whose work is independent over batch
+  rows (and heads or channels) on each rank's local shards, under
+  ``torch.distributed.tensor.experimental.local_map``: its inputs are
+  redistributed to the stated placements, its tables and masks stay plain
+  tensors, and a kernel inside it sees a plain local tensor whose FFT
+  axis is whole on the rank;
+- :func:`replicate_like` makes a constant built for a DTensor operand a
+  replicated DTensor on that operand's mesh.
 """
 from __future__ import annotations
 
@@ -40,18 +52,18 @@ def constrain(x, *, kind: str = "batch"):
     mesh = _STATE["mesh"]
     if mesh is None or getattr(x, "ndim", 0) == 0 or not _is_dtensor(x):
         return x
-    from repro_torch.launch.mesh import axis_sizes
-    from repro_torch.launch.sharding import placements
+    from repro_torch.launch.sharding import _fit, placements
     model = _STATE["model"]
     batch = _STATE["batch"]
     if isinstance(batch, (tuple, list)):
         batch = tuple(batch) if len(batch) > 1 else \
             (batch[0] if batch else None)
     spec = [batch] + [None] * (x.ndim - 1)
-    if (x.ndim == 3 and model is not None
-            and x.shape[1] % axis_sizes(mesh)[model] == 0 and x.shape[1] > 1):
+    if x.ndim == 3 and model is not None and x.shape[1] > 1:
         spec[1] = model
-    return x.redistribute(mesh, placements(tuple(spec), mesh))
+    # an axis whose size does not divide its dim is dropped, as the
+    # param and batch rules drop it
+    return x.redistribute(mesh, placements(_fit(spec, x.shape, mesh), mesh))
 
 
 def constrain_tree(tree, **kw):
@@ -59,3 +71,125 @@ def constrain_tree(tree, **kw):
         return tree
     from .model import tree_map
     return tree_map(lambda v: constrain(v, **kw), tree)
+
+
+def whole_seq(x):
+    """A (B, S, d) DTensor activation with its sequence gathered on every
+    rank, the batch still split: after a norm, the residual's sequence
+    split (``constrain``) is undone for the block's projections (a matmul
+    flattens (B, S) into rows, which torch 2.11 refuses for a split
+    sequence).  Any other value passes."""
+    if not _is_dtensor(x) or x.ndim != 3:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def split_last(t, n: int, size: int):
+    """(..., n * size) -> (..., n, size).  A DTensor whose last dim is
+    split over more ranks than evenly divide the n groups (heads) is
+    gathered on that dim first."""
+    if _is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        last = t.ndim - 1
+        split = [i for i, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and p.dim == last]
+        ranks = 1
+        for i in split:
+            ranks *= t.device_mesh.shape[i]
+        if n % ranks:
+            pl = [Replicate() if i in split else p
+                  for i, p in enumerate(t.placements)]
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*t.shape[:-1], n, size)
+
+
+def replicate_like(t, like):
+    """``t`` (a constant: a table, a mask, a zero) as a replicated DTensor
+    on ``like``'s mesh when ``like`` is a DTensor, else ``t`` itself."""
+    if not _is_dtensor(like) or _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _resolve(spec, shape, axes) -> tuple:
+    """A block spec of "batch", "model" and None entries as a sharding
+    spec: each symbol its mesh axes (``axes``), or None where they are
+    off."""
+    return tuple(None if e is None else axes[e] for e in spec) + \
+        (None,) * (len(shape) - len(spec))
+
+
+def on_shards(fn, args, in_specs, out_specs):
+    """``fn(*args)`` on each rank's local shards.
+
+    ``in_specs`` gives each argument's dims as "batch" (split over the
+    data axes), "model" (over the model axis) or None (whole); a None
+    spec passes the argument as it is (a Python value, a plain tensor).
+    ``out_specs`` does the same for the result: one spec for a tensor,
+    a list of specs for a tuple of them.  "model" shards only when every dim that names it divides by
+    the model axis, and "batch" likewise over the data axes; otherwise
+    the block runs whole on those ranks (replicated).  The gradient of an
+    input that a sharded symbol does not split (a weight against a batch
+    split, shared B/C inputs against a head split) is a partial sum over
+    that symbol's mesh dims: each rank saw only its part of the work.
+    With no mesh installed, or no DTensor argument, ``fn(*args)`` runs
+    as it is."""
+    mesh = _STATE["mesh"]
+    if mesh is None or not any(_is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.launch.sharding import placements
+    sizes = axis_sizes(mesh)
+    batch = _STATE["batch"]
+    batch = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
+    batch = tuple(a for a in batch if a is not None)
+    groups = {"batch": batch, "model": (_STATE["model"],)
+              if _STATE["model"] else ()}
+    on = {}
+    for sym, names in groups.items():
+        total = 1
+        for a in names:
+            total *= sizes[a]
+        dims = [a.shape[d] for a, sp in zip(args, in_specs)
+                if sp is not None and _is_dtensor(a)
+                for d, e in enumerate(sp) if e == sym]
+        on[sym] = bool(names) and total > 1 and bool(dims) and \
+            all(n % total == 0 for n in dims)
+    axes = {sym: (names if len(names) > 1 else names[0]) if on[sym]
+            else None for sym, names in groups.items()}
+    names = list(mesh.mesh_dim_names)
+    in_pl, grad_pl = [], []
+    for a, sp in zip(args, in_specs):
+        if sp is None or not _is_dtensor(a):
+            in_pl.append(None)
+            grad_pl.append(None)
+            continue
+        pl = placements(_resolve(sp, a.shape, axes), mesh)
+        grad = list(pl)
+        for sym in groups:
+            if on[sym] and sym not in sp:
+                for ax in groups[sym]:
+                    i = names.index(ax)
+                    if isinstance(grad[i], Replicate):
+                        grad[i] = Partial()
+        in_pl.append(pl)
+        grad_pl.append(tuple(grad))
+
+    def out_pl(spec):
+        return list(placements(_resolve(spec, spec, axes), mesh))
+    # local_map reads a tuple as one placement list an output
+    outs = (tuple(out_pl(sp) for sp in out_specs)
+            if isinstance(out_specs, list) else out_pl(out_specs))
+    return local_map(fn, out_placements=outs, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import actsharding
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -53,6 +54,9 @@ def norm_init(gen, cfg: ModelConfig, d: Optional[int] = None):
 
 
 def norm_apply(p, x, cfg: ModelConfig):
+    """LayerNorm or RMSNorm over d; under a mesh the result has its whole
+    sequence on every rank (:func:`~repro_torch.models.actsharding.
+    whole_seq`), the layout every block's projections read."""
     dt = x.dtype
     x32 = x.float()
     if cfg.norm_type == "layernorm":
@@ -63,7 +67,7 @@ def norm_apply(p, x, cfg: ModelConfig):
     else:
         ms = x32.square().mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]
-    return y.to(dt)
+    return actsharding.whole_seq(y.to(dt))
 
 
 def rms_head_norm(x, scale, eps=1e-6):
@@ -117,7 +121,8 @@ def attention_init(gen, cfg: ModelConfig):
     return p
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
+def _project(p, x, cfg: ModelConfig):
+    """q (B, S, H, D), k and v (B, S, KV, D) before RoPE."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = x @ p["wq"]
@@ -125,15 +130,19 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = actsharding.split_last(q, h, hd)
+    k = actsharding.split_last(k, kv, hd)
+    v = actsharding.split_last(v, kv, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    q, k, v = _project(p, x, cfg)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def _attend_chunked(q, k, v, cfg: ModelConfig, q_positions, kv_positions):
@@ -184,15 +193,28 @@ def _attend_chunked(q, k, v, cfg: ModelConfig, q_positions, kv_positions):
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+_HEADS = ("batch", None, "model", None)    # (B, S, heads, D) on shards
+
+
 def attention_apply(p, x, cfg: ModelConfig, positions):
     """Full-sequence attention (training / prefill) through the flash
-    forward."""
+    forward.  Under a mesh, RoPE and the attention run on each rank's
+    batch rows and heads (the whole sequence), as
+    :func:`~repro_torch.models.actsharding.on_shards` lays them out."""
     from .flash import flash_attention
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = flash_attention(q, k, v, positions, positions, cfg.attn_chunk,
-                          cfg.sliding_window, cfg.causal)
-    return out.reshape(b, s, -1) @ p["wo"]
+
+    def rope_attend(q, k, v, pos):
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        out = flash_attention(q, k, v, pos, pos, cfg.attn_chunk,
+                              cfg.sliding_window, cfg.causal)
+        return out.reshape(*out.shape[:2], -1)      # heads stay contiguous
+
+    out = actsharding.on_shards(rope_attend, (*_project(p, x, cfg), positions),
+                                (_HEADS, _HEADS, _HEADS, ("batch", None)),
+                                ("batch", None, "model"))
+    return out @ p["wo"]
 
 
 def attention_decode(p, x, cfg: ModelConfig, cache, position):
@@ -288,7 +310,12 @@ def embedding_init(gen, cfg: ModelConfig):
 
 
 def embed(p, tokens, cfg: ModelConfig):
-    return p["tok"][tokens]
+    """tokens (B, S) -> (B, S, d).  Under a mesh the lookup runs on each
+    rank's batch rows with the table whole on the rank (DTensor's own
+    lookup gradient fails on torch 2.11's index_put)."""
+    return actsharding.on_shards(lambda t, tok: tok[t], (tokens, p["tok"]),
+                                 (("batch", None), (None, None)),
+                                 ("batch", None, None))
 
 
 def unembed(p, x, cfg: ModelConfig):

@@ -220,30 +220,49 @@ _MIXERS = {
 
 def _fourier_mlp(bp, x, cfg: ModelConfig):
     from repro_torch.core.spectral import fourier_mix
-    x = x + fourier_mix(layers.norm_apply(bp["norm1"], x, cfg),
-                        backend=cfg.fft_backend)
-    return x + layers.mlp_apply(bp["mlp"],
-                                layers.norm_apply(bp["norm2"], x, cfg), cfg)
+    # both FFT axes (seq, d_model) whole on the rank: batch rows only
+    x = _add(x, actsharding.on_shards(
+        lambda h: fourier_mix(h, backend=cfg.fft_backend),
+        (layers.norm_apply(bp["norm1"], x, cfg),), (("batch", None, None),),
+        ("batch", None, None)))
+    return _add(x, layers.mlp_apply(bp["mlp"],
+                                    layers.norm_apply(bp["norm2"], x, cfg),
+                                    cfg))
+
+
+def _add(x, y):
+    """The residual add.  Under a mesh the block's output y first takes
+    the residual's layout (``actsharding.constrain``), so its gradient
+    comes back in y's own layout (whole sequence) to the block's
+    projections."""
+    return x + actsharding.constrain(y)
+
+
+def _zero(x):
+    """A float32 zero scalar beside the activation x (on its mesh)."""
+    return actsharding.replicate_like(
+        torch.zeros((), dtype=torch.float32, device=x.device), x)
 
 
 def _block_apply(bp, shared, blk: str, x, cfg: ModelConfig, positions):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
     if blk in ("attn_mlp", "attn_moe", "shared_attn"):
         sp = shared if blk == "shared_attn" else bp
-        x = x + layers.attention_apply(sp["attn"],
-                                       layers.norm_apply(sp["norm1"], x, cfg),
-                                       cfg, positions)
+        x = _add(x, layers.attention_apply(
+            sp["attn"], layers.norm_apply(sp["norm1"], x, cfg), cfg,
+            positions))
         h = layers.norm_apply(sp["norm2"], x, cfg)
         if blk == "attn_moe":
             y, aux = moe.moe_apply(sp["moe"], h, cfg)
-            x = x + y
+            x = _add(x, y)
         else:
-            x = x + layers.mlp_apply(sp["mlp"], h, cfg)
+            x = _add(x, layers.mlp_apply(sp["mlp"], h, cfg))
     elif blk == "fourier_mlp":
         x = _fourier_mlp(bp, x, cfg)
     elif blk in _MIXERS:
-        x = x + _MIXERS[blk][0](bp["mixer"],
-                                layers.norm_apply(bp["norm"], x, cfg), cfg)
+        x = _add(x, _MIXERS[blk][0](bp["mixer"],
+                                    layers.norm_apply(bp["norm"], x, cfg),
+                                    cfg))
     else:
         raise ValueError(blk)
     return x, aux
@@ -259,8 +278,8 @@ def _inputs(params, cfg: ModelConfig, tokens, embeds, positions):
         x = embeds
         b, s = embeds.shape[:2]
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
+        positions = actsharding.replicate_like(torch.arange(
+            s, dtype=torch.int32, device=x.device).expand(b, s), x)
     return actsharding.constrain(x), positions
 
 
@@ -273,7 +292,7 @@ def hidden_states(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     def superblock(x, sbp):
         x = actsharding.constrain(x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = _zero(x)
         for j, blk in enumerate(cfg.block_pattern):
             x, a = _block_apply(sbp[f"b{j}"], shared, blk, x, cfg, positions)
             aux = aux + a
@@ -328,22 +347,32 @@ def loss_fn(params, cfg: ModelConfig, batch):
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
+        mask = torch.ones_like(labels, dtype=torch.float32)
     b, s, d = x.shape
     c = min(LOSS_CHUNK, s)
     n_chunks = s // c if s % c == 0 else 1
     if s % c != 0:
         c = s
 
-    def ce_chunk(xb, lb, mb):
-        logits = layers.unembed(params["embed"], xb, cfg)
+    names = sorted(params["embed"])
+
+    def ce_rows(xb, lb, mb, *emb):
+        """Each row's masked log-likelihood sum over the chunk (B,)."""
+        logits = layers.unembed(dict(zip(names, emb)), xb, cfg)
         logits = (logits + _pad_bias(cfg, logits.dtype, xb.device)).float()
         lse = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, lb[..., None].long())[..., 0] - lse
-        return torch.sum(ll * mb)
+        return torch.sum(ll * mb, dim=-1)
 
-    ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    def ce_chunk(xb, lb, mb):
+        # on each rank's batch rows, the embedding whole on the rank
+        emb = [params["embed"][n] for n in names]
+        return actsharding.on_shards(
+            ce_rows, (xb, lb, mb, *emb),
+            (("batch", None, None), ("batch", None), ("batch", None),
+             *((None,) * t.dim() for t in emb)), ("batch",)).sum()
+
+    ce_sum = _zero(x)
     for i in range(n_chunks):
         sl = slice(i * c, (i + 1) * c)
         args = (x[:, sl], labels[:, sl], mask[:, sl])

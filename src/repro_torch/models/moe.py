@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import actsharding
 from .config import ModelConfig
 from .layers import _init
 
@@ -45,6 +46,9 @@ def moe_apply(p, x, cfg: ModelConfig, *, dropless: bool = False,
     Groups = sequences (B groups of S tokens); decode (S==1) folds the whole
     batch into one group.  ``dropless=True`` sets capacity = Tg (exact, for
     decode where Tg = B is small); prefill uses ``cap_scale`` headroom.
+    Under a mesh the routing and the experts run on each rank's groups
+    (:func:`~repro_torch.models.actsharding.on_shards`, every expert's
+    weights on the rank) and the aux loss is taken over all of them.
     """
     b, s, d = x.shape
     if s == 1:                                   # decode: one group of B
@@ -53,7 +57,27 @@ def moe_apply(p, x, cfg: ModelConfig, *, dropless: bool = False,
         g, tg = b, s
     e, k = cfg.n_experts, cfg.n_experts_active
     cap = tg if dropless else min(tg, int(_capacity(cfg, tg) * cap_scale))
-    xf = x.reshape(g, tg, d)
+    names = [n for n in _EXPERTS if n in p]
+    rows = ("batch", None, None)
+    out, probs, combine = actsharding.on_shards(
+        lambda xf, *w: _route(dict(zip(names, w)), xf, cfg, k, cap),
+        (x.reshape(g, tg, d), *(p[n] for n in names)),
+        (rows, *((None,) * p[n].dim() for n in names)), [rows, rows, rows])
+
+    # Switch-style load-balance aux loss (per group, then averaged)
+    me = probs.mean(dim=1)                                 # (G, E)
+    ce = (combine != 0).float().mean(dim=1) * e / k
+    aux = cfg.router_aux_weight * e * torch.mean(torch.sum(me * ce, dim=-1))
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+_EXPERTS = ("router", "wi", "wg", "wo")
+
+
+def _route(p, xf, cfg: ModelConfig, k: int, cap: int):
+    """Top-k routing, capacity selection and the experts on groups xf (G,
+    Tg, d); returns (out (G, Tg, d), probs, combine weights (G, Tg, E))."""
+    g, tg, d = xf.shape
 
     logits = (xf @ p["router"]).float()                    # (G, Tg, E)
     probs = torch.softmax(logits, dim=-1)
@@ -66,7 +90,7 @@ def moe_apply(p, x, cfg: ModelConfig, *, dropless: bool = False,
     # expert-side selection: top-C tokens per (group, expert)
     sel_w, sel_idx = torch.topk(combine.transpose(1, 2), cap, dim=-1)
     live = sel_w > 0.0
-    gidx = torch.arange(g, device=x.device)[:, None, None]
+    gidx = torch.arange(g, device=xf.device)[:, None, None]
     xe = xf[gidx, sel_idx]                                 # (G, E, C, d)
 
     if cfg.mlp_type == "swiglu":
@@ -78,11 +102,6 @@ def moe_apply(p, x, cfg: ModelConfig, *, dropless: bool = False,
     ye = torch.einsum("gecf,efd->gecd", h, p["wo"])        # (G, E, C, d)
     ye = ye * (sel_w * live)[..., None].to(ye.dtype)
 
-    out = torch.zeros((g, tg, d), dtype=ye.dtype, device=x.device)
+    out = torch.zeros((g, tg, d), dtype=ye.dtype, device=xf.device)
     out.index_put_((gidx, sel_idx), ye, accumulate=True)
-
-    # Switch-style load-balance aux loss (per group, then averaged)
-    me = probs.mean(dim=1)                                 # (G, E)
-    ce = (combine != 0).float().mean(dim=1) * e / k
-    aux = cfg.router_aux_weight * e * torch.mean(torch.sum(me * ce, dim=-1))
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return out, probs, combine

@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import actsharding
 from .cache import write_rows
 from .config import ModelConfig
 from .layers import _init, _ones, _zeros
@@ -45,7 +46,18 @@ def mamba2_init(gen, cfg: ModelConfig):
 
 
 def _causal_conv(u, w, b, cfg: ModelConfig, init_state=None):
-    """Depthwise causal conv along seq: u (B, S, C), w (K, C)."""
+    """Depthwise causal conv along seq: u (B, S, C), w (K, C).  Under a
+    mesh it runs on each rank's batch rows and channels (the whole
+    sequence, so the conv kernel sees its FFT axis whole)."""
+    if init_state is None:
+        return actsharding.on_shards(
+            lambda u_, w_, b_: _causal_conv_local(u_, w_, b_, cfg),
+            (u, w, b), (("batch", None, "model"), (None, "model"),
+                        ("model",)), ("batch", None, "model"))
+    return _causal_conv_local(u, w, b, cfg, init_state)
+
+
+def _causal_conv_local(u, w, b, cfg: ModelConfig, init_state=None):
     k = w.shape[0]
     if cfg.use_fft_conv and init_state is None:
         from repro_torch.core.fftconv import fft_conv
@@ -157,7 +169,14 @@ def _mixer(p, x, cfg: ModelConfig):
     c_in = xbc[..., din + ns:]
     dt = F.softplus(dt_raw + p["dt_bias"])                 # (B,S,H)
     a = -torch.exp(p["a_log"])
-    y, h_last = _ssd_chunked(xin, dt, a, b_in, c_in, p["d_skip"], cfg)
+    # on each rank's batch rows and heads; B and C are every head's
+    y, h_last = actsharding.on_shards(
+        lambda *t: _ssd_chunked(*t, cfg), (xin, dt, a, b_in, c_in,
+                                           p["d_skip"]),
+        (("batch", None, "model", None), ("batch", None, "model"),
+         ("model",), ("batch", None, None), ("batch", None, None),
+         ("model",)),
+        [("batch", None, "model", None), ("batch", "model", None, None)])
     return _gated_out(p, y.reshape(bsz, s, din), z, x.dtype), xbc_raw, h_last
 
 

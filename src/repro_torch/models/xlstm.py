@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import actsharding
 from .cache import write_rows
 from .config import ModelConfig
 from .layers import _init, _ones, _zeros
@@ -124,7 +125,8 @@ def _mlstm_chunked(q, k, v, ilog, flog, chunk, init_state=None):
 
 
 def _mlstm_qkv(p, x, cfg: ModelConfig, conv_state=None):
-    """Shared projection path.  x: (B, S, d).  Returns q,k,v,ilog,flog,z and
+    """Shared projection path.  x: (B, S, d).  Returns q,k,v,ilog, the
+    forget gate's pre-activation (``F.logsigmoid`` of it is flog), z and
     the updated conv ring state (for decode)."""
     bsz, s, _ = x.shape
     d = cfg.d_model
@@ -146,8 +148,8 @@ def _mlstm_qkv(p, x, cfg: ModelConfig, conv_state=None):
     k = (xc @ p["wk"]).reshape(bsz, s, nh, dh)
     v = (xb @ p["wv"]).reshape(bsz, s, nh, dh)
     ilog = (xc @ p["wi"] + p["bi"]).float()
-    flog = F.logsigmoid((xc @ p["wf"] + p["bf"]).float())
-    return q, k, v, ilog, flog, z, new_conv
+    fpre = (xc @ p["wf"] + p["bf"]).float()
+    return q, k, v, ilog, fpre, z, new_conv
 
 
 def _mlstm_out(p, h, z, cfg: ModelConfig):
@@ -156,9 +158,17 @@ def _mlstm_out(p, h, z, cfg: ModelConfig):
     return (y * F.silu(z)) @ p["down"]
 
 
+_HEADS = ("batch", None, "model", None)    # (B, S, H, D) on shards
+_GATES = ("batch", None, "model")          # (B, S, H)
+
+
 def mlstm_apply(p, x, cfg: ModelConfig):
-    q, k, v, ilog, flog, z, _ = _mlstm_qkv(p, x, cfg)
-    h, _ = _mlstm_chunked(q, k, v, ilog, flog, cfg.mlstm_chunk)
+    q, k, v, ilog, fpre, z, _ = _mlstm_qkv(p, x, cfg)
+    h = actsharding.on_shards(
+        lambda q_, k_, v_, i_, f_: _mlstm_chunked(
+            q_, k_, v_, i_, F.logsigmoid(f_), cfg.mlstm_chunk)[0],
+        (q, k, v, ilog, fpre), (_HEADS, _HEADS, _HEADS, _GATES, _GATES),
+        _HEADS)
     return _mlstm_out(p, h, z, cfg)
 
 
@@ -167,8 +177,9 @@ def mlstm_prefill(p, x, cfg: ModelConfig, state):
     C/n/m), written into ``state`` in place."""
     s = x.shape[1]
     din = 2 * cfg.d_model
-    q, k, v, ilog, flog, z, _ = _mlstm_qkv(p, x, cfg)
-    h, (c, n, m) = _mlstm_chunked(q, k, v, ilog, flog, cfg.mlstm_chunk)
+    q, k, v, ilog, fpre, z, _ = _mlstm_qkv(p, x, cfg)
+    h, (c, n, m) = _mlstm_chunked(q, k, v, ilog, F.logsigmoid(fpre),
+                                  cfg.mlstm_chunk)
     xb = (x @ p["up"])[..., :din]
     kw = p["conv_w"].shape[0]
     tail = F.pad(xb, (0, 0, max(kw - 1 - s, 0), 0))[:, -(kw - 1):]
@@ -180,10 +191,10 @@ def mlstm_prefill(p, x, cfg: ModelConfig, state):
 def mlstm_decode(p, x, cfg: ModelConfig, state, live):
     """One-token decode.  state: dict(conv, c, n, m), updated in place for
     the rows where ``live`` (B,) holds."""
-    q, k, v, ilog, flog, z, new_conv = _mlstm_qkv(p, x, cfg,
+    q, k, v, ilog, fpre, z, new_conv = _mlstm_qkv(p, x, cfg,
                                                   conv_state=state["conv"])
     qb, kb, vb = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()  # (B,H,D)
-    il, fl = ilog[:, 0], flog[:, 0]                      # (B,H)
+    il, fl = ilog[:, 0], F.logsigmoid(fpre[:, 0])        # (B,H)
     c, n, m = state["c"], state["n"], state["m"]
     m_new = torch.maximum(fl + m, il)
     decay = torch.exp(fl + m - m_new)
@@ -246,30 +257,60 @@ def _slstm_cell(p, xg, state, nh, dh):
     return (c_new, n_new, m_new, h_new)
 
 
-def _slstm_scan(p, x, cfg: ModelConfig, state):
-    """The recurrence over x's time axis from ``state``; returns the
-    block's output and the final state."""
+def _slstm_gates(p, x, cfg: ModelConfig):
+    """The per-gate input projections, each (B, S, nh, dh)."""
     bsz, s, d = x.shape
     nh = cfg.n_heads
     dh = cfg.slstm_head_dim or d // nh
-    xg = {g: (x @ p[f"w{g}"] + p[f"b{g}"]).reshape(bsz, s, nh, dh)
-          for g in "ifzo"}
+    return [(x @ p[f"w{g}"] + p[f"b{g}"]).reshape(bsz, s, nh, dh)
+            for g in "ifzo"]
+
+
+def _slstm_recur(rs, xs, state):
+    """The recurrence over the time axis from ``state``: rs the four
+    recurrent weights (nh, dh, dh), xs the four gates' projections (B, S,
+    nh, dh); returns h (B, S, nh, dh) and the final state."""
+    r = dict(zip((f"r{g}" for g in "ifzo"), rs))
+    nh, dh = xs[0].shape[2:]
     hs = []
-    for t in range(s):
-        state = _slstm_cell(p, {g: xg[g][:, t] for g in "ifzo"}, state,
-                            nh, dh)
+    for t in range(xs[0].shape[1]):
+        state = _slstm_cell(r, {g: x[:, t] for g, x in zip("ifzo", xs)},
+                            state, nh, dh)
         hs.append(state[3])
-    h = torch.stack(hs, dim=1).reshape(bsz, s, nh * dh)
-    return _rms_out(h, p["out_norm"], x.dtype) @ p["down"], state
+    return torch.stack(hs, dim=1), state
+
+
+def _slstm_scan(p, x, cfg: ModelConfig, state):
+    """The recurrence over x's time axis from ``state``; returns the
+    block's output and the final state."""
+    bsz, s, _ = x.shape
+    h, state = _slstm_recur([p[f"r{g}"] for g in "ifzo"],
+                            _slstm_gates(p, x, cfg), state)
+    return _slstm_out(p, h.reshape(bsz, s, -1), x.dtype), state
+
+
+def _slstm_out(p, h, dtype):
+    return _rms_out(h, p["out_norm"], dtype) @ p["down"]
+
+
+def _slstm_heads(*t):
+    """:func:`_slstm_recur` from the zero state on (shards of) the four
+    gates' projections and recurrent weights; returns h."""
+    xs, rs = t[:4], t[4:]
+    bsz, _, nh, dh = xs[0].shape
+    z0 = torch.zeros((bsz, nh, dh), dtype=torch.float32, device=xs[0].device)
+    return _slstm_recur(rs, xs, (z0, z0, torch.full_like(z0, LOG_EPS),
+                                 z0))[0]
 
 
 def slstm_apply(p, x, cfg: ModelConfig):
-    bsz, _, d = x.shape
-    nh = cfg.n_heads
-    dh = cfg.slstm_head_dim or d // nh
-    z0 = torch.zeros((bsz, nh, dh), dtype=torch.float32, device=x.device)
-    state0 = (z0, z0, torch.full_like(z0, LOG_EPS), z0)
-    return _slstm_scan(p, x, cfg, state0)[0]
+    bsz, s, _ = x.shape
+    # on each rank's batch rows and heads
+    h = actsharding.on_shards(
+        _slstm_heads, (*_slstm_gates(p, x, cfg),
+                       *(p[f"r{g}"] for g in "ifzo")),
+        (_HEADS,) * 4 + (("model", None, None),) * 4, _HEADS)
+    return _slstm_out(p, h.reshape(bsz, s, -1), x.dtype)
 
 
 def slstm_prefill(p, x, cfg: ModelConfig, state):

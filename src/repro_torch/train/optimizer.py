@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.actsharding import replicate_like
 from repro_torch.models.model import torch_dtype, tree_leaves, tree_map
 
 
@@ -45,10 +46,14 @@ def warmup_cosine(cfg: AdamWConfig, step):
 
 
 def adamw_init(cfg: AdamWConfig, params):
+    """Zero moments laid out as their params (DTensor params: DTensor
+    moments of the same placements); the step count a scalar (replicated
+    on the params' mesh)."""
     mdt = torch_dtype(cfg.moments_dtype)
-    dev = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)  # noqa: E731
-    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+    first = tree_leaves(params)[0]
+    zeros = lambda p: torch.zeros_like(p, dtype=mdt)  # noqa: E731
+    return {"step": replicate_like(torch.zeros(
+                (), dtype=torch.int32, device=first.device), first),
             "m": tree_map(zeros, params),
             "v": tree_map(zeros, params)}
 

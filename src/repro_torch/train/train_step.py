@@ -31,10 +31,19 @@ def _grads_of(cfg: ModelConfig, params, batch):
         loss, metrics = M.loss_fn(live, cfg, batch)
         leaves = M.tree_leaves(live)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
-    by_path = {path: torch.zeros_like(p) if g is None else g
+    by_path = {path: torch.zeros_like(p) if g is None else _like(g, p)
                for path, p, g in zip(paths, leaves, got)}
     grads = M.tree_map_with_path(lambda path, _: by_path[path], params)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _like(g, p):
+    """A DTensor param's gradient in the param's placements: a partial sum
+    over ranks (each saw its batch rows) is reduced here, once a step."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, ocfg: opt_lib.AdamWConfig, *,
@@ -53,8 +62,8 @@ def make_train_step(cfg: ModelConfig, ocfg: opt_lib.AdamWConfig, *,
                 raise ValueError(f"batch {x.shape[0]} does not split into "
                                  f"{microbatches} microbatches")
         loss_sum = None
-        grads_sum = M.tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        grads_sum = M.tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         for i in range(microbatches):
             mb = {k: x.reshape(microbatches, x.shape[0] // microbatches,
                                *x.shape[1:])[i] for k, x in batch.items()}
@@ -94,8 +103,7 @@ def init_opt_state(cfg: ModelConfig, ocfg: opt_lib.AdamWConfig, params, *,
     state = opt_lib.adamw_init(ocfg, params)
     if compress == "bf16":
         state["ef_residual"] = M.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.bfloat16,
-                                  device=p.device), params)
+            lambda p: torch.zeros_like(p, dtype=torch.bfloat16), params)
     return state
 
 

@@ -61,3 +61,138 @@ def constrain():
     except ValueError as e:
         out["order"] = str(e)
     return out
+
+
+def _sharded(arch, params_np, ocfg_kw, use_fft_conv):
+    """The (2, 2) ("data", "model") mesh, the config, its AdamW config and
+    the params laid out by ``param_shardings``, the opt state by
+    ``opt_shardings``."""
+    import dataclasses
+    import repro_torch.configs as C
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import init_opt_state
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(C.get_config(arch).reduced(),
+                              use_fft_conv=use_fft_conv)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    ocfg = opt_lib.AdamWConfig(**ocfg_kw)
+    params = M.params_from_numpy(params_np, cfg, device="cpu")
+    params = sh.lay_out(params, sh.param_shardings(cfg, mesh, params))
+    opt = init_opt_state(cfg, ocfg, params)
+    opt = sh.lay_out(opt, sh.opt_shardings(cfg, mesh, opt, params))
+    return cfg, mesh, ocfg, params, opt
+
+
+def _full(tree):
+    """Every leaf's full value as numpy (a collective on every rank)."""
+    from repro_torch.models import model as M
+    return M.tree_map(lambda t: (t.full_tensor() if hasattr(
+        t, "full_tensor") else t).detach().numpy(), tree)
+
+
+def sharded_step(arch, params_np, batch_np, ocfg_kw, use_fft_conv, steps=1):
+    """``steps`` of ``make_train_step`` on DTensors under the activation
+    spec, after the step-0 loss and grads; returns the loss, grad norm
+    and grads of step 0, the metrics of each step and the final params,
+    full, with the placements of the params and their new values."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import actsharding
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as ts
+    cfg, mesh, ocfg, params, opt = _sharded(arch, params_np, ocfg_kw,
+                                            use_fft_conv)
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    batch = sh.lay_out(batch, sh.batch_shardings(cfg, mesh, batch))
+    step = ts.make_train_step(cfg, ocfg)
+    metrics = []
+    with actsharding.activation_spec(mesh, mesh_lib.data_axes(mesh),
+                                     "model"):
+        loss, _, grads = ts._grads_of(cfg, params, batch)
+        before = M.tree_map(lambda t: repr(t.placements), params)
+        for _ in range(steps):
+            params, opt, m = step(params, opt, batch)
+            metrics.append({k: float(_full(v)) for k, v in m.items()})
+    return {"loss": float(_full(loss)), "grads": _full(grads),
+            "metrics": metrics, "params": _full(params),
+            "placements": before,
+            "after": M.tree_map(lambda t: repr(t.placements), params),
+            "opt": M.tree_map(lambda t: repr(t.placements), opt)}
+
+
+def sharded_resume(arch, params_np, batches_np, ocfg_kw, d):
+    """Two sharded steps straight, and one step, a save, a restore (with
+    the shardings) into fresh state and one more step: both final params,
+    full."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import actsharding
+    from repro_torch.train import train_step as ts
+    out = []
+    for resume in (False, True):
+        cfg, mesh, ocfg, params, opt = _sharded(arch, params_np, ocfg_kw,
+                                                False)
+        shardings = (sh.param_shardings(cfg, mesh, params),
+                     sh.opt_shardings(cfg, mesh, opt, params))
+        step = ts.make_train_step(cfg, ocfg)
+        batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+                   for b in batches_np]
+        bshard = sh.batch_shardings(cfg, mesh, batches[0])
+        mgr = CheckpointManager(d, keep=2)
+        for i, b in enumerate(batches):
+            with actsharding.activation_spec(
+                    mesh, mesh_lib.data_axes(mesh), "model"):
+                params, opt, _ = step(params, opt, sh.lay_out(b, bshard))
+            if resume and i == 0:
+                mgr.save(1, (params, opt))
+                _, _, _, fresh_p, fresh_o = _sharded(arch, params_np,
+                                                     ocfg_kw, False)
+                (params, opt), _ = mgr.restore(1, (fresh_p, fresh_o),
+                                               shardings=shardings)
+        out.append(_full(params))
+    return out
+
+
+def host_staged_collectives():
+    """Every collective of ``dist.hoststaged.HostStaged`` on this rank,
+    and a DTensor step through it: (name, result) pairs as numpy."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.dist import make_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.arange(4.0) + 10 * rank
+    out = {"backend": dist.get_backend()}
+    t = x.clone()
+    dist.all_reduce(t)
+    out["all_reduce"] = t.numpy()
+    g = torch.empty(4 * world)
+    dist.all_gather_into_tensor(g, x)
+    out["all_gather_into_tensor"] = g.numpy()
+    lst = [torch.empty(4) for _ in range(world)]
+    dist.all_gather(lst, x)
+    out["all_gather"] = torch.cat(lst).numpy()
+    r = torch.empty(1)
+    dist.reduce_scatter_tensor(r, x)
+    out["reduce_scatter_tensor"] = r.numpy()
+    a = torch.empty(4)
+    dist.all_to_all_single(a, x)
+    out["all_to_all_single"] = a.numpy()
+    b = x.clone()
+    dist.broadcast(b, src=1)
+    out["broadcast"] = b.numpy()
+    s = torch.empty(1)
+    dist.scatter(s, list(torch.arange(4.0).chunk(4)) if rank == 0 else None,
+                 src=0)
+    out["scatter"] = s.numpy()
+    out["funcol_all_gather"] = funcol.all_gather_tensor(
+        x, 0, dist.group.WORLD).numpy()
+    dist.barrier()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    d = DTensor.from_local(x, mesh, [Shard(0), Partial()])
+    out["dtensor"] = d.redistribute(mesh, [Replicate(), Replicate()]) \
+        .to_local().numpy()
+    return out

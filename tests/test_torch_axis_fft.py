@@ -228,10 +228,16 @@ def test_wrappers_refuse_cpu_tensors(launch, shape, bad):
 
 @pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)
 def test_wrappers_refuse_float16(launch, shape, bad):
+    """float16 on the GEMM chain (the default variant="plain") is refused
+    naming ROADMAP 2e before any operand check; compensated float16, the
+    plans' variant, passes the dtype checks (F11) and is refused here
+    only for lying on the CPU."""
     x = SplitComplex(torch.zeros(shape, dtype=torch.float16),
                      torch.zeros(shape, dtype=torch.float16))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="item 2e"):
         launch(x)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        launch(x, variant="compensated")
 
 
 @pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)

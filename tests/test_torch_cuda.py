@@ -536,6 +536,89 @@ def test_bf16_planes_on_card(card, name, shape):
     assert k_err <= 6e-2 and k_err <= p_err + 2.0 ** -7
 
 
+@pytest.mark.parametrize("name,shape", [
+    ("fft_stockham", (4, 256)), ("fft_stockham_r2", (4, 256)),
+    ("fft_fourstep", (4, 256)), ("fft_staged", (4, 256)),
+    ("fft2d_fused", (2, 64, 64)), ("fft2d_gemm", (2, 64, 64)),
+    ("fft3d_fused", (1, 4, 8, 16)), ("rfft2d_fused", (2, 64, 64)),
+    ("irfft2d_fused", (2, 64, 64)), ("fftconv_fused", (2, 3, 64))])
+def test_float16_planes_on_card(card, name, shape):
+    """float16 in, float16 out (F11); against float64 numpy of the
+    float16-rounded input within 1e-3 of max|X| (the staged FFT, which
+    rounds every stage to float16 as the reference does, excepted) and
+    within the plain version's own error plus 2^-10."""
+    rng = np.random.default_rng(16)
+    f16 = torch.float16
+
+    def f64(y):
+        if isinstance(y, SplitComplex):
+            return f64(y.re) + 1j * f64(y.im)
+        return y.double().cpu().numpy()
+
+    def planes(z):
+        return SplitComplex(*(torch.from_numpy(p).to(card, f16)
+                              for p in (z.real, z.imag)))
+    if name in ("rfft2d_fused", "fftconv_fused"):
+        x = torch.from_numpy(rng.standard_normal(shape)).to(card, f16)
+    elif name == "irfft2d_fused":
+        b, h, w = shape
+        x = planes(_rand((b, h, w // 2 + 1), 17))
+    else:
+        x = planes(_rand(shape, 18))
+    kern = {"fft_stockham": (fft_stockham.fft_stockham_cuda,
+                             fft_stockham.fft_stockham_plain, np.fft.fft),
+            "fft_stockham_r2": (fft_stockham.fft_stockham_r2_cuda,
+                                fft_stockham.fft_stockham_r2_plain,
+                                np.fft.fft),
+            "fft_fourstep": (fft_fourstep.fft_fourstep_cuda,
+                             fft_fourstep.fft_fourstep_plain, np.fft.fft),
+            "fft_staged": (fft_stage.fft_staged_cuda,
+                           fft_stage.fft_staged_plain, np.fft.fft),
+            "fft2d_fused": (fft2d_fused.fft2d_fused_cuda,
+                            fft2d_fused.fft2d_fused_plain, np.fft.fft2),
+            "fft2d_gemm": (
+                lambda t: fft2d_gemm.fft2d_gemm_cuda(t, variant="compensated"),
+                lambda t: fft2d_gemm.fft2d_gemm_plain(
+                    t, variant="compensated"), np.fft.fft2),
+            "fft3d_fused": (
+                lambda t: fft3d_fused.fft3d_fused_cuda(
+                    t, variant="compensated"),
+                lambda t: fft3d_fused.fft3d_fused_plain(
+                    t, variant="compensated"),
+                lambda a: np.fft.fftn(a, axes=(1, 2, 3))),
+            "rfft2d_fused": (rfft2d_fused.rfft2d_fused_cuda,
+                             rfft2d_fused.rfft2d_fused_plain, np.fft.rfft2),
+            "irfft2d_fused": (rfft2d_fused.irfft2d_fused_cuda,
+                              rfft2d_fused.irfft2d_fused_plain,
+                              lambda a: np.fft.irfft2(a, s=shape[1:]))}
+    if name == "fftconv_fused":
+        m = shape[-1]
+        kz = _rand((shape[1], m // 2 + 1), 19)
+        kz[:, 0], kz[:, -1] = kz[:, 0].real, kz[:, -1].real
+        ef = fftconv_fused.pack_filter(from_numpy(kz, device=card), m, f16)
+        launch = lambda t: fftconv_fused.fftconv_fused_cuda(t, ef)  # noqa
+        plain = lambda t: fftconv_fused.fftconv_fused_plain(t, ef)  # noqa
+        want = np.fft.irfft(np.fft.rfft(f64(x)) * kz, m)
+    else:
+        launch, plain, ref = kern[name]
+        want = ref(f64(x))
+    got = launch(x)
+    assert (got.re if isinstance(got, SplitComplex) else got).dtype == f16
+    scale = np.abs(want).max()
+    k_err = np.abs(f64(got) - want).max() / scale
+    p_err = np.abs(f64(plain(x)) - want).max() / scale
+    assert k_err <= p_err + 2.0 ** -10
+    assert name == "fft_staged" or k_err <= 1e-3
+
+
+def test_plain_float16_on_the_gemm_chain_raises_on_card(card):
+    """No plan resolves to it; the kernel names ROADMAP 2e."""
+    x = SplitComplex(*(torch.zeros((1, 8, 8), dtype=torch.float16,
+                                   device=card) for _ in "ri"))
+    with pytest.raises(TypeError, match="2e"):
+        fft2d_gemm.fft2d_gemm_cuda(x, variant="plain")
+
+
 def test_guarded_fallback_stays_on_the_card(card):
     """A launch fault on a cuda plan falls back to the torch twin on the
     card, and the result agrees with the kernel's within the 2-D bound."""

@@ -3,7 +3,7 @@ reduced FNet-style model until its loss drops, checkpoint mid-run,
 resume, and continue to within 1e-6 of the straight run), and
 ``python -m repro_torch.launch.train`` run, then resumed from its
 mid-run checkpoint to the same final checkpoint, and its ``--mesh``
-refusals."""
+refusals and sharded step."""
 import datetime
 import os
 import shutil
@@ -104,7 +104,7 @@ def test_launch_train_runs_and_resumes(tmp_path):
         np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-6)
 
 
-def test_launch_train_mesh_refusals(tmp_path, monkeypatch):
+def test_launch_train_mesh_refusals(tmp_path, monkeypatch, capsys):
     argv = ["--device", "cpu", "--reduced", "--arch", "fnet_demo",
             "--steps", "1", "--ckpt-dir", str(tmp_path / "c")]
     monkeypatch.delenv("WORLD_SIZE", raising=False)
@@ -116,12 +116,15 @@ def test_launch_train_mesh_refusals(tmp_path, monkeypatch):
     try:
         with pytest.raises(ValueError, match="needs 512 ranks"):
             launch_train.main(argv + ["--mesh", "multi"])
-        # a group of the mesh's size gets as far as the sharded step (14c)
+        # a group of the mesh's size runs the sharded step on DTensors
         monkeypatch.setattr(
             mesh_lib, "make_production_mesh",
             lambda **kw: mesh_lib.make_mesh((1, 1), ("data", "model"),
                                             device="cpu"))
-        with pytest.raises(NotImplementedError, match="14c"):
-            launch_train.main(argv + ["--mesh", "single"])
+        capsys.readouterr()
+        launch_train.main(argv + ["--mesh", "single"])
+        out = capsys.readouterr().out
+        assert "mesh {'data': 1, 'model': 1}, the step on DTensors" in out
+        assert "[train] step     0" in out and "[train] done" in out
     finally:
         dist.destroy_process_group()

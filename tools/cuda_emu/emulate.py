@@ -36,7 +36,12 @@ max|plain| (fp32) or one bf16 ulp at the top of the range, 2^-7 of
 max|plain| (bf16 on the GEMM transforms and decode), or, for bf16 planes
 on the other kernels, if the kernel's error against float64 numpy of the
 bf16-rounded input passes 6e-2 of max|X| or the plain version's own error
-plus 2^-7.  It also runs the long-axis routes scaled down (the split
+plus 2^-7, or for float16 planes on every FFT kernel (the compensated 2-D
+and 3-D GEMM transforms included) if the kernel's error against float64
+numpy of the float16-rounded input passes 1e-3 of max|X| (not for the
+staged FFT, which rounds every stage) or the plain version's error plus
+2^-10.  ``f16_conversions`` compiles ``csrc/f16.cuh``'s conversions alone
+(``tests/test_torch_f16.py`` holds them to torch's casts).  It also runs the long-axis routes scaled down (the split
 launches with lowered thresholds, the real-input steps at 8192, the
 four-step kernel's axis route, the per-stage routes).
 """
@@ -92,6 +97,32 @@ def build(names=_build.SOURCES) -> None:
                         "-fPIC",
                         "-I", str(OUT), "-o", str(OUT / f"lib{name}.so"),
                         str(cpp)], check=True)
+
+
+def f16_conversions(out_dir) -> ctypes.CDLL:
+    """``csrc/f16.cuh``'s conversions compiled with g++ into ``out_dir``:
+    ``f32_to_f16(const float*, unsigned short*, n)`` and
+    ``f16_to_f32(const unsigned short*, float*, n)`` over n values."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cpp = out_dir / "f16_conversions.cpp"
+    cpp.write_text(
+        '#include "cuda_runtime.h"\n#include "f16.cuh"\n'
+        'extern "C" void f32_to_f16(const float* x, unsigned short* y, '
+        'long long n) { for (long long i = 0; i < n; ++i) '
+        'y[i] = cg::f32_to_f16(x[i]); }\n'
+        'extern "C" void f16_to_f32(const unsigned short* x, float* y, '
+        'long long n) { for (long long i = 0; i < n; ++i) '
+        'y[i] = cg::f16_to_f32(x[i]); }\n')
+    so = out_dir / "libf16_conversions.so"
+    subprocess.run(["g++", "-O2", "-std=c++20", "-shared", "-fPIC", "-I",
+                    str(HERE), "-I", str(_build.CSRC), "-o", str(so),
+                    str(cpp)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for fn in (lib.f32_to_f16, lib.f16_to_f32):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+        fn.restype = None
+    return lib
 
 
 def _function(name, symbol, argtypes):
@@ -327,18 +358,23 @@ def main() -> int:
                  rel(got, want)))
     results += long_axes(rng, cplx)
     f4 = bf16_planes(rng, cplx)
+    f11 = bf16_planes(rng, cplx, torch.float16)
     for r in results + bf16:
         print(*r)
-    for r in f4:
+    for r in f4 + f11:
         print(*r)
     worst = max(r[3] for r in results)
     worst_bf16 = max(r[3] for r in bf16)
     f4_ok = all(k <= TOL_BF16_REF and k <= p + TOL_BF16 for *_, k, p in f4)
     print("worst", worst, "tol", TOL)
     print("worst bf16", worst_bf16, "tol", TOL_BF16)
+    f11_ok = all(f16_ok(name, k, p) for name, _, _, k, p in f11)
     print("bf16 planes within 6e-2 and the plain version's error + 2^-7:",
           f4_ok)
-    return 0 if worst <= TOL and worst_bf16 <= TOL_BF16 and f4_ok else 1
+    print("float16 planes within 1e-3 and the plain version's error + "
+          "2^-10:", f11_ok)
+    return 0 if (worst <= TOL and worst_bf16 <= TOL_BF16 and f4_ok
+                 and f11_ok) else 1
 
 
 def long_axes(rng, cplx) -> list:
@@ -416,20 +452,36 @@ def long_axes(rng, cplx) -> list:
 
 
 TOL_BF16_REF = 6e-2
+TOL_F16_REF = 1e-3
+TOL_F16 = 2.0 ** -10
 
 
-def bf16_planes(rng, cplx) -> list:
+def f16_ok(name, kern_err, plain_err) -> bool:
+    """float16 planes: within 1e-3 of max|X| of float64 numpy and within
+    the plain version's error + 2^-10; the staged FFT, which rounds every
+    stage to float16 as the reference does, within the second only."""
+    near_plain = kern_err <= plain_err + TOL_F16
+    return near_plain if name == "fft_staged" else \
+        near_plain and kern_err <= TOL_F16_REF
+
+
+def bf16_planes(rng, cplx, dtype=torch.bfloat16) -> list:
     """bf16 planes on the kernels that took float32 only: (name, shape,
     kernel error, plain error), each of max|X| against float64 of the
     bf16-rounded input (the kernel within 6e-2 and within the plain
-    version's error + 2^-7)."""
+    version's error + 2^-7).  With ``dtype`` float16 the same kernels and
+    the compensated 2-D and 3-D GEMM transforms, in float16 (bounds in
+    :func:`f16_ok`)."""
     from repro_torch.kernels import fft_stockham as S
     from repro_torch.kernels import fft_fourstep as F
     from repro_torch.kernels import fft_stage as ST
     from repro_torch.kernels import fft2d_fused as S2
     from repro_torch.kernels import rfft2d_fused as R
     from repro_torch.kernels import fftconv_fused as C
+    from repro_torch.kernels import fft2d_gemm as G
+    from repro_torch.kernels import fft3d_fused as V
     out = []
+    tag = "bf16" if dtype == torch.bfloat16 else "f16"
 
     def f64(y):
         if isinstance(y, SplitComplex):
@@ -441,12 +493,11 @@ def bf16_planes(rng, cplx) -> list:
 
     def c2c(name, kern, plain, shape, numpy_fn):
         x = cplx(shape)
-        xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+        xb = SplitComplex(x.re.to(dtype), x.im.to(dtype))
         want = numpy_fn(f64(xb))
         got = kern(xb)
-        assert got.re.dtype == torch.bfloat16
-        out.append((name, shape, "bf16", err(got, want),
-                    err(plain(xb), want)))
+        assert got.re.dtype == dtype
+        out.append((name, shape, tag, err(got, want), err(plain(xb), want)))
 
     fft1 = np.fft.fft
     for shape in [(4, 256), (3, 2), (1, 1 << 15)]:
@@ -463,27 +514,42 @@ def bf16_planes(rng, cplx) -> list:
     for shape in [(2, 64, 64), (1, 2, 8192)]:
         c2c("fft2d_fused", S2.fft2d_fused_cuda, S2.fft2d_fused_plain, shape,
             np.fft.fft2)
+    if dtype == torch.float16:
+        for shape in [(2, 64, 64), (1, 512, 512), (2, 8, 4)]:
+            c2c("fft2d_gemm/compensated",
+                lambda x: G.fft2d_gemm_cuda(x, variant="compensated"),
+                lambda x: G.fft2d_gemm_plain(x, variant="compensated"),
+                shape, np.fft.fft2)
+        for shape in [(1, 4, 8, 16), (1, 4, 256, 512), (2, 8, 8, 8)]:
+            c2c("fft3d_fused/compensated",
+                lambda x: V.fft3d_fused_cuda(x, variant="compensated"),
+                lambda x: V.fft3d_fused_plain(x, variant="compensated"),
+                shape, lambda a: np.fft.fftn(a, axes=(1, 2, 3)))
     for shape in [(2, 64, 64), (3, 8, 4), (1, 2, 8192)]:
-        x = torch.from_numpy(rng.standard_normal(shape)).bfloat16()
+        x = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
         got = R.rfft2d_fused_cuda(x)
         want = np.fft.rfft2(f64(x))
-        out.append(("rfft2d_fused", shape, "bf16", err(got, want),
+        out.append(("rfft2d_fused", shape, tag, err(got, want),
                     err(R.rfft2d_fused_plain(x), want)))
         b, h, w = shape
         xf = cplx((b, h, w // 2 + 1))
-        xf = SplitComplex(xf.re.bfloat16(), xf.im.bfloat16())
+        xf = SplitComplex(xf.re.to(dtype), xf.im.to(dtype))
         want = np.fft.irfft2(f64(xf), s=(h, w))
-        out.append(("irfft2d_fused", shape, "bf16",
+        out.append(("irfft2d_fused", shape, tag,
                     err(R.irfft2d_fused_cuda(xf), want),
                     err(R.irfft2d_fused_plain(xf), want)))
+    # float16: x at 2^-8 keeps the spectra and the unscaled inverse's
+    # partial sums at m = 32768 (its two-launch 1-D transforms store them
+    # between launches) under 65504, where the reference overflows too
+    amp = 2.0 ** -8 if dtype == torch.float16 else 1.0
     for lead, m in [((2, 3), 64), ((1, 2), 4096), ((2, 1), 32768)]:
-        x = torch.from_numpy(rng.standard_normal(lead + (m,))).bfloat16()
+        x = torch.from_numpy(amp * rng.standard_normal(lead + (m,))).to(dtype)
         kz = rng.standard_normal((lead[-1], m // 2 + 1)) \
             + 1j * rng.standard_normal((lead[-1], m // 2 + 1))
         kz[:, 0], kz[:, -1] = kz[:, 0].real, kz[:, -1].real
-        ef = C.pack_filter(from_numpy(kz, device="cpu"), m, torch.bfloat16)
+        ef = C.pack_filter(from_numpy(kz, device="cpu"), m, dtype)
         want = np.fft.irfft(np.fft.rfft(f64(x)) * kz, m)
-        out.append(("fftconv_fused", lead + (m,), "bf16",
+        out.append(("fftconv_fused", lead + (m,), tag,
                     err(C.fftconv_fused_cuda(x, ef), want),
                     err(C.fftconv_fused_plain(x, ef), want)))
     return out
