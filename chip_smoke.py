@@ -83,9 +83,25 @@ float64 numpy:
   the float16-rounded input and its plain version, timed beside fp32;
 - the sharded step (``train_sharded``): 4 ranks on the card over the
   host-staged gloo backend, a (2, 2) mesh, h2o-danube-1.8b at full width
-  on DTensors against the single-process step (loss, grad norm, every
-  grad leaf), and ``ssm_demo`` with ``fftconv_fused`` on each rank's
-  shard;
+  (depth cut to 4 layers) on DTensors against the single-process step
+  (loss, grad norm, every grad leaf), and ``ssm_demo`` with
+  ``fftconv_fused`` on each rank's shard;
+- the sharded MoE step (``train_sharded_moe``): phi3.5-moe-42b-a6.6b at
+  full width, one layer, its experts on each rank's E/model slice and its
+  embedding and CE head vocab-parallel, against the single-process step,
+  the bytes each rank's collectives moved against
+  ``analysis.opcount``'s count of the same step on a fake (2, 2) group;
+- the pipeline step (``train_pp``): ``launch.pp_variant`` on 4 ranks,
+  (pod 2, data 1, model 2), h2o-danube-1.8b at full width, 2 layers, 4
+  microbatches, against the same loss on one process;
+- the examples (``examples``): each ``examples/torch_*.py`` at its
+  default sizes, its kernel launches counted;
+- the dry runs (``dryrun_counts``, on the host beside the card's phases):
+  ``launch.dryrun`` for danube and phi3.5-moe's train_4k on the 16x16
+  mesh of a fake 256-rank group, ``launch.fft_dryrun`` at 16384^2,
+  ``launch.pp_variant`` for nemotron-4-340b on 512 fake ranks, their
+  counts and H100 roofline terms, phi3.5-moe's expert gathers at the
+  E/16 slice;
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Every plan call runs through the guarded executor, and no
@@ -97,6 +113,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -675,7 +693,7 @@ DIST_1D = 1 << 26                 # four-step (8192, 8192)
 DIST_STOCKHAM = (16, 1 << 21)     # local rows of 2^21 on fft_stockham
 DIST_NCCL = (16384, 16384)
 DIST_RANKS = 4
-DIST_RUNS = 3                     # timed calls a transform (median)
+DIST_RUNS = 2                     # timed calls a transform (median)
 # float64 numpy bounds (PERF.md section 2): 2-D of max|X|, 3-D relative
 # norm, 1-D of max|X|, roundtrips of max|x|; the compressed wires at the
 # reference tests' own bounds (tests/test_dist_rfft.py)
@@ -1859,6 +1877,9 @@ def train_ssm(failures, smi):
 # rank's fftconv_fused launches and the loss against the single-process
 # step.
 SHARDED_LM = ("h2o-danube-1.8b", 2, 2048)       # arch, global batch, seq
+# the depth cut from 24 to 4 layers (width unchanged) to keep the whole
+# script inside its time limit beside the later phases
+SHARDED_LM_DEPTH = 4
 SHARDED_SSM = ("ssm_demo", 8, 4096)
 SHARDED_RANKS = 4
 TOL_SHARDED_LOSS = 1e-5         # relative, the single-process step's loss
@@ -1866,9 +1887,10 @@ TOL_SHARDED_GNORM = 1e-4        # relative, its grad norm
 TOL_SHARDED_GRAD = 1e-4         # each leaf, of the leaf's max|grad|
 
 
-def _train_setup(arch, batch, seq):
-    """The config (remat on), AdamW, params from seed 0 and the batches of
-    a sharded-step run on the card, each the same in every process."""
+def _train_setup(arch, batch, seq, **over):
+    """The config (remat on; ``over`` replaces fields: a cut depth, the
+    dtype), AdamW, params from seed 0 and the batches of a sharded-step
+    run on the card, each the same in every process."""
     import dataclasses
     import torch
     import repro_torch.configs as RCFG
@@ -1877,7 +1899,7 @@ def _train_setup(arch, batch, seq):
     from repro_torch.train import optimizer as opt_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    cfg = dataclasses.replace(RCFG.get_config(arch), remat=True)
+    cfg = dataclasses.replace(RCFG.get_config(arch), remat=True, **over)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = M.init_params(gen, cfg, device="cuda")
@@ -1897,7 +1919,8 @@ def _sharded_reference(out):
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import train_step as ts
     res = {}
-    cfg, ocfg, params, data = _train_setup(*SHARDED_LM)
+    cfg, ocfg, params, data = _train_setup(*SHARDED_LM,
+                                           repeat=SHARDED_LM_DEPTH)
     t0 = time.perf_counter()
     loss, _, grads = ts._grads_of(cfg, params, data.batch_at(0))
     gnorm = float(opt_lib.global_norm(grads))
@@ -1931,18 +1954,15 @@ def _rank_train_sharded(tmp):
     norm and this rank's block of every gradient leaf against the same
     block of the single-process grads), the AdamW update, one more step;
     then SHARDED_SSM's step.  Each step's wall time and the wall time
-    inside its collectives."""
+    inside its collectives and the bytes they moved."""
     import faulthandler
     import json as json_
     import torch
     import torch.distributed as dist
-    from repro_torch.dist import hoststaged, make_mesh
+    from repro_torch.dist import make_mesh
     faulthandler.enable(all_threads=True)       # a crash names its frame
     from repro_torch.kernels import ops
-    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import sharding as sh
-    from repro_torch.models import actsharding
-    from repro_torch.models import model as M
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import train_step as ts
 
@@ -1952,22 +1972,9 @@ def _rank_train_sharded(tmp):
     mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
 
     def timed(fn, *args):
-        """fn(*args) under the activation spec, started together on every
-        rank: its result, this rank's wall time to its last kernel and the
-        wall time inside its collectives (ms), both read before the
-        closing barrier."""
-        torch.cuda.synchronize()
-        dist.barrier()
-        spent = hoststaged.SPENT["seconds"]
-        t0 = time.perf_counter()
-        with actsharding.activation_spec(mesh, mesh_lib.data_axes(mesh),
-                                         "model"):
-            out = fn(*args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        coll = hoststaged.SPENT["seconds"] - spent
-        dist.barrier()
-        return out, wall * 1e3, coll * 1e3
+        out, wall, coll, moved = _rank_step_timed(mesh, fn, *args)
+        res.setdefault("bytes", []).append(moved)
+        return out, wall, coll
 
     def step0(params, opt, batch):
         loss, _, grads = ts._grads_of(cfg, params, batch)
@@ -1976,28 +1983,19 @@ def _rank_train_sharded(tmp):
 
     res = {"rank": dist.get_rank()}
     torch.cuda.reset_peak_memory_stats()
-    cfg, ocfg, params, data = _train_setup(*SHARDED_LM)
+    cfg, ocfg, params, data = _train_setup(*SHARDED_LM,
+                                           repeat=SHARDED_LM_DEPTH)
     params, opt = _rank_lay_out(cfg, ocfg, params, mesh)
     bshard = sh.batch_shardings(cfg, mesh, data.batch_at(0))
     batches = [sh.lay_out(data.batch_at(i), bshard) for i in range(2)]
     (loss, grads, params, opt, m), res["step0_ms"], res[
         "step0_collective_ms"] = timed(step0, params, opt, batches[0])
     res["loss"], res["grad_norm"] = full(loss), full(m["grad_norm"])
-    ref = torch.load(f"{tmp}/grads.pt", mmap=True)
     with open(f"{tmp}/reference.json") as f:
         ref_max = json_.load(f)["lm"]["grad_max"]
-    worst, worst_leaf = 0.0, None
-    for path, g in M.tree_flatten_with_paths(grads):
-        key = "/".join(path)
-        r = ref[key]
-        block = r[sh.shard_slices(tuple(r.shape), mesh, g.placements)]
-        err = float((g.to_local() - block.cuda()).abs().max()) / max(
-            ref_max[key], 1e-30)
-        if err > worst or worst_leaf is None:
-            worst, worst_leaf = err, key
-    res["grad_worst"], res["grad_worst_leaf"] = worst, worst_leaf
-    res["grad_leaves"] = len(ref)
-    del ref, grads
+    res["grad_worst"], res["grad_worst_leaf"], res["grad_leaves"] = \
+        _rank_worst_grad(grads, tmp, mesh, ref_max)
+    del grads
     (params, opt, m), res["step1_ms"], res["step1_collective_ms"] = timed(
         ts.make_train_step(cfg, ocfg), params, opt, batches[1])
     res["step1_loss"] = full(m["loss"])
@@ -2078,7 +2076,8 @@ def train_sharded(failures, smi) -> dict:
     emit({"phase": "train_sharded", "ranks": SHARDED_RANKS,
           "mesh": {"data": 2, "model": 2}, "backend": hoststaged.NAME,
           "lm": {"arch": SHARDED_LM[0], "global_batch": SHARDED_LM[1],
-                 "seq_len": SHARDED_LM[2], "loss": r0["loss"],
+                 "seq_len": SHARDED_LM[2], "depth": SHARDED_LM_DEPTH,
+                 "loss": r0["loss"],
                  "loss_single": lm["loss"], "loss_rel_err": loss_err,
                  "grad_norm": r0["grad_norm"],
                  "grad_norm_single": lm["grad_norm"],
@@ -2094,6 +2093,7 @@ def train_sharded(failures, smi) -> dict:
                  "step1_collective_share": share("step1"),
                  "step1_loss": r0["step1_loss"],
                  "single_grads_s": lm["grads_s"],
+                 "bytes_moved_a_rank": [r["bytes"][:2] for r in ranks],
                  "peak_gib_a_rank": per_rank("lm_peak_gib")},
           "ssm": {"arch": SHARDED_SSM[0], "global_batch": SHARDED_SSM[1],
                   "seq_len": SHARDED_SSM[2], "loss": r0["ssm_loss"],
@@ -2103,12 +2103,581 @@ def train_sharded(failures, smi) -> dict:
                   "step_ms": per_rank("ssm_ms"),
                   "collective_ms": per_rank("ssm_collective_ms"),
                   "collective_share": share("ssm"),
+                  "bytes_moved_a_rank": [r["bytes"][2] for r in ranks],
                   "peak_gib_a_rank": per_rank("ssm_peak_gib")},
           "tols": {"loss": TOL_SHARDED_LOSS, "grad_norm": TOL_SHARDED_GNORM,
                    "grad_leaf": TOL_SHARDED_GRAD},
           "reference_s": ref_s, "group_s": group_s,
           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
     return {"fftconv_fused": sum(launches) + ssm["fftconv_fused"]}
+
+
+# -- F12 on the card: phi3.5-moe's sharded step (train_sharded_moe) -------------
+#
+# phi3.5-moe-42b-a6.6b at full width (d 4096, 16 experts of moe_d_ff 6400,
+# top 2, vocab 32064 padded to 32128), its depth cut to one layer, fp32,
+# a global batch of 2 x 2048 tokens over 4 host-staged gloo ranks on the
+# card, (2, 2) mesh: the experts on each rank's E/model slice, the
+# embedding and the CE head vocab-parallel.  Step 0 (grads and AdamW)
+# against the single-process step on the same params and batch (its own
+# subprocess, first), its wall time, collective time and the bytes each
+# rank's collectives brought it by kind, which must equal
+# analysis.opcount's count of the same step on a fake (2, 2) group.
+SHARDED_MOE = ("phi3.5-moe-42b-a6.6b", 2, 2048)   # arch, global batch, seq
+SHARDED_MOE_DEPTH = 1
+
+
+def _moe_reference(out):
+    """The single-process step-0 loss, grad norm and grads of SHARDED_MOE
+    (grads saved to ``out``/grads.pt)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    cfg, ocfg, params, data = _train_setup(
+        *SHARDED_MOE, repeat=SHARDED_MOE_DEPTH, dtype="float32")
+    t0 = time.perf_counter()
+    loss, _, grads = ts._grads_of(cfg, params, data.batch_at(0))
+    gnorm = float(opt_lib.global_norm(grads))
+    torch.cuda.synchronize()
+    flat = M.tree_flatten_with_paths(grads)
+    res = {"loss": float(loss), "grad_norm": gnorm,
+           "grads_s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "grad_max": {"/".join(p): float(g.abs().max()) for p, g in flat}}
+    torch.save({"/".join(p): g.cpu() for p, g in flat}, f"{out}/grads.pt")
+    with open(f"{out}/reference.json", "w") as f:
+        json.dump(res, f)
+
+
+def _rank_worst_grad(grads, tmp, mesh, ref_max, stage=None):
+    """The worst |grad - single-process grad| of this rank's block of each
+    leaf over the leaf's max (``stage``: the pipeline's blocks are layer
+    ``stage`` of the reference's stack)."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as M
+    ref = torch.load(f"{tmp}/grads.pt", mmap=True)
+    worst, worst_leaf = 0.0, None
+    for path, g in M.tree_flatten_with_paths(grads):
+        key = "/".join(path)
+        r = ref[key]
+        if stage is not None and path[0] == "blocks":
+            r = r[stage:stage + 1]
+        local = g.to_local() if hasattr(g, "to_local") else g
+        block = r[sh.shard_slices(tuple(r.shape), mesh, g.placements)] \
+            if hasattr(g, "placements") else r
+        err = float((local - block.to(local.device)).abs().max()) / max(
+            ref_max[key], 1e-30)
+        if err > worst or worst_leaf is None:
+            worst, worst_leaf = err, key
+    return worst, worst_leaf, len(ref)
+
+
+def _rank_step_timed(mesh, fn, *args):
+    """fn(*args) under the mesh's activation spec, started together on
+    every rank: its result, this rank's wall ms to its last kernel, the ms
+    inside its collectives and the bytes they brought it by kind, read
+    before the closing barrier."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import hoststaged
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import actsharding
+    torch.cuda.synchronize()
+    dist.barrier()
+    spent = hoststaged.SPENT["seconds"]
+    moved = dict(hoststaged.SPENT["bytes"])
+    t0 = time.perf_counter()
+    with actsharding.activation_spec(mesh, mesh_lib.data_axes(mesh),
+                                     "model"):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    coll = hoststaged.SPENT["seconds"] - spent
+    moved = {k: hoststaged.SPENT["bytes"][k] - moved[k] for k in moved}
+    dist.barrier()
+    return out, wall * 1e3, coll * 1e3, moved
+
+
+def _moe_step0(cfg, ocfg):
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    def step0(params, opt, batch):
+        loss, _, grads = ts._grads_of(cfg, params, batch)
+        params, opt, m = opt_lib.adamw_update(ocfg, grads, opt, params)
+        return loss, grads, params, opt, m
+    return step0
+
+
+def _rank_train_sharded_moe(tmp):
+    """One rank of SHARDED_MOE's step 0 over the (2, 2) mesh."""
+    import faulthandler
+    import json as json_
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch import sharding as sh
+    faulthandler.enable(all_threads=True)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ocfg, params, data = _train_setup(
+        *SHARDED_MOE, repeat=SHARDED_MOE_DEPTH, dtype="float32")
+    params, opt = _rank_lay_out(cfg, ocfg, params, mesh)
+    torch.cuda.empty_cache()
+    batch = sh.lay_out(data.batch_at(0),
+                       sh.batch_shardings(cfg, mesh, data.batch_at(0)))
+    res = {"rank": dist.get_rank()}
+    (loss, grads, params, opt, m), res["step0_ms"], res[
+        "step0_collective_ms"], res["bytes"] = _rank_step_timed(
+        mesh, _moe_step0(cfg, ocfg), params, opt, batch)
+    res["loss"] = float(loss.full_tensor())
+    res["grad_norm"] = float(m["grad_norm"].full_tensor())
+    with open(f"{tmp}/reference.json") as f:
+        ref_max = json_.load(f)["grad_max"]
+    res["grad_worst"], res["grad_worst_leaf"], res["grad_leaves"] = \
+        _rank_worst_grad(grads, tmp, mesh, ref_max)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def _moe_fake_bytes():
+    """analysis.opcount's collective bytes by kind of SHARDED_MOE's step 0
+    as rank 0 of a fake (2, 2) group under FakeTensorMode (this
+    process; nothing moves, nothing is allocated), and its expert-weight
+    all-gathers."""
+    import dataclasses
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    import repro_torch.configs as RCFG
+    from repro_torch.analysis import opcount
+    from repro_torch.data.pipeline import make_batch_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import actsharding
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import abstract_opt_state
+    arch, batch, seq = SHARDED_MOE
+    cfg = dataclasses.replace(RCFG.get_config(arch), remat=True,
+                              repeat=SHARDED_MOE_DEPTH, dtype="float32")
+    ocfg = opt_lib.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    with dryrun.fake_group(4):
+        mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
+        ap = dryrun.abstract_params(cfg)
+        ao = abstract_opt_state(cfg, ocfg, ap)
+        bspec = make_batch_specs(cfg, seq, batch)
+        shard = (sh.param_shardings(cfg, mesh, ap),
+                 sh.opt_shardings(cfg, mesh, ao, ap),
+                 sh.batch_shardings(cfg, mesh, bspec))
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            args = dryrun.materialize((ap, ao, bspec), shard)
+            cost, ops, memory, _ = dryrun.count_call(
+                _moe_step0(cfg, ocfg), args,
+                ctx=lambda: actsharding.activation_spec(
+                    mesh, mesh_lib.data_axes(mesh), "model"))
+    experts = [g for g in opcount.gathers(ops)
+               if any(len(s) == 3 and cfg.moe_d_ff in s for s in g["shape"])]
+    return {k: int(v) for k, v in cost.collectives.items()}, experts, memory
+
+
+def train_sharded_moe(failures, smi) -> None:
+    """F12's sharded MoE step on the card (see the constants above)."""
+    from repro_torch.dist import hoststaged
+    from repro_torch.dist.local import LocalGroup
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fake, fake_experts, fake_memory = _moe_fake_bytes()
+    fake_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        t0 = time.perf_counter()
+        code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+                f"{str(ROOT / 'src')!r}]; import chip_smoke; "
+                f"chip_smoke._moe_reference({tmp!r})")
+        run = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode:
+            raise RuntimeError(f"the single-process reference exited "
+                               f"{run.returncode}:\n{run.stderr[-3000:]}")
+        ref_s = time.perf_counter() - t0
+        with open(f"{tmp}/reference.json") as f:
+            ref = json.load(f)
+        t0 = time.perf_counter()
+        with LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
+                        device="cuda", threads=2, timeout_s=900) as group:
+            ranks = group.run(_rank_train_sharded_moe, tmp)
+        group_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    loss_err = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    gnorm_err = abs(r0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    grad_worst = max(r["grad_worst"] for r in ranks)
+    if not loss_err <= TOL_SHARDED_LOSS:
+        failures.append(f"train_sharded_moe loss {r0['loss']} vs "
+                        f"{ref['loss']}: {loss_err}")
+    if not gnorm_err <= TOL_SHARDED_GNORM:
+        failures.append(f"train_sharded_moe grad norm {r0['grad_norm']} "
+                        f"vs {ref['grad_norm']}: {gnorm_err}")
+    if not grad_worst <= TOL_SHARDED_GRAD:
+        failures.append(f"train_sharded_moe grads: {grad_worst} "
+                        f"({[r['grad_worst_leaf'] for r in ranks]})")
+    mismatched = [r["rank"] for r in ranks if r["bytes"] != fake]
+    if mismatched:
+        failures.append(f"train_sharded_moe: ranks {mismatched} moved "
+                        f"{[r['bytes'] for r in ranks]}, opcount on a fake "
+                        f"group counts {fake}")
+    emit({"phase": "train_sharded_moe", "ranks": SHARDED_RANKS,
+          "mesh": {"data": 2, "model": 2}, "backend": hoststaged.NAME,
+          "arch": SHARDED_MOE[0], "global_batch": SHARDED_MOE[1],
+          "seq_len": SHARDED_MOE[2], "depth": SHARDED_MOE_DEPTH,
+          "dtype": "float32", "loss": r0["loss"], "loss_single": ref["loss"],
+          "loss_rel_err": loss_err, "grad_norm": r0["grad_norm"],
+          "grad_norm_single": ref["grad_norm"],
+          "grad_norm_rel_err": gnorm_err, "grad_leaves": r0["grad_leaves"],
+          "grad_worst_over_max": grad_worst,
+          "grad_worst_leaf": [r["grad_worst_leaf"] for r in ranks],
+          "step0_ms": [r["step0_ms"] for r in ranks],
+          "step0_collective_ms": [r["step0_collective_ms"] for r in ranks],
+          "collective_share": max(r["step0_collective_ms"] / r["step0_ms"]
+                                  for r in ranks),
+          "bytes_moved_a_rank": [r["bytes"] for r in ranks],
+          "bytes_opcount_fake": fake,
+          "expert_gathers_fake": fake_experts,
+          "fake_peak_gib": fake_memory["peak_bytes"] / 2**30,
+          "peak_gib_a_rank": [r["peak_gib"] for r in ranks],
+          "single_grads_s": ref["grads_s"],
+          "single_peak_gib": ref["peak_gib"],
+          "tols": {"loss": TOL_SHARDED_LOSS, "grad_norm": TOL_SHARDED_GNORM,
+                   "grad_leaf": TOL_SHARDED_GRAD},
+          "fake_count_s": fake_s, "reference_s": ref_s, "group_s": group_s,
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+
+# -- the dry-run counts (dryrun_counts) ------------------------------------------
+#
+# Started as subprocesses on the host after the build (CPU only: fake
+# tensors over fake process groups) and read at the end: launch.dryrun
+# for danube and phi3.5-moe's train_4k on the 16x16 mesh, launch.
+# fft_dryrun at 16384^2 on both meshes, launch.pp_variant for
+# nemotron-4-340b on the 2x16x16 mesh.  Each record's loop_aware fields
+# and its roofline terms on the H100 SXM are printed, and phi3.5-moe's
+# expert all-gathers must bring a rank its E/16 slice (bf16: 52.4 MB a
+# weight, 157 MB a pass), not the whole.
+DRYRUN_CELLS = ("h2o-danube-1.8b", "phi3.5-moe-42b-a6.6b")
+DRYRUN_TIMEOUT_S = 840
+_CHILDREN: list = []    # (name, Popen, log, start): killed when main ends
+
+
+def start_dryruns(out: str) -> list:
+    """The dry-run subprocesses: (name, Popen, log path)."""
+    src = str(ROOT / "src")
+    jobs = [(f"dryrun {a}", ["-m", "repro_torch.launch.dryrun", "--arch", a,
+                             "--shape", "train_4k", "--save-dir",
+                             f"{out}/dryrun"]) for a in DRYRUN_CELLS]
+    jobs.append(("fft_dryrun", ["-m", "repro_torch.launch.fft_dryrun",
+                                "--size", "16384", "--mesh", "both",
+                                "--out", f"{out}/fft", "--arch",
+                                "h100_sxm"]))
+    jobs.append(("pp_variant", ["-m", "repro_torch.launch.pp_variant",
+                                "--arch", "nemotron-4-340b", "--out",
+                                f"{out}/pp", "--hw", "h100_sxm"]))
+    procs = _CHILDREN
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    for i, (name, args) in enumerate(jobs):
+        log = f"{out}/job{i}.log"
+        with open(log, "w") as f:
+            procs.append((name, subprocess.Popen(
+                [sys.executable, *args], stdout=f, stderr=subprocess.STDOUT,
+                env=env, cwd=out), log, time.perf_counter()))
+    return procs
+
+
+def dryrun_counts(failures, smi, procs, out: str) -> None:
+    import gzip
+    from repro_torch.analysis import opcount, roofline
+    t_phase = time.perf_counter()
+    status = {}
+    for name, proc, log, t0 in procs:
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            rc = proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        status[name] = {"rc": rc, "s": time.perf_counter() - t0}
+        if rc != 0:
+            tail = Path(log).read_text()[-2000:]
+            failures.append(f"dryrun_counts {name}: {rc}\n{tail}")
+    recs = {}
+    hw = roofline.hw_table("h100_sxm")
+    for arch in DRYRUN_CELLS:
+        path = Path(out) / "dryrun" / "16x16" / f"{arch}__train_4k.json"
+        if not path.exists():
+            continue
+        rec = json.loads(path.read_text())
+        ops = [json.loads(line) for line in gzip.open(
+            str(path)[:-len(".json")] + ".ops.jsonl.gz", "rt")]
+        terms = roofline.roofline_terms(rec, arch="h100_sxm")
+        entry = {"loop_aware": rec["loop_aware"],
+                 "collectives": rec["collectives"], "memory": rec["memory"],
+                 "trace_s": rec["trace_s"], "ops": len(ops),
+                 "roofline_h100_sxm": terms}
+        if arch.startswith("phi3.5-moe"):
+            import repro_torch.configs as RCFG
+            cfg = RCFG.get_config(arch)
+            gathers = [g for g in opcount.gathers(ops)
+                       if any(len(s) == 3 and cfg.moe_d_ff in s
+                              for s in g["shape"])]
+            slice_bytes = (cfg.n_experts // 16) * cfg.d_model * \
+                cfg.moe_d_ff * 2
+            entry["expert_gathers"] = len(gathers)
+            entry["expert_gather_bytes_max"] = max(
+                (g["bytes"] for g in gathers), default=0)
+            entry["expert_slice_bytes"] = slice_bytes
+            entry["expert_bytes_a_pass"] = 3 * entry[
+                "expert_gather_bytes_max"]
+            if not gathers or entry["expert_gather_bytes_max"] > slice_bytes:
+                failures.append(f"dryrun_counts {arch}: expert gathers "
+                                f"{entry['expert_gather_bytes_max']} B, "
+                                f"slice {slice_bytes} B")
+        recs[arch] = entry
+    fft = {}
+    for path in sorted((Path(out) / "fft").glob("*.json")):
+        rec = json.loads(path.read_text())
+        fft[path.stem] = {k: rec[k] for k in (
+            "flops", "traffic_bytes", "collective_total", "compute_s",
+            "memory_s", "collective_s", "temp_bytes", "trace_s")}
+    pp = {}
+    for path in sorted((Path(out) / "pp").glob("*.json")):
+        pp = json.loads(path.read_text())
+    if len(recs) != len(DRYRUN_CELLS) or len(fft) != 6 or not pp:
+        failures.append(f"dryrun_counts: records {sorted(recs)}, fft "
+                        f"{sorted(fft)}, pp {bool(pp)}")
+    emit({"phase": "dryrun_counts", "mesh": "16x16", "hw": "h100_sxm",
+          "peaks": {k: hw[k] for k in ("peak_flops_bf16", "peak_flops_f32",
+                                       "hbm_bw", "ici_bw")},
+          "jobs": status, "train_4k": recs, "fft_dryrun": fft,
+          "pp_variant": pp, "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+
+
+# -- the pipeline step on the card (train_pp) ------------------------------------
+#
+# launch.pp_variant's step on 4 host-staged gloo ranks sharing the card,
+# mesh (pod 2, data 1, model 2): h2o-danube-1.8b at full width, 2 layers
+# (one a stage), fp32, 4 x 1024 tokens in 4 microbatches.  Step 0's loss,
+# grad norm (every stage summed over pod) and each rank's grads against
+# the same loss on one process (pp_variant.sequential_loss), then the
+# AdamW update; the step's wall time and its share in collectives.
+PP_CELL = ("h2o-danube-1.8b", 4, 1024, 2, 4)  # arch, batch, seq, depth, micro
+
+
+def _pp_setup():
+    import dataclasses
+    import torch
+    import repro_torch.configs as RCFG
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import pp_variant
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    arch, batch, seq, depth, _ = PP_CELL
+    cfg = pp_variant.pp_config(arch, dataclasses.replace(
+        RCFG.get_config(arch), repeat=depth))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = M.init_params(gen, cfg, device="cuda")
+    data = SyntheticLM(DataConfig(seq_len=seq, global_batch=batch), cfg,
+                       device="cuda")
+    ocfg = opt_lib.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10,
+                               moments_dtype="bfloat16")
+    return cfg, ocfg, params, data.batch_at(0)
+
+
+def _pp_reference(out):
+    import torch
+    from repro_torch.launch import pp_variant
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    cfg, _, params, batch = _pp_setup()
+    flat = M.tree_flatten_with_paths(params)
+    leaves = [t.requires_grad_(True) for _, t in flat]
+    t0 = time.perf_counter()
+    loss = pp_variant.sequential_loss(cfg, params, batch)
+    got = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    grads = {"/".join(p): g.detach() for (p, _), g in zip(flat, got)}
+    with open(f"{out}/reference.json", "w") as f:
+        json.dump({"loss": float(loss),
+                   "grad_norm": float(opt_lib.global_norm(grads)),
+                   "grads_s": secs,
+                   "grad_max": {k: float(g.abs().max())
+                                for k, g in grads.items()}}, f)
+    torch.save({k: g.cpu() for k, g in grads.items()}, f"{out}/grads.pt")
+
+
+def _rank_train_pp(tmp):
+    import json as json_
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch import pp_variant
+    arch, batch, seq, depth, micro = PP_CELL
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ocfg, params, full_batch = _pp_setup()
+    step = pp_variant.build_pp_train_step(arch, seq, batch, micro, mesh,
+                                          cfg=cfg, ocfg=ocfg)
+    params, opt, b = step.lay_out(params, full_batch)
+    torch.cuda.empty_cache()
+    res = {"rank": dist.get_rank(), "stage": step.stage}
+
+    def whole(p, o, b):
+        loss, grads = step.loss_and_grads(p, b)
+        return grads, step.apply_grads(p, o, loss, grads)
+    (grads, (_, _, m)), res["step_ms"], res["collective_ms"], \
+        res["bytes"] = _rank_step_timed(step.sub, whole, params, opt, b)
+    res["loss"] = float(m["loss"].full_tensor())
+    res["grad_norm"] = float(m["grad_norm"].full_tensor()
+                             if hasattr(m["grad_norm"], "full_tensor")
+                             else m["grad_norm"])
+    with open(f"{tmp}/reference.json") as f:
+        ref_max = json_.load(f)["grad_max"]
+    res["grad_worst"], res["grad_worst_leaf"], res["grad_leaves"] = \
+        _rank_worst_grad(grads, tmp, step.sub, ref_max, stage=step.stage)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def train_pp(failures, smi) -> None:
+    from repro_torch.dist import hoststaged
+    from repro_torch.dist.local import LocalGroup
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+                f"{str(ROOT / 'src')!r}]; import chip_smoke; "
+                f"chip_smoke._pp_reference({tmp!r})")
+        run = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode:
+            raise RuntimeError(f"the single-process pipeline reference "
+                               f"exited {run.returncode}:\n"
+                               f"{run.stderr[-3000:]}")
+        with open(f"{tmp}/reference.json") as f:
+            ref = json.load(f)
+        with LocalGroup(4, backend=hoststaged.NAME, device="cuda",
+                        threads=2, timeout_s=900) as group:
+            ranks = group.run(_rank_train_pp, tmp)
+    loss_err = max(abs(r["loss"] - ref["loss"]) for r in ranks) / \
+        abs(ref["loss"])
+    gnorm_err = max(abs(r["grad_norm"] - ref["grad_norm"])
+                    for r in ranks) / ref["grad_norm"]
+    grad_worst = max(r["grad_worst"] for r in ranks)
+    if not loss_err <= TOL_SHARDED_LOSS:
+        failures.append(f"train_pp loss {[r['loss'] for r in ranks]} vs "
+                        f"{ref['loss']}")
+    if not gnorm_err <= TOL_SHARDED_GNORM:
+        failures.append(f"train_pp grad norm "
+                        f"{[r['grad_norm'] for r in ranks]} vs "
+                        f"{ref['grad_norm']}")
+    if not grad_worst <= TOL_SHARDED_GRAD:
+        failures.append(f"train_pp grads {grad_worst} "
+                        f"({[r['grad_worst_leaf'] for r in ranks]})")
+    arch, batch, seq, depth, micro = PP_CELL
+    emit({"phase": "train_pp", "ranks": 4,
+          "mesh": {"pod": 2, "data": 1, "model": 2},
+          "backend": hoststaged.NAME, "arch": arch, "global_batch": batch,
+          "seq_len": seq, "depth": depth, "microbatches": micro,
+          "dtype": "float32", "loss": [r["loss"] for r in ranks],
+          "loss_single": ref["loss"], "loss_rel_err": loss_err,
+          "grad_norm_rel_err": gnorm_err, "grad_worst_over_max": grad_worst,
+          "grad_worst_leaf": [r["grad_worst_leaf"] for r in ranks],
+          "stage": [r["stage"] for r in ranks],
+          "step_ms": [r["step_ms"] for r in ranks],
+          "collective_ms": [r["collective_ms"] for r in ranks],
+          "collective_share": max(r["collective_ms"] / r["step_ms"]
+                                  for r in ranks),
+          "bytes_moved_a_rank": [r["bytes"] for r in ranks],
+          "peak_gib_a_rank": [r["peak_gib"] for r in ranks],
+          "single_grads_s": ref["grads_s"],
+          "tols": {"loss": TOL_SHARDED_LOSS, "grad_norm": TOL_SHARDED_GNORM,
+                   "grad_leaf": TOL_SHARDED_GRAD},
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+
+# -- the examples on the card (examples) -----------------------------------------
+#
+# Each examples/torch_*.py through its main(argv) at its default sizes on
+# the card, in this process (the distributed one spawns its ranks), its
+# kernel launches counted: quickstart the four-step and 2-D GEMM kernels,
+# the audio frontend the real-input route (its frames on the radix-2
+# Stockham kernel), the batched server its buckets' kernels, train_lm
+# --ssm the conv kernel, the distributed FFTs their local passes'.
+EXAMPLE_TOL = {"1d": 5e-5, "2d": 1e-5, "roundtrip": 1e-4}
+
+
+def examples_path(failures, smi) -> dict:
+    """Returns the launches of the phase's window by kernel."""
+    import importlib
+    from repro_torch.kernels import ops
+    sys.path.insert(0, str(ROOT / "examples"))
+    t_phase = time.perf_counter()
+    out, total = {}, {}
+
+    def run(name, argv, need):
+        mod = importlib.import_module(name)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got = mod.main(argv)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        if name == "torch_distributed_fft":
+            launches = {}
+            for lab in got["launches"].values():
+                for k, v in lab.items():
+                    launches[k] = launches.get(k, 0) + v
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if name == "torch_serve_batched":
+            got = {k: got[k] for k in ("completed", "degraded")}
+        out[" ".join([name, *argv])] = {
+            "s": time.perf_counter() - t0, "launches": launches,
+            "result": got}
+        missing = [k for k in need if not launches.get(k)]
+        if missing:
+            failures.append(f"examples {name} {argv}: no launch of "
+                            f"{missing} ({launches})")
+        return got
+    errs = run("torch_quickstart", [], ("fft_fourstep", "fft2d_gemm",
+                                        "fft_stockham"))
+    for k, v in errs.items():
+        tol = EXAMPLE_TOL["2d"] if k in ("fft2", "fft_conv") \
+            else EXAMPLE_TOL["1d"]
+        if not v <= tol:
+            failures.append(f"examples quickstart {k}: {v} > {tol}")
+    audio = run("torch_audio_frontend", ["--algo", "stockham2"],
+                ("fft_stockham_r2",))
+    if not audio["first_frame_rel_err"] <= EXAMPLE_TOL["1d"]:
+        failures.append(f"examples audio_frontend: {audio}")
+    serve = run("torch_serve_batched", [], ("fft2d_gemm", "rfft2d_fused"))
+    if serve["completed"] != 64 or serve["degraded"]:
+        failures.append(f"examples serve_batched: {serve}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ex_") as tmp:
+        run("torch_train_lm", ["--ckpt-dir", f"{tmp}/a"], ())
+        run("torch_train_lm", ["--ssm", "--ckpt-dir", f"{tmp}/b"],
+            ("fftconv_fused",))
+    dist_ = run("torch_distributed_fft", [], ("fft_fourstep",))
+    for k, v in dist_["errors"].items():
+        tol = EXAMPLE_TOL["roundtrip"] if k == "pfft1d_roundtrip" \
+            else EXAMPLE_TOL["2d"]
+        if not v <= tol:
+            failures.append(f"examples distributed_fft {k}: {v} > {tol}")
+    emit({"phase": "examples", "runs": out, "launches": total,
+          "tols": EXAMPLE_TOL, "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    return total
 
 
 # -- float16 planes (F11) -------------------------------------------------------
@@ -2515,6 +3084,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(build_s, 3),
           "libraries": [_build.library_path(n).name for n in _build.SOURCES],
           "ptxas": ptxas, "cgemm_f32": f32_gemm})
+    # the dry-run counts run on the host beside the card's phases
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry_procs = start_dryruns(dry_dir)
 
     # 3. kernel vs plain version, forward and inverse (for the real-input
     # pair the inverse is irfft2d_fused, fed a random half spectrum whose
@@ -4176,9 +4748,15 @@ def main() -> int:
         train[k] = train.get(k, 0) + v
     for k, v in train_sharded(failures, smi).items():
         train[k] = train.get(k, 0) + v
+    train_sharded_moe(failures, smi)
+    train_pp(failures, smi)
+    ex = examples_path(failures, smi)
+    dryrun_counts(failures, smi, dry_procs, dry_dir)
+    shutil.rmtree(dry_dir, ignore_errors=True)
     for entry in kernels:
         entry["lm_path_launches"] = lm.get(entry["name"], 0)
         entry["train_path_launches"] = train.get(entry["name"], 0)
+        entry["examples_launches"] = ex.get(entry["name"], 0)
 
     if failures:
         for f in failures:
@@ -4197,4 +4775,9 @@ if __name__ == "__main__":
     except Exception:                     # report, then exit non-zero
         traceback.print_exc()
         code = 1
+    finally:
+        for _, child, _, _ in _CHILDREN:  # no dry run outlives the script
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     sys.exit(code)

@@ -84,11 +84,12 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
 def p2p_route(mesh: DeviceMesh, axis: str, device) -> str:
     """How a point-to-point transfer over ``axis`` moves a tensor on
     ``device``: ``"nccl"``, ``"gloo"`` or ``"gloo-host"`` (gloo's send and
-    receive take CPU tensors only, so a gloo group holding card tensors
-    stages them through pinned host buffers)."""
+    receive take CPU tensors only, so a gloo group holding card tensors,
+    or a host-staged one, stages them through pinned host buffers)."""
     backend = dist.get_backend(mesh.get_group(axis))
-    if backend == "gloo" and torch.device(device).type == "cuda":
-        return "gloo-host"
+    if backend in ("gloo", "gloo-host"):
+        return "gloo-host" if torch.device(device).type == "cuda" \
+            else "gloo"
     return backend
 
 

@@ -9,9 +9,14 @@ card with torch 2.11: a segmentation fault in ``wait_tensor`` at the
 sharded step's first redistribution).  :class:`HostStaged` runs every
 collective of card tensors as gloo's CPU collective on host copies, then
 copies the results back, synchronously: a collective's cost is its host
-round trip, and :data:`SPENT` adds up the wall time spent in them.  Initialise a group with ``backend=NAME`` (``"gloo-host"``,
-which takes host tensors too); importing :mod:`repro_torch.dist`
-registers it.
+round trip.  :data:`SPENT` adds up the wall time spent in them, the
+calls, and the bytes each brought the rank by collective kind (its
+result, as :mod:`repro_torch.analysis.opcount` counts a rank's
+collectives, so a dry run's counts can be checked against a real run's).
+Point-to-point sends and receives (the pipeline's ring shift) go over
+gloo as they are; a receive counts as ``collective-permute``.
+Initialise a group with ``backend=NAME`` (``"gloo-host"``, which takes
+host tensors too); importing :mod:`repro_torch.dist` registers it.
 """
 from __future__ import annotations
 
@@ -24,7 +29,14 @@ from torch._C._distributed_c10d import _create_work_from_future
 from torch.futures import Future
 
 NAME = "gloo-host"
-SPENT = {"seconds": 0.0, "calls": 0}   # wall time inside the collectives
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+# wall time inside the collectives, their calls, result bytes by kind
+SPENT = {"seconds": 0.0, "calls": 0, "bytes": dict.fromkeys(KINDS, 0)}
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _done(result):
@@ -37,9 +49,12 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu")
 
 
-def _timed(fn):
-    """Count a collective's wall time, host copies included, in SPENT."""
+def _timed(fn, kind=None, result=None):
+    """Count a collective's wall time, host copies included, in SPENT, and
+    (``kind``) the bytes of its result tensors, ``result(*args)``."""
     def run(*args, **kw):
+        if kind is not None:
+            SPENT["bytes"][kind] += _nbytes(result(*args))
         t0 = time.perf_counter()
         try:
             return fn(*args, **kw)
@@ -152,15 +167,40 @@ class HostStaged(dist.ProcessGroup):
         return self._back([t for outs in output_lists for t in outs],
                           [h for outs in hosts for h in outs])
 
+    def send(self, tensors, dst, tag=0):
+        return self._gloo.send([_host(t) for t in tensors], dst, tag)
+
+    def recv(self, tensors, src, tag=0):
+        hosts = [torch.empty(t.shape, dtype=t.dtype) for t in tensors]
+        self._gloo.recv(hosts, src, tag).wait()
+        return self._back(tensors, hosts)
+
     def barrier(self, opts=c10d.BarrierOptions()):
         self._gloo.barrier(opts).wait()
         return _done(None)
 
 
+def _flat(lists):
+    return [t for ts in lists for t in ts]
+
+
+# the methods' result tensors: (self, outputs, ...) or (self, tensors, ...)
+_COUNTED = {
+    "allreduce": ("all-reduce", lambda self, ts, *a: ts),
+    "broadcast": ("all-gather", lambda self, ts, *a: ts),
+    "allgather": ("all-gather", lambda self, outs, *a: _flat(outs)),
+    "all_gather_single": ("all-gather", lambda self, out, *a: [out]),
+    "reduce_scatter": ("reduce-scatter", lambda self, outs, *a: outs),
+    "reduce_scatter_single": ("reduce-scatter", lambda self, out, *a: [out]),
+    "all_to_all_single": ("all-to-all", lambda self, out, *a: [out]),
+    "alltoall": ("all-to-all", lambda self, outs, *a: outs),
+    "recv": ("collective-permute", lambda self, ts, *a: ts),
+}
 for _name in ("allreduce", "broadcast", "allgather", "all_gather_single",
               "reduce_scatter", "reduce_scatter_single", "all_to_all_single",
-              "alltoall", "scatter", "gather", "barrier"):
-    setattr(HostStaged, _name, _timed(getattr(HostStaged, _name)))
+              "alltoall", "scatter", "gather", "barrier", "send", "recv"):
+    setattr(HostStaged, _name, _timed(getattr(HostStaged, _name),
+                                      *_COUNTED.get(_name, (None, None))))
 # the names torch's bindings call these by, too
 for _name, _to in (("_allgather_base", "all_gather_single"),
                    ("_reduce_scatter_base", "reduce_scatter_single"),

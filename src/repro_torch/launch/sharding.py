@@ -53,20 +53,25 @@ def _axes(entry) -> tuple:
 def placements(spec, mesh) -> tuple:
     """DTensor placements on ``mesh`` (a ``DeviceMesh``) for ``spec``: a
     tensor dim over axes (a, b) is ``Shard(d)`` on both mesh dims, which
-    must come in mesh order; every other mesh dim is ``Replicate()``."""
+    must come in mesh order; every other mesh dim, and a mesh dim of one
+    rank (nothing to split), is ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh.mesh_dim_names)
+    sizes = [int(s) for s in mesh.shape]
     out = [Replicate()] * len(names)
+    used = set()
     for d, entry in enumerate(spec):
         idx = [names.index(a) for a in _axes(entry)]
         if idx != sorted(idx):
             raise ValueError(f"spec {spec}: axes {_axes(entry)} of dim {d} "
                              f"are not in mesh order {tuple(names)}")
         for i in idx:
-            if not isinstance(out[i], Replicate):
+            if i in used:
                 raise ValueError(f"spec {spec} uses mesh axis {names[i]!r} "
                                  "twice")
-            out[i] = Shard(d)
+            used.add(i)
+            if sizes[i] > 1:
+                out[i] = Shard(d)
     return tuple(out)
 
 

@@ -15,17 +15,23 @@ Where the reference's partitioner places collectives around a block, the
 sharded step here states them (one rule, two forms):
 
 - :func:`on_shards` runs a block whose work is independent over batch
-  rows (and heads or channels) on each rank's local shards, under
-  ``torch.distributed.tensor.experimental.local_map``: its inputs are
-  redistributed to the stated placements, its tables and masks stay plain
-  tensors, and a kernel inside it sees a plain local tensor whose FFT
-  axis is whole on the rank;
+  rows (and heads, channels, experts or vocab rows) on each rank's local
+  shards, under ``torch.distributed.tensor.experimental.local_map``: its
+  inputs are redistributed to the stated placements, its tables and masks
+  stay plain tensors, and a kernel inside it sees a plain local tensor
+  whose FFT axis is whole on the rank.  A block over a split weight
+  (experts over ``model``, the vocab-parallel embedding) returns a
+  :class:`PartialSum`, which the residual's ``constrain`` reduces into
+  its sequence split; a block that needs the sum inside (the
+  vocab-parallel CE's log-sum-exp) reduces over :func:`model_group`
+  itself;
 - :func:`replicate_like` makes a constant built for a DTensor operand a
   replicated DTensor on that operand's mesh.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Optional
 
 _STATE: dict = {"mesh": None, "batch": None, "model": None}
@@ -119,6 +125,33 @@ def replicate_like(t, like):
                               run_check=False)
 
 
+@dataclasses.dataclass(frozen=True)
+class PartialSum:
+    """An output form of :func:`on_shards`: the dims of ``spec`` as any
+    out spec gives them, the value on each rank a partial sum over the
+    mesh dims of the symbol ``over`` (each rank computed the part of its
+    slice of a weight split over ``over``)."""
+    over: str
+    spec: tuple
+
+
+def model_group():
+    """The process group of the installed ``model`` mesh dim: the ranks a
+    block run by :func:`on_shards` reduces over inside."""
+    if _STATE["model"] is None:
+        raise ValueError("no model mesh dim installed")
+    return _STATE["mesh"].get_group(_STATE["model"])
+
+
+def model_start(n: int) -> int:
+    """Inside a block run by :func:`on_shards`: the first index of this
+    rank's slice of ``n`` along a dim its spec splits over ``"model"``
+    (the rank's coordinate on that mesh dim times n; 0 with no mesh)."""
+    if _STATE["mesh"] is None or _STATE["model"] is None:
+        return 0
+    return _STATE["mesh"].get_local_rank(_STATE["model"]) * n
+
+
 def _resolve(spec, shape, axes) -> tuple:
     """A block spec of "batch", "model" and None entries as a sharding
     spec: each symbol its mesh axes (``axes``), or None where they are
@@ -127,25 +160,30 @@ def _resolve(spec, shape, axes) -> tuple:
         (None,) * (len(shape) - len(spec))
 
 
-def on_shards(fn, args, in_specs, out_specs):
+def on_shards(fn, args, in_specs, out_specs, *, keep=None):
     """``fn(*args)`` on each rank's local shards.
 
     ``in_specs`` gives each argument's dims as "batch" (split over the
     data axes), "model" (over the model axis) or None (whole); a None
     spec passes the argument as it is (a Python value, a plain tensor).
     ``out_specs`` does the same for the result: one spec for a tensor,
-    a list of specs for a tuple of them.  "model" shards only when every dim that names it divides by
-    the model axis, and "batch" likewise over the data axes; otherwise
-    the block runs whole on those ranks (replicated).  The gradient of an
+    a list of specs for a tuple of them; a :class:`PartialSum` marks a
+    result that is a partial sum over its symbol's mesh dims.  "model"
+    shards only when every dim that names it divides by the model axis,
+    and "batch" likewise over the data axes; otherwise the block runs
+    whole on those ranks (replicated).  ``keep`` maps argument indices to
+    names: a split of such an argument that its spec names must be kept,
+    and if the block cannot keep it (its symbol is off) the call raises
+    naming the tensor rather than gather it whole.  The gradient of an
     input that a sharded symbol does not split (a weight against a batch
-    split, shared B/C inputs against a head split) is a partial sum over
-    that symbol's mesh dims: each rank saw only its part of the work.
-    With no mesh installed, or no DTensor argument, ``fn(*args)`` runs
-    as it is."""
+    split, shared B/C inputs against a head split, the tokens against an
+    expert or vocab split) is a partial sum over that symbol's mesh dims:
+    each rank saw only its part of the work.  With no mesh installed, or
+    no DTensor argument, ``fn(*args)`` runs as it is."""
     mesh = _STATE["mesh"]
     if mesh is None or not any(_is_dtensor(a) for a in args):
         return fn(*args)
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     from repro_torch.launch.mesh import axis_sizes
     from repro_torch.launch.sharding import placements
@@ -168,6 +206,19 @@ def on_shards(fn, args, in_specs, out_specs):
     axes = {sym: (names if len(names) > 1 else names[0]) if on[sym]
             else None for sym, names in groups.items()}
     names = list(mesh.mesh_dim_names)
+    for i, label in (keep or {}).items():
+        a, sp = args[i], in_specs[i]
+        for d, p in enumerate(a.placements if _is_dtensor(a) else ()):
+            sym = next((s for s, ax in groups.items()
+                        if names[d] in ax), None)
+            if isinstance(p, Shard) and sym is not None and not on[sym] \
+                    and p.dim < len(sp) and sp[p.dim] == sym:
+                raise ValueError(
+                    f"{getattr(fn, '__name__', 'block')}: {label} "
+                    f"{tuple(a.shape)} is split over {names[d]!r} on dim "
+                    f"{p.dim}, which this block cannot keep (a dim naming "
+                    f"{sym!r} does not divide by its ranks); refusing to "
+                    "gather it whole")
     in_pl, grad_pl = [], []
     for a, sp in zip(args, in_specs):
         if sp is None or not _is_dtensor(a):
@@ -186,6 +237,11 @@ def on_shards(fn, args, in_specs, out_specs):
         grad_pl.append(tuple(grad))
 
     def out_pl(spec):
+        if isinstance(spec, PartialSum):
+            pl = out_pl(spec.spec)
+            for ax in groups[spec.over] if on[spec.over] else ():
+                pl[names.index(ax)] = Partial()
+            return pl
         return list(placements(_resolve(spec, spec, axes), mesh))
     # local_map reads a tuple as one placement list an output
     outs = (tuple(out_pl(sp) for sp in out_specs)

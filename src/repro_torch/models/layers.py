@@ -310,12 +310,23 @@ def embedding_init(gen, cfg: ModelConfig):
 
 
 def embed(p, tokens, cfg: ModelConfig):
-    """tokens (B, S) -> (B, S, d).  Under a mesh the lookup runs on each
-    rank's batch rows with the table whole on the rank (DTensor's own
-    lookup gradient fails on torch 2.11's index_put)."""
-    return actsharding.on_shards(lambda t, tok: tok[t], (tokens, p["tok"]),
-                                 (("batch", None), (None, None)),
-                                 ("batch", None, None))
+    """tokens (B, S) -> (B, S, d).  Under a mesh the lookup is
+    vocab-parallel (Megatron's ``VocabParallelEmbedding``): each rank looks
+    its batch rows up in its V/``model`` slice of ``tok`` (gathered over
+    the data axes only), ids outside the slice give zeros, and the result
+    is a partial sum over ``model``.  The lookup's ``index_put`` gradient
+    stays inside ``local_map`` (DTensor's own fails on torch 2.11)."""
+    def lookup(t, tok):
+        n = tok.shape[0]
+        if n == cfg.padded_vocab:                # the table whole
+            return tok[t]
+        lo = actsharding.model_start(n)
+        own = (t >= lo) & (t < lo + n)
+        return tok[torch.where(own, t - lo, 0)] * own[..., None].to(tok.dtype)
+    return actsharding.on_shards(
+        lookup, (tokens, p["tok"]), (("batch", None), ("model", None)),
+        actsharding.PartialSum("model", ("batch", None, None)),
+        keep={1: "embed/tok"})
 
 
 def unembed(p, x, cfg: ModelConfig):

@@ -333,6 +333,39 @@ def _pad_bias(cfg: ModelConfig, dtype, device):
                        < cfg.vocab_size, 0.0, -1e30).to(dtype)
 
 
+class _VocabParallelLL(torch.autograd.Function):
+    """Each token's log-likelihood of its label from logits split over the
+    vocab (Megatron's vocab-parallel cross entropy): ``logits`` (..., n)
+    are this rank's columns [lo, lo + n) of the (..., V) logits; the max,
+    the sum of exponentials and the label's logit (from the rank that owns
+    it) are all-reduced over ``group``, so every rank returns the whole
+    result.  The backward is local: softmax minus the label's one-hot on
+    this rank's columns (the collectives carry no gradient)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        import torch.distributed as dist
+        n = logits.shape[-1]
+        m = logits.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        s = torch.exp(logits - m[..., None]).sum(dim=-1)
+        dist.all_reduce(s, group=group)
+        lse = m + torch.log(s)
+        own = (labels >= lo) & (labels < lo + n)
+        idx = torch.where(own, labels - lo, 0)
+        picked = logits.gather(-1, idx[..., None])[..., 0] * own
+        dist.all_reduce(picked, group=group)
+        ctx.save_for_backward(logits, lse, idx, own)
+        return picked - lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, own = ctx.saved_tensors
+        grad = -torch.exp(logits - lse[..., None]) * g[..., None]
+        grad.scatter_add_(-1, idx[..., None], (g * own)[..., None])
+        return grad, None, None, None
+
+
 # sequence-chunk size for the CE head: bounds the live (B, chunk, V) logits
 # slab; the full (B, S, V) tensor is never materialised
 LOSS_CHUNK = 512
@@ -355,22 +388,35 @@ def loss_fn(params, cfg: ModelConfig, batch):
         c = s
 
     names = sorted(params["embed"])
+    # the head's vocab dim: tok (V, d) when tied, else head (d, V)
+    vocab = [("model", None) if n == "tok" else (None, "model")
+             for n in names]
 
     def ce_rows(xb, lb, mb, *emb):
-        """Each row's masked log-likelihood sum over the chunk (B,)."""
+        """Each row's masked log-likelihood sum over the chunk (B,).  On a
+        V/``model`` slice of the head the logits stay split and the
+        log-sum-exp is distributed (:class:`_VocabParallelLL`)."""
         logits = layers.unembed(dict(zip(names, emb)), xb, cfg)
-        logits = (logits + _pad_bias(cfg, logits.dtype, xb.device)).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, lb[..., None].long())[..., 0] - lse
+        n = logits.shape[-1]
+        lo = actsharding.model_start(n) if n != cfg.padded_vocab else 0
+        bias = _pad_bias(cfg, logits.dtype, xb.device)[lo:lo + n]
+        logits = (logits + bias).float()
+        if n == cfg.padded_vocab:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, lb[..., None].long())[..., 0] - lse
+        else:
+            ll = _VocabParallelLL.apply(logits, lb.long(), lo,
+                                        actsharding.model_group())
         return torch.sum(ll * mb, dim=-1)
 
     def ce_chunk(xb, lb, mb):
-        # on each rank's batch rows, the embedding whole on the rank
+        # on each rank's batch rows and its V/model slice of the head
         emb = [params["embed"][n] for n in names]
         return actsharding.on_shards(
             ce_rows, (xb, lb, mb, *emb),
             (("batch", None, None), ("batch", None), ("batch", None),
-             *((None,) * t.dim() for t in emb)), ("batch",)).sum()
+             *vocab), ("batch",),
+            keep={3 + j: f"embed/{n}" for j, n in enumerate(names)}).sum()
 
     ce_sum = _zero(x)
     for i in range(n_chunks):

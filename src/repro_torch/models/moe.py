@@ -46,9 +46,14 @@ def moe_apply(p, x, cfg: ModelConfig, *, dropless: bool = False,
     Groups = sequences (B groups of S tokens); decode (S==1) folds the whole
     batch into one group.  ``dropless=True`` sets capacity = Tg (exact, for
     decode where Tg = B is small); prefill uses ``cap_scale`` headroom.
-    Under a mesh the routing and the experts run on each rank's groups
-    (:func:`~repro_torch.models.actsharding.on_shards`, every expert's
-    weights on the rank) and the aux loss is taken over all of them.
+    Under a mesh (:func:`~repro_torch.models.actsharding.on_shards`) the
+    router, its top-k and the capacity selection run on each rank's
+    groups, their sequence whole, so the router's gradient is taken once;
+    the experts run on each rank's E/``model`` slice of ``wi``, ``wg`` and
+    ``wo`` (the per-(group, expert) selection is independent across
+    experts, so the split computes what the whole does), and their output
+    is a partial sum over ``model`` that the residual's ``constrain``
+    reduce-scatters into its sequence split.
     """
     b, s, d = x.shape
     if s == 1:                                   # decode: one group of B
@@ -57,12 +62,19 @@ def moe_apply(p, x, cfg: ModelConfig, *, dropless: bool = False,
         g, tg = b, s
     e, k = cfg.n_experts, cfg.n_experts_active
     cap = tg if dropless else min(tg, int(_capacity(cfg, tg) * cap_scale))
-    names = [n for n in _EXPERTS if n in p]
+    xf = x.reshape(g, tg, d)
     rows = ("batch", None, None)
-    out, probs, combine = actsharding.on_shards(
-        lambda xf, *w: _route(dict(zip(names, w)), xf, cfg, k, cap),
-        (x.reshape(g, tg, d), *(p[n] for n in names)),
-        (rows, *((None,) * p[n].dim() for n in names)), [rows, rows, rows])
+    probs, combine, sel_w, sel_idx = actsharding.on_shards(
+        lambda xf, router: _route(router, xf, k, cap), (xf, p["router"]),
+        (rows, (None, None)), [rows, rows, rows, rows])
+    names = [n for n in _EXPERTS if n in p]
+    picked = ("batch", "model", None)
+    out = actsharding.on_shards(
+        lambda xf, w, i, *ws: _experts(dict(zip(names, ws)), xf, w, i, cfg),
+        (xf, sel_w, sel_idx, *(p[n] for n in names)),
+        (rows, picked, picked, *((("model", None, None),) * len(names))),
+        actsharding.PartialSum("model", rows),
+        keep={3 + j: f"moe/{n}" for j, n in enumerate(names)})
 
     # Switch-style load-balance aux loss (per group, then averaged)
     me = probs.mean(dim=1)                                 # (G, E)
@@ -71,15 +83,15 @@ def moe_apply(p, x, cfg: ModelConfig, *, dropless: bool = False,
     return out.reshape(b, s, d).to(x.dtype), aux
 
 
-_EXPERTS = ("router", "wi", "wg", "wo")
+_EXPERTS = ("wi", "wg", "wo")
 
 
-def _route(p, xf, cfg: ModelConfig, k: int, cap: int):
-    """Top-k routing, capacity selection and the experts on groups xf (G,
-    Tg, d); returns (out (G, Tg, d), probs, combine weights (G, Tg, E))."""
-    g, tg, d = xf.shape
-
-    logits = (xf @ p["router"]).float()                    # (G, Tg, E)
+def _route(router, xf, k: int, cap: int):
+    """Top-k routing and the capacity selection on groups xf (G, Tg, d):
+    probs and combine weights (G, Tg, E), and each (group, expert)'s top-C
+    weights and token indices (G, E, C)."""
+    g = xf.shape[0]
+    logits = (xf @ router).float()                         # (G, Tg, E)
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1)              # (G, Tg, k)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
@@ -89,9 +101,17 @@ def _route(p, xf, cfg: ModelConfig, k: int, cap: int):
 
     # expert-side selection: top-C tokens per (group, expert)
     sel_w, sel_idx = torch.topk(combine.transpose(1, 2), cap, dim=-1)
+    return probs, combine, sel_w, sel_idx
+
+
+def _experts(p, xf, sel_w, sel_idx, cfg: ModelConfig):
+    """The experts of ``p`` (E', ...) on their picked tokens: sel_w and
+    sel_idx (G, E', C) index the groups xf (G, Tg, d); returns the
+    weighted outputs scatter-added back, (G, Tg, d)."""
+    g, tg, d = xf.shape
     live = sel_w > 0.0
     gidx = torch.arange(g, device=xf.device)[:, None, None]
-    xe = xf[gidx, sel_idx]                                 # (G, E, C, d)
+    xe = xf[gidx, sel_idx]                                 # (G, E', C, d)
 
     if cfg.mlp_type == "swiglu":
         h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wg"])) * \
@@ -99,9 +119,9 @@ def _route(p, xf, cfg: ModelConfig, k: int, cap: int):
     else:
         h = F.gelu(torch.einsum("gecd,edf->gecf", xe, p["wi"]),
                    approximate="tanh")
-    ye = torch.einsum("gecf,efd->gecd", h, p["wo"])        # (G, E, C, d)
+    ye = torch.einsum("gecf,efd->gecd", h, p["wo"])        # (G, E', C, d)
     ye = ye * (sel_w * live)[..., None].to(ye.dtype)
 
     out = torch.zeros((g, tg, d), dtype=ye.dtype, device=xf.device)
     out.index_put_((gidx, sel_idx), ye, accumulate=True)
-    return out, probs, combine
+    return out

@@ -195,4 +195,80 @@ def host_staged_collectives():
     d = DTensor.from_local(x, mesh, [Shard(0), Partial()])
     out["dtensor"] = d.redistribute(mesh, [Replicate(), Replicate()]) \
         .to_local().numpy()
+    # the bytes it moved by kind, against opcount's count of the same
+    # calls; a ring shift over its send and receive
+    from repro_torch.analysis.opcount import OpCount
+    from repro_torch.dist import hoststaged
+    from repro_torch.dist._compat import sendrecv
+    ring = make_mesh((world,), ("ring",), device="cpu")
+    before = dict(hoststaged.SPENT["bytes"])
+    with OpCount() as oc:
+        DTensor.from_local(x, mesh, [Shard(0), Partial()]).redistribute(
+            mesh, [Shard(0), Shard(0)]).full_tensor()
+        out["sendrecv"] = sendrecv(x, ring, "ring", dst=(rank + 1) % world,
+                                   src=(rank - 1) % world).numpy()
+    out["moved"] = {k: hoststaged.SPENT["bytes"][k] - before[k]
+                    for k in before}
+    out["counted"] = dict(oc.cost.collectives)
     return out
+
+
+def pp_step(arch, params_np, batch_np, n_micro):
+    """``launch.pp_variant``'s step of ``arch`` (``.reduced()``) on a
+    (pod 2, data 1, model 2) mesh: this rank's stage, its loss and the full
+    value of its grads (every leaf of its stage's tree), and the step's
+    grad norm."""
+    import torch.distributed as dist
+    import repro_torch.configs as C
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch.pp_variant import build_pp_train_step
+    from repro_torch.models import model as M
+    torch.set_num_threads(1)
+    cfg = C.get_config(arch).reduced()
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"), device="cpu")
+    b, s = batch_np["tokens"].shape
+    step = build_pp_train_step(arch, s, b, n_micro, mesh, cfg=cfg)
+    params = M.params_from_numpy(params_np, step.cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    params, opt, batch = step.lay_out(params, batch)
+    loss, grads = step.loss_and_grads(params, batch)
+    _, _, metrics = step(params, opt, batch)
+    return {"rank": dist.get_rank(), "stage": step.stage,
+            "loss": float(_full(loss)), "grads": _full(grads),
+            "grad_norm": float(_full(metrics["grad_norm"])),
+            "step_loss": float(_full(metrics["loss"]))}
+
+
+def counted_step(arch, params_np, batch_np, ocfg_kw, fake=False):
+    """One sharded ``make_train_step`` of ``arch`` (``.reduced()``) on the
+    (2, 2) mesh of the initialised group, under
+    ``analysis.opcount.OpCount``: the collective record (bytes by kind,
+    count, total) this rank counted.  ``fake=True`` runs it under
+    ``FakeTensorMode`` (a fake group's dry run)."""
+    import contextlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    import repro_torch.configs as C
+    from repro_torch.analysis.opcount import OpCount
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import actsharding
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    torch.set_num_threads(1)
+    cfg = C.get_config(arch).reduced()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    ocfg = opt_lib.AdamWConfig(**ocfg_kw)
+    with (FakeTensorMode(allow_non_fake_inputs=True) if fake
+          else contextlib.nullcontext()):
+        params = M.params_from_numpy(params_np, cfg, device="cpu")
+        params = sh.lay_out(params, sh.param_shardings(cfg, mesh, params))
+        opt = ts.init_opt_state(cfg, ocfg, params)
+        opt = sh.lay_out(opt, sh.opt_shardings(cfg, mesh, opt, params))
+        batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+        batch = sh.lay_out(batch, sh.batch_shardings(cfg, mesh, batch))
+        with actsharding.activation_spec(mesh, mesh_lib.data_axes(mesh),
+                                         "model"), OpCount() as oc:
+            ts.make_train_step(cfg, ocfg)(params, opt, batch)
+    return oc.cost.collective_record()

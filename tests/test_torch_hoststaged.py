@@ -51,3 +51,23 @@ def test_dtensor_redistributes_through_it(results):
     rows = [_x(0) + _x(1), _x(2) + _x(3)]
     for res in results:
         np.testing.assert_array_equal(res["dtensor"], np.concatenate(rows))
+
+
+def test_ring_shift_goes_through_it(results):
+    for rank, res in enumerate(results):
+        np.testing.assert_array_equal(res["sendrecv"], _x((rank - 1) % 4))
+
+
+def test_bytes_moved_equal_the_opcount(results):
+    """SPENT's bytes by kind equal ``analysis.opcount``'s count of the same
+    calls (a reduce-scatter and an all-gather DTensor issues); the ring
+    shift's receive counts as collective-permute (a Python backend's
+    point-to-point calls do not pass the op dispatcher, so opcount sees
+    those on a fake or a native group only)."""
+    for res in results:
+        moved = dict(res["moved"])
+        assert moved.pop("collective-permute") == 4 * 4
+        counted = dict(res["counted"])
+        assert counted.pop("collective-permute") == 0
+        assert moved == counted
+        assert moved["reduce-scatter"] > 0 and moved["all-gather"] > 0

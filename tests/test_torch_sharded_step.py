@@ -8,12 +8,18 @@
   runs over a fake 256-rank group.
 - Parity: one spawned 4-rank gloo group (``dist.local.LocalGroup``, rank
   functions in ``_torch_train_ranks.py``, no JAX there) runs a sharded
-  step of ``h2o-danube-1.8b`` and ``ssm_demo`` (``.reduced()``), held to
+  step of ``h2o-danube-1.8b``, ``ssm_demo`` (a tied head) and
+  ``phi3.5-moe-42b-a6.6b`` (8 experts, top 2: the experts on each rank's
+  E/``model`` slice, the embedding and CE head vocab-parallel) (``.reduced()``), held to
   the reference's unsharded ``make_train_step`` under ``jax.jit`` on the
   same params and batch within ``test_torch_train.py``'s train-step
   bound, 1e-5: a sharded step computes what the unsharded one does.  ``ssm_demo`` goes against
   the reference with the direct conv (ROADMAP §3 F6) and with the FFT
   conv (on its plain version) against the port's own unsharded step.
+- The same group counts one phi3.5-moe step's collectives with
+  ``analysis.opcount``: each rank's bytes by kind equal, byte for byte,
+  what ``opcount`` counts for rank 0 of a fake (2, 2) group under
+  ``FakeTensorMode`` (a dry run's counts are a real run's).
 - A sharded run saves, resumes and equals the straight run.
 """
 import dataclasses
@@ -149,7 +155,8 @@ def _ref_setup(arch, use_fft_conv=False):
 
 
 PARITY = [("h2o-danube-1.8b", False), ("ssm_demo", False),
-          ("ssm_demo", True)]
+          ("ssm_demo", True), ("phi3.5-moe-42b-a6.6b", False)]
+COUNTED = "phi3.5-moe-42b-a6.6b"      # the collective-count cross-check
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +171,10 @@ def group_runs(tmp_path_factory):
             cfg = TC.get_config(arch).reduced()
             jobs[(arch, fft)] = group.run(ranks.sharded_step, arch, pnp,
                                           _batch(cfg), OCFG, fft)[0]
+        _, pnp = _ref_setup(COUNTED)
+        jobs["counted"] = group.run(ranks.counted_step, COUNTED, pnp,
+                                    _batch(TC.get_config(COUNTED).reduced()),
+                                    OCFG)
         _, pnp = _ref_setup("fnet_demo")
         cfg = TC.get_config("fnet_demo").reduced()
         jobs["resume"] = group.run(
@@ -189,7 +200,8 @@ def _trees_close(got, ref, what):
         _close(g, r, f"{what} {'/'.join(path)}")
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "ssm_demo"])
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "ssm_demo",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_sharded_step_matches_the_reference(arch, group_runs):
     rcfg, pnp = _ref_setup(arch)
     rocfg = r_opt.AdamWConfig(**OCFG)
@@ -232,6 +244,22 @@ def test_sharded_layouts_follow_the_rules(group_runs):
     assert got["opt"]["v"] == got["placements"]
     wq = got["placements"]["blocks"]["b0"]["attn"]["wq"]
     assert "Shard(dim=1)" in wq and "Shard(dim=2)" in wq   # (R, d, H*D)
+
+
+def test_fake_group_counts_the_collectives_of_real_ranks(group_runs,
+                                                         fake_group):
+    """``analysis.opcount`` on a fake (2, 2) group under FakeTensorMode
+    (a dry run: nothing moves, nothing is allocated) counts, byte for
+    byte and kind by kind, the collectives each of the 4 gloo ranks
+    counted on the same sharded step."""
+    fake_group(4)
+    _, pnp = _ref_setup(COUNTED)
+    want = ranks.counted_step(COUNTED, pnp,
+                              _batch(TC.get_config(COUNTED).reduced()),
+                              OCFG, fake=True)
+    assert want["total"] > 0 and want["count"] > 0
+    for got in group_runs["counted"]:
+        assert got == want
 
 
 def test_sharded_run_resumes_to_the_straight_run(group_runs):
