@@ -81,9 +81,11 @@ float64 numpy:
 - float16 planes (``f16_path``): every FFT kernel in float16 through its
   entry point at its path's main shape, then against float64 numpy of
   the float16-rounded input and its plain version, timed beside fp32;
+  then decode attention in float16 at danube's 128 x 4096 ring and the
+  plain-variant GEMM chain in float16 at 16 x 1024^2 (ROADMAP §2e);
 - the sharded step (``train_sharded``): 4 ranks on the card over the
   host-staged gloo backend, a (2, 2) mesh, h2o-danube-1.8b at full width
-  (depth cut to 4 layers) on DTensors against the single-process step
+  (depth cut to 2 layers) on DTensors against the single-process step
   (loss, grad norm, every grad leaf), and ``ssm_demo`` with
   ``fftconv_fused`` on each rank's shard;
 - the sharded MoE step (``train_sharded_moe``): phi3.5-moe-42b-a6.6b at
@@ -91,6 +93,14 @@ float64 numpy:
   embedding and CE head vocab-parallel, against the single-process step,
   the bytes each rank's collectives moved against
   ``analysis.opcount``'s count of the same step on a fake (2, 2) group;
+- the serving path on DTensors (``serve_sharded``): 4 ranks on the card,
+  a (2, 2) mesh, prefill and decode through ``serve.engine`` with the
+  caches laid out by ``cache_shardings``: h2o-danube-1.8b at full width
+  (2 layers) with the batch split and sequence-parallel (a 4096-slot ring
+  split over the data ranks, the decode kernel's partials merged across
+  them), phi3.5-moe-42b-a6.6b at full width (1 layer, dropless decode);
+  every step's logits against one process, the decode kernel's launches,
+  each rank's collective bytes against ``analysis.opcount``'s fake count;
 - the pipeline step (``train_pp``): ``launch.pp_variant`` on 4 ranks,
   (pod 2, data 1, model 2), h2o-danube-1.8b at full width, 2 layers, 4
   microbatches, against the same loss on one process;
@@ -99,9 +109,10 @@ float64 numpy:
 - the dry runs (``dryrun_counts``, on the host beside the card's phases):
   ``launch.dryrun`` for danube and phi3.5-moe's train_4k on the 16x16
   mesh of a fake 256-rank group, ``launch.fft_dryrun`` at 16384^2,
-  ``launch.pp_variant`` for nemotron-4-340b on 512 fake ranks, their
-  counts and H100 roofline terms, phi3.5-moe's expert gathers at the
-  E/16 slice;
+  ``launch.pp_variant`` for nemotron-4-340b on 512 fake ranks, the
+  serving cells (danube's prefill_32k, decode_32k and long_500k,
+  phi3.5-moe's decode_32k), their counts and H100 roofline terms,
+  phi3.5-moe's expert gathers at the E/16 slice;
 
 and times every kernel beside its plain version, ``torch.fft`` and its
 bound.  Every plan call runs through the guarded executor, and no
@@ -594,6 +605,25 @@ def bound_ms(flops, nbytes):
 
 # -- helpers ------------------------------------------------------------------
 
+class _Float64FFT:
+    """numpy.fft's transforms on every host core (scipy.fft), the input
+    taken to float64 or complex128 first: the float64 references."""
+
+    def __getattr__(self, name):
+        import numpy as np
+        import scipy.fft
+        fn = getattr(scipy.fft, name)
+
+        def run(x, *args, **kw):
+            x = np.asarray(x)
+            x = x.astype(np.result_type(x.dtype, np.float64), copy=False)
+            return fn(x, *args, workers=-1, **kw)
+        return run
+
+
+REF_FFT = _Float64FFT()
+
+
 def time_ms(fn, torch, runs=25, warmup=3):
     """Median of ``runs`` CUDA-event timings of ``fn`` after warm-up."""
     for _ in range(warmup):
@@ -659,11 +689,11 @@ def serve_reference(payload, kind, inverse, bucket_shape):
     spectrum as it is)."""
     import numpy as np
     if kind == "rfft" and inverse:
-        return np.fft.irfft2(host_value(payload), s=bucket_shape)
+        return REF_FFT.irfft2(host_value(payload), s=bucket_shape)
     src = host_value(payload)
     x = np.zeros(bucket_shape, src.dtype)
     x[tuple(slice(0, d) for d in src.shape)] = src
-    return np.fft.rfft2(x) if kind == "rfft" else np.fft.fftn(x)
+    return REF_FFT.rfft2(x) if kind == "rfft" else REF_FFT.fftn(x)
 
 
 def ptxas_report(log: str) -> dict:
@@ -1059,7 +1089,7 @@ def dist_path(failures, smi):
         to each rank's row-FFT block, one int8 scale a block and plane,
         as dist.compression.all_to_all_compressed rounds pfft2's
         exchange."""
-        y = np.fft.fft(z, axis=1)
+        y = REF_FFT.fft(z, axis=1)
         rows = y.shape[0] // DIST_RANKS
         for plane in (y.real, y.imag):
             for r in range(DIST_RANKS):
@@ -1070,7 +1100,7 @@ def dist_path(failures, smi):
                 else:
                     s = np.float32(np.abs(blk).max()) / np.float32(127)
                     blk[...] = np.round(blk / s) * s
-        return np.fft.fft(y, axis=0)
+        return REF_FFT.fft(y, axis=0)
 
     def complex_input(shape):
         z = np.empty(shape, np.complex128)
@@ -1132,7 +1162,7 @@ def dist_path(failures, smi):
         # complex 8192^2: pfft2 and the hierarchy
         z = complex_input(DIST_2D)
         save_complex(tmp, "x", z)
-        np.save(f"{tmp}/fft2.npy", np.fft.fft2(z))
+        np.save(f"{tmp}/fft2.npy", REF_FFT.fft2(z))
         for c in ("bf16", "int8"):
             np.save(f"{tmp}/fft2_{c}.npy", wire_reference(z, c))
         del z
@@ -1145,7 +1175,7 @@ def dist_path(failures, smi):
         # real 8192^2: prfft2 -> pirfft2; the packed transposed reference
         zr = drng.standard_normal(DIST_2D, dtype=np.float32)
         np.save(f"{tmp}/xr.npy", zr)
-        spec_t = np.fft.rfft2(zr.astype(np.float64)).T
+        spec_t = REF_FFT.rfft2(zr.astype(np.float64)).T
         packed = spec_t[:-1].copy()
         packed[0] = spec_t[0] + 1j * spec_t[-1]
         np.save(f"{tmp}/rfft2_packed_t.npy", packed)
@@ -1160,7 +1190,8 @@ def dist_path(failures, smi):
         z = complex_input(DIST_3D)
         save_complex(tmp, "x3", z)
         np.save(f"{tmp}/fftn_t.npy",
-                np.ascontiguousarray(np.fft.fftn(z).transpose(2, 1, 0)))
+                np.ascontiguousarray(
+                    REF_FFT.fftn(z).transpose(2, 1, 0)))
         del z
         res, counts = zip(*ranks(_rank_pfft3, tmp))
         add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
@@ -1175,7 +1206,7 @@ def dist_path(failures, smi):
         z = complex_input((DIST_1D,))
         save_complex(tmp, "v", z)
         np.save(f"{tmp}/fft1d_fourstep.npy", np.ascontiguousarray(
-            np.fft.fft(z).reshape(w1, h1).T).reshape(-1))
+            REF_FFT.fft(z).reshape(w1, h1).T).reshape(-1))
         del z
         res, counts = zip(*ranks(_rank_pfft1d, tmp))
         add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
@@ -1186,7 +1217,7 @@ def dist_path(failures, smi):
         # (16, 2^21): local rows of 2^21 on fft_stockham
         z = complex_input(DIST_STOCKHAM)
         save_complex(tmp, "xs", z)
-        np.save(f"{tmp}/fft2_stockham.npy", np.fft.fft2(z))
+        np.save(f"{tmp}/fft2_stockham.npy", REF_FFT.fft2(z))
         del z
         res, counts = zip(*ranks(_rank_stockham, tmp))
         add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
@@ -1577,7 +1608,7 @@ def lm_path(failures, smi):
     return lm_launches
 
 
-TRAIN_LM_STEPS = 3
+TRAIN_LM_STEPS = 2              # 3 until the script neared its limit
 TRAIN_LM_SEQ = (1, 8192)        # past danube's 4096 window
 TRAIN_LM_PARAMS = 1_831_201_280
 FLASH_CHECK = (1, 8192, 32, 8, 80, 4096, 512)   # b, s, h, kv, d, window, chunk
@@ -1878,8 +1909,9 @@ def train_ssm(failures, smi):
 # step.
 SHARDED_LM = ("h2o-danube-1.8b", 2, 2048)       # arch, global batch, seq
 # the depth cut from 24 to 4 layers (width unchanged) to keep the whole
-# script inside its time limit beside the later phases
-SHARDED_LM_DEPTH = 4
+# script inside its time limit beside the later phases, to 2 when
+# serve_sharded joined them and to 1 when its bf16-cache cases did
+SHARDED_LM_DEPTH = 1
 SHARDED_SSM = ("ssm_demo", 8, 4096)
 SHARDED_RANKS = 4
 TOL_SHARDED_LOSS = 1e-5         # relative, the single-process step's loss
@@ -2352,6 +2384,388 @@ def train_sharded_moe(failures, smi) -> None:
           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
 
+# -- the serving path on DTensors (serve_sharded) ----------------------------
+#
+# 4 host-staged gloo ranks on the one card, mesh (data 2, model 2), through
+# serve.engine.prefill_fn / decode_fn on DTensors laid out by
+# param_shardings, batch_shardings and cache_shardings under
+# sharding.serve_spec.  Cases (full width, depth cut to fit the script's
+# time, and the steps cut from 8 to 2 and from 4 to 1): h2o-danube-1.8b,
+# 2 layers, fp32 params, the batch split (4 prompts of 512, 2 decode
+# steps) and the sequence-parallel layout (1 prompt of 4096 filling the
+# 4096-slot ring, 2048 slots a data rank, then 2 steps that wrap onto the
+# first rank's slots), each with fp32 caches and with bf16 caches (the
+# reference's decode cells); phi3.5-moe, 1 layer, fp32 (4 prompts of 256,
+# 1 dropless step, the experts split).
+# Every step's logits (each rank's V/model shard) against one process
+# running the same params and cache dtype on the card: fp32 caches within
+# TOL_SERVE of max|logits|.  bf16 caches round K and V that differ in
+# their last fp32 bits between the sharded and the single process to
+# neighbouring bf16 values (1.0-1.4e-4 of max|logits| on the card), so
+# they are held to TOL_SERVE_BF16, and that limit must lie under the bf16
+# control: one process's bf16-cache logits against its fp32-cache ones,
+# what the rounding alone moves.  bf16 params would round the ranks'
+# partial sums at other points than one process does (1.1e-2 of
+# max|logits| on the CPU at reduced widths), so phi3.5-moe's are fp32.
+# decode_attention launches a rank = steps x attention layers (and
+# decode_merge the same in the sequence-parallel cases); each rank's
+# collective bytes by kind equal to opcount's count of the same calls on
+# a fake (2, 2) group.
+SERVE_CASES = [  # name, arch, depth, batch, prompt, steps, params, caches
+    ("batch", "h2o-danube-1.8b", 2, 4, 512, 2, "float32", "float32"),
+    ("sp", "h2o-danube-1.8b", 2, 1, 4096, 2, "float32", "float32"),
+    ("batch_bf16", "h2o-danube-1.8b", 2, 4, 512, 2, "float32", "bfloat16"),
+    ("sp_bf16", "h2o-danube-1.8b", 2, 1, 4096, 2, "float32", "bfloat16"),
+    ("moe", "phi3.5-moe-42b-a6.6b", 1, 4, 256, 1, "float32", "float32"),
+]
+TOL_SERVE = 1e-4        # sharded vs single-process logits, of max|logits|
+TOL_SERVE_BF16 = 3e-4   # the same with bf16 caches
+# b, slots, h, kv, d, window, ranks
+SERVE_ROUTE = (1, 4096, 32, 8, 80, 4096, 2)
+
+
+def _serve_inputs(case):
+    """The config (depth cut, dtype) and the prompt and step tokens of a
+    serve_sharded case, each the same in every process."""
+    import dataclasses
+    import numpy as np
+    import repro_torch.configs as RCFG
+    _, arch, depth, b, s, steps, pdt, _ = case
+    cfg = dataclasses.replace(RCFG.get_config(arch), repeat=depth, dtype=pdt)
+    rng = np.random.default_rng(28)
+    prompt = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (b, steps)).astype(np.int32)
+    return cfg, prompt, toks
+
+
+def _serve_params(cfg):
+    """The params from seed 0 on the card, fp32 matmuls in full."""
+    import torch
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return M.init_params(gen, cfg, device="cuda")
+
+
+def _serve_reference(out):
+    """Each case on one process: every step's logits saved to
+    ``out``/<case>_<i>.pt, their max over the vocab, the step times."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    res = {}
+    for case in SERVE_CASES:
+        name, _, _, b, s, steps, _, cdt = case
+        cfg, prompt, toks = _serve_inputs(case)
+        params = _serve_params(cfg)
+        cache = M.init_cache(cfg, b, s + steps, M.torch_dtype(cdt),
+                             device="cuda")
+        rec = {"max": [], "ms": []}
+        with torch.no_grad():
+            for i in range(steps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == 0:
+                    lg, cache = E.prefill_fn(cfg)(
+                        params,
+                        {"tokens": torch.from_numpy(prompt).cuda()}, cache)
+                else:
+                    lg, cache = E.decode_fn(cfg)(
+                        params, torch.from_numpy(toks[:, i - 1]).cuda(),
+                        cache, torch.full((b,), s + i - 1, dtype=torch.int32,
+                                          device="cuda"))
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                lg = lg[..., :cfg.vocab_size].float().cpu()
+                rec["max"].append(float(lg.abs().max()))
+                torch.save(lg, f"{out}/{name}_{i}.pt")
+        res[name] = rec
+        del params, cache
+        torch.cuda.empty_cache()
+    with open(f"{out}/reference.json", "w") as f:
+        json.dump(res, f)
+
+
+def _bf16_control(out, name, steps) -> float:
+    """One process's bf16-cache logits against its fp32-cache logits of
+    the same case, max over the steps, over max|logits|."""
+    import torch
+    fp32 = name[:-len("_bf16")]
+    err = 0.0
+    for i in range(steps + 1):
+        a, b = (torch.load(f"{out}/{n}_{i}.pt") for n in (name, fp32))
+        err = max(err, float((a - b).abs().max() / b.abs().max()))
+    return err
+
+
+def _rank_serve_sharded(tmp):
+    """One rank of every serve_sharded case over the (2, 2) mesh."""
+    import faulthandler
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import hoststaged, make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    faulthandler.enable(all_threads=True)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
+    with open(f"{tmp}/reference.json") as f:
+        ref = json.load(f)
+    out = {"rank": dist.get_rank()}
+    for case in SERVE_CASES:
+        name, _, _, b, s, steps, _, cdt = case
+        torch.cuda.reset_peak_memory_stats()
+        cfg, prompt, toks = _serve_inputs(case)
+        params = _serve_params(cfg)
+        params = sh.lay_out(params, sh.param_shardings(cfg, mesh, params))
+        cache = M.init_cache(cfg, b, s + steps, M.torch_dtype(cdt),
+                             device="cuda")
+        cache = sh.lay_out(cache, sh.cache_shardings(cfg, mesh, cache, b))
+        torch.cuda.empty_cache()
+
+        def rows(a):
+            t = torch.from_numpy(a).cuda()
+            return sh.lay_out(t, sh.batch_shardings(cfg, mesh, t))
+        inputs = [{"tokens": rows(prompt)}] + [
+            (rows(toks[:, i]), rows(np.full((b,), s + i, np.int32)))
+            for i in range(steps)]
+        errs, ms, coll = [], [], []
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        moved = dict(hoststaged.SPENT["bytes"])
+        with sh.serve_spec(mesh, b), torch.no_grad():
+            for i, args in enumerate(inputs):
+                spent = hoststaged.SPENT["seconds"]
+                t0 = time.perf_counter()
+                if i == 0:
+                    lg, cache = E.prefill_fn(cfg)(params, args, cache)
+                else:
+                    lg, cache = E.decode_fn(cfg)(params, args[0], cache,
+                                                 args[1])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                coll.append((hoststaged.SPENT["seconds"] - spent) * 1e3)
+                # this rank's block of the logits against the single
+                # process's, over the real vocab
+                want = torch.load(f"{tmp}/{name}_{i}.pt", mmap=True)
+                block = sh.shard_slices(tuple(lg.shape), mesh, lg.placements)
+                lo = block[-1].start
+                keep = max(min(block[-1].stop, cfg.vocab_size) - lo, 0)
+                local = lg.to_local()[..., :keep].float()
+                want = want[block[:-1] + (slice(lo, lo + keep),)]
+                errs.append(float((local - want.to(local.device)).abs().max())
+                            / ref[name]["max"][i] if local.numel() else 0.0)
+        out[name] = {
+            "err_over_max": errs, "ms": ms, "collective_ms": coll,
+            "bytes": {k: hoststaged.SPENT["bytes"][k] - moved[k]
+                      for k in moved},
+            "launches": {k: v for k, v in ops.LAUNCHES.items() if v},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "placements_k": repr(M.tree_leaves(cache)[0].placements)}
+        dist.barrier()
+        del params, cache, lg, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_fake_bytes(case):
+    """analysis.opcount's collective bytes by kind of a serve_sharded
+    case's prefill and decode steps as rank 0 of a fake (2, 2) group
+    under FakeTensorMode (this process; nothing moves, nothing is
+    allocated), its mesh on the card as the ranks' is: DTensor moves a
+    split from one dim to another with an all-to-all on a card mesh and
+    with an all-gather on a CPU one.  The kernels' plain versions stand in
+    for them on fake tensors."""
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis.opcount import OpCount
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    name, _, _, b, s, steps, _, cdt = case
+    cfg, prompt, toks = _serve_inputs(case)
+    with dryrun.fake_group(4):
+        mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cuda")
+        ap = dryrun.abstract_params(cfg)
+        with FakeTensorMode():
+            c = M.init_cache(cfg, b, s + steps, M.torch_dtype(cdt),
+                             device="cpu")
+        ac = M.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), c)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            params, cache = dryrun.materialize(
+                (ap, ac), (sh.param_shardings(cfg, mesh, ap),
+                           sh.cache_shardings(cfg, mesh, ac, b)), "cuda")
+
+            def rows(a):
+                t = torch.from_numpy(a).cuda()
+                return sh.lay_out(t, sh.batch_shardings(cfg, mesh, t))
+            batch = {"tokens": rows(prompt)}
+            steps_in = [(rows(toks[:, i]), rows(np.full((b,), s + i,
+                                                        np.int32)))
+                        for i in range(steps)]
+            with sh.serve_spec(mesh, b), torch.no_grad(), OpCount() as oc:
+                _, cache = E.prefill_fn(cfg)(params, batch, cache)
+                for tok, pos in steps_in:
+                    _, cache = E.decode_fn(cfg)(params, tok, cache, pos)
+    return {k: int(v) for k, v in oc.cost.collectives.items()}
+
+
+def _serve_route_timing(smi) -> dict:
+    """The decode kernel's sequence-parallel route at danube's one-layer
+    SP shape on one card: each of 2 ranks' partials over its half of a
+    4096-slot ring, merged, against the whole kernel and the plain route;
+    a rank's time (its partial plus the merge) beside the plain route's,
+    SDPA on the rank's shard and the rank's bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as nnf
+    from repro_torch.kernels import decode_attention as DA
+    b, s, h, kv, d, window, r = SERVE_ROUTE
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(280)
+    q = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, kv, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    q_pos = torch.full((b,), s + 7, dtype=torch.int32, device=dev)
+    slot = torch.arange(s, device=dev)
+    kv_pos = (q_pos[:, None] - (q_pos[:, None] - slot) % s).int()
+    part = s // r
+    shards = [tuple(t[:, i * part:(i + 1) * part].contiguous()
+                    for t in (k, v, kv_pos)) for i in range(r)]
+
+    def route(partial, merge):
+        ps = [partial(q, *sh, q_pos, window=window) for sh in shards]
+        return merge(*(torch.stack([p[j] for p in ps]) for j in range(4)),
+                     s, q.dtype)
+    got = route(DA.decode_attention_partial_cuda,
+                DA.decode_attention_merge_cuda)
+    plain = route(DA.decode_attention_partial_plain,
+                  DA.decode_attention_merge_plain)
+    whole = DA.decode_attention_cuda(q, k, v, kv_pos, q_pos, window=window)
+    torch.cuda.synchronize()
+    scale = float(plain.float().abs().max())
+    err_plain = float((got.float() - plain.float()).abs().max())
+    err_whole = float((got.float() - whole.float()).abs().max())
+    one = shards[0]
+    p0 = DA.decode_attention_partial_cuda(q, *one, q_pos, window=window)
+    stacked = [torch.stack([p0[j]] * r) for j in range(4)]
+    part_ms = time_ms(lambda: DA.decode_attention_partial_cuda(
+        q, *one, q_pos, window=window), torch)
+    merge_ms = time_ms(lambda: DA.decode_attention_merge_cuda(
+        *stacked, s, q.dtype), torch)
+    plain_ms = time_ms(lambda: DA.decode_attention_merge_plain(
+        *(torch.stack([DA.decode_attention_partial_plain(
+            q, *one, q_pos, window=window)[j]] * r) for j in range(4)),
+        s, q.dtype), torch)
+    kt, vt = (t.transpose(1, 2) for t in one[:2])
+    mask = ((one[2] >= 0) & (one[2] <= q_pos[:, None])
+            & (one[2] > q_pos[:, None] - window))[:, None, None, :]
+    lib_ms = time_ms(lambda: nnf.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True), torch)
+    visible = int(mask.sum())
+    flops, nbytes = decode_counts(visible, 0, b, part, h, kv, d, 2, 2)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    ok = err_plain <= BF16_SLACK * scale and err_whole <= BF16_SLACK * scale
+    return {"shape": [b, s, h, kv, d], "window": window, "ranks": r,
+            "rank_slots": part, "err_vs_plain_over_max": err_plain / scale,
+            "err_vs_whole_over_max": err_whole / scale, "ok": ok,
+            "max_abs_err": err_plain, "partial_ms": part_ms,
+            "merge_ms": merge_ms, "ms": part_ms + merge_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention on the rank's shard",
+            "bound_ms": b_ms, "bound_by": b_by, "nvidia_smi": smi}
+
+
+def serve_sharded(failures, smi) -> dict:
+    """The serving path on DTensors on the card (see the constants above):
+    {"launches": rank 0's kernel launches over the cases, "route": the
+    sequence-parallel decode route's timing}."""
+    from repro_torch.dist import hoststaged
+    from repro_torch.dist.local import LocalGroup
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fake = {c[0]: _serve_fake_bytes(c) for c in SERVE_CASES}
+    fake_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        t0 = time.perf_counter()
+        _serve_reference(tmp)             # one process: this one
+        ref_s = time.perf_counter() - t0
+        with open(f"{tmp}/reference.json") as f:
+            ref = json.load(f)
+        control = {c[0]: _bf16_control(tmp, c[0], c[5])
+                   for c in SERVE_CASES if c[7] == "bfloat16"}
+        t0 = time.perf_counter()
+        with LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
+                        device="cuda", threads=2, timeout_s=900) as group:
+            ranks = group.run(_rank_serve_sharded, tmp)
+        group_s = time.perf_counter() - t0
+    launches = {}
+    cases = {}
+    for case in SERVE_CASES:
+        name, arch, depth, b, s, steps, pdt, cdt = case
+        got = [r[name] for r in ranks]
+        worst = max(max(g["err_over_max"]) for g in got)
+        tol = TOL_SERVE_BF16 if cdt == "bfloat16" else TOL_SERVE
+        want_dec = steps * depth          # one attention a layer a step
+        for r, g in zip(ranks, got):
+            n_dec = g["launches"].get("decode_attention", 0)
+            n_merge = g["launches"].get("decode_merge", 0)
+            if n_dec != want_dec or n_merge != (want_dec if b == 1 else 0):
+                failures.append(f"serve_sharded {name}: rank {r['rank']} "
+                                f"launched decode_attention {n_dec}, "
+                                f"decode_merge {n_merge}; want {want_dec}")
+            if g["bytes"] != fake[name]:
+                failures.append(f"serve_sharded {name}: rank {r['rank']} "
+                                f"moved {g['bytes']}, opcount on a fake "
+                                f"group counts {fake[name]}")
+        if not worst <= tol:
+            failures.append(f"serve_sharded {name}: logits {worst} of max "
+                            f"against the single process, limit {tol}")
+        if name in control and not control[name] > tol:
+            failures.append(f"serve_sharded {name}: the bf16 control "
+                            f"{control[name]} is under the limit {tol}")
+        for k, v in got[0]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        share = max(sum(g["collective_ms"]) / sum(g["ms"]) for g in got)
+        cases[name] = {
+            "arch": arch, "depth": depth, "batch": b, "prompt": s,
+            "steps": steps, "params": pdt, "caches": cdt,
+            "layout": got[0]["placements_k"],
+            "logits_err_over_max": worst, "tol_logits": tol,
+            "bf16_control_over_max": control.get(name),
+            "logits_err_steps_rank0": got[0]["err_over_max"],
+            "prefill_ms": [g["ms"][0] for g in got],
+            "decode_ms": [g["ms"][1:] for g in got],
+            "decode_ms_median": sorted(got[0]["ms"][1:])[steps // 2],
+            "collective_share": share,
+            "bytes_moved_a_rank": [g["bytes"] for g in got],
+            "bytes_opcount_fake": fake[name],
+            "launches_rank0": got[0]["launches"],
+            "peak_gib_a_rank": [g["peak_gib"] for g in got],
+            "single_prefill_ms": ref[name]["ms"][0],
+            "single_decode_ms": ref[name]["ms"][1:]}
+    route = _serve_route_timing(smi)
+    if not route["ok"]:
+        failures.append(f"serve_sharded route: {route}")
+    emit({"phase": "serve_sharded", "ranks": SHARDED_RANKS,
+          "mesh": {"data": 2, "model": 2}, "backend": hoststaged.NAME,
+          "cases": cases, "route": route,
+          "fake_count_s": fake_s, "reference_s": ref_s, "group_s": group_s,
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return {"launches": launches, "route": route,
+            "sp_merges": launches.get("decode_merge", 0)}
+
+
 # -- the dry-run counts (dryrun_counts) ------------------------------------------
 #
 # Started as subprocesses on the host after the build (CPU only: fake
@@ -2361,8 +2775,15 @@ def train_sharded_moe(failures, smi) -> None:
 # nemotron-4-340b on the 2x16x16 mesh.  Each record's loop_aware fields
 # and its roofline terms on the H100 SXM are printed, and phi3.5-moe's
 # expert all-gathers must bring a rank its E/16 slice (bf16: 52.4 MB a
-# weight, 157 MB a pass), not the whole.
+# weight, 157 MB a pass), not the whole.  The serving cells (danube's
+# prefill_32k, decode_32k and long_500k, phi3.5-moe's decode_32k) run in
+# two more subprocesses: each record's flops, traffic, collective bytes by
+# kind and peak memory a rank are printed.
 DRYRUN_CELLS = ("h2o-danube-1.8b", "phi3.5-moe-42b-a6.6b")
+SERVE_DRYRUN_CELLS = (("h2o-danube-1.8b", "prefill_32k"),
+                      ("h2o-danube-1.8b", "decode_32k"),
+                      ("h2o-danube-1.8b", "long_500k"),
+                      ("phi3.5-moe-42b-a6.6b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 840
 _CHILDREN: list = []    # (name, Popen, log, start): killed when main ends
 
@@ -2380,6 +2801,12 @@ def start_dryruns(out: str) -> list:
     jobs.append(("pp_variant", ["-m", "repro_torch.launch.pp_variant",
                                 "--arch", "nemotron-4-340b", "--out",
                                 f"{out}/pp", "--hw", "h100_sxm"]))
+    for arch in sorted({a for a, _ in SERVE_DRYRUN_CELLS}):
+        cells = [c for c in SERVE_DRYRUN_CELLS if c[0] == arch]
+        jobs.append((f"dryrun serving {arch}", [
+            "-c", "from repro_torch.launch import dryrun\n"
+            f"for a, s in {cells!r}:\n"
+            f"    dryrun.run_cell(a, s, save_dir={out + '/dryrun'!r})"]))
     procs = _CHILDREN
     env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1")
@@ -2451,13 +2878,29 @@ def dryrun_counts(failures, smi, procs, out: str) -> None:
     pp = {}
     for path in sorted((Path(out) / "pp").glob("*.json")):
         pp = json.loads(path.read_text())
-    if len(recs) != len(DRYRUN_CELLS) or len(fft) != 6 or not pp:
+    serving = {}
+    for arch, shape in SERVE_DRYRUN_CELLS:
+        path = Path(out) / "dryrun" / "16x16" / f"{arch}__{shape}.json"
+        if not path.exists():
+            continue
+        rec = json.loads(path.read_text())
+        serving[f"{arch} {shape}"] = {
+            "global_batch": rec["global_batch"], "seq_len": rec["seq_len"],
+            "loop_aware": rec["loop_aware"],
+            "collectives": rec["collectives"], "memory": rec["memory"],
+            "trace_s": rec["trace_s"],
+            "roofline_h100_sxm": roofline.roofline_terms(
+                rec, arch="h100_sxm")}
+    if len(recs) != len(DRYRUN_CELLS) or len(fft) != 6 or not pp or \
+            len(serving) != len(SERVE_DRYRUN_CELLS):
         failures.append(f"dryrun_counts: records {sorted(recs)}, fft "
-                        f"{sorted(fft)}, pp {bool(pp)}")
+                        f"{sorted(fft)}, pp {bool(pp)}, serving "
+                        f"{sorted(serving)}")
     emit({"phase": "dryrun_counts", "mesh": "16x16", "hw": "h100_sxm",
           "peaks": {k: hw[k] for k in ("peak_flops_bf16", "peak_flops_f32",
                                        "hbm_bw", "ici_bw")},
-          "jobs": status, "train_4k": recs, "fft_dryrun": fft,
+          "jobs": status, "train_4k": recs, "serving": serving,
+          "fft_dryrun": fft,
           "pp_variant": pp, "phase_s": time.perf_counter() - t_phase,
           "nvidia_smi": smi})
 
@@ -2774,7 +3217,7 @@ def f16_path(failures, smi) -> dict:
         if name == "fftconv_fused":
             x, ef, zk = conv_case(shape, dtype)
             xn = x.double().cpu().numpy()
-            want = np.fft.irfft(np.fft.rfft(xn) * zk, shape[-1])
+            want = REF_FFT.irfft(REF_FFT.rfft(xn) * zk, shape[-1])
             kc = torch.complex(torch.from_numpy(zk.real).to(dtype),
                                torch.from_numpy(zk.imag).to(dtype)).to(dev)
 
@@ -2785,7 +3228,7 @@ def f16_path(failures, smi) -> dict:
         if name == "rfft2d_fused":
             x = realt(shape, dtype)
             return (R.rfft2d_fused_cuda, R.rfft2d_fused_plain, x,
-                    np.fft.rfft2(x.double().cpu().numpy()),
+                    REF_FFT.rfft2(x.double().cpu().numpy()),
                     lambda: torch.fft.rfft2(x))
         if name == "irfft2d_fused":
             b, h, w = shape
@@ -2793,7 +3236,7 @@ def f16_path(failures, smi) -> dict:
             xn = to_numpy(x)
             xc = torch.complex(x.re, x.im)
             return (R.irfft2d_fused_cuda, R.irfft2d_fused_plain, x,
-                    np.fft.irfft2(xn, s=(h, w)),
+                    REF_FFT.irfft2(xn, s=(h, w)),
                     lambda: torch.fft.irfft2(xc, s=(h, w)))
         x = cplx(shape, dtype)
         xn = to_numpy(x)
@@ -2801,23 +3244,23 @@ def f16_path(failures, smi) -> dict:
         fns = {
             "fft2d_gemm": (lambda t: G.fft2d_gemm_cuda(
                 t, variant="compensated"), lambda t: G.fft2d_gemm_plain(
-                t, variant="compensated"), np.fft.fft2, torch.fft.fft2),
+                t, variant="compensated"), REF_FFT.fft2, torch.fft.fft2),
             "fft2d_fused": (S2.fft2d_fused_cuda, S2.fft2d_fused_plain,
-                            np.fft.fft2, torch.fft.fft2),
+                            REF_FFT.fft2, torch.fft.fft2),
             "fft3d_fused": (lambda t: V.fft3d_fused_cuda(
                 t, variant="compensated"), lambda t: V.fft3d_fused_plain(
                 t, variant="compensated"),
-                lambda a: np.fft.fftn(a, axes=(1, 2, 3)),
+                lambda a: REF_FFT.fftn(a, axes=(1, 2, 3)),
                 lambda a: torch.fft.fftn(a, dim=(1, 2, 3))),
             "fft_fourstep": (F.fft_fourstep_cuda, F.fft_fourstep_plain,
-                             np.fft.fft, torch.fft.fft),
+                             REF_FFT.fft, torch.fft.fft),
             "fft_stockham": (S.fft_stockham_cuda, S.fft_stockham_plain,
-                             np.fft.fft, torch.fft.fft),
+                             REF_FFT.fft, torch.fft.fft),
             "fft_stockham_r2": (S.fft_stockham_r2_cuda,
-                                S.fft_stockham_r2_plain, np.fft.fft,
+                                S.fft_stockham_r2_plain, REF_FFT.fft,
                                 torch.fft.fft),
             "fft_staged": (ST.fft_staged_cuda, ST.fft_staged_plain,
-                           np.fft.fft, torch.fft.fft)}
+                           REF_FFT.fft, torch.fft.fft)}
         kern, plain, npf, tf = fns[name]
         return kern, plain, x, npf(xn), lambda: tf(xc)
 
@@ -2867,7 +3310,7 @@ def f16_path(failures, smi) -> dict:
     launches["fftconv_fused"] = ops.LAUNCHES["fftconv_fused"]
     xn, kn = xs.double().cpu().numpy(), ks.double().cpu().numpy()
     m = MAIN_CONV[-1]
-    want = np.fft.irfft(np.fft.rfft(xn, m) * np.fft.rfft(kn, m),
+    want = REF_FFT.irfft(REF_FFT.rfft(xn, m) * REF_FFT.rfft(kn, m),
                         m)[..., :SSM_X[-1]]
     err = float(np.abs(to_numpy(ys) - want).max() / np.abs(want).max())
     if not (launches["fftconv_fused"] > 0 and ys.dtype == torch.float16
@@ -2934,6 +3377,132 @@ def f16_path(failures, smi) -> dict:
             emit(rec)
             del x, got, want
             torch.cuda.empty_cache()
+    out.update(f16_routes(failures, smi))
+    return out
+
+
+F16_DECODE = (128, 4096, 32, 8, 80, 4096)   # danube's one layer, bf16's cell
+F16_CHAIN = (16, 1024, 1024)                # the plain GEMM chain's cell
+
+
+def f16_routes(failures, smi) -> dict:
+    """ROADMAP §2e's two float16 routes, each through its wrapper once
+    (counted) and held to float64 numpy of its float16 inputs and to its
+    plain version (the kernel's error within the plain version's error
+    plus 2^-10, and within 2^-10 of max|plain| of the plain version),
+    timed beside the plain version, one PyTorch call and the bound:
+    decode attention at danube's 128 x 4096 ring, the plain-variant GEMM
+    chain at 16 x 1024^2.  {name: its record}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as nnf
+    from repro_torch.core import SplitComplex
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import fft2d_gemm as G
+    from repro_torch.kernels import ops
+    dev, f16 = "cuda", torch.float16
+    g = torch.Generator(device=dev)
+    g.manual_seed(282)
+    out = {}
+
+    # decode attention: a ring wrapped mid-array, a part-filled row, a row
+    # with no slot (the mean of V)
+    b, s_len, h, kv, d, window = F16_DECODE
+    q = torch.randn((b, h, d), generator=g, device=dev).to(f16)
+    k, v = (torch.randn((b, s_len, kv, d), generator=g, device=dev).to(f16)
+            for _ in range(2))
+    q_pos = torch.randint(s_len // 2, 3 * s_len, (b,), generator=g,
+                          device=dev).int()
+    slot = torch.arange(s_len, device=dev)
+    kv_pos = (q_pos[:, None] - (q_pos[:, None] - slot) % s_len).int()
+    kv_pos[0, s_len // 3:] = -1
+    kv_pos[-1] = -1
+    ops.reset_launches()
+    got = ops.decode_attention(q, k, v, kv_pos, q_pos, window=window,
+                               chunk=s_len)
+    torch.cuda.synchronize()
+    count = ops.LAUNCHES["decode_attention"]
+    plain = DA.decode_attention_plain(q, k, v, kv_pos, q_pos, window=window)
+    q64, k64, v64 = (t.double().cpu().numpy() for t in (q, k, v))
+    pos, qp = kv_pos.cpu().numpy(), q_pos.cpu().numpy()
+    mask = (pos >= 0) & (pos <= qp[:, None]) & (pos > qp[:, None] - window)
+    sc = np.einsum("bkgd,bckd->bkgc", q64.reshape(b, kv, h // kv, d),
+                   k64) / math.sqrt(d)
+    sc = np.where(mask[:, None, None, :], sc, -1e30)
+    p = np.exp(sc - sc.max(axis=-1, keepdims=True))
+    p /= p.sum(axis=-1, keepdims=True)
+    want = np.einsum("bkgc,bckd->bkgd", p, v64).reshape(b, h, d)
+    scale = float(np.abs(want).max())
+    k_err = float(np.abs(got.double().cpu().numpy() - want).max()) / scale
+    p_err = float(np.abs(plain.double().cpu().numpy() - want).max()) / scale
+    vs_plain = float((got.float() - plain.float()).abs().max()) / float(
+        plain.float().abs().max())
+    ok = (got.dtype == f16 and count == 1 and k_err <= p_err + F16_SLACK
+          and vs_plain <= F16_SLACK and DA.route(f16, f16, d, h // kv)
+          == "mma")
+    k_ms = time_ms(lambda: DA.decode_attention_cuda(
+        q, k, v, kv_pos, q_pos, window=window, chunk=s_len), torch)
+    p_ms = time_ms(lambda: DA.decode_attention_plain(
+        q, k, v, kv_pos, q_pos, window=window), torch)
+    qq, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    tmask = torch.from_numpy(mask).to(dev)[:, None, None, :]
+    l_ms = time_ms(lambda: nnf.scaled_dot_product_attention(
+        qq, kt, vt, attn_mask=tmask, enable_gqa=True), torch)
+    flops, nbytes = decode_counts(int(mask.sum()), int((~mask.any(1)).sum()),
+                                  b, s_len, h, kv, d, 2, 2)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    out["decode_attention_f16"] = {
+        "shape": [b, s_len, h, kv, d], "window": window, "route": "mma",
+        "launches": count, "err_over_max": k_err,
+        "plain_err_over_max": p_err, "vs_plain_over_max": vs_plain,
+        "max_abs_err": k_err * scale, "ms": k_ms, "plain_ms": p_ms,
+        "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, "ok": ok}
+    if not ok:
+        failures.append(f"f16 decode_attention: {out['decode_attention_f16']}"
+                        f", {got.dtype}")
+    del q, k, v, kv_pos, q_pos, got, plain, qq, kt, vt, tmask
+    torch.cuda.empty_cache()
+
+    # the plain-variant GEMM chain in float16
+    x = SplitComplex(*(torch.randn(F16_CHAIN, generator=g, device=dev)
+                       .to(f16) for _ in "ri"))
+    ops.reset_launches()
+    got = ops.fft2d_gemm(x, variant="plain")
+    torch.cuda.synchronize()
+    count = ops.LAUNCHES["fft2d_gemm"]
+    plain = G.fft2d_gemm_plain(x, variant="plain")
+    want = REF_FFT.fft2(to_numpy(x))
+    scale = float(np.abs(want).max())
+    k_err = float(np.abs(to_numpy(got) - want).max()) / scale
+    p_err = float(np.abs(to_numpy(plain) - want).max()) / scale
+    vs_plain = float(max((got.re.float() - plain.re.float()).abs().max(),
+                         (got.im.float() - plain.im.float()).abs().max())) \
+        / float(max(plain.re.float().abs().max(),
+                    plain.im.float().abs().max()))
+    ok = (got.re.dtype == f16 and count == 1 and k_err <= p_err + F16_SLACK
+          and vs_plain <= F16_SLACK)
+    k_ms = time_ms(lambda: G.fft2d_gemm_cuda(x, variant="plain"), torch)
+    p_ms = time_ms(lambda: G.fft2d_gemm_plain(x, variant="plain"), torch)
+    xc = torch.complex(x.re, x.im)
+    l_ms = time_ms(lambda: torch.fft.fft2(xc), torch)
+    xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+    bf16_ms = time_ms(lambda: G.fft2d_gemm_cuda(xb, variant="plain"), torch)
+    b_ms, b_by = bound_ms(*f16_counts("fft2d_gemm", F16_CHAIN))
+    out["fft2d_gemm_plain_f16"] = {
+        "shape": list(F16_CHAIN), "variant": "plain", "launches": count,
+        "err_over_max": k_err, "plain_err_over_max": p_err,
+        "vs_plain_over_max": vs_plain, "max_abs_err": k_err * scale,
+        "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+        "library_dtype": "complex32", "plain_bf16_chain_ms": bf16_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "ok": ok}
+    if not ok:
+        failures.append(f"f16 plain GEMM chain: "
+                        f"{out['fft2d_gemm_plain_f16']}")
+    del x, got, plain, xc, xb
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        emit({"phase": "f16_route", "kernel": name, **rec,
+              "nvidia_smi": smi})
     return out
 
 
@@ -3077,9 +3646,11 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     ptxas = {n: ptxas_report(log) for n, log in logs.items()}
-    # the fp32 GEMM core's instance, cg::cgemm_kernel<false, false, EPI_F32>
+    # the fp32 GEMM core's instance, cg::cgemm_kernel<IN_F32, IN_F32,
+    # EPI_F32> (<false, false, EPI_F32> before PR 28's float16 operands)
     f32_gemm = {n: r[k] for n, r in ptxas.items() for k in r
-                if "cgemm_kernel" in k and "Lb0ELb0ELi0E" in k}
+                if "cgemm_kernel" in k and ("Li0ELi0ELi0E" in k
+                                             or "Lb0ELb0ELi0E" in k)}
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": round(build_s, 3),
           "libraries": [_build.library_path(n).name for n in _build.SOURCES],
@@ -3156,7 +3727,7 @@ def main() -> int:
     for inverse in (False, True):
         got = S.fft_stockham_cuda(x, inverse=inverse)
         torch.cuda.synchronize()
-        rel = np_errors(got, np.fft.ifft(z) if inverse else np.fft.fft(z))
+        rel = np_errors(got, REF_FFT.ifft(z) if inverse else REF_FFT.fft(z))
         ok = rel <= TOL_1D
         if not ok:
             failures.append(f"fft_stockham{STOCKHAM_STAGES} per-stage "
@@ -3246,16 +3817,16 @@ def main() -> int:
     pa = plan_fft(MAIN_FOURSTEP[1], backend="cuda")
     pb = plan_fft(MAIN_STOCKHAM[1], backend="cuda")
     checks = {
-        "fft2_b16_vs_numpy": np_errors(y16, np.fft.fft2(z16)),
+        "fft2_b16_vs_numpy": np_errors(y16, REF_FFT.fft2(z16)),
         "fft2_b16_roundtrip": np_errors(back16, z16),
-        "fft2_b1_vs_numpy": np_errors(y1, np.fft.fft2(z1)),
+        "fft2_b1_vs_numpy": np_errors(y1, REF_FFT.fft2(z1)),
         "fft2_b1_roundtrip": np_errors(back1, z1),
-        "fft2_row_col_b1_vs_numpy": np_errors(yr, np.fft.fft2(z1)),
+        "fft2_row_col_b1_vs_numpy": np_errors(yr, REF_FFT.fft2(z1)),
         "fft2_row_col_b1_roundtrip": np_errors(backr, z1),
-        "fft2_fused_stockham_b16_vs_numpy": np_errors(ys16, np.fft.fft2(z16)),
+        "fft2_fused_stockham_b16_vs_numpy": np_errors(ys16, REF_FFT.fft2(z16)),
         "fft2_fused_stockham_b16_roundtrip": np_errors(backs16, z16),
-        "fft_2^20_vs_numpy": np_errors(ya, np.fft.fft(za)),
-        "fft_2^22_vs_numpy": np_errors(yb, np.fft.fft(zb)),
+        "fft_2^20_vs_numpy": np_errors(ya, REF_FFT.fft(za)),
+        "fft_2^22_vs_numpy": np_errors(yb, REF_FFT.fft(zb)),
     }
     limits = {"fft2_b16_vs_numpy": TOL_NUMPY, "fft2_b1_vs_numpy": TOL_NUMPY,
               "fft2_b16_roundtrip": TOL_ROUNDTRIP,
@@ -3284,7 +3855,7 @@ def main() -> int:
     pd = get_plan(DEMOTED_2D[1:], backend="cuda")
     reason = ("kernels need power-of-two tile dims >= 2, "
               f"got {DEMOTED_2D[1:]}")
-    demote_err = np_errors(yd, np.fft.fft2(zd))
+    demote_err = np_errors(yd, REF_FFT.fft2(zd))
     if pd.backend != "torch" or pd.demote_reason != reason:
         failures.append(f"1000x1000 plan: {pd}")
     if not demote_err <= TOL_NUMPY:
@@ -3325,18 +3896,18 @@ def main() -> int:
     launches_real = dict(ops.LAUNCHES)
     f1_np = to_numpy(f1)
     rchecks = {
-        "rfft2_b16_vs_numpy": np_errors(f16, np.fft.rfft2(zr16)),
+        "rfft2_b16_vs_numpy": np_errors(f16, REF_FFT.rfft2(zr16)),
         "irfft2_b16_roundtrip": np_errors(b16, zr16),
-        "rfft2_b1_vs_numpy": np_errors(f1, np.fft.rfft2(zr1)),
+        "rfft2_b1_vs_numpy": np_errors(f1, REF_FFT.rfft2(zr1)),
         "irfft2_b1_roundtrip": np_errors(b1, zr1),
-        "irfft2_s_vs_numpy": np_errors(s1, np.fft.irfft2(f1_np, s=IRFFT2_S)),
-        "rfft_2^21_vs_numpy": np_errors(fa, np.fft.rfft(zra)),
+        "irfft2_s_vs_numpy": np_errors(s1, REF_FFT.irfft2(f1_np, s=IRFFT2_S)),
+        "rfft_2^21_vs_numpy": np_errors(fa, REF_FFT.rfft(zra)),
         "irfft_2^21_roundtrip": np_errors(ba, zra),
-        "rfft_2^23_vs_numpy": np_errors(fb, np.fft.rfft(zrb)),
+        "rfft_2^23_vs_numpy": np_errors(fb, REF_FFT.rfft(zrb)),
         "irfft_2^23_roundtrip": np_errors(bb, zrb),
-        "rfft2_stockham2_b1_vs_numpy": np_errors(f2, np.fft.rfft2(zr1)),
+        "rfft2_stockham2_b1_vs_numpy": np_errors(f2, REF_FFT.rfft2(zr1)),
         "irfft2_stockham2_b1_roundtrip": np_errors(b2, zr1),
-        "fft_stockham2_2^20_vs_numpy": np_errors(yc, np.fft.fft(zc)),
+        "fft_stockham2_2^20_vs_numpy": np_errors(yc, REF_FFT.fft(zc)),
     }
     rlimits = {k: TOL_ROUNDTRIP if "roundtrip" in k else
                TOL_NUMPY if k.startswith(("rfft2", "irfft2")) else TOL_1D
@@ -3374,7 +3945,7 @@ def main() -> int:
     pdr = get_plan(DEMOTED_2D[1:], kind="rfft", backend="cuda")
     reason = ("fused rfft kernel needs power-of-two dims >= 2, "
               f"got {DEMOTED_2D[1:]}")
-    rdemote_err = np_errors(yd, np.fft.rfft2(zd))
+    rdemote_err = np_errors(yd, REF_FFT.rfft2(zd))
     if pdr.backend != "torch" or pdr.demote_reason != reason:
         failures.append(f"1000x1000 rfft plan: {pdr}")
     if not rdemote_err <= TOL_NUMPY:
@@ -3449,8 +4020,8 @@ def main() -> int:
     g_torch = conv_grads("torch")
 
     def conv_ref(zx_, zk_, n, out_len):
-        spec = np.fft.rfft(zx_, n) * np.fft.rfft(zk_, n)
-        return np.fft.irfft(spec, n)[..., :out_len]
+        spec = REF_FFT.rfft(zx_, n) * REF_FFT.rfft(zk_, n)
+        return REF_FFT.irfft(spec, n)[..., :out_len]
 
     def rel_norm(got, ref):
         d = to_numpy(got) - ref
@@ -3468,7 +4039,7 @@ def main() -> int:
     for name, a, b in zip(("x", "k"), g_cuda, g_torch):
         cchecks[f"grad_{name}_cuda_vs_torch"] = errors(a, b)[1]
     cchecks["fourier_mix_vs_numpy"] = np_errors(
-        ym, np.real(np.fft.fft2(zf)))
+        ym, np.real(REF_FFT.fft2(zf)))
     climits = {k: TOL_GRAD if k.startswith("grad") else
                0.0 if k.endswith("repeat_equal") else
                TOL_1D if k.startswith("fourier") else TOL_CONV_NUMPY
@@ -3515,8 +4086,8 @@ def main() -> int:
     yvb = fft3(xvb, backend="cuda")                  # bf16: compensated
     torch.cuda.synchronize()
     launches_vol = dict(ops.LAUNCHES)
-    fv = np.fft.fftn(zv, axes=(-3, -2, -1))
-    fp = np.fft.fftn(zp, axes=(-3, -2, -1))
+    fv = REF_FFT.fftn(zv, axes=(-3, -2, -1))
+    fp = REF_FFT.fftn(zp, axes=(-3, -2, -1))
     vchecks = {"fft3_256^3x2_vs_numpy": np_rel_norm(yv, fv),
                "fft3_256^3x2_roundtrip": np_errors(backv, zv),
                "fft3_128^3x8_vs_numpy": np_rel_norm(yp, fp),
@@ -3553,7 +4124,7 @@ def main() -> int:
     pd3 = get_plan(DEMOTED_3D[1:], backend="cuda")
     reason = ("kernels need power-of-two tile dims >= 2, "
               f"got {DEMOTED_3D[1:]}")
-    vdemote_err = np_errors(yd, np.fft.fftn(zd, axes=(-3, -2, -1)))
+    vdemote_err = np_errors(yd, REF_FFT.fftn(zd, axes=(-3, -2, -1)))
     if (pd3.backend, pd3.algo, pd3.demote_reason) != ("torch", "row_col",
                                                       reason):
         failures.append(f"{DEMOTED_3D[1:]} plan: {pd3}")
@@ -3584,7 +4155,7 @@ def main() -> int:
     backb = fft2(yb_c, inverse=True, backend="cuda")
     torch.cuda.synchronize()
     launches_bf16 = dict(ops.LAUNCHES)
-    fb = np.fft.fft2(zb)
+    fb = REF_FFT.fft2(zb)
     bchecks = {"fft2_bf16_compensated_vs_numpy": np_rel_norm(yb_c, fb),
                "fft2_bf16_plain_vs_numpy": np_rel_norm(yb_p, fb),
                "fft2_bf16_compensated_roundtrip": np_rel_norm(backb, zb)}
@@ -3642,7 +4213,7 @@ def main() -> int:
     launches_t1 = dict(ops.LAUNCHES)
     t1checks = {}
     for shape, z in t1_z.items():
-        want = np.fft.fft(z)
+        want = REF_FFT.fft(z)
         tag = f"{shape[0]}x{shape[1]}"
         for name in ("staged",) + tuple(rungs):
             t1checks[f"{name}_{tag}_vs_numpy"] = np_errors(
@@ -3776,32 +4347,32 @@ def main() -> int:
     for s_ in LONG_2D:
         tag = "x".join(map(str, s_))
         z, zr_ = lz[s_], lr[s_]
-        for k, want in (("fft2", np.fft.fft2(z)), ("ifft2", np.fft.ifft2(z)),
-                        ("fft2_stockham", np.fft.fft2(z)),
-                        ("ifft2_stockham", np.fft.ifft2(z)),
-                        ("rfft2", np.fft.rfft2(zr_)), ("irfft2", zr_)):
+        for k, want in (("fft2", REF_FFT.fft2(z)), ("ifft2", REF_FFT.ifft2(z)),
+                        ("fft2_stockham", REF_FFT.fft2(z)),
+                        ("ifft2_stockham", REF_FFT.ifft2(z)),
+                        ("rfft2", REF_FFT.rfft2(zr_)), ("irfft2", zr_)):
             lchecks[f"{k}_{tag}_vs_numpy"] = np_errors(lout[s_, k], want)
             llimits[f"{k}_{tag}_vs_numpy"] = TOL_NUMPY
     for s_ in LONG_3D:
         tag = "x".join(map(str, s_))
         z = lz[s_]
-        for k, want in (("fft3", np.fft.fftn(z, axes=(-3, -2, -1))),
-                        ("ifft3", np.fft.ifftn(z, axes=(-3, -2, -1)))):
+        for k, want in (("fft3", REF_FFT.fftn(z, axes=(-3, -2, -1))),
+                        ("ifft3", REF_FFT.ifftn(z, axes=(-3, -2, -1)))):
             lchecks[f"{k}_{tag}_vs_numpy"] = np_rel_norm(lout[s_, k], want)
             llimits[f"{k}_{tag}_vs_numpy"] = TOL_3D_NUMPY
     for s_, n1, how in FOURSTEP_FACTORS:
         tag = f"{s_[0]}x{s_[1]}_n1={n1}"
         got = lout[s_, n1]
-        lchecks[f"fourstep_{tag}_vs_numpy"] = np_errors(got,
-                                                        np.fft.fft(fz[s_, n1]))
+        lchecks[f"fourstep_{tag}_vs_numpy"] = np_errors(
+            got, REF_FFT.fft(fz[s_, n1]))
         llimits[f"fourstep_{tag}_vs_numpy"] = TOL_1D
         lchecks[f"fourstep_{tag}_vs_plain"] = errors(
             got, F.fft_fourstep_plain(fx[s_, n1], n1=n1))[1]
         llimits[f"fourstep_{tag}_vs_plain"] = TOL_1D
     lchecks["stockham2_2^25_vs_numpy"] = np_errors(lout["r2"],
-                                                   np.fft.fft(r2z))
+                                                   REF_FFT.fft(r2z))
     lchecks["stockham2_2^25_inverse_vs_numpy"] = np_errors(
-        lout["r2_inverse"], np.fft.ifft(r2z))
+        lout["r2_inverse"], REF_FFT.ifft(r2z))
     r2_plain = S.fft_stockham_r2_plain(r2x)
     lchecks["stockham2_2^25_vs_plain"] = errors(lout["r2"], r2_plain)[1]
     main_err["fft_stockham_r2_stages"] = errors(lout["r2"], r2_plain)[0]
@@ -3859,11 +4430,11 @@ def main() -> int:
                 x = real_on_card(real(shape)).bfloat16()
                 xn = x.double().cpu().numpy()
                 return (R.rfft2d_fused_cuda, R.rfft2d_fused_plain, x,
-                        np.fft.rfft2(xn))
+                        REF_FFT.rfft2(xn))
             x = bf16(from_numpy(rand((b, h, w // 2 + 1)), device=dev))
             xn = to_numpy(x)
             return (R.irfft2d_fused_cuda, R.irfft2d_fused_plain, x,
-                    np.fft.irfft2(xn, s=(h, w)))
+                    REF_FFT.irfft2(xn, s=(h, w)))
         if name == "fftconv_fused":
             m = shape[-1]
             x = real_on_card(real(shape)).bfloat16()
@@ -3872,7 +4443,7 @@ def main() -> int:
             zk[:, -1] = zk[:, -1].real
             ef = C.pack_filter(from_numpy(zk, device=dev), m,
                                torch.bfloat16)
-            want = np.fft.irfft(np.fft.rfft(x.double().cpu().numpy()) * zk,
+            want = REF_FFT.irfft(REF_FFT.rfft(x.double().cpu().numpy()) * zk,
                                 m)
             return (lambda t: C.fftconv_fused_cuda(t, ef),
                     lambda t: C.fftconv_fused_plain(t, ef), x, want)
@@ -3884,7 +4455,7 @@ def main() -> int:
                "fft_fourstep": (F.fft_fourstep_cuda, F.fft_fourstep_plain),
                "fft_staged": (ST.fft_staged_cuda, ST.fft_staged_plain),
                "fft2d_fused": (S2.fft2d_fused_cuda, S2.fft2d_fused_plain)}
-        want = np.fft.fft2(xn) if name == "fft2d_fused" else np.fft.fft(xn)
+        want = REF_FFT.fft2(xn) if name == "fft2d_fused" else REF_FFT.fft(xn)
         return (*fns[name], x, want)
 
     for name, shape in BF16_F4:
@@ -4121,7 +4692,7 @@ def main() -> int:
     hw = RESILIENCE_2D[1:]
     zg = rand(RESILIENCE_2D)
     xg = from_numpy(zg, device=dev)
-    wantg = torch.from_numpy(np.fft.fft2(zg)).to(dev)
+    wantg = torch.from_numpy(REF_FFT.fft2(zg)).to(dev)
     scale_g = wantg.abs().max().item()
     key = _plan_key(hw, torch.float32, False, "cuda", "c2c")
     threshold = rconfig.get("failure_threshold")
@@ -4749,6 +5320,7 @@ def main() -> int:
     for k, v in train_sharded(failures, smi).items():
         train[k] = train.get(k, 0) + v
     train_sharded_moe(failures, smi)
+    served = serve_sharded(failures, smi)
     train_pp(failures, smi)
     ex = examples_path(failures, smi)
     dryrun_counts(failures, smi, dry_procs, dry_dir)
@@ -4757,6 +5329,33 @@ def main() -> int:
         entry["lm_path_launches"] = lm.get(entry["name"], 0)
         entry["train_path_launches"] = train.get(entry["name"], 0)
         entry["examples_launches"] = ex.get(entry["name"], 0)
+        entry["serve_sharded_launches"] = served["launches"].get(
+            entry["name"], 0)
+    # ROADMAP §2e's float16 routes and the sequence-parallel decode route,
+    # each a line of its own beside its kernel's
+    dec = "src/repro_torch/kernels/csrc/decode_attention.cu"
+    route = served["route"]
+    kernels.append({
+        "name": "decode_attention (sequence-parallel: partial + merge)",
+        "route": "cuda", "source": dec,
+        "replaces": "src/repro/kernels/decode_attention.py:28",
+        "launches": served["sp_merges"],
+        "max_abs_err": route["max_abs_err"], "ms": route["ms"],
+        "plain_ms": route["plain_ms"], "bound_ms": route["bound_ms"],
+        "bound_by": route["bound_by"], "library_ms": route["library_ms"]})
+    for name, label, source, replaces in (
+            ("decode_attention_f16", "decode_attention (float16)", dec,
+             "src/repro/kernels/decode_attention.py:28"),
+            ("fft2d_gemm_plain_f16", "fft2d_gemm (plain float16, the GEMM "
+             "chain)", "src/repro_torch/kernels/csrc/fft2d_gemm.cu",
+             "src/repro/kernels/fft2d_gemm.py:79")):
+        rec = f16[name]
+        kernels.append({
+            "name": label, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
 
     if failures:
         for f in failures:

@@ -16,7 +16,9 @@ real tensors, and accumulates, on each rank's local tensors:
   their window (2 x result bytes), scatters write theirs (2 x update
   bytes), factories write their result, as ``hloparse`` counts them;
 - ``collectives``: result bytes a rank per kind (``hloparse``'s kinds:
-  the ``_c10d_functional`` ops DTensor issues, the ``c10d`` ops of
+  the ``_c10d_functional`` ops DTensor issues and its
+  ``_dtensor::shard_dim_alltoall``, which moves a split from one dim to
+  another on a card mesh (a CPU mesh all-gathers instead), the ``c10d`` ops of
   ``torch.distributed``'s own calls, and the pipeline's receives as
   ``collective-permute``; a broadcast counts as an all-gather).
 
@@ -60,6 +62,7 @@ _FUNCTIONAL = {
     "_c10d_functional::all_to_all_single": "all-to-all",
     "_c10d_functional::broadcast": "all-gather",
     "_c10d_functional::broadcast_": "all-gather",
+    "_dtensor::shard_dim_alltoall": "all-to-all",
 }
 _C10D = {
     "c10d::allreduce_": "all-reduce",

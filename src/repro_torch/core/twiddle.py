@@ -7,7 +7,9 @@ host tables are bit-identical.  The tensor casts are cached per
 device once, then later calls reuse it.  The cache holds at most
 :data:`TABLE_CACHE_BYTES` of tensors, least recently used first out; the
 packed radix-4 Stockham table alone is 277 MB per direction at n = 2^22
-in fp32 (the kernel's one-row table 25 MB).
+in fp32 (the kernel's one-row table 25 MB).  A table cast under
+``FakeTensorMode`` (a dry run's) is not cached: a later real call would
+get a tensor without data.
 :func:`clear_table_cache` frees every cached tensor.
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from .complexmath import SplitComplex
 
@@ -178,6 +181,8 @@ def _cast(builder, args: tuple, dtype: torch.dtype, dev: torch.device):
     with torch.inference_mode(False):
         planes = tuple(torch.from_numpy(np.ascontiguousarray(p))
                        .to(dev, dtype) for p in builder(*args))
+    if any(isinstance(p, FakeTensor) for p in planes):
+        return planes
     with _TABLES_LOCK:
         _TABLES[key] = planes
         held = sum(_nbytes(v) for v in _TABLES.values())

@@ -186,19 +186,17 @@ def _dtype_name(dtypes) -> str:
 
 def check_decode_operands(q, k, v, kv_pos, q_pos) -> None:
     """What the decode attention kernel requires: q (B, H, D) and the
-    caches (B, S, KV, D) float32 or bfloat16 (the caches one dtype), with
-    H a multiple of KV; kv_pos (B, S) and q_pos (B,) int32; every operand
-    contiguous on q's CUDA device, none a DTensor."""
+    caches (B, S, KV, D) float32, bfloat16 or float16 (the caches one
+    dtype), with H a multiple of KV; kv_pos (B, S) and q_pos (B,) int32;
+    every operand contiguous on q's CUDA device, none a DTensor."""
     refuse_dtensor(q, k, v, kv_pos, q_pos)
     ops = {"q": q, "k_cache": k, "v_cache": v, "kv_pos": kv_pos,
            "q_pos": q_pos}
-    floats = (torch.float32, torch.bfloat16)
     for name, t in ops.items():
-        want = (torch.int32,) if name.endswith("pos") else floats
+        want = (torch.int32,) if name.endswith("pos") else FFT_DTYPES
         if t.dtype not in want:
             raise TypeError(f"the decode kernel takes {name} as "
-                            f"{_dtype_name(want)}, got {t.dtype} (other "
-                            "dtypes: ROADMAP 'TPU kernels to port' item 2e)")
+                            f"{_dtype_name(want)}, got {t.dtype}")
     for name, t in ops.items():
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"the decode kernel needs every operand on "
@@ -221,6 +219,23 @@ def check_decode_operands(q, k, v, kv_pos, q_pos) -> None:
         raise ValueError(f"expected kv_pos {tuple(k.shape[:2])} and q_pos "
                          f"({b},), got {tuple(kv_pos.shape)}, "
                          f"{tuple(q_pos.shape)}")
+
+
+def check_merge_operands(m, l, acc, vsum) -> None:
+    """What the decode kernel's cross-rank merge requires: the ranks'
+    gathered partials m, l (R, B, KV, G), acc (R, B, KV, G, D) and vsum
+    (R, B, KV, D), fp32 on one CUDA device, none a DTensor."""
+    refuse_dtensor(m, l, acc, vsum)
+    r, b, kv, g = m.shape
+    d = acc.shape[-1]
+    if l.shape != m.shape or acc.shape != (r, b, kv, g, d) or \
+            vsum.shape != (r, b, kv, d):
+        raise ValueError(f"partials do not match: m {tuple(m.shape)}, l "
+                         f"{tuple(l.shape)}, acc {tuple(acc.shape)}, vsum "
+                         f"{tuple(vsum.shape)}")
+    if any(t.dtype != torch.float32 or not t.is_cuda or t.device != m.device
+           for t in (m, l, acc, vsum)):
+        raise TypeError("the merge takes fp32 partials on one CUDA device")
 
 
 @functools.lru_cache(maxsize=None)

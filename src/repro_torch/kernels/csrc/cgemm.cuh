@@ -14,16 +14,18 @@
 // output tile per 256-thread block, 16-deep k tiles staged through shared
 // memory, a 4x4 register micro-tile per thread.
 //
-// bf16 transforms (fft2d_gemm.cu, fft3d_fused.cu) use template instances
-// of the same kernel: the A or the B operand may be raw bf16 (widened on
-// load), and the epilogue stores fp32 (EPI_F32), fp32 rounded through
-// bf16 (EPI_ROUND) or raw bf16 (EPI_BF16); the sums stay fp32.  The bf16
-// code sits behind `if constexpr`, so the fp32 instance <false, false,
-// EPI_F32> carries none of it: the core's speed follows its register
-// count (ROADMAP 2c).
+// bf16 and float16 transforms (fft2d_gemm.cu, fft3d_fused.cu) use
+// template instances of the same kernel: the A or the B operand may be raw
+// bf16 or float16 (widened on load), and the epilogue stores fp32
+// (EPI_F32), fp32 rounded through bf16 (EPI_ROUND) or float16
+// (EPI_ROUND_F16), or raw bf16 (EPI_BF16) or float16 (EPI_F16); the sums
+// stay fp32.  The half code sits behind `if constexpr`, so the fp32
+// instance <IN_F32, IN_F32, EPI_F32> carries none of it: the core's speed
+// follows its register count (ROADMAP 2c).
 #pragma once
 #include <cuda_runtime.h>
 #include "bf16.cuh"
+#include "f16.cuh"
 
 namespace cg {
 
@@ -53,23 +55,28 @@ struct Params {
 
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, NT = 256;
 
-enum Epi { EPI_F32 = 0, EPI_ROUND = 1, EPI_BF16 = 2 };
+enum In { IN_F32 = 0, IN_BF16 = 1, IN_F16 = 2 };
+enum Epi {
+  EPI_F32 = 0, EPI_ROUND = 1, EPI_BF16 = 2, EPI_ROUND_F16 = 3, EPI_F16 = 4
+};
 
-// What one launch reads and stores.
+// What one launch reads and stores: an operand's In, the epilogue's Epi.
 struct Io {
-  bool a_bf16 = false, b_bf16 = false;
+  int a_in = IN_F32, b_in = IN_F32;
   int epi = EPI_F32;
 };
 
-template <bool BF16>
+template <int IN>
 __device__ __forceinline__ float load(const float* base, long long off) {
-  if constexpr (BF16)
+  if constexpr (IN == IN_BF16)
     return bf16_to_f32(reinterpret_cast<const unsigned short*>(base)[off]);
+  else if constexpr (IN == IN_F16)
+    return f16_to_f32(reinterpret_cast<const unsigned short*>(base)[off]);
   else
     return base[off];
 }
 
-template <bool A_BF16, bool B_BF16, int EPI>
+template <int A_IN, int B_IN, int EPI>
 __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
   __shared__ float asr[BK][BM + 1], asi[BK][BM + 1];
   __shared__ float bsr[BK][BN], bsi[BK][BN];
@@ -94,8 +101,8 @@ __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
         float vr = 0.f, vi = 0.f;
         if (m < p.M && k < p.K) {
           const long long off = oa + at(p.a_m, m) + at(p.a_k, k);
-          vr = load<A_BF16>(p.ar, off);
-          vi = load<A_BF16>(p.ai, off);
+          vr = load<A_IN>(p.ar, off);
+          vi = load<A_IN>(p.ai, off);
         }
         asr[kk][mm] = vr;
         asi[kk][mm] = vi;
@@ -107,8 +114,8 @@ __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
         float vr = 0.f, vi = 0.f;
         if (n < p.N && k < p.K) {
           const long long off = ob + at(p.b_k, k) + at(p.b_n, n);
-          vr = load<B_BF16>(p.br, off);
-          vi = load<B_BF16>(p.bi, off);
+          vr = load<B_IN>(p.br, off);
+          vi = load<B_IN>(p.bi, off);
         }
         bsr[kk][nn] = vr;
         bsi[kk][nn] = vi;
@@ -161,6 +168,12 @@ __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
         } else if constexpr (EPI == EPI_ROUND) {
           p.cr[off] = round_bf16(r * p.scale);
           p.ci[off] = round_bf16(im * p.scale);
+        } else if constexpr (EPI == EPI_F16) {
+          reinterpret_cast<unsigned short*>(p.cr)[off] = f32_to_f16(r * p.scale);
+          reinterpret_cast<unsigned short*>(p.ci)[off] = f32_to_f16(im * p.scale);
+        } else if constexpr (EPI == EPI_ROUND_F16) {
+          p.cr[off] = f16_to_f32(f32_to_f16(r * p.scale));
+          p.ci[off] = f16_to_f32(f32_to_f16(im * p.scale));
         } else {
           p.cr[off] = r * p.scale;
           p.ci[off] = im * p.scale;
@@ -169,18 +182,32 @@ __global__ void __launch_bounds__(NT) cgemm_kernel(const Params p) {
   }
 }
 
-template <bool A_BF16, bool B_BF16>
+// The epilogues an operand kind pairs with: fp32 operands with every one
+// (a later GEMM of a chain), bf16 with the bf16 ones, float16 with the
+// float16 ones.
+template <int A_IN, int B_IN>
 inline cudaError_t run(const Params& p, int epi, dim3 grid,
                        cudaStream_t stream) {
+  constexpr int half = A_IN != IN_F32 ? A_IN : B_IN;
   switch (epi) {
     case EPI_F32:
-      cgemm_kernel<A_BF16, B_BF16, EPI_F32><<<grid, NT, 0, stream>>>(p);
+      cgemm_kernel<A_IN, B_IN, EPI_F32><<<grid, NT, 0, stream>>>(p);
       break;
     case EPI_ROUND:
-      cgemm_kernel<A_BF16, B_BF16, EPI_ROUND><<<grid, NT, 0, stream>>>(p);
-      break;
     case EPI_BF16:
-      cgemm_kernel<A_BF16, B_BF16, EPI_BF16><<<grid, NT, 0, stream>>>(p);
+      if constexpr (half == IN_F16) return cudaErrorInvalidValue;
+      if (epi == EPI_ROUND)
+        cgemm_kernel<A_IN, B_IN, EPI_ROUND><<<grid, NT, 0, stream>>>(p);
+      else
+        cgemm_kernel<A_IN, B_IN, EPI_BF16><<<grid, NT, 0, stream>>>(p);
+      break;
+    case EPI_ROUND_F16:
+    case EPI_F16:
+      if constexpr (half == IN_BF16) return cudaErrorInvalidValue;
+      if (epi == EPI_ROUND_F16)
+        cgemm_kernel<A_IN, B_IN, EPI_ROUND_F16><<<grid, NT, 0, stream>>>(p);
+      else
+        cgemm_kernel<A_IN, B_IN, EPI_F16><<<grid, NT, 0, stream>>>(p);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -196,10 +223,15 @@ inline cudaError_t launch(const Params& p, cudaStream_t stream,
   if (tiles > 2147483647LL) return cudaErrorInvalidValue;
   const unsigned gy = (unsigned)(p.batch < 65535 ? p.batch : 65535);
   const dim3 grid((unsigned)tiles, gy);
-  if (io.a_bf16 && io.b_bf16) return cudaErrorInvalidValue;
-  if (io.a_bf16) return run<true, false>(p, io.epi, grid, stream);
-  if (io.b_bf16) return run<false, true>(p, io.epi, grid, stream);
-  return run<false, false>(p, io.epi, grid, stream);
+  if (io.a_in != IN_F32 && io.b_in != IN_F32) return cudaErrorInvalidValue;
+  switch (io.a_in * 3 + io.b_in) {
+    case IN_F32 * 3 + IN_F32: return run<IN_F32, IN_F32>(p, io.epi, grid, stream);
+    case IN_BF16 * 3 + IN_F32: return run<IN_BF16, IN_F32>(p, io.epi, grid, stream);
+    case IN_F16 * 3 + IN_F32: return run<IN_F16, IN_F32>(p, io.epi, grid, stream);
+    case IN_F32 * 3 + IN_BF16: return run<IN_F32, IN_BF16>(p, io.epi, grid, stream);
+    case IN_F32 * 3 + IN_F16: return run<IN_F32, IN_F16>(p, io.epi, grid, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 inline int log2i(long long v) {

@@ -1,6 +1,7 @@
 // One-token GQA flash-decode attention over a position-masked KV cache:
-// q (B, H, D), K and V (B, S, KV, D) in fp32 or bf16, kv_pos (B, S) int32
-// (-1 = empty slot), q_pos (B,) int32; out (B, H, D) in q's dtype.
+// q (B, H, D), K and V (B, S, KV, D) in fp32, bf16 or float16, kv_pos
+// (B, S) int32 (-1 = empty slot), q_pos (B,) int32; out (B, H, D) in q's
+// dtype.
 //
 // Replaces the Pallas kernel repro/kernels/decode_attention.py::_decode_kernel.
 // The TPU kernel walks the cache's chunks in order on one core and carries
@@ -49,7 +50,9 @@
 //            N (ldmatrix.trans of P), slots as the reduction.
 //   combine  the NW warps' states are merged in shared memory, with the
 //            same rescaling, into the split's partial.
-// wgmma is not used: its 64-row tiles do not fit 4-12 heads.
+// wgmma is not used: its 64-row tiles do not fit 4-12 heads.  float16 q
+// and caches take the same route with mma.sync's f16 form, p rounded to
+// float16.
 //
 // Rounding points against the reference (which scales q by 1/sqrt(D) in
 // fp32 before its fp32 dot, and multiplies fp32 p by fp32 V):
@@ -61,6 +64,17 @@
 //     bf16 bound of 2^-7 of max|out| (PERF.md; no P_hi + P_lo split);
 //   - the fp32 sums run in the MMA's order and the warps' merge order.
 //
+// A cache split over ranks (sequence-parallel serving) runs the split
+// launch over the rank's slots and then the merge in its partial mode:
+// instead of the output it writes the rank's (m, l, acc) a (row, KV head)
+// (acc not divided by l; the marker m = -1e30, l = 0, acc = 0 where no
+// slot of the rank is visible) and keeps the mean-of-V scratch as the sum
+// of V over the rank's slots for those rows (zero elsewhere).  The ranks'
+// partials, gathered, go through the merge again in its cross-rank mode
+// (decode_attention_merge): the ranks are the splits, and a row that sees
+// no slot on any rank takes the mean of V from the ranks' sums over the
+// S slots of all ranks, since no rank can read another's V.
+//
 // fp32 or mixed dtypes, D not a multiple of 16, D > 128 and groups of more
 // than 16 heads take the CUDA-core route (decode_core), chosen by the host
 // from the dtypes and shapes before the launch: K and V tiles of 64 slots
@@ -71,7 +85,10 @@
 // before the dot, as the reference does; everything accumulates in fp32.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "bf16.cuh"
+#include "f16.cuh"
 
 namespace {
 
@@ -79,13 +96,28 @@ constexpr float NEG_INF = -1e30f;
 constexpr int MAX_SMEM = 232448;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
-typedef unsigned short bf16;
+typedef unsigned short bf16;   // also the raw 16 bits of either half type
+typedef cg::f16 f16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return cg::bf16_to_f32(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return cg::widen_f16(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = cg::f32_to_bf16(x);
+}
+__device__ __forceinline__ void store(f16* p, float x) {
+  *p = cg::narrow_f16(x);
+}
+
+// a half of the tensor-core route (raw bits) from fp32 and back
+template <bool F16>
+__device__ __forceinline__ unsigned short to_half(float x) {
+  return F16 ? cg::f32_to_f16(x) : cg::f32_to_bf16(x);
+}
+template <bool F16>
+__device__ __forceinline__ float from_half(unsigned short h) {
+  return F16 ? cg::f16_to_f32(h) : cg::bf16_to_f32(h);
 }
 
 __device__ __forceinline__ bool visible(long long p, long long qp,
@@ -144,17 +176,29 @@ __device__ __forceinline__ void ldsm4(unsigned* r, const bf16* p) {
 #endif
 }
 
-// d += A (16x16, row) * B (16x8, col), bf16 in, fp32 accumulate
+// d += A (16x16, row) * B (16x8, col), bf16 (F16: float16) in, fp32
+// accumulate
+template <bool F16>
 __device__ __forceinline__ void mma(float* d, const unsigned* a, unsigned b0,
                                     unsigned b1) {
 #if defined(__CUDA_ARCH__)
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if (F16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 #elif defined(CUDA_EMU)
-  emu_mma_bf16_16816(d, a, b0, b1);
+  if (F16)
+    emu_mma_f16_16816(d, a, b0, b1);
+  else
+    emu_mma_bf16_16816(d, a, b0, b1);
 #endif
 }
 
@@ -208,8 +252,8 @@ __device__ __forceinline__ void clear_mean(float* mean_sum, int* mean_cnt,
   if (threadIdx.x == 0) mean_cnt[bk] = 0;
 }
 
-// -- the tensor-core route (bf16 q and caches, D = 16 * KS <= 128, a group
-// -- of up to 8 * NTL heads) ----------------------------------------------
+// -- the tensor-core route (bf16 or, F16, float16 q and caches, D = 16 * KS
+// -- <= 128, a group of up to 8 * NTL heads) --------------------------------
 
 constexpr int NW = 4;     // warps a block
 constexpr int TW = 32;    // slots a warp's tile: one visibility word
@@ -232,7 +276,7 @@ __host__ __device__ constexpr long long mma_smem(int d, int ntl, int split) {
   return vis_bytes(split) + ring_bytes(d) + (long long)NW * TW * p_pitch(ntl) * 2;
 }
 
-template <int KS, int NTL>
+template <int KS, int NTL, bool F16>
 __global__ void __launch_bounds__(NW * 32)
 decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const int* __restrict__ kv_pos,
@@ -350,7 +394,7 @@ decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             ks * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int nt = 0; nt < NTL; ++nt)
-          mma(sc[mf][nt], a, qf[ks][nt][0], qf[ks][nt][1]);
+          mma<F16>(sc[mf][nt], a, qf[ks][nt][0], qf[ks][nt][1]);
       }
     }
     float mx[NTL][2];
@@ -386,7 +430,7 @@ decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
           acc[md][nt][e + 2] *= alpha;
         }
       }
-    // p in bf16 to the warp's P buffer, [slot][head]
+    // p in the half type to the warp's P buffer, [slot][head]
 #pragma unroll
     for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
@@ -394,11 +438,11 @@ decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int t = mf * 16 + (lane >> 2) + hf * 8;
-          const bf16 p0 = cg::f32_to_bf16(expf(sc[mf][nt][2 * hf] - m_r[nt][0]));
+          const bf16 p0 = to_half<F16>(expf(sc[mf][nt][2 * hf] - m_r[nt][0]));
           const bf16 p1 =
-              cg::f32_to_bf16(expf(sc[mf][nt][2 * hf + 1] - m_r[nt][1]));
-          l_r[nt][0] += cg::bf16_to_f32(p0);
-          l_r[nt][1] += cg::bf16_to_f32(p1);
+              to_half<F16>(expf(sc[mf][nt][2 * hf + 1] - m_r[nt][1]));
+          l_r[nt][0] += from_half<F16>(p0);
+          l_r[nt][1] += from_half<F16>(p1);
           *reinterpret_cast<unsigned*>(pw + t * PP + nt * 8 + 2 * (lane & 3)) =
               (unsigned)p0 | ((unsigned)p1 << 16);
         }
@@ -418,7 +462,7 @@ decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            md * 16 + (j & 1) * 8);
 #pragma unroll
         for (int nt = 0; nt < NTL; ++nt)
-          mma(acc[md][nt], a, pb[nt][2 * kk], pb[nt][2 * kk + 1]);
+          mma<F16>(acc[md][nt], a, pb[nt][2 * kk], pb[nt][2 * kk + 1]);
       }
   };
 
@@ -512,7 +556,7 @@ decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int NT = 256;       // threads a block
 constexpr int T = 64;         // cache slots a tile: two visibility words
 
-// four consecutive elements (16-byte fp32 or 8-byte bf16 load)
+// four consecutive elements (16-byte fp32 or 8-byte bf16 / float16 load)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -522,6 +566,13 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
                      cg::bf16_to_f32((bf16)(u.x >> 16)),
                      cg::bf16_to_f32((bf16)(u.y & 0xFFFFu)),
                      cg::bf16_to_f32((bf16)(u.y >> 16)));
+}
+__device__ __forceinline__ float4 load4(const f16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(cg::f16_to_f32((bf16)(u.x & 0xFFFFu)),
+                     cg::f16_to_f32((bf16)(u.x >> 16)),
+                     cg::f16_to_f32((bf16)(u.y & 0xFFFFu)),
+                     cg::f16_to_f32((bf16)(u.y >> 16)));
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -747,6 +798,14 @@ decode_core(const QT* __restrict__ q, const KT* __restrict__ k,
 
 // -- the merge ---------------------------------------------------------------
 
+// The merge's modes: the output from the splits (MERGE_OUT), the rank's
+// partial state from its splits (MERGE_PARTIAL: `out` is the fp32 buffer
+// of the module comment's (m, l, acc) a (row, KV head), in that order,
+// then vsum, which is mean_sum), the output from the ranks' gathered
+// partials (MERGE_RANKS: the ranks as the splits, no helpers, the empty
+// rows' mean from vsums (R, B, KV, D) over the S slots of all ranks).
+constexpr int MERGE_OUT = 0, MERGE_PARTIAL = 1, MERGE_RANKS = 2;
+
 constexpr int NM = 256;              // threads a merge block
 constexpr int MERGE_WEIGHTS = 8192;  // most nsplit * group weights (the host's)
 constexpr int MS = 16;               // slot slices of a row's mean of V
@@ -765,6 +824,14 @@ __device__ __forceinline__ void add16(float* s, uint4 u, bf16) {
     s[2 * i + 1] += cg::bf16_to_f32((bf16)(w[i] >> 16));
   }
 }
+__device__ __forceinline__ void add16(float* s, uint4 u, f16) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s[2 * i] += cg::f16_to_f32((bf16)(w[i] & 0xFFFFu));
+    s[2 * i + 1] += cg::f16_to_f32((bf16)(w[i] >> 16));
+  }
+}
 
 // whether every split of (row, KV head) bk carries the marker l = 0
 __device__ __forceinline__ bool no_visible(const float* __restrict__ l_part,
@@ -779,12 +846,13 @@ __device__ __forceinline__ bool no_visible(const float* __restrict__ l_part,
 // by the whole block: lane r of R sums slots r, r + R, ... of the slice, a
 // 16-byte chunk of D (vec) or one element (D <= NM) a lane; the slice's
 // sums are added to mean_sum[bk] atomically, and the block that adds the
-// last slice writes the mean to every head of the group.
+// last slice writes the mean to every head of the group (in the partial
+// mode the sums stay in mean_sum, the rank's vsum).
 template <class KT, class QT>
 __device__ void mean_slice(const KT* __restrict__ v, QT* __restrict__ out,
                            float* mean_sum, int* mean_cnt, float* part,
                            int* last, long long bk, int sl, int S, int H,
-                           int KV, int D, int vec) {
+                           int KV, int D, int vec, int mode) {
   const int group = H / KV, tid = threadIdx.x;
   const long long b = bk / KV;
   const int kvh = (int)(bk % KV);
@@ -820,7 +888,7 @@ __device__ void mean_slice(const KT* __restrict__ v, QT* __restrict__ out,
   __syncthreads();
   if (tid == 0) *last = atomicAdd(mean_cnt + bk, 1) == MS - 1;
   __syncthreads();
-  if (*last) {
+  if (*last && mode == MERGE_OUT) {
     __threadfence();
     const volatile float* m = mean_sum + bk * D;
     QT* ob = out + (b * H + (long long)kvh * group) * D;
@@ -845,9 +913,13 @@ decode_merge(const float* __restrict__ m_part, const float* __restrict__ l_part,
              const float* __restrict__ acc_part, const KT* __restrict__ v,
              QT* __restrict__ out, float* mean_sum, int* mean_cnt, int S,
              int H, int KV, int D, int nsplit, long long rows, int oblocks,
-             int vec) {
+             int vec, int mode, const float* __restrict__ vsums) {
   extern __shared__ float smem[];
   const int group = H / KV, tid = threadIdx.x;
+  // MERGE_PARTIAL: this (row, KV head)'s m, l and acc in the fp32 buffer
+  float* pm = reinterpret_cast<float*>(out);
+  float* pl = pm + rows * group;
+  float* pacc = pl + rows * group;
   const long long normal = rows * oblocks;
   if (blockIdx.x >= normal) {          // a helper: slices of empty rows
     // every helper lists the (row, KV head) pairs with no visible slot, LW
@@ -881,7 +953,7 @@ decode_merge(const float* __restrict__ m_part, const float* __restrict__ l_part,
       for (long long it = hb; it < items; it += hs)
         mean_slice<KT, QT>(v, out, mean_sum, mean_cnt, part, last,
                            w0 + list[it / MS], (int)(it % MS), S, H, KV, D,
-                           vec);
+                           vec, mode);
       __syncthreads();
     }
     return;
@@ -912,12 +984,26 @@ decode_merge(const float* __restrict__ m_part, const float* __restrict__ l_part,
     l = warp_sum(l);
     if (lane == 0) {
       mx[g] = m;
-      il[g] = 1.f / fmaxf(l, 1e-30f);
+      il[g] = mode == MERGE_PARTIAL ? 1.f : 1.f / fmaxf(l, 1e-30f);
       if (l > 0.f) *any = 1;
+      if (mode == MERGE_PARTIAL && blockIdx.x % oblocks == 0) {
+        pm[bk * group + g] = l > 0.f ? m : NEG_INF;
+        pl[bk * group + g] = l;
+      }
     }
   }
   __syncthreads();
-  if (!*any) return;                   // the helpers write the mean
+  if (!*any) {
+    if (mode == MERGE_PARTIAL && i < group * D)   // the marker's acc
+      pacc[bk * group * D + i] = 0.f;
+    if (mode != MERGE_RANKS || i >= group * D) return;
+    // no rank sees a slot: the mean of V from the ranks' sums
+    const int d = i % D;
+    float o = 0.f;
+    for (int c = 0; c < nsplit; ++c) o += vsums[((long long)c * rows + bk) * D + d];
+    store(out + (b * H + (long long)kvh * group) * D + i, o / (float)S);
+    return;                            // else the helpers write the mean
+  }
   for (int j = tid; j < ws; j += NM) {
     const int g = j % group;
     wt[j] = l_part[base + j] > 0.f ? expf(wt[j] - mx[g]) * il[g] : 0.f;
@@ -932,10 +1018,13 @@ decode_merge(const float* __restrict__ m_part, const float* __restrict__ l_part,
     const float w = wt[c * group + g], x = a[(long long)c * group * D];
     o = w != 0.f ? fmaf(w, x, o) : o;
   }
-  store(out + (b * H + (long long)kvh * group) * D + i, o);
+  if (mode == MERGE_PARTIAL)
+    pacc[bk * group * D + i] = o;
+  else
+    store(out + (b * H + (long long)kvh * group) * D + i, o);
 }
 
-template <int KS, int NTL>
+template <int KS, int NTL, bool F16>
 int launch_mma(const void* q, const void* k, const void* v, const int* kv_pos,
                const int* q_pos, float* m_part, float* l_part,
                float* acc_part, float* mean_sum, int* mean_cnt,
@@ -944,17 +1033,17 @@ int launch_mma(const void* q, const void* k, const void* v, const int* kv_pos,
   const long long smem = mma_smem(16 * KS, NTL, split);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      decode_mma<KS, NTL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_mma<KS, NTL, F16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  decode_mma<KS, NTL><<<(unsigned)blocks, NW * 32, (size_t)smem, s>>>(
+  decode_mma<KS, NTL, F16><<<(unsigned)blocks, NW * 32, (size_t)smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, kv_pos, q_pos, m_part,
       l_part, acc_part, mean_sum, mean_cnt, S, H, KV, split, nsplit, window,
       has_window);
   return (int)cudaGetLastError();
 }
 
-template <int NTL>
+template <int NTL, bool F16>
 int pick_mma(int ks, const void* q, const void* k, const void* v,
              const int* kv_pos, const int* q_pos, float* m_part,
              float* l_part, float* acc_part, float* mean_sum, int* mean_cnt,
@@ -962,7 +1051,7 @@ int pick_mma(int ks, const void* q, const void* k, const void* v,
              int window, int has_window, cudaStream_t s) {
 #define DECODE_MMA(KS)                                                       \
   case KS:                                                                   \
-    return launch_mma<KS, NTL>(q, k, v, kv_pos, q_pos, m_part, l_part,       \
+    return launch_mma<KS, NTL, F16>(q, k, v, kv_pos, q_pos, m_part, l_part,  \
                                acc_part, mean_sum, mean_cnt, blocks, S, H,   \
                                KV, split, nsplit, window, has_window, s);
   switch (ks) {
@@ -978,20 +1067,29 @@ int run(const void* q, const void* k, const void* v, const int* kv_pos,
         const int* q_pos, float* m_part, float* l_part, float* acc_part,
         float* mean_sum, int* mean_cnt, void* out, long long B, int S, int H,
         int KV, int D, int split, int window, int has_window, int vec,
-        int use_mma, int helpers, cudaStream_t s) {
+        int use_mma, int helpers, int mode, cudaStream_t s) {
+  constexpr bool F16 = std::is_same<KT, f16>::value;
+  constexpr bool HALVES = std::is_same<KT, QT>::value && sizeof(KT) == 2;
   const int nsplit = (S + split - 1) / split;
   const long long blocks = B * KV * nsplit;
   const int group = H / KV;
-  int e;
-  if (use_mma) {
-    e = group <= 8
-            ? pick_mma<1>(D / 16, q, k, v, kv_pos, q_pos, m_part, l_part,
-                          acc_part, mean_sum, mean_cnt, blocks, S, H, KV,
-                          split, nsplit, window, has_window, s)
-            : pick_mma<2>(D / 16, q, k, v, kv_pos, q_pos, m_part, l_part,
-                          acc_part, mean_sum, mean_cnt, blocks, S, H, KV,
-                          split, nsplit, window, has_window, s);
-  } else {
+  int e = 0;
+  bool launched = false;
+  if constexpr (HALVES) {
+    if (use_mma) {
+      launched = true;
+      e = group <= 8
+            ? pick_mma<1, F16>(D / 16, q, k, v, kv_pos, q_pos, m_part,
+                               l_part, acc_part, mean_sum, mean_cnt, blocks,
+                               S, H, KV, split, nsplit, window, has_window, s)
+            : pick_mma<2, F16>(D / 16, q, k, v, kv_pos, q_pos, m_part,
+                               l_part, acc_part, mean_sum, mean_cnt, blocks,
+                               S, H, KV, split, nsplit, window, has_window, s);
+    }
+  } else if (use_mma) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!launched) {
     const Layout y = layout(group, D, split);
     const long long smem = y.floats * 4;
     if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -1024,8 +1122,29 @@ int run(const void* q, const void* k, const void* v, const int* kv_pos,
   decode_merge<KT, QT><<<(unsigned)(B * KV * oblocks + helpers), NM,
                          (size_t)msmem, s>>>(
       m_part, l_part, acc_part, (const KT*)v, (QT*)out, mean_sum, mean_cnt, S,
-      H, KV, D, nsplit, B * KV, oblocks, mvec);
+      H, KV, D, nsplit, B * KV, oblocks, mvec, mode, nullptr);
   return (int)cudaGetLastError();
+}
+
+// run<KT, QT> from the storage codes (0 fp32, 1 bf16, 2 float16)
+template <class QT>
+int pick_q(int kv_code, const void* q, const void* k, const void* v,
+           const int* kv_pos, const int* q_pos, float* m_part,
+           float* l_part, float* acc_part, float* mean_sum, int* mean_cnt,
+           void* out, long long B, int S, int H, int KV, int D, int split,
+           int window, int has_window, int vec, int use_mma, int helpers,
+           int mode, cudaStream_t s) {
+#define DECODE_RUN(KT)                                                       \
+  run<KT, QT>(q, k, v, kv_pos, q_pos, m_part, l_part, acc_part, mean_sum,    \
+              mean_cnt, out, B, S, H, KV, D, split, window, has_window, vec, \
+              use_mma, helpers, mode, s)
+  switch (kv_code) {
+    case 0: return DECODE_RUN(float);
+    case 1: return DECODE_RUN(bf16);
+    case 2: return DECODE_RUN(f16);
+  }
+#undef DECODE_RUN
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1033,43 +1152,81 @@ int run(const void* q, const void* k, const void* v, const int* kv_pos,
 // m_part, l_part (B, KV, nsplit, H/KV) and acc_part (B, KV, nsplit, H/KV, D)
 // are fp32 scratch, nsplit = ceil(S / split), and mean_sum (B, KV, D) fp32
 // and mean_cnt (B, KV) int32 the merge's mean-of-V scratch (cleared by the
-// split launch); q_bf16 / kv_bf16 select bf16 (else fp32) for q and out /
-// for the caches; vec: D % 4 == 0 and the caches 16-byte aligned (the
-// CUDA-core route's vector loads); use_mma picks the tensor-core route,
-// which takes bf16 q and caches, D a multiple of 16 up to 128, H/KV <= 16
-// and 16-byte aligned operands (else an error); `helpers` the merge's
-// blocks for rows with no visible slot (one an SM).
+// split launch); q_code / kv_code the storage of q and out / of the caches
+// (0 fp32, 1 bf16, 2 float16); vec: D % 4 == 0 and the caches 16-byte
+// aligned (the CUDA-core route's vector loads); use_mma picks the
+// tensor-core route, which takes q and caches both bf16 or both float16,
+// D a multiple of 16 up to 128, H/KV <= 16 and 16-byte aligned operands
+// (else an error); `helpers` the merge's blocks for rows with no visible
+// slot (one an SM).  partial: out is the fp32 buffer of the rank's m, l
+// (B, KV, H/KV) and acc (B, KV, H/KV, D), followed by mean_sum (vsum).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const int* kv_pos, const int* q_pos,
                                 float* m_part, float* l_part, float* acc_part,
                                 float* mean_sum, int* mean_cnt, void* out,
                                 long long B, int S, int H, int KV, int D,
                                 int split, int window, int has_window,
-                                int q_bf16, int kv_bf16, int vec, int use_mma,
-                                int helpers, void* stream) {
+                                int q_code, int kv_code, int vec, int use_mma,
+                                int helpers, int partial, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || split <= 0 ||
       helpers <= 0 || B * KV * ((S + split - 1) / split) >= (1LL << 31) ||
       B * KV * ((H / KV * D + NM - 1) / NM) + helpers >= (1LL << 31) ||
-      B * H * (long long)D >= (1LL << 31))
+      B * H * (long long)D >= (1LL << 31) || q_code < 0 || q_code > 2 ||
+      kv_code < 0 || kv_code > 2)
     return (int)cudaErrorInvalidValue;
-  if (use_mma && (!q_bf16 || !kv_bf16 || D % 16 != 0 || D > 128 ||
-                  H / KV > 16 || (((unsigned long long)q | (unsigned long long)k |
-                                   (unsigned long long)v) & 15)))
+  if (use_mma && (q_code != kv_code || q_code == 0 || D % 16 != 0 ||
+                  D > 128 || H / KV > 16 ||
+                  (((unsigned long long)q | (unsigned long long)k |
+                    (unsigned long long)v) & 15)))
     return (int)cudaErrorInvalidValue;
-  if (kv_bf16 && q_bf16)
-    return run<bf16, bf16>(q, k, v, kv_pos, q_pos, m_part, l_part, acc_part,
-                           mean_sum, mean_cnt, out, B, S, H, KV, D, split,
-                           window, has_window, vec, use_mma, helpers, s);
-  if (kv_bf16)
-    return run<bf16, float>(q, k, v, kv_pos, q_pos, m_part, l_part, acc_part,
-                            mean_sum, mean_cnt, out, B, S, H, KV, D, split,
-                            window, has_window, vec, 0, helpers, s);
-  if (q_bf16)
-    return run<float, bf16>(q, k, v, kv_pos, q_pos, m_part, l_part, acc_part,
-                            mean_sum, mean_cnt, out, B, S, H, KV, D, split,
-                            window, has_window, vec, 0, helpers, s);
-  return run<float, float>(q, k, v, kv_pos, q_pos, m_part, l_part, acc_part,
-                           mean_sum, mean_cnt, out, B, S, H, KV, D, split,
-                           window, has_window, vec, 0, helpers, s);
+  const int mode = partial ? MERGE_PARTIAL : MERGE_OUT;
+#define DECODE_Q(QT)                                                         \
+  pick_q<QT>(kv_code, q, k, v, kv_pos, q_pos, m_part, l_part, acc_part,      \
+             mean_sum, mean_cnt, out, B, S, H, KV, D, split, window,         \
+             has_window, vec, use_mma, helpers, mode, s)
+  switch (q_code) {
+    case 0: return DECODE_Q(float);
+    case 1: return DECODE_Q(bf16);
+    default: return DECODE_Q(f16);
+  }
+#undef DECODE_Q
+}
+
+// The merge of R ranks' gathered partials: m, l (B, KV, R, H/KV) and acc
+// (B, KV, R, H/KV, D) fp32, the ranks in place of the splits, vsums (R, B,
+// KV, D) fp32; out (B, H, D) in out_code's storage (0 fp32, 1 bf16, 2
+// float16); S the slots of all ranks.
+extern "C" int decode_attention_merge(const float* m, const float* l,
+                                      const float* acc, const float* vsums,
+                                      void* out, long long B, int H, int KV,
+                                      int D, int R, int S, int out_code,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int group = KV > 0 ? H / KV : 0;
+  const long long ws = (long long)R * group;
+  if (B <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D > NM || R <= 0 ||
+      S <= 0 || ws > MERGE_WEIGHTS || out_code < 0 || out_code > 2 ||
+      B * KV * ((group * D + NM - 1) / NM) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long msmem = (ws + 2 * group + 1) * 4;
+  const int oblocks = (group * D + NM - 1) / NM;
+  const unsigned grid = (unsigned)(B * KV * oblocks);
+#define DECODE_MERGE(QT)                                                     \
+  {                                                                          \
+    const cudaError_t e = cudaFuncSetAttribute(                              \
+        decode_merge<float, QT>,                                             \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)msmem);            \
+    if (e != cudaSuccess) return (int)e;                                     \
+    decode_merge<float, QT><<<grid, NM, (size_t)msmem, s>>>(                 \
+        m, l, acc, nullptr, (QT*)out, nullptr, nullptr, S, H, KV, D, R,      \
+        B * KV, oblocks, 0, MERGE_RANKS, vsums);                             \
+    return (int)cudaGetLastError();                                          \
+  }
+  switch (out_code) {
+    case 0: DECODE_MERGE(float)
+    case 1: DECODE_MERGE(bf16)
+    default: DECODE_MERGE(f16)
+  }
+#undef DECODE_MERGE
 }

@@ -20,10 +20,11 @@
 // W pass's output stored as bf16 (float16: the reference's round at the
 // pass boundary, half the bytes), bf16 (float16) out.
 //
-// bf16 plain is defined by the GEMM steps' rounding points (bf16 tables,
-// every GEMM output rounded), which an FFT cannot reproduce; it stays on
-// the four-step GEMM chain (row_pass.cuh, cgemm.cuh): W1 @ X with the
-// twiddle in the epilogue, then @ W2, per axis, through fp32 buffers.
+// bf16 and float16 plain are defined by the GEMM steps' rounding points
+// (tables in the storage dtype, every GEMM output rounded), which an FFT
+// cannot reproduce; they stay on the four-step GEMM chain (row_pass.cuh,
+// cgemm.cuh): W1 @ X with the twiddle in the epilogue, then @ W2, per
+// axis, through fp32 buffers.
 #include "axis_fft.cuh"
 #include "row_pass.cuh"
 
@@ -43,9 +44,10 @@ extern "C" int fft2d_gemm_pass(const void* xr, const void* xi, void* outr,
                               img_out, (cudaStream_t)stream);
 }
 
-// bf16 plain: x (batch, h, w) raw bf16 -> out raw bf16 through the GEMM
-// chain; the fp32 buffer pairs f0 and f1 hold batch*h*w floats a plane.
-extern "C" int fft2d_gemm_plain_bf16(const void* xr, const void* xi,
+// bf16 (f16: float16) plain: x (batch, h, w) raw bf16 -> out raw bf16
+// through the GEMM chain; the fp32 buffer pairs f0 and f1 hold batch*h*w
+// floats a plane.
+extern "C" int fft2d_gemm_chain(const void* xr, const void* xi,
                                      void* outr, void* outi, float* f0r,
                                      float* f0i, float* f1r, float* f1i,
                                      const float* w1wr, const float* w1wi,
@@ -55,7 +57,8 @@ extern "C" int fft2d_gemm_plain_bf16(const void* xr, const void* xi,
                                      const float* w2hr, const float* w2hi,
                                      const float* thr, const float* thi,
                                      long long batch, int h, int w, int n1w,
-                                     int n1h, int inverse, void* stream) {
+                                     int n1h, int inverse, int f16,
+                                     void* stream) {
   using namespace cg;
   cudaStream_t s = (cudaStream_t)stream;
   if (batch <= 0 || h < 2 || w < 2 || (h & (h - 1)) || (w & (w - 1)) ||
@@ -64,6 +67,7 @@ extern "C" int fft2d_gemm_plain_bf16(const void* xr, const void* xi,
   const Axis aw{w, n1w, w / n1w, w1wr, w1wi, w2wr, w2wi, twr, twi};
   const Axis ah{h, n1h, h / n1h, w1hr, w1hi, w2hr, w2hi, thr, thi};
   const float scale = inverse ? (float)(1.0 / ((double)h * w)) : 1.f;
+  const int mode = f16 ? MODE_PLAIN_F16 : MODE_PLAIN_BF16;
   Chain ch{(float*)outr, (float*)outi, f0r, f0i, f1r, f1i,
            steps(aw) + steps(ah)};
   float *tr = nullptr, *ti = nullptr, *yr, *yi;
@@ -71,11 +75,11 @@ extern "C" int fft2d_gemm_plain_bf16(const void* xr, const void* xi,
   ch.next(yr, yi);
   cudaError_t e = row_pass((const float*)xr, (const float*)xi, w, yr, yi, w,
                            tr, ti, batch * h, aw, 1.f, s,
-                           pass_io(MODE_PLAIN_BF16, 0, 2));
+                           pass_io(mode, 0, 2));
   if (e != cudaSuccess) return (int)e;
   float *zr, *zi;
   if (ah.n1 > 1) ch.next(tr, ti);
   ch.next(zr, zi);
   return (int)col_pass(yr, yi, zr, zi, tr, ti, batch, w, ah, scale, s,
-                       pass_io(MODE_PLAIN_BF16, 1, 2));
+                       pass_io(mode, 1, 2));
 }

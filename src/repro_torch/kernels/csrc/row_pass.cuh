@@ -12,8 +12,9 @@
 //                        broadcast over the c columns), then Z = W2 @ U
 //                        per (image, k1) stored at rows k2*n1 + k1;
 //               n1 == 1: Z = W @ Y per image.
-// Host code only.  The bf16 storage modes of the GEMM transforms pick the
-// GEMM's operand types and epilogues pass by pass (pass_io).
+// Host code only.  The bf16 and float16 storage modes of the GEMM
+// transforms pick the GEMM's operand types and epilogues pass by pass
+// (pass_io).
 #pragma once
 #include "cgemm.cuh"
 
@@ -26,10 +27,10 @@ struct Axis {
   const float *w1r, *w1i, *w2r, *w2i, *tr, *ti;
 };
 
-// How a pass reads and stores: `in_bf16` its source is raw bf16, `mid` the
+// How a pass reads and stores: `in` its source's kind (In), `mid` the
 // epilogue of its first GEMM when it has two, `out` that of its last.
 struct PassIo {
-  bool in_bf16 = false;
+  int in = IN_F32;
   int mid = EPI_F32, out = EPI_F32;
 };
 
@@ -38,16 +39,21 @@ struct PassIo {
 //   MODE_COMPENSATED  bf16 in; fp32 within a pass; the tile rounded through
 //                     bf16 between passes; bf16 out;
 //   MODE_PLAIN_BF16   bf16 in; every GEMM's output rounded through bf16;
-//                     bf16 out.
-enum Mode { MODE_F32 = 0, MODE_COMPENSATED = 1, MODE_PLAIN_BF16 = 2 };
+//                     bf16 out;
+//   MODE_PLAIN_F16    the same in float16.
+enum Mode {
+  MODE_F32 = 0, MODE_COMPENSATED = 1, MODE_PLAIN_BF16 = 2, MODE_PLAIN_F16 = 3
+};
 
 // The PassIo of pass i of n in `mode`.
 inline PassIo pass_io(int mode, int i, int n) {
   PassIo io;
   if (mode == MODE_F32) return io;
-  io.in_bf16 = i == 0;
-  io.mid = mode == MODE_PLAIN_BF16 ? EPI_ROUND : EPI_F32;
-  io.out = i == n - 1 ? EPI_BF16 : EPI_ROUND;
+  const bool f16 = mode == MODE_PLAIN_F16;
+  const int round = f16 ? EPI_ROUND_F16 : EPI_ROUND;
+  io.in = i == 0 ? (f16 ? IN_F16 : IN_BF16) : IN_F32;
+  io.mid = mode == MODE_COMPENSATED ? EPI_F32 : round;
+  io.out = i == n - 1 ? (f16 ? EPI_F16 : EPI_BF16) : round;
   return io;
 }
 
@@ -91,7 +97,7 @@ inline cudaError_t row_pass(const float* sr, const float* si, long long ss,
     p.cr = tr; p.ci = ti; p.c_m = lin(a.n2); p.c_n = two(l2, w, 1);
     p.tr = a.tr; p.ti = a.ti; p.t_m = lin(a.n2); p.t_n = two(l2, 0, 1);
     p.M = a.n1; p.K = a.n1; p.N = rows * a.n2;
-    const cudaError_t e = launch(p, stream, Io{false, io.in_bf16, io.mid});
+    const cudaError_t e = launch(p, stream, Io{IN_F32, io.in, io.mid});
     if (e != cudaSuccess) return e;
     Params q = base();  // Z = U @ W2, stored as X[k2*n1 + k1]
     q.ar = tr; q.ai = ti; q.a_m = lin(a.n2); q.a_k = lin(1);
@@ -99,7 +105,7 @@ inline cudaError_t row_pass(const float* sr, const float* si, long long ss,
     q.cr = dr; q.ci = di; q.c_m = two(l1, ds, 1); q.c_n = lin(a.n1);
     q.M = rows * a.n1; q.K = a.n2; q.N = a.n2;
     q.scale = scale;
-    return launch(q, stream, Io{false, false, io.out});
+    return launch(q, stream, Io{IN_F32, IN_F32, io.out});
   }
   Params p = base();  // one dense DFT per row: Z = X @ W
   p.ar = sr; p.ai = si; p.a_m = lin(ss); p.a_k = lin(1);
@@ -107,7 +113,7 @@ inline cudaError_t row_pass(const float* sr, const float* si, long long ss,
   p.cr = dr; p.ci = di; p.c_m = lin(ds); p.c_n = lin(1);
   p.M = rows; p.K = w; p.N = w;
   p.scale = scale;
-  return launch(p, stream, Io{io.in_bf16, false, io.out});
+  return launch(p, stream, Io{io.in, IN_F32, io.out});
 }
 
 // Length-n FFT along axis -2 of `images` images of (n, c) points, image z
@@ -129,7 +135,7 @@ inline cudaError_t col_pass(const float* sr, const float* si, float* dr,
     p.cr = tr; p.ci = ti; p.c_m = lin(cols); p.c_n = lin(1); p.c_z = lin(img);
     p.tr = a.tr; p.ti = a.ti; p.t_m = lin(a.n2); p.t_n = two(lc, 1, 0);
     p.M = a.n1; p.K = a.n1; p.N = cols; p.batch = images;
-    const cudaError_t e = launch(p, stream, Io{false, io.in_bf16, io.mid});
+    const cudaError_t e = launch(p, stream, Io{IN_F32, io.in, io.mid});
     if (e != cudaSuccess) return e;
     Params q = base();  // Z = W2 @ U per (image, k1), rows k2*n1 + k1
     q.ar = a.w2r; q.ai = a.w2i; q.a_m = lin(a.n2); q.a_k = lin(1);
@@ -139,7 +145,7 @@ inline cudaError_t col_pass(const float* sr, const float* si, float* dr,
     q.c_n = lin(1); q.c_z = two(l1, img, c);
     q.M = a.n2; q.K = a.n2; q.N = c; q.batch = images * a.n1;
     q.scale = scale;
-    return launch(q, stream, Io{false, false, io.out});
+    return launch(q, stream, Io{IN_F32, IN_F32, io.out});
   }
   Params p = base();  // one dense DFT per image: Z = W @ Y
   p.ar = a.w2r; p.ai = a.w2i; p.a_m = lin(a.n); p.a_k = lin(1);
@@ -147,7 +153,7 @@ inline cudaError_t col_pass(const float* sr, const float* si, float* dr,
   p.cr = dr; p.ci = di; p.c_m = lin(c); p.c_n = lin(1); p.c_z = lin(img);
   p.M = a.n; p.K = a.n; p.N = c; p.batch = images;
   p.scale = scale;
-  return launch(p, stream, Io{false, io.in_bf16, io.out});
+  return launch(p, stream, Io{IN_F32, io.in, io.out});
 }
 
 }  // namespace cg

@@ -38,10 +38,10 @@ bfloat16 and float16 storage (the reference's ``itemsize < 4`` dtypes):
   GEMM step's output rounded to bf16.  A Stockham FFT has no such rounding
   points, so this variant alone still runs the four-step GEMM chain
   (``csrc/row_pass.cuh``, ``csrc/cgemm.cuh``); the plain version does
-  the same in torch, so the two agree to bf16 rounding ties.  The plain
-  version computes plain float16 the same way; the CUDA kernel does not
-  take it (:func:`check_chain`: the GEMM chain stores bf16 only, ROADMAP
-  'TPU kernels to port' item 2e), and no plan resolves to it.
+  the same in torch, so the two agree to bf16 rounding ties.  Plain
+  float16 is the same in float16 (tables rounded to float16, every GEMM
+  step's output rounded to float16, ``csrc/f16.cuh``), on the same chain;
+  no plan resolves to it.
 
 Rounding is to nearest even, as torch's float -> bfloat16 and float ->
 float16 casts do (``csrc/bf16.cuh``, ``csrc/f16.cuh``).
@@ -68,23 +68,10 @@ def check_variant(variant: str) -> None:
 
 def check_dtype(dtype: torch.dtype) -> None:
     """The GEMM transforms store float32, bfloat16 or float16 (float64 runs
-    on the CPU only); other sub-fp32 dtypes are not ported."""
+    on the CPU only), the storage dtypes the reference's kernels take."""
     if dtype.itemsize < 4 and dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"the GEMM kernels take float32, bfloat16 or "
-                        f"float16, got {dtype}: other sub-fp32 dtypes are "
-                        "not ported (ROADMAP 'TPU kernels to port' item 2e)")
-
-
-def check_chain(dtype: torch.dtype, variant: str) -> None:
-    """What the CUDA kernel refuses beyond :func:`check_dtype`: plain
-    float16, which would run the GEMM chain, whose stores are bf16 only.
-    No plan resolves to it (float16 plans take ``"compensated"``)."""
-    if dtype == torch.float16 and variant == "plain":
-        raise TypeError("variant='plain' float16 runs the GEMM chain "
-                        "(row_pass.cuh, cgemm.cuh), which stores bf16 only: "
-                        "not ported (ROADMAP 'TPU kernels to port' item "
-                        "2e); variant='compensated', the plans' float16 "
-                        "variant, runs the FFT kernels")
+                        f"float16, got {dtype}")
 
 
 def split_table_np(t: np.ndarray, dtype) -> torch.Tensor:
@@ -179,31 +166,30 @@ def fft2d_gemm_plain(x: SplitComplex, *, inverse: bool = False,
 
 
 def on_gemm_chain(dtype: torch.dtype, variant: str) -> bool:
-    """Whether the CUDA kernel runs the four-step GEMM chain (plain bf16)
-    rather than the shared-memory FFTs."""
-    return dtype == torch.bfloat16 and variant == "plain"
+    """Whether the CUDA kernel runs the four-step GEMM chain (plain bf16 or
+    float16) rather than the shared-memory FFTs."""
+    return dtype in (torch.bfloat16, torch.float16) and variant == "plain"
 
 
 def scratch(x: SplitComplex):
-    """The two fp32 buffer pairs the plain-bf16 GEMM chain ping-pongs
-    through (its output holds bf16)."""
+    """The two fp32 buffer pairs the plain-variant GEMM chain ping-pongs
+    through (its output holds the storage dtype)."""
     def pair():
         return SplitComplex(*(torch.empty(x.shape, dtype=torch.float32,
                                           device=x.device) for _ in "ri"))
     return pair(), pair()
 
 
-_ARGS_CHAIN = [_build.P] * 20 + [_build.L] + [_build.I] * 5 + [_build.P]
+_ARGS_CHAIN = [_build.P] * 20 + [_build.L] + [_build.I] * 6 + [_build.P]
 
 
 def fft2d_gemm_cuda(x: SplitComplex, *, inverse: bool = False,
                     variant: str = "plain") -> SplitComplex:
     """Launch the 2-D FFT on (batch, h, w) CUDA planes (float32, bfloat16
     or float16): the planned shared-memory FFT passes, or the GEMM chain
-    for plain bf16."""
+    for plain bf16 and float16."""
     check_variant(variant)
     check_dtype(x.dtype)
-    check_chain(x.dtype, variant)
     _build.check_operands(x, 3, DTYPES)
     batch, h, w = x.shape
     _check_dims(h, w)
@@ -217,8 +203,9 @@ def fft2d_gemm_cuda(x: SplitComplex, *, inverse: bool = False,
     tabs = (axis_tables(w, fw, inverse, x.dtype, variant, x.device)
             + axis_tables(h, fh, inverse, x.dtype, variant, x.device))
     f0, f1 = scratch(x)
-    fn = _build.function("fft2d_gemm", "fft2d_gemm_plain_bf16", _ARGS_CHAIN)
+    fn = _build.function("fft2d_gemm", "fft2d_gemm_chain", _ARGS_CHAIN)
     ptrs = [x.re, x.im, out.re, out.im, f0.re, f0.im, f1.re, f1.im, *tabs]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, h, w, fw[0], fh[0], int(inverse)], "fft2d_gemm", x.device)
+        batch, h, w, fw[0], fh[0], int(inverse),
+        int(x.dtype == torch.float16)], "fft2d_gemm", x.device)
     return out

@@ -30,7 +30,7 @@ bfloat16 and float16 follow :mod:`repro_torch.kernels.fft2d_gemm`'s
 definitions: the compensated variant rounds the tile to the storage dtype
 after the W and after the H pass (the kernel stores those boundaries so),
 the plain variant after every GEMM step, on the GEMM chain
-(``csrc/row_pass.cuh``; bf16 only on the card).
+(``csrc/row_pass.cuh``).
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ from repro_torch.core.fft1d import _best_split
 from . import _build, axis_fft
 from .rfft2d_fused import (fourstep_tables_np, fft_last_fourstep,
                            fft_col_fourstep)
-from .fft2d_gemm import (DTYPES, check_variant, check_dtype, check_chain,
+from .fft2d_gemm import (DTYPES, check_variant, check_dtype,
                          _operands,
                          compute_dtype, axis_tables, roundings, on_gemm_chain,
                          scratch)
@@ -108,14 +108,14 @@ def fft3d_fused_plain(x: SplitComplex, *, inverse: bool = False,
     return SplitComplex(re.to(dt), im.to(dt))
 
 
-_ARGS_CHAIN = [_build.P] * 26 + [_build.L] + [_build.I] * 7 + [_build.P]
+_ARGS_CHAIN = [_build.P] * 26 + [_build.L] + [_build.I] * 8 + [_build.P]
 
 
 def fft3d_fused_cuda(x: SplitComplex, *, inverse: bool = False,
                      variant: str = "plain") -> SplitComplex:
     """Launch the 3-D FFT on (batch, d, h, w) CUDA planes (float32,
     bfloat16 or float16): the planned shared-memory FFT passes, or the
-    GEMM chain for plain bf16."""
+    GEMM chain for plain bf16 and float16."""
     return _fft3d_cuda(x, inverse=inverse, variant=variant)
 
 
@@ -126,7 +126,6 @@ def _fft3d_cuda(x: SplitComplex, *, inverse: bool = False,
     timing them against each other."""
     check_variant(variant)
     check_dtype(x.dtype)
-    check_chain(x.dtype, variant)
     _build.check_operands(x, 4, DTYPES)
     batch, d, h, w = x.shape
     _check_dims3(d, h, w)
@@ -138,9 +137,10 @@ def _fft3d_cuda(x: SplitComplex, *, inverse: bool = False,
         return out
     tabs = _tables3(d, h, w, inverse, x.dtype, variant, x.device)
     f0, f1 = scratch(x)
-    fn = _build.function("fft3d_fused", "fft3d_fused_plain_bf16", _ARGS_CHAIN)
+    fn = _build.function("fft3d_fused", "fft3d_fused_chain", _ARGS_CHAIN)
     ptrs = [x.re, x.im, out.re, out.im, f0.re, f0.im, f1.re, f1.im, *tabs]
     _build.launch(fn, [p.data_ptr() for p in ptrs] + [
         batch, d, h, w, fourstep_factors3(w)[0], fourstep_factors3(h)[0],
-        fourstep_factors3(d)[0], int(inverse)], "fft3d_fused", x.device)
+        fourstep_factors3(d)[0], int(inverse), int(x.dtype == torch.float16)],
+        "fft3d_fused", x.device)
     return out

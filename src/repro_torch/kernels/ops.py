@@ -15,9 +15,12 @@ The fused conv counts once per call; at m > 16384 its 1-D transforms run
 on the 1-D kernels and count in their own counters too.  ``fft_staged``
 (the paper's per-stage Table 1 baseline) counts once per call of its
 log2(n) stage launches, ``decode_attention`` (one-token GQA flash-decode)
-once per call of its split and merge launches.  The FFT kernels take
-float32, bfloat16 or float16, the same dtype in and out (plain float16 on
-the GEMM chain excepted); decode takes float32 or bfloat16 (ROADMAP 2e).
+once per call of its split and merge launches, or of the split launch and
+merge into a rank's partial state (:func:`decode_attention_partial`, a
+cache split over ranks), and ``decode_merge`` once per merge of the
+ranks' gathered partials (:func:`decode_attention_merge`).  Every kernel
+takes float32, bfloat16 or float16, the same dtype in and out (decode:
+q and the caches).
 
 No kernel has a backward.  Every wrapper but :func:`fftconv_fused` (an
 ``autograd.Function`` whose backward is its plain twin's VJP) refuses,
@@ -48,7 +51,7 @@ from . import decode_attention as _decode
 LAUNCHES = {"fft_stockham": 0, "fft_stockham_r2": 0, "fft_fourstep": 0,
             "fft2d_gemm": 0, "rfft2d_fused": 0, "irfft2d_fused": 0,
             "fftconv_fused": 0, "fft3d_fused": 0, "fft2d_fused": 0,
-            "fft_staged": 0, "decode_attention": 0}
+            "fft_staged": 0, "decode_attention": 0, "decode_merge": 0}
 
 
 def reset_launches() -> None:
@@ -75,9 +78,13 @@ def _refuse_grad(name: str, *operands) -> None:
 
 
 def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a card tensor a kernel can run on.  A fake tensor
+    (a dry run's, on a card mesh) holds no data: its ops are the plain
+    version's, which count what the kernel's call moves."""
     dev = t.device
     if dev.type == "cuda":
-        return True
+        from torch._subclasses.fake_tensor import FakeTensor
+        return not isinstance(t, FakeTensor)
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel path for device {dev}")
@@ -188,6 +195,31 @@ def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, window=None,
                                              q_pos, window=window, chunk=c)
     return _decode.decode_attention_plain(q, k_cache, v_cache, kv_pos,
                                           q_pos, window=window)
+
+
+def decode_attention_partial(q, k_cache, v_cache, kv_pos, q_pos, *,
+                             window=None):
+    """:func:`decode_attention` over this rank's slots of a cache split
+    over ranks, stopped before the output: the rank's partial softmax
+    state (m, l, acc, vsum), fp32 (``kernels/decode_attention.py``)."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
+    if _on_card(q):
+        LAUNCHES["decode_attention"] += 1
+        return _decode.decode_attention_partial_cuda(
+            q, k_cache, v_cache, kv_pos, q_pos, window=window)
+    return _decode.decode_attention_partial_plain(
+        q, k_cache, v_cache, kv_pos, q_pos, window=window)
+
+
+def decode_attention_merge(m, l, acc, vsum, slots: int, dtype):
+    """The output (B, H, D) in ``dtype`` of the ranks' gathered partial
+    states (each with a leading rank axis) over ``slots`` slots in all."""
+    if _on_card(m):
+        LAUNCHES["decode_merge"] += 1
+        return _decode.decode_attention_merge_cuda(m, l, acc, vsum, slots,
+                                                   dtype)
+    return _decode.decode_attention_merge_plain(m, l, acc, vsum, slots,
+                                                dtype)
 
 
 def fft2d_fused(x: SplitComplex, *, inverse: bool = False,

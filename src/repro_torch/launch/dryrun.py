@@ -2,9 +2,7 @@
 (counterpart of :mod:`repro.launch.dryrun`).
 
 The reference compiles each cell for 256 or 512 emulated XLA devices and
-parses the optimized HLO.  Its train cells run here; its prefill and
-decode cells are built but refused when run, until the serving path runs
-on DTensors (ROADMAP §1 item 15e).  Here a fake process group of 256 or 512 ranks
+parses the optimized HLO.  Here a fake process group of 256 or 512 ranks
 (``torch.testing._internal.distributed.fake_pg.FakeStore``: collectives
 move nothing) carries the production mesh, and the cell runs once, as
 rank 0, under ``FakeTensorMode`` (nothing is allocated), counted by
@@ -17,6 +15,13 @@ collective bytes a rank), ``collectives`` (by kind, ``count``,
 peak a rank in place of XLA's argument / output / temp sizes).  Beside
 the JSON the op log is written as gzip JSON lines (``.ops.jsonl.gz``),
 which :mod:`repro_torch.analysis.reanalyze` counts again.
+
+Train cells run ``make_train_step``; prefill and decode cells run
+``serve.engine.prefill_fn`` / ``decode_fn`` with the caches laid out by
+``cache_shardings``, under ``sharding.serve_spec``: the batch pinned over
+the data axes when it divides them, else (``long_500k``, B = 1) no batch
+pin, the reference's rule, and the caches' slots split over the data
+axes, each rank attending over its own.
 
     python -m repro_torch.launch.dryrun --arch h2o-danube-1.8b \\
         --shape train_4k [--mesh single|multi|both] [--save-dir runs/dryrun]
@@ -123,10 +128,11 @@ def build_cell(arch: str, shape_name: str, mesh, *, overrides=None,
             (pshard, tshard, cshard, tshard), meta)
 
 
-def materialize(abstract, shardings):
+def materialize(abstract, shardings, device="cpu"):
     """Each meta leaf of ``abstract`` as a DTensor laid out by its
-    ``NamedSharding``, its local block an uninitialised tensor on the CPU
-    (under ``FakeTensorMode``: fake, no allocation)."""
+    ``NamedSharding``, its local block an uninitialised tensor on
+    ``device``, the mesh's (under ``FakeTensorMode``: fake, no
+    allocation)."""
     from torch.distributed.tensor import DTensor
     from repro_torch.models import model as M
     from .sharding import shard_slices
@@ -136,7 +142,7 @@ def materialize(abstract, shardings):
         pl = sh.placements
         local = tuple(len(range(*s.indices(n))) for s, n in
                       zip(shard_slices(shape, sh.mesh, pl), shape))
-        t = torch.zeros(local, dtype=leaf.dtype)
+        t = torch.zeros(local, dtype=leaf.dtype, device=device)
         return DTensor.from_local(t, sh.mesh, pl, run_check=False,
                                   shape=torch.Size(shape),
                                   stride=torch.empty(shape,
@@ -213,6 +219,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.models import actsharding
     from . import mesh as mesh_lib
+    from . import sharding
 
     if mesh_shape is not None:
         dims, axes = tuple(mesh_shape), ("data", "model")
@@ -230,29 +237,23 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         fn, abstract, shardings, meta = build_cell(
             arch, shape_name, mesh, overrides=overrides,
             microbatches=microbatches, reduced=reduced)
-        if meta["kind"] != "train":
-            raise NotImplementedError(
-                f"{arch} {shape_name}: the {meta['kind']} cell needs the "
-                "serving path on DTensors (sharded caches, prefill and "
-                "decode), which is not ported (ROADMAP §1 item 15e); "
-                "train cells run")
         meta["mesh"] = mesh_name
         if tag:
             meta["tag"] = tag
             shape_name = f"{shape_name}__{tag}"
         meta["devices"] = world
-        batch_axes = mesh_lib.data_axes(mesh)
-        dsize = 1
-        for a in batch_axes:
-            dsize *= mesh_lib.axis_sizes(mesh)[a]
-        # decode with an unshardable batch: no batch pinning (the cache's
-        # sequence sharding governs), as the reference
-        b = meta["global_batch"]
-        pin = b % dsize == 0 and b >= dsize
-
-        def spec():
-            return actsharding.activation_spec(mesh, batch_axes, "model") \
-                if pin else contextlib.nullcontext()
+        if meta["kind"] == "train":
+            def spec():
+                return actsharding.activation_spec(
+                    mesh, mesh_lib.data_axes(mesh), "model")
+        else:
+            # decode with an unshardable batch: no batch pinning (the
+            # cache's sequence sharding governs), as the reference
+            @contextlib.contextmanager
+            def spec():
+                with sharding.serve_spec(mesh, meta["global_batch"]), \
+                        torch.no_grad():
+                    yield
         with FakeTensorMode(allow_non_fake_inputs=True):
             args = materialize(abstract, shardings)
             cost, ops, memory, secs = count_call(fn, args, ctx=spec)

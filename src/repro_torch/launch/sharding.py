@@ -243,6 +243,19 @@ def cache_shardings(cfg: ModelConfig, mesh, abstract_cache: Any,
     return tree_map_with_path(one, abstract_cache)
 
 
+def serve_spec(mesh, batch: int):
+    """The activation spec a serving call of ``batch`` rows runs under,
+    by ``cache_shardings``' rule: the batch pinned over the data axes when
+    it divides them; else no batch pin (the reference's dry runs install
+    none) and the caches' slots split over the data axes."""
+    from repro_torch.models import actsharding
+    data = mesh_lib.data_axes(mesh)
+    dsize = math.prod(mesh_lib.axis_sizes(mesh)[a] for a in data)
+    if batch % dsize == 0 and batch >= dsize:
+        return actsharding.activation_spec(mesh, data, "model")
+    return actsharding.activation_spec(mesh, (), "model", slots=data)
+
+
 def replicated(mesh, tree: Any):
     return tree_map(lambda _: NamedSharding(mesh, ()), tree)
 

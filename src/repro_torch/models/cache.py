@@ -8,6 +8,12 @@ explicit per-slot position plane: attention masking reads positions, never
 pointer arithmetic, so ring wraparound falls out of the same position
 predicates as training (sliding window, causality and emptiness).  Writes
 are in place: a layer's cache is a view of the stacked tensors.
+
+A cache of DTensors (laid out by ``launch.sharding.cache_shardings``) is
+written on each rank's local shards: the new rows are brought to the
+cache's batch and head split, and a rank writes only the slots it holds
+(in the sequence-parallel layout, slot ``position % slots`` lives on one
+rank).  No write gathers a cache.
 """
 from __future__ import annotations
 
@@ -29,6 +35,43 @@ def kv_init(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _slice_of(t, dim: int):
+    """(lo, n): this rank's slice of the DTensor ``t`` along ``dim`` (the
+    mesh dims that split it in order, the first major)."""
+    from torch.distributed.tensor import Shard
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    k, parts = 0, 1
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            k = k * mesh.size(i) + coord[i]
+            parts *= mesh.size(i)
+    n = t.shape[dim] // parts
+    return k * n, n
+
+
+def _local_like(src, dst, dims: dict):
+    """The local block of ``src`` redistributed so that its dim i is split
+    as ``dst``'s dim ``dims[i]`` is, whole along every other dim (a plain
+    ``src`` is taken as replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    back = {v: k for k, v in dims.items()}
+    pl = [Shard(back[p.dim]) if isinstance(p, Shard) and p.dim in back
+          else Replicate() for p in dst.placements]
+    mesh = dst.device_mesh
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    return src.redistribute(mesh, pl).to_local()
+
+
+_KV_DIMS = {0: 0, 1: 2, 2: 3}          # (B, KV, D) into (B, S, KV, D)
+
+
 def kv_update(cache, k_new, v_new, position):
     """Insert one token's K/V in place.  k_new/v_new: (B, KV, D); position:
     (B,).  A row decoded at a negative position (an unused engine slot)
@@ -37,6 +80,9 @@ def kv_update(cache, k_new, v_new, position):
     Returns (cache, k_all, v_all, kv_positions) where kv_positions carries
     -1 for empty slots (masked off by the attention's position predicate).
     """
+    if _is_dtensor(cache["k"]):
+        _kv_update_local(cache, k_new, v_new, position)
+        return cache, cache["k"], cache["v"], cache["pos"]
     slots = cache["k"].shape[1]
     b = k_new.shape[0]
     idx = torch.remainder(position, slots)
@@ -48,15 +94,76 @@ def kv_update(cache, k_new, v_new, position):
     return cache, cache["k"], cache["v"], cache["pos"]
 
 
+def _kv_update_local(cache, k_new, v_new, position):
+    """:func:`kv_update` on each rank's shards: the rank that holds slot
+    ``position % slots`` of a row writes it (one index a row, so no two
+    writes meet)."""
+    slots = cache["k"].shape[1]
+    lo, n = _slice_of(cache["k"], 1)
+    pos = _local_like(position, cache["pos"], {0: 0})
+    idx = torch.remainder(pos, slots) - lo
+    own = (pos >= 0) & (idx >= 0) & (idx < n)
+    at = idx.clamp(0, n - 1)
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    for key, new, dims in (("k", k_new, _KV_DIMS), ("v", v_new, _KV_DIMS),
+                           ("pos", position, {0: 0})):
+        dst = cache[key].to_local()
+        src = _local_like(new, cache[key], dims).to(dst.dtype)
+        dst[rows, at] = _where_rows(own, src, dst[rows, at])
+
+
+def write_positions(cache, k, v, pos):
+    """A prefill's K/V (B, T, KV, D) at positions ``pos`` (B, T), T <= the
+    cache's slots and no two of a row's positions on one slot, written in
+    place at ``pos % slots``.  On DTensors each rank fills the slots it
+    holds from the steps that land there (a gather, so no two writes meet)."""
+    slots = cache["k"].shape[1]
+    idx = pos % slots
+    if not _is_dtensor(cache["k"]):
+        rows = torch.arange(k.shape[0], device=k.device)[:, None]
+        cache["k"][rows, idx] = k.to(cache["k"].dtype)
+        cache["v"][rows, idx] = v.to(cache["v"].dtype)
+        cache["pos"][rows, idx] = pos.to(torch.int32)
+        return cache
+    lo, n = _slice_of(cache["k"], 1)
+    idx = _local_like(idx, cache["pos"], {0: 0})
+    b, t = idx.shape
+    # the step that writes each slot of the row, -1 where none does
+    step = torch.full((b, slots), -1, dtype=torch.long, device=idx.device)
+    step.scatter_(1, idx.long(), torch.arange(t, device=idx.device)
+                  .expand(b, t))
+    step = step[:, lo:lo + n]
+    has = step >= 0
+    at = step.clamp(min=0)
+    dims4 = {0: 0, 2: 2, 3: 3}
+    for key, new, dims in (("k", k, dims4), ("v", v, dims4),
+                           ("pos", pos, {0: 0})):
+        dst = cache[key].to_local()
+        src = _local_like(new, cache[key], dims).to(dst.dtype)
+        tail = src.shape[2:]
+        got = src.gather(1, at.view(b, n, *(1,) * len(tail))
+                         .expand(b, n, *tail))
+        dst.copy_(torch.where(has.view(b, n, *(1,) * len(tail)), got, dst))
+    return cache
+
+
 def _where_rows(live, new, old):
     return torch.where(live.view(-1, *(1,) * (new.dim() - 1)), new, old)
 
 
-def write_rows(dst, src, live):
+def write_rows(dst, src, live=None):
     """``dst.copy_(src)`` for the rows (leading axis) where ``live`` (B,)
-    holds: a recurrent decode leaves the state of a row decoded at a
-    negative position (an unused engine slot) as it was."""
-    dst.copy_(_where_rows(live, src.to(dst.dtype), dst))
+    holds (every row with None): a recurrent decode leaves the state of a
+    row decoded at a negative position (an unused engine slot) as it was.
+    A DTensor ``dst`` is written on its local shards, ``src`` (and
+    ``live``) first brought to its layout."""
+    if _is_dtensor(dst):
+        dims = {i: i for i in range(dst.ndim)}
+        src = _local_like(src, dst, dims)
+        live = None if live is None else _local_like(live, dst, {0: 0})
+        dst = dst.to_local()
+    src = src.to(dst.dtype)
+    dst.copy_(src if live is None else _where_rows(live, src, dst))
 
 
 def ssm_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32,

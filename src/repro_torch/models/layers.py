@@ -139,12 +139,6 @@ def _project(p, x, cfg: ModelConfig):
     return q, k, v
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
-    q, k, v = _project(p, x, cfg)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
-
-
 def _attend_chunked(q, k, v, cfg: ModelConfig, q_positions, kv_positions):
     """Streaming-softmax attention, the reference's decode formula.
 
@@ -217,26 +211,86 @@ def attention_apply(p, x, cfg: ModelConfig, positions):
     return out @ p["wo"]
 
 
+def _rope_qk(q, k, positions, cfg: ModelConfig):
+    """RoPE on q and k (B, S, heads, D) at positions (B, S), on each
+    rank's batch rows and heads under a mesh."""
+    return actsharding.on_shards(
+        lambda q_, k_, p_: (apply_rope(q_, p_, cfg.rope_theta),
+                            apply_rope(k_, p_, cfg.rope_theta)),
+        (q, k, positions), (_HEADS, _HEADS, ("batch", None)),
+        [_HEADS, _HEADS])
+
+
+def _attend_cache(cfg: ModelConfig, slots: int, split: bool):
+    """The decode attention of q (B, H, D) against a cache's k, v (B, S,
+    KV, D) and positions (B, S) at q_pos (B,), as a block of each rank's
+    shards.  ``split``: the cache's slots are split over the slot axes, so
+    each rank attends over its own and the ranks' partial softmax states,
+    and nothing else, are gathered and merged (``slots``, the cache's
+    slots in all, weighs the mean of V of a row that sees none)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import decode_attention as DA
+
+    def attend(q, k, v, kv_pos, q_pos):
+        q = q.contiguous()
+        if not cfg.causal:
+            q_pos = torch.full_like(q_pos, slots + 1)
+        q_pos = q_pos.to(torch.int32).contiguous()
+        if not split:
+            # the kernel's split follows from its grid, so the whole cache
+            # is one chunk (a ring of min(max_len, window) slots need not
+            # be a multiple of attn_chunk)
+            return ops.decode_attention(q, k, v, kv_pos, q_pos,
+                                        window=cfg.sliding_window,
+                                        chunk=k.shape[1])
+        parts = ops.decode_attention_partial(q, k, v, kv_pos, q_pos,
+                                             window=cfg.sliding_window)
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        n = flat.numel()
+        for group in actsharding.slot_groups():
+            out = flat.new_empty((dist.get_world_size(group) * flat.numel(),))
+            dist.all_gather_into_tensor(out, flat, group=group)
+            flat = out
+        b, h, d = q.shape
+        kvh = k.shape[2]
+        gathered = DA.unpack_partial(flat.view(-1, n), b, kvh, h // kvh, d)
+        return ops.decode_attention_merge(*gathered, slots, q.dtype)
+    return attend
+
+
+_CACHE = ("batch", "slots", "model", None)    # (B, S, KV, D) on shards
+
+
 def attention_decode(p, x, cfg: ModelConfig, cache, position):
     """One-token decode with a KV cache (see :mod:`.cache`), written in
     place.  The attention is :func:`repro_torch.kernels.ops.
     decode_attention`: the CUDA kernel on a card tensor, its plain version
-    on a CPU one."""
-    from repro_torch.kernels import ops
+    on a CPU one.  Under a mesh it runs on each rank's batch rows and KV
+    heads (with their query heads); a cache whose slots are split over the
+    data ranks (sequence-parallel) is attended rank by rank and the
+    partial softmax states are merged (:func:`_attend_cache`)."""
     from . import cache as cache_lib
     b = x.shape[0]
-    q, k, v = _project_qkv(p, x, cfg, position[:, None])
+    q, k, v = _project(p, x, cfg)
+    q, k = _rope_qk(q, k, position[:, None], cfg)
     cache, k_all, v_all, kv_pos = cache_lib.kv_update(cache, k[:, 0], v[:, 0],
                                                       position)
-    slots = k_all.shape[1]
-    q_pos = position if cfg.causal else torch.full_like(position, slots + 1)
-    # the kernel's split follows from its grid, so the whole cache is one
-    # chunk (a ring of min(max_len, window) slots need not be a multiple
-    # of attn_chunk)
-    out = ops.decode_attention(q[:, 0].contiguous(), k_all, v_all, kv_pos,
-                               q_pos.to(torch.int32).contiguous(),
-                               window=cfg.sliding_window, chunk=slots)
+    out = attend_cache(q[:, 0], k_all, v_all, kv_pos, position, cfg)
     return out.reshape(b, 1, -1) @ p["wo"], cache
+
+
+def attend_cache(q, k, v, kv_pos, q_pos, cfg: ModelConfig):
+    """The decode attention of q (B, H, D) at q_pos (B,) against a cache's
+    k, v (B, S, KV, D) and positions (B, S): on each rank's batch rows
+    and KV heads under a mesh, the cache's slot split kept (a split that
+    cannot be kept raises, naming the cache)."""
+    return actsharding.on_shards(
+        _attend_cache(cfg, k.shape[1], actsharding.splits_slots(k, 1)),
+        (q, k, v, kv_pos, q_pos),
+        (("batch", "model", None), _CACHE, _CACHE, ("batch", "slots"),
+         ("batch",)), ("batch", "model", None),
+        keep={1: "k cache", 2: "v cache", 3: "pos cache"})
 
 
 def attention_prefill(p, x, cfg: ModelConfig, positions, cache):
@@ -245,21 +299,27 @@ def attention_prefill(p, x, cfg: ModelConfig, positions, cache):
 
     Only the last min(S, slots) positions are written (a sliding-window ring
     keeps just the window; later positions win by construction, no duplicate
-    scatter indices)."""
+    scatter indices).  Under a mesh the flash forward runs on each rank's
+    batch rows and heads, and each rank writes the slots of its cache
+    shards (:func:`~repro_torch.models.cache.write_positions`)."""
     from .flash import flash_attention
+    from . import cache as cache_lib
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = flash_attention(q, k, v, positions, positions, cfg.attn_chunk,
-                          cfg.sliding_window, cfg.causal)
-    slots = cache["k"].shape[1]
-    keep = min(s, slots)
-    pos_t = positions[:, -keep:]
-    idx = pos_t % slots
-    rows = torch.arange(b, device=x.device)[:, None]
-    cache["k"][rows, idx] = k[:, -keep:].to(cache["k"].dtype)
-    cache["v"][rows, idx] = v[:, -keep:].to(cache["v"].dtype)
-    cache["pos"][rows, idx] = pos_t.to(torch.int32)
-    return out.reshape(b, s, -1) @ p["wo"], cache
+    q, k, v = _project(p, x, cfg)
+    q, k = _rope_qk(q, k, positions, cfg)
+
+    def attend(q, k, v, pos):
+        out = flash_attention(q, k, v, pos, pos, cfg.attn_chunk,
+                              cfg.sliding_window, cfg.causal)
+        return out.reshape(*out.shape[:2], -1)      # heads stay contiguous
+
+    out = actsharding.on_shards(attend, (q, k, v, positions),
+                                (_HEADS, _HEADS, _HEADS, ("batch", None)),
+                                ("batch", None, "model"))
+    keep = min(s, cache["k"].shape[1])
+    cache_lib.write_positions(cache, k[:, -keep:], v[:, -keep:],
+                              positions[:, -keep:])
+    return out @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------

@@ -312,11 +312,26 @@ def hidden_states(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
 
 def _logits(params, cfg: ModelConfig, x):
-    logits = layers.unembed(params["embed"], x, cfg)
-    if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
-        logits = logits.masked_fill(pad, -1e30)
-    return logits
+    """(B, S, V) logits, the padded vocab masked to -1e30.  Under a mesh
+    the head is vocab-parallel: each rank's rows against its V/``model``
+    slice of the head, the logits left split over V (a caller that needs
+    them whole gathers them)."""
+    name = "tok" if cfg.tie_embeddings else "head"
+
+    def head(xb, w):
+        logits = layers.unembed({name: w}, xb, cfg)
+        n = logits.shape[-1]
+        if cfg.padded_vocab != cfg.vocab_size:
+            lo = actsharding.model_start(n) if n != cfg.padded_vocab else 0
+            pad = torch.arange(lo, lo + n, device=xb.device) >= \
+                cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e30)
+        return logits
+    return actsharding.on_shards(
+        head, (x, params["embed"][name]),
+        (("batch", None, None), ("model", None) if name == "tok"
+         else (None, "model")), ("batch", None, "model"),
+        keep={1: f"embed/{name}"})
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
@@ -458,7 +473,7 @@ def _block_cached(bp, shared, blk: str, x, cfg: ModelConfig, cache,
         else:
             y, _ = layers.attention_prefill(sp["attn"], h, cfg, positions,
                                             cache)
-        x = x + y
+        x = _add(x, y)
         h = layers.norm_apply(sp["norm2"], x, cfg)
         if blk == "attn_moe":
             # decode: dropless; prefill: capacity with headroom (dropless
@@ -466,15 +481,14 @@ def _block_cached(bp, shared, blk: str, x, cfg: ModelConfig, cache,
             y, _ = moe.moe_apply(sp["moe"], h, cfg, dropless=True) if decode \
                 else moe.moe_apply(sp["moe"], h, cfg,
                                    cap_scale=cfg.moe_prefill_cap_scale)
-            x = x + y
+            x = _add(x, y)
         else:
-            x = x + layers.mlp_apply(sp["mlp"], h, cfg)
+            x = _add(x, layers.mlp_apply(sp["mlp"], h, cfg))
     elif blk == "fourier_mlp":
         if decode:
             # parameter-free mixing degenerates at S=1: identity on decode
-            x = x + layers.mlp_apply(bp["mlp"],
-                                     layers.norm_apply(bp["norm2"], x, cfg),
-                                     cfg)
+            x = _add(x, layers.mlp_apply(
+                bp["mlp"], layers.norm_apply(bp["norm2"], x, cfg), cfg))
         else:
             x = _fourier_mlp(bp, x, cfg)
     elif blk in _MIXERS:
@@ -484,7 +498,7 @@ def _block_cached(bp, shared, blk: str, x, cfg: ModelConfig, cache,
                                    live=positions >= 0)
         else:
             y, _ = _MIXERS[blk][1](bp["mixer"], h, cfg, cache)
-        x = x + y
+        x = _add(x, y)
     else:
         raise ValueError(blk)
     return x
@@ -504,7 +518,10 @@ def _run_cached(params, cfg: ModelConfig, x, cache, positions, decode):
 def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             cache=None, positions=None):
     """Serving prefill: forward over the prompt, ``cache`` populated in
-    place.  Returns (logits (B, S, V), cache)."""
+    place.  Returns (logits (B, S, V), cache).  On DTensors (params,
+    batch and caches laid out by ``launch.sharding``, under the caller's
+    ``actsharding.activation_spec``) every block runs on local shards and
+    writes its cache shards; the logits stay split over V."""
     if cache is None:
         raise ValueError("prefill needs a cache (init_cache)")
     x, positions = _inputs(params, cfg, tokens, embeds, positions)
@@ -515,7 +532,8 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 def decode_step(params, cfg: ModelConfig, tokens, cache, position):
     """One decode step.  tokens: (B,) int; position: (B,) int32 absolute
     position.  Returns (logits (B, V), cache), the cache updated in place.
-    Embedding-input archs (vlm/audio) still decode over tokens."""
+    Embedding-input archs (vlm/audio) still decode over tokens.  On
+    DTensors as :func:`prefill`."""
     x = layers.embed(params["embed"], tokens[:, None], cfg)
     x = _run_cached(params, cfg, actsharding.constrain(x), cache, position,
                     decode=True)

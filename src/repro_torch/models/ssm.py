@@ -187,38 +187,59 @@ def mamba2_apply(p, x, cfg: ModelConfig):
 
 def mamba2_prefill(p, x, cfg: ModelConfig, state):
     """Full-sequence mixer that also returns decode state (conv tail + SSM),
-    written into ``state`` in place."""
+    written into ``state`` in place (on each rank's shards under a mesh)."""
     s = x.shape[1]
     out, xbc_raw, h_last = _mixer(p, x, cfg)
     k = p["conv_w"].shape[0]
     tail = F.pad(xbc_raw, (0, 0, max(k - 1 - s, 0), 0))[:, -(k - 1):]
-    state["conv"].copy_(tail)
-    state["ssm"].copy_(h_last)
+    write_rows(state["conv"], tail)
+    write_rows(state["ssm"], h_last)
     return out, state
+
+
+def _conv_step(conv, xbc, w, b):
+    """One step of the depthwise conv from its ring state (B, K-1, C):
+    the activated output (B, 1, C) and the whole window (B, K, C)."""
+    conv_in = torch.cat([conv, xbc.to(conv.dtype)], dim=1)
+    y = sum(conv_in[:, i:i + 1] * w[i] for i in range(w.shape[0]))
+    return F.silu(y + b), conv_in
+
+
+def _ssm_step(h, xin, b_in, c_in, dt, a, d_skip):
+    """One SSM step of heads xin (B, H, P) from the state h (B, H, P, N):
+    the output (B, H, P) and the new state."""
+    g = torch.exp(dt * a)                                  # (B,H)
+    h = h * g[..., None, None] + torch.einsum(
+        "bhp,bn,bh->bhpn", xin.float(), b_in.float(), dt.float())
+    y = torch.einsum("bn,bhpn->bhp", c_in.float(), h)
+    return y + d_skip[None, :, None] * xin, h
 
 
 def mamba2_decode(p, x, cfg: ModelConfig, state, live):
     """One-token decode: x (B, 1, d); state dict w/ 'conv' and 'ssm',
-    updated in place for the rows where ``live`` (B,) holds."""
+    updated in place for the rows where ``live`` (B,) holds.  Under a mesh
+    the conv runs on each rank's rows (its channels whole, as the state
+    keeps them) and the SSM step on its rows and the heads its state
+    holds."""
     bsz = x.shape[0]
     din, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     u = x @ p["in_proj"]
     z, xbc, dt_raw = _split_proj(p, u, cfg)
-    # conv via ring state (B, K-1, C)
-    conv_in = torch.cat([state["conv"], xbc.to(state["conv"].dtype)], dim=1)
-    k = p["conv_w"].shape[0]
-    y = sum(conv_in[:, i:i + 1] * p["conv_w"][i] for i in range(k))
-    xbc = F.silu(y + p["conv_b"])
+    rows = ("batch", None, None)
+    xbc, conv_in = actsharding.on_shards(
+        _conv_step, (state["conv"], xbc, p["conv_w"], p["conv_b"]),
+        (rows, rows, (None, None), (None,)), [rows, rows])
     xin = xbc[..., :din].reshape(bsz, nh, hp)
     b_in = xbc[:, 0, din:din + ns]
     c_in = xbc[:, 0, din + ns:]
     dt = F.softplus(dt_raw[:, 0] + p["dt_bias"])           # (B,H)
     a = -torch.exp(p["a_log"])
-    g = torch.exp(dt * a)                                  # (B,H)
-    h = state["ssm"] * g[..., None, None] + torch.einsum(
-        "bhp,bn,bh->bhpn", xin.float(), b_in.float(), dt.float())
-    y = torch.einsum("bn,bhpn->bhp", c_in.float(), h)
-    y = y + p["d_skip"][None, :, None] * xin
+    hs = actsharding.model_split(state["ssm"], 1)
+    y, h = actsharding.on_shards(
+        _ssm_step, (state["ssm"], xin, b_in, c_in, dt, a, p["d_skip"]),
+        (("batch", hs, None, None), ("batch", hs, None), ("batch", None),
+         ("batch", None), ("batch", hs), (hs,), (hs,)),
+        [("batch", hs, None), ("batch", hs, None, None)])
     write_rows(state["conv"], conv_in[:, 1:], live)
     write_rows(state["ssm"], h, live)
     return _gated_out(p, y.reshape(bsz, 1, din), z, x.dtype), state

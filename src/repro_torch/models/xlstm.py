@@ -139,11 +139,17 @@ def _mlstm_qkv(p, x, cfg: ModelConfig, conv_state=None):
     if conv_state is None:
         xp = F.pad(xb, (0, 0, kw - 1, 0))
         new_conv = None
+        xc = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(kw))
+        xc = F.silu(xc + p["conv_b"])
     else:
-        xp = torch.cat([conv_state, xb.to(conv_state.dtype)], dim=1)
+        # the ring state keeps its channels whole: the step on each
+        # rank's rows
+        from .ssm import _conv_step
+        rows = ("batch", None, None)
+        xc, xp = actsharding.on_shards(
+            _conv_step, (conv_state, xb, p["conv_w"], p["conv_b"]),
+            (rows, rows, (None, None), (None,)), [rows, rows])
         new_conv = xp[:, 1:]
-    xc = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(kw))
-    xc = F.silu(xc + p["conv_b"])
     q = (xc @ p["wq"]).reshape(bsz, s, nh, dh)
     k = (xc @ p["wk"]).reshape(bsz, s, nh, dh)
     v = (xb @ p["wv"]).reshape(bsz, s, nh, dh)
@@ -172,30 +178,40 @@ def mlstm_apply(p, x, cfg: ModelConfig):
     return _mlstm_out(p, h, z, cfg)
 
 
+def _mlstm_final(q, k, v, i, f, chunk):
+    """:func:`_mlstm_chunked` on (shards of) log-space gate inputs: h and
+    the final (C, n, m)."""
+    h, (c, n, m) = _mlstm_chunked(q, k, v, i, F.logsigmoid(f), chunk)
+    return h, c, n, m
+
+
 def mlstm_prefill(p, x, cfg: ModelConfig, state):
     """Full-sequence mixer that also returns decode state (conv tail,
-    C/n/m), written into ``state`` in place."""
+    C/n/m), written into ``state`` in place.  Under a mesh the chunkwise
+    form runs on each rank's rows and heads, and each state is written on
+    the rank's shards."""
     s = x.shape[1]
     din = 2 * cfg.d_model
     q, k, v, ilog, fpre, z, _ = _mlstm_qkv(p, x, cfg)
-    h, (c, n, m) = _mlstm_chunked(q, k, v, ilog, F.logsigmoid(fpre),
-                                  cfg.mlstm_chunk)
+    h, c, n, m = actsharding.on_shards(
+        lambda q_, k_, v_, i_, f_: _mlstm_final(q_, k_, v_, i_, f_,
+                                                cfg.mlstm_chunk),
+        (q, k, v, ilog, fpre), (_HEADS, _HEADS, _HEADS, _GATES, _GATES),
+        [_HEADS, ("batch", "model", None, None), ("batch", "model", None),
+         ("batch", "model")])
     xb = (x @ p["up"])[..., :din]
     kw = p["conv_w"].shape[0]
     tail = F.pad(xb, (0, 0, max(kw - 1 - s, 0), 0))[:, -(kw - 1):]
     for key, val in (("conv", tail), ("c", c), ("n", n), ("m", m)):
-        state[key].copy_(val)
+        write_rows(state[key], val)
     return _mlstm_out(p, h, z, cfg), state
 
 
-def mlstm_decode(p, x, cfg: ModelConfig, state, live):
-    """One-token decode.  state: dict(conv, c, n, m), updated in place for
-    the rows where ``live`` (B,) holds."""
-    q, k, v, ilog, fpre, z, new_conv = _mlstm_qkv(p, x, cfg,
-                                                  conv_state=state["conv"])
-    qb, kb, vb = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()  # (B,H,D)
-    il, fl = ilog[:, 0], F.logsigmoid(fpre[:, 0])        # (B,H)
-    c, n, m = state["c"], state["n"], state["m"]
+def _mlstm_step(qb, kb, vb, il, fpre, c, n, m):
+    """One mLSTM step of heads (B, H, D) from the state (C, n, m): h and
+    the new state."""
+    qb, kb, vb = qb.float(), kb.float(), vb.float()
+    fl = F.logsigmoid(fpre)
     m_new = torch.maximum(fl + m, il)
     decay = torch.exp(fl + m - m_new)
     inw = torch.exp(il - m_new)
@@ -206,9 +222,25 @@ def mlstm_decode(p, x, cfg: ModelConfig, state, live):
     numer = torch.einsum("bhd,bhde->bhe", qb * scale, c)
     denom = torch.maximum(
         torch.einsum("bhd,bhd->bh", qb * scale, n).abs(), torch.exp(-m_new))
-    h = (numer / denom[..., None])[:, None]              # (B,1,H,D)
-    out = _mlstm_out(p, h.to(x.dtype), z, cfg)
-    for key, val in (("conv", new_conv), ("c", c), ("n", n), ("m", m_new)):
+    return numer / denom[..., None], c, n, m_new
+
+
+def mlstm_decode(p, x, cfg: ModelConfig, state, live):
+    """One-token decode.  state: dict(conv, c, n, m), updated in place for
+    the rows where ``live`` (B,) holds.  Under a mesh the step runs on each
+    rank's rows and the heads its C state holds."""
+    q, k, v, ilog, fpre, z, new_conv = _mlstm_qkv(p, x, cfg,
+                                                  conv_state=state["conv"])
+    hs = actsharding.model_split(state["c"], 1)
+    heads, gates = ("batch", hs, None), ("batch", hs)
+    h, c, n, m = actsharding.on_shards(
+        _mlstm_step, (q[:, 0], k[:, 0], v[:, 0], ilog[:, 0], fpre[:, 0],
+                      state["c"], state["n"], state["m"]),
+        (heads, heads, heads, gates, gates, ("batch", hs, None, None),
+         heads, gates),
+        [heads, ("batch", hs, None, None), heads, gates])
+    out = _mlstm_out(p, h[:, None].to(x.dtype), z, cfg)
+    for key, val in (("conv", new_conv), ("c", c), ("n", n), ("m", m)):
         write_rows(state[key], val, live)
     return out, state
 
@@ -280,15 +312,6 @@ def _slstm_recur(rs, xs, state):
     return torch.stack(hs, dim=1), state
 
 
-def _slstm_scan(p, x, cfg: ModelConfig, state):
-    """The recurrence over x's time axis from ``state``; returns the
-    block's output and the final state."""
-    bsz, s, _ = x.shape
-    h, state = _slstm_recur([p[f"r{g}"] for g in "ifzo"],
-                            _slstm_gates(p, x, cfg), state)
-    return _slstm_out(p, h.reshape(bsz, s, -1), x.dtype), state
-
-
 def _slstm_out(p, h, dtype):
     return _rms_out(h, p["out_norm"], dtype) @ p["down"]
 
@@ -313,19 +336,42 @@ def slstm_apply(p, x, cfg: ModelConfig):
     return _slstm_out(p, h.reshape(bsz, s, -1), x.dtype)
 
 
+def _slstm_from(*t):
+    """:func:`_slstm_recur` on (shards of) the four gates' projections,
+    the recurrent weights and the four state parts: h and the final
+    state."""
+    h, state = _slstm_recur(t[4:8], t[:4], tuple(t[8:]))
+    return (h, *state)
+
+
+def _slstm_cached(p, x, cfg: ModelConfig, state):
+    """The recurrence over x from ``state`` (under a mesh on each rank's
+    rows and the heads the state holds): the block's output and the final
+    state."""
+    bsz, s, _ = x.shape
+    hs = actsharding.model_split(state[0], 1)
+    gate, st = ("batch", None, hs, None), ("batch", hs, None)
+    h, *final = actsharding.on_shards(
+        _slstm_from, (*_slstm_gates(p, x, cfg),
+                      *(p[f"r{g}"] for g in "ifzo"), *state),
+        (gate,) * 4 + ((hs, None, None),) * 4 + (st,) * 4,
+        [gate] + [st] * 4)
+    return _slstm_out(p, h.reshape(bsz, s, -1), x.dtype), final
+
+
 def slstm_prefill(p, x, cfg: ModelConfig, state):
     """Full-sequence sLSTM that also returns the final recurrent state,
     written into ``state`` in place."""
-    out, final = _slstm_scan(p, x, cfg, state)
+    out, final = _slstm_cached(p, x, cfg, state)
     for dst, src in zip(state, final):
-        dst.copy_(src)
+        write_rows(dst, src)
     return out, state
 
 
 def slstm_decode(p, x, cfg: ModelConfig, state, live):
     """One-token decode.  state: tuple (c, n, m, h), updated in place for
     the rows where ``live`` (B,) holds."""
-    out, final = _slstm_scan(p, x, cfg, state)
+    out, final = _slstm_cached(p, x, cfg, state)
     for dst, src in zip(state, final):
         write_rows(dst, src, live)
     return out, state

@@ -197,7 +197,7 @@ def test_bf16_variants_pick_their_route(monkeypatch, variant, chain):
     fft3d_fused.fft3d_fused_cuda(xb, variant=variant)
     fft3d_fused.fft3d_fused_cuda(x, variant=variant)
     if chain:
-        assert calls[0][0][1] == "fft3d_fused_plain_bf16"
+        assert calls[0][0][1] == "fft3d_fused_chain"
         assert all(c[0][1] == "fft3d_fused_pass" for c in calls[1:])
         assert len(calls) == 1 + 3
     else:
@@ -228,16 +228,14 @@ def test_wrappers_refuse_cpu_tensors(launch, shape, bad):
 
 @pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)
 def test_wrappers_refuse_float16(launch, shape, bad):
-    """float16 on the GEMM chain (the default variant="plain") is refused
-    naming ROADMAP 2e before any operand check; compensated float16, the
-    plans' variant, passes the dtype checks (F11) and is refused here
-    only for lying on the CPU."""
+    """float16 in both variants passes the dtype checks (the plain one on
+    the GEMM chain since ROADMAP §2e, the compensated one, the plans'
+    variant, since F11) and is refused here only for lying on the CPU."""
     x = SplitComplex(torch.zeros(shape, dtype=torch.float16),
                      torch.zeros(shape, dtype=torch.float16))
-    with pytest.raises(TypeError, match="item 2e"):
-        launch(x)
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        launch(x, variant="compensated")
+    for variant in ("plain", "compensated"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            launch(x, variant=variant)
 
 
 @pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)

@@ -195,7 +195,7 @@ def test_wrappers_count_launches_on_card(card):
                             "rfft2d_fused": 1, "irfft2d_fused": 1,
                             "fftconv_fused": 1, "fft3d_fused": 1,
                             "fft2d_fused": 1, "fft_staged": 1,
-                            "decode_attention": 1}
+                            "decode_attention": 1, "decode_merge": 0}
 
 
 def _decode_operands(shape, card, dtype=torch.float32, seed=0):
@@ -219,13 +219,14 @@ def _decode_operands(shape, card, dtype=torch.float32, seed=0):
 
 # the reference test's shapes, a group of 12 at D = 80, D not a multiple of
 # 4, a group of 40, windows; fp32 at the reference's 2e-5 absolute, bf16
-# at 2^-7 of max|plain|
+# at 2^-7 of max|plain|, float16 at 2^-10
 @pytest.mark.parametrize("shape,window,chunk", [
     ((2, 128, 4, 2, 16), None, 128), ((3, 512, 8, 8, 32), None, 128),
     ((8, 1024, 8, 2, 64), None, 128), ((3, 256, 12, 1, 80), 100, 64),
     ((3, 100, 8, 8, 18), None, 512), ((3, 512, 40, 1, 8), 300, 512),
     ((4, 4096, 32, 8, 80), 4096, 512)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_decode_kernel_matches_plain_on_card(card, shape, window, chunk,
                                              dtype):
     ops_ = _decode_operands(shape, card, dtype)
@@ -238,7 +239,43 @@ def test_decode_kernel_matches_plain_on_card(card, shape, window, chunk,
     if dtype == torch.float32:
         assert err <= 2e-5
     else:
-        assert err <= 2.0 ** -7 * want.float().abs().max().item()
+        bound = 2.0 ** (-7 if dtype == torch.bfloat16 else -10)
+        assert err <= bound * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_decode_partial_and_merge_match_plain_on_card(card, dtype):
+    """The sequence-parallel route on one card: the partials of four slot
+    quarters (one with no visible slot for any row, one row with none
+    anywhere), merged, against the plain partials and merge and the whole
+    kernel, within the whole kernel's bound of its dtype."""
+    q, k, v, kv_pos, q_pos = _decode_operands((4, 4096, 32, 8, 80), card,
+                                              dtype, seed=5)
+    kv_pos[:, 1024:2048] = -1
+    parts, plain = [], []
+    for i in range(4):
+        sl = slice(i * 1024, (i + 1) * 1024)
+        args = (q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                kv_pos[:, sl].contiguous(), q_pos)
+        parts.append(decode_attention.decode_attention_partial_cuda(
+            *args, window=4096))
+        plain.append(decode_attention.decode_attention_partial_plain(
+            *args, window=4096))
+    stack = [torch.stack([p[j] for p in parts]) for j in range(4)]
+    got = decode_attention.decode_attention_merge_cuda(*stack, 4096, dtype)
+    want = decode_attention.decode_attention_merge_plain(
+        *(torch.stack([p[j] for p in plain]) for j in range(4)), 4096, dtype)
+    whole = decode_attention.decode_attention_plain(q, k, v, kv_pos, q_pos,
+                                                    window=4096)
+    torch.cuda.synchronize()
+    bound = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7,
+             torch.float16: 2.0 ** -10}[dtype]
+    scale = 1.0 if dtype == torch.float32 else \
+        whole.float().abs().max().item()
+    for ref in (want, whole):
+        assert (got.float() - ref.float()).abs().max().item() <= \
+            bound * scale
 
 
 def test_decode_chunk_invariance_on_card(card):
@@ -612,11 +649,22 @@ def test_float16_planes_on_card(card, name, shape):
 
 
 def test_plain_float16_on_the_gemm_chain_raises_on_card(card):
-    """No plan resolves to it; the kernel names ROADMAP 2e."""
-    x = SplitComplex(*(torch.zeros((1, 8, 8), dtype=torch.float16,
-                                   device=card) for _ in "ri"))
-    with pytest.raises(TypeError, match="2e"):
-        fft2d_gemm.fft2d_gemm_cuda(x, variant="plain")
+    """No plan resolves to it (ROADMAP §2e): the GEMM chain in float16
+    against its plain version, within 2^-10 of max|plain| (the chain's
+    roundings are the plain version's), 2-D and 3-D, both directions."""
+    for shape, launch, plain in (
+            ((2, 64, 128), fft2d_gemm.fft2d_gemm_cuda,
+             fft2d_gemm.fft2d_gemm_plain),
+            ((1, 8, 16, 32), fft3d_fused.fft3d_fused_cuda,
+             fft3d_fused.fft3d_fused_plain)):
+        z = _rand(shape, 23)
+        x = SplitComplex(*(torch.from_numpy(p).to(card, torch.float16)
+                           for p in (z.real, z.imag)))
+        for inverse in (False, True):
+            got = launch(x, inverse=inverse, variant="plain")
+            want = plain(x, inverse=inverse, variant="plain")
+            assert got.re.dtype == torch.float16
+            assert _rel(got, want) <= 2.0 ** -10
 
 
 def test_guarded_fallback_stays_on_the_card(card):

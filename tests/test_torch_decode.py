@@ -226,11 +226,14 @@ def test_split_length_rule():
     (torch.float32, torch.float32, 128, 12, "cores"),
     (torch.float32, torch.bfloat16, 80, 4, "cores"),      # mixed
     (torch.bfloat16, torch.float32, 80, 4, "cores"),
+    (torch.float16, torch.float16, 80, 4, "mma"),
+    (torch.float16, torch.bfloat16, 80, 4, "cores"),      # mixed halves
+    (torch.float16, torch.float32, 128, 12, "cores"),
 ])
 def test_route_from_dtype_and_shape(q_dtype, kv_dtype, d, group, want):
-    """bf16 q and caches, D a multiple of 16 up to 128 and at most 16 heads
-    a KV head take the tensor cores; the rest the CUDA cores, chosen before
-    any launch."""
+    """q and caches both bf16 or both float16, D a multiple of 16 up to 128
+    and at most 16 heads a KV head take the tensor cores; the rest the CUDA
+    cores, chosen before any launch."""
     assert DA.route(q_dtype, kv_dtype, d, group) == want
 
 
@@ -239,8 +242,8 @@ def test_route_from_dtype_and_shape(q_dtype, kv_dtype, d, group, want):
                                         (torch.bfloat16, (3, 100, 8, 8, 18))])
 def test_wrapper_launches_the_planned_split(monkeypatch, dtype, cell):
     """One call: the eleven pointers, the shape, the split of
-    split_length, the window, the dtypes, the route flag and a merge helper
-    block an SM."""
+    split_length, the window, the dtypes' codes, the route flag, a merge
+    helper block an SM and the partial flag off."""
     calls = []
     monkeypatch.setattr(_build, "check_decode_operands", lambda *a: None)
     monkeypatch.setattr(_build, "function", lambda *a: a)
@@ -258,19 +261,63 @@ def test_wrapper_launches_the_planned_split(monkeypatch, dtype, cell):
     split = DA.split_length(s, b, kvh, h // kvh)
     assert args[:5] == [t.data_ptr() for t in (q, k, v, kv_pos, q_pos)]
     assert args[11:18] == [b, s, h, kvh, d, split, 64]
-    bf16 = int(dtype == torch.bfloat16)
+    code = DA._CODES[dtype]
     mma = DA.route(dtype, dtype, d, h // kvh) == "mma"
-    assert args[18:] == [1, bf16, bf16, int(d % 4 == 0), int(mma), 132]
+    assert args[18:] == [1, code, code, int(d % 4 == 0), int(mma), 132, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_partial_and_merge_launch_with_their_argument_types(monkeypatch,
+                                                            dtype):
+    """The sequence-parallel route's two calls: the split launch with the
+    partial flag set and the fp32 buffer of m, l, acc and vsum as its
+    output, then the cross-rank merge with one argument for each of its
+    ctypes types (the ranks' partials, the shape, the ranks, the slots,
+    the output's storage code)."""
+    calls = []
+    monkeypatch.setattr(_build, "check_decode_operands", lambda *a: None)
+    monkeypatch.setattr(_build, "check_merge_operands", lambda *a: None)
+    monkeypatch.setattr(_build, "function", lambda *a: a)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(_build, "launch", lambda fn, args, what, dev:
+                        calls.append((fn, args, what)))
+    b, s, h, kvh, d = 2, 256, 8, 2, 16
+    q, k, v, kv_pos, q_pos = (torch.from_numpy(a) for a in
+                              _setup(b, s, h, kvh, d))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    m, l, acc, vsum = DA.decode_attention_partial_cuda(q, k, v, kv_pos,
+                                                       q_pos)
+    (fn, args, _), = calls
+    assert fn == ("decode_attention", "decode_attention", DA._ARGS)
+    assert len(args) == len(DA._ARGS) - 1 and args[-1] == 1
+    assert args[10] == m.data_ptr() and args[8] == vsum.data_ptr()
+    assert (m.shape, acc.shape, vsum.shape) == ((b, kvh, h // kvh),
+                                               (b, kvh, h // kvh, d),
+                                               (b, kvh, d))
+    calls.clear()
+    parts = [torch.stack([t] * 3) for t in (m, l, acc, vsum)]
+    out = DA.decode_attention_merge_cuda(*parts, 3 * s, dtype)
+    (fn, args, _), = calls
+    assert fn == ("decode_attention", "decode_attention_merge",
+                  DA._ARGS_MERGE)
+    assert len(args) == len(DA._ARGS_MERGE) - 1
+    assert args[5:] == [b, h, kvh, d, 3, 3 * s, DA._CODES[dtype]]
+    assert out.shape == (b, h, d) and out.dtype == dtype
 
 
 def test_decode_operand_dtypes_refused():
     """What the CUDA kernel does not take raises before any pointer is
-    passed: int64 positions, float16 caches."""
+    passed: int64 positions, float64 caches (float16 caches pass the dtype
+    check and are refused only for lying on the CPU)."""
     q, k, v, kv_pos, q_pos = (torch.from_numpy(a) for a in
                               _setup(1, 64, 4, 2, 16))
     with pytest.raises(TypeError, match="int32"):
         _build.check_decode_operands(q, k, v, kv_pos.long(), q_pos)
-    with pytest.raises(TypeError, match="2e"):
+    with pytest.raises(TypeError, match="float16"):
+        _build.check_decode_operands(q, k.double(), v.double(), kv_pos,
+                                     q_pos)
+    with pytest.raises(ValueError, match="CUDA"):
         _build.check_decode_operands(q, k.half(), v.half(), kv_pos, q_pos)
     with pytest.raises(ValueError, match="CUDA"):
         _build.check_decode_operands(q, k, v, kv_pos, q_pos)

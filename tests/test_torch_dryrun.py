@@ -142,6 +142,18 @@ def test_op_costs_follow_the_conventions():
     assert opcount.shape_bytes((4, 8), torch.bfloat16) == 64
 
 
+def test_dtensor_shard_dim_all_to_all_counts_as_an_all_to_all():
+    """DTensor moves a split from one dim to another with its own op on a
+    card mesh (a CPU mesh all-gathers): its result bytes count as an
+    all-to-all, as the host-staged backend's all_to_all_single does."""
+    import torch.distributed.tensor._collective_utils  # noqa: F401 (the op)
+    out = opcount.describe(torch.empty(4, 8))
+    flops, traffic, kind, moved = opcount.op_cost(
+        "_dtensor.shard_dim_alltoall.default",
+        (opcount.describe(torch.empty(8, 4)), 0, 1, "group"), {}, out)
+    assert (kind, moved, flops) == ("all-to-all", 4 * 8 * 4, 0.0)
+
+
 # -- records -------------------------------------------------------------------
 
 def test_dryrun_record_reads_in_roofline_compare_and_reanalyze(tiny,
@@ -209,7 +221,79 @@ def test_pp_variant_record(tmp_path):
         roofline.HW["ici_bw"]
 
 
-def test_serving_cells_refuse_until_the_serving_path_shards(tmp_path):
-    with pytest.raises(NotImplementedError, match="15e"):
-        dryrun.run_cell("h2o-danube-1.8b", "decode_32k", mesh_shape=(2, 2),
-                        reduced=True, save_dir=str(tmp_path), verbose=False)
+SERVING = ("prefill_32k", "decode_32k", "long_500k")
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 4)])
+@pytest.mark.parametrize("shape", SERVING)
+def test_serving_cells_run_and_their_records_read(shape, mesh, tmp_path):
+    """The reference's prefill and decode cells (ROADMAP §1 item 15e):
+    reduced danube at the cells' own batch and length (attn_chunk 4096 so
+    the 32k prefill is 8 flash chunks), the caches by cache_shardings
+    (long_500k's B = 1: the slots over data, no batch pin), on fake
+    (2, 2) and (4, 4) groups; roofline, compare and reanalyze read the
+    records."""
+    arch = "h2o-danube-1.8b"
+    rec = dryrun.run_cell(arch, shape, mesh_shape=mesh, reduced=True,
+                          save_dir=str(tmp_path), verbose=False,
+                          overrides=dict(attn_chunk=4096))
+    name = "x".join(map(str, mesh))
+    path = tmp_path / name / f"{arch}__{shape}.json"
+    assert json.loads(path.read_text()) == json.loads(json.dumps(rec))
+    cell = TC.SHAPES[shape]
+    assert rec["kind"] == cell.kind and rec["global_batch"] == \
+        cell.global_batch
+    la = rec["loop_aware"]
+    assert la["flops"] > 0 and la["traffic_bytes"] > 0
+    assert la["collective_total"] == rec["collectives"]["total"] > 0
+    assert rec["memory"]["peak_bytes"] >= \
+        rec["memory"]["argument_size_in_bytes"] > 0
+    terms = roofline.roofline_terms(rec, arch="h100_sxm")
+    row = compare.row(str(path), roofline.hw_table("h100_sxm"))
+    assert row["collective_s"] == terms["collective_s"] > 0
+    assert arch in roofline.markdown_table(str(tmp_path), name, "h100_sxm")
+    path.write_text(json.dumps(dict(rec, loop_aware={"flops": 0})))
+    assert reanalyze.reanalyze(str(tmp_path)) == 1
+    assert json.loads(path.read_text())["loop_aware"] == \
+        json.loads(json.dumps(la))
+
+
+def test_opcount_matches_hloparse_on_a_shared_decode_cell():
+    """danube reduced, widened to d_model 512 and vocab 4096: one decode
+    step of 4 rows against a 256-slot cache filled by a prefill, the
+    port's op counts against the reference's HLO counts of its jitted
+    decode_fn: flops in test_opcount_matches_hloparse_on_a_shared_cell's
+    band.  The port's traffic is 0.462x the reference's here, under that
+    band's 0.5: the reference's decode_fn takes and returns its caches as
+    values, so XLA's fused update reads and writes whole caches, and its
+    scan slices every stacked weight, where the port writes one slot in
+    place and indexes views.  So the traffic is held to a band around
+    that reading, 0.35-0.6."""
+    from repro.serve import engine as RE
+    from repro_torch.serve import engine as TE
+    kw = dict(d_model=512, vocab_size=4096, sliding_window=None)
+    rcfg = RC.get_config("h2o-danube-1.8b").reduced(**kw)
+    tcfg = TC.get_config("h2o-danube-1.8b").reduced(**kw)
+    rng = np.random.default_rng(0)
+    b, s, slots = 4, 192, 256
+    prompt = rng.integers(0, 4096, (b, s)).astype(np.int32)
+    tok = rng.integers(0, 4096, (b,)).astype(np.int32)
+    pos = np.full((b,), s, np.int32)
+    rp = RM.init_params(jax.random.PRNGKey(0), rcfg)
+    _, rc = jax.jit(RE.prefill_fn(rcfg))(rp, {"tokens": prompt},
+                                         RM.init_cache(rcfg, b, slots))
+    text = jax.jit(RE.decode_fn(rcfg)).lower(rp, tok, rc, pos).compile() \
+        .as_text()
+    ref = hloparse.analyze(text)
+    params = TM.params_from_numpy(jax.tree.map(np.asarray, rp), tcfg,
+                                  device="cpu")
+    with torch.no_grad():
+        cache = TM.init_cache(tcfg, b, slots, device="cpu")
+        TE.prefill_fn(tcfg)(params, {"tokens": torch.from_numpy(prompt)},
+                            cache)
+        with opcount.OpCount() as oc:
+            TE.decode_fn(tcfg)(params, torch.from_numpy(tok), cache,
+                               torch.from_numpy(pos))
+    assert 0.8 <= oc.cost.flops / ref.flops <= 1.25
+    assert 0.35 <= oc.cost.traffic / ref.traffic <= 0.6
+    assert oc.cost.collective_total == 0 == ref.collective_total

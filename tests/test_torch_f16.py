@@ -1,4 +1,5 @@
-"""float16 planes through the FFT kernels (ROADMAP §3 F11).
+"""float16 planes through the FFT kernels (ROADMAP §3 F11), the plain
+GEMM chain and decode attention (ROADMAP §2e).
 
 - Every float16 route's plan resolves as the reference's does (``algo``,
   ``variant``, ``demote_reason``).
@@ -13,6 +14,11 @@
   16384), so the two agree to TOL_F16 plus the reference's own error, and
   the port is no further from float64 numpy than the reference plus half a
   float16 ulp.
+- Decode attention's plain version in float16, whole and as the
+  sequence-parallel partials of two slot halves merged, matches the
+  reference's kernel in interpret mode on the same float16 q and caches
+  within :data:`TOL_F16` of max|out|; plain float16 on the 2-D and 3-D
+  GEMM transforms takes the GEMM chain's launch.
 - ``csrc/f16.cuh``'s conversions, compiled with g++ as
   ``tools/cuda_emu/emulate.py`` compiles the kernels, equal torch's casts
   bit for bit.
@@ -206,13 +212,67 @@ def test_fftconv_f16_matches_the_reference(lead, m):
     _check(ops.fftconv_fused(x, kf), ref_ops.fftconv_fused(xr, kfr))
 
 
-def test_plain_float16_on_the_gemm_chain_names_roadmap_2e():
-    """The CUDA kernel refuses plain float16 (no plan resolves to it)
-    before it looks at the operands, naming the roadmap item."""
-    with pytest.raises(TypeError, match="2e"):
-        fft2d_gemm.check_chain(torch.float16, "plain")
-    fft2d_gemm.check_chain(torch.float16, "compensated")
-    fft2d_gemm.check_chain(torch.bfloat16, "plain")
+def test_plain_float16_on_the_gemm_chain_names_roadmap_2e(monkeypatch):
+    """Plain float16 (ROADMAP §2e, no plan resolves to it) runs the GEMM
+    chain's launch with its float16 flag set, as plain bf16 does with it
+    clear; compensated float16 runs the FFT passes."""
+    from repro_torch.kernels import _build, fft3d_fused
+    calls = []
+    monkeypatch.setattr(_build, "check_operands", lambda *a: None)
+    monkeypatch.setattr(_build, "function", lambda *a: a[1])
+    monkeypatch.setattr(_build, "launch", lambda fn, args, what, dev:
+                        calls.append((fn, args[-1])))
+    monkeypatch.setattr(_build, "launch_all", lambda fn, lists, what, dev:
+                        calls.extend((fn, None) for _ in lists))
+    for dt, flag in ((torch.float16, 1), (torch.bfloat16, 0)):
+        x = SplitComplex(torch.zeros(1, 8, 8, dtype=dt),
+                         torch.zeros(1, 8, 8, dtype=dt))
+        x3 = SplitComplex(torch.zeros(1, 2, 8, 8, dtype=dt),
+                          torch.zeros(1, 2, 8, 8, dtype=dt))
+        assert fft2d_gemm.on_gemm_chain(dt, "plain")
+        calls.clear()
+        fft2d_gemm.fft2d_gemm_cuda(x, variant="plain")
+        fft3d_fused.fft3d_fused_cuda(x3, variant="plain")
+        assert calls == [("fft2d_gemm_chain", flag),
+                         ("fft3d_fused_chain", flag)]
+    assert not fft2d_gemm.on_gemm_chain(torch.float16, "compensated")
+
+
+def _decode_case(b, s, h, kv, d, seed):
+    """float16 q (B, H, D) and caches (B, S, KV, D), a ring's positions,
+    a row that sees no slot; as torch tensors and the reference's arrays."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).half()
+               for shape in ((b, h, d), (b, s, kv, d), (b, s, kv, d)))
+    q_pos = torch.from_numpy(rng.integers(s // 2, 3 * s, b)).int()
+    slot = torch.arange(s)
+    kv_pos = (q_pos[:, None] - (q_pos[:, None] - slot) % s).int()
+    kv_pos[-1] = -1
+    port = (q, k, v, kv_pos, q_pos)
+    return port, [jnp.asarray(t.numpy()) for t in port]
+
+
+@pytest.mark.parametrize("cell,window", [((2, 64, 4, 2, 16), None),
+                                         ((3, 128, 8, 2, 32), 48),
+                                         ((2, 96, 12, 4, 80), 40)])
+def test_decode_attention_f16_matches_the_reference(cell, window):
+    """The plain version in float16 (what the wrapper runs on CPU tensors)
+    against the reference's kernel in interpret mode, and the two slot
+    halves' partials merged as the sequence-parallel route does."""
+    port, ref = _decode_case(*cell, seed=sum(cell))
+    want = ref_ops.decode_attention(*ref, window=window, chunk=16)
+    got = ops.decode_attention(*port, window=window, chunk=16)
+    _check(got, want)
+    q, k, v, kv_pos, q_pos = port
+    half = k.shape[1] // 2
+    parts = [ops.decode_attention_partial(
+        q, k[:, i * half:(i + 1) * half], v[:, i * half:(i + 1) * half],
+        kv_pos[:, i * half:(i + 1) * half], q_pos, window=window)
+        for i in range(2)]
+    merged = ops.decode_attention_merge(
+        *(torch.stack([p[j] for p in parts]) for j in range(4)),
+        k.shape[1], torch.float16)
+    _check(merged, want)
 
 
 # -- the conversions, compiled with g++ --------------------------------------

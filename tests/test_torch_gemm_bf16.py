@@ -203,17 +203,17 @@ def test_registry_bf16_plan_executes_to_bound():
 
 
 def test_float16_raises_naming_the_roadmap():
-    """Plain float16 on the GEMM chain is not ported: both CUDA wrappers
-    raise naming ROADMAP item 2e before any operand check.  The plain
-    versions compute float16 in both variants on the CPU, and float16
-    in, float16 out (F11: the kernels take compensated float16)."""
+    """Plain float16 runs the GEMM chain (ROADMAP §2e): both CUDA wrappers
+    pass it through the dtype checks and refuse it only for lying on the
+    CPU.  The plain versions compute float16 in both variants on the CPU,
+    float16 in, float16 out."""
     x = SplitComplex(torch.zeros(1, 8, 8, dtype=torch.float16),
                      torch.zeros(1, 8, 8, dtype=torch.float16))
     x3 = SplitComplex(torch.zeros(1, 2, 8, 8, dtype=torch.float16),
                       torch.zeros(1, 2, 8, 8, dtype=torch.float16))
-    with pytest.raises(TypeError, match="item 2e"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         fft2d_gemm.fft2d_gemm_cuda(x, variant="plain")
-    with pytest.raises(TypeError, match="item 2e"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         fft3d_fused.fft3d_fused_cuda(x3, variant="plain")
     for variant in ("plain", "compensated"):
         assert ops.fft2d_gemm(x, variant=variant).re.dtype == torch.float16

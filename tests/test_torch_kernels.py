@@ -104,12 +104,12 @@ def test_cpu_path_counts_no_launch():
 
 
 def test_unported_options_raise():
-    """Plain float16 on the GEMM chain, the one float16 route the kernel
-    does not take (no plan resolves to it), raises naming its ROADMAP
-    item before any operand check; an unknown variant is refused."""
+    """Plain float16 on the GEMM chain (ROADMAP §2e; no plan resolves to
+    it) passes the dtype checks and is refused only for lying on the CPU;
+    an unknown variant is refused."""
     x = from_numpy(_rand((1, 8, 8), 0), device="cpu")
     half = type(x)(x.re.half(), x.im.half())
-    with pytest.raises(TypeError, match="item 2e"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         fft2d_gemm.fft2d_gemm_cuda(half, variant="plain")
     with pytest.raises(ValueError, match="variant"):
         ops.fft2d_gemm(x, variant="split")

@@ -95,6 +95,20 @@ def test_tensor_cast_cache_holds_its_byte_budget(monkeypatch):
         is not a2.re
 
 
+def test_tables_cast_under_fake_tensor_mode_are_not_cached():
+    """A dry run's table (fake, no data) never reaches a later real call."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    tw.clear_table_cache()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = tw.dft_matrix(32, dtype=torch.float32, device="cpu")
+    assert isinstance(fake.re, FakeTensor)
+    real = tw.dft_matrix(32, dtype=torch.float32, device="cpu")
+    assert not isinstance(real.re, FakeTensor)
+    np.testing.assert_array_equal(
+        real.re.numpy(), ref_tw._dft_matrix_np(32, -1.0)[0].astype(np.float32))
+    tw.clear_table_cache()
+
+
 @pytest.mark.parametrize("n", POW2)
 def test_stockham_radices_agree(n):
     assert tw.stockham_radices(n) == ref_tw.stockham_radices(n)

@@ -120,11 +120,29 @@ inline void emu_ldmatrix_x4(unsigned* r, const void* p, bool trans) {
   }
   emu_warp().arrive_and_wait();
 }
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d += A B: lane L =
-// 4g + t holds A (g, 2t..) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..), B
-// (k 2t.., n g) (k 2t+8.., n g), D (g, 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1)
-inline void emu_mma_bf16_16816(float* d, const unsigned* a, unsigned b0,
-                               unsigned b1) {
+// the float16 half (hi: the top one) of a 32-bit register, widened
+inline float emu_f16(unsigned r, unsigned hi) {
+  const unsigned h = hi ? r >> 16 : r & 0xFFFFu;
+  const unsigned sgn = (h & 0x8000u) << 16, e = (h >> 10) & 0x1Fu, m = h & 0x3FFu;
+  unsigned u;
+  if (e == 0x1Fu) u = sgn | 0x7F800000u | (m << 13);
+  else if (e != 0) u = sgn | ((e + 112u) << 23) | (m << 13);
+  else {
+    const float f = (float)m * 5.9604644775390625e-8f;
+    std::memcpy(&u, &f, 4);
+    u |= sgn;
+  }
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (F16: .f16.f16), d +=
+// A B: lane L = 4g + t holds A (g, 2t..) (g+8, 2t..) (g, 2t+8..) (g+8,
+// 2t+8..), B (k 2t.., n g) (k 2t+8.., n g), D (g, 2t) (g, 2t+1) (g+8, 2t)
+// (g+8, 2t+1)
+template <bool F16>
+inline void emu_mma_16816(float* d, const unsigned* a, unsigned b0,
+                          unsigned b1) {
   const unsigned t = threadIdx.x, w = t & ~31u, L = t & 31u;
   for (int i = 0; i < 4; ++i) emu_frags[t][i] = a[i];
   emu_frags[t][4] = b0;
@@ -135,14 +153,24 @@ inline void emu_mma_bf16_16816(float* d, const unsigned* a, unsigned b0,
     float s = d[i];
     for (unsigned k = 0; k < 16; ++k) {
       const unsigned la = w + (row & 7) * 4 + ((k & 7) >> 1);
-      const float x = emu_bf16(emu_frags[la][(row >> 3) + 2 * (k >> 3)], k & 1);
+      const unsigned ra = emu_frags[la][(row >> 3) + 2 * (k >> 3)];
       const unsigned lb = w + col * 4 + ((k & 7) >> 1);
-      const float y = emu_bf16(emu_frags[lb][4 + (k >> 3)], k & 1);
+      const unsigned rb = emu_frags[lb][4 + (k >> 3)];
+      const float x = F16 ? emu_f16(ra, k & 1) : emu_bf16(ra, k & 1);
+      const float y = F16 ? emu_f16(rb, k & 1) : emu_bf16(rb, k & 1);
       s += x * y;
     }
     d[i] = s;
   }
   emu_warp().arrive_and_wait();
+}
+inline void emu_mma_bf16_16816(float* d, const unsigned* a, unsigned b0,
+                               unsigned b1) {
+  emu_mma_16816<false>(d, a, b0, b1);
+}
+inline void emu_mma_f16_16816(float* d, const unsigned* a, unsigned b0,
+                              unsigned b1) {
+  emu_mma_16816<true>(d, a, b0, b1);
 }
 #define __global__
 #define __grid_constant__

@@ -40,7 +40,9 @@ plus 2^-7, or for float16 planes on every FFT kernel (the compensated 2-D
 and 3-D GEMM transforms included) if the kernel's error against float64
 numpy of the float16-rounded input passes 1e-3 of max|X| (not for the
 staged FFT, which rounds every stage) or the plain version's error plus
-2^-10.  ``f16_conversions`` compiles ``csrc/f16.cuh``'s conversions alone
+2^-10, and the float16 routes of ROADMAP §2e (the plain GEMM chain,
+decode attention whole and as merged partials) within 2^-10 of max|plain|.
+``f16_conversions`` compiles ``csrc/f16.cuh``'s conversions alone
 (``tests/test_torch_f16.py`` holds them to torch's casts).  It also runs the long-axis routes scaled down (the split
 launches with lowered thresholds, the real-input steps at 8192, the
 four-step kernel's axis route, the per-stage routes).
@@ -146,6 +148,11 @@ def _check_decode_operands(*ops):
         raise ValueError("non-contiguous decode operand")
 
 
+def _check_merge_operands(*ops):
+    if any(t.dtype != torch.float32 for t in ops):
+        raise ValueError("non-fp32 partial")
+
+
 def _launch_all(fn, arg_lists, what, device):
     for args in arg_lists:
         _build.check(fn(*args, None), what)
@@ -160,6 +167,7 @@ def install() -> None:
     _build.function = _function
     _build.check_operands = _check_operands
     _build.check_decode_operands = _check_decode_operands
+    _build.check_merge_operands = _check_merge_operands
     _build.launch = _launch
     _build.launch_all = _launch_all
     _build.sm_count = lambda device: 2     # persistent blocks walk tiles
@@ -356,14 +364,17 @@ def main() -> int:
             (bf16 if qt == torch.bfloat16 else results).append(
                 (f"decode_attention/{tag}", (b, s, h, kvh, d), window,
                  rel(got, want)))
+    half = half_routes(rng, cplx)
     results += long_axes(rng, cplx)
     f4 = bf16_planes(rng, cplx)
     f11 = bf16_planes(rng, cplx, torch.float16)
     for r in results + bf16:
         print(*r)
-    for r in f4 + f11:
+    for r in f4 + f11 + half:
         print(*r)
     worst = max(r[3] for r in results)
+    worst_half = max(r[3] for r in half)
+    print("worst float16 route", worst_half, "tol", TOL_F16)
     worst_bf16 = max(r[3] for r in bf16)
     f4_ok = all(k <= TOL_BF16_REF and k <= p + TOL_BF16 for *_, k, p in f4)
     print("worst", worst, "tol", TOL)
@@ -374,7 +385,61 @@ def main() -> int:
     print("float16 planes within 1e-3 and the plain version's error + "
           "2^-10:", f11_ok)
     return 0 if (worst <= TOL and worst_bf16 <= TOL_BF16 and f4_ok
-                 and f11_ok) else 1
+                 and f11_ok and worst_half <= TOL_F16) else 1
+
+
+def half_routes(rng, cplx) -> list:
+    """ROADMAP §2e's float16 routes against their plain versions: the
+    plain-float16 GEMM chain (2-D and 3-D, both directions) and decode
+    attention in float16 (the tensor cores' .f16 form and the CUDA cores),
+    whole and as two slot halves' partials merged across "ranks"."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import fft2d_gemm as G
+    from repro_torch.kernels import fft3d_fused as V
+    out = []
+    for shape, kern, plain in (((2, 8, 16), G.fft2d_gemm_cuda,
+                                G.fft2d_gemm_plain),
+                               ((1, 32, 64), G.fft2d_gemm_cuda,
+                                G.fft2d_gemm_plain),
+                               ((1, 4, 8, 16), V.fft3d_fused_cuda,
+                                V.fft3d_fused_plain)):
+        x = cplx(shape)
+        xh = SplitComplex(x.re.half(), x.im.half())
+        for inv in (False, True):
+            out.append((f"{kern.__name__}/plain float16", shape, inv, rel(
+                kern(xh, inverse=inv, variant="plain"),
+                plain(xh, inverse=inv, variant="plain"))))
+    for b, s, h, kvh, d, window in ((2, 128, 4, 2, 16, None),
+                                    (3, 100, 8, 8, 18, 40),
+                                    (2, 256, 12, 1, 80, None)):
+        q = torch.from_numpy(rng.standard_normal((b, h, d))).half()
+        k, v = (torch.from_numpy(rng.standard_normal((b, s, kvh, d)))
+                .half() for _ in range(2))
+        q_pos = torch.from_numpy(rng.integers(s // 2, 3 * s, b)).int()
+        slot = torch.arange(s)
+        kv_pos = (q_pos[:, None] - (q_pos[:, None] - slot) % s).int()
+        kv_pos[-1] = -1                              # a row with no slot
+        tag = DA.route(q.dtype, k.dtype, d, h // kvh)
+        want = DA.decode_attention_plain(q, k, v, kv_pos, q_pos,
+                                         window=window)
+        out.append((f"decode_attention/{tag} float16", (b, s, h, kvh, d),
+                    window, rel(DA.decode_attention_cuda(
+                        q, k, v, kv_pos, q_pos, window=window), want)))
+        half = s // 2
+        parts = [DA.decode_attention_partial_cuda(
+            q, k[:, i * half:(i + 1) * half].contiguous(),
+            v[:, i * half:(i + 1) * half].contiguous(),
+            kv_pos[:, i * half:(i + 1) * half].contiguous(), q_pos,
+            window=window) for i in range(2)]
+        merged = DA.decode_attention_merge_cuda(
+            *(torch.stack([p[j] for p in parts]) for j in range(4)),
+            2 * half, q.dtype)
+        want = DA.decode_attention_plain(
+            q, k[:, :2 * half], v[:, :2 * half], kv_pos[:, :2 * half],
+            q_pos, window=window)
+        out.append((f"decode_attention/{tag} float16 partial + merge",
+                    (b, s, h, kvh, d), window, rel(merged, want)))
+    return out
 
 
 def long_axes(rng, cplx) -> list:

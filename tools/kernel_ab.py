@@ -17,10 +17,12 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   32768 x 512 and 4096 x 4096, and Table 1's 512 x 16384;
 - ``fft_staged`` at 512 x 16384 and 8 x 16384;
 - ``fft2d_gemm`` at 16 x 1024^2 and 1 x 1024^2 in fp32, bf16 compensated
-  and bf16 plain (the GEMM chain), and ``fft3d_fused`` at 2 x 256^3,
-  8 x 128^3 (and its three-launch route, where the tree has one) and
-  2 x 256^3 bf16 compensated, with ``fft3(algo="row_col")`` at 2 x 256^3
-  beside them, each with its device time a call;
+  and bf16 plain (the GEMM chain), and at 16 x 1024^2 in float16 plain
+  (the chain; null where the tree refuses it), and ``fft3d_fused`` at
+  2 x 256^3, 8 x 128^3 (and its three-launch route, where the tree has
+  one) and 2 x 256^3 bf16 compensated, bf16 plain and float16 plain,
+  with ``fft3(algo="row_col")`` at 2 x 256^3 beside them, each with its
+  device time a call;
 - ``rfft2d_fused`` at 16 x 1024^2 and 1 x 1024^2, and ``irfft2d_fused``
   at 16 x 1024^2, each with its device time a call, and the ptxas lines of
   the fp32 GEMM instance where a tree builds one;
@@ -218,8 +220,11 @@ def main():
     ptxas = {n: ptxas_lines(log or _build.library_path(n)
                             .with_suffix(".log").read_text())
              for n, log in logs.items()}
+    # the fp32 GEMM core's instance: <false, false, 0> before the float16
+    # operand kinds, <0, 0, 0> after
     gemm_f32 = [line for n in ("fft2d_gemm", "rfft2d_fused", "fft3d_fused")
-                for k, line in ptxas[n].items() if "Lb0ELb0ELi0E" in k]
+                for k, line in ptxas[n].items() if "cgemm" in k and (
+                    "Lb0ELb0ELi0E" in k or "Li0ELi0ELi0E" in k)]
     ptxas = {n: {k: line for k, line in ptxas[n].items()
                  if "cgemm" not in k}
              for n in ("fft_fourstep", "fft_stage", "fft2d_gemm",
@@ -262,6 +267,14 @@ def main():
     calls["fft3d_fused 2x256^3"] = (V.fft3d_fused_cuda, VOLUME, False, {})
     calls["fft3d_fused 2x256^3 bf16 compensated"] = (
         V.fft3d_fused_cuda, VOLUME, True, {"variant": "compensated"})
+    calls["fft3d_fused 2x256^3 bf16 plain"] = (
+        V.fft3d_fused_cuda, VOLUME, True, {"variant": "plain"})
+    # plain float16 on the GEMM chain, where the tree takes it (null where
+    # it refuses)
+    calls["fft2d_gemm 16x1024^2 float16 plain"] = (
+        G.fft2d_gemm_cuda, IMAGES, "half", {"variant": "plain"})
+    calls["fft3d_fused 2x256^3 float16 plain"] = (
+        V.fft3d_fused_cuda, VOLUME, "half", {"variant": "plain"})
     calls["fft3d_fused 8x128^3"] = (V.fft3d_fused_cuda, PME, False, {})
     if three is not None:
         calls["fft3d_fused 8x128^3 three launches"] = (
@@ -272,7 +285,14 @@ def main():
         lambda x: fft2(x, algo="row_col", backend="cuda"), IMAGES, False, {})
     for key, (kern, shape, low, kw) in calls.items():
         x = cplx(shape)
-        if low:
+        if low == "half":
+            x = SplitComplex(x.re.half(), x.im.half())
+            try:
+                kern(x, **kw)
+            except TypeError:            # a tree that refuses it
+                ms[key] = dev[key] = None
+                continue
+        elif low:
             x = bf16(x)
         ms[key] = time_ms(lambda: kern(x, **kw))
         dev[key] = device_us(lambda: kern(x, **kw))
