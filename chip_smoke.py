@@ -82,7 +82,8 @@ float64 numpy:
   entry point at its path's main shape, then against float64 numpy of
   the float16-rounded input and its plain version, timed beside fp32;
   then decode attention in float16 at danube's 128 x 4096 ring and the
-  plain-variant GEMM chain in float16 at 16 x 1024^2 (ROADMAP §2e);
+  plain variant's tensor-core route in float16 at 16 x 1024^2 and
+  256^3 x 2, both directions (ROADMAP §2e);
 - the sharded step (``train_sharded``): 4 ranks on the card over the
   host-staged gloo backend, a (2, 2) mesh, h2o-danube-1.8b at full width
   (depth cut to 2 layers) on DTensors against the single-process step
@@ -288,6 +289,7 @@ BF16_CHECKS = [("fft2d_gemm", MAIN_2D, "compensated"),
                ("fft2d_gemm", (2, 8, 4), "compensated"),
                ("fft2d_gemm", (2, 8, 4), "plain"),
                ("fft3d_fused", MAIN_3D, "compensated"),
+               ("fft3d_fused", MAIN_3D, "plain"),
                ("fft3d_fused", ODD_3D, "compensated"),
                ("fft3d_fused", ODD_3D, "plain"),
                ("fft3d_fused", (1, 4, 8, 16), "plain")]
@@ -296,6 +298,12 @@ BF16_CHECKS = [("fft2d_gemm", MAIN_2D, "compensated"),
 BF16_CHECKS += [("fft2d_gemm", (2, 128, 128), "compensated"),
                 ("fft3d_fused", (1, 128, 128, 128), "compensated"),
                 ("fft3d_three", (1, 128, 128, 128), "compensated")]
+# the plain route's long axes: rows of 2^15 (past 16384 points) and
+# columns of 4096 (past 2048), 2-D and 3-D, two tiled products each
+# through the scratch pair
+BF16_CHECKS += [("fft2d_gemm", (1, 2, 1 << 15), "plain"),
+                ("fft2d_gemm", (2, 4096, 8), "plain"),
+                ("fft3d_fused", (1, 4096, 2, 8), "plain")]
 # the CPU tests' bf16 shapes (tests/test_torch_gemm_bf16.py), both variants
 BF16_CHECKS += [(k, shape, v) for k, shape in
                 [("fft2d_gemm", (1, 64, 64)), ("fft2d_gemm", (1, 256, 256)),
@@ -3382,7 +3390,8 @@ def f16_path(failures, smi) -> dict:
 
 
 F16_DECODE = (128, 4096, 32, 8, 80, 4096)   # danube's one layer, bf16's cell
-F16_CHAIN = (16, 1024, 1024)                # the plain GEMM chain's cell
+F16_CHAIN = (16, 1024, 1024)                # the plain route's cells
+F16_VOLUME = (2, 256, 256, 256)
 
 
 def f16_routes(failures, smi) -> dict:
@@ -3391,14 +3400,16 @@ def f16_routes(failures, smi) -> dict:
     plain version (the kernel's error within the plain version's error
     plus 2^-10, and within 2^-10 of max|plain| of the plain version),
     timed beside the plain version, one PyTorch call and the bound:
-    decode attention at danube's 128 x 4096 ring, the plain-variant GEMM
-    chain at 16 x 1024^2.  {name: its record}."""
+    decode attention at danube's 128 x 4096 ring, the plain variant's
+    tensor-core route at 16 x 1024^2 (and, checked only, at 2 x 256^3,
+    both directions).  {name: its record}."""
     import numpy as np
     import torch
     import torch.nn.functional as nnf
     from repro_torch.core import SplitComplex
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import fft2d_gemm as G
+    from repro_torch.kernels import fft3d_fused as V
     from repro_torch.kernels import ops
     dev, f16 = "cuda", torch.float16
     g = torch.Generator(device=dev)
@@ -3463,43 +3474,79 @@ def f16_routes(failures, smi) -> dict:
     del q, k, v, kv_pos, q_pos, got, plain, qq, kt, vt, tmask
     torch.cuda.empty_cache()
 
-    # the plain-variant GEMM chain in float16
-    x = SplitComplex(*(torch.randn(F16_CHAIN, generator=g, device=dev)
-                       .to(f16) for _ in "ri"))
-    ops.reset_launches()
-    got = ops.fft2d_gemm(x, variant="plain")
-    torch.cuda.synchronize()
-    count = ops.LAUNCHES["fft2d_gemm"]
-    plain = G.fft2d_gemm_plain(x, variant="plain")
-    want = REF_FFT.fft2(to_numpy(x))
-    scale = float(np.abs(want).max())
-    k_err = float(np.abs(to_numpy(got) - want).max()) / scale
-    p_err = float(np.abs(to_numpy(plain) - want).max()) / scale
-    vs_plain = float(max((got.re.float() - plain.re.float()).abs().max(),
-                         (got.im.float() - plain.im.float()).abs().max())) \
-        / float(max(plain.re.float().abs().max(),
+    # the plain variant's tensor-core route in float16 at both cells, both
+    # directions, against float64 numpy (its 1/N included; the differences
+    # taken on the card in float64) and its plain version; the forward at
+    # 16 x 1024^2 through the entry point, its launches counted from 0
+    def err(y, want):
+        return float((torch.complex(y.re.double(), y.im.double())
+                      - want).abs().max())
+
+    checks = []
+    for shape, kern, plain_fn, ref in (
+            (F16_CHAIN, G.fft2d_gemm_cuda, G.fft2d_gemm_plain,
+             (REF_FFT.fft2, REF_FFT.ifft2)),
+            (F16_VOLUME, V.fft3d_fused_cuda, V.fft3d_fused_plain,
+             (lambda a: REF_FFT.fftn(a, axes=(1, 2, 3)),
+              lambda a: REF_FFT.ifftn(a, axes=(1, 2, 3))))):
+        x = SplitComplex(*(torch.randn(shape, generator=g, device=dev)
+                           .to(f16) for _ in "ri"))
+        xn = to_numpy(x)
+        for inverse in (False, True):
+            first = shape == F16_CHAIN and not inverse
+            if first:
+                ops.reset_launches()
+                got = ops.fft2d_gemm(x, variant="plain")
+                torch.cuda.synchronize()
+                count = ops.LAUNCHES["fft2d_gemm"]
+            else:
+                got = kern(x, inverse=inverse, variant="plain")
+            plain = plain_fn(x, inverse=inverse, variant="plain")
+            want = torch.from_numpy(ref[inverse](xn)).to(dev)
+            scale = float(want.abs().max())
+            k_err, p_err = err(got, want) / scale, err(plain, want) / scale
+            vs_plain = float(max(
+                (got.re.float() - plain.re.float()).abs().max(),
+                (got.im.float() - plain.im.float()).abs().max())) / float(
+                max(plain.re.float().abs().max(),
                     plain.im.float().abs().max()))
-    ok = (got.re.dtype == f16 and count == 1 and k_err <= p_err + F16_SLACK
-          and vs_plain <= F16_SLACK)
-    k_ms = time_ms(lambda: G.fft2d_gemm_cuda(x, variant="plain"), torch)
-    p_ms = time_ms(lambda: G.fft2d_gemm_plain(x, variant="plain"), torch)
-    xc = torch.complex(x.re, x.im)
-    l_ms = time_ms(lambda: torch.fft.fft2(xc), torch)
-    xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
-    bf16_ms = time_ms(lambda: G.fft2d_gemm_cuda(xb, variant="plain"), torch)
-    b_ms, b_by = bound_ms(*f16_counts("fft2d_gemm", F16_CHAIN))
-    out["fft2d_gemm_plain_f16"] = {
-        "shape": list(F16_CHAIN), "variant": "plain", "launches": count,
-        "err_over_max": k_err, "plain_err_over_max": p_err,
-        "vs_plain_over_max": vs_plain, "max_abs_err": k_err * scale,
-        "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-        "library_dtype": "complex32", "plain_bf16_chain_ms": bf16_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "ok": ok}
-    if not ok:
-        failures.append(f"f16 plain GEMM chain: "
-                        f"{out['fft2d_gemm_plain_f16']}")
-    del x, got, plain, xc, xb
-    torch.cuda.empty_cache()
+            rec = {"shape": list(shape), "inverse": inverse,
+                   "err_over_max": k_err, "plain_err_over_max": p_err,
+                   "vs_plain_over_max": vs_plain, "max_abs_err": k_err * scale,
+                   "ok": bool(got.re.dtype == f16 and vs_plain <= F16_SLACK
+                              and k_err <= p_err + F16_SLACK
+                              and (not first or count == 1))}
+            if first:
+                rec["launches"] = count
+                main_check = rec
+            checks.append(rec)
+            if not rec["ok"]:
+                failures.append(f"f16 plain route: {rec}")
+            del got, plain, want
+        if shape == F16_CHAIN:   # timed beside plain, complex32 and bf16
+            k_ms = time_ms(lambda: G.fft2d_gemm_cuda(x, variant="plain"),
+                           torch)
+            p_ms = time_ms(lambda: G.fft2d_gemm_plain(x, variant="plain"),
+                           torch)
+            xc = torch.complex(x.re, x.im)
+            l_ms = time_ms(lambda: torch.fft.fft2(xc), torch)
+            xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+            bf16_ms = time_ms(lambda: G.fft2d_gemm_cuda(xb, variant="plain"),
+                              torch)
+            b_ms, b_by = bound_ms(*f16_counts("fft2d_gemm", F16_CHAIN))
+            out["fft2d_gemm_plain_f16"] = {
+                "shape": list(F16_CHAIN), "variant": "plain",
+                **{k: main_check[k] for k in (
+                    "launches", "err_over_max", "plain_err_over_max",
+                    "vs_plain_over_max", "max_abs_err", "ok")},
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                "library_dtype": "complex32", "plain_bf16_ms": bf16_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+            del xc, xb
+        del x, xn
+        torch.cuda.empty_cache()
+    emit({"phase": "f16_route", "kernel": "plain route checks",
+          "checks": checks, "nvidia_smi": smi})
     for name, rec in out.items():
         emit({"phase": "f16_route", "kernel": name, **rec,
               "nvidia_smi": smi})
@@ -3529,6 +3576,7 @@ def main() -> int:
     from repro_torch.kernels import fftconv_fused as C
     from repro_torch.kernels import fft3d_fused as V
     from repro_torch.kernels import axis_fft as AX
+    from repro_torch.kernels import dft_mma as DM
     from repro_torch.kernels import fft2d_fused as S2
     from repro_torch.kernels import fft_stage as ST
     from repro_torch.kernels import decode_attention as DA
@@ -3646,15 +3694,14 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     ptxas = {n: ptxas_report(log) for n, log in logs.items()}
-    # the fp32 GEMM core's instance, cg::cgemm_kernel<IN_F32, IN_F32,
-    # EPI_F32> (<false, false, EPI_F32> before PR 28's float16 operands)
-    f32_gemm = {n: r[k] for n, r in ptxas.items() for k in r
-                if "cgemm_kernel" in k and ("Li0ELi0ELi0E" in k
-                                             or "Lb0ELb0ELi0E" in k)}
+    # the plain route's tensor-core instances, dm::dft_tile<F16, C> and
+    # dm::dft_gemm<F16>
+    dft = {n: {k: r[k] for k in r if "dft_tile" in k or "dft_gemm" in k}
+           for n, r in ptxas.items() if any("dft_" in k for k in r)}
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": round(build_s, 3),
           "libraries": [_build.library_path(n).name for n in _build.SOURCES],
-          "ptxas": ptxas, "cgemm_f32": f32_gemm})
+          "ptxas": ptxas, "dft_mma": dft})
     # the dry-run counts run on the host beside the card's phases
     dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     dry_procs = start_dryruns(dry_dir)
@@ -4178,8 +4225,16 @@ def main() -> int:
     for y in (yb_c, yb_p, backb):
         if y.re.dtype != torch.bfloat16:
             failures.append(f"bf16 fft2 returned {y.re.dtype}")
+    # the window's grid launches, counted where the wrappers make them:
+    # the FFT passes of the two compensated calls and the plain route's
+    # tensor-core launches of its one call, one an axis
+    bgrids = dict(_build.CALLS)
+    if bgrids.get("fft2d_gemm_plain_pass") != 2:
+        failures.append(f"bf16 plain fft2 at {MAIN_2D}: grid launches "
+                        f"{bgrids}, not 2 of fft2d_gemm_plain_pass")
+    plain_grids_2d = bgrids.get("fft2d_gemm_plain_pass")
     emit({"phase": "bf16_path", "launches": launches_bf16,
-          "errors": bchecks, "limits": blimits,
+          "grid_launches": bgrids, "errors": bchecks, "limits": blimits,
           "plans": {k: [pl.algo, pl.backend, pl.variant]
                     for k, pl in bplans.items()}})
     del xb, yb_c, yb_p, backb
@@ -4903,10 +4958,13 @@ def main() -> int:
 
     # 5. timing at the main paths' shapes; each spec makes its kernel's
     # input and the library call's input from one seeded array
-    def design_floor(name, shape, nbytes, k_ms):
-        """The grid launches of a call of the redesigned kernels and the
+    def design_floor(name, shape, nbytes, k_ms, grids=None):
+        """The grid launches of a call of the redesigned kernels (``grids``:
+        as counted, for the plain variant's tensor-core route) and the
         bytes they move, each launch one pass over the planes."""
-        if name == "fft_fourstep":
+        if grids is not None:
+            floor = grids * nbytes
+        elif name == "fft_fourstep":
             grids, floor = fourstep_launches(shape[1]), \
                 fourstep_floor_bytes(*shape)
         elif name.startswith("fft2d_gemm"):
@@ -4955,6 +5013,13 @@ def main() -> int:
         call (cuFFT has no bf16 transform)."""
         x = bf16(from_numpy(rand(shape), device=dev))
         return x, torch.complex(x.re.float(), x.im.float())
+
+    def f16_inputs(shape):
+        """float16 planes, and the same values as complex32 for the
+        library call."""
+        x = from_numpy(rand(shape), device=dev)
+        x = SplitComplex(x.re.half(), x.im.half())
+        return x, torch.complex(x.re, x.im)
 
     def bf16_counts(batch, n):
         """fft_counts with 2-byte planes: 8 bytes a complex point in and
@@ -5176,6 +5241,20 @@ def main() -> int:
          bf16_counts(MAIN_2D[0], n2),
          method_fft2d(*MAIN_2D, fourstep_factors),
          launches_bf16["fft2d_gemm"]),
+        # the plain route on the volume: bf16 against complex64 and
+        # float16 against complex32, the library's nearest dtypes
+        ("fft3d_fused", "bf16_plain", MAIN_3D,
+         lambda x: ops.fft3d_fused(x, variant="plain"),
+         lambda x: V.fft3d_fused_plain(x, variant="plain"), fftn,
+         bf16_inputs, bf16_counts(MAIN_3D[0], n3),
+         (sum(lp.flops for lp in DM.plan3d(*MAIN_3D, V.fourstep_factors3)),
+          None), None),
+        ("fft3d_fused", "float16_plain", MAIN_3D,
+         lambda x: ops.fft3d_fused(x, variant="plain"),
+         lambda x: V.fft3d_fused_plain(x, variant="plain"), fftn,
+         f16_inputs, bf16_counts(MAIN_3D[0], n3),
+         (sum(lp.flops for lp in DM.plan3d(*MAIN_3D, V.fourstep_factors3)),
+          None), None),
         ("fft3_row_col", "row_col_schedule", MAIN_3D,
          lambda x: fft3(x, algo="row_col", backend="cuda"),
          lambda x: fft3(x, algo="row_col", backend="torch"), fftn,
@@ -5185,7 +5264,22 @@ def main() -> int:
     for name, cell, shape, kern, plain, lib, inputs, (flops, nbytes), \
             (method_flops, table_bytes), count in extra:
         x, c = inputs(shape)
-        k_ms = time_ms(lambda: kern(x), torch)
+        grids = (plain_grids_2d if (name, cell) == ("fft2d_gemm", "bf16_plain")
+                 else None)
+        if count is None:
+            # through the entry point, its launches a call counted from 0
+            # over the timed calls
+            calls = [0]
+
+            def timed():
+                calls[0] += 1
+                return kern(x)
+            ops.reset_launches()
+            k_ms = time_ms(timed, torch)
+            count = ops.LAUNCHES[name] / calls[0]
+            grids = _build.CALLS[f"{name}_plain_pass"] / calls[0]
+        else:
+            k_ms = time_ms(lambda: kern(x), torch)
         p_ms = time_ms(lambda: plain(x), torch)
         l_ms = time_ms(lambda: lib(c), torch)
         b_ms, b_by = bound_ms(flops, nbytes)
@@ -5197,8 +5291,7 @@ def main() -> int:
               "method_tflops": method_flops / k_ms / 1e9
               if method_flops else None, "launches": count,
               "nvidia_smi": smi,
-              **(design_floor(name, shape, nbytes, k_ms)
-                 if "plain" not in cell else {})})
+              **design_floor(name, shape, nbytes, k_ms, grids)})
         del x, c
         torch.cuda.empty_cache()
 
@@ -5346,8 +5439,8 @@ def main() -> int:
     for name, label, source, replaces in (
             ("decode_attention_f16", "decode_attention (float16)", dec,
              "src/repro/kernels/decode_attention.py:28"),
-            ("fft2d_gemm_plain_f16", "fft2d_gemm (plain float16, the GEMM "
-             "chain)", "src/repro_torch/kernels/csrc/fft2d_gemm.cu",
+            ("fft2d_gemm_plain_f16", "fft2d_gemm (plain float16)",
+             "src/repro_torch/kernels/csrc/fft2d_gemm.cu",
              "src/repro/kernels/fft2d_gemm.py:79")):
         rec = f16[name]
         kernels.append({

@@ -19,6 +19,7 @@ missing nvcc, a failed build or a failed launch raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -42,6 +43,11 @@ SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm", "rfft2d_fused",
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+# C entry points that returned success from :func:`launch_all`, by symbol
+# (``ops.reset_launches`` sets them to 0 with the wrappers' counts): one
+# grid launch each for the planned passes (``*_pass``) and the plain
+# route's (``*_plain_pass``)
+CALLS: collections.Counter = collections.Counter()
 
 
 class KernelBuildError(RuntimeError):
@@ -263,6 +269,7 @@ def launch_all(fn, arg_lists: list, what: str, device: torch.device) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         for args in arg_lists:
             check(fn(*args, stream), what)
+            CALLS[fn.__name__] += 1
 
 
 P = ctypes.c_void_p          # pointers and the stream

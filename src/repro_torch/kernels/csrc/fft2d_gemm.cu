@@ -20,13 +20,14 @@
 // W pass's output stored as bf16 (float16: the reference's round at the
 // pass boundary, half the bytes), bf16 (float16) out.
 //
-// bf16 and float16 plain are defined by the GEMM steps' rounding points
-// (tables in the storage dtype, every GEMM output rounded), which an FFT
-// cannot reproduce; they stay on the four-step GEMM chain (row_pass.cuh,
-// cgemm.cuh): W1 @ X with the twiddle in the epilogue, then @ W2, per
-// axis, through fp32 buffers.
+// bf16 and float16 plain are defined by the four-step GEMM steps'
+// rounding points (tables in the storage dtype, every product's output
+// rounded), which an FFT cannot reproduce: they run the same products on
+// the tensor cores (dft_mma.cuh), one launch an axis (the rows, then
+// tiles of columns in place), each pass through device memory in the
+// storage dtype.
 #include "axis_fft.cuh"
-#include "row_pass.cuh"
+#include "dft_mma.cuh"
 
 // One launch of the planned route (see axis_fft_launch in axis_fft.cuh;
 // store 0 fp32, 1 bf16, 2 float16).
@@ -44,42 +45,26 @@ extern "C" int fft2d_gemm_pass(const void* xr, const void* xi, void* outr,
                               img_out, (cudaStream_t)stream);
 }
 
-// bf16 (f16: float16) plain: x (batch, h, w) raw bf16 -> out raw bf16
-// through the GEMM chain; the fp32 buffer pairs f0 and f1 hold batch*h*w
-// floats a plane.
-extern "C" int fft2d_gemm_chain(const void* xr, const void* xi,
-                                     void* outr, void* outi, float* f0r,
-                                     float* f0i, float* f1r, float* f1i,
-                                     const float* w1wr, const float* w1wi,
-                                     const float* w2wr, const float* w2wi,
-                                     const float* twr, const float* twi,
-                                     const float* w1hr, const float* w1hi,
-                                     const float* w2hr, const float* w2hi,
-                                     const float* thr, const float* thi,
-                                     long long batch, int h, int w, int n1w,
-                                     int n1h, int inverse, int f16,
+// bf16 (f16: float16) plain: one launch of the host plan
+// (kernels/dft_mma.py; see dft_launch in dft_mma.cuh), raw bf16 or
+// float16 planes in and out.
+extern "C" int fft2d_gemm_plain_pass(const void* xr, const void* xi,
+                                     void* yr, void* yi, const void* a1,
+                                     const void* tr, const void* ti,
+                                     const void* a2, int route,
+                                     long long outer, int n,
+                                     long long inner, int n1, int lines,
+                                     int sms, float scale, int f16,
                                      void* stream) {
-  using namespace cg;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (batch <= 0 || h < 2 || w < 2 || (h & (h - 1)) || (w & (w - 1)) ||
-      n1w < 1 || n1h < 1 || w % n1w || h % n1h)
-    return (int)cudaErrorInvalidValue;
-  const Axis aw{w, n1w, w / n1w, w1wr, w1wi, w2wr, w2wi, twr, twi};
-  const Axis ah{h, n1h, h / n1h, w1hr, w1hi, w2hr, w2hi, thr, thi};
-  const float scale = inverse ? (float)(1.0 / ((double)h * w)) : 1.f;
-  const int mode = f16 ? MODE_PLAIN_F16 : MODE_PLAIN_BF16;
-  Chain ch{(float*)outr, (float*)outi, f0r, f0i, f1r, f1i,
-           steps(aw) + steps(ah)};
-  float *tr = nullptr, *ti = nullptr, *yr, *yi;
-  if (aw.n1 > 1) ch.next(tr, ti);
-  ch.next(yr, yi);
-  cudaError_t e = row_pass((const float*)xr, (const float*)xi, w, yr, yi, w,
-                           tr, ti, batch * h, aw, 1.f, s,
-                           pass_io(mode, 0, 2));
-  if (e != cudaSuccess) return (int)e;
-  float *zr, *zi;
-  if (ah.n1 > 1) ch.next(tr, ti);
-  ch.next(zr, zi);
-  return (int)col_pass(yr, yi, zr, zi, tr, ti, batch, w, ah, scale, s,
-                       pass_io(mode, 1, 2));
+  return (int)dm::dft_launch(xr, xi, yr, yi, a1, tr, ti, a2, route, outer, n,
+                             inner, n1, lines, sms, scale, f16,
+                             (cudaStream_t)stream);
+}
+
+// What that launch takes (see dft_geometry in dft_mma.cuh): out holds
+// five values.
+extern "C" int fft2d_gemm_plain_geometry(int route, long long outer, int n,
+                                         long long inner, int n1, int lines,
+                                         int sms, long long* out) {
+  return (int)dm::dft_geometry(route, outer, n, inner, n1, lines, sms, out);
 }

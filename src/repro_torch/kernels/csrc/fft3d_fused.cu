@@ -20,10 +20,12 @@
 // bf16 and float16 compensated store each pass boundary in the planes'
 // dtype (the reference's rounding after W and after H, half the bytes).
 //
-// bf16 and float16 plain are defined by the GEMM steps' rounding points and
-// stay on the four-step GEMM chain (row_pass.cuh, cgemm.cuh), as in fft2d_gemm.cu.
+// bf16 and float16 plain are defined by the four-step GEMM steps'
+// rounding points and run those products on the tensor cores
+// (dft_mma.cuh), one launch an axis (W on rows, H and D on tiles of
+// columns, in place), as in fft2d_gemm.cu.
 #include "axis_fft.cuh"
-#include "row_pass.cuh"
+#include "dft_mma.cuh"
 
 // One launch of the planned route (see axis_fft_launch in axis_fft.cuh;
 // store 0 fp32, 1 bf16, 2 float16).
@@ -41,50 +43,25 @@ extern "C" int fft3d_fused_pass(const void* xr, const void* xi, void* outr,
                               img_out, (cudaStream_t)stream);
 }
 
-// bf16 (f16: float16) plain: x (batch, d, h, w) raw bf16 -> out raw bf16
-// through the GEMM chain (W row_pass, H col_pass, D col_pass over (d,
-// h*w)); the fp32
-// buffer pairs f0 and f1 hold batch*d*h*w floats a plane.  The 18 tables
-// are the W, H and D axes' four-step tables.
-extern "C" int fft3d_fused_chain(
-    const void* xr, const void* xi, void* outr, void* outi, float* f0r,
-    float* f0i, float* f1r, float* f1i, const float* w1wr, const float* w1wi,
-    const float* w2wr, const float* w2wi, const float* twr, const float* twi,
-    const float* w1hr, const float* w1hi, const float* w2hr,
-    const float* w2hi, const float* thr, const float* thi, const float* w1dr,
-    const float* w1di, const float* w2dr, const float* w2di, const float* tdr,
-    const float* tdi, long long batch, int d, int h, int w, int n1w, int n1h,
-    int n1d, int inverse, int f16, void* stream) {
-  using namespace cg;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (batch <= 0 || d < 2 || h < 2 || w < 2 || (d & (d - 1)) ||
-      (h & (h - 1)) || (w & (w - 1)) || n1w < 1 || n1h < 1 || n1d < 1 ||
-      w % n1w || h % n1h || d % n1d)
-    return (int)cudaErrorInvalidValue;
-  const Axis aw{w, n1w, w / n1w, w1wr, w1wi, w2wr, w2wi, twr, twi};
-  const Axis ah{h, n1h, h / n1h, w1hr, w1hi, w2hr, w2hi, thr, thi};
-  const Axis ad{d, n1d, d / n1d, w1dr, w1di, w2dr, w2di, tdr, tdi};
-  const long long hw = (long long)h * w;
-  const float scale = inverse ? (float)(1.0 / ((double)d * hw)) : 1.f;
-  const int mode = f16 ? MODE_PLAIN_F16 : MODE_PLAIN_BF16;
-  Chain ch{(float*)outr, (float*)outi, f0r, f0i, f1r, f1i,
-           steps(aw) + steps(ah) + steps(ad)};
-  float *tr = nullptr, *ti = nullptr, *ar, *ai;
-  if (aw.n1 > 1) ch.next(tr, ti);
-  ch.next(ar, ai);
-  cudaError_t e = row_pass((const float*)xr, (const float*)xi, w, ar, ai, w,
-                           tr, ti, batch * d * h, aw, 1.f, s,
-                           pass_io(mode, 0, 3));
-  if (e != cudaSuccess) return (int)e;
-  float *br, *bi;
-  if (ah.n1 > 1) ch.next(tr, ti);
-  ch.next(br, bi);
-  e = col_pass(ar, ai, br, bi, tr, ti, batch * d, w, ah, 1.f, s,
-               pass_io(mode, 1, 3));
-  if (e != cudaSuccess) return (int)e;
-  float *cr, *ci;
-  if (ad.n1 > 1) ch.next(tr, ti);
-  ch.next(cr, ci);
-  return (int)col_pass(br, bi, cr, ci, tr, ti, batch, hw, ad, scale, s,
-                       pass_io(mode, 2, 3));
+// bf16 (f16: float16) plain: one launch of the host plan
+// (kernels/dft_mma.py; see dft_launch in dft_mma.cuh).
+extern "C" int fft3d_fused_plain_pass(const void* xr, const void* xi,
+                                      void* yr, void* yi, const void* a1,
+                                      const void* tr, const void* ti,
+                                      const void* a2, int route,
+                                      long long outer, int n,
+                                      long long inner, int n1, int lines,
+                                      int sms, float scale, int f16,
+                                      void* stream) {
+  return (int)dm::dft_launch(xr, xi, yr, yi, a1, tr, ti, a2, route, outer, n,
+                             inner, n1, lines, sms, scale, f16,
+                             (cudaStream_t)stream);
+}
+
+// What that launch takes (see dft_geometry in dft_mma.cuh): out holds
+// five values.
+extern "C" int fft3d_fused_plain_geometry(int route, long long outer, int n,
+                                          long long inner, int n1, int lines,
+                                          int sms, long long* out) {
+  return (int)dm::dft_geometry(route, outer, n, inner, n1, lines, sms, out);
 }

@@ -36,12 +36,15 @@ bfloat16 and float16 storage (the reference's ``itemsize < 4`` dtypes):
   defines plain bf16 as: tables rounded to bf16 (the ``hi`` half), fp32
   accumulation inside each complex GEMM (twiddle included), and every
   GEMM step's output rounded to bf16.  A Stockham FFT has no such rounding
-  points, so this variant alone still runs the four-step GEMM chain
-  (``csrc/row_pass.cuh``, ``csrc/cgemm.cuh``); the plain version does
-  the same in torch, so the two agree to bf16 rounding ties.  Plain
-  float16 is the same in float16 (tables rounded to float16, every GEMM
-  step's output rounded to float16, ``csrc/f16.cuh``), on the same chain;
-  no plan resolves to it.
+  points, so this variant runs the four-step products themselves, on the
+  tensor cores (``csrc/dft_mma.cuh``, planned by
+  :mod:`~repro_torch.kernels.dft_mma`): every operand is a bf16 value and
+  mma.sync accumulates in fp32, so the kernel and the plain version agree
+  to the order of the fp32 sums (bf16 rounding ties).  One launch an axis
+  in bf16 through device memory, no fp32 scratch.  Plain float16 is the
+  same in float16 (tables rounded to float16, every GEMM step's output
+  rounded to float16, ``csrc/f16.cuh``, mma.sync's f16 form); no plan
+  resolves to it.
 
 Rounding is to nearest even, as torch's float -> bfloat16 and float ->
 float16 casts do (``csrc/bf16.cuh``, ``csrc/f16.cuh``).
@@ -53,7 +56,7 @@ import torch
 
 from repro_torch.core.complexmath import SplitComplex
 from repro_torch.core.twiddle import _cast
-from . import _build, axis_fft
+from . import _build, axis_fft, dft_mma
 from .rfft2d_fused import (fourstep_factors, fourstep_tables_np,
                            fft_last_fourstep, fft_col_fourstep, _check_dims)
 
@@ -165,47 +168,28 @@ def fft2d_gemm_plain(x: SplitComplex, *, inverse: bool = False,
     return SplitComplex(re.to(dt), im.to(dt))
 
 
-def on_gemm_chain(dtype: torch.dtype, variant: str) -> bool:
-    """Whether the CUDA kernel runs the four-step GEMM chain (plain bf16 or
-    float16) rather than the shared-memory FFTs."""
+def on_dft_mma(dtype: torch.dtype, variant: str) -> bool:
+    """Whether the CUDA kernel runs the four-step products on the tensor
+    cores (plain bf16 or float16) rather than the shared-memory FFTs."""
     return dtype in (torch.bfloat16, torch.float16) and variant == "plain"
-
-
-def scratch(x: SplitComplex):
-    """The two fp32 buffer pairs the plain-variant GEMM chain ping-pongs
-    through (its output holds the storage dtype)."""
-    def pair():
-        return SplitComplex(*(torch.empty(x.shape, dtype=torch.float32,
-                                          device=x.device) for _ in "ri"))
-    return pair(), pair()
-
-
-_ARGS_CHAIN = [_build.P] * 20 + [_build.L] + [_build.I] * 6 + [_build.P]
 
 
 def fft2d_gemm_cuda(x: SplitComplex, *, inverse: bool = False,
                     variant: str = "plain") -> SplitComplex:
     """Launch the 2-D FFT on (batch, h, w) CUDA planes (float32, bfloat16
-    or float16): the planned shared-memory FFT passes, or the GEMM chain
-    for plain bf16 and float16."""
+    or float16): the planned shared-memory FFT passes, or the tensor-core
+    DFT products for plain bf16 and float16."""
     check_variant(variant)
     check_dtype(x.dtype)
     _build.check_operands(x, 3, DTYPES)
     batch, h, w = x.shape
     _check_dims(h, w)
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    if not on_gemm_chain(x.dtype, variant):
+    if not on_dft_mma(x.dtype, variant):
         fn = _build.function("fft2d_gemm", "fft2d_gemm_pass", axis_fft.ARGS)
         axis_fft.run(fn, axis_fft.plan2d(batch, h, w), x, out, h * w, inverse,
                      "fft2d_gemm")
         return out
-    fw, fh = fourstep_factors(w), fourstep_factors(h)
-    tabs = (axis_tables(w, fw, inverse, x.dtype, variant, x.device)
-            + axis_tables(h, fh, inverse, x.dtype, variant, x.device))
-    f0, f1 = scratch(x)
-    fn = _build.function("fft2d_gemm", "fft2d_gemm_chain", _ARGS_CHAIN)
-    ptrs = [x.re, x.im, out.re, out.im, f0.re, f0.im, f1.re, f1.im, *tabs]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, h, w, fw[0], fh[0], int(inverse),
-        int(x.dtype == torch.float16)], "fft2d_gemm", x.device)
+    fn = _build.function("fft2d_gemm", "fft2d_gemm_plain_pass", dft_mma.ARGS)
+    dft_mma.run(fn, (h, w), fourstep_factors, x, out, inverse, "fft2d_gemm")
     return out

@@ -29,8 +29,9 @@ H and D on columns; all but the first in place in the output.
 bfloat16 and float16 follow :mod:`repro_torch.kernels.fft2d_gemm`'s
 definitions: the compensated variant rounds the tile to the storage dtype
 after the W and after the H pass (the kernel stores those boundaries so),
-the plain variant after every GEMM step, on the GEMM chain
-(``csrc/row_pass.cuh``).
+the plain variant after every GEMM step, the products on the tensor
+cores (``csrc/dft_mma.cuh``: W on rows, H and D on tiles of columns, one
+launch an axis).
 """
 from __future__ import annotations
 
@@ -38,13 +39,12 @@ import torch
 
 from repro_torch.core.complexmath import SplitComplex
 from repro_torch.core.fft1d import _best_split
-from . import _build, axis_fft
+from . import _build, axis_fft, dft_mma
 from .rfft2d_fused import (fourstep_tables_np, fft_last_fourstep,
                            fft_col_fourstep)
 from .fft2d_gemm import (DTYPES, check_variant, check_dtype,
                          _operands,
-                         compute_dtype, axis_tables, roundings, on_gemm_chain,
-                         scratch)
+                         compute_dtype, axis_tables, roundings, on_dft_mma)
 
 # The fused brick runs three passes back to back, so its dense-leaf
 # crossover sits one octave below the 2-D kernel's (the reference's
@@ -108,14 +108,11 @@ def fft3d_fused_plain(x: SplitComplex, *, inverse: bool = False,
     return SplitComplex(re.to(dt), im.to(dt))
 
 
-_ARGS_CHAIN = [_build.P] * 26 + [_build.L] + [_build.I] * 8 + [_build.P]
-
-
 def fft3d_fused_cuda(x: SplitComplex, *, inverse: bool = False,
                      variant: str = "plain") -> SplitComplex:
     """Launch the 3-D FFT on (batch, d, h, w) CUDA planes (float32,
     bfloat16 or float16): the planned shared-memory FFT passes, or the
-    GEMM chain for plain bf16 and float16."""
+    tensor-core DFT products for plain bf16 and float16."""
     return _fft3d_cuda(x, inverse=inverse, variant=variant)
 
 
@@ -130,17 +127,13 @@ def _fft3d_cuda(x: SplitComplex, *, inverse: bool = False,
     batch, d, h, w = x.shape
     _check_dims3(d, h, w)
     out = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-    if not on_gemm_chain(x.dtype, variant):
+    if not on_dft_mma(x.dtype, variant):
         fn = _build.function("fft3d_fused", "fft3d_fused_pass", axis_fft.ARGS)
         axis_fft.run(fn, axis_fft.plan3d(batch, d, h, w, planes), x, out,
                      d * h * w, inverse, "fft3d_fused")
         return out
-    tabs = _tables3(d, h, w, inverse, x.dtype, variant, x.device)
-    f0, f1 = scratch(x)
-    fn = _build.function("fft3d_fused", "fft3d_fused_chain", _ARGS_CHAIN)
-    ptrs = [x.re, x.im, out.re, out.im, f0.re, f0.im, f1.re, f1.im, *tabs]
-    _build.launch(fn, [p.data_ptr() for p in ptrs] + [
-        batch, d, h, w, fourstep_factors3(w)[0], fourstep_factors3(h)[0],
-        fourstep_factors3(d)[0], int(inverse), int(x.dtype == torch.float16)],
-        "fft3d_fused", x.device)
+    fn = _build.function("fft3d_fused", "fft3d_fused_plain_pass",
+                         dft_mma.ARGS)
+    dft_mma.run(fn, (d, h, w), fourstep_factors3, x, out, inverse,
+                "fft3d_fused")
     return out

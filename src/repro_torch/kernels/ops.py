@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.complexmath import SplitComplex
+from . import _build
 from . import fft_stockham as _stockham
 from . import fft_fourstep as _fourstep
 from . import fft2d_gemm as _gemm2d
@@ -55,8 +56,10 @@ LAUNCHES = {"fft_stockham": 0, "fft_stockham_r2": 0, "fft_fourstep": 0,
 
 
 def reset_launches() -> None:
+    """Every count to 0: :data:`LAUNCHES` and ``_build.CALLS``."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    _build.CALLS.clear()
 
 
 class GradientNotSupported(TypeError):

@@ -185,21 +185,22 @@ def test_fft2d_wrapper_launches_the_plan(monkeypatch, shape, inverse):
         assert args[15] == 0
 
 
-@pytest.mark.parametrize("variant,chain", [("compensated", False),
-                                           ("plain", True)])
-def test_bf16_variants_pick_their_route(monkeypatch, variant, chain):
+@pytest.mark.parametrize("variant,mma", [("compensated", False),
+                                         ("plain", True)])
+def test_bf16_variants_pick_their_route(monkeypatch, variant, mma):
     """bf16 compensated runs the FFT passes (bf16 flag set); bf16 plain the
-    GEMM chain; float32 the FFT passes whatever the variant."""
+    tensor-core DFT products, one launch an axis; float32 the FFT passes
+    whatever the variant."""
     calls = _recorder(monkeypatch)
     z = np.ones((2, 4, 128, 256), np.complex64)
     x = from_numpy(z, device="cpu")
     xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
     fft3d_fused.fft3d_fused_cuda(xb, variant=variant)
     fft3d_fused.fft3d_fused_cuda(x, variant=variant)
-    if chain:
-        assert calls[0][0][1] == "fft3d_fused_chain"
-        assert all(c[0][1] == "fft3d_fused_pass" for c in calls[1:])
-        assert len(calls) == 1 + 3
+    if mma:
+        assert [c[0][1] for c in calls[:3]] == ["fft3d_fused_plain_pass"] * 3
+        assert all(c[0][1] == "fft3d_fused_pass" for c in calls[3:])
+        assert len(calls) == 3 + 3
     else:
         assert [c[0][1] for c in calls] == ["fft3d_fused_pass"] * 6
         assert [c[1][15] for c in calls] == [1, 1, 1, 0, 0, 0]
@@ -229,7 +230,7 @@ def test_wrappers_refuse_cpu_tensors(launch, shape, bad):
 @pytest.mark.parametrize("launch,shape,bad", _WRAPPERS)
 def test_wrappers_refuse_float16(launch, shape, bad):
     """float16 in both variants passes the dtype checks (the plain one on
-    the GEMM chain since ROADMAP §2e, the compensated one, the plans'
+    the tensor cores since ROADMAP §2e, the compensated one, the plans'
     variant, since F11) and is refused here only for lying on the CPU."""
     x = SplitComplex(torch.zeros(shape, dtype=torch.float16),
                      torch.zeros(shape, dtype=torch.float16))

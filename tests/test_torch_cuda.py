@@ -649,9 +649,10 @@ def test_float16_planes_on_card(card, name, shape):
 
 
 def test_plain_float16_on_the_gemm_chain_raises_on_card(card):
-    """No plan resolves to it (ROADMAP §2e): the GEMM chain in float16
-    against its plain version, within 2^-10 of max|plain| (the chain's
-    roundings are the plain version's), 2-D and 3-D, both directions."""
+    """No plan resolves to it (ROADMAP §2e): the plain variant's
+    tensor-core route in float16 against its plain version, within 2^-10
+    of max|plain| (its roundings are the plain version's), 2-D and 3-D,
+    both directions."""
     for shape, launch, plain in (
             ((2, 64, 128), fft2d_gemm.fft2d_gemm_cuda,
              fft2d_gemm.fft2d_gemm_plain),

@@ -1,5 +1,5 @@
 """float16 planes through the FFT kernels (ROADMAP §3 F11), the plain
-GEMM chain and decode attention (ROADMAP §2e).
+variant's tensor-core route and decode attention (ROADMAP §2e).
 
 - Every float16 route's plan resolves as the reference's does (``algo``,
   ``variant``, ``demote_reason``).
@@ -18,7 +18,7 @@ GEMM chain and decode attention (ROADMAP §2e).
   sequence-parallel partials of two slot halves merged, matches the
   reference's kernel in interpret mode on the same float16 q and caches
   within :data:`TOL_F16` of max|out|; plain float16 on the 2-D and 3-D
-  GEMM transforms takes the GEMM chain's launch.
+  GEMM transforms takes the tensor-core route's launches.
 - ``csrc/f16.cuh``'s conversions, compiled with g++ as
   ``tools/cuda_emu/emulate.py`` compiles the kernels, equal torch's casts
   bit for bit.
@@ -213,29 +213,31 @@ def test_fftconv_f16_matches_the_reference(lead, m):
 
 
 def test_plain_float16_on_the_gemm_chain_names_roadmap_2e(monkeypatch):
-    """Plain float16 (ROADMAP §2e, no plan resolves to it) runs the GEMM
-    chain's launch with its float16 flag set, as plain bf16 does with it
-    clear; compensated float16 runs the FFT passes."""
+    """Plain float16 (ROADMAP §2e, no plan resolves to it) runs the
+    tensor-core DFT products' launches (the route that replaced the GEMM
+    chain) with their float16 flag set, as plain bf16 does with it clear:
+    one launch an axis; compensated float16 runs the FFT passes."""
     from repro_torch.kernels import _build, fft3d_fused
     calls = []
     monkeypatch.setattr(_build, "check_operands", lambda *a: None)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
     monkeypatch.setattr(_build, "function", lambda *a: a[1])
     monkeypatch.setattr(_build, "launch", lambda fn, args, what, dev:
                         calls.append((fn, args[-1])))
     monkeypatch.setattr(_build, "launch_all", lambda fn, lists, what, dev:
-                        calls.extend((fn, None) for _ in lists))
+                        calls.extend((fn, args[-1]) for args in lists))
     for dt, flag in ((torch.float16, 1), (torch.bfloat16, 0)):
         x = SplitComplex(torch.zeros(1, 8, 8, dtype=dt),
                          torch.zeros(1, 8, 8, dtype=dt))
         x3 = SplitComplex(torch.zeros(1, 2, 8, 8, dtype=dt),
                           torch.zeros(1, 2, 8, 8, dtype=dt))
-        assert fft2d_gemm.on_gemm_chain(dt, "plain")
+        assert fft2d_gemm.on_dft_mma(dt, "plain")
         calls.clear()
         fft2d_gemm.fft2d_gemm_cuda(x, variant="plain")
         fft3d_fused.fft3d_fused_cuda(x3, variant="plain")
-        assert calls == [("fft2d_gemm_chain", flag),
-                         ("fft3d_fused_chain", flag)]
-    assert not fft2d_gemm.on_gemm_chain(torch.float16, "compensated")
+        assert calls == [("fft2d_gemm_plain_pass", flag)] * 2 + [
+            ("fft3d_fused_plain_pass", flag)] * 3
+    assert not fft2d_gemm.on_dft_mma(torch.float16, "compensated")
 
 
 def _decode_case(b, s, h, kv, d, seed):

@@ -203,10 +203,10 @@ def test_registry_bf16_plan_executes_to_bound():
 
 
 def test_float16_raises_naming_the_roadmap():
-    """Plain float16 runs the GEMM chain (ROADMAP §2e): both CUDA wrappers
-    pass it through the dtype checks and refuse it only for lying on the
-    CPU.  The plain versions compute float16 in both variants on the CPU,
-    float16 in, float16 out."""
+    """Plain float16 runs on the tensor cores (ROADMAP §2e): both CUDA
+    wrappers pass it through the dtype checks and refuse it only for lying
+    on the CPU.  The plain versions compute float16 in both variants on
+    the CPU, float16 in, float16 out."""
     x = SplitComplex(torch.zeros(1, 8, 8, dtype=torch.float16),
                      torch.zeros(1, 8, 8, dtype=torch.float16))
     x3 = SplitComplex(torch.zeros(1, 2, 8, 8, dtype=torch.float16),

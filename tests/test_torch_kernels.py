@@ -104,7 +104,7 @@ def test_cpu_path_counts_no_launch():
 
 
 def test_unported_options_raise():
-    """Plain float16 on the GEMM chain (ROADMAP §2e; no plan resolves to
+    """Plain float16 on the tensor cores (ROADMAP §2e; no plan resolves to
     it) passes the dtype checks and is refused only for lying on the CPU;
     an unknown variant is refused."""
     x = from_numpy(_rand((1, 8, 8), 0), device="cpu")

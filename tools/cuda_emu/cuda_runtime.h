@@ -13,8 +13,7 @@
 // emu_mma_bf16_16816, with the PTX ISA's fragment layouts) exchange
 // through per-warp buffers the same way, and __syncwarp is the warp's
 // barrier.  cp.async is a plain copy (emu_cp_async); its commit and wait
-// do nothing; atomicAdd is a std::atomic_ref's.  Only blockIdx.x/y and threadIdx.x are emulated, and
-// cgemm.cuh is still replaced by a naive twin.
+// do nothing; atomicAdd is a std::atomic_ref's.  Only blockIdx.x/y and threadIdx.x are emulated.
 #pragma once
 #define CUDA_EMU 1  // axis_fft.cuh's cp.async becomes a plain copy
 #include <atomic>

@@ -3,8 +3,8 @@
     PYTHONPATH=src python tools/cuda_emu/emulate.py
 
 Compiles each ``src/repro_torch/kernels/csrc/*.cu`` with g++ (C++20)
-against the stand-in ``cuda_runtime.h`` and the naive ``cgemm.cuh`` twin
-in this directory (``<<<grid, block, shmem, s>>>`` launches become one
+against the stand-in ``cuda_runtime.h`` in this directory
+(``<<<grid, block, shmem, s>>>`` launches become one
 thread per CUDA thread of a block, walking the blocks in turn, with
 ``__syncthreads()`` a barrier; ``extern __shared__`` arrays point at a
 buffer of ``shmem`` bytes), loads the libraries with ctypes in place of
@@ -13,8 +13,10 @@ buffer of ``shmem`` bytes), loads the libraries with ctypes in place of
 
 What it checks: the index maps, buffer chaining, scales and launch
 parameters of every entry point, the bf16 storage modes of the GEMM
-transforms (bf16.cuh's conversions run as written; the twin sums in the
-tiled kernel's order), the shared-memory stages of the fused conv and
+transforms (bf16.cuh's conversions run as written), the plain variant's
+tensor-core DFT steps (dft_mma.cuh: its ldmatrix and mma.sync fragments,
+swizzled tiles and epilogues, the rows and column tiles, and the long-axis
+route's tiled products with lowered thresholds), the shared-memory stages of the fused conv and
 fused Stockham 2-D kernel's row and column passes (odd log2 h and w,
 h = 2, whole images a tile), the four-step kernel's shared-memory FFTs
 (one- and two-launch routes), the 2-D and 3-D kernels' planned routes
@@ -29,8 +31,8 @@ kernel's per-stage route, the staged FFT's folded bit-reverse (rows and
 tiles) and float4 stages, and decode attention's split and merge kernels
 on both routes (warp shuffles and ballots, the tensor-core route's
 ldmatrix and mma.sync fragments, its cp.async ring, skipped tiles and
-splits and the merge's mean of V).  What it cannot check: the tiled GEMM itself (the twin replaces
-it), warps, shared-memory limits or timing.  Libraries go to
+splits and the merge's mean of V).  What it cannot check: warp
+scheduling, shared-memory limits or timing.  Libraries go to
 ``build/cuda_emu/``.  Exits non-zero if a shape disagrees beyond 1e-5 of
 max|plain| (fp32) or one bf16 ulp at the top of the range, 2^-7 of
 max|plain| (bf16 on the GEMM transforms and decode), or, for bf16 planes
@@ -41,7 +43,8 @@ and 3-D GEMM transforms included) if the kernel's error against float64
 numpy of the float16-rounded input passes 1e-3 of max|X| (not for the
 staged FFT, which rounds every stage) or the plain version's error plus
 2^-10, and the float16 routes of ROADMAP §2e (the plain GEMM chain,
-decode attention whole and as merged partials) within 2^-10 of max|plain|.
+decode attention whole and as merged partials) within 2^-10 of max|plain|
+(the plain route's float16 products, 2-D and 3-D, included).
 ``f16_conversions`` compiles ``csrc/f16.cuh``'s conversions alone
 (``tests/test_torch_f16.py`` holds them to torch's casts).  It also runs the long-axis routes scaled down (the split
 launches with lowered thresholds, the real-input steps at 8192, the
@@ -83,22 +86,27 @@ def _rewrite(src: str) -> str:
         r"\1* \2 = reinterpret_cast<\1*>(emu_shared);", src)
 
 
-def build(names=_build.SOURCES) -> None:
-    """g++ each listed source into ``build/cuda_emu/lib<name>.so``."""
+def build(names=_build.SOURCES, out=None) -> None:
+    """g++ each listed source into ``lib<name>.so`` in ``out`` (default
+    ``build/cuda_emu/``), in parallel; :func:`install` loads them from
+    there."""
+    global OUT
+    OUT = Path(out) if out is not None else OUT
     OUT.mkdir(parents=True, exist_ok=True)
     for h in _build.CSRC.glob("*.cuh"):
-        if h.name != "cgemm.cuh":
-            (OUT / h.name).write_text(_rewrite(h.read_text()))
-    for h in ("cuda_runtime.h", "cgemm.cuh"):
-        shutil.copy(HERE / h, OUT / h)
+        (OUT / h.name).write_text(_rewrite(h.read_text()))
+    shutil.copy(HERE / "cuda_runtime.h", OUT / "cuda_runtime.h")
+    procs = []
     for name in names:
         src = (_build.CSRC / f"{name}.cu").read_text()
         cpp = OUT / f"{name}.cpp"
         cpp.write_text(_rewrite(src))
-        subprocess.run(["g++", "-O2", "-std=c++20", "-pthread", "-shared",
-                        "-fPIC",
-                        "-I", str(OUT), "-o", str(OUT / f"lib{name}.so"),
-                        str(cpp)], check=True)
+        procs.append(subprocess.Popen(
+            ["g++", "-O2", "-std=c++20", "-pthread", "-shared", "-fPIC",
+             "-I", str(OUT), "-o", str(OUT / f"lib{name}.so"), str(cpp)]))
+    codes = [p.wait() for p in procs]
+    if any(codes):
+        raise subprocess.CalledProcessError(max(codes), "g++")
 
 
 def f16_conversions(out_dir) -> ctypes.CDLL:
@@ -156,6 +164,7 @@ def _check_merge_operands(*ops):
 def _launch_all(fn, arg_lists, what, device):
     for args in arg_lists:
         _build.check(fn(*args, None), what)
+        _build.CALLS[fn.__name__] += 1
 
 
 def _launch(fn, args, what, device):
@@ -368,6 +377,7 @@ def main() -> int:
     results += long_axes(rng, cplx)
     f4 = bf16_planes(rng, cplx)
     f11 = bf16_planes(rng, cplx, torch.float16)
+    bf16 += plain_long_axes()
     for r in results + bf16:
         print(*r)
     for r in f4 + f11 + half:
@@ -513,6 +523,39 @@ def long_axes(rng, cplx) -> list:
                     S.fft_stockham_r2_plain(x, inverse=inv))))
     finally:
         S.TWO_MAX = 1 << 24
+    return out
+
+
+def plain_long_axes(seed: int = 29) -> list:
+    """The plain variant's long-axis route in bf16 (two tiled products an
+    axis through the scratch pair), its thresholds lowered to 256 points,
+    on inputs from its own generator (``seed``): rows of 1024 (32 x 32),
+    columns of 512 (16 x 32: one image of 16 columns, 3-D columns of 8)
+    and 3-D columns of 512 over 2 columns (the element-wise loads)."""
+    from repro_torch.kernels import _build as B
+    from repro_torch.kernels import dft_mma as D
+    from repro_torch.kernels import fft2d_gemm as G
+    from repro_torch.kernels import fft3d_fused as V
+    from repro_torch.kernels.rfft2d_fused import fourstep_factors
+    rng = np.random.default_rng(seed)
+    low = D.Limits(rows_max=256, cols_max=256)
+    out = []
+    for shape in [(2, 2, 1024), (1, 512, 16), (1, 4, 512, 8),
+                  (1, 512, 2, 2)]:
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        x = from_numpy(z, device="cpu")
+        xb = SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+        name, plain, factors = (
+            ("fft2d_gemm", G.fft2d_gemm_plain, fourstep_factors)
+            if len(shape) == 3 else
+            ("fft3d_fused", V.fft3d_fused_plain, V.fourstep_factors3))
+        fn = B.function(name, f"{name}_plain_pass", D.ARGS)
+        for inv in (False, True):
+            got = SplitComplex(torch.empty_like(xb.re),
+                               torch.empty_like(xb.im))
+            D.run(fn, shape[1:], factors, xb, got, inv, name, low)
+            out.append(("plain long axis", shape, inv, rel(
+                got, plain(xb, inverse=inv, variant="plain"))))
     return out
 
 

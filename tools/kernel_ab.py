@@ -1,7 +1,7 @@
-"""Time the redesigned kernels and the ``cgemm.cuh`` users of one checkout
-of the port on the card, to compare two commits within one call.
+"""Time the redesigned kernels of one checkout of the port on the card, to
+compare two commits within one call.
 
-    python3 tools/kernel_ab.py <tree> [--launches]
+    python3 tools/kernel_ab.py <tree> [--launches] [--gemm]
 
 ``<tree>/src/repro_torch`` is imported and its kernels are built into
 ``<tree>/build``.  Prints one JSON line: the tree, the card's nvidia-smi
@@ -17,15 +17,15 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   32768 x 512 and 4096 x 4096, and Table 1's 512 x 16384;
 - ``fft_staged`` at 512 x 16384 and 8 x 16384;
 - ``fft2d_gemm`` at 16 x 1024^2 and 1 x 1024^2 in fp32, bf16 compensated
-  and bf16 plain (the GEMM chain), and at 16 x 1024^2 in float16 plain
-  (the chain; null where the tree refuses it), and ``fft3d_fused`` at
+  and bf16 plain (the tensor-core route, or the GEMM chain in a tree
+  before it), and at 16 x 1024^2 in float16 plain (null where the tree
+  refuses it), and ``fft3d_fused`` at
   2 x 256^3, 8 x 128^3 (and its three-launch route, where the tree has
   one) and 2 x 256^3 bf16 compensated, bf16 plain and float16 plain,
   with ``fft3(algo="row_col")`` at 2 x 256^3 beside them, each with its
   device time a call;
 - ``rfft2d_fused`` at 16 x 1024^2 and 1 x 1024^2, and ``irfft2d_fused``
-  at 16 x 1024^2, each with its device time a call, and the ptxas lines of
-  the fp32 GEMM instance where a tree builds one;
+  at 16 x 1024^2, each with its device time a call;
 - ``fft_stockham_r2`` at 2 x 2^20 and at the shapes ``rfft2(algo=
   "stockham2")`` gives it at 1024^2: 1024 x 512, 513 x 1024, 1024 x 1024;
 - ``fft_stockham`` (radix 4) at 2 x 2^22 (the 1-D main path), 2 x 2^23
@@ -49,6 +49,10 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   starcoder2-15b (16 x 32768 slots filled to a quarter .. all, GQA 48/4,
   D 128) and h2o-danube-1.8b (128 rings of 4096, window 4096, GQA 32/8,
   D 80, the last row with no visible slot), with its device time a call;
+- the seconds of one nvcc each for ``fft2d_gemm.cu`` and
+  ``fft3d_fused.cu`` (``nvcc_s``) and the ptxas lines of the plain
+  route's kernels (``plain_route_ptxas``: ``dft_tile`` and ``dft_gemm``
+  instances, or the GEMM core's in a tree before them);
 - the ptxas lines of the four-step kernels, of every 2-D and 3-D kernel
   instance, of the radix-2, radix-4 and real-input kernels, of the fused
   Stockham 2-D kernel, of the conv kernels and of the decode kernels the
@@ -62,7 +66,9 @@ compensated), of ``rfft2d_fused`` and ``irfft2d_fused`` at 16 x 1024^2, of
 2 x 2^23 and 4 x 2^21, of ``fft2``/``fft3(algo="row_col")`` at 16 x 1024^2 and
 2 x 256^3, of ``fft2d_fused`` at 16 x 1024^2 (forward and inverse) and of
 ``decode_attention`` at both cells, with its device time, from a
-``torch.profiler`` trace.  Unpack the parent into a
+``torch.profiler`` trace.  ``--gemm`` keeps the 2-D and 3-D GEMM
+transforms (every variant and dtype) and decode attention, the users of
+the plain route's headers, and builds only their sources.  Unpack the parent into a
 directory that .gitignore lists and alternate the trees, one process each:
 
     mkdir -p build/ab_parent
@@ -77,6 +83,7 @@ import sys
 import numpy as np
 
 ROOT = sys.argv[1]
+GEMM_ONLY = "--gemm" in sys.argv
 sys.path.insert(0, ROOT + "/src")
 
 import torch  # noqa: E402
@@ -208,99 +215,9 @@ def ptxas_lines(log):
     return out
 
 
-def main():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    logs = _build.build_all(("fft_fourstep", "fft_stage", "fft2d_gemm",
-                             "rfft2d_fused", "fft3d_fused", "fft_stockham",
-                             "fft2d_fused", "fftconv_fused",
-                             "decode_attention"))
-    # a library built earlier (by chip_smoke.py, or a run before) left its
-    # compiler log beside it
-    ptxas = {n: ptxas_lines(log or _build.library_path(n)
-                            .with_suffix(".log").read_text())
-             for n, log in logs.items()}
-    # the fp32 GEMM core's instance: <false, false, 0> before the float16
-    # operand kinds, <0, 0, 0> after
-    gemm_f32 = [line for n in ("fft2d_gemm", "rfft2d_fused", "fft3d_fused")
-                for k, line in ptxas[n].items() if "cgemm" in k and (
-                    "Lb0ELb0ELi0E" in k or "Li0ELi0ELi0E" in k)]
-    ptxas = {n: {k: line for k, line in ptxas[n].items()
-                 if "cgemm" not in k}
-             for n in ("fft_fourstep", "fft_stage", "fft2d_gemm",
-                       "fft3d_fused", "rfft2d_fused", "fft_stockham",
-                       "fft2d_fused", "fftconv_fused", "decode_attention")}
-    g = torch.Generator(device="cuda")
-    g.manual_seed(0)
-
-    def cplx(shape):
-        return SplitComplex(torch.randn(shape, generator=g, device="cuda"),
-                            torch.randn(shape, generator=g, device="cuda"))
-
-    ms, dev = {}, {}
-    traced = {}
-    for kern, shapes in ((F.fft_fourstep_cuda, FOURSTEP),
-                         (ST.fft_staged_cuda, STAGED),
-                         (S.fft_stockham_r2_cuda, R2),
-                         (S.fft_stockham_cuda, R4)):
-        for shape in shapes:
-            x = cplx(shape)
-            key = f"{kern.__name__[:-5]} {shape[0]}x{shape[1]}"
-            ms[key] = time_ms(lambda: kern(x))
-            dev[key] = device_us(lambda: kern(x))
-            if "--launches" in sys.argv and shapes is R4:
-                traced[f"{key} launches"] = launches(lambda: kern(x))
-            del x
-    torch.cuda.empty_cache()
-
-    def bf16(x):
-        return SplitComplex(x.re.bfloat16(), x.im.bfloat16())
-
-    three = getattr(V, "_fft3d_cuda", None)   # the route A/B, where it is
-    calls = {}
-    for shape in (IMAGES, IMAGE):
-        tag = f"{shape[0]}x1024^2"
-        calls[f"fft2d_gemm {tag}"] = (G.fft2d_gemm_cuda, shape, False, {})
-        for v in ("compensated", "plain"):
-            calls[f"fft2d_gemm {tag} bf16 {v}"] = (
-                G.fft2d_gemm_cuda, shape, True, {"variant": v})
-    calls["fft3d_fused 2x256^3"] = (V.fft3d_fused_cuda, VOLUME, False, {})
-    calls["fft3d_fused 2x256^3 bf16 compensated"] = (
-        V.fft3d_fused_cuda, VOLUME, True, {"variant": "compensated"})
-    calls["fft3d_fused 2x256^3 bf16 plain"] = (
-        V.fft3d_fused_cuda, VOLUME, True, {"variant": "plain"})
-    # plain float16 on the GEMM chain, where the tree takes it (null where
-    # it refuses)
-    calls["fft2d_gemm 16x1024^2 float16 plain"] = (
-        G.fft2d_gemm_cuda, IMAGES, "half", {"variant": "plain"})
-    calls["fft3d_fused 2x256^3 float16 plain"] = (
-        V.fft3d_fused_cuda, VOLUME, "half", {"variant": "plain"})
-    calls["fft3d_fused 8x128^3"] = (V.fft3d_fused_cuda, PME, False, {})
-    if three is not None:
-        calls["fft3d_fused 8x128^3 three launches"] = (
-            three, PME, False, {"planes": False})
-    calls["fft3 row_col 2x256^3"] = (
-        lambda x: fft3(x, algo="row_col", backend="cuda"), VOLUME, False, {})
-    calls["fft2 row_col 16x1024^2"] = (
-        lambda x: fft2(x, algo="row_col", backend="cuda"), IMAGES, False, {})
-    for key, (kern, shape, low, kw) in calls.items():
-        x = cplx(shape)
-        if low == "half":
-            x = SplitComplex(x.re.half(), x.im.half())
-            try:
-                kern(x, **kw)
-            except TypeError:            # a tree that refuses it
-                ms[key] = dev[key] = None
-                continue
-        elif low:
-            x = bf16(x)
-        ms[key] = time_ms(lambda: kern(x, **kw))
-        dev[key] = device_us(lambda: kern(x, **kw))
-        if "--launches" in sys.argv and shape != IMAGE and (
-                "plain" not in key):
-            traced[f"{key} launches"] = launches(lambda: kern(x, **kw))
-        del x
-    torch.cuda.empty_cache()
+def others(ms, dev, traced, cplx, g):
+    """The real-input, fused Stockham and conv kernels (skipped with
+    ``--gemm``); returns the conv entry points' traces."""
     for shape in (IMAGES, IMAGE):
         r = torch.randn(shape, generator=g, device="cuda")
         key = f"rfft2d_fused {shape[0]}x1024^2"
@@ -358,7 +275,112 @@ def main():
         lambda: fft_conv(xs, ks, backend="cuda"))
     del xs, ks
     torch.cuda.empty_cache()
-    for name, shape in LONG:
+    return conv_trace
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    # the GEMM transforms' two sources alone first, one nvcc each, timed
+    import time
+    nvcc_s = {}
+    for name in ("fft2d_gemm", "fft3d_fused"):
+        t0 = time.perf_counter()
+        _build.build_all((name,))
+        nvcc_s[name] = time.perf_counter() - t0
+    names = (("fft2d_gemm", "fft3d_fused", "decode_attention") if GEMM_ONLY
+             else ("fft_fourstep", "fft_stage", "fft2d_gemm", "rfft2d_fused",
+                   "fft3d_fused", "fft_stockham", "fft2d_fused",
+                   "fftconv_fused", "decode_attention"))
+    logs = _build.build_all(names)
+    # a library built earlier (above, by chip_smoke.py, or a run before)
+    # left its compiler log beside it
+    ptxas = {n: ptxas_lines(logs.get(n) or _build.library_path(n)
+                            .with_suffix(".log").read_text())
+             for n in names}
+    # the plain route's kernels: the tensor-core tiles and long-axis
+    # products (dm::dft_tile, dm::dft_gemm), or the GEMM core's instances
+    # in a tree that still has it (cg::cgemm)
+    marks = ("dft_tile", "dft_gemm", "cgemm")
+    plain_route = {n: {k: line for k, line in ptxas[n].items()
+                       if any(m in k for m in marks)}
+                   for n in ("fft2d_gemm", "fft3d_fused")}
+    ptxas = {n: {k: line for k, line in ptxas[n].items()
+                 if not any(m in k for m in marks)}
+             for n in names}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+
+    def cplx(shape):
+        return SplitComplex(torch.randn(shape, generator=g, device="cuda"),
+                            torch.randn(shape, generator=g, device="cuda"))
+
+    ms, dev = {}, {}
+    traced = {}
+    for kern, shapes in () if GEMM_ONLY else (
+            (F.fft_fourstep_cuda, FOURSTEP), (ST.fft_staged_cuda, STAGED),
+            (S.fft_stockham_r2_cuda, R2), (S.fft_stockham_cuda, R4)):
+        for shape in shapes:
+            x = cplx(shape)
+            key = f"{kern.__name__[:-5]} {shape[0]}x{shape[1]}"
+            ms[key] = time_ms(lambda: kern(x))
+            dev[key] = device_us(lambda: kern(x))
+            if "--launches" in sys.argv and shapes is R4:
+                traced[f"{key} launches"] = launches(lambda: kern(x))
+            del x
+    torch.cuda.empty_cache()
+
+    def bf16(x):
+        return SplitComplex(x.re.bfloat16(), x.im.bfloat16())
+
+    three = getattr(V, "_fft3d_cuda", None)   # the route A/B, where it is
+    calls = {}
+    for shape in (IMAGES, IMAGE):
+        tag = f"{shape[0]}x1024^2"
+        calls[f"fft2d_gemm {tag}"] = (G.fft2d_gemm_cuda, shape, False, {})
+        for v in ("compensated", "plain"):
+            calls[f"fft2d_gemm {tag} bf16 {v}"] = (
+                G.fft2d_gemm_cuda, shape, True, {"variant": v})
+    calls["fft3d_fused 2x256^3"] = (V.fft3d_fused_cuda, VOLUME, False, {})
+    calls["fft3d_fused 2x256^3 bf16 compensated"] = (
+        V.fft3d_fused_cuda, VOLUME, True, {"variant": "compensated"})
+    calls["fft3d_fused 2x256^3 bf16 plain"] = (
+        V.fft3d_fused_cuda, VOLUME, True, {"variant": "plain"})
+    # plain float16, where the tree takes it (null where it refuses)
+    calls["fft2d_gemm 16x1024^2 float16 plain"] = (
+        G.fft2d_gemm_cuda, IMAGES, "half", {"variant": "plain"})
+    calls["fft3d_fused 2x256^3 float16 plain"] = (
+        V.fft3d_fused_cuda, VOLUME, "half", {"variant": "plain"})
+    calls["fft3d_fused 8x128^3"] = (V.fft3d_fused_cuda, PME, False, {})
+    if three is not None:
+        calls["fft3d_fused 8x128^3 three launches"] = (
+            three, PME, False, {"planes": False})
+    if not GEMM_ONLY:
+        calls["fft3 row_col 2x256^3"] = (
+            lambda x: fft3(x, algo="row_col", backend="cuda"), VOLUME, False,
+            {})
+        calls["fft2 row_col 16x1024^2"] = (
+            lambda x: fft2(x, algo="row_col", backend="cuda"), IMAGES, False,
+            {})
+    for key, (kern, shape, low, kw) in calls.items():
+        x = cplx(shape)
+        if low == "half":
+            x = SplitComplex(x.re.half(), x.im.half())
+            try:
+                kern(x, **kw)
+            except TypeError:            # a tree that refuses it
+                ms[key] = dev[key] = None
+                continue
+        elif low:
+            x = bf16(x)
+        ms[key] = time_ms(lambda: kern(x, **kw))
+        dev[key] = device_us(lambda: kern(x, **kw))
+        if "--launches" in sys.argv and shape != IMAGE:
+            traced[f"{key} launches"] = launches(lambda: kern(x, **kw))
+        del x
+    torch.cuda.empty_cache()
+    conv_trace = {} if GEMM_ONLY else others(ms, dev, traced, cplx, g)
+    for name, shape in () if GEMM_ONLY else LONG:
         x = cplx(shape)
         kern = {"fft2d_gemm": G.fft2d_gemm_cuda,
                 "fft_fourstep": F.fft_fourstep_cuda,
@@ -389,9 +411,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     out = {"tree": ROOT, "nvidia_smi": smi, "ms": ms, "device_us": dev,
-           "conv_trace": conv_trace, "cgemm_f32_ptxas": gemm_f32,
+           "conv_trace": conv_trace, "plain_route_ptxas": plain_route,
+           "nvcc_s": nvcc_s,
            "ptxas": ptxas, **traced}
-    if "--launches" in sys.argv:
+    if "--launches" in sys.argv and not GEMM_ONLY:
         x = cplx(FOURSTEP[0])
         out["fft_fourstep 4x2^20 launches"] = launches(
             lambda: F.fft_fourstep_cuda(x))
