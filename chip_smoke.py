@@ -211,12 +211,15 @@ CHECKS += [("fft_stockham", MAIN_RFFT_FOURSTEP),
            ("fft_stockham_r2", (MAIN_RFFT2[1], MAIN_RFFT2[2]))]
 # the radix-4 kernel's routes: one launch up to 2^14, two from 2^15 (an odd
 # log2 n at 2^15 and 2^17: the radix-2 tail in launch B), 2^24 the largest
-# of two; above, a launch a stage, held against float64 numpy at
-# STOCKHAM_STAGES (its plain version's packed float64 host table would be
-# 4.8 GB)
+# of two; above, three, held with radix 2's against float64 numpy at
+# STOCKHAM_LONG in fp32, bf16 and float16 (radix 4's plain version's
+# packed float64 host table would be 4.8 GB), and radix 4's forward ->
+# inverse round trip at STOCKHAM_TRIP
 CHECKS += [("fft_stockham", (3, 1 << 14)), ("fft_stockham", (3, 1 << 15)),
            ("fft_stockham", (2, 1 << 17)), ("fft_stockham", (2, 1 << 24))]
-STOCKHAM_STAGES = (1, 1 << 25)
+STOCKHAM_LONG = (1, 1 << 25)
+STOCKHAM_TRIP = (1, 1 << 27)
+TOL_TRIP = 1e-4
 REAL_KERNELS = ("rfft2d_fused", "irfft2d_fused", "fft_stockham_r2",
                 "fft_fourstep", "fft_stockham")
 MAIN_SHAPE = {"fft2d_gemm": MAIN_2D, "fft_fourstep": MAIN_FOURSTEP,
@@ -330,7 +333,8 @@ TABLE1_KERNELS = ("fft_staged", "fft_stockham", "fft_fourstep")
 # launches, the real-input kernels' split steps), held against float64
 # numpy through the entry points and against the plain versions; one timed
 # 8192^2 image; the four-step kernel's factors past 1024
-# (fft_fourstep.axis_plan) and radix 2 past 2^24 (a launch a stage)
+# (fft_fourstep.axis_plan) and both Stockham kernels past 2^24 (three
+# launches)
 LONG_2D = [(2, 2, 8192), (2, 8192, 4), (1, 2, 16384)]
 LONG_3D = [(1, 2, 2, 8192), (1, 8192, 2, 4)]
 LONG_TIMED = (1, 8192, 8192)
@@ -341,10 +345,9 @@ CHECKS += [("fft3d_fused", shape) for shape in LONG_3D]
 FOURSTEP_FACTORS = [((1, 1 << 21), None, "plan"), ((2, 1 << 22), None, "plan"),
                     ((3, 4096), 2, "ops"), ((3, 1 << 15), 2, "ops"),
                     ((3, 1 << 14), 1 << 14, "ops")]
-R2_STAGES = (1, 1 << 25)
 LONG_KERNELS = ("fft2d_gemm", "fft2d_fused", "rfft2d_fused",
                 "irfft2d_fused", "fft3d_fused", "fft_fourstep",
-                "fft_stockham_r2")
+                "fft_stockham_r2", "fft_stockham")
 # bf16 planes on the kernels that took float32 only: each kernel's own
 # small shape and its path's main shape, against float64 numpy of the
 # bf16-rounded input, within the reference's bf16 bound (6e-2 of max|X|,
@@ -3768,23 +3771,54 @@ def main() -> int:
                   "ok": ok})
             del x, got, ref
     torch.cuda.empty_cache()
-    # the radix-4 kernel's per-stage route above 2^24, against float64 numpy
-    z = rand(STOCKHAM_STAGES)
-    x = from_numpy(z, device=dev)
-    for inverse in (False, True):
-        got = S.fft_stockham_cuda(x, inverse=inverse)
-        torch.cuda.synchronize()
-        rel = np_errors(got, REF_FFT.ifft(z) if inverse else REF_FFT.fft(z))
-        ok = rel <= TOL_1D
-        if not ok:
-            failures.append(f"fft_stockham{STOCKHAM_STAGES} per-stage "
-                            f"inverse={inverse}: {rel}")
-        emit({"phase": "kernel_vs_numpy", "kernel": "fft_stockham",
-              "route": "per_stage", "shape": STOCKHAM_STAGES,
-              "inverse": inverse, "err_over_max": rel, "tol": TOL_1D,
-              "ok": ok})
-        del got
-    del x, z
+    # both Stockham kernels' three launches past 2^24 against float64
+    # numpy of the input as rounded to its dtype (fp32 5e-5, bf16 6e-2,
+    # float16 1e-3 of max|X|; the reference held on the card, the error
+    # taken there in float64); radix 4's round trip at 2^27 on an input
+    # made on the card
+    z = rand(STOCKHAM_LONG)
+    for dtype, tol in ((torch.float32, TOL_1D), (torch.bfloat16, 6e-2),
+                       (torch.float16, 1e-3)):
+        x = from_numpy(z, device=dev)
+        x = SplitComplex(x.re.to(dtype), x.im.to(dtype))
+        zr = to_numpy(x)
+        for inverse in (False, True):
+            want = torch.from_numpy(REF_FFT.ifft(zr) if inverse
+                                    else REF_FFT.fft(zr)).to(dev)
+            top = want.abs().max().item()
+            for radix, kern in ((4, S.fft_stockham_cuda),
+                                (2, S.fft_stockham_r2_cuda)):
+                got = kern(x, inverse=inverse)
+                rel = (torch.complex(got.re.double(), got.im.double())
+                       - want).abs().max().item() / top
+                ok = rel <= tol and got.re.dtype == dtype
+                if not ok:
+                    failures.append(f"radix-{radix} {STOCKHAM_LONG} {dtype} "
+                                    f"inverse={inverse}: {rel}")
+                emit({"phase": "kernel_vs_numpy",
+                      "kernel": kern.__name__[:-5],
+                      "route": "three_launches", "shape": STOCKHAM_LONG,
+                      "split": S.split3(STOCKHAM_LONG[1], radix),
+                      "dtype": str(dtype)[6:], "inverse": inverse,
+                      "err_over_max": rel, "tol": tol, "ok": ok})
+                del got
+            del want
+        del x
+    del z
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    x = SplitComplex(*(torch.randn(STOCKHAM_TRIP, generator=gen, device=dev)
+                       for _ in "ri"))
+    back = S.fft_stockham_cuda(S.fft_stockham_cuda(x), inverse=True)
+    rel = errors(back, x)[1]
+    ok = rel <= TOL_TRIP
+    if not ok:
+        failures.append(f"radix-4 round trip {STOCKHAM_TRIP}: {rel}")
+    emit({"phase": "round_trip", "kernel": "fft_stockham",
+          "shape": STOCKHAM_TRIP, "split": S.split3(STOCKHAM_TRIP[1], 4),
+          "err_over_max": rel, "tol": TOL_TRIP, "ok": ok})
+    del x, back
+    S.tw.clear_table_cache()
     torch.cuda.empty_cache()
     bf16_kernels = {"fft2d_gemm": (G.fft2d_gemm_cuda, G.fft2d_gemm_plain),
                     "fft3d_fused": (V.fft3d_fused_cuda, V.fft3d_fused_plain),
@@ -4358,7 +4392,8 @@ def main() -> int:
     # 4h. the long axes through the entry points: fft2/ifft2 (the fused
     # route and the fused_stockham oracle), rfft2/irfft2 and fft3 with an
     # axis past 4096; the four-step plans whose factors pass 1024 and
-    # ops.fft_fourstep at explicit factors; radix 2 past 2^24
+    # ops.fft_fourstep at explicit factors; both Stockham kernels at 2^25
+    # through their plans (three launches)
     clear_plan_cache()
     lz = {s_: rand(s_) for s_ in LONG_2D + LONG_3D}
     lr = {s_: real(s_) for s_ in LONG_2D}
@@ -4366,7 +4401,7 @@ def main() -> int:
     lxr = {s_: real_on_card(z) for s_, z in lr.items()}
     fz = {(s_, n1): rand(s_) for s_, n1, _ in FOURSTEP_FACTORS}
     fx = {k: from_numpy(z, device=dev) for k, z in fz.items()}
-    r2z = rand(R2_STAGES)
+    r2z = rand(STOCKHAM_LONG)
     r2x = from_numpy(r2z, device=dev)
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -4392,10 +4427,12 @@ def main() -> int:
             lout[s_, n1] = fplans[s_](fx[s_, n1])
         else:
             lout[s_, n1] = ops.fft_fourstep(fx[s_, n1], n1=n1)
-    p_r2s = plan_fft(R2_STAGES[1], algo="stockham2", backend="cuda")
+    p_r2s = plan_fft(STOCKHAM_LONG[1], algo="stockham2", backend="cuda")
     lout["r2"] = p_r2s(r2x)
-    lout["r2_inverse"] = plan_fft(R2_STAGES[1], algo="stockham2",
+    lout["r2_inverse"] = plan_fft(STOCKHAM_LONG[1], algo="stockham2",
                                   inverse=True, backend="cuda")(r2x)
+    p_r4s = plan_fft(STOCKHAM_LONG[1], backend="cuda")
+    lout["r4"] = p_r4s(r2x)
     torch.cuda.synchronize()
     launches_long = dict(ops.LAUNCHES)
     lchecks, llimits = {}, {}
@@ -4424,16 +4461,22 @@ def main() -> int:
         lchecks[f"fourstep_{tag}_vs_plain"] = errors(
             got, F.fft_fourstep_plain(fx[s_, n1], n1=n1))[1]
         llimits[f"fourstep_{tag}_vs_plain"] = TOL_1D
-    lchecks["stockham2_2^25_vs_numpy"] = np_errors(lout["r2"],
-                                                   REF_FFT.fft(r2z))
+    want = REF_FFT.fft(r2z)
+    lchecks["stockham2_2^25_vs_numpy"] = np_errors(lout["r2"], want)
+    lchecks["stockham_2^25_vs_numpy"] = np_errors(lout["r4"], want)
+    del want
     lchecks["stockham2_2^25_inverse_vs_numpy"] = np_errors(
         lout["r2_inverse"], REF_FFT.ifft(r2z))
     r2_plain = S.fft_stockham_r2_plain(r2x)
     lchecks["stockham2_2^25_vs_plain"] = errors(lout["r2"], r2_plain)[1]
-    main_err["fft_stockham_r2_stages"] = errors(lout["r2"], r2_plain)[0]
+    main_err["fft_stockham_r2_long"] = errors(lout["r2"], r2_plain)[0]
     del r2_plain
+    # the plain version's time while its 6.7 GB packed host table is built
+    # (the timing phase below reports it)
+    long_plain_ms = {"fft_stockham_r2": time_ms(
+        lambda: S.fft_stockham_r2_plain(r2x), torch, runs=3, warmup=1)}
     for k in ("stockham2_2^25_vs_numpy", "stockham2_2^25_inverse_vs_numpy",
-              "stockham2_2^25_vs_plain"):
+              "stockham2_2^25_vs_plain", "stockham_2^25_vs_numpy"):
         llimits[k] = TOL_1D
     for k, v in lchecks.items():
         if not (v <= llimits[k]):
@@ -4455,6 +4498,8 @@ def main() -> int:
             failures.append(f"four-step plan at {s_} resolved to {pl}")
     if (p_r2s.algo, p_r2s.backend, p_r2s.radix) != ("stockham", "cuda", 2):
         failures.append(f"stockham2 plan at 2^25 resolved to {p_r2s}")
+    if (p_r4s.algo, p_r4s.backend, p_r4s.radix) != ("stockham", "cuda", 4):
+        failures.append(f"the plan at 2^25 resolved to {p_r4s}")
     for k in LONG_KERNELS:
         if launches_long[k] <= 0:
             failures.append(f"kernel {k} was not launched on the long-axis "
@@ -5178,8 +5223,12 @@ def main() -> int:
 
     # the long-axis routes: fft2 at 8192^2 (each axis two launches of the
     # split), the four-step kernel at 2^21 = 1024 x 2048 (the axis route)
-    # and radix 2 at 2^25 (a launch a stage), each with its plain version,
-    # the library call and the bound; launches from the long-axis window
+    # and both Stockham kernels at 2^25 (three launches; radix 2's plain
+    # time taken in the long-axis window, radix 4 has none: its packed
+    # float64 host table would be 4.8 GB), each
+    # with its plain version, the library call and the bound; launches from
+    # the long-axis window; the Stockham kernels' grid launches counted over
+    # the timed calls, the counters at 0 before them
     route_specs = [
         ("fft2d_gemm", "split_axis_8192^2", LONG_TIMED, G.fft2d_gemm_cuda,
          G.fft2d_gemm_plain, lambda c: torch.fft.fft2(c),
@@ -5190,16 +5239,28 @@ def main() -> int:
          lambda c: torch.fft.fft(c), fft_counts(*FOURSTEP_FACTORS[0][0]),
          len(F.axis_plan(*FOURSTEP_FACTORS[0][0])),
          launches_long["fft_fourstep"], 25),
-        ("fft_stockham_r2", "per_stage_2^25", R2_STAGES,
-         S.fft_stockham_r2_cuda, S.fft_stockham_r2_plain,
-         lambda c: torch.fft.fft(c), fft_counts(*R2_STAGES),
-         R2_STAGES[1].bit_length() - 1, launches_long["fft_stockham_r2"],
-         5)]
+        ("fft_stockham_r2", "three_launches_2^25", STOCKHAM_LONG,
+         S.fft_stockham_r2_cuda, None, lambda c: torch.fft.fft(c),
+         fft_counts(*STOCKHAM_LONG), "fft_stockham_r2_pass",
+         launches_long["fft_stockham_r2"], 0),
+        ("fft_stockham", "three_launches_2^25", STOCKHAM_LONG,
+         S.fft_stockham_cuda, None, lambda c: torch.fft.fft(c),
+         fft_counts(*STOCKHAM_LONG), "fft_stockham_r4_pass",
+         launches_long["fft_stockham"], 0)]
     for name, cell, shape, kern, plain, lib, (flops, nbytes), grids, \
             count, runs in route_specs:
         x, c = complex_inputs(shape)
-        k_ms = time_ms(lambda: kern(x), torch)
-        p_ms = time_ms(lambda: plain(x), torch, runs=runs, warmup=1)
+        timed = [0]
+
+        def call():
+            timed[0] += 1
+            return kern(x)
+        ops.reset_launches()
+        k_ms = time_ms(call, torch)
+        if isinstance(grids, str):        # C entry calls a timed call
+            grids = _build.CALLS[grids] / timed[0]
+        p_ms = (time_ms(lambda: plain(x), torch, runs=runs, warmup=1)
+                if plain else long_plain_ms.get(name))
         l_ms = time_ms(lambda: lib(c), torch)
         b_ms, b_by = bound_ms(flops, nbytes)
         emit({"phase": "timing", "kernel": name, "cell": cell,

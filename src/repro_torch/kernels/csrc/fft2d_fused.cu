@@ -190,7 +190,7 @@ extern "C" int fft2d_fused_stages(const void* xr, const void* xi, void* outr,
   const float2* w = (const float2*)tab;
   return by_store(store, [&](auto t) {
     using B = typename decltype(t)::type;
-    return per_stage<4>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
-                        (B*)sr, (B*)si, w, batch, ln, lin, inverse, scale, s);
+    return per_stage((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
+                     (B*)sr, (B*)si, w, batch, ln, lin, inverse, scale, s);
   });
 }

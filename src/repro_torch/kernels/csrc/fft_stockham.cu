@@ -28,6 +28,21 @@
 //              A holds whole radix-4 stages (the tail runs in launch B):
 //              2 * floor((log2 n + 1) / 4), 12 from 2^22
 //              (kernels/fft_stockham.py::split).
+//   past 2^24 THREE launches (n <= 2^36).  Launch B's length-Q Stockham
+//              splits again, Q = M2 * Q3, M2 = 2^l2: launch 1 is launch A
+//              on the (M1, M2*Q3) view (x -> out); launch 2 (ST_MID) runs
+//              the stages of bits l1..l1+l2-1 on tiles of C columns of the
+//              (M1 images, M2, Q3) view of that, image k1 a launch A of
+//              its own (twiddles at bit s + l1), storing point t of
+//              (k1, q) at row t*M1 + k1 (out -> scratch); launch 3 is
+//              launch B after l1 + l2 bits, on rows of Q3, row k2*M1 + k1's
+//              point t stored at t*M1*M2 + k2*M1 + k1 (scratch -> out).
+//              Columns of at most 2^11 points (radix 4: 2^10; C >= 8),
+//              rows of at most 2^14, radix 4's launches 1 and 2 whole
+//              radix-4 stages (kernels/fft_stockham.py::split3; radix 4 at
+//              2^35 and 2^36 takes 4096-point columns in launch 1).
+//              Launch 1 also reads nearly all of the table (its first
+//              stages' twiddles), about as many bytes as the transform.
 // Passes start at bit 0 and take four bits each, so a pass boundary is a
 // radix-4 stage boundary and a pass is two radix-4 stages (or one, and the
 // tail, at its end).  The stages, passes, layouts and twiddles live in
@@ -40,23 +55,20 @@
 // bit row s of the packed table: 25 MB a direction at 2^22 against 277.
 // Bound by bytes: 16 a point in and out a launch, ~4.25 flops a point a
 // radix-2 bit.  The inverse's 1/n is applied at the last store.
-//
-// n > 2^24: one launch a stage over global ping-pong buffers (one thread a
-// butterfly; radix 4: the four quarter slices x[j + r*q] in, the
-// interleaved (m, 4, stride) positions out, then the radix-2 tail; radix 2:
-// the halves x[j], x[j + n/2]), off the same one table: log2(n)/2 + 1
-// (radix 4) or log2(n) (radix 2) passes over HBM.  Both routes live in
-// stockham.cuh.
 #include "stockham.cuh"
 
 // One launch of the fused kernel x -> out over (outer, 2^ln, 2^linner)
 // with the tiling the host planned (kernels/fft_stockham.py::plan):
 // ST_ROWS (linner = 0; G = 2^lg rows a tile; every stage), ST_COLS (launch
-// A: tiles of 2^lc of the 2^linner columns, stages of bits 0..ln-1 of
-// length n = 2^(ln + linner)) or ST_TRANSPOSED (launch B: rows of 2^ln,
-// stages of bits l1.. of n = 2^(l1 + ln), out[image][m][row mod 2^l1]);
+// A or 1: tiles of 2^lc of the 2^linner columns, stages of bits 0..ln-1 of
+// length n = 2^(ln + linner)), ST_TRANSPOSED (launch B or 3: rows of 2^ln,
+// stages of bits l1.. of n = 2^(l1 + ln), out[image][m][row mod 2^l1]) or
+// ST_MID (launch 2: stages of bits l1..l1+ln-1 of n = 2^(l1+ln+linner) on
+// tiles of 2^lc columns or 2^lg whole images of the (outer, 2^ln,
+// 2^linner) view, x != out);
 // `scale` at the store; `blocks` the persistent grid; raw bf16 planes for
-// store = 1, raw float16 for store = 2.  Returns cudaErrorInvalidValue for a tiling it does not take.
+// store = 1, raw float16 for store = 2.  Returns cudaErrorInvalidValue for
+// a tiling it does not take.
 // Radix 2: `tab` the fp32 W_n^m, m < n/2, of the transform's sign as
 // (cos, sin) pairs.
 extern "C" int fft_stockham_r2_pass(const void* xr, const void* xi,
@@ -65,45 +77,22 @@ extern "C" int fft_stockham_r2_pass(const void* xr, const void* xi,
                                     int linner, int lc, int lg, int route,
                                     int l1, int blocks, float scale, int store,
                                     void* stream) {
-  return stockham_pass<2>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
-                          route, l1, 0, blocks, scale, -1.f, store,
-                          (cudaStream_t)stream);
+  return stockham_pass<2, true>(xr, xi, outr, outi, tab, outer, ln, linner,
+                                lc, lg, route, l1, 0, blocks, scale, -1.f,
+                                store, (cudaStream_t)stream);
 }
 
-// Radix 4 (l1 even, so launch A holds whole radix-4 stages): `tab` the fp32
-// (3, n/4) table w, w^2, w^3 of the transform's sign (`inverse`) as
-// (cos, sin) pairs.
+// Radix 4 (l1 even, so launches A, 1 and 2 hold whole radix-4 stages):
+// `tab` the fp32 (3, n/4) table w, w^2, w^3 of the transform's sign
+// (`inverse`) as (cos, sin) pairs.
 extern "C" int fft_stockham_r4_pass(const void* xr, const void* xi,
                                     void* outr, void* outi,
                                     const float* tab, long long outer, int ln,
                                     int linner, int lc, int lg, int route,
                                     int l1, int blocks, float scale,
                                     int inverse, int store, void* stream) {
-  return stockham_pass<4>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
-                          route, l1, 0, blocks, scale, inverse ? 1.f : -1.f,
-                          store, (cudaStream_t)stream);
-}
-
-// The per-stage route (n > 2^24) of radix `radix`: x -> out through the
-// scratch pair (sr, si), 1/n on the inverse, raw bf16 planes for store = 1,
-// raw float16 for store = 2; `tab` the radix's one table (radix 2: n/2
-// entries; radix 4: (3, n/4)) of float2.
-extern "C" int fft_stockham_stages(const void* xr, const void* xi,
-                                   void* outr, void* outi, void* sr,
-                                   void* si, const float* tab,
-                                   long long batch, int ln, int inverse,
-                                   int radix, int store, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (batch <= 0 || ln < 1 || ln > 40 || (radix != 2 && radix != 4))
-    return (int)cudaErrorInvalidValue;
-  const float2* w = (const float2*)tab;
-  const float sc = inverse ? (float)(1.0 / (double)(1LL << ln)) : 1.f;
-  return by_store(store, [&](auto t) {
-    using B = typename decltype(t)::type;
-    return radix == 2
-               ? per_stage<2>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
-                              (B*)sr, (B*)si, w, batch, ln, 0, inverse, sc, s)
-               : per_stage<4>((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
-                              (B*)sr, (B*)si, w, batch, ln, 0, inverse, sc, s);
-  });
+  return stockham_pass<4, true>(xr, xi, outr, outi, tab, outer, ln, linner,
+                                lc, lg, route, l1, 0, blocks, scale,
+                                inverse ? 1.f : -1.f, store,
+                                (cudaStream_t)stream);
 }

@@ -6,9 +6,11 @@
 // radix-4 one (3, n/4): w, w^2, w^3, read at (j >> 2s) << 2s for stage s,
 // bit for bit row s of the packed (s4, 3, n/4) table), the 1-D kernel's
 // fused launches (StRun, st_pick, stockham_pass: rows, launches A and B of
-// the two-launch split, on rows or on the columns of images) and its
-// per-stage route past 2^24 (per_stage), each on fp32, raw bf16 or raw
-// float16 planes (`store` 0, 1, 2).
+// the two-launch split, on rows or on the columns of images, and the
+// middle launch of the three-launch split past 2^24), each on fp32, raw
+// bf16 or raw float16 planes (`store` 0, 1, 2); and per_stage (a launch a
+// stage, r4_stage / r2_tail), whose only caller now is fft2d_fused.cu's
+// axes past 2^24 (fft2d_fused_stages).
 // The tile walk, the copies, FromShared / ToShared / FromStage and the
 // stores (ToGlobal, ToSplit) are axis_fft.cuh's.
 #pragma once
@@ -39,24 +41,30 @@ struct ColsSw {
 };
 
 // Twiddle W_n^m, m = (q + (p << qb)) << s: p the butterfly's p at stage
-// bit s of its length, q the column of a launch A tile ((q0 + t) >> lin;
-// qb = log2 Q, the column's stages fold the four-step twiddle in; lin =
-// log2 of the inner extent when launch A runs over columns of images), s
-// shifted by s0 = l1 in launch B (its bit s is bit s + l1 of the whole).
-// Radix 4 reads w^r at m of row r - 1 (rows of `row` = n/4 entries); `sg`
-// is the transform's sign (-1 forward).
-struct Twiddle {
+// bit s of its length, q the column of a launch A tile (((q0 + t) & qm) >>
+// lin; qb = log2 Q, the column's stages fold the four-step twiddle in; qm
+// keeps the column bits of a tile of whole images; lin = log2 of the inner
+// extent when launch A runs over columns of images), s shifted by s0 (the
+// bits of stages that earlier launches ran: its bit s is bit s + s0 of the
+// whole).  Radix 4 reads w^r at m of row r - 1 (rows of `row` = n/4
+// entries); `sg` is the transform's sign (-1 forward).  I is the index
+// type: the 1-D kernel's launches take long long (tables past 2^31
+// entries), the conv's fixed lengths int.
+template <class I>
+struct TwiddleOf {
   const float2* w;
-  int q0, qb, s0, row;
+  int q0, qb, s0;
+  I row;
   float sg;
-  int lin;
-  __device__ __forceinline__ int at(int t, int p, int s) const {
-    return (((q0 + (qb ? t : 0)) >> lin) + (p << qb)) << (s + s0);
+  int lin, qm = -1;
+  __device__ __forceinline__ I at(int t, int p, int s) const {
+    return ((I)(((q0 + (qb ? t : 0)) & qm) >> lin) + ((I)p << qb)) << (s + s0);
   }
   __device__ __forceinline__ float2 operator()(int t, int p, int s) const {
     return w[at(t, p, s)];
   }
 };
+using Twiddle = TwiddleOf<int>;
 
 // Stages S+K .. S+LR-1 of a length-2^LN radix-2 Stockham on the 2^LR
 // points u[r] = element base + r * 2^(LN-LR) of transform t, in registers,
@@ -110,9 +118,8 @@ __device__ __forceinline__ void r4_stages(float2* u, int base, int t,
 #pragma unroll
     for (int lo = 0; lo < (1 << (HB - 1)); ++lo) {
       const int p = ((base + (lo << (LN - LR))) >> S) & mask;
-      const int m = tw.at(t, p, S + K);
-      const float2 w1 = tw.w[m], w2 = tw.w[m + tw.row],
-                   w3 = tw.w[m + 2 * tw.row];
+      const float2* wm = tw.w + tw.at(t, p, S + K);
+      const float2 w1 = wm[0], w2 = wm[tw.row], w3 = wm[2 * tw.row];
 #pragma unroll
       for (int hi = 0; hi < (1 << K); ++hi) {
         const int i0 = lo | (hi << (HB + 1)), st = 1 << (HB - 1);
@@ -249,16 +256,28 @@ struct ImageColsSw {
 //                  stored at t * 2^l1 + k (axis_fft.cuh's REVERSED store);
 //   ST_TCOLS       launch B on columns: the same over tiles of C columns
 //                  (or G whole images) of the (outer * 2^l1, 2^ln, 2^lin)
-//                  view, point t of (o, k, i) stored at (o, t * 2^l1 + k, i).
-enum { ST_ROWS = 0, ST_COLS = 1, ST_TRANSPOSED = 2, ST_TCOLS = 3 };
+//                  view, point t of (o, k, i) stored at (o, t * 2^l1 + k, i);
+//   ST_MID         the middle launch of three (the 1-D kernel past 2^24):
+//                  stages of bits l1..l1+ln-1 of a length-2^(l1+ln+linner)
+//                  transform, each image (o, k) of the (outer * 2^l1, 2^ln,
+//                  2^linner) view a launch A of its own (column q's
+//                  four-step twiddle folded in), over tiles of C columns
+//                  (or G whole images), point t of (o, k, q) stored at
+//                  (o, t * 2^l1 + k, q) as ST_TCOLS stores.
+enum { ST_ROWS = 0, ST_COLS = 1, ST_TRANSPOSED = 2, ST_TCOLS = 3,
+       ST_MID = 4 };
+constexpr int ST_LN_MAX = 36;   // log2 of the longest transform of a launch
 
 // One tile's stages; `row` the radix-4 table's row length
 template <int RX, int LN, int ROUTE, class T>
 struct StRun {
   const Geo& g;
   float* smem;
-  int lv, mask, l1, row, lin;
+  int lv, mask, l1;
+  long long row;
+  int lin;
   __device__ __forceinline__ void operator()(long long k, int b) const {
+    using Tw = TwiddleOf<long long>;
     float* wr = smem + b * 2 * g.wf;
     float* wi = wr + g.wf;
     const T* sr = reinterpret_cast<const T*>(wr);
@@ -270,25 +289,32 @@ struct StRun {
       const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
       st_passes<RX, LN, 0, 5>(FromStage<T, Columns>{sr, si, stage}, wr, wi,
                               ColsSw{g.lc}, g.lc, nt,
-                              Twiddle{g.tab, q0, g.linner - lin, 0, row,
-                                      g.sg, lin},
+                              Tw{g.tab, q0, g.linner - lin, 0, row, g.sg,
+                                 lin},
                               to_global<T>(g, k));
-    } else if constexpr (ROUTE == ST_TCOLS) {
+    } else if constexpr (ROUTE == ST_TCOLS || ROUTE == ST_MID) {
       const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
+      // ST_MID: q = the tile's first column + t, or t's column bits in a
+      // tile of whole images (q0 = 0)
+      const int cpi = g.linner - g.lc;
+      const int q0 = (int)((k & ((1LL << cpi) - 1)) << g.lc);
+      const Tw tw = ROUTE == ST_MID
+                        ? Tw{g.tab, q0, g.linner, l1, row, g.sg, 0,
+                             (1 << g.linner) - 1}
+                        : Tw{g.tab, 0, 0, l1, row, g.sg, 0};
       st_passes<RX, LN, 0, 5>(FromStage<T, Columns>{sr, si, stage}, wr, wi,
-                              ImageColsSw{g.lc, LN}, g.lc + g.lg, nt,
-                              Twiddle{g.tab, 0, 0, l1, row, g.sg, 0},
+                              ImageColsSw{g.lc, LN}, g.lc + g.lg, nt, tw,
                               to_split<T, REVERSED>(g, k));
     } else {
       const RowsSw rows{g.p};
       const FromStage<T, Swizzled> in{sr, si, Swizzled{LN, lv, mask}};
       if constexpr (ROUTE == ST_TRANSPOSED) {
         st_passes<RX, LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
-                                Twiddle{g.tab, 0, 0, l1, row, g.sg, 0},
+                                Tw{g.tab, 0, 0, l1, row, g.sg, 0},
                                 to_split<T, REVERSED>(g, k));
       } else {
         st_passes<RX, LN, 0, 3>(in, wr, wi, rows, g.lg, nt,
-                                Twiddle{g.tab, 0, 0, 0, row, g.sg, 0},
+                                Tw{g.tab, 0, 0, 0, row, g.sg, 0},
                                 ToShared<RowsSw>{wr, wi, rows});
         st_store_rows<LN, T>(g, k, wr, wi, rows);
       }
@@ -298,7 +324,7 @@ struct StRun {
 
 template <int RX, int LN, int ROUTE, int NT, class T>
 __global__ void __launch_bounds__(NT, 1)
-st_fft(const __grid_constant__ Geo g, int l1, int row, int lin) {
+st_fft(const __grid_constant__ Geo g, int l1, long long row, int lin) {
   extern __shared__ float smem[];
   const int lv = chunk_log<T>(g);
   const int mask =
@@ -307,11 +333,11 @@ st_fft(const __grid_constant__ Geo g, int l1, int row, int lin) {
              StRun<RX, LN, ROUTE, T>{g, smem, lv, mask, l1, row, lin});
 }
 
-using StLaunch = cudaError_t (*)(const Geo&, int, int, int, unsigned, int,
-                                 size_t, cudaStream_t);
+using StLaunch = cudaError_t (*)(const Geo&, int, long long, int, unsigned,
+                                 int, size_t, cudaStream_t);
 
 template <int RX, int LN, int ROUTE, int NT, class T>
-cudaError_t launch_st(const Geo& g, int l1, int row, int lin,
+cudaError_t launch_st(const Geo& g, int l1, long long row, int lin,
                       unsigned blocks, int threads, size_t smem,
                       cudaStream_t st) {
   static int done[16];
@@ -332,8 +358,11 @@ StLaunch st_for(int ln, std::integer_sequence<int, L...>) {
 // 2^14 with 1024; launch A's columns of 2^8 .. 2^10 points (8192-point
 // tiles, 512 threads) or 2^11, 2^12 (16384, 1024), radix 4 the even ones;
 // launch B's rows and columns of 2^7 .. 2^12 (columns 2^11, 2^12 at 1024
-// threads).  Null for any other.
-template <int RX, class T>
+// threads).  With LONG (the 1-D kernel's three launches past 2^24; the 2-D
+// kernel builds none of these) also launch 3's rows of 2^13 (512 threads)
+// and 2^14 (1024) and ST_MID's columns of 2^2 .. 2^10 (512 threads; radix
+// 4 the even ones) and, radix 2, 2^11 (1024).  Null for any other.
+template <int RX, class T, bool LONG>
 StLaunch st_pick(int route, int ln, int threads) {
   if (route == ST_ROWS) {
     if (ln == 14)
@@ -371,6 +400,32 @@ StLaunch st_pick(int route, int ln, int threads) {
     return ln == 11 ? launch_st<RX, 11, ST_TCOLS, 1024, T>
                     : launch_st<RX, 12, ST_TCOLS, 1024, T>;
   }
+  if constexpr (LONG) {
+    if (route == ST_TRANSPOSED) {
+      if (ln == 13 && threads <= 512)
+        return launch_st<RX, 13, ST_TRANSPOSED, 512, T>;
+      if (ln == 14 && threads == 1024)
+        return launch_st<RX, 14, ST_TRANSPOSED, 1024, T>;
+    }
+    if (route == ST_MID) {
+      if constexpr (RX == 4) {
+        static const StLaunch even[] = {
+            launch_st<4, 2, ST_MID, 512, T>, launch_st<4, 4, ST_MID, 512, T>,
+            launch_st<4, 6, ST_MID, 512, T>, launch_st<4, 8, ST_MID, 512, T>,
+            launch_st<4, 10, ST_MID, 512, T>};
+        return ln >= 2 && ln <= 10 && !(ln & 1) && threads <= 512
+                   ? even[ln / 2 - 1]
+                   : nullptr;
+      } else {
+        if (ln >= 2 && ln <= 10 && threads <= 512)
+          return st_for<2, ST_MID, 2, 512, T>(
+              ln, std::make_integer_sequence<int, 9>{});
+        return ln == 11 && threads == 1024
+                   ? launch_st<2, 11, ST_MID, 1024, T>
+                   : nullptr;
+      }
+    }
+  }
   return nullptr;
 }
 
@@ -378,34 +433,41 @@ StLaunch st_pick(int route, int ln, int threads) {
 // the tiling the host planned (kernels/fft_stockham.py::plan,
 // kernels/fft2d_fused.py::plan), fp32 or raw bf16 / float16 planes (store
 // 0, 1, 2): the
-// route, l1 (launch B: the bits of launch A), lin (ST_COLS: log2 of the
-// images' inner extent; ST_TCOLS: linner), `scale` at the store, `blocks`
-// the persistent grid; `tab` the radix's one table of the transform's
-// sign `sg`.  Returns cudaErrorInvalidValue for a tiling it does not take.
-template <int RX>
+// route, l1 (launch B, ST_MID: the bits of the launches before), lin
+// (ST_COLS: log2 of the images' inner extent; ST_TCOLS: linner), `scale`
+// at the store, `blocks` the persistent grid; `tab` the radix's one table
+// of the transform's sign `sg`; LONG takes the three-launch route's kernels
+// too (st_pick).  Returns cudaErrorInvalidValue for a tiling it does not
+// take.
+template <int RX, bool LONG = false>
 int stockham_pass(const void* xr, const void* xi, void* outr, void* outi,
                   const float* tab, long long outer, int ln, int linner,
                   int lc, int lg, int route, int l1, int lin, int blocks,
                   float scale, float sg, int store, cudaStream_t stream) {
   const int lp = ln + lc + lg;
   const bool rows = route == ST_ROWS || route == ST_TRANSPOSED;
+  const bool after = route == ST_TRANSPOSED || route == ST_TCOLS ||
+                     route == ST_MID;   // stages after launch A's
+  // the whole transform's log2 length, for the radix-4 table's rows
+  const int lnf = route == ST_COLS  ? ln + linner - lin
+                  : route == ST_ROWS ? ln
+                  : route == ST_MID  ? l1 + ln + linner
+                                     : l1 + ln;
   if (outer <= 0 || blocks <= 0 || ln < 1 || lc < 0 || lg < 0 || lp > 14 ||
       (1 << lp) < AXIS_TILE_MIN || (lp == 14 && lg != 0) || lin < 0 ||
       lc > linner || (lc < linner && lg != 0) || route < ST_ROWS ||
-      route > ST_TCOLS ||
+      route > ST_MID || lnf > ST_LN_MAX ||
       (rows && (linner != 0 || lc != 0 || lin != 0)) ||
-      (route == ST_COLS && (lg != 0 || lc >= linner || lin > linner ||
-                            ln + linner - lin > 24)) ||
+      (route == ST_COLS && (lg != 0 || lc >= linner || lin > linner)) ||
       (route == ST_TCOLS && (linner < 1 || lin != linner)) ||
-      ((route == ST_TRANSPOSED || route == ST_TCOLS) &&
-       (l1 < 1 || l1 + ln > 24 || xr == outr || xi == outi)) ||
-      (RX == 4 && ((route == ST_COLS && (ln & 1)) ||
-                   ((route == ST_TRANSPOSED || route == ST_TCOLS) &&
-                    (l1 & 1)))))
+      (route == ST_MID && (linner < 1 || lin != 0)) ||
+      (after && (l1 < 1 || xr == outr || xi == outi)) ||
+      (RX == 4 && (((route == ST_COLS || route == ST_MID) && (ln & 1)) ||
+                   (after && (l1 & 1)))))
     return (int)cudaErrorInvalidValue;
   const int threads = 1 << (lp - 4);
   const StLaunch fn = by_store(store, [&](auto t) {
-    return st_pick<RX, typename decltype(t)::type>(route, ln, threads);
+    return st_pick<RX, typename decltype(t)::type, LONG>(route, ln, threads);
   });
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int p = 0;
@@ -419,19 +481,16 @@ int stockham_pass(const void* xr, const void* xi, void* outr, void* outi,
   const size_t smem = (size_t)nbuf * 2 * sizeof(float) * wf;
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long per = (outer + (1LL << lg) - 1) >> lg;
-  // the whole transform's log2 length, for the radix-4 table's rows
-  const int lnf = route == ST_COLS ? ln + linner - lin
-                  : route == ST_ROWS ? ln : l1 + ln;
-  const int row = lnf >= 2 ? 1 << (lnf - 2) : 0;
+  const long long row = lnf >= 2 ? 1LL << (lnf - 2) : 0;
   Geo g{xr, xi, outr, outi, (const float2*)tab, nullptr, outer,
         per << (linner - lc), ln, linner, lc, lg, nbuf, (int)wf, p,
         sg, scale};
-  g.lr1 = route == ST_TRANSPOSED || route == ST_TCOLS ? l1 : 0;
+  g.lr1 = after ? l1 : 0;
   const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
   return (int)fn(g, l1, row, lin, grid, threads, smem, stream);
 }
 
-// -- the per-stage route (transforms past the fused launches) --------------
+// -- the per-stage route: fft2d_fused.cu's axes past 2^24 -----------------
 
 constexpr int ST_NT = 256;
 
@@ -490,17 +549,14 @@ r4_stage(const T* __restrict__ xr, const T* __restrict__ xi,
   }
 }
 
-// radix-2 stage ls of a length-2h transform along the middle axis: a + b
-// and (a - b) * W_n^((j >> ls) << ls) off the one n/2 table (TW), or
-// a - b (radix 4's tail)
-template <class T, bool TW>
+// radix 4's tail, the last radix-2 stage of a length-2h transform along
+// the middle axis (twiddle 1): a + b at j, a - b at j + h
+template <class T>
 __global__ void __launch_bounds__(ST_NT)
-r2_stage(const T* __restrict__ xr, const T* __restrict__ xi,
-         T* __restrict__ yr, T* __restrict__ yi,
-         const float2* __restrict__ w, long long total, int lh, int ls,
-         int lin, float scale) {
+r2_tail(const T* __restrict__ xr, const T* __restrict__ xi,
+        T* __restrict__ yr, T* __restrict__ yi, long long total, int lh,
+        int lin, float scale) {
   const long long h = 1LL << lh;
-  const long long stride = 1LL << ls;
   for (long long t = blockIdx.x * (long long)ST_NT + threadIdx.x; t < total;
        t += (long long)gridDim.x * ST_NT) {
     const long long i = t & ((1LL << lin) - 1);
@@ -508,23 +564,20 @@ r2_stage(const T* __restrict__ xr, const T* __restrict__ xi,
     const long long base = (b * 2 * h << lin) + i;
     const float2 a = ld2(xr, xi, base + (j << lin));
     const float2 c = ld2(xr, xi, base + ((j + h) << lin));
-    const long long o = ((j >> ls) << (ls + 1)) + (j & (stride - 1));
-    st2(yr, yi, base + (o << lin), cadd(a, c), scale);
-    const float2 d = csub(a, c);
-    st2(yr, yi, base + ((o + stride) << lin),
-        TW ? cmul(d, w[(j >> ls) << ls]) : d, scale);
+    st2(yr, yi, base + (j << lin), cadd(a, c), scale);
+    st2(yr, yi, base + ((j + h) << lin), csub(a, c), scale);
   }
 }
 
-// One launch a stage of radix RX (radix 4: then the radix-2 tail, twiddle
-// 1, for odd log2 n) along the middle axis of the (batch, n, 2^lin) view,
-// x -> out through the scratch pair (sr, si) (global ping-pong buffers),
-// off the radix's one table; `last_scale` at the last store.
-template <int RX, class T>
+// One launch a radix-4 stage, then the radix-2 tail (twiddle 1) for odd
+// log2 n, along the middle axis of the (batch, n, 2^lin) view, x -> out
+// through the scratch pair (sr, si) (global ping-pong buffers), off the
+// one (3, n/4) table; `last_scale` at the last store.
+template <class T>
 int per_stage(const T* xr, const T* xi, T* outr, T* outi, T* sr, T* si,
               const float2* tab, long long batch, int ln, int lin,
               int inverse, float last_scale, cudaStream_t s) {
-  const int stages = RX == 2 ? ln : ln / 2 + (ln & 1);
+  const int stages = ln / 2 + (ln & 1);
   const float sg = inverse ? 1.f : -1.f;
   // stage i writes the buffer that makes the last stage land in out
   T* dst_r[2] = {outr, sr};
@@ -535,18 +588,13 @@ int per_stage(const T* xr, const T* xi, T* outr, T* outi, T* sr, T* si,
   for (int st = 0; st < stages; ++st) {
     const int d = (stages - 1 - st) % 2;
     const float scale = st == stages - 1 ? last_scale : 1.f;
-    if (RX == 4 && st < ln / 2) {
+    if (st < ln / 2) {
       r4_stage<T><<<(unsigned)st_blocks(pts / 4), ST_NT, 0, s>>>(
           src_r, src_i, dst_r[d], dst_i[d], tab, pts / 4, ln - 2, 2 * st,
           lin, sg, scale);
-    } else if (RX == 2) {
-      r2_stage<T, true><<<(unsigned)st_blocks(pts / 2), ST_NT, 0, s>>>(
-          src_r, src_i, dst_r[d], dst_i[d], tab, pts / 2, ln - 1, st, lin,
-          scale);
-    } else {  // radix 4's tail: stage ln - 1, twiddle 1
-      r2_stage<T, false><<<(unsigned)st_blocks(pts / 2), ST_NT, 0, s>>>(
-          src_r, src_i, dst_r[d], dst_i[d], tab, pts / 2, ln - 1, ln - 1,
-          lin, scale);
+    } else {
+      r2_tail<T><<<(unsigned)st_blocks(pts / 2), ST_NT, 0, s>>>(
+          src_r, src_i, dst_r[d], dst_i[d], pts / 2, ln - 1, lin, scale);
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

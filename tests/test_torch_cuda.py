@@ -500,14 +500,27 @@ def test_fourstep_factors_on_card(card, shape, n1):
     assert _rel(got, fft_fourstep.fft_fourstep_plain(x, n1=n1)) <= 5e-5
 
 
-def test_stockham_r2_per_stage_on_card(card):
-    """Radix 2 past 2^24: a launch a stage, within 5e-5 of max|X| of
-    numpy."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 6e-2),
+                                       (torch.float16, 1e-3)])
+@pytest.mark.parametrize("radix", [2, 4])
+def test_stockham_r2_per_stage_on_card(card, radix, dtype, tol):
+    """Both radices past 2^24 (three fused launches, no longer a launch a
+    stage), forward and inverse, against float64 numpy of the input as
+    rounded to its dtype: within 5e-5 of max|X| in fp32, 6e-2 in bf16,
+    1e-3 in float16."""
     z = _rand((1, 1 << 25), 9)
-    got = fft_stockham.fft_stockham_r2_cuda(from_numpy(z, device=card))
-    g = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy()
-    want = np.fft.fft(z)
-    assert np.abs(g - want).max() <= 5e-5 * np.abs(want).max()
+    x = SplitComplex(*(torch.from_numpy(p).to(card, dtype)
+                       for p in (z.real, z.imag)))
+    z = x.re.double().cpu().numpy() + 1j * x.im.double().cpu().numpy()
+    kern = (fft_stockham.fft_stockham_r2_cuda if radix == 2
+            else fft_stockham.fft_stockham_cuda)
+    for inverse in (False, True):
+        got = kern(x, inverse=inverse)
+        assert got.re.dtype == dtype
+        g = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy()
+        want = np.fft.ifft(z) if inverse else np.fft.fft(z)
+        assert np.abs(g - want).max() <= tol * np.abs(want).max()
 
 
 @pytest.mark.parametrize("name,shape", [

@@ -697,9 +697,9 @@ def test_fourstep_axis_route_model_matches_numpy(n, n1, inverse):
 @pytest.mark.parametrize("k", range(1, 28))
 def test_r2_plan_every_n_to_2_27(k):
     """The radix-2 kernel's plan at every power of two up to 2^27: one
-    launch up to 2^14, two to 2^24, then a launch a stage; no refusal."""
+    launch up to 2^14, two to 2^24, then three; no refusal."""
     n = 1 << k
     routes = [r for r, _ in S.r2_plan(2, n)]
     assert routes == (["rows"] if n <= S.ONE_MAX else
                       ["cols", "transposed"] if n <= S.TWO_MAX
-                      else ["stages"])
+                      else ["cols", "mid", "transposed"])

@@ -1,7 +1,8 @@
-"""The fused radix-2 Stockham kernel's one twiddle table, its two-launch
-route as a plain-torch model, its launch plan and what its wrapper refuses,
-on the CPU.  The kernel itself runs in ``tests/test_torch_cuda.py`` (on a
-card) and under ``tools/cuda_emu/emulate.py``."""
+"""The fused radix-2 Stockham kernel's one twiddle table, its two- and
+three-launch routes as plain-torch models, its launch plan and what its
+wrapper refuses, on the CPU.  The kernel itself runs in
+``tests/test_torch_cuda.py`` (on a card) and under
+``tools/cuda_emu/emulate.py``."""
 import numpy as np
 import pytest
 import torch
@@ -236,64 +237,101 @@ def test_r2_wrapper_refuses_non_pow2(monkeypatch, n):
 
 
 def test_r2_wrapper_refuses_n_past_its_limit(monkeypatch):
-    """Past 2^24 (two launches of up to 2^12-point transforms) there is no
-    limit to refuse at any more: the plan is one "stages" step and the
-    wrapper calls the per-stage entry once (radix 2, x -> out through a
-    scratch pair, off the one n/2 table), shown on meta tensors at 2^25 and
-    2^27."""
+    """The limit is 2^36 now.  Past 2^24 the wrapper makes the three
+    launches of :func:`split3` (shown on meta tensors at 2^25 and 2^27):
+    launch A's route on the (M1, M2*Q) view, the middle launch on the
+    (M1 images, M2, Q) view after l1 bits, launch B's route on the rows of
+    Q after l1 + l2 bits, 1/n at the last store only; past 2^36 the plan
+    refuses (no card holds such planes)."""
     for n in (S.TWO_MAX * 2, S.TWO_MAX * 8):
         calls = _recorder(monkeypatch)
         x = SplitComplex(torch.empty((1, n), device="meta"),
                          torch.empty((1, n), device="meta"))
-        out = S.fft_stockham_r2_cuda(x)
-        (route, lp), = S.r2_plan(1, n)
-        assert route == "stages" and (lp.outer, lp.n) == (1, n)
-        (fn, args, what), = calls
-        assert fn == ("fft_stockham", "fft_stockham_stages", S._STAGES_ARGS)
-        assert what == "fft_stockham_stages"
-        assert len(args) == len(S._STAGES_ARGS) - 1
-        assert out.re.shape == (1, n)
-        assert args[7:] == [1, n.bit_length() - 1, 0, 2, 0]
+        out = S.fft_stockham_r2_cuda(x, inverse=True)
+        l1, l2, lq = S.split3(n, 2)
+        plan = S.r2_plan(1, n)
+        assert [r for r, _ in plan] == ["cols", "mid", "transposed"]
+        assert [(lp.outer, lp.n, lp.inner) for _, lp in plan] == [
+            (1, 1 << l1, n >> l1), (1 << l1, 1 << l2, 1 << lq),
+            (1 << (l1 + l2), 1 << lq, 1)]
+        assert len(calls) == 3 and out.re.shape == (1, n)
+        for i, ((fn, args, what), (route, lp)) in enumerate(zip(calls,
+                                                                plan)):
+            assert fn == ("fft_stockham", "fft_stockham_r2_pass",
+                          S._R2_ARGS)
+            assert what == "fft_stockham_r2"
+            assert args[10] == S._ROUTES[route]
+            assert args[11] == (l1, l1, l1 + l2)[i]
+            assert args[13] == (1.0 / n if i == 2 else 1.0)
+    with pytest.raises(ValueError, match="2\\^36"):
+        S.r2_plan(1, S.THREE_MAX * 2)
 
 
-def per_stage_model(re, im, n, inverse):
-    """The radix-2 per-stage route in plain torch, off the one table: stage
-    s reads a = x[j], b = x[j + n/2] and stores a + b at o = ((j >> s) <<
-    (s + 1)) + j mod 2^s and (a - b) * W[(j >> s) << s] at o + 2^s, the
-    last stage scaled by 1/n on the inverse (``r2_stage``)."""
+def three_pass_model(re, im, n, l1, l2, inverse):
+    """The kernel's three-launch route in plain torch, off the one table:
+    launch 1 is ``two_pass_model``'s launch A on the (M1, M2*Q) view;
+    launch 2 runs stages l1..l1+l2-1 on each column q of image k1's
+    (M2, Q) view (the twiddle of its butterfly j at stage s: entry
+    (q + ((j >> s) << log2 Q)) << (s + l1)) and stores point t of (k1, q)
+    at row t*M1 + k1; launch 3 runs the length-Q Stockham on each row o of
+    that (entry (t >> s) << (s + l1 + l2)), storing row o's point t at
+    t*M1*M2 + o; the inverse's 1/n last."""
     tab = tw.radix2_twiddles(n, inverse=inverse, device="cpu")
-    h = n // 2
-    j = torch.arange(h)
-    for s in range(n.bit_length() - 1):
-        ar, ai, br, bi = re[..., :h], im[..., :h], re[..., h:], im[..., h:]
-        wr, wi = tab[(j >> s) << s, 0], tab[(j >> s) << s, 1]
-        dr, di = ar - br, ai - bi
-        o = ((j >> s) << (s + 1)) + (j & ((1 << s) - 1))
-        yr, yi = torch.empty_like(re), torch.empty_like(im)
-        yr[..., o], yi[..., o] = ar + br, ai + bi
-        yr[..., o + (1 << s)] = dr * wr - di * wi
-        yi[..., o + (1 << s)] = dr * wi + di * wr
-        re, im = yr, yi
+    b = re.shape[0]
+    m1, m2 = 1 << l1, 1 << l2
+    q = n >> (l1 + l2)
+    qb = q.bit_length() - 1
+
+    def stages(re, im, count, index):
+        for s in range(count):
+            idx = index(s)
+            re, im = _stage(re, im, tab[idx, 0], tab[idx, 1], s)
+        return re, im
+    # launch 1: the column k of the (M1, M2*Q) view, its m1 points last
+    cols = torch.arange(m2 * q)[:, None]
+    j = torch.arange(m1 // 2)[None, :]
+    re, im = (t.reshape(b, m1, m2 * q).transpose(1, 2) for t in (re, im))
+    re, im = stages(re, im, l1, lambda s: (cols + ((j >> s) << (l2 + qb)))
+                    << s)
+    # launch 2: column q of image k1, its m2 points last
+    re, im = (t.transpose(1, 2).reshape(b, m1, m2, q).transpose(2, 3)
+              for t in (re, im))
+    cols, j = torch.arange(q)[:, None], torch.arange(m2 // 2)[None, :]
+    re, im = stages(re, im, l2, lambda s: (cols + ((j >> s) << qb))
+                    << (s + l1))
+    re, im = (t.permute(0, 3, 1, 2).reshape(b, m2 * m1, q) for t in (re, im))
+    # launch 3: the rows t*M1 + k1, stored transposed
+    re, im = stages(re, im, qb, lambda s: (torch.arange(q // 2) >> s)
+                    << (s + l1 + l2))
+    re, im = (t.transpose(1, 2).reshape(b, n) for t in (re, im))
     if inverse:
         re, im = re * (1.0 / n), im * (1.0 / n)
     return re, im
 
 
-@pytest.mark.parametrize("n", [2, 8, 1 << 10, 1 << 13])
+@pytest.mark.parametrize("n,l1,l2", [(8, 1, 1), (1 << 9, 3, 3),
+                                     (1 << 10, 3, 4), (1 << 11, 4, 3),
+                                     (1 << 12, 2, 2), (1 << 13, 5, 4),
+                                     (1 << 17, None, None)])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_per_stage_route_equals_the_plain_version(monkeypatch, n, inverse):
-    """With TWO_MAX lowered so that n takes the per-stage route, its
-    plain-torch model equals the plain version (the stage-by-stage oracle
-    on the packed table, then 1/n) under torch.equal, and the plan is the
-    one "stages" step."""
-    monkeypatch.setattr(S, "TWO_MAX", 1)
-    rng = np.random.default_rng(n)
+def test_per_stage_route_equals_the_plain_version(monkeypatch, n, l1, l2,
+                                                  inverse):
+    """The route past 2^24 (three launches, no longer a launch a stage):
+    its plain-torch model equals the plain version (the stage-by-stage
+    oracle on the packed table, then 1/n) under torch.equal at any split,
+    odd and even log2 n; at 2^17 with TWO_MAX lowered to 2^16 the plan is
+    the three launches at :func:`split3`'s split."""
+    if l1 is None:
+        monkeypatch.setattr(S, "TWO_MAX", 1 << 16)
+        assert [r for r, _ in S.r2_plan(3, n)] == ["cols", "mid",
+                                                   "transposed"]
+        l1, l2, _ = S.split3(n, 2)
+    rng = np.random.default_rng(n + l1)
     z = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
     x = from_numpy(z, device="cpu")
     want = S.fft_stockham_r2_plain(x, inverse=inverse)
-    got = per_stage_model(x.re, x.im, n, inverse)
+    got = three_pass_model(x.re, x.im, n, l1, l2, inverse)
     assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
-    assert [r for r, _ in S.r2_plan(3, n)] == ["stages"]
     ref = np.fft.ifft(z) if inverse else np.fft.fft(z)
     err = np.abs(got[0].numpy() + 1j * got[1].numpy() - ref).max()
     assert err <= 5e-5 * np.abs(ref).max()

@@ -1,6 +1,6 @@
-"""The fused radix-4 Stockham kernel's one twiddle table, its two-launch
-route as a plain-torch model, its launch plan, the per-stage route above
-2^24 and what its wrapper refuses, on the CPU.  The kernel itself runs in
+"""The fused radix-4 Stockham kernel's one twiddle table, its two- and
+three-launch routes as plain-torch models, its launch plan and what its
+wrapper refuses, on the CPU.  The kernel itself runs in
 ``tests/test_torch_cuda.py`` (on a card), under
 ``tools/cuda_emu/emulate.py`` and in ``chip_smoke.py``."""
 import numpy as np
@@ -282,34 +282,115 @@ def test_r4_wrapper_launches_the_plan(monkeypatch, n, inverse):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_r4_wrapper_runs_a_launch_a_stage_above_its_fused_limit(
         monkeypatch, inverse):
-    """Past TWO_MAX the wrapper calls the per-stage entry once, x -> out
-    through a scratch pair, off the same one table (shown with the limit
-    lowered to 2^10, so that 2^11 takes that route)."""
+    """Past TWO_MAX the wrapper runs three fused launches, no longer a
+    launch a stage (shown with the limit lowered to 2^16, so that 2^17
+    takes that route): x -> out (launch A's route), out -> scratch (the
+    middle launch), scratch -> out (launch B's route), off the one
+    (3, n/4) table; l1 and l1 + l2 bits done before launches 2 and 3; 1/n
+    at the last store only; the transform's sign last."""
     calls = _recorder(monkeypatch)
-    monkeypatch.setattr(S, "TWO_MAX", 1 << 10)
-    n = 1 << 11
+    monkeypatch.setattr(S, "TWO_MAX", 1 << 16)
+    n = 1 << 17
     x = from_numpy(np.ones((3, n), np.complex64), device="cpu")
     out = S.fft_stockham_cuda(x, inverse=inverse)
-    (fn, args, what), = calls
-    assert fn == ("fft_stockham", "fft_stockham_stages", S._STAGES_ARGS)
-    assert what == "fft_stockham_stages"
-    assert len(args) == len(S._STAGES_ARGS) - 1
+    assert len(calls) == 3
+    l1, l2, _ = S.split3(n, 4)
     tab = tw.radix4_twiddles(n, inverse=inverse, device="cpu")
-    assert args[:4] == [x.re.data_ptr(), x.im.data_ptr(), out.re.data_ptr(),
-                        out.im.data_ptr()]
-    assert args[4] not in args[:4] and args[5] not in args[:4]
-    assert args[6] == tab.data_ptr()
-    assert args[7:] == [3, n.bit_length() - 1, int(inverse), 4, 0]
+    xp = [x.re.data_ptr(), x.im.data_ptr()]
+    op = [out.re.data_ptr(), out.im.data_ptr()]
+    (_, a1, _), (_, a2, _), (_, a3, _) = calls
+    assert a1[:4] == xp + op and a2[:2] == op and a3[2:4] == op
+    assert a2[2:4] == a3[:2] and not set(a2[2:4]) & set(xp + op)
+    for i, ((fn, args, what), (route, lp)) in enumerate(
+            zip(calls, S.r4_plan(3, n))):
+        assert fn == ("fft_stockham", "fft_stockham_r4_pass", S._R4_ARGS)
+        assert what == "fft_stockham_r4"
+        assert args[4] == tab.data_ptr()
+        assert args[10] == S._ROUTES[route] == (1, 4, 2)[i]
+        assert args[11] == (l1, l1, l1 + l2)[i]
+        assert args[13] == (1.0 / n if inverse and i == 2 else 1.0)
+        assert args[14] == int(inverse)
+    S._launch_args.cache_clear()
 
 
 def test_r4_plan_refuses_n_past_the_fused_limit():
-    """Past TWO_MAX the plan has no fused launch: it is the one "stages"
-    step (a launch a stage), for radix 4 as for radix 2."""
+    """Past TWO_MAX the plan is three fused launches for radix 4 as for
+    radix 2 (launch A's route, the middle launch, launch B's route), up
+    to THREE_MAX = 2^36; past that it refuses."""
     for radix in (4, 2):
-        (route, lp), = S.plan(1, S.TWO_MAX * 2, radix)
-        assert route == "stages" and lp.n == S.TWO_MAX * 2
-    (route, _), = S.r4_plan(2, S.TWO_MAX * 4)
-    assert route == "stages"
+        plan = S.plan(1, S.TWO_MAX * 2, radix)
+        assert [r for r, _ in plan] == ["cols", "mid", "transposed"]
+        assert plan[0][1].n * plan[0][1].inner == S.TWO_MAX * 2
+        with pytest.raises(ValueError, match="2\\^36"):
+            S.plan(1, S.THREE_MAX * 2, radix)
+    assert len(S.r4_plan(2, S.THREE_MAX)) == 3
+
+
+def three_pass_model(re, im, n, l1, l2, inverse):
+    """The kernel's three-launch route in plain torch, off the one table
+    (``test_torch_stockham_r2.three_pass_model`` with radix-4 stages, l1
+    and l2 even): launch 1 is :func:`two_pass_model`'s launch A on the
+    (M1, M2*Q) view; launch 2 runs the radix-4 stages of bits
+    l1..l1+l2-1 on each column q of image k1's (M2, Q) view (entry
+    (q + ((j >> 2s) << log2 Q)) << (2s + l1)), storing point t of (k1, q)
+    at row t*M1 + k1; launch 3 the length-Q Stockham on each row o (entry
+    (t >> 2s) << (2s + l1 + l2), the tail last for odd log2 Q), row o's
+    point t at t*M1*M2 + o; the inverse's 1/n last."""
+    tab = tw.radix4_twiddles(n, inverse=inverse, device="cpu")
+    b = re.shape[0]
+    m1, m2 = 1 << l1, 1 << l2
+    q = n >> (l1 + l2)
+    qb = q.bit_length() - 1
+
+    def stages(re, im, count, index):
+        for s in range(count):
+            re, im = _stage4(re, im, tab[:, index(s)], inverse, s)
+        return re, im
+    cols = torch.arange(m2 * q)[:, None]
+    j = torch.arange(m1 // 4)[None, :]
+    re, im = (t.reshape(b, m1, m2 * q).transpose(1, 2) for t in (re, im))
+    re, im = stages(re, im, l1 // 2, lambda s: (
+        cols + ((j >> (2 * s)) << (l2 + qb))) << (2 * s))
+    re, im = (t.transpose(1, 2).reshape(b, m1, m2, q).transpose(2, 3)
+              for t in (re, im))
+    cols, j = torch.arange(q)[:, None], torch.arange(m2 // 4)[None, :]
+    re, im = stages(re, im, l2 // 2, lambda s: (
+        cols + ((j >> (2 * s)) << qb)) << (2 * s + l1))
+    re, im = (t.permute(0, 3, 1, 2).reshape(b, m2 * m1, q) for t in (re, im))
+    re, im = stages(re, im, qb // 2, lambda s: (
+        torch.arange(q // 4) >> (2 * s)) << (2 * s + l1 + l2))
+    if qb & 1:
+        re, im = _tail(re, im)
+    re, im = (t.transpose(1, 2).reshape(b, n) for t in (re, im))
+    if inverse:
+        re, im = re * (1.0 / n), im * (1.0 / n)
+    return re, im
+
+
+@pytest.mark.parametrize("n,l1,l2", [(1 << 7, 2, 2), (1 << 9, 2, 2),
+                                     (1 << 10, 4, 2), (1 << 11, 4, 4),
+                                     (1 << 12, 2, 4), (1 << 13, 6, 4),
+                                     (1 << 17, None, None),
+                                     (1 << 18, None, None)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_three_pass_route_equals_the_plain_version(monkeypatch, n, l1, l2,
+                                                   inverse):
+    """The three launches at even l1 and l2 (odd log2 n included: the tail
+    in launch 3) change no bit: their model equals the plain version
+    (``stockham_stages`` on the packed table, then 1/n) under torch.equal;
+    at 2^17 and 2^18 with TWO_MAX lowered to 2^16, at :func:`split3`'s
+    split of the plan."""
+    if l1 is None:
+        monkeypatch.setattr(S, "TWO_MAX", 1 << 16)
+        assert [r for r, _ in S.r4_plan(3, n)] == ["cols", "mid",
+                                                   "transposed"]
+        l1, l2, _ = S.split3(n, 4)
+    rng = np.random.default_rng(n + l1 + l2)
+    z = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+    x = from_numpy(z, device="cpu")
+    want = S.fft_stockham_plain(x, inverse=inverse)
+    got = three_pass_model(x.re, x.im, n, l1, l2, inverse)
+    assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
 
 
 def test_r4_wrapper_refuses_cpu_tensors():

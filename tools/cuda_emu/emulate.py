@@ -26,8 +26,7 @@ forward's packed-row tiles with the untangle at their store and its
 ragged column tiles, the real-input inverse's column pass read at the
 input's odd pitch (ragged and whole-image tiles) and its row pass building
 the packed rows at its load, the radix-4 and radix-2 Stockham kernels'
-one- and two-launch routes (odd log2 n, n = 2 and 8) and the radix-4
-kernel's per-stage route, the staged FFT's folded bit-reverse (rows and
+one-, two- and three-launch routes (odd log2 n, n = 2 and 8), the staged FFT's folded bit-reverse (rows and
 tiles) and float4 stages, and decode attention's split and merge kernels
 on both routes (warp shuffles and ballots, the tensor-core route's
 ldmatrix and mma.sync fragments, its cp.async ring, skipped tiles and
@@ -48,7 +47,9 @@ decode attention whole and as merged partials) within 2^-10 of max|plain|
 ``f16_conversions`` compiles ``csrc/f16.cuh``'s conversions alone
 (``tests/test_torch_f16.py`` holds them to torch's casts).  It also runs the long-axis routes scaled down (the split
 launches with lowered thresholds, the real-input steps at 8192, the
-four-step kernel's axis route, the per-stage routes).
+four-step kernel's axis route, the fused Stockham 2-D kernel's per-stage
+route, the Stockham kernels' three launches); the conv's multi-launch
+schedule takes the emulated 1-D kernels (``install``).
 """
 from __future__ import annotations
 
@@ -172,7 +173,13 @@ def _launch(fn, args, what, device):
 
 
 def install() -> None:
-    """Route the CUDA wrappers to the emulated libraries."""
+    """Route the CUDA wrappers to the emulated libraries, and the kernel
+    dispatch of ``repro_torch.kernels.ops`` too: every tensor here lies on
+    the CPU, where ``ops`` would run the plain versions, so the wrappers
+    that dispatch through it (the conv's multi-launch schedule, its 1-D
+    transforms) take the emulated kernels."""
+    from repro_torch.kernels import ops
+    ops._on_card = lambda t: True
     _build.function = _function
     _build.check_operands = _check_operands
     _build.check_decode_operands = _check_decode_operands
@@ -294,10 +301,6 @@ def main() -> int:
              [(3, 2), (5, 8), (2, 2048), (7, 512), (1, 1 << 13),
               (2, 1 << 14), (3, 1 << 15), (1, 1 << 16), (1, 1 << 17),
               (1, 1 << 18), (1, 1 << 21)]),
-            # the per-stage route (n > 2^24 on the card) at small n
-            ("fft_stockham per-stage", lambda x, inverse: S._per_stage(
-                x, inverse), S.fft_stockham_plain,
-             [(3, 2), (5, 8), (2, 2048), (1, 1 << 15)]),
             # one launch (up to 2^14, rows a tile ragged at batch 7) and
             # two (2^15, 2^16, and 2^17: an unequal split, 512 x 256)
             ("fft_stockham_r2", S.fft_stockham_r2_cuda,
@@ -331,8 +334,8 @@ def main() -> int:
                                                      n1=n1))))
     # the fused conv: shared banks (odd row counts, rows packed per block
     # for small m, a ragged last block) and per-batch banks; m = 32768
-    # runs the multi-launch schedule (its 1-D transforms take the plain
-    # versions on CPU tensors, the section kernel is emulated)
+    # runs the multi-launch schedule (its 1-D transforms on the emulated
+    # four-step kernel through ops, see install; the section kernel)
     for m, lead, klead in [(4, (2, 3), (3,)), (8, (3, 5), (3, 5)),
                            (64, (2, 3), (3,)), (512, (3, 5), (5,)),
                            (512, (2, 3), (2, 3)), (32768, (2, 3), (3,)),
@@ -458,8 +461,9 @@ def long_axes(rng, cplx) -> list:
     the real-input kernels' split steps at 8192 and 16384 (their packed
     rows need 8192-point tiles), the fused Stockham 2-D kernel's 1-D
     routes at 2^13 .. 2^16 and its per-stage route with TWO_MAX at 2^10,
-    the four-step kernel's axis route (factors 2 .. 2^14), the radix-2
-    kernel's per-stage route with TWO_MAX at 2^10."""
+    the four-step kernel's axis route (factors 2 .. 2^14), both Stockham
+    kernels' three launches with TWO_MAX at 2^16 (2^17 and 2^18: the
+    middle launch on tiles of whole images; 2^22: on column tiles)."""
     from repro_torch.kernels import axis_fft as A
     from repro_torch.kernels import fft2d_gemm as G
     from repro_torch.kernels import fft3d_fused as V
@@ -513,16 +517,24 @@ def long_axes(rng, cplx) -> list:
         x = cplx(shape)
         out.append((f"fft_fourstep axis n1={n1}", shape, False, rel(
             F.fft_fourstep_cuda(x, n1=n1), F.fft_fourstep_plain(x, n1=n1))))
-    S.TWO_MAX = 1 << 10
+    S.TWO_MAX = 1 << 16
+    S._launch_args.cache_clear()
     try:
-        for shape in [(3, 2), (2, 2048), (1, 1 << 13)]:
+        for shape, dirs in [((2, 1 << 17), (False, True)),
+                            ((1, 1 << 18), (False, True)),
+                            ((1, 1 << 22), (False,))]:
             x = cplx(shape)
-            for inv in (False, True):
-                out.append(("fft_stockham_r2 per-stage", shape, inv, rel(
-                    S.fft_stockham_r2_cuda(x, inverse=inv),
-                    S.fft_stockham_r2_plain(x, inverse=inv))))
+            for name, kern, plain in (
+                    ("fft_stockham_r2", S.fft_stockham_r2_cuda,
+                     S.fft_stockham_r2_plain),
+                    ("fft_stockham", S.fft_stockham_cuda,
+                     S.fft_stockham_plain)):
+                for inv in dirs:
+                    out.append((f"{name} three launches", shape, inv, rel(
+                        kern(x, inverse=inv), plain(x, inverse=inv))))
     finally:
         S.TWO_MAX = 1 << 24
+        S._launch_args.cache_clear()
     return out
 
 

@@ -5,9 +5,10 @@
 The case of ``tools/cuda_emu/emulate.py``'s float16 planes (x at 2^-8
 times a standard normal, a random complex filter spectrum with real ends),
 drawn from ``numpy.random.default_rng(seed)`` for seeds 0 .. N-1 (default
-8).  Without ``--card`` the kernel runs under the emulator on the CPU (only
-``fftconv_fused.cu`` is built, into ``build/fftconv_f16_seeds/``); with
-it, on the card.  Prints one JSON line a seed: the kernel's and the plain
+8).  Without ``--card`` the kernel runs under the emulator on the CPU
+(``fftconv_fused.cu`` and ``fft_fourstep.cu``, whose kernel takes the
+schedule's 1-D transforms, are built into ``build/fftconv_f16_seeds/``);
+with it, on the card.  Prints one JSON line a seed: the kernel's and the plain
 version's error against float64 numpy of the float16-rounded input, each
 over max|want|, beside the emulator's bound of 1e-3; then, on the card,
 the nvidia-smi name and power limit.
@@ -43,7 +44,8 @@ def main() -> int:
             "cuda_emu_emulate", ROOT / "tools" / "cuda_emu" / "emulate.py")
         emu = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(emu)
-        emu.build(("fftconv_fused",), ROOT / "build" / "fftconv_f16_seeds")
+        emu.build(("fftconv_fused", "fft_fourstep"),
+                  ROOT / "build" / "fftconv_f16_seeds")
         emu.install()
     lead, m = SHAPE[:2], SHAPE[2]
     for seed in range(a.seeds):

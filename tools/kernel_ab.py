@@ -1,7 +1,7 @@
 """Time the redesigned kernels of one checkout of the port on the card, to
 compare two commits within one call.
 
-    python3 tools/kernel_ab.py <tree> [--launches] [--gemm]
+    python3 tools/kernel_ab.py <tree> [--launches] [--gemm | --stockham]
 
 ``<tree>/src/repro_torch`` is imported and its kernels are built into
 ``<tree>/build``.  Prints one JSON line: the tree, the card's nvidia-smi
@@ -43,8 +43,8 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   and each launch's device time;
 - the long-axis routes, where the tree has them (a tree without them
   refuses, and its entry is null): ``fft2d_gemm`` at 1 x 8192^2,
-  ``fft_fourstep`` at 1 x 2^21 (1024 x 2048) and ``fft_stockham_r2`` at
-  1 x 2^25;
+  ``fft_fourstep`` at 1 x 2^21 (1024 x 2048) and both Stockham kernels
+  at 1 x 2^25;
 - ``decode_attention`` in bf16 at ``chip_smoke.py``'s two decode cells,
   starcoder2-15b (16 x 32768 slots filled to a quarter .. all, GQA 48/4,
   D 128) and h2o-danube-1.8b (128 rings of 4096, window 4096, GQA 32/8,
@@ -57,6 +57,20 @@ in a ``torch.profiler`` trace of 5 calls, divided by 5):
   instance, of the radix-2, radix-4 and real-input kernels, of the fused
   Stockham 2-D kernel, of the conv kernels and of the decode kernels the
   tree builds.
+
+With ``--stockham`` it keeps only the users of ``stockham.cuh`` and the
+controls of a Stockham change: ``fft_stockham`` at 2 x 2^22 and 1 x 2^25,
+``fft_stockham_r2`` at 2 x 2^20 and 1 x 2^25 (past 2^24: a launch a stage,
+or the three fused launches, whichever the tree has), ``fft2d_fused`` and
+``fft2d_gemm`` fp32 at 16 x 1024^2 and ``fftconv_fused`` at 8 x 576 x
+8192, each with its device time a call (``device_us``: a
+``torch.profiler`` trace of 10 calls; ``loop_us``: 20 calls back to back
+between CUDA events, the median of 7 loops) and its grid launches (a
+trace of one call); ``fft_stockham`` at 2 x 2^22 on
+three launches (``TWO_MAX`` lowered to 2^21) where the tree has them; and
+the seconds of each source's nvcc (``fft_stockham.cu``,
+``fft2d_fused.cu``, ``fftconv_fused.cu``, ``fft2d_gemm.cu``, all started
+together, ``nvcc_s``), with the ptxas lines of the Stockham kernels.
 
 With ``--launches`` it also lists every grid launch of one call of
 ``fft_fourstep`` at 4 x 2^20, of ``fft_staged`` at 512 x 16384, of
@@ -79,11 +93,14 @@ directory that .gitignore lists and alternate the trees, one process each:
 import json
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 
 ROOT = sys.argv[1]
 GEMM_ONLY = "--gemm" in sys.argv
+STOCKHAM_ONLY = "--stockham" in sys.argv
 sys.path.insert(0, ROOT + "/src")
 
 import torch  # noqa: E402
@@ -113,7 +130,7 @@ CONV = [(8, 576, 8192), (1, 64, 1024), (1, 64, 4096), (1, 64, 16384),
         (1, 64, 32768)]
 SSM = ((8, 576, 4096), (1, 576, 4))     # fft_conv's x and filter bank
 LONG = [("fft2d_gemm", (1, 8192, 8192)), ("fft_fourstep", (1, 1 << 21)),
-        ("fft_stockham_r2", (1, 1 << 25))]
+        ("fft_stockham_r2", (1, 1 << 25)), ("fft_stockham", (1, 1 << 25))]
 # (B, S, H, KV, D, window, ring) of chip_smoke.py's decode cells
 DECODE = {"starcoder2-15b": (16, 32768, 48, 4, 128, None, False),
           "h2o-danube-1.8b": (128, 4096, 32, 8, 80, 4096, True)}
@@ -278,6 +295,102 @@ def others(ms, dev, traced, cplx, g):
     return conv_trace
 
 
+def nvcc_seconds(names) -> dict:
+    """One nvcc a source, all started together: the seconds each took
+    (null for a library that was current)."""
+    t0 = time.perf_counter()
+    jobs = {n: _build._start(n) for n in names}
+    secs = dict.fromkeys(names)
+
+    def finish(n):
+        _build._finish(n, jobs[n])
+        secs[n] = time.perf_counter() - t0
+    threads = [threading.Thread(target=finish, args=(n,)) for n in names
+               if jobs[n] is not None]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return secs
+
+
+def loop_us(fn, calls=20, loops=7):
+    """Device us a call with the host ahead of the card: ``calls`` calls
+    back to back between two CUDA events, the median of ``loops`` such
+    loops (the card's time a call, launch gaps included, without the
+    host's set-up before the first launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t = []
+    for _ in range(loops):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        e.synchronize()
+        t.append(a.elapsed_time(e) * 1e3 / calls)
+    return sorted(t)[loops // 2]
+
+
+def stockham_main():
+    """``--stockham``: the Stockham kernels and their controls."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("fft_stockham", "fft2d_fused", "fftconv_fused", "fft2d_gemm")
+    nvcc_s = nvcc_seconds(names)
+    _build.build_all(names)
+    ptxas = {n: ptxas_lines(_build.library_path(n).with_suffix(".log")
+                            .read_text())
+             for n in ("fft_stockham", "fft2d_fused")}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+
+    def cplx(shape):
+        return SplitComplex(torch.randn(shape, generator=g, device="cuda"),
+                            torch.randn(shape, generator=g, device="cuda"))
+    calls = [("fft_stockham 2x2^22", S.fft_stockham_cuda, (2, 1 << 22)),
+             ("fft_stockham_r2 2x2^20", S.fft_stockham_r2_cuda,
+              (2, 1 << 20)),
+             ("fft2d_fused 16x1024^2", S2.fft2d_fused_cuda, IMAGES),
+             ("fft2d_gemm 16x1024^2", G.fft2d_gemm_cuda, IMAGES),
+             ("fft_stockham 1x2^25", S.fft_stockham_cuda, (1, 1 << 25)),
+             ("fft_stockham_r2 1x2^25", S.fft_stockham_r2_cuda,
+              (1, 1 << 25))]
+    ms, dev, loop, grids = {}, {}, {}, {}
+
+    def measure(key, fn):
+        ms[key] = time_ms(fn)
+        loop[key] = loop_us(fn)
+        dev[key] = device_us(fn, calls=10)
+        grids[key] = [round(us, 1) for _, us in launches(fn)]
+    for key, kern, shape in calls:
+        x = cplx(shape)
+        measure(key, lambda: kern(x))
+        del x
+        torch.cuda.empty_cache()
+    x = torch.randn(CONV[0], generator=g, device="cuda")
+    ef = C.pack_filter(cplx((CONV[0][1], CONV[0][2] // 2 + 1)),
+                       CONV[0][2], torch.float32)
+    measure("fftconv_fused 8x576x8192", lambda: C.fftconv_fused_cuda(x, ef))
+    del x, ef
+    if hasattr(S, "split3"):        # a tree with the three launches
+        x = cplx((2, 1 << 22))
+        S.TWO_MAX = 1 << 21
+        S._launch_args.cache_clear()
+        measure("fft_stockham 2x2^22 three launches",
+                lambda: S.fft_stockham_cuda(x))
+        S.TWO_MAX = 1 << 24
+        S._launch_args.cache_clear()
+        del x
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps({"tree": ROOT, "nvidia_smi": smi, "ms": ms,
+                      "loop_us": loop, "device_us": dev, "launch_us": grids,
+                      "nvcc_s": nvcc_s, "ptxas": ptxas}), flush=True)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -384,7 +497,8 @@ def main():
         x = cplx(shape)
         kern = {"fft2d_gemm": G.fft2d_gemm_cuda,
                 "fft_fourstep": F.fft_fourstep_cuda,
-                "fft_stockham_r2": S.fft_stockham_r2_cuda}[name]
+                "fft_stockham_r2": S.fft_stockham_r2_cuda,
+                "fft_stockham": S.fft_stockham_cuda}[name]
         key = f"{name} {'x'.join(map(str, shape))}"
         try:
             kern(x)
@@ -428,4 +542,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    stockham_main() if STOCKHAM_ONLY else main()

@@ -10,8 +10,10 @@ and the plain version's errors against the plain version with every
 product summed in float64 (a second witness of the same rounded
 products); the C entry calls of one call (``_build.CALLS``), and the
 device ms of the kernel and of the plain version (median of 5 CUDA-event
-timings after 2 warm-ups), printed as one JSON line each; then the card's
-nvidia-smi name and power limit.  Shapes: rows of 2^20 and 2^24 points
+timings after 2 warm-ups), and beside them ``torch.fft.fft2`` on the
+same values as complex64 (``library_ms``: the library has no bf16
+transform), printed as one JSON line each; then the card's nvidia-smi name
+and power limit.  Shapes: rows of 2^20 and 2^24 points
 (factors 1024 and 4096) and columns of 2^22 over 2 columns; ``--big``
 adds rows of 2^26 (factors 8192).  float16 inputs are scaled by 2^-4
 for the forward and 2^-1 for the inverse: the plain variant applies the
@@ -106,6 +108,9 @@ def main() -> int:
                         x, variant="plain"))
                     rec["plain_ms"] = ms(lambda: G.fft2d_gemm_plain(
                         x, variant="plain"), runs=3, warmup=1)
+                    c = torch.complex(x.re.float(), x.im.float())
+                    rec["library_ms"] = ms(lambda: torch.fft.fft2(c))
+                    del c
                 ok &= rec["ok"]
                 print(json.dumps(rec), flush=True)
                 del x
