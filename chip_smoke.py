@@ -33,7 +33,11 @@ float64 numpy:
   32768 tokens, GQA 48/4, D 128) and h2o-danube-1.8b (128 sequences on its
   4096-slot ring cache, window 4096, GQA 32/8, D 80), and in fp32 against
   float64 numpy;
-
+- long axes (``long_axis_path``): 2-D and 3-D transforms with an axis
+  past 4096 through the entry points, the four-step factors past 1024,
+  both Stockham kernels at 2^25 and ``fft2(algo="fused_stockham")`` with
+  an axis of 2^25 on rows and on columns (three launches), each against
+  float64;
 - serving: a threaded, pre-warmed ``SpectralServer`` on the card with
   buckets for 16 1024^2 complex, real and inverse-real images and 4
   2^20-point transforms, a seeded closed loop of 96 requests (1000^2 ones
@@ -53,8 +57,9 @@ float64 numpy:
   ``prfft2``/``pirfft2``, the two-hop hierarchy, ``pfft3`` at 512^3 on a
   (2, 2) mesh (every pass four-step), ``pfft1d`` at 2^26, ``pfft2`` at (16, 2^21) (rows on
   ``fft_stockham``), and ``pipelined_apply`` over 4 stages; each block
-  against float64 numpy, each compressed wire also against float64 numpy
-  with the wire's rounding applied, each exchange's logged bytes against
+  against float64 (torch.fft in complex128 on the card), each compressed
+  wire also against float64 with the wire's rounding applied, each
+  exchange's logged bytes against
   ``exchange_bytes``; then one ``pfft2`` at 16384^2 over every card on
   NCCL (``dist_nccl``);
 - the cost model (``tt_path``): ``get_plan(tune=True, prune="model")`` on
@@ -73,7 +78,9 @@ float64 numpy:
 - training (``train_lm``, ``train_ssm``): h2o-danube-1.8b at full width
   in fp32 through ``make_train_step`` (AdamW, remat) for 3 steps of one
   8192-token sequence and one more under the profiler, and the flash
-  backward against dense autograd at one layer's shape; ``ssm_demo``
+  backward against dense autograd at one layer's shape (this phase
+  launches no kernel of this repo, so it runs on the card while nvcc
+  builds them); ``ssm_demo``
   through ``python -m repro_torch.launch.train`` (8 x 4096, its conv on
   ``fftconv_fused``: launches = steps x 4 layers x 2) for 6 steps, then
   resumed from its step-3 checkpoint to the same final params, and one
@@ -130,6 +137,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -345,6 +353,19 @@ CHECKS += [("fft3d_fused", shape) for shape in LONG_3D]
 FOURSTEP_FACTORS = [((1, 1 << 21), None, "plan"), ((2, 1 << 22), None, "plan"),
                     ((3, 4096), 2, "ops"), ((3, 1 << 15), 2, "ops"),
                     ((3, 1 << 14), 1 << 14, "ops")]
+# the fused Stockham 2-D kernel past 2^24 (its long axis on the 1-D kernel's
+# three launches): rows of 2^25 and columns of 2^25 under 8-wide images,
+# against float64 (fp32 both ways, bf16 and float16 forward on rows; the
+# reference on the card, a host FFT of 2^28 points taking ~30 s a
+# direction), driven through fft2 in the long-axis window and timed; the
+# kernel against its plain version with TWO_MAX lowered to 2^16 (the plain
+# version's packed float64 table of a 2^25 axis would be 4.8 GB); columns
+# of 2^23 under 4-wide images (launch B in 16384-point tiles of two whole
+# images); and the two-launch route timed on rows of 2^20
+STOCKHAM2D_LONG = [(1, 2, 1 << 25), (1, 1 << 25, 8)]
+STOCKHAM2D_LOWERED = [(2, 4, 1 << 17), (1, 1 << 17, 8)]
+STOCKHAM2D_TILES = (1, 1 << 23, 4)
+STOCKHAM2D_TWO = (1, 16, 1 << 20)
 LONG_KERNELS = ("fft2d_gemm", "fft2d_fused", "rfft2d_fused",
                 "irfft2d_fused", "fft3d_fused", "fft_fourstep",
                 "fft_stockham_r2", "fft_stockham")
@@ -635,6 +656,31 @@ class _Float64FFT:
 REF_FFT = _Float64FFT()
 
 
+class _CardFloat64FFT:
+    """The same transforms through torch.fft on the card, in complex128
+    (float64 for a real input), numpy in and out (``axis=`` as numpy's):
+    the float64 references of the distributed phase, whose ranks wait
+    while this process makes them."""
+
+    def __getattr__(self, name):
+        import numpy as np
+        import torch
+        fn = getattr(torch.fft, name)
+
+        def run(x, *args, axis=None, **kw):
+            t = torch.from_numpy(np.asarray(x)).to("cuda")
+            t = t.to(torch.complex128 if t.is_complex() else torch.float64)
+            if axis is not None:
+                kw["dim"] = axis
+            out = fn(t, *args, **kw).cpu().numpy()
+            del t
+            return out
+        return run
+
+
+CARD_FFT = _CardFloat64FFT()
+
+
 def time_ms(fn, torch, runs=25, warmup=3):
     """Median of ``runs`` CUDA-event timings of ``fn`` after warm-up."""
     for _ in range(warmup):
@@ -651,6 +697,18 @@ def time_ms(fn, torch, runs=25, warmup=3):
         times.append(a.elapsed_time(e))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_events(prof):
+    """(name, ms) of every device activity a finished ``torch.profiler``
+    window recorded, read from its Kineto results as they are: the
+    profiler's own ``events()`` first builds a Python event tree, whose
+    cost grows with the events (a served run makes ~190 000 kernels)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
 
 
 def _planes(t):
@@ -1100,7 +1158,7 @@ def dist_path(failures, smi):
         to each rank's row-FFT block, one int8 scale a block and plane,
         as dist.compression.all_to_all_compressed rounds pfft2's
         exchange."""
-        y = REF_FFT.fft(z, axis=1)
+        y = CARD_FFT.fft(z, axis=1)
         rows = y.shape[0] // DIST_RANKS
         for plane in (y.real, y.imag):
             for r in range(DIST_RANKS):
@@ -1111,7 +1169,7 @@ def dist_path(failures, smi):
                 else:
                     s = np.float32(np.abs(blk).max()) / np.float32(127)
                     blk[...] = np.round(blk / s) * s
-        return REF_FFT.fft(y, axis=0)
+        return CARD_FFT.fft(y, axis=0)
 
     def complex_input(shape):
         z = np.empty(shape, np.complex128)
@@ -1173,7 +1231,7 @@ def dist_path(failures, smi):
         # complex 8192^2: pfft2 and the hierarchy
         z = complex_input(DIST_2D)
         save_complex(tmp, "x", z)
-        np.save(f"{tmp}/fft2.npy", REF_FFT.fft2(z))
+        np.save(f"{tmp}/fft2.npy", CARD_FFT.fft2(z))
         for c in ("bf16", "int8"):
             np.save(f"{tmp}/fft2_{c}.npy", wire_reference(z, c))
         del z
@@ -1186,7 +1244,7 @@ def dist_path(failures, smi):
         # real 8192^2: prfft2 -> pirfft2; the packed transposed reference
         zr = drng.standard_normal(DIST_2D, dtype=np.float32)
         np.save(f"{tmp}/xr.npy", zr)
-        spec_t = REF_FFT.rfft2(zr.astype(np.float64)).T
+        spec_t = CARD_FFT.rfft2(zr.astype(np.float64)).T
         packed = spec_t[:-1].copy()
         packed[0] = spec_t[0] + 1j * spec_t[-1]
         np.save(f"{tmp}/rfft2_packed_t.npy", packed)
@@ -1202,7 +1260,7 @@ def dist_path(failures, smi):
         save_complex(tmp, "x3", z)
         np.save(f"{tmp}/fftn_t.npy",
                 np.ascontiguousarray(
-                    REF_FFT.fftn(z).transpose(2, 1, 0)))
+                    CARD_FFT.fftn(z).transpose(2, 1, 0)))
         del z
         res, counts = zip(*ranks(_rank_pfft3, tmp))
         add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
@@ -1217,7 +1275,7 @@ def dist_path(failures, smi):
         z = complex_input((DIST_1D,))
         save_complex(tmp, "v", z)
         np.save(f"{tmp}/fft1d_fourstep.npy", np.ascontiguousarray(
-            REF_FFT.fft(z).reshape(w1, h1).T).reshape(-1))
+            CARD_FFT.fft(z).reshape(w1, h1).T).reshape(-1))
         del z
         res, counts = zip(*ranks(_rank_pfft1d, tmp))
         add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
@@ -1228,7 +1286,7 @@ def dist_path(failures, smi):
         # (16, 2^21): local rows of 2^21 on fft_stockham
         z = complex_input(DIST_STOCKHAM)
         save_complex(tmp, "xs", z)
-        np.save(f"{tmp}/fft2_stockham.npy", REF_FFT.fft2(z))
+        np.save(f"{tmp}/fft2_stockham.npy", CARD_FFT.fft2(z))
         del z
         res, counts = zip(*ranks(_rank_stockham, tmp))
         add_launches({k: sum(c[k] for c in counts) for k in counts[0]})
@@ -1476,17 +1534,16 @@ def lm_path(failures, smi):
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     window_launches()
     del peng
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = [e for e in dev_events if e.name.startswith(("Memcpy",
-                                                          "Memset"))]
+    t0 = time.perf_counter()
+    dev_events = device_events(prof)
+    read_s = time.perf_counter() - t0
+    copies = [n for n, _ in dev_events if n.startswith(("Memcpy",
+                                                        "Memset"))]
     by_kernel = {}
-    for e in dev_events:
-        name = e.name[:48]
-        by_kernel[name] = by_kernel.get(name, 0.0) \
-            + e.time_range.elapsed_us() / 1e3 / len(psteps)
-    prof_device_ms = sum(e.time_range.elapsed_us()
-                         for e in dev_events) / 1e3
+    for name, ms in dev_events:
+        by_kernel[name[:48]] = by_kernel.get(name[:48], 0.0) \
+            + ms / len(psteps)
+    prof_device_ms = sum(ms for _, ms in dev_events)
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
     profiled = {"steps": len(psteps), "wall_ms": prof_wall_ms,
                 "device_ms": prof_device_ms,
@@ -1495,7 +1552,7 @@ def lm_path(failures, smi):
                 / len(psteps),
                 "copies_per_step": len(copies) / len(psteps),
                 "tokens_equal_unprofiled": pserved == served,
-                "device_ms_per_step_top": top}
+                "device_ms_per_step_top": top, "events_read_s": read_s}
     if not prof_device_ms:
         failures.append("lm serve: the profiler saw no device time")
 
@@ -1619,7 +1676,10 @@ def lm_path(failures, smi):
     return lm_launches
 
 
-TRAIN_LM_STEPS = 2              # 3 until the script neared its limit
+# the phase runs beside the build; step 0, the process's first work on
+# the card, pays its cold start (16.8 s against 8.9 s for step 1 on an
+# H100 80GB HBM3 at 700 W), so the median needs a third step
+TRAIN_LM_STEPS = 3
 TRAIN_LM_SEQ = (1, 8192)        # past danube's 4096 window
 TRAIN_LM_PARAMS = 1_831_201_280
 FLASH_CHECK = (1, 8192, 32, 8, 80, 4096, 512)   # b, s, h, kv, d, window, chunk
@@ -1746,12 +1806,10 @@ def train_lm(failures, smi):
         params, state, m = step_fn(params, state, batch)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = device_events(prof)
     by_kernel = {}
-    for e in dev_events:
-        by_kernel[e.name[:48]] = by_kernel.get(e.name[:48], 0.0) \
-            + e.time_range.elapsed_us() / 1e3
+    for name, ms in dev_events:
+        by_kernel[name[:48]] = by_kernel.get(name[:48], 0.0) + ms
     device_ms = sum(by_kernel.values())
     if not device_ms:
         failures.append("train_lm: the profiler saw no device time")
@@ -1870,10 +1928,8 @@ def train_ssm(failures, smi):
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name[:48]] = by_kernel.get(e.name[:48], 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    for name, ms in device_events(prof):
+        by_kernel[name[:48]] = by_kernel.get(name[:48], 0.0) + ms
     device_ms = sum(by_kernel.values())
     paths = [p for p, _ in M.tree_flatten_with_paths(params)]
     leaf_err = {"/".join(p): ((x - y).abs().max() / y.abs().max()).item()
@@ -2068,7 +2124,11 @@ def train_sharded(failures, smi) -> dict:
     from repro_torch.dist import hoststaged
     from repro_torch.dist.local import LocalGroup
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+    # the ranks start up while the single-process reference runs; their
+    # steps begin after it has ended
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp, \
+            LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
+                       device="cuda", threads=2, timeout_s=900) as group:
         t0 = time.perf_counter()
         code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
                 f"{str(ROOT / 'src')!r}]; import chip_smoke; "
@@ -2082,9 +2142,7 @@ def train_sharded(failures, smi) -> dict:
         with open(f"{tmp}/reference.json") as f:
             ref = json.load(f)
         t0 = time.perf_counter()
-        with LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
-                        device="cuda", threads=2, timeout_s=900) as group:
-            ranks = group.run(_rank_train_sharded, tmp)
+        ranks = group.run(_rank_train_sharded, tmp)
         group_s = time.perf_counter() - t0
     r0 = ranks[0]
     lm, ssm = ref["lm"], ref["ssm"]
@@ -2329,10 +2387,14 @@ def train_sharded_moe(failures, smi) -> None:
     from repro_torch.dist import hoststaged
     from repro_torch.dist.local import LocalGroup
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    fake, fake_experts, fake_memory = _moe_fake_bytes()
-    fake_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+    # the ranks start up while this process counts and the single-process
+    # reference runs; their step begins after both have ended
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp, \
+            LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
+                       device="cuda", threads=2, timeout_s=900) as group:
+        t0 = time.perf_counter()
+        fake, fake_experts, fake_memory = _moe_fake_bytes()
+        fake_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
                 f"{str(ROOT / 'src')!r}]; import chip_smoke; "
@@ -2346,9 +2408,7 @@ def train_sharded_moe(failures, smi) -> None:
         with open(f"{tmp}/reference.json") as f:
             ref = json.load(f)
         t0 = time.perf_counter()
-        with LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
-                        device="cuda", threads=2, timeout_s=900) as group:
-            ranks = group.run(_rank_train_sharded_moe, tmp)
+        ranks = group.run(_rank_train_sharded_moe, tmp)
         group_s = time.perf_counter() - t0
     r0 = ranks[0]
     loss_err = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -2704,10 +2764,14 @@ def serve_sharded(failures, smi) -> dict:
     from repro_torch.dist import hoststaged
     from repro_torch.dist.local import LocalGroup
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    fake = {c[0]: _serve_fake_bytes(c) for c in SERVE_CASES}
-    fake_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+    # the ranks start up while this process counts and runs the reference;
+    # their cases begin after both have ended
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp, \
+            LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
+                       device="cuda", threads=2, timeout_s=900) as group:
+        t0 = time.perf_counter()
+        fake = {c[0]: _serve_fake_bytes(c) for c in SERVE_CASES}
+        fake_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         _serve_reference(tmp)             # one process: this one
         ref_s = time.perf_counter() - t0
@@ -2716,9 +2780,7 @@ def serve_sharded(failures, smi) -> dict:
         control = {c[0]: _bf16_control(tmp, c[0], c[5])
                    for c in SERVE_CASES if c[7] == "bfloat16"}
         t0 = time.perf_counter()
-        with LocalGroup(SHARDED_RANKS, backend=hoststaged.NAME,
-                        device="cuda", threads=2, timeout_s=900) as group:
-            ranks = group.run(_rank_serve_sharded, tmp)
+        ranks = group.run(_rank_serve_sharded, tmp)
         group_s = time.perf_counter() - t0
     launches = {}
     cases = {}
@@ -2835,6 +2897,8 @@ def dryrun_counts(failures, smi, procs, out: str) -> None:
     from repro_torch.analysis import opcount, roofline
     t_phase = time.perf_counter()
     status = {}
+    t0_wall = {name: time.time() - (time.perf_counter() - t0)
+               for name, _, _, t0 in procs}
     for name, proc, log, t0 in procs:
         left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
         try:
@@ -2843,7 +2907,10 @@ def dryrun_counts(failures, smi, procs, out: str) -> None:
             proc.kill()
             proc.wait()
             rc = "timeout"
-        status[name] = {"rc": rc, "s": time.perf_counter() - t0}
+        # "s": when this wait returned; "log_s": the log's last write,
+        # about when the job ended
+        status[name] = {"rc": rc, "s": time.perf_counter() - t0,
+                        "log_s": os.stat(log).st_mtime - t0_wall[name]}
         if rc != 0:
             tail = Path(log).read_text()[-2000:]
             failures.append(f"dryrun_counts {name}: {rc}\n{tail}")
@@ -3010,7 +3077,11 @@ def train_pp(failures, smi) -> None:
     from repro_torch.dist import hoststaged
     from repro_torch.dist.local import LocalGroup
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+    # the ranks start up while the single-process reference runs; their
+    # step begins after it has ended
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp, \
+            LocalGroup(4, backend=hoststaged.NAME, device="cuda",
+                       threads=2, timeout_s=900) as group:
         code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
                 f"{str(ROOT / 'src')!r}]; import chip_smoke; "
                 f"chip_smoke._pp_reference({tmp!r})")
@@ -3022,9 +3093,7 @@ def train_pp(failures, smi) -> None:
                                f"{run.stderr[-3000:]}")
         with open(f"{tmp}/reference.json") as f:
             ref = json.load(f)
-        with LocalGroup(4, backend=hoststaged.NAME, device="cuda",
-                        threads=2, timeout_s=900) as group:
-            ranks = group.run(_rank_train_pp, tmp)
+        ranks = group.run(_rank_train_pp, tmp)
     loss_err = max(abs(r["loss"] - ref["loss"]) for r in ranks) / \
         abs(ref["loss"])
     gnorm_err = max(abs(r["grad_norm"] - ref["grad_norm"])
@@ -3693,15 +3762,32 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # 2. build
+    # 2. build; train_lm, which launches no kernel of this repo, runs on
+    # the card meanwhile (nvcc keeps the host's cores, the step the card)
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    built = {}
+
+    def build():
+        try:
+            built["logs"] = _build.build_all()
+        except BaseException as e:        # raised below, in this thread
+            built["error"] = e
+        built["s"] = time.perf_counter() - t0
+    builder = threading.Thread(target=build, name="build")
+    builder.start()
+    try:
+        train = train_lm(failures, smi)
+    finally:
+        builder.join()
+    if "error" in built:
+        raise built["error"]
+    logs = built["logs"]
     ptxas = {n: ptxas_report(log) for n, log in logs.items()}
     # the plain route's tensor-core instances, dm::dft_tile<F16, C> and
     # dm::dft_gemm<F16>
     dft = {n: {k: r[k] for k in r if "dft_tile" in k or "dft_gemm" in k}
            for n, r in ptxas.items() if any("dft_" in k for k in r)}
-    build_s = time.perf_counter() - t0
+    build_s = built["s"]
     emit({"phase": "build", "seconds": round(build_s, 3),
           "libraries": [_build.library_path(n).name for n in _build.SOURCES],
           "ptxas": ptxas, "dft_mma": dft})
@@ -3771,9 +3857,9 @@ def main() -> int:
                   "ok": ok})
             del x, got, ref
     torch.cuda.empty_cache()
-    # both Stockham kernels' three launches past 2^24 against float64
-    # numpy of the input as rounded to its dtype (fp32 5e-5, bf16 6e-2,
-    # float16 1e-3 of max|X|; the reference held on the card, the error
+    # both Stockham kernels' three launches past 2^24 against float64 on
+    # the card (torch.fft in complex128) of the input as rounded to its
+    # dtype (fp32 5e-5, bf16 6e-2, float16 1e-3 of max|X|; the error
     # taken there in float64); radix 4's round trip at 2^27 on an input
     # made on the card
     z = rand(STOCKHAM_LONG)
@@ -3781,10 +3867,9 @@ def main() -> int:
                        (torch.float16, 1e-3)):
         x = from_numpy(z, device=dev)
         x = SplitComplex(x.re.to(dtype), x.im.to(dtype))
-        zr = to_numpy(x)
+        zr = torch.complex(x.re.double(), x.im.double())
         for inverse in (False, True):
-            want = torch.from_numpy(REF_FFT.ifft(zr) if inverse
-                                    else REF_FFT.fft(zr)).to(dev)
+            want = torch.fft.ifft(zr) if inverse else torch.fft.fft(zr)
             top = want.abs().max().item()
             for radix, kern in ((4, S.fft_stockham_cuda),
                                 (2, S.fft_stockham_r2_cuda)):
@@ -3800,10 +3885,11 @@ def main() -> int:
                       "route": "three_launches", "shape": STOCKHAM_LONG,
                       "split": S.split3(STOCKHAM_LONG[1], radix),
                       "dtype": str(dtype)[6:], "inverse": inverse,
+                      "reference": "float64 on the card",
                       "err_over_max": rel, "tol": tol, "ok": ok})
                 del got
             del want
-        del x
+        del x, zr
     del z
     gen = torch.Generator(device=dev)
     gen.manual_seed(27)
@@ -3819,6 +3905,74 @@ def main() -> int:
           "err_over_max": rel, "tol": TOL_TRIP, "ok": ok})
     del x, back
     S.tw.clear_table_cache()
+    torch.cuda.empty_cache()
+    # fft2d_fused past 2^24 (three launches along the long axis) against
+    # float64 on the card (torch.fft in complex128 of the input as rounded
+    # to its dtype): fp32 inverse at STOCKHAM2D_LONG (the long-axis window
+    # holds the forward) and forward at STOCKHAM2D_TILES within TOL_2D of
+    # max|X|, bf16 and float16 forward on rows within 6e-2 and 1e-3 (the
+    # float16 input scaled by 1/8, so that its spectrum, ~5e4 at unit
+    # scale, stays well inside float16's 65504); then the kernel against
+    # its plain version with TWO_MAX lowered to 2^16, fp32 both ways
+    # (TOL_2D of max|plain|)
+    def c128(t):
+        return torch.complex(t.re.double(), t.im.double())
+    gen.manual_seed(31)
+    rows2d, cols2d = STOCKHAM2D_LONG
+    for shape, dtype, tol, dirs in (
+            (rows2d, torch.float32, TOL_2D, (True,)),
+            (rows2d, torch.bfloat16, 6e-2, (False,)),
+            (rows2d, torch.float16, 1e-3, (False,)),
+            (cols2d, torch.float32, TOL_2D, (True,)),
+            (STOCKHAM2D_TILES, torch.float32, TOL_2D, (False,))):
+        unit = 0.125 if dtype == torch.float16 else 1.0
+        x = SplitComplex(*((torch.randn(shape, generator=gen, device=dev)
+                            * unit).to(dtype) for _ in "ri"))
+        z = c128(x)
+        n_long = max(shape[1:])
+        for inverse in dirs:
+            want = torch.fft.ifft2(z) if inverse else torch.fft.fft2(z)
+            got = S2.fft2d_fused_cuda(x, inverse=inverse)
+            rel = ((c128(got) - want).abs().max()
+                   / want.abs().max()).item()
+            ok = rel <= tol and got.re.dtype == dtype
+            if not ok:
+                failures.append(f"fft2d_fused {shape} {dtype} "
+                                f"inverse={inverse}: {rel}")
+            emit({"phase": "kernel_vs_numpy", "kernel": "fft2d_fused",
+                  "route": [r for r, _ in S2.plan(*shape)],
+                  "split": (S.split3(n_long, 4) if n_long > S2.TWO_MAX
+                            else S.split(n_long, 4)),
+                  "shape": shape, "dtype": str(dtype)[6:],
+                  "inverse": inverse, "reference": "float64 on the card",
+                  "err_over_max": rel, "tol": tol, "ok": ok})
+            del want, got
+        del x, z
+    torch.cuda.empty_cache()
+    two_max, S2.TWO_MAX = S2.TWO_MAX, 1 << 16
+    S2._launch_args.cache_clear()
+    try:
+        for shape in STOCKHAM2D_LOWERED:
+            x = from_numpy(rand(shape), device=dev)
+            for inverse in (False, True):
+                got = S2.fft2d_fused_cuda(x, inverse=inverse)
+                ref = S2.fft2d_fused_plain(x, inverse=inverse)
+                abs_err, rel = errors(got, ref)
+                ok = rel <= TOL_2D
+                if not ok:
+                    failures.append(f"fft2d_fused {shape} (TWO_MAX 2^16) "
+                                    f"inverse={inverse}: {rel}")
+                emit({"phase": "kernel_vs_plain", "kernel": "fft2d_fused",
+                      "route": [r for r, _ in S2.plan(*shape)],
+                      "two_max": S2.TWO_MAX, "shape": shape,
+                      "inverse": inverse, "max_abs_err": abs_err,
+                      "err_over_max": rel, "tol": TOL_2D, "ok": ok})
+                del got, ref
+            del x
+    finally:
+        S2.TWO_MAX = two_max
+        S2._launch_args.cache_clear()
+    S2.tw.clear_table_cache()
     torch.cuda.empty_cache()
     bf16_kernels = {"fft2d_gemm": (G.fft2d_gemm_cuda, G.fft2d_gemm_plain),
                     "fft3d_fused": (V.fft3d_fused_cuda, V.fft3d_fused_plain),
@@ -4403,6 +4557,9 @@ def main() -> int:
     fx = {k: from_numpy(z, device=dev) for k, z in fz.items()}
     r2z = rand(STOCKHAM_LONG)
     r2x = from_numpy(r2z, device=dev)
+    gen.manual_seed(33)
+    s2x = {s_: SplitComplex(*(torch.randn(s_, generator=gen, device=dev)
+                              for _ in "ri")) for s_ in STOCKHAM2D_LONG}
     torch.cuda.synchronize()
     ops.reset_launches()
     lout = {}
@@ -4433,6 +4590,9 @@ def main() -> int:
                                   inverse=True, backend="cuda")(r2x)
     p_r4s = plan_fft(STOCKHAM_LONG[1], backend="cuda")
     lout["r4"] = p_r4s(r2x)
+    for s_ in STOCKHAM2D_LONG:
+        lout[s_, "fft2_stockham"] = fft2(s2x[s_], algo="fused_stockham",
+                                         backend="cuda")
     torch.cuda.synchronize()
     launches_long = dict(ops.LAUNCHES)
     lchecks, llimits = {}, {}
@@ -4478,6 +4638,13 @@ def main() -> int:
     for k in ("stockham2_2^25_vs_numpy", "stockham2_2^25_inverse_vs_numpy",
               "stockham2_2^25_vs_plain", "stockham_2^25_vs_numpy"):
         llimits[k] = TOL_1D
+    for s_ in STOCKHAM2D_LONG:
+        k = f"fft2_stockham_{'x'.join(map(str, s_))}_vs_float64"
+        want = torch.fft.fft2(c128(s2x[s_]))
+        lchecks[k] = ((c128(lout[s_, "fft2_stockham"]) - want).abs().max()
+                      / want.abs().max()).item()
+        llimits[k] = TOL_NUMPY
+        del want
     for k, v in lchecks.items():
         if not (v <= llimits[k]):
             failures.append(f"long-axis path {k}: {v} > {llimits[k]}")
@@ -4514,7 +4681,7 @@ def main() -> int:
           "split_factors": {str(s_): [list(AX.split_factors(n))
                                       for n in s_[1:]]
                             for s_ in LONG_2D + LONG_3D}})
-    del lx, lxr, lout, fx, r2x
+    del lx, lxr, lout, fx, r2x, s2x
     S.tw.packed_radix2_twiddles_np.cache_clear()
     S.tw.clear_table_cache()
     torch.cuda.empty_cache()
@@ -5044,6 +5211,15 @@ def main() -> int:
         x = from_numpy(rand(shape), device=dev)
         return x, torch.complex(x.re, x.im)
 
+    def card_inputs(shape):
+        """complex_inputs drawn on the card from a seeded generator (a
+        host draw of 2^28 points takes ~20 s)."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(sum(shape))
+        x = SplitComplex(*(torch.randn(shape, generator=g, device=dev)
+                           for _ in "ri"))
+        return x, torch.complex(x.re, x.im)
+
     def real_inputs(shape):
         x = real_on_card(real(shape))
         return x, x
@@ -5222,34 +5398,48 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the long-axis routes: fft2 at 8192^2 (each axis two launches of the
-    # split), the four-step kernel at 2^21 = 1024 x 2048 (the axis route)
-    # and both Stockham kernels at 2^25 (three launches; radix 2's plain
+    # split), the four-step kernel at 2^21 = 1024 x 2048 (the axis route),
+    # both Stockham kernels at 2^25 (three launches; radix 2's plain
     # time taken in the long-axis window, radix 4 has none: its packed
-    # float64 host table would be 4.8 GB), each
-    # with its plain version, the library call and the bound; launches from
-    # the long-axis window; the Stockham kernels' grid launches counted over
-    # the timed calls, the counters at 0 before them
+    # float64 host table would be 4.8 GB), and the fused Stockham 2-D
+    # kernel with an axis of 2^25 on rows and on columns (three launches,
+    # no plain time for the same reason) and rows of 2^20 (two launches),
+    # each with its plain version, the library call and the bound;
+    # launches from the long-axis window; the Stockham kernels' grid
+    # launches counted over the timed calls, the counters at 0 before them
+    lib_fft2 = lambda c: torch.fft.fft2(c)  # noqa: E731
+    s2_syms = ("fft2d_fused_1d", "fft2d_fused_pass")
     route_specs = [
         ("fft2d_gemm", "split_axis_8192^2", LONG_TIMED, G.fft2d_gemm_cuda,
-         G.fft2d_gemm_plain, lambda c: torch.fft.fft2(c),
+         G.fft2d_gemm_plain, lib_fft2, complex_inputs,
          fft_counts(LONG_TIMED[0], LONG_TIMED[1] * LONG_TIMED[2]),
          len(AX.plan2d(*LONG_TIMED)), launches_long["fft2d_gemm"], 25),
         ("fft_fourstep", "axis_route_1024x2048", FOURSTEP_FACTORS[0][0],
          F.fft_fourstep_cuda, F.fft_fourstep_plain,
-         lambda c: torch.fft.fft(c), fft_counts(*FOURSTEP_FACTORS[0][0]),
+         lambda c: torch.fft.fft(c), complex_inputs,
+         fft_counts(*FOURSTEP_FACTORS[0][0]),
          len(F.axis_plan(*FOURSTEP_FACTORS[0][0])),
          launches_long["fft_fourstep"], 25),
         ("fft_stockham_r2", "three_launches_2^25", STOCKHAM_LONG,
          S.fft_stockham_r2_cuda, None, lambda c: torch.fft.fft(c),
-         fft_counts(*STOCKHAM_LONG), "fft_stockham_r2_pass",
-         launches_long["fft_stockham_r2"], 0),
+         complex_inputs, fft_counts(*STOCKHAM_LONG),
+         ("fft_stockham_r2_pass",), launches_long["fft_stockham_r2"], 0),
         ("fft_stockham", "three_launches_2^25", STOCKHAM_LONG,
          S.fft_stockham_cuda, None, lambda c: torch.fft.fft(c),
-         fft_counts(*STOCKHAM_LONG), "fft_stockham_r4_pass",
-         launches_long["fft_stockham"], 0)]
-    for name, cell, shape, kern, plain, lib, (flops, nbytes), grids, \
-            count, runs in route_specs:
-        x, c = complex_inputs(shape)
+         complex_inputs, fft_counts(*STOCKHAM_LONG),
+         ("fft_stockham_r4_pass",), launches_long["fft_stockham"], 0)]
+    route_specs += [
+        ("fft2d_fused", cell, shape, S2.fft2d_fused_cuda,
+         S2.fft2d_fused_plain if runs else None, lib_fft2, card_inputs,
+         fft_counts(shape[0], shape[1] * shape[2]), s2_syms,
+         launches_long["fft2d_fused"], runs)
+        for cell, shape, runs in (
+            ("three_launches_rows_2^25", STOCKHAM2D_LONG[0], 0),
+            ("three_launches_cols_2^25", STOCKHAM2D_LONG[1], 0),
+            ("two_launches_rows_2^20", STOCKHAM2D_TWO, 5))]
+    for name, cell, shape, kern, plain, lib, inputs, (flops, nbytes), \
+            grids, count, runs in route_specs:
+        x, c = inputs(shape)
         timed = [0]
 
         def call():
@@ -5257,8 +5447,8 @@ def main() -> int:
             return kern(x)
         ops.reset_launches()
         k_ms = time_ms(call, torch)
-        if isinstance(grids, str):        # C entry calls a timed call
-            grids = _build.CALLS[grids] / timed[0]
+        if isinstance(grids, tuple):      # C entry calls a timed call
+            grids = sum(_build.CALLS[g] for g in grids) / timed[0]
         p_ms = (time_ms(lambda: plain(x), torch, runs=runs, warmup=1)
                 if plain else long_plain_ms.get(name))
         l_ms = time_ms(lambda: lib(c), torch)
@@ -5468,7 +5658,6 @@ def main() -> int:
     nccl_path(failures, smi, torch.cuda.device_count())
     tt_path(failures, smi, dist_cases)
     lm = lm_path(failures, smi)
-    train = train_lm(failures, smi)
     for k, v in train_ssm(failures, smi).items():
         train[k] = train.get(k, 0) + v
     for k, v in train_sharded(failures, smi).items():

@@ -35,8 +35,13 @@ from repro_torch.core.complexmath import SplitComplex
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+# --split-compile=0: cicc runs its optimisation passes on every host core.
+# The nine sources then build in 134 s in place of ~212 s (H100 host, 8
+# cores, nvcc 12.9), and ptxas gives 1756 of the 1760 kernels the same
+# registers and stack (the other four: 88 in place of 96 stack bytes).
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v")
 SOURCES = ("fft_stockham", "fft_fourstep", "fft2d_gemm", "rfft2d_fused",
            "fftconv_fused", "fft3d_fused", "fft2d_fused", "fft_stage",
            "decode_attention")

@@ -38,8 +38,11 @@
 // view, launch B on rows stored transposed), columns of h <= 2^14 in
 // 2- or 1-column tiles, of up to 2^24 the same two launches over the
 // columns of the images (ST_COLS with q = column / w, ST_TCOLS storing
-// (o, t*M + k, i)), and past 2^24 a launch a stage (stockham.cuh's
-// per_stage) along either axis.
+// (o, t*M + k, i)), and past 2^24 its three launches along either axis
+// (n = M1 * M2 * Q: ST_COLS on the (., M1, M2*Q*w) view, ST_MID on the
+// (.*M1, M2, Q*w) view with q = column / w, then ST_TRANSPOSED on rows or
+// ST_TCOLS on columns of the (.*M1*M2, Q, w) view after l1 + l2 bits),
+// x -> out -> scratch -> out, each one pass over the planes.
 // bf16 and float16 planes are widened at the load and rounded to their
 // dtype at each store.
 // The butterflies are stockham_stages': radix-4 stage s of a length-n
@@ -129,8 +132,8 @@ S2Launch s2_pick(int ln, int threads) {
 // fp32 (3, 2^ln / 4) table w, w^2, w^3 of the transform's sign
 // (`inverse`) as (cos, sin) pairs; `scale` at the store; `blocks` the
 // persistent grid; raw bf16 planes for store = 1, raw float16 for store =
-// 2.  x and out may be the same planes.  Returns cudaErrorInvalidValue for a tiling it does not
-// take.
+// 2.  x and out may be the same planes; rows of up to 2^32 (THREE_MAX).
+// Returns cudaErrorInvalidValue for a tiling it does not take.
 extern "C" int fft2d_fused_pass(const void* xr, const void* xi, void* outr,
                                 void* outi, const float* tab,
                                 long long outer, int ln, int linner, int lc,
@@ -138,7 +141,7 @@ extern "C" int fft2d_fused_pass(const void* xr, const void* xi, void* outr,
                                 int store, void* stream) {
   const int lp = ln + lc + lg;
   if (outer <= 0 || blocks <= 0 || ln < 1 || ln > 14 || lc < 0 || lg < 0 ||
-      lc > linner || linner < 1 || linner > 24 || lp > 14 ||
+      lc > linner || linner < 1 || linner > 32 || lp > 14 ||
       (1 << lp) < AXIS_TILE_MIN || (lc < linner && lg != 0))
     return (int)cudaErrorInvalidValue;
   const int threads = 1 << (lp - 4);
@@ -159,38 +162,20 @@ extern "C" int fft2d_fused_pass(const void* xr, const void* xi, void* outr,
   return (int)fn(g, row, grid, threads, smem, (cudaStream_t)stream);
 }
 
-// One launch on the 1-D kernel's routes (stockham.cuh's stockham_pass<4>):
-// the row pass (ST_ROWS, rows of up to 2^14), or an axis past 2^14 as
+// One launch on the 1-D kernel's routes (stockham.cuh's
+// stockham_pass<4>): the row pass (ST_ROWS, rows of up to 2^14), an axis past 2^14 as
 // launches A (ST_COLS) and B (ST_TRANSPOSED on rows, ST_TCOLS on
-// columns); l1 launch A's bits, lin log2 of the images' inner extent
-// (ST_COLS over columns; ST_TCOLS: linner), `tab` the axis' (3, n/4)
-// table.
+// columns), or past 2^24 as launches 1 (ST_COLS), 2 (ST_MID) and 3
+// (ST_TRANSPOSED, ST_TCOLS); l1 the bits of the launches before, lin log2
+// of the images' inner extent (ST_COLS, ST_MID over columns; ST_TCOLS:
+// linner), `tab` the axis' (3, n/4) table.
 extern "C" int fft2d_fused_1d(const void* xr, const void* xi, void* outr,
                               void* outi, const float* tab, long long outer,
                               int ln, int linner, int lc, int lg, int route,
                               int l1, int lin, int blocks, float scale,
                               int inverse, int store, void* stream) {
-  return stockham_pass<4>(xr, xi, outr, outi, tab, outer, ln, linner, lc, lg,
-                          route, l1, lin, blocks, scale,
-                          inverse ? 1.f : -1.f, store, (cudaStream_t)stream);
-}
-
-// An axis past 2^24: a launch a radix-4 stage (then the radix-2 tail)
-// along the middle axis of the (batch, 2^ln, 2^lin) view, x -> out through
-// the scratch pair (sr, si), off the axis' (3, n/4) table, `scale` at the
-// last store.
-extern "C" int fft2d_fused_stages(const void* xr, const void* xi, void* outr,
-                                  void* outi, void* sr, void* si,
-                                  const float* tab, long long batch, int ln,
-                                  int lin, float scale, int inverse,
-                                  int store, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (batch <= 0 || ln < 1 || ln > 40 || lin < 0 || lin > 30)
-    return (int)cudaErrorInvalidValue;
-  const float2* w = (const float2*)tab;
-  return by_store(store, [&](auto t) {
-    using B = typename decltype(t)::type;
-    return per_stage((const B*)xr, (const B*)xi, (B*)outr, (B*)outi,
-                     (B*)sr, (B*)si, w, batch, ln, lin, inverse, scale, s);
-  });
+  return stockham_pass<4>(xr, xi, outr, outi, tab, outer, ln, linner,
+                                lc, lg, route, l1, lin, blocks, scale,
+                                inverse ? 1.f : -1.f, store,
+                                (cudaStream_t)stream);
 }

@@ -77,7 +77,7 @@ extern "C" int fft_stockham_r2_pass(const void* xr, const void* xi,
                                     int linner, int lc, int lg, int route,
                                     int l1, int blocks, float scale, int store,
                                     void* stream) {
-  return stockham_pass<2, true>(xr, xi, outr, outi, tab, outer, ln, linner,
+  return stockham_pass<2>(xr, xi, outr, outi, tab, outer, ln, linner,
                                 lc, lg, route, l1, 0, blocks, scale, -1.f,
                                 store, (cudaStream_t)stream);
 }
@@ -91,7 +91,7 @@ extern "C" int fft_stockham_r4_pass(const void* xr, const void* xi,
                                     int linner, int lc, int lg, int route,
                                     int l1, int blocks, float scale,
                                     int inverse, int store, void* stream) {
-  return stockham_pass<4, true>(xr, xi, outr, outi, tab, outer, ln, linner,
+  return stockham_pass<4>(xr, xi, outr, outi, tab, outer, ln, linner,
                                 lc, lg, route, l1, 0, blocks, scale,
                                 inverse ? 1.f : -1.f, store,
                                 (cudaStream_t)stream);

@@ -4,13 +4,11 @@
 // that the points stay in registers), passes between shared-memory
 // barriers in bank-spreading layouts, twiddles off one table a radix (the
 // radix-4 one (3, n/4): w, w^2, w^3, read at (j >> 2s) << 2s for stage s,
-// bit for bit row s of the packed (s4, 3, n/4) table), the 1-D kernel's
-// fused launches (StRun, st_pick, stockham_pass: rows, launches A and B of
-// the two-launch split, on rows or on the columns of images, and the
-// middle launch of the three-launch split past 2^24), each on fp32, raw
-// bf16 or raw float16 planes (`store` 0, 1, 2); and per_stage (a launch a
-// stage, r4_stage / r2_tail), whose only caller now is fft2d_fused.cu's
-// axes past 2^24 (fft2d_fused_stages).
+// bit for bit row s of the packed (s4, 3, n/4) table), and the fused
+// launches of both kernels (StRun, st_pick, stockham_pass: rows, launches
+// A and B of the two-launch split, and the middle launch of the
+// three-launch split past 2^24, each on rows or on the columns of
+// images), each on fp32, raw bf16 or raw float16 planes (`store` 0, 1, 2).
 // The tile walk, the copies, FromShared / ToShared / FromStage and the
 // stores (ToGlobal, ToSplit) are axis_fft.cuh's.
 #pragma once
@@ -74,8 +72,8 @@ using Twiddle = TwiddleOf<int>;
 // bits S .. LN-2-K of the first point's index: one twiddle for the 2^K
 // pairs that share them.
 template <int LR, int LN, int S, int K = 0, class Tw>
-__device__ __forceinline__ void r2_stages(float2* u, int base, int t,
-                                          const Tw& tw) {
+__device__ __forceinline__ void r2_in_regs(float2* u, int base, int t,
+                                            const Tw& tw) {
   if constexpr (K < LR) {
     constexpr int HB = LR - 1 - K;
     const int mask = (1 << (LN - 1 - S - K)) - 1;
@@ -91,7 +89,7 @@ __device__ __forceinline__ void r2_stages(float2* u, int base, int t,
         u[b] = cmul(csub(x, y), w);
       }
     }
-    r2_stages<LR, LN, S, K + 1>(u, base, t, tw);
+    r2_in_regs<LR, LN, S, K + 1>(u, base, t, tw);
   }
 }
 
@@ -101,8 +99,8 @@ __device__ __forceinline__ void r2_stages(float2* u, int base, int t,
 // (y_r * w^r, the +-i of the transform's sign); the radix-2 tail (stage
 // LN-1, twiddle 1) when one bit is left.
 template <int LR, int LN, int S, int K = 0, class Tw>
-__device__ __forceinline__ void r4_stages(float2* u, int base, int t,
-                                          const Tw& tw) {
+__device__ __forceinline__ void r4_in_regs(float2* u, int base, int t,
+                                            const Tw& tw) {
   if constexpr (K + 1 == LR) {
     static_assert(S + K == LN - 1, "the radix-2 tail is the last stage");
 #pragma unroll
@@ -134,7 +132,7 @@ __device__ __forceinline__ void r4_stages(float2* u, int base, int t,
             cmul(make_float2(d0.x + sg * d1.y, d0.y - sg * d1.x), w3);
       }
     }
-    r4_stages<LR, LN, S, K + 2>(u, base, t, tw);
+    r4_in_regs<LR, LN, S, K + 2>(u, base, t, tw);
   }
 }
 
@@ -177,9 +175,9 @@ __device__ __forceinline__ void st_pass(const In& in, int lT, int nt,
 #pragma unroll
     for (int r = 0; r < R; ++r) v[b * R + r] = in(t, base + (r << LB));
     if constexpr (RX == 2)
-      r2_stages<LR, LN, S>(v + b * R, base, t, tw);
+      r2_in_regs<LR, LN, S>(v + b * R, base, t, tw);
     else
-      r4_stages<LR, LN, S>(v + b * R, base, t, tw);
+      r4_in_regs<LR, LN, S>(v + b * R, base, t, tw);
   }
   __syncthreads();
 #pragma unroll
@@ -257,13 +255,15 @@ struct ImageColsSw {
 //   ST_TCOLS       launch B on columns: the same over tiles of C columns
 //                  (or G whole images) of the (outer * 2^l1, 2^ln, 2^lin)
 //                  view, point t of (o, k, i) stored at (o, t * 2^l1 + k, i);
-//   ST_MID         the middle launch of three (the 1-D kernel past 2^24):
-//                  stages of bits l1..l1+ln-1 of a length-2^(l1+ln+linner)
-//                  transform, each image (o, k) of the (outer * 2^l1, 2^ln,
-//                  2^linner) view a launch A of its own (column q's
-//                  four-step twiddle folded in), over tiles of C columns
-//                  (or G whole images), point t of (o, k, q) stored at
-//                  (o, t * 2^l1 + k, q) as ST_TCOLS stores.
+//   ST_MID         the middle launch of three (an axis past 2^24):
+//                  stages of bits l1..l1+ln-1 of a length-2^(l1+ln+linner-
+//                  lin) transform, each image (o, k) of the (outer * 2^l1,
+//                  2^ln, 2^linner) view a launch A of its own (q = column
+//                  >> lin, its four-step twiddle folded in; lin = log2 of
+//                  the inner extent when the axis runs over columns of
+//                  images, 0 on rows), over tiles of C columns (or G whole
+//                  images), point t of (o, k, c) stored at
+//                  (o, t * 2^l1 + k, c) as ST_TCOLS stores.
 enum { ST_ROWS = 0, ST_COLS = 1, ST_TRANSPOSED = 2, ST_TCOLS = 3,
        ST_MID = 4 };
 constexpr int ST_LN_MAX = 36;   // log2 of the longest transform of a launch
@@ -294,12 +294,12 @@ struct StRun {
                               to_global<T>(g, k));
     } else if constexpr (ROUTE == ST_TCOLS || ROUTE == ST_MID) {
       const Columns stage{g.lc, 1 << (LN + g.lc), 1 << g.lc};
-      // ST_MID: q = the tile's first column + t, or t's column bits in a
-      // tile of whole images (q0 = 0)
+      // ST_MID: q = (the tile's first column + t) >> lin, or t's column
+      // bits >> lin in a tile of whole images (q0 = 0)
       const int cpi = g.linner - g.lc;
       const int q0 = (int)((k & ((1LL << cpi) - 1)) << g.lc);
       const Tw tw = ROUTE == ST_MID
-                        ? Tw{g.tab, q0, g.linner, l1, row, g.sg, 0,
+                        ? Tw{g.tab, q0, g.linner - lin, l1, row, g.sg, lin,
                              (1 << g.linner) - 1}
                         : Tw{g.tab, 0, 0, l1, row, g.sg, 0};
       st_passes<RX, LN, 0, 5>(FromStage<T, Columns>{sr, si, stage}, wr, wi,
@@ -358,11 +358,10 @@ StLaunch st_for(int ln, std::integer_sequence<int, L...>) {
 // 2^14 with 1024; launch A's columns of 2^8 .. 2^10 points (8192-point
 // tiles, 512 threads) or 2^11, 2^12 (16384, 1024), radix 4 the even ones;
 // launch B's rows and columns of 2^7 .. 2^12 (columns 2^11, 2^12 at 1024
-// threads).  With LONG (the 1-D kernel's three launches past 2^24; the 2-D
-// kernel builds none of these) also launch 3's rows of 2^13 (512 threads)
-// and 2^14 (1024) and ST_MID's columns of 2^2 .. 2^10 (512 threads; radix
-// 4 the even ones) and, radix 2, 2^11 (1024).  Null for any other.
-template <int RX, class T, bool LONG>
+// threads); past 2^24 also launch 3's rows of 2^13 (512 threads) and 2^14
+// (1024) and ST_MID's columns of 2^2 .. 2^10 (512 threads; radix 4 the
+// even ones) and, radix 2, 2^11 (1024).  Null for any other.
+template <int RX, class T>
 StLaunch st_pick(int route, int ln, int threads) {
   if (route == ST_ROWS) {
     if (ln == 14)
@@ -400,30 +399,28 @@ StLaunch st_pick(int route, int ln, int threads) {
     return ln == 11 ? launch_st<RX, 11, ST_TCOLS, 1024, T>
                     : launch_st<RX, 12, ST_TCOLS, 1024, T>;
   }
-  if constexpr (LONG) {
-    if (route == ST_TRANSPOSED) {
-      if (ln == 13 && threads <= 512)
-        return launch_st<RX, 13, ST_TRANSPOSED, 512, T>;
-      if (ln == 14 && threads == 1024)
-        return launch_st<RX, 14, ST_TRANSPOSED, 1024, T>;
-    }
-    if (route == ST_MID) {
-      if constexpr (RX == 4) {
-        static const StLaunch even[] = {
-            launch_st<4, 2, ST_MID, 512, T>, launch_st<4, 4, ST_MID, 512, T>,
-            launch_st<4, 6, ST_MID, 512, T>, launch_st<4, 8, ST_MID, 512, T>,
-            launch_st<4, 10, ST_MID, 512, T>};
-        return ln >= 2 && ln <= 10 && !(ln & 1) && threads <= 512
-                   ? even[ln / 2 - 1]
-                   : nullptr;
-      } else {
-        if (ln >= 2 && ln <= 10 && threads <= 512)
-          return st_for<2, ST_MID, 2, 512, T>(
-              ln, std::make_integer_sequence<int, 9>{});
-        return ln == 11 && threads == 1024
-                   ? launch_st<2, 11, ST_MID, 1024, T>
-                   : nullptr;
-      }
+  if (route == ST_TRANSPOSED) {
+    if (ln == 13 && threads <= 512)
+      return launch_st<RX, 13, ST_TRANSPOSED, 512, T>;
+    if (ln == 14 && threads == 1024)
+      return launch_st<RX, 14, ST_TRANSPOSED, 1024, T>;
+  }
+  if (route == ST_MID) {
+    if constexpr (RX == 4) {
+      static const StLaunch even[] = {
+          launch_st<4, 2, ST_MID, 512, T>, launch_st<4, 4, ST_MID, 512, T>,
+          launch_st<4, 6, ST_MID, 512, T>, launch_st<4, 8, ST_MID, 512, T>,
+          launch_st<4, 10, ST_MID, 512, T>};
+      return ln >= 2 && ln <= 10 && !(ln & 1) && threads <= 512
+                 ? even[ln / 2 - 1]
+                 : nullptr;
+    } else {
+      if (ln >= 2 && ln <= 10 && threads <= 512)
+        return st_for<2, ST_MID, 2, 512, T>(
+            ln, std::make_integer_sequence<int, 9>{});
+      return ln == 11 && threads == 1024
+                 ? launch_st<2, 11, ST_MID, 1024, T>
+                 : nullptr;
     }
   }
   return nullptr;
@@ -432,14 +429,13 @@ StLaunch st_pick(int route, int ln, int threads) {
 // One fused launch of radix RX x -> out over (outer, 2^ln, 2^linner) with
 // the tiling the host planned (kernels/fft_stockham.py::plan,
 // kernels/fft2d_fused.py::plan), fp32 or raw bf16 / float16 planes (store
-// 0, 1, 2): the
-// route, l1 (launch B, ST_MID: the bits of the launches before), lin
-// (ST_COLS: log2 of the images' inner extent; ST_TCOLS: linner), `scale`
-// at the store, `blocks` the persistent grid; `tab` the radix's one table
-// of the transform's sign `sg`; LONG takes the three-launch route's kernels
-// too (st_pick).  Returns cudaErrorInvalidValue for a tiling it does not
-// take.
-template <int RX, bool LONG = false>
+// 0, 1, 2): the route, l1 (launch B, ST_MID: the bits of the launches
+// before), lin (ST_COLS, ST_MID: log2 of the images' inner extent, 0 on
+// rows; ST_TCOLS: linner), `scale` at the store, `blocks` the persistent
+// grid; `tab` the radix's one table of the transform's sign `sg`.  A tile
+// of 16384 points holds whole images only on columns.  Returns
+// cudaErrorInvalidValue for a tiling it does not take.
+template <int RX>
 int stockham_pass(const void* xr, const void* xi, void* outr, void* outi,
                   const float* tab, long long outer, int ln, int linner,
                   int lc, int lg, int route, int l1, int lin, int blocks,
@@ -451,23 +447,23 @@ int stockham_pass(const void* xr, const void* xi, void* outr, void* outi,
   // the whole transform's log2 length, for the radix-4 table's rows
   const int lnf = route == ST_COLS  ? ln + linner - lin
                   : route == ST_ROWS ? ln
-                  : route == ST_MID  ? l1 + ln + linner
+                  : route == ST_MID  ? l1 + ln + linner - lin
                                      : l1 + ln;
   if (outer <= 0 || blocks <= 0 || ln < 1 || lc < 0 || lg < 0 || lp > 14 ||
-      (1 << lp) < AXIS_TILE_MIN || (lp == 14 && lg != 0) || lin < 0 ||
-      lc > linner || (lc < linner && lg != 0) || route < ST_ROWS ||
+      (1 << lp) < AXIS_TILE_MIN || (rows && lp == 14 && lg != 0) ||
+      lin < 0 || lc > linner || (lc < linner && lg != 0) || route < ST_ROWS ||
       route > ST_MID || lnf > ST_LN_MAX ||
       (rows && (linner != 0 || lc != 0 || lin != 0)) ||
       (route == ST_COLS && (lg != 0 || lc >= linner || lin > linner)) ||
       (route == ST_TCOLS && (linner < 1 || lin != linner)) ||
-      (route == ST_MID && (linner < 1 || lin != 0)) ||
+      (route == ST_MID && (linner < 1 || lin > linner)) ||
       (after && (l1 < 1 || xr == outr || xi == outi)) ||
       (RX == 4 && (((route == ST_COLS || route == ST_MID) && (ln & 1)) ||
                    (after && (l1 & 1)))))
     return (int)cudaErrorInvalidValue;
   const int threads = 1 << (lp - 4);
   const StLaunch fn = by_store(store, [&](auto t) {
-    return st_pick<RX, typename decltype(t)::type, LONG>(route, ln, threads);
+    return st_pick<RX, typename decltype(t)::type>(route, ln, threads);
   });
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int p = 0;
@@ -488,120 +484,6 @@ int stockham_pass(const void* xr, const void* xi, void* outr, void* outi,
   g.lr1 = after ? l1 : 0;
   const unsigned grid = (unsigned)(g.tiles < blocks ? g.tiles : blocks);
   return (int)fn(g, l1, row, lin, grid, threads, smem, stream);
-}
-
-// -- the per-stage route: fft2d_fused.cu's axes past 2^24 -----------------
-
-constexpr int ST_NT = 256;
-
-inline long long st_blocks(long long total) {
-  const long long b = (total + ST_NT - 1) / ST_NT;
-  return b < (1LL << 20) ? b : (1LL << 20);
-}
-
-template <class T>
-__device__ __forceinline__ float2 ld2(const T* r, const T* i, long long a) {
-  return make_float2(widen(r[a]), widen(i[a]));
-}
-
-template <class T>
-__device__ __forceinline__ void st2(T* r, T* i, long long a, float2 v,
-                                    float scale) {
-  r[a] = narrow<T>(v.x * scale);
-  i[a] = narrow<T>(v.y * scale);
-}
-
-// radix-4 stage `ls / 2` of a length-4q transform along the middle axis of
-// the (batch, 4q, 2^lin) view: twiddles w^r at entry (j >> ls) << ls of
-// row r - 1 of the one (3, n/4) table; thread t is (b, j, i), i fastest
-template <class T>
-__global__ void __launch_bounds__(ST_NT)
-r4_stage(const T* __restrict__ xr, const T* __restrict__ xi,
-         T* __restrict__ yr, T* __restrict__ yi,
-         const float2* __restrict__ w, long long total, int lq, int ls,
-         int lin, float sg, float scale) {
-  const long long q = 1LL << lq;
-  const long long n = q << 2;
-  const long long stride = 1LL << ls;
-  for (long long t = blockIdx.x * (long long)ST_NT + threadIdx.x; t < total;
-       t += (long long)gridDim.x * ST_NT) {
-    const long long i = t & ((1LL << lin) - 1);
-    const long long j = (t >> lin) & (q - 1), b = t >> (lin + lq);
-    const long long base = (b * n << lin) + i;
-    const float2 a0 = ld2(xr, xi, base + (j << lin));
-    const float2 a1 = ld2(xr, xi, base + ((j + q) << lin));
-    const float2 a2 = ld2(xr, xi, base + ((j + 2 * q) << lin));
-    const float2 a3 = ld2(xr, xi, base + ((j + 3 * q) << lin));
-    const float2 e0 = cadd(a0, a2), d0 = csub(a0, a2);
-    const float2 e1 = cadd(a1, a3), d1 = csub(a1, a3);
-    const long long m = (j >> ls) << ls;
-    const float2 y1 = cmul(make_float2(d0.x - sg * d1.y, d0.y + sg * d1.x),
-                           w[m]);
-    const float2 y2 = cmul(csub(e0, e1), w[q + m]);
-    const float2 y3 = cmul(make_float2(d0.x + sg * d1.y, d0.y - sg * d1.x),
-                           w[2 * q + m]);
-    // autosort store: j = p*stride + k  ->  p*4*stride + r*stride + k
-    const long long o = ((j >> ls) << (ls + 2)) + (j & (stride - 1));
-    st2(yr, yi, base + (o << lin), cadd(e0, e1), scale);
-    st2(yr, yi, base + ((o + stride) << lin), y1, scale);
-    st2(yr, yi, base + ((o + 2 * stride) << lin), y2, scale);
-    st2(yr, yi, base + ((o + 3 * stride) << lin), y3, scale);
-  }
-}
-
-// radix 4's tail, the last radix-2 stage of a length-2h transform along
-// the middle axis (twiddle 1): a + b at j, a - b at j + h
-template <class T>
-__global__ void __launch_bounds__(ST_NT)
-r2_tail(const T* __restrict__ xr, const T* __restrict__ xi,
-        T* __restrict__ yr, T* __restrict__ yi, long long total, int lh,
-        int lin, float scale) {
-  const long long h = 1LL << lh;
-  for (long long t = blockIdx.x * (long long)ST_NT + threadIdx.x; t < total;
-       t += (long long)gridDim.x * ST_NT) {
-    const long long i = t & ((1LL << lin) - 1);
-    const long long j = (t >> lin) & (h - 1), b = t >> (lin + lh);
-    const long long base = (b * 2 * h << lin) + i;
-    const float2 a = ld2(xr, xi, base + (j << lin));
-    const float2 c = ld2(xr, xi, base + ((j + h) << lin));
-    st2(yr, yi, base + (j << lin), cadd(a, c), scale);
-    st2(yr, yi, base + ((j + h) << lin), csub(a, c), scale);
-  }
-}
-
-// One launch a radix-4 stage, then the radix-2 tail (twiddle 1) for odd
-// log2 n, along the middle axis of the (batch, n, 2^lin) view, x -> out
-// through the scratch pair (sr, si) (global ping-pong buffers), off the
-// one (3, n/4) table; `last_scale` at the last store.
-template <class T>
-int per_stage(const T* xr, const T* xi, T* outr, T* outi, T* sr, T* si,
-              const float2* tab, long long batch, int ln, int lin,
-              int inverse, float last_scale, cudaStream_t s) {
-  const int stages = ln / 2 + (ln & 1);
-  const float sg = inverse ? 1.f : -1.f;
-  // stage i writes the buffer that makes the last stage land in out
-  T* dst_r[2] = {outr, sr};
-  T* dst_i[2] = {outi, si};
-  const T* src_r = xr;
-  const T* src_i = xi;
-  const long long pts = (batch << ln) << lin;
-  for (int st = 0; st < stages; ++st) {
-    const int d = (stages - 1 - st) % 2;
-    const float scale = st == stages - 1 ? last_scale : 1.f;
-    if (st < ln / 2) {
-      r4_stage<T><<<(unsigned)st_blocks(pts / 4), ST_NT, 0, s>>>(
-          src_r, src_i, dst_r[d], dst_i[d], tab, pts / 4, ln - 2, 2 * st,
-          lin, sg, scale);
-    } else {
-      r2_tail<T><<<(unsigned)st_blocks(pts / 2), ST_NT, 0, s>>>(
-          src_r, src_i, dst_r[d], dst_i[d], pts / 2, ln - 1, lin, scale);
-    }
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    src_r = dst_r[d];
-    src_i = dst_i[d];
-  }
-  return (int)cudaSuccess;
 }
 
 }  // namespace

@@ -21,8 +21,11 @@ the planes twice.  Longer axes take the 1-D kernel's routes on the same
 machinery: rows of up to 2^14 points one a tile, columns of up to 2^14 in
 2- and 1-column tiles, either axis up to 2^24 as the 1-D kernel's launches
 A and B (the columns' launch B storing whole tiles of columns,
-"split_tcols"), and past that a launch a stage.  float32, bfloat16 or
-float16 planes (widened at the load, rounded at each store).
+"split_tcols"), and up to :data:`THREE_MAX` as its three launches
+(``fft_stockham.split3``; the middle one, "split_mid", with the four-step
+column q = column >> log2 w on columns), each one pass over the planes.
+float32, bfloat16 or float16 planes (widened at the load, rounded at each
+store).
 """
 from __future__ import annotations
 
@@ -36,12 +39,18 @@ from repro_torch.core import twiddle as tw
 from repro_torch.core.fft1d import stockham_stages
 from . import _build
 from . import axis_fft as _axis
-from .fft_stockham import split
+from .fft_stockham import split, split3
 
 ONE_MAX = 1 << 14       # the longest axis one launch holds
 TWO_MAX = 1 << 24       # ... two (the 1-D kernel's launches A and B)
-_ROUTES = {"rows": 0, "split_cols": 1, "split_rows": 2, "split_tcols": 3}
-_OTHER = ("split_rows", "split_tcols", "stages")   # read other planes
+# ... three (its launches 1, 2 and 3): launch 3 on columns (ST_TCOLS) takes
+# at most 2^12 points, which split3 gives up to 2^32 (2^33: 2^13).  Its rows
+# would take 2^14 (to 2^36), but an image with a row past 2^32 holds 2^34
+# points or more, 64 GiB a plane pair in bfloat16, beyond any card.
+THREE_MAX = 1 << 32
+_ROUTES = {"rows": 0, "split_cols": 1, "split_rows": 2, "split_tcols": 3,
+           "split_mid": 4}
+_OTHER = ("split_mid", "split_rows", "split_tcols")   # read other planes
 
 
 def _check_dims(h: int, w: int) -> None:
@@ -81,8 +90,9 @@ def rows_smem(w: int, g: int) -> int:
 def _axis_steps(outer: int, n: int, inner: int) -> list:
     """The launches of every stage of length n along the (outer, n, inner)
     view (inner = 1: rows), as (route, Launch) pairs; a "split_*" Launch
-    keeps launch A's bits in ``lr[0]`` and log2 of the images' inner
-    extent in ``ljr``."""
+    keeps the kernel's l1 argument in ``lr[0]`` (l1 for launches A, B, 1
+    and 2, l1 + l2 for launch 3) and log2 of the images' inner extent in
+    ``ljr``."""
     if n <= ONE_MAX:
         if inner == 1:
             rows = _axis.plan_axis(outer, n, 1)
@@ -91,16 +101,27 @@ def _axis_steps(outer: int, n: int, inner: int) -> list:
                 g //= 2
             return [("rows", dataclasses.replace(rows, g=g))]
         return [("cols", _axis.plan_axis(outer, n, inner))]
-    if n > TWO_MAX:
-        return [("stages", _axis.Launch("stages", outer, n, inner, 1, 1))]
-    l1 = split(n, 4)
-    m, q = 1 << l1, n >> l1
+    if n > THREE_MAX:
+        raise ValueError(f"the fused Stockham 2-D kernel takes axes of up "
+                         f"to 2^{THREE_MAX.bit_length() - 1}, got {n}: its "
+                         "third launch on columns takes at most 2^12 points")
     lin = _axis._log2(inner)
-    a = dataclasses.replace(_axis.plan_axis(outer, m, q * inner), ljr=lin)
-    b = dataclasses.replace(_axis.plan_axis(outer * m, q, inner), ljr=lin,
-                            lr=(l1, 0))
-    return [("split_cols", a),
-            ("split_rows" if inner == 1 else "split_tcols", b)]
+    last = "split_rows" if inner == 1 else "split_tcols"
+    if n <= TWO_MAX:
+        l1 = split(n, 4)
+        m, q = 1 << l1, n >> l1
+        a = _axis.plan_axis(outer, m, q * inner)
+        b = _axis.plan_axis(outer * m, q, inner)
+        return [("split_cols", dataclasses.replace(a, ljr=lin, lr=(l1, 0))),
+                (last, dataclasses.replace(b, ljr=lin, lr=(l1, 0)))]
+    l1, l2, lq = split3(n, 4)
+    m1, m2, q = 1 << l1, 1 << l2, 1 << lq
+    a = _axis.plan_axis(outer, m1, m2 * q * inner)
+    mid = _axis.plan_axis(outer * m1, m2, q * inner)
+    b = _axis.plan_axis(outer * m1 * m2, q, inner)
+    return [("split_cols", dataclasses.replace(a, ljr=lin, lr=(l1, 0))),
+            ("split_mid", dataclasses.replace(mid, ljr=lin, lr=(l1, 0))),
+            (last, dataclasses.replace(b, ljr=lin, lr=(l1 + l2, 0)))]
 
 
 def plan(batch: int, h: int, w: int) -> tuple:
@@ -114,8 +135,14 @@ def plan(batch: int, h: int, w: int) -> tuple:
     where w < C.  Up to 2^24 it is the 1-D kernel's two launches (l1 =
     :func:`fft_stockham.split`): ``("split_cols", ...)`` on columns of the
     (., 2^l1, n/2^l1 * inner) view, then ``("split_rows", ...)`` or, for
-    columns, ``("split_tcols", ...)``, stored transposed; past 2^24
-    ``("stages", ...)``, a launch a stage."""
+    columns, ``("split_tcols", ...)``, stored transposed.  Up to
+    :data:`THREE_MAX` it is the 1-D kernel's three launches, n = M1 * M2 *
+    Q (:func:`fft_stockham.split3`): ``("split_cols", ...)`` on columns of
+    the (., M1, M2*Q * inner) view, ``("split_mid", ...)`` on the stages
+    of the next l2 bits over columns of the (.*M1, M2, Q * inner) view
+    (the four-step column q = column >> log2 inner), stored at (o, t*M1 +
+    k, c), then ``("split_rows", ...)`` or ``("split_tcols", ...)`` after
+    l1 + l2 bits on the (.*M1*M2, Q, inner) view.  Past it, it raises."""
     _check_dims(h, w)
     return tuple(_axis_steps(batch * h, w, 1) + _axis_steps(batch, h, w))
 
@@ -123,7 +150,8 @@ def plan(batch: int, h: int, w: int) -> tuple:
 def buffers(steps: tuple) -> list:
     """(src, dst) planes of each launch: 0 x, 1 out, 2 a scratch pair; the
     last writes out, the routes of ``_OTHER`` read other planes than they
-    write, the others work in place (:func:`axis_fft.buffers`)."""
+    write, the others work in place (:func:`axis_fft.buffers`); a long
+    axis' launches 2 and 3 go out -> scratch -> out."""
     return _axis.buffers(tuple(dataclasses.replace(
         lp, mode="reversed" if route in _OTHER else "plain")
         for route, lp in steps))
@@ -146,17 +174,13 @@ def _launch_args(batch: int, h: int, w: int, inverse: bool, store: int,
     for i, (route, lp) in enumerate(steps):
         axis = 0 if i < len(steps) - len(_axis_steps(batch, h, w)) else 1
         scale = 1.0 / (h * w) if inverse and i == len(steps) - 1 else 1.0
-        if route == "stages":
-            args = [lp.outer, log2(lp.n), log2(lp.inner), scale,
-                    int(inverse), store]
-        elif route == "cols":
+        if route == "cols":
             args = [lp.outer, log2(lp.n), log2(lp.inner), log2(lp.c),
                     log2(lp.g), lp.blocks(sms), scale, int(inverse),
                     store]
         else:
             args = [lp.outer, log2(lp.n), log2(lp.inner), log2(lp.c),
-                    log2(lp.g), _ROUTES[route], lp.lr[0],
-                    lp.ljr if route in ("split_cols", "split_tcols") else 0,
+                    log2(lp.g), _ROUTES[route], lp.lr[0], lp.ljr,
                     lp.blocks(sms), scale, int(inverse), store]
         out.append((route, axis, args))
     return tuple(out)
@@ -166,8 +190,6 @@ _ARGS = ([_build.P] * 5 + [_build.L] + [_build.I] * 5
          + [_build.F, _build.I, _build.I, _build.P])
 _1D_ARGS = ([_build.P] * 5 + [_build.L] + [_build.I] * 8
             + [_build.F, _build.I, _build.I, _build.P])
-_STAGES_ARGS = ([_build.P] * 7 + [_build.L, _build.I, _build.I, _build.F,
-                                     _build.I, _build.I, _build.P])
 
 
 def fft2d_fused_cuda(x: SplitComplex, *, inverse: bool = False
@@ -187,19 +209,13 @@ def fft2d_fused_cuda(x: SplitComplex, *, inverse: bool = False
     if any(2 in r for r in routes):
         planes.append(SplitComplex(torch.empty_like(x.re),
                                    torch.empty_like(x.im)))
-    if any(route == "stages" for route, _ in steps):
-        stage_scratch = SplitComplex(torch.empty_like(x.re),
-                                     torch.empty_like(x.im))
     tabs = tables(h, w, inverse, dev)
     fns = {}
     for (src, dst), (route, axis, args) in zip(routes, _launch_args(
             batch, h, w, bool(inverse), _build.store_code(x.dtype), dev)):
         ptrs = [*(p.data_ptr() for p in planes[src]),
                 *(p.data_ptr() for p in planes[dst])]
-        if route == "stages":
-            ptrs += [p.data_ptr() for p in stage_scratch]
-            sym, argt = "fft2d_fused_stages", _STAGES_ARGS
-        elif route == "cols":
+        if route == "cols":
             sym, argt = "fft2d_fused_pass", _ARGS
         else:
             sym, argt = "fft2d_fused_1d", _1D_ARGS

@@ -523,6 +523,30 @@ def test_stockham_r2_per_stage_on_card(card, radix, dtype, tol):
         assert np.abs(g - want).max() <= tol * np.abs(want).max()
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 6e-2),
+                                       (torch.float16, 1e-3)])
+@pytest.mark.parametrize("shape", [(1, 2, 1 << 25), (1, 1 << 25, 4)])
+def test_stockham2d_three_launches_on_card(card, shape, dtype, tol):
+    """The fused Stockham 2-D kernel with an axis of 2^25, on rows and on
+    the columns of 4-wide images (the 1-D kernel's three launches along
+    it), forward and inverse, against float64 numpy of the input as
+    rounded to its dtype: within 1e-5 of max|X| in fp32, 6e-2 in bf16,
+    1e-3 in float16.  The float16 input is scaled by 1/8: the spectrum of
+    2^27 unit normals reaches ~7e4, past float16's largest value, 65504."""
+    z = _rand(shape, 13) * (0.125 if dtype == torch.float16 else 1.0)
+    x = SplitComplex(*(torch.from_numpy(p).to(card, dtype)
+                       for p in (z.real, z.imag)))
+    z = x.re.double().cpu().numpy() + 1j * x.im.double().cpu().numpy()
+    assert "split_mid" in [r for r, _ in fft2d_fused.plan(*shape)]
+    for inverse in (False, True):
+        got = fft2d_fused.fft2d_fused_cuda(x, inverse=inverse)
+        assert got.re.dtype == dtype
+        g = got.re.double().cpu().numpy() + 1j * got.im.double().cpu().numpy()
+        want = np.fft.ifft2(z) if inverse else np.fft.fft2(z)
+        assert np.abs(g - want).max() <= tol * np.abs(want).max()
+
+
 @pytest.mark.parametrize("name,shape", [
     ("fft_stockham", (4, 256)), ("fft_stockham_r2", (4, 256)),
     ("fft_fourstep", (4, 256)), ("fft_staged", (4, 256)),

@@ -4,45 +4,27 @@ transforms on the tensor cores (``kernels/dft_mma.py``,
 tables against the plain versions' rounded tables, and its kernels run on
 the CPU under ``tools/cuda_emu/emulate.py`` (ldmatrix and mma.sync with
 the PTX fragment layouts) against the plain versions within 2^-7 (bf16)
-and 2^-10 (float16) of max|plain|, both directions.  The kernels'
-arithmetic on the card is checked by ``chip_smoke.py``."""
+and 2^-10 (float16) of max|plain|, both directions.  The long-axis
+route's tiled products are held in the same way by the
+``test_torch_gemm_tc_long*.py`` files, a file a shape group so that
+``--dist loadfile`` spreads them over workers.  The kernels' arithmetic on
+the card is checked by ``chip_smoke.py``."""
 from __future__ import annotations
-
-import importlib.util
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import SplitComplex, from_numpy
+from _emulated import TOL, emulated_fixture, planes, rel
 from repro_torch.kernels import _build, dft_mma as D
 from repro_torch.kernels import fft2d_gemm as G
 from repro_torch.kernels import fft3d_fused as V
 from repro_torch.kernels.rfft2d_fused import fourstep_factors
 
-ROOT = Path(__file__).resolve().parents[1]
-TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 POW2 = [1 << i for i in range(1, 27)]
 SMEM_MAX = 232448                  # the dynamic shared memory of a block
 
-
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The two sources built once with g++ under the CUDA stand-in, and
-    ``_build`` routed to them for this module's tests."""
-    spec = importlib.util.spec_from_file_location(
-        "cuda_emu_emulate_tc", ROOT / "tools" / "cuda_emu" / "emulate.py")
-    emu = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(emu)
-    emu.build(("fft2d_gemm", "fft3d_fused"),
-              tmp_path_factory.mktemp("cuda_emu"))
-    mp = pytest.MonkeyPatch()
-    for name in ("function", "check_operands", "launch", "launch_all"):
-        mp.setattr(_build, name, getattr(emu, f"_{name}"))
-    mp.setattr(_build, "sm_count", lambda device: 2)   # blocks walk tiles
-    yield emu
-    mp.undo()
+emulated = emulated_fixture("fft2d_gemm", "fft3d_fused")
 
 
 @pytest.fixture(scope="module")
@@ -183,28 +165,15 @@ def test_tables_are_the_plain_tables(n, factors, dtype):
             assert torch.equal(neg, (-wi.to(dtype)).view(torch.int16))
 
 
-def _planes(shape, dtype, seed):
-    rng = np.random.default_rng(seed)
-    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
-    x = from_numpy(z, device="cpu")
-    return SplitComplex(x.re.to(dtype), x.im.to(dtype))
-
-
-def _rel(got, want) -> float:
-    d = max((a.float() - b.float()).abs().max().item()
-            for a, b in zip(got, want))
-    return d / max(b.float().abs().max().item() for b in want)
-
-
 def _against_plain(shape, dtype):
     kern, plain = ((G.fft2d_gemm_cuda, G.fft2d_gemm_plain) if len(shape) == 3
                    else (V.fft3d_fused_cuda, V.fft3d_fused_plain))
-    x = _planes(shape, dtype, sum(shape))
+    x = planes(shape, dtype, sum(shape))
     for inverse in (False, True):
         got = kern(x, inverse=inverse, variant="plain")
         want = plain(x, inverse=inverse, variant="plain")
         assert got.re.dtype == dtype and got.re.shape == x.re.shape
-        assert _rel(got, want) <= TOL[dtype], (shape, dtype, inverse)
+        assert rel(got, want) <= TOL[dtype], (shape, dtype, inverse)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -217,31 +186,6 @@ def test_kernels_match_the_plain_version(emulated, shape, dtype):
     _against_plain(shape, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("shape", [(2, 2, 1024), (1, 512, 16),
-                                   (1, 4, 512, 8), (1, 512, 2, 2)])
-def test_long_axis_route_matches_the_plain_version(emulated, shape, dtype):
-    """The long-axis products with the thresholds lowered to 256: rows of
-    1024 (32 x 32, the second product's images folded into columns) and
-    columns of 512 (16 x 32: one image of 16 columns, 3-D columns of 8, and
-    of 4, loaded element by element) in two launches through the scratch
-    pair, both directions."""
-    low = D.Limits(rows_max=256, cols_max=256)
-    name, plain, factors = (
-        ("fft2d_gemm", G.fft2d_gemm_plain, fourstep_factors)
-        if len(shape) == 3 else
-        ("fft3d_fused", V.fft3d_fused_plain, V.fourstep_factors3))
-    plan, _ = D.prepare(shape[0], shape[1:], factors, low)
-    assert any(lp.route == "long2" for lp in plan)
-    fn = _build.function(name, f"{name}_plain_pass", D.ARGS)
-    x = _planes(shape, dtype, sum(shape))
-    for inverse in (False, True):
-        got = SplitComplex(torch.empty_like(x.re), torch.empty_like(x.im))
-        D.run(fn, shape[1:], factors, x, got, inverse, name, low)
-        want = plain(x, inverse=inverse, variant="plain")
-        assert _rel(got, want) <= TOL[dtype], (shape, dtype, inverse)
-
-
 @pytest.mark.parametrize("shape,entry,grids", [
     ((2, 8, 16), "fft2d_gemm_plain_pass", 2),
     ((1, 4, 8, 16), "fft3d_fused_plain_pass", 3)])
@@ -251,7 +195,7 @@ def test_grid_launches_are_counted_where_they_happen(emulated, shape, entry,
     launch each) in ``_build.CALLS``, which ``ops.reset_launches`` sets to
     0 with the wrappers' counts."""
     from repro_torch.kernels import ops
-    x = _planes(shape, torch.bfloat16, 3)
+    x = planes(shape, torch.bfloat16, 3)
     ops.reset_launches()
     assert not _build.CALLS
     (G.fft2d_gemm_cuda if len(shape) == 3 else V.fft3d_fused_cuda)(

@@ -8,7 +8,7 @@ that the split runs at small sizes.
   ``AXIS_MAX`` runs as one launch a factor, "twiddle" launches then a
   "reversed" one;
 - the fused Stockham 2-D kernel (``fft2d_fused.plan``): the 1-D kernel's
-  launches A and B along either axis, a launch a stage past 2^24;
+  launches A and B along either axis, its three launches past 2^24;
 - the real-input kernels (``rfft2d_fused.steps``): the split launches with
   the untangle, repack and repitch steps between them;
 - the four-step kernel's factors up to 2^14 (``fft_fourstep.axis_plan``);
@@ -306,63 +306,88 @@ def test_split_table_within_two_ulp():
 # -- the fused Stockham 2-D kernel ------------------------------------------
 
 def stockham_takes(route, lp) -> bool:
-    """Whether ``fft2d_fused_pass`` / ``fft2d_fused_1d`` take it."""
-    if route == "stages":
-        return lp.outer > 0 and lp.n > S2.TWO_MAX
+    """Whether ``fft2d_fused_pass`` / ``fft2d_fused_1d`` take it (the
+    latter ``stockham_pass<4>``: whole transforms of up to 2^36)."""
     ln, linner, lc, lg = map(_lg, (lp.n, lp.inner, lp.c, lp.g))
     lp_ = ln + lc + lg
     threads = 1 << (lp_ - 4)
     ok = (lp.outer > 0 and ln >= 1 and lc <= linner and lp_ <= 14
           and (1 << lp_) >= A.MIN_POINTS and not (lc < linner and lg != 0))
+    rows_ok = (linner == 0 and not (lp_ == 14 and lg != 0)
+               and S2.rows_smem(lp.n, lp.g) <= A.SMEM_MAX)
     if route == "rows":
-        return (ok and linner == 0 and S2.rows_smem(lp.n, lp.g) <= A.SMEM_MAX
-                and (ln <= 13 and threads <= 512 or ln == 14
-                     and threads == 1024 and lg == 0))
+        return (ok and rows_ok and (ln <= 13 and threads <= 512
+                                    or ln == 14 and threads == 1024))
     if route == "cols":
-        return ok and ln <= 14 and (threads <= 512 and ln <= 13
-                                    or threads == 1024 and ln >= 11)
+        return (ok and ln <= 14 and 1 <= linner <= 32
+                and (threads <= 512 and ln <= 13
+                     or threads == 1024 and ln >= 11))
     l1 = lp.lr[0]
+    after = l1 >= 2 and l1 % 2 == 0         # radix 4: whole stages before
     if route == "split_cols":
         return (ok and lg == 0 and lc < linner and ln in (8, 10, 12)
-                and (threads <= 512) == (ln <= 10)
-                and ln + linner - lp.ljr <= 24)
+                and (threads <= 512) == (ln <= 10) and lp.ljr <= linner
+                and ln + linner - lp.ljr <= 36)
+    if route == "split_mid":
+        return (ok and after and ln in (2, 4, 6, 8, 10) and threads <= 512
+                and 1 <= linner and lp.ljr <= linner
+                and l1 + ln + linner - lp.ljr <= 36)
     if route == "split_rows":
-        return (ok and linner == 0 and 7 <= ln <= 12 and threads <= 512
-                and l1 % 2 == 0 and 1 <= l1 and l1 + ln <= 24)
+        return (ok and rows_ok and after and l1 + ln <= 36
+                and (7 <= ln <= 13 and threads <= 512
+                     or ln == 14 and threads == 1024))
     return (ok and route == "split_tcols" and 7 <= ln <= 12
-            and lp.ljr == linner >= 1 and l1 % 2 == 0 and l1 + ln <= 24
+            and lp.ljr == linner >= 1 and after and l1 + ln <= 36
             and (threads <= 512 and ln <= 10 or threads == 1024))
 
 
-@pytest.mark.parametrize("k", range(1, 27))
+@pytest.mark.parametrize("k", range(1, 34))
 def test_stockham2d_plan_every_pow2_axis(k):
-    """Images (3, 2, 2^k) and (3, 2^k, 4), k up to 26: every launch one the
-    kernel takes; up to 2^14 one a pass, to 2^24 the 1-D kernel's two
-    (columns: "split_tcols" last), past 2^24 a launch a stage."""
+    """Images (3, 2, 2^k) and (3, 2^k, 4), k up to THREE_MAX's 32: every
+    launch one the kernel takes; up to 2^14 one a pass, to 2^24 the 1-D
+    kernel's two (columns: "split_tcols" last), past 2^24 its three, whose
+    l1 arguments are l1, l1, l1 + l2 of ``split3`` and whose views hold
+    the whole axis; past 2^32 a refusal that names the limit."""
     n = 1 << k
     for h, w, axis in ((2, n, "rows"), (n, 4, "cols")):
+        if n > S2.THREE_MAX:
+            with pytest.raises(ValueError, match=r"axes of up to 2\^32"):
+                S2.plan(3, h, w)
+            continue
         plan = S2.plan(3, h, w)
         for route, lp in plan:
             assert stockham_takes(route, lp), (route, lp)
         routes = [r for r, _ in plan]
         long = routes[:-1] if axis == "rows" else routes[1:]
+        last = "split_rows" if axis == "rows" else "split_tcols"
         if n <= S2.ONE_MAX:
             assert long == [axis]
         elif n <= S2.TWO_MAX:
-            assert long == ["split_cols", "split_rows" if axis == "rows"
-                            else "split_tcols"]
+            assert long == ["split_cols", last]
         else:
-            assert long == ["stages"]
+            assert long == ["split_cols", "split_mid", last]
+            steps = plan[:-1] if axis == "rows" else plan[1:]
+            l1, l2, lq = S.split3(n, 4)
+            inner, outer = (1, 3 * 2) if axis == "rows" else (4, 3)
+            assert [lp.lr[0] for _, lp in steps] == [l1, l1, l1 + l2]
+            assert [(lp.outer, lp.n, lp.inner) for _, lp in steps] == [
+                (outer, 1 << l1, (n >> l1) * inner),
+                (outer << l1, 1 << l2, inner << lq),
+                (outer << (l1 + l2), 1 << lq, inner)]
+            assert {lp.ljr for _, lp in steps} == {_lg(inner)}
 
 
 def stockham_model(steps, z, inverse, h, w):
     """The fused Stockham 2-D kernel's launches in plain torch: "rows" and
     "cols" every stage of their axis (``stockham_stages``), the split's
-    launch A the radix-4 stages of bits 0..l1-1 on each column c of the
-    (outer, M, Q*inner) view (twiddle entry (q + ((j >> 2s) << log2 Q)) <<
-    2s, q = c >> lin), launch B the rest on each (image, column) of the
-    (outer*M, Q, inner) view (entry (t >> 2s) << (2s + l1)), point t of
-    (o, k, i) stored at (o, t*M + k, i)."""
+    launch A (and launch 1) the radix-4 stages of bits 0..l1-1 on each
+    column c of the (outer, M, Q*inner) view (twiddle entry (q + ((j >>
+    2s) << log2 Q)) << 2s, q = c >> lin), the middle launch the next l2
+    bits on each column c of the (outer*M1, M2, Q*inner) view (entry (q +
+    ((j >> 2s) << log2 Q)) << (2s + l1)), launch B (and launch 3) the rest
+    on each (image, column) of the (outer*M, Q, inner) view (entry (t >>
+    2s) << (2s + l1), l1 the bits before it); the last three store point t
+    of (o, k, c) at (o, t*M + k, c)."""
     from repro_torch.core.fft1d import stockham_stages
     x = torch.from_numpy(z.astype(np.complex64))
     b = x.shape[0]
@@ -389,14 +414,18 @@ def stockham_model(steps, z, inverse, h, w):
                 idx = (cols + ((j >> (2 * s)) << _lg(q))) << (2 * s)
                 re, im = _stage4(re, im, tab[:, idx], inverse, s)
             x = torch.complex(re, im).transpose(1, 2).reshape(b, h, w)
-        else:                         # split_rows / split_tcols: launch B
+        else:       # split_mid, split_rows, split_tcols: stored transposed
             q, m = n, 1 << l1
             full = m * q
-            tab = tw.radix4_twiddles(full, inverse=inverse, device="cpu")
+            lq = _lg(inner) - lp.ljr          # the middle launch's columns
+            tab = tw.radix4_twiddles(full << lq, inverse=inverse,
+                                     device="cpu")
             v = x.reshape(lp.outer, q, inner).transpose(1, 2)  # (o', i, q)
+            cols = (torch.arange(inner) >> lp.ljr)[None, :, None]
             re, im = v.real, v.imag
             for s in range(_lg(q) // 2):
-                idx = (torch.arange(q // 4) >> (2 * s)) << (2 * s + l1)
+                j = torch.arange(q // 4)[None, None, :]
+                idx = (cols + ((j >> (2 * s)) << lq)) << (2 * s + l1)
                 re, im = _stage4(re, im, tab[:, idx], inverse, s)
             if _lg(q) & 1:
                 re, im = _tail(re, im)
@@ -446,18 +475,25 @@ def _tail(re, im):
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 256), (1, 256, 4), (1, 512, 512),
-                                   (2, 2, 2048), (1, 1024, 2)])
+                                   (2, 2, 2048), (1, 1024, 2),
+                                   (2, 4, 1 << 17), (1, 1 << 17, 8)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_stockham2d_split_model_equals_the_plain_version(monkeypatch, shape,
                                                           inverse):
     """With ONE_MAX at 64 every axis past 64 takes the 1-D kernel's two
-    launches: the model of them equals ``fft2d_fused_plain`` under
-    torch.equal, and is within 1e-5 of max|X| of numpy."""
+    launches, and with TWO_MAX at 2^16 an axis of 2^17 its three (split
+    (8, 2, 7): the middle launch on tiles of whole images, over the
+    columns of images with q = column >> 3 on (1, 2^17, 8)): the model of
+    them equals ``fft2d_fused_plain`` under torch.equal, and is within
+    1e-5 of max|X| of numpy."""
     monkeypatch.setattr(S2, "ONE_MAX", 64)
+    monkeypatch.setattr(S2, "TWO_MAX", 1 << 16)
     rng = np.random.default_rng(sum(shape))
     z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     steps = S2.plan(*shape)
     assert any(r.startswith("split") for r, _ in steps)
+    assert (("split_mid" in [r for r, _ in steps])
+            == (max(shape) > S2.TWO_MAX))
     got = stockham_model(steps, z, inverse, *shape[1:])
     want = S2.fft2d_fused_plain(from_numpy(z, device="cpu"), inverse=inverse)
     assert torch.equal(got.real, want.re) and torch.equal(got.imag, want.im)
@@ -465,30 +501,65 @@ def test_stockham2d_split_model_equals_the_plain_version(monkeypatch, shape,
     assert _err(got.numpy(), ref) <= TOL_2D
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stockham2d_three_launch_model_against_the_reference(monkeypatch,
+                                                              inverse):
+    """The three launches' model at the smallest image that takes them
+    (TWO_MAX at 2^16: rows of 2^17, split (8, 2, 7)) against the JAX
+    package's ``fft2`` on its jnp backend with the default algo (that
+    backend refuses "fused_stockham"): within 1e-5 of max|X|."""
+    import jax.numpy as jnp
+    import repro.core as ref_core
+    from repro.core.complexmath import SplitComplex as RefSplit
+    monkeypatch.setattr(S2, "TWO_MAX", 1 << 16)
+    shape = (1, 2, 1 << 17)
+    steps = S2.plan(*shape)
+    assert [r for r, _ in steps] == ["split_cols", "split_mid",
+                                     "split_rows", "cols"]
+    z = np.random.default_rng(17).standard_normal((2,) + shape)
+    z = (z[0] + 1j * z[1]).astype(np.complex64)
+    got = stockham_model(steps, z, inverse, *shape[1:]).numpy()
+    ref = ref_core.fft2(RefSplit(jnp.asarray(z.real), jnp.asarray(z.imag)),
+                        inverse=inverse, backend="jnp")
+    ref = np.asarray(ref.re) + 1j * np.asarray(ref.im)
+    assert _err(got, ref) <= TOL_2D
+
+
 @pytest.mark.parametrize("shape", [(1, 2, 1 << 15), (1, 1 << 15, 4),
-                                   (2, 2, 1 << 25)])
+                                   (2, 2, 1 << 25), (1, 1 << 25, 4)])
 def test_stockham2d_wrapper_launches_long_axes(monkeypatch, shape):
-    """On meta planes: one call a planned launch, each with its entry
-    (the split's at its route, l1 and lin; a stage route through its own
-    scratch), 1/(h*w) at the last only."""
+    """On meta planes: one call a planned launch, each with its entry (the
+    split's at its route, l1 and lin: past 2^24 the three launches
+    "split_cols", "split_mid", then "split_rows" or "split_tcols", at
+    l1, l1, l1 + l2), through one scratch pair (out -> scratch -> out for
+    the last two), 1/(h*w) at the last only."""
     calls = _recorder(monkeypatch)
     x = SplitComplex(torch.empty(shape, device="meta"),
                      torch.empty(shape, device="meta"))
     S2.fft2d_fused_cuda(x, inverse=True)
     steps = S2.plan(*shape)
     assert len(calls) == len(steps)
-    want = {"cols": "fft2d_fused_pass", "stages": "fft2d_fused_stages"}
+    n = max(shape[1:])
+    routes = [r for r, _ in steps]
+    if n > S2.TWO_MAX:
+        l1, l2, _ = S.split3(n, 4)
+        long = [a for (_, a, _), r in zip(calls, routes)
+                if r.startswith("split")]
+        assert [a[10] for a in long] == [1, 4, 2 if shape[2] == n else 3]
+        assert [a[11] for a in long] == [l1, l1, l1 + l2]
+        assert [a[12] for a in long] == [0 if shape[2] == n
+                                         else _lg(shape[2])] * 3
+        bufs = [b for b, r in zip(S2.buffers(steps), routes)
+                if r.startswith("split")]
+        assert bufs[0][1] == 1 and bufs[1:] == [(1, 2), (2, 1)]
     for i, ((fn, args, _), (route, lp)) in enumerate(zip(calls, steps)):
-        assert fn[1] == want.get(route, "fft2d_fused_1d")
+        assert fn[1] == ("fft2d_fused_pass" if route == "cols"
+                         else "fft2d_fused_1d")
         last = i == len(steps) - 1
         scale = 1.0 / (shape[1] * shape[2]) if last else 1.0
-        if route in ("split_cols", "split_rows", "split_tcols"):
-            assert args[10:13] == [S2._ROUTES[route], lp.lr[0],
-                                   lp.ljr if route != "split_rows" else 0]
+        if route.startswith("split"):
+            assert args[10:13] == [S2._ROUTES[route], lp.lr[0], lp.ljr]
             assert args[14] == scale
-        elif route == "stages":
-            assert args[7:] == [lp.outer, _lg(lp.n), _lg(lp.inner), scale,
-                                1, 0]
 
 
 # -- the real-input kernels ------------------------------------------------

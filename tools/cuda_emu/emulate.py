@@ -47,8 +47,8 @@ decode attention whole and as merged partials) within 2^-10 of max|plain|
 ``f16_conversions`` compiles ``csrc/f16.cuh``'s conversions alone
 (``tests/test_torch_f16.py`` holds them to torch's casts).  It also runs the long-axis routes scaled down (the split
 launches with lowered thresholds, the real-input steps at 8192, the
-four-step kernel's axis route, the fused Stockham 2-D kernel's per-stage
-route, the Stockham kernels' three launches); the conv's multi-launch
+four-step kernel's axis route, the fused Stockham 2-D kernel's and the
+Stockham kernels' three launches); the conv's multi-launch
 schedule takes the emulated 1-D kernels (``install``).
 """
 from __future__ import annotations
@@ -460,7 +460,8 @@ def long_axes(rng, cplx) -> list:
     with AXIS_MAX at 16 (three factors past 2^8 with FACTOR_MAX at 16),
     the real-input kernels' split steps at 8192 and 16384 (their packed
     rows need 8192-point tiles), the fused Stockham 2-D kernel's 1-D
-    routes at 2^13 .. 2^16 and its per-stage route with TWO_MAX at 2^10,
+    routes at 2^13 .. 2^16 and its three launches with TWO_MAX at 2^16
+    (rows and columns of 2^17),
     the four-step kernel's axis route (factors 2 .. 2^14), both Stockham
     kernels' three launches with TWO_MAX at 2^16 (2^17 and 2^18: the
     middle launch on tiles of whole images; 2^22: on column tiles)."""
@@ -503,15 +504,18 @@ def long_axes(rng, cplx) -> list:
         out.append(("fft2d_fused long", shape, True, rel(
             S2.fft2d_fused_cuda(x, inverse=True),
             S2.fft2d_fused_plain(x, inverse=True))))
-    S2.TWO_MAX = 1 << 10
+    S2.TWO_MAX = 1 << 16
+    S2._launch_args.cache_clear()
     try:
-        for shape in [(2, 4, 2048), (1, 2048, 4)]:
+        for shape in [(1, 2, 1 << 17), (1, 1 << 17, 2)]:
             x = cplx(shape)
-            out.append(("fft2d_fused stages", shape, True, rel(
-                S2.fft2d_fused_cuda(x, inverse=True),
-                S2.fft2d_fused_plain(x, inverse=True))))
+            for inv in (False, True):
+                out.append(("fft2d_fused three launches", shape, inv, rel(
+                    S2.fft2d_fused_cuda(x, inverse=inv),
+                    S2.fft2d_fused_plain(x, inverse=inv))))
     finally:
         S2.TWO_MAX = 1 << 24
+        S2._launch_args.cache_clear()
     for shape, n1 in [((3, 4096), 2), ((2, 8192), 8192), ((1, 16384), 16384),
                       ((1, 1 << 15), 2), ((2, 4096), 2048)]:
         x = cplx(shape)

@@ -62,15 +62,17 @@ With ``--stockham`` it keeps only the users of ``stockham.cuh`` and the
 controls of a Stockham change: ``fft_stockham`` at 2 x 2^22 and 1 x 2^25,
 ``fft_stockham_r2`` at 2 x 2^20 and 1 x 2^25 (past 2^24: a launch a stage,
 or the three fused launches, whichever the tree has), ``fft2d_fused`` and
-``fft2d_gemm`` fp32 at 16 x 1024^2 and ``fftconv_fused`` at 8 x 576 x
+``fft2d_gemm`` fp32 at 16 x 1024^2, ``fft2d_fused`` with an axis of 2^25
+at 1 x 2 x 2^25 (rows) and 1 x 2^25 x 8 (columns; past 2^24 a launch a
+stage, or the three fused launches) and ``fftconv_fused`` at 8 x 576 x
 8192, each with its device time a call (``device_us``: a
 ``torch.profiler`` trace of 10 calls; ``loop_us``: 20 calls back to back
 between CUDA events, the median of 7 loops) and its grid launches (a
 trace of one call); ``fft_stockham`` at 2 x 2^22 on
 three launches (``TWO_MAX`` lowered to 2^21) where the tree has them; and
-the seconds of each source's nvcc (``fft_stockham.cu``,
-``fft2d_fused.cu``, ``fftconv_fused.cu``, ``fft2d_gemm.cu``, all started
-together, ``nvcc_s``), with the ptxas lines of the Stockham kernels.
+the seconds of each source's nvcc (every source of ``_build.SOURCES``,
+all started together, ``nvcc_s``), with the ptxas lines of the Stockham
+kernels.
 
 With ``--launches`` it also lists every grid launch of one call of
 ``fft_fourstep`` at 4 x 2^20, of ``fft_staged`` at 512 x 16384, of
@@ -338,7 +340,7 @@ def stockham_main():
     """``--stockham``: the Stockham kernels and their controls."""
     torch.backends.cuda.matmul.allow_tf32 = False
     names = ("fft_stockham", "fft2d_fused", "fftconv_fused", "fft2d_gemm")
-    nvcc_s = nvcc_seconds(names)
+    nvcc_s = nvcc_seconds(_build.SOURCES)
     _build.build_all(names)
     ptxas = {n: ptxas_lines(_build.library_path(n).with_suffix(".log")
                             .read_text())
@@ -356,10 +358,17 @@ def stockham_main():
              ("fft2d_gemm 16x1024^2", G.fft2d_gemm_cuda, IMAGES),
              ("fft_stockham 1x2^25", S.fft_stockham_cuda, (1, 1 << 25)),
              ("fft_stockham_r2 1x2^25", S.fft_stockham_r2_cuda,
-              (1, 1 << 25))]
+              (1, 1 << 25)),
+             ("fft2d_fused 1x2x2^25", S2.fft2d_fused_cuda, (1, 2, 1 << 25)),
+             ("fft2d_fused 1x2^25x8", S2.fft2d_fused_cuda, (1, 1 << 25, 8))]
     ms, dev, loop, grids = {}, {}, {}, {}
 
     def measure(key, fn):
+        try:                        # a shape the tree refuses: null
+            fn()
+        except _build.KernelLaunchError:
+            ms[key] = loop[key] = dev[key] = grids[key] = None
+            return
         ms[key] = time_ms(fn)
         loop[key] = loop_us(fn)
         dev[key] = device_us(fn, calls=10)
